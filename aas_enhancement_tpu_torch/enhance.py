@@ -1,0 +1,66 @@
+"""The enhancement inference path: wav -> STFT -> enhancer -> ISTFT -> wav
+(port of ``aas_enhancement_tpu/enhance.py``).
+
+On a CUDA device the path runs through four hand-written kernels: the STFT
+and ISTFT (``csrc/stft.cu``, ``csrc/istft.cu``), masked GroupNorm +
+leaky_relu (``ops/triton/gn.py``) and the BiLSTM recurrence
+(``csrc/lstm_tm.cu``).  The convolutions and the dense products are
+``F.conv2d`` and ``torch.matmul``.  On the CPU every kernel's plain version
+runs instead.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from aas_enhancement_tpu_torch.config import Config
+from aas_enhancement_tpu_torch.convert import init_like_flax
+from aas_enhancement_tpu_torch.dsp import api as dsp_api
+from aas_enhancement_tpu_torch.dsp.stft import magnitude, phase
+from aas_enhancement_tpu_torch.models.enhancer import Enhancer, apply_enhancement
+from aas_enhancement_tpu_torch.ops.masking import masked_normalize
+
+
+def init_enhancer(cfg: Config, seed: int,
+                  device: torch.device | str = "cpu") -> Enhancer:
+    """A randomly initialized ``Enhancer``, drawn on the CPU from ``seed`` and
+    then moved to ``device``, so every device gets the same weights."""
+    gen = torch.Generator().manual_seed(seed)
+    model = init_like_flax(Enhancer(cfg.enhancer, cfg.audio.num_bins), gen)
+    return model.to(device).eval()
+
+
+def make_enhance_fn(cfg: Config, device: torch.device | str):
+    """Returns fn(model, wav [B, n], lengths [B]) -> enhanced wav [B, n] on
+    ``device`` (the model must already live there)."""
+    a = cfg.audio
+    enh_cfg = cfg.enhancer
+    device = torch.device(device)
+
+    @torch.inference_mode()
+    def enhance(model: Enhancer, wav: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+        wav = wav.to(device=device, dtype=torch.float32)
+        lengths = lengths.to(device=device, dtype=torch.int64)
+        re, im = dsp_api.stft(a, wav)
+        mag = magnitude(re, im)
+        ph = phase(re, im)
+        log_mag = torch.log1p(mag)
+        frame_lengths = (1 + lengths // a.hop_length if a.center
+                         else 1 + (lengths - a.n_fft) // a.hop_length)
+        net_in = masked_normalize(log_mag, frame_lengths) if a.normalize else log_mag
+        out = model(net_in, frame_lengths)
+        enhanced_mag = apply_enhancement(enh_cfg, out, mag)
+        return dsp_api.reconstruct(a, enhanced_mag, ph, length=wav.shape[-1])
+
+    return enhance
+
+
+def enhance_utterance(cfg: Config, model: Enhancer, wav: np.ndarray,
+                      device: torch.device | str = "cpu") -> np.ndarray:
+    """Single-utterance convenience wrapper."""
+    fn = make_enhance_fn(cfg, device)
+    out = fn(model, torch.from_numpy(np.asarray(wav, np.float32))[None],
+             torch.tensor([len(wav)]))
+    return out[0].cpu().numpy()

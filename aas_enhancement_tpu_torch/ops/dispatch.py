@@ -1,0 +1,34 @@
+"""Which implementation a tensor takes, and what a kernel accepts.
+
+A CUDA tensor runs the hand-written kernel or raises; a CPU tensor runs the
+kernel's plain PyTorch version.  No other device has a path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def uses_kernel(name: str, x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (kernel), False for a CPU tensor (plain version)."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no implementation for device {x.device}")
+
+
+def check_kernel_inputs(name: str, tensors: tuple[torch.Tensor, ...],
+                        backward: str) -> None:
+    """Raise unless every tensor is float32 on the first one's device and no
+    gradient is wanted: the backward kernel (ROADMAP id ``backward``) is not
+    ported, and a quiet detach would hide that."""
+    for x in tensors:
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: needs float32, got {x.dtype}")
+        if x.device != tensors[0].device:
+            raise ValueError(f"{name}: inputs on {x.device} and {tensors[0].device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        raise NotImplementedError(
+            f"{name}: the backward kernel is not ported yet (ROADMAP {backward}); "
+            "call under torch.inference_mode() or torch.no_grad()")

@@ -1,0 +1,115 @@
+"""Where the device time of one enhance call goes (counterpart of
+``aas_enhancement_tpu/utils/profiling.py``).
+
+    python -m aas_enhancement_tpu_torch.utils.profiling [--batch 4] [--seconds 8]
+        [--calls 3] [--warmup 3] [--trace enhance_trace.json]
+
+Runs ``make_enhance_fn`` at the shipped ``Config`` width on full rows of
+random audio, with PyTorch's default TF32 settings as the enhance CLI runs,
+records ``--calls`` calls with ``torch.profiler`` (CPU and CUDA
+activity) after ``--warmup`` calls, and prints per call: the device time of
+each kernel name, ranked, with its share; the device busy time (the union of
+kernel, memcpy and memset intervals); and the idle share, 1 - busy / span,
+where the span runs from the first device event to the last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+from collections import defaultdict
+
+import torch
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def summarize_trace(trace: dict, calls: int = 1) -> dict:
+    """Device events of a Chrome trace (``torch.profiler`` export) -> per-call
+    totals: ``{"busy_ms", "span_ms", "idle_share", "events", "by_name":
+    [(name, ms, count), ...] ranked by ms}``."""
+    events = [e for e in trace.get("traceEvents", [])
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES]
+    if not events:
+        raise RuntimeError("the trace holds no device events")
+    by_name = defaultdict(lambda: [0.0, 0])
+    spans = []
+    for e in events:
+        start, dur = float(e["ts"]), float(e.get("dur", 0.0))
+        by_name[e["name"]][0] += dur
+        by_name[e["name"]][1] += 1
+        spans.append((start, start + dur))
+    spans.sort()
+    busy, cur_start, cur_end = 0.0, *spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    span = max(end for _, end in spans) - spans[0][0]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return {"busy_ms": busy / 1e3 / calls, "span_ms": span / 1e3 / calls,
+            "idle_share": 1.0 - busy / span if span > 0 else 0.0,
+            "events": len(events) / calls,
+            "by_name": [(name, us / 1e3 / calls, n / calls) for name, (us, n) in ranked]}
+
+
+def profile_enhance(batch: int, seconds: float, calls: int, warmup: int,
+                    trace_path: str | None = None) -> dict:
+    """Profile ``calls`` enhance calls at ``batch`` x ``seconds`` on the GPU."""
+    from aas_enhancement_tpu_torch.cli.enhance import resolve_device
+    from aas_enhancement_tpu_torch.config import Config
+    from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
+
+    device = resolve_device("cuda")
+    cfg = Config()
+    n = int(seconds * cfg.audio.sample_rate)
+    gen = torch.Generator().manual_seed(0)
+    wav = (0.3 * torch.randn(batch, n, generator=gen)).to(device)
+    lengths = torch.full((batch,), n, device=device)
+    model = init_enhancer(cfg, cfg.train.seed, device)
+    fn = make_enhance_fn(cfg, device)
+    for _ in range(warmup):
+        fn(model, wav, lengths)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn(model, wav, lengths)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trace_path or os.path.join(tmp, "enhance_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return summarize_trace(json.load(f), calls)
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--seconds", type=float, default=8.0)
+    p.add_argument("--calls", type=int, default=3)
+    p.add_argument("--warmup", type=int, default=3)
+    p.add_argument("--trace", help="keep the Chrome trace at this path")
+    p.add_argument("--top", type=int, default=25, help="kernel names to print")
+    args = p.parse_args(argv)
+    s = profile_enhance(args.batch, args.seconds, args.calls, args.warmup, args.trace)
+    print(f"[profile] {torch.cuda.get_device_name(0)} | B={args.batch} x "
+          f"{args.seconds} s, per call over {args.calls} calls after {args.warmup} "
+          f"warmups | device busy {s['busy_ms']:.3f} ms | span {s['span_ms']:.3f} ms | "
+          f"idle share {100 * s['idle_share']:.2f}% | {s['events']:.0f} device events | "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    for name, ms, count in s["by_name"][:args.top]:
+        print(f"[profile] {ms:9.3f} ms {100 * ms / s['busy_ms']:6.2f}% "
+              f"x{count:<5g} {name[:110]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,187 @@
+"""The port's entry point and packaging: the enhance CLI on a synthetic corpus
+(CPU), the host-side config and data modules against the JAX package's, the
+no-JAX import rule, device errors, and the kernel build."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from aas_enhancement_tpu.config import AudioConfig, Config, EnhancerConfig
+from aas_enhancement_tpu.data.synthetic import generate_corpus
+from aas_enhancement_tpu.data.wav import read_wav
+from aas_enhancement_tpu_torch import config as tconfig
+from aas_enhancement_tpu_torch import data as tdata
+from aas_enhancement_tpu_torch.cli import enhance as cli
+from aas_enhancement_tpu_torch.utils import kernel_build, profiling
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _small_config(path):
+    cfg = Config().replace(enhancer=EnhancerConfig(conv_channels=8, rnn_hidden=16))
+    with open(path, "w") as f:
+        f.write(cfg.to_json())
+    return str(path)
+
+
+def test_cli_enhances_a_corpus_on_cpu(tmp_path, capsys):
+    manifests = generate_corpus(str(tmp_path / "corpus"), n_utts=2, seed=3)
+    out_dir = tmp_path / "out"
+    cli.main(["--manifest", manifests["noisy"], "--out-dir", str(out_dir),
+              "--config", _small_config(tmp_path / "cfg.json"), "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["utterances"] == 2 and line["rtf"] > 0
+    for name in ("utt0000.wav", "utt0001.wav"):
+        x, _ = read_wav(str(tmp_path / "corpus" / "noisy" / name))
+        y, sr = read_wav(str(out_dir / name))
+        assert sr == 16000 and len(y) == len(x) and np.all(np.isfinite(y))
+    assert abs(line["audio_seconds"] - sum(
+        len(read_wav(str(out_dir / n))[0]) for n in os.listdir(out_dir)) / 16000) < 1e-3
+
+
+def test_config_reads_a_jax_config_json():
+    cfg = Config().replace(
+        audio=AudioConfig(window="hamming", center=False, normalize=False),
+        enhancer=EnhancerConfig(conv_channels=8, rnn_hidden=16, mode="mapping"))
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, seed=7))
+    got = tconfig.Config.from_json(cfg.to_json())
+    for section in ("audio", "enhancer"):
+        ported = dataclasses.asdict(getattr(got, section))
+        assert ported == {k: v for k, v in dataclasses.asdict(getattr(cfg, section)).items()
+                          if k in ported}, section
+    assert got.train.seed == 7
+    assert (got.audio.n_fft, got.audio.hop_length, got.audio.num_bins) == (320, 160, 161)
+    assert tconfig.Config.from_json(got.to_json()) == got
+
+
+def test_config_defaults_match_jax():
+    got, ref = tconfig.Config(), Config()
+    for section in ("audio", "enhancer", "train"):
+        for k, v in dataclasses.asdict(getattr(got, section)).items():
+            assert v == getattr(getattr(ref, section), k), (section, k)
+
+
+def test_synthetic_corpus_matches_jax(tmp_path):
+    """The port's corpus is the JAX package's plain-mode corpus, file for file."""
+    ref = generate_corpus(str(tmp_path / "jax"), n_utts=4, seed=5, word_len=(2, 6))
+    got = tdata.generate_corpus(str(tmp_path / "torch"), n_utts=4, seed=5)
+    for kind in ("clean", "noisy"):
+        ref_rows, got_rows = tdata.read_manifest(ref[kind]), tdata.read_manifest(got[kind])
+        assert len(got_rows) == len(ref_rows) == 4
+        for (rw, rt), (gw, gt) in zip(ref_rows, got_rows):
+            assert os.path.basename(gw) == os.path.basename(rw)
+            assert open(gw, "rb").read() == open(rw, "rb").read()
+            assert open(gt).read() == open(rt).read()
+
+
+def test_wav_io_matches_jax(tmp_path):
+    x = np.sin(np.arange(1000) / 7.0).astype(np.float32) * 1.2    # clips at 1
+    path = str(tmp_path / "a.wav")
+    tdata.write_wav(path, x, 8000)
+    got, sr = tdata.read_wav(path)
+    ref, ref_sr = read_wav(path)
+    assert sr == ref_sr == 8000 and got.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)
+    # PCM16 writes x * 32767 rounded and reads q / 32768: 1.5 LSB at most.
+    np.testing.assert_allclose(got, np.clip(x, -1, 1), rtol=0, atol=1.5 / 32768)
+
+
+def test_package_and_cli_import_no_jax():
+    code = ("import sys, pkgutil, importlib, aas_enhancement_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    if not m.name.endswith('.gn_kernels'):   # needs triton\n"
+            "        importlib.import_module(m.name)\n"
+            "import aas_enhancement_tpu_torch.cli.enhance\n"
+            "bad = [m for m in sys.modules\n"
+            "       if m.split('.')[0] in ('jax', 'flax', 'aas_enhancement_tpu')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cuda_device_without_gpu_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--input", "x.wav", "--out-dir", str(tmp_path), "--device", "cuda"])
+
+
+@pytest.mark.parametrize("flag", [["--checkpoint", "ckpt"], ["--streaming"]])
+def test_unported_options_raise(tmp_path, flag):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main(["--input", "x.wav", "--out-dir", str(tmp_path), "--device", "cpu",
+                  *flag])
+
+
+def test_bucket_lengths():
+    buckets = [32000, 64000, 128000, 256000]
+    assert cli._bucket_length(100, buckets) == 32000
+    assert cli._bucket_length(64000, buckets) == 64000
+    assert cli._bucket_length(256001, buckets) == 512000
+
+
+def test_library_name_follows_the_sources(tmp_path, monkeypatch):
+    monkeypatch.setattr(kernel_build, "CSRC_DIR", str(tmp_path))
+    (tmp_path / "a.cu").write_text("int x;\n")
+    first = kernel_build.library_path()
+    assert first == kernel_build.library_path()
+    (tmp_path / "a.cu").write_text("int y;\n")
+    assert kernel_build.library_path() != first
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(kernel_build, "find_nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernel_build.build()
+    assert not [p for p in os.listdir(tmp_path) if p.endswith(".so")]
+
+
+def test_every_entry_point_has_a_source():
+    text = "".join(open(p).read() for p in kernel_build.sources())
+    for name in kernel_build.SIGNATURES:
+        assert f'extern "C" int {name}(' in text, name
+
+
+def test_kernel_routing_and_input_checks():
+    from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_kernel
+    assert uses_kernel("k", torch.zeros(1)) is False
+    with pytest.raises(ValueError, match="no implementation"):
+        uses_kernel("k", torch.zeros(1, device="meta"))
+    with pytest.raises(TypeError, match="float32"):
+        check_kernel_inputs("k", (torch.zeros(2, dtype=torch.float64),), "B1'")
+    w = torch.zeros(2, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="B1'"):
+        check_kernel_inputs("k", (torch.zeros(2), w), "B1'")
+    with torch.inference_mode():
+        check_kernel_inputs("k", (torch.zeros(2), w), "B1'")
+
+
+def test_trace_summary_merges_device_intervals():
+    ev = [{"ph": "X", "cat": "kernel", "name": "a", "ts": 0, "dur": 10},
+          {"ph": "X", "cat": "kernel", "name": "b", "ts": 5, "dur": 10},    # overlaps a
+          {"ph": "X", "cat": "gpu_memcpy", "name": "c", "ts": 20, "dur": 20},
+          {"ph": "X", "cat": "cpu_op", "name": "host", "ts": 0, "dur": 100},
+          {"ph": "X", "cat": "kernel", "name": "a", "ts": 50, "dur": 30}]
+    s = profiling.summarize_trace({"traceEvents": ev}, calls=2)
+    assert s["busy_ms"] == pytest.approx((15 + 20 + 30) / 1e3 / 2)
+    assert s["span_ms"] == pytest.approx(80 / 1e3 / 2)
+    assert s["idle_share"] == pytest.approx(1 - 65 / 80)
+    assert s["events"] == 2.0
+    assert s["by_name"][0] == ("a", pytest.approx(0.02), 1.0)
+    with pytest.raises(RuntimeError, match="no device events"):
+        profiling.summarize_trace({"traceEvents": ev[3:4]})
+
+
+def test_profiler_needs_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profiling.main(["--batch", "1", "--seconds", "0.1"])

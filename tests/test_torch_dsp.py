@@ -1,0 +1,144 @@
+"""Port parity: masking and STFT/ISTFT (aas_enhancement_tpu_torch.ops.masking,
+.dsp, .ops.cuda.stft) against the JAX package on the CPU.
+
+Inputs come from numpy seeds and go through both.  Tolerances are f32
+tolerances: both sides sum 160-sample segment products in float32, in
+different orders, on signals with |X| up to ~30, so STFT values agree to
+about 1e-5 relative; waveforms (unit scale) to about 1e-5 absolute.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aas_enhancement_tpu.ops import masking as jmask
+from aas_enhancement_tpu.ops.pallas.stft_kernel import istft_pallas, stft_pallas
+from aas_enhancement_tpu_torch.dsp import stft as tstft
+from aas_enhancement_tpu_torch.ops import masking as tmask
+from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
+
+# dsp/__init__ re-exports the stft function under the module's name.
+jstft = importlib.import_module("aas_enhancement_tpu.dsp.stft")
+
+torch.set_num_threads(1)
+
+N_FFT, HOP = 320, 160
+STFT_TOL = dict(rtol=1e-5, atol=1e-4)     # |X| up to ~30: f32 sum-order noise
+# Unit-scale waveforms; rtol covers the untrimmed tail, where the COLA divisor
+# (window^2 summed) approaches 0 and amplifies values to ~400.
+WAV_TOL = dict(rtol=1e-5, atol=2e-5)
+
+
+def _signal(b, n, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    return (0.4 * np.sin(2 * np.pi * 523 * t)[None]
+            + 0.2 * rng.standard_normal((b, n))).astype(np.float32)
+
+
+def test_time_mask_and_apply():
+    lengths = np.array([5, 2, 0], np.int64)
+    x = np.random.default_rng(1).standard_normal((3, 6, 4)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tmask.time_mask(torch.from_numpy(lengths), 6).numpy(),
+        np.asarray(jmask.time_mask(jnp.asarray(lengths), 6)))
+    np.testing.assert_array_equal(
+        tmask.apply_time_mask(torch.from_numpy(x), torch.from_numpy(lengths)).numpy(),
+        np.asarray(jmask.apply_time_mask(jnp.asarray(x), jnp.asarray(lengths))))
+
+
+def test_masked_normalize_matches_jax():
+    rng = np.random.default_rng(2)
+    x = (3.0 + 2.0 * rng.standard_normal((3, 40, 17))).astype(np.float32)
+    lengths = np.array([40, 23, 1], np.int32)
+    got = tmask.masked_normalize(torch.from_numpy(x), torch.from_numpy(lengths)).numpy()
+    ref = np.asarray(jmask.masked_normalize(jnp.asarray(x), jnp.asarray(lengths)))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    assert np.all(got[1, 23:] == 0.0) and np.all(got[2, 1:] == 0.0)
+
+
+def test_window_matches_jax():
+    for name in ("hann", "hamming"):
+        np.testing.assert_array_equal(tstft.get_window(name, N_FFT),
+                                      jstft.get_window(name, N_FFT))
+
+
+@pytest.mark.parametrize("n,center", [(16000, True), (16001, True), (8000, False)])
+def test_stft_matches_jax(n, center):
+    x = _signal(2, n)
+    re_t, im_t = tstft.stft(torch.from_numpy(x), N_FFT, HOP, center=center)
+    re_j, im_j = jstft.stft(jnp.asarray(x), N_FFT, HOP, center=center)
+    assert re_t.shape == re_j.shape
+    np.testing.assert_allclose(re_t.numpy(), np.asarray(re_j), **STFT_TOL)
+    np.testing.assert_allclose(im_t.numpy(), np.asarray(im_j), **STFT_TOL)
+    mag_t = tstft.magnitude(re_t, im_t).numpy()
+    mag_j = np.asarray(jstft.magnitude(re_j, im_j))
+    np.testing.assert_allclose(mag_t, mag_j, **STFT_TOL)
+
+
+def test_phase_matches_jax():
+    rng = np.random.default_rng(3)
+    re, im = rng.standard_normal((2, 50, 161)).astype(np.float32)
+    np.testing.assert_allclose(
+        tstft.phase(torch.from_numpy(re), torch.from_numpy(im)).numpy(),
+        np.asarray(jstft.phase(jnp.asarray(re), jnp.asarray(im))), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("length", [16000, 15000, 17000, None])
+def test_istft_matches_jax(length):
+    rng = np.random.default_rng(5)
+    re, im = rng.standard_normal((2, 2, 101, N_FFT // 2 + 1)).astype(np.float32)
+    y_t = tstft.istft(torch.from_numpy(re), torch.from_numpy(im), N_FFT, HOP,
+                      length=length).numpy()
+    y_j = np.asarray(jstft.istft(jnp.asarray(re), jnp.asarray(im), N_FFT, HOP,
+                                 length=length))
+    assert y_t.shape == y_j.shape
+    np.testing.assert_allclose(y_t, y_j, **WAV_TOL)
+
+
+def test_reconstruct_matches_jax_and_is_perfect():
+    x = _signal(2, 16000, seed=4)
+    re, im = tstft.stft(torch.from_numpy(x), N_FFT, HOP)
+    mag, ph = tstft.magnitude(re, im), tstft.phase(re, im)
+    y_t = tstft.reconstruct(mag, ph, N_FFT, HOP, length=16000).numpy()
+    y_j = np.asarray(jstft.reconstruct(jnp.asarray(mag.numpy()), jnp.asarray(ph.numpy()),
+                                       N_FFT, HOP, length=16000))
+    np.testing.assert_allclose(y_t, y_j, **WAV_TOL)
+    np.testing.assert_allclose(y_t, x, rtol=0, atol=1e-4)   # perfect reconstruction
+
+
+def test_plain_stft_matches_pallas_interpret():
+    x = _signal(2, 16000, seed=6)
+    re_t, im_t = tstft.stft(torch.from_numpy(x), N_FFT, HOP)
+    re_p, im_p = stft_pallas(jnp.asarray(x), N_FFT, HOP, interpret=True)
+    np.testing.assert_allclose(re_t.numpy(), np.asarray(re_p), **STFT_TOL)
+    np.testing.assert_allclose(im_t.numpy(), np.asarray(im_p), **STFT_TOL)
+
+
+def test_plain_istft_matches_pallas_interpret():
+    rng = np.random.default_rng(7)
+    re, im = rng.standard_normal((2, 2, 101, N_FFT // 2 + 1)).astype(np.float32)
+    y_t = tstft.istft(torch.from_numpy(re), torch.from_numpy(im), N_FFT, HOP,
+                      length=16000).numpy()
+    y_p = np.asarray(istft_pallas(jnp.asarray(re), jnp.asarray(im), N_FFT, HOP,
+                                  length=16000, interpret=True))
+    np.testing.assert_allclose(y_t, y_p, **WAV_TOL)
+
+
+def test_wrappers_route_cpu_tensors_to_plain_versions():
+    x = torch.from_numpy(_signal(2, 4000, seed=8))
+    before = (kstft.stft.launches, kstft.istft.launches)
+    re_k, im_k = kstft.stft(x, N_FFT, HOP)
+    re_p, im_p = tstft.stft(x, N_FFT, HOP)
+    assert torch.equal(re_k, re_p) and torch.equal(im_k, im_p)
+    y = kstft.istft(re_k, im_k, N_FFT, HOP, length=4000)
+    assert torch.equal(y, tstft.istft(re_p, im_p, N_FFT, HOP, length=4000))
+    assert (kstft.stft.launches, kstft.istft.launches) == before
+
+
+def test_hop_must_divide_n_fft():
+    with pytest.raises(ValueError, match="multiple of hop"):
+        tstft.stft(torch.zeros(1, 1000), 300, 160)

@@ -1,0 +1,105 @@
+"""The port's kernels on the card against their plain versions (marked `gpu`).
+
+They skip where there is no CUDA device.  This file imports no JAX, so on a
+machine without JAX run it without the suite's conftest:
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerances are f32 sum-order tolerances (each kernel sums in its own order):
+STFT 1e-4 abs on |X| up to ~30, ISTFT 2e-5 abs + 1e-5 rel on unit-scale
+audio, GroupNorm 1e-5, LSTM 1e-5 over 40 steps.
+"""
+
+import pytest
+import torch
+
+from aas_enhancement_tpu_torch.config import Config, EnhancerConfig
+from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
+from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
+from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
+from aas_enhancement_tpu_torch.ops.triton import gn
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(*shape, seed=0, scale=1.0):
+    return scale * torch.randn(*shape, generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("n,center", [(16000, True), (16001, True), (8000, False)])
+def test_stft_kernel(cuda, n, center):
+    x = _randn(3, n, seed=n, scale=0.3).to(cuda)
+    before = kstft.stft.launches
+    re, im = kstft.stft(x, 320, 160, center=center)
+    re_p, im_p = kstft.stft_plain(x, 320, 160, center=center)
+    torch.cuda.synchronize()
+    assert kstft.stft.launches == before + 1
+    torch.testing.assert_close(re, re_p, rtol=0, atol=1e-4)
+    torch.testing.assert_close(im, im_p, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("length", [16000, 15000, 17000, None])
+def test_istft_kernel(cuda, length):
+    re = _randn(2, 101, 161, seed=1).to(cuda)
+    im = _randn(2, 101, 161, seed=2).to(cuda)
+    y = kstft.istft(re, im, 320, 160, length=length)
+    y_p = kstft.istft_plain(re, im, 320, 160, length=length)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_p, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("act", ["none", "leaky_relu", "hardtanh"])
+def test_gn_kernel(cuda, act):
+    x = (0.5 + _randn(3, 45, 17, 16, seed=3)).to(cuda)
+    scale, bias = (1 + _randn(16, seed=4, scale=0.1)).to(cuda), _randn(16, seed=5).to(cuda)
+    lengths = torch.tensor([45, 30, 1], device=cuda)
+    y = gn.masked_group_norm_act(x, scale, bias, lengths, num_groups=8, act=act)
+    y_p = gn.masked_group_norm_act_plain(x, scale, bias, lengths, num_groups=8, act=act)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
+    assert torch.all(y[1, 30:] == 0)
+
+
+def test_lstm_kernel(cuda):
+    t, b, h = 40, 5, 32                      # b = 5: one full and one partial row tile
+    gates = _randn(t, b, 8 * h, seed=6, scale=0.5).to(cuda)
+    gxf, gxb = gates[..., :4 * h], gates[..., 4 * h:]   # strided halves
+    wh = _randn(2, h, 4 * h, seed=7, scale=0.2).to(cuda)
+    bh = _randn(2, 4 * h, seed=8, scale=0.1).to(cuda)
+    lengths = torch.tensor([40, 25, 3, 40, 1], device=cuda)
+    m = (torch.arange(t, device=cuda)[:, None] < lengths[None]).float()
+    yf, yb = krnn.lstm_scan_tm(gxf, gxb, m, wh, bh)
+    yf_p, yb_p = krnn.lstm_scan_tm_plain(gxf, gxb, m, wh, bh)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(yf, yf_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(yb, yb_p, rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    with pytest.raises(TypeError):
+        kstft.stft(torch.zeros(1, 4000, dtype=torch.float64, device=cuda), 320, 160)
+    w = torch.zeros(2, 8, 32, device=cuda, requires_grad=True)
+    g = torch.zeros(3, 1, 32, device=cuda)
+    with pytest.raises(NotImplementedError, match="B1'"):
+        krnn.lstm_scan_tm(g, g, torch.ones(3, 1, device=cuda), w,
+                          torch.zeros(2, 32, device=cuda))
+
+
+def test_enhance_on_card_matches_cpu(cuda):
+    cfg = Config().replace(enhancer=EnhancerConfig(conv_channels=8, rnn_hidden=16))
+    model = init_enhancer(cfg, seed=0)
+    wav = _randn(2, 16000, seed=9, scale=0.3)
+    lengths = torch.tensor([16000, 9000])
+    wav[1, 9000:] = 0
+    y_cpu = make_enhance_fn(cfg, "cpu")(model, wav, lengths)
+    y_gpu = make_enhance_fn(cfg, cuda)(model.to(cuda), wav, lengths).cpu()
+    torch.testing.assert_close(y_gpu, y_cpu, rtol=0, atol=1e-4)

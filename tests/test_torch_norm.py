@@ -1,0 +1,92 @@
+"""Port parity: masked GroupNorm + activation (aas_enhancement_tpu_torch.ops.norm,
+.ops.triton.gn plain version) against the JAX MaskedGroupNorm and the Pallas
+masked_group_norm_act in interpret mode, on ragged lengths.
+
+Tolerance 1e-5 (rtol and atol): unit-scale activations, f32 statistics summed
+over a few thousand elements in a different order on each side.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aas_enhancement_tpu.ops.norm import MaskedGroupNorm as JaxGN
+from aas_enhancement_tpu.ops.pallas.gn_kernel import masked_group_norm_act as gn_pallas
+from aas_enhancement_tpu_torch.ops.norm import MaskedGroupNorm
+from aas_enhancement_tpu_torch.ops.triton import gn
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _data(b=2, t=20, f=17, c=16, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (0.5 + rng.standard_normal((b, t, f, c))).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    lengths = np.array([t, t - 9][:b], np.int32)
+    return x, scale, bias, lengths
+
+
+def _jax_ref(x, scale, bias, lengths, act):
+    mod = JaxGN(num_groups=8, act=act, impl="xla")
+    return np.asarray(mod.apply({"params": {"scale": scale, "bias": bias}},
+                                jnp.asarray(x), jnp.asarray(lengths)))
+
+
+@pytest.mark.parametrize("act", ["none", "leaky_relu", "hardtanh"])
+def test_module_matches_jax(act):
+    x, scale, bias, lengths = _data(seed=1)
+    mod = MaskedGroupNorm(x.shape[-1], num_groups=8, act=act)
+    with torch.no_grad():
+        mod.scale.copy_(torch.from_numpy(scale))
+        mod.bias.copy_(torch.from_numpy(bias))
+        got = mod(torch.from_numpy(x), torch.from_numpy(lengths)).numpy()
+    np.testing.assert_allclose(got, _jax_ref(x, scale, bias, lengths, act), **TOL)
+    assert np.all(got[1, lengths[1]:] == 0.0)
+
+
+def test_plain_matches_pallas_interpret():
+    x, scale, bias, lengths = _data(seed=2)
+    got = gn.masked_group_norm_act_plain(
+        torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias),
+        torch.from_numpy(lengths), num_groups=8, act="leaky_relu").numpy()
+    ref = np.asarray(gn_pallas(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
+                               jnp.asarray(lengths), num_groups=8, act="leaky_relu",
+                               interpret=True))
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+def test_padding_invariance():
+    x, scale, bias, lengths = _data(seed=3)
+    x2 = x.copy()
+    x2[1, lengths[1]:] = 99.0                       # garbage in padded frames
+    args = (torch.from_numpy(scale), torch.from_numpy(bias), torch.from_numpy(lengths))
+    a = gn.masked_group_norm_act(torch.from_numpy(x), *args, num_groups=8,
+                                 act="leaky_relu")
+    b = gn.masked_group_norm_act(torch.from_numpy(x2), *args, num_groups=8,
+                                 act="leaky_relu")
+    assert torch.equal(a, b)
+
+
+def test_cpu_tensor_takes_plain_version():
+    x, scale, bias, lengths = _data(seed=4)
+    before = gn.masked_group_norm_act.launches
+    args = (torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias),
+            torch.from_numpy(lengths))
+    assert torch.equal(gn.masked_group_norm_act(*args, num_groups=8, act="hardtanh"),
+                       gn.masked_group_norm_act_plain(*args, num_groups=8,
+                                                      act="hardtanh"))
+    assert gn.masked_group_norm_act.launches == before
+
+
+def test_rejects_bad_arguments():
+    x = torch.zeros(1, 4, 3, 12)
+    with pytest.raises(ValueError):
+        gn.masked_group_norm_act(x, torch.ones(12), torch.zeros(12),
+                                 torch.tensor([4]), num_groups=8)
+    with pytest.raises(ValueError, match="unknown act"):
+        gn.masked_group_norm_act(x, torch.ones(12), torch.zeros(12),
+                                 torch.tensor([4]), num_groups=4, act="relu")

@@ -1,0 +1,124 @@
+"""Port parity: the masked bidirectional LSTM (aas_enhancement_tpu_torch.ops.rnn,
+.ops.cuda.rnn plain version) against JAX BiRNN(cell="lstm", time_major=True)
+on its XLA scan, and against the Pallas lstm_scan_tm in interpret mode.
+
+Tolerance 1e-5 (rtol and atol): bounded LSTM activations, f32 recurrent
+products summed in a different order on each side, over at most 24 steps.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aas_enhancement_tpu.ops.pallas.rnn_kernel import lstm_scan_tm as lstm_pallas
+from aas_enhancement_tpu.ops.rnn import BiRNN as JaxBiRNN
+from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
+from aas_enhancement_tpu_torch.ops.rnn import BiRNN
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _jax_birnn(x, lengths, hidden):
+    mod = JaxBiRNN(hidden, cell="lstm", time_major=True, impl="xla")
+    params = mod.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(lengths))
+    # Non-zero biases so bh and the wx bias are exercised too.
+    rng = np.random.default_rng(11)
+    p = jax.tree_util.tree_map(np.array, params)["params"]
+    p["bh"] = (0.1 * rng.standard_normal(p["bh"].shape)).astype(np.float32)
+    p["wx"]["bias"] = (0.1 * rng.standard_normal(p["wx"]["bias"].shape)).astype(np.float32)
+    y = mod.apply({"params": p}, jnp.asarray(x), jnp.asarray(lengths))
+    return p, np.asarray(y)
+
+
+def _torch_birnn(p, d, hidden):
+    mod = BiRNN(d, hidden)
+    mod.load_state_dict({"wx.kernel": torch.from_numpy(p["wx"]["kernel"]),
+                         "wx.bias": torch.from_numpy(p["wx"]["bias"]),
+                         "wh": torch.from_numpy(p["wh"]),
+                         "bh": torch.from_numpy(p["bh"])})
+    return mod
+
+
+@pytest.mark.parametrize("t,b", [(19, 3), (8, 1)])
+def test_birnn_matches_jax(t, b):
+    d, hidden = 12, 16
+    rng = np.random.default_rng(t)
+    x = rng.standard_normal((t, b, d)).astype(np.float32)
+    lengths = np.array([t, t - 7, 3][:b], np.int32)
+    p, ref = _jax_birnn(x, lengths, hidden)
+    with torch.no_grad():
+        got = _torch_birnn(p, d, hidden)(torch.from_numpy(x),
+                                         torch.from_numpy(lengths)).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+    for i in range(b):
+        assert np.all(got[lengths[i]:, i] == 0.0)
+
+
+def test_padding_invariance():
+    """Valid frames of a padded batch equal an unpadded per-utterance run, and
+    garbage in padded frames changes nothing (backward direction starts at zero)."""
+    t, d, hidden = 16, 10, 8
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((t, 2, d)).astype(np.float32)
+    x[11:, 1] = 50.0
+    lengths = torch.tensor([t, 11])
+    mod = BiRNN(d, hidden)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for prm in mod.parameters():
+            prm.copy_(0.3 * torch.randn(prm.shape, generator=gen))
+        y = mod(torch.from_numpy(x), lengths)
+        y1 = mod(torch.from_numpy(x[:11, 1:2]), torch.tensor([11]))
+    torch.testing.assert_close(y[:11, 1:2], y1, rtol=1e-6, atol=1e-6)
+    assert torch.all(y[11:, 1] == 0.0)
+
+
+def test_forget_gate_offset():
+    """Zero recurrent weights and a gate input that saturates i, g and o give
+    c1 = 1, then c2 = sigmoid(0 + 1.0) * c1 + 1: the +1.0 forget offset."""
+    t, b, h = 2, 1, 4
+    gxf = torch.zeros(t, b, 4 * h)
+    gxf[:, :, : h] = 30.0          # i -> 1
+    gxf[:, :, 2 * h: 3 * h] = 30.0  # g -> tanh(30) ~ 1
+    gxf[:, :, 3 * h:] = 30.0        # o -> 1
+    m = torch.ones(t, b)
+    yf, _ = krnn.lstm_scan_tm_plain(gxf, torch.zeros_like(gxf), m,
+                                    torch.zeros(2, h, 4 * h), torch.zeros(2, 4 * h))
+    c1 = 1.0
+    c2 = torch.sigmoid(torch.tensor(1.0)) * c1 + 1.0
+    torch.testing.assert_close(yf[1, 0], torch.tanh(c2).expand(h), rtol=1e-6, atol=1e-6)
+
+
+def test_plain_matches_pallas_interpret():
+    t, b, h = 16, 2, 8
+    rng = np.random.default_rng(7)
+    gxf, gxb = (0.5 * rng.standard_normal((2, t, b, 4 * h))).astype(np.float32)
+    wh = (0.3 * rng.standard_normal((2, h, 4 * h))).astype(np.float32)
+    bh = (0.1 * rng.standard_normal((2, 4 * h))).astype(np.float32)
+    lengths = np.array([t, 10])
+    m = (np.arange(t)[:, None] < lengths[None]).astype(np.float32)
+    yf_p, yb_p = lstm_pallas(jnp.asarray(gxf), jnp.asarray(gxb), jnp.asarray(m),
+                             jnp.asarray(wh), jnp.asarray(bh), True)
+    yf, yb = krnn.lstm_scan_tm(*(torch.from_numpy(a) for a in (gxf, gxb, m, wh, bh)))
+    np.testing.assert_allclose(yf.numpy(), np.asarray(yf_p), **TOL)
+    np.testing.assert_allclose(yb.numpy(), np.asarray(yb_p), **TOL)
+
+
+def test_cpu_tensor_takes_plain_version():
+    args = [torch.randn(5, 2, 16, generator=torch.Generator().manual_seed(i))
+            for i in range(2)] + [torch.ones(5, 2), torch.zeros(2, 4, 16),
+                                  torch.zeros(2, 16)]
+    before = krnn.lstm_scan_tm.launches
+    a = krnn.lstm_scan_tm(*args)
+    b = krnn.lstm_scan_tm_plain(*args)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert krnn.lstm_scan_tm.launches == before
+
+
+def test_gru_is_not_ported():
+    with pytest.raises(NotImplementedError, match="B2"):
+        BiRNN(4, 4, cell="gru")
