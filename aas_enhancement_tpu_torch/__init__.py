@@ -8,7 +8,9 @@ kernels runs here as hand-written Hopper kernels (``csrc/*.cu``, built by
 kernel's plain PyTorch version; a CUDA tensor launches the kernel or raises.
 
 Ported so far: the enhancement path (STFT -> conv + BiLSTM enhancer -> ISTFT),
-driven by ``python -m aas_enhancement_tpu_torch.cli.enhance``.
+driven by ``python -m aas_enhancement_tpu_torch.cli.enhance``, and the
+recognition path (STFT -> enhancer -> DeepSpeech2 AM with BiGRUs -> greedy
+CTC -> WER), driven by ``python -m aas_enhancement_tpu_torch.cli.evaluate``.
 
 This package imports torch and never jax or flax.
 """

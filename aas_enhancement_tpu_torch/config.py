@@ -1,11 +1,12 @@
-"""The configuration the ported enhance path reads (counterpart of
+"""The configuration the ported paths read (counterpart of
 ``aas_enhancement_tpu/config.py``).
 
-The same dataclasses, fields and defaults as the JAX package's audio and
-enhancer sections, plus the train seed that random init draws from.  A config
-JSON written by either package loads here: sections and keys the port does
-not read yet (the AM, discriminator, mesh, data and the rest of train) are
-skipped, as the JAX package's own ``Config.from_dict`` skips unknown keys.
+The same dataclasses, fields and defaults as the JAX package's audio, AM,
+enhancer and data sections, plus the train seed that random init draws from.
+A config JSON written by either package loads here: sections and keys the
+port does not read yet (the discriminator, mesh and the rest of train) are
+skipped, as the JAX package's own ``Config.from_dict`` skips unknown keys,
+and JSON lists become tuples, as there.
 """
 
 from __future__ import annotations
@@ -41,6 +42,18 @@ class AudioConfig:
 
 
 @dataclass(frozen=True)
+class AMConfig:
+    """DeepSpeech2-style acoustic model."""
+
+    rnn_hidden: int = 512
+    rnn_layers: int = 4
+    rnn_type: str = "gru"        # "gru" | "lstm"
+    conv_channels: int = 32
+    vocab_size: int = 29         # len(labels.LABELS)
+    dtype: str = "float32"       # only "float32" is ported
+
+
+@dataclass(frozen=True)
 class EnhancerConfig:
     """Conv + BLSTM enhancement network."""
 
@@ -53,6 +66,35 @@ class EnhancerConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """Host-side data pipeline (``data/dataset.py``).
+
+    ``augment=True`` raises ``NotImplementedError`` in ``AudioDataset``
+    (augmentation is not ported).  ``use_grain`` is read only by the train
+    loop, which is not ported either.  ``native_decode`` is accepted and
+    ignored: the port has only the Python reader, whose batches the JAX
+    package's native decoder reproduces byte for byte.
+    """
+
+    train_manifest: str = ""
+    clean_manifest: str = ""
+    val_manifest: str = ""
+    max_duration: float = 16.0   # seconds; longer utterances dropped
+    min_duration: float = 0.3
+    num_buckets: int = 4         # padded time-shape buckets
+    augment: bool = False
+    augment_speed: bool = True
+    augment_gain: bool = True
+    use_grain: bool = False
+    grain_workers: int = 2
+    noise_dir: str = ""
+    noise_prob: float = 0.4
+    noise_snr_range: tuple = (0.0, 15.0)
+    feed_dtype: str = "float32"  # "int16": batches carry PCM16, converted on device
+    native_decode: bool = True
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """The part of the train section the port reads: the init seed."""
 
@@ -62,11 +104,13 @@ class TrainConfig:
 @dataclass(frozen=True)
 class Config:
     audio: AudioConfig = field(default_factory=AudioConfig)
+    am: AMConfig = field(default_factory=AMConfig)
     enhancer: EnhancerConfig = field(default_factory=EnhancerConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        return json.dumps(dataclasses.asdict(self), indent=2, default=list)
 
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "Config":
@@ -75,7 +119,8 @@ class Config:
             tp = f.default_factory
             names = {g.name for g in dataclasses.fields(tp)}
             sub = d.get(f.name, {})
-            sections[f.name] = tp(**{k: v for k, v in sub.items() if k in names})
+            sections[f.name] = tp(**{k: tuple(v) if isinstance(v, list) else v
+                                     for k, v in sub.items() if k in names})
         return cls(**sections)
 
     @classmethod

@@ -1,10 +1,12 @@
-"""Parameters: flax tree -> ``Enhancer`` state_dict, and a flax-like random init.
+"""Parameters: flax tree -> ``Enhancer`` / ``AcousticModel`` state_dict, and a
+flax-like random init.
 
 Layouts:
-- conv kernels: flax HWIO -> torch OIHW (``convs.{i}.weight``); biases as is;
+- conv kernels: flax HWIO -> torch OIHW (``convs.{i}.weight``,
+  ``conv{1,2}.weight``); biases as is;
 - ``Dense`` kernels stay [in, out] (``ops/dense.py`` keeps flax's layout);
-- BiRNN ``wh`` [2, H, 4H] and ``bh`` [2, 4H] stay as they are, the layout the
-  LSTM kernel reads;
+- BiRNN ``wh`` [2, H, G*H] and ``bh`` [2, G*H] stay as they are, the layout the
+  LSTM and GRU kernels read;
 - MaskedGroupNorm ``scale``/``bias`` [C] as is.
 
 The random init draws from the distributions flax uses for the same modules
@@ -30,31 +32,64 @@ from aas_enhancement_tpu_torch.ops.rnn import BiRNN
 _TRUNC_STD = 0.87962566103423978
 
 
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv(sd: dict, prefix: str, sub: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _t(sub["kernel"]).permute(3, 2, 0, 1).contiguous()
+    sd[f"{prefix}.bias"] = _t(sub["bias"])
+
+
+def _pair(sd: dict, prefix: str, sub: Mapping[str, Any], names: tuple[str, str]) -> None:
+    for n in names:
+        sd[f"{prefix}.{n}"] = _t(sub[n])
+
+
+def _birnn(sd: dict, prefix: str, sub: Mapping[str, Any]) -> None:
+    _pair(sd, f"{prefix}.wx", sub["wx"], ("kernel", "bias"))
+    _pair(sd, prefix, sub, ("wh", "bh"))
+
+
+def _split(name: str) -> tuple[str, str]:
+    kind = name.rstrip("0123456789")
+    return kind, name[len(kind):]
+
+
 def enhancer_params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Flax ``Enhancer`` params (nested dict of arrays, with or without the
     top-level "params" key) -> ``Enhancer`` state_dict of f32 CPU tensors."""
-    p = tree.get("params", tree)
-
-    def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
     sd: dict[str, torch.Tensor] = {}
-    for name, sub in p.items():
-        kind, idx = name.rstrip("0123456789"), name[len(name.rstrip("0123456789")):]
+    for name, sub in tree.get("params", tree).items():
+        kind, idx = _split(name)
         if kind == "conv":
-            sd[f"convs.{idx}.weight"] = t(sub["kernel"]).permute(3, 2, 0, 1).contiguous()
-            sd[f"convs.{idx}.bias"] = t(sub["bias"])
+            _conv(sd, f"convs.{idx}", sub)
         elif kind == "gn":
-            sd[f"gns.{idx}.scale"] = t(sub["scale"])
-            sd[f"gns.{idx}.bias"] = t(sub["bias"])
+            _pair(sd, f"gns.{idx}", sub, ("scale", "bias"))
         elif kind == "blstm":
-            sd[f"blstms.{idx}.wx.kernel"] = t(sub["wx"]["kernel"])
-            sd[f"blstms.{idx}.wx.bias"] = t(sub["wx"]["bias"])
-            sd[f"blstms.{idx}.wh"] = t(sub["wh"])
-            sd[f"blstms.{idx}.bh"] = t(sub["bh"])
+            _birnn(sd, f"blstms.{idx}", sub)
         elif name == "proj":
-            sd["proj.kernel"] = t(sub["kernel"])
-            sd["proj.bias"] = t(sub["bias"])
+            _pair(sd, "proj", sub, ("kernel", "bias"))
+        else:
+            raise KeyError(f"unexpected flax parameter group {name!r}")
+    return sd
+
+
+def am_params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax ``AcousticModel`` params (``conv1``, ``gn1``, ``conv2``, ``gn2``,
+    ``rnn{i}``, ``fc``; with or without the top-level "params" key) ->
+    ``AcousticModel`` state_dict of f32 CPU tensors."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, sub in tree.get("params", tree).items():
+        kind, idx = _split(name)
+        if name in ("conv1", "conv2"):
+            _conv(sd, name, sub)
+        elif name in ("gn1", "gn2"):
+            _pair(sd, name, sub, ("scale", "bias"))
+        elif kind == "rnn":
+            _birnn(sd, f"rnns.{idx}", sub)
+        elif name == "fc":
+            _pair(sd, "fc", sub, ("kernel", "bias"))
         else:
             raise KeyError(f"unexpected flax parameter group {name!r}")
     return sd
@@ -87,7 +122,8 @@ def _orthogonal_(w: torch.Tensor, gen: torch.Generator) -> None:
 
 @torch.no_grad()
 def init_like_flax(model: nn.Module, gen: torch.Generator) -> nn.Module:
-    """Draw every parameter of ``model`` from flax's default distributions."""
+    """Draw every parameter of ``model`` from flax's default distributions
+    (``nn.Conv2d`` covers ``ops/conv.py::SameConv2d``)."""
     for mod in model.modules():
         if isinstance(mod, nn.Conv2d):
             o, i, kh, kw = mod.weight.shape

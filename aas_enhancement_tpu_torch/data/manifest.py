@@ -14,3 +14,8 @@ def read_manifest(path: str) -> list[tuple[str, str]]:
                 wav, txt = line.split(",", 1)
                 out.append((wav, txt))
     return out
+
+
+def read_transcript(txt_path: str) -> str:
+    with open(txt_path) as f:
+        return f.read().strip()

@@ -1,0 +1,69 @@
+"""DeepSpeech2-style CTC acoustic model (port of ``aas_enhancement_tpu/models/am.py``).
+
+log1p-magnitude [B, T, F] + lengths -> 11x41 conv, stride (2, 2) ->
+MaskedGroupNorm + hardtanh(0, 20) -> 11x21 conv, stride (1, 2) ->
+MaskedGroupNorm + hardtanh -> rnn_layers x BiGRU (sum of directions) ->
+Dense(vocab) -> logits, zeroed on padded frames.  T' = ceil(T / 2) and
+F: 161 -> 81 -> 41, so the first RNN reads 41 * C features.
+
+Layout as in ``models/enhancer.py``: the GroupNorm output [B, T, F, C] stays
+contiguous and is viewed as NCHW with channels-last memory for the next conv,
+and the flatten to [B, T, F*C] puts feature f*C + c where the JAX model's
+``reshape(b, t, f*ch)`` does (the first ``wx``'s rows depend on it).
+``am_blockwise_apply`` (the streaming-matched forward) is not ported yet
+(ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from aas_enhancement_tpu_torch.config import AMConfig
+from aas_enhancement_tpu_torch.ops.conv import SameConv2d
+from aas_enhancement_tpu_torch.ops.dense import Dense
+from aas_enhancement_tpu_torch.ops.masking import apply_time_mask, conv_out_length
+from aas_enhancement_tpu_torch.ops.norm import MaskedGroupNorm
+from aas_enhancement_tpu_torch.ops.rnn import BiRNN
+
+
+class AcousticModel(nn.Module):
+    """-> (logits [B, ceil(T/2), vocab], out_lengths [B]).
+
+    Parameters are created uninitialized; ``convert.init_like_flax`` draws
+    them, or ``convert.am_params_from_flax`` loads a flax tree.
+    """
+
+    def __init__(self, cfg: AMConfig, num_bins: int,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        if cfg.dtype != "float32":
+            raise NotImplementedError(f"dtype {cfg.dtype}: only float32 is ported")
+        self.cfg = cfg
+        c = cfg.conv_channels
+        self.conv1 = SameConv2d(1, c, (11, 41), (2, 2), device=device)
+        self.gn1 = MaskedGroupNorm(c, num_groups=8, act="hardtanh", device=device)
+        self.conv2 = SameConv2d(c, c, (11, 21), (1, 2), device=device)
+        self.gn2 = MaskedGroupNorm(c, num_groups=8, act="hardtanh", device=device)
+        f_out = -(-num_bins // 2)            # conv1 halves F (SAME, ceil) ...
+        f_out = -(-f_out // 2)               # ... and so does conv2
+        rnn_in = [f_out * c] + [cfg.rnn_hidden] * (cfg.rnn_layers - 1)
+        self.rnns = nn.ModuleList(
+            BiRNN(d, cfg.rnn_hidden, cell=cfg.rnn_type, device=device)
+            for d in rnn_in[:cfg.rnn_layers])
+        self.fc = Dense(cfg.rnn_hidden if cfg.rnn_layers else rnn_in[0],
+                        cfg.vocab_size, device=device)
+
+    def forward(self, log_mag: torch.Tensor, lengths: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        x = log_mag.to(torch.float32)[:, None]                    # [B, 1, T, F]
+        out_lengths = conv_out_length(lengths, 11, 2, "SAME")
+        for conv, gn in ((self.conv1, self.gn1), (self.conv2, self.gn2)):
+            y = conv(x).permute(0, 2, 3, 1).contiguous()          # [B, T', F', C]
+            x = gn(y, out_lengths).permute(0, 3, 1, 2)            # channels-last NCHW
+        b, _, t, _ = x.shape
+        x = x.permute(0, 2, 3, 1).reshape(b, t, -1).transpose(0, 1)   # [T', B, F'*C]
+        for rnn in self.rnns:
+            x = rnn(x, out_lengths)
+        logits = self.fc(x.transpose(0, 1))                       # [B, T', V]
+        return apply_time_mask(logits, out_lengths), out_lengths

@@ -23,6 +23,14 @@ def apply_time_mask(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return x * mask.reshape(mask.shape + (1,) * (x.ndim - 2))
 
 
+def conv_out_length(lengths: torch.Tensor, kernel: int, stride: int,
+                    padding: str = "SAME") -> torch.Tensor:
+    """Sequence lengths through a strided conv: ceil(len / stride) for SAME."""
+    if padding == "SAME":
+        return (lengths + stride - 1) // stride
+    return (lengths - kernel) // stride + 1
+
+
 def masked_normalize(x: torch.Tensor, lengths: torch.Tensor,
                      eps: float = 1e-5) -> torch.Tensor:
     """Per-utterance mean/std normalization of [B, T, F] over VALID frames only,
@@ -32,3 +40,12 @@ def masked_normalize(x: torch.Tensor, lengths: torch.Tensor,
     mean = (x * mask).sum(dim=(1, 2), keepdim=True) / count
     var = (((x - mean) ** 2) * mask).sum(dim=(1, 2), keepdim=True) / count
     return ((x - mean) / torch.sqrt(var + eps)) * mask
+
+
+def masked_mean(x: torch.Tensor, lengths: torch.Tensor, axis=(1, 2)) -> torch.Tensor:
+    """Mean of x [B, T, ...] over valid frames only."""
+    mask = time_mask(lengths, x.shape[1], x.dtype)
+    mask = mask.reshape(mask.shape + (1,) * (x.ndim - 2))
+    num = (x * mask).sum(dim=axis)
+    valid_cells = mask.expand(x.shape).sum(dim=axis)
+    return num / torch.clamp(valid_cells, min=1.0)

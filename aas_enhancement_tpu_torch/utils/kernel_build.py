@@ -1,7 +1,8 @@
 """Build the CUDA kernels under ``csrc/`` into one shared library and load it.
 
 Counterpart of ``aas_enhancement_tpu/utils/native_build.py``, for the GPU
-kernels.  ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into a
+kernels.  ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one
+process per source, all started together, and links the objects into a
 ``.so`` with a plain C interface, loaded with ``ctypes``: no PyTorch headers,
 so a build takes seconds.  The library lands in ``<repo>/build/torch_kernels/``
 under a name keyed on a hash of the sources and flags, so a stale library is
@@ -24,7 +25,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,8 @@ SIGNATURES = {
     "aas_istft": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # gxf, gxb, gx_stride_t, gx_stride_b, m, wh, bh, yf, yb, T, B, H, stream
     "aas_lstm_tm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # gxf, gxb, gx_stride_t, gx_stride_b, m, wh, bh, yf, yb, T, B, H, stream
+    "aas_gru_tm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -73,14 +76,31 @@ def build() -> str:
     if os.path.isfile(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", src, "-o", f"{tmp}.{i}.o"]
+            for i, src in enumerate(s for s in sources() if s.endswith(".cu"))]
+    cmds.append([nvcc, "-shared", "-o", tmp, *[c[-1] for c in cmds]])
+    log, failed = [], None
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds[:-1]]
+        results = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in results):
+            p = subprocess.run(cmds[-1], capture_output=True, text=True)
+            results.append((cmds[-1], p.stdout + p.stderr, p.returncode))
+        for cmd, text, rc in results:
+            log.append(" ".join(cmd) + "\n" + text)
+            if rc != 0 and failed is None:
+                failed = (rc, text)
+    finally:
+        for c in cmds[:-1]:
+            if os.path.exists(c[-1]):
+                os.remove(c[-1])
     with open(out[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        f.write("".join(log))
+    if failed is not None:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{failed[1]}")
     os.replace(tmp, out)      # atomic: a concurrent loader never sees half a file
     return out
 

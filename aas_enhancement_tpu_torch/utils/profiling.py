@@ -1,16 +1,17 @@
-"""Where the device time of one enhance call goes (counterpart of
-``aas_enhancement_tpu/utils/profiling.py``).
+"""Where the device time of one enhance call and one recognition forward
+goes (counterpart of ``aas_enhancement_tpu/utils/profiling.py``).
 
     python -m aas_enhancement_tpu_torch.utils.profiling [--batch 4] [--seconds 8]
-        [--calls 3] [--warmup 3] [--trace enhance_trace.json]
+        [--calls 3] [--warmup 3] [--trace-dir traces/]
 
-Runs ``make_enhance_fn`` at the shipped ``Config`` width on full rows of
-random audio, with PyTorch's default TF32 settings as the enhance CLI runs,
-records ``--calls`` calls with ``torch.profiler`` (CPU and CUDA
-activity) after ``--warmup`` calls, and prints per call: the device time of
-each kernel name, ranked, with its share; the device busy time (the union of
-kernel, memcpy and memset intervals); and the idle share, 1 - busy / span,
-where the span runs from the first device event to the last.
+Runs ``make_enhance_fn`` and then ``make_eval_forward(use_enhancer=True)``
+(enhancer + AM, the evaluate CLI's enhanced leg) at the shipped ``Config``
+width on full rows of random audio, with PyTorch's default TF32 settings as
+the CLIs run, records ``--calls`` calls of each with ``torch.profiler`` (CPU
+and CUDA activity) after ``--warmup`` calls, and prints per call and path:
+the device time of each kernel name, ranked, with its share; the device busy
+time (the union of kernel, memcpy and memset intervals); and the idle share,
+1 - busy / span, where the span runs from the first device event to the last.
 """
 
 from __future__ import annotations
@@ -58,12 +59,31 @@ def summarize_trace(trace: dict, calls: int = 1) -> dict:
             "by_name": [(name, us / 1e3 / calls, n / calls) for name, (us, n) in ranked]}
 
 
-def profile_enhance(batch: int, seconds: float, calls: int, warmup: int,
-                    trace_path: str | None = None) -> dict:
-    """Profile ``calls`` enhance calls at ``batch`` x ``seconds`` on the GPU."""
+def profile_call(fn, calls: int, warmup: int, trace_path: str) -> dict:
+    """Profile ``calls`` calls of ``fn()`` after ``warmup`` calls; the Chrome
+    trace is written to ``trace_path``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        return summarize_trace(json.load(f), calls)
+
+
+def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
+                  trace_dir: str) -> dict:
+    """{"enhance": summary, "recognize": summary} at ``batch`` x ``seconds``
+    on the GPU, weights drawn from the config's train seed."""
     from aas_enhancement_tpu_torch.cli.enhance import resolve_device
     from aas_enhancement_tpu_torch.config import Config
     from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
+    from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
 
     device = resolve_device("cuda")
     cfg = Config()
@@ -71,22 +91,16 @@ def profile_enhance(batch: int, seconds: float, calls: int, warmup: int,
     gen = torch.Generator().manual_seed(0)
     wav = (0.3 * torch.randn(batch, n, generator=gen)).to(device)
     lengths = torch.full((batch,), n, device=device)
-    model = init_enhancer(cfg, cfg.train.seed, device)
-    fn = make_enhance_fn(cfg, device)
-    for _ in range(warmup):
-        fn(model, wav, lengths)
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(calls):
-            fn(model, wav, lengths)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = trace_path or os.path.join(tmp, "enhance_trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            return summarize_trace(json.load(f), calls)
+    enhancer = init_enhancer(cfg, cfg.train.seed, device)
+    am = init_am(cfg, cfg.train.seed, device)
+    enhance = make_enhance_fn(cfg, device)
+    recognize = make_eval_forward(cfg, use_enhancer=True)
+    return {
+        "enhance": profile_call(lambda: enhance(enhancer, wav, lengths), calls,
+                                warmup, os.path.join(trace_dir, "enhance_trace.json")),
+        "recognize": profile_call(lambda: recognize(am, enhancer, wav, lengths), calls,
+                                  warmup, os.path.join(trace_dir, "recognize_trace.json")),
+    }
 
 
 def main(argv=None) -> None:
@@ -96,19 +110,25 @@ def main(argv=None) -> None:
     p.add_argument("--seconds", type=float, default=8.0)
     p.add_argument("--calls", type=int, default=3)
     p.add_argument("--warmup", type=int, default=3)
-    p.add_argument("--trace", help="keep the Chrome trace at this path")
+    p.add_argument("--trace-dir", help="keep the two Chrome traces in this directory")
     p.add_argument("--top", type=int, default=25, help="kernel names to print")
     args = p.parse_args(argv)
-    s = profile_enhance(args.batch, args.seconds, args.calls, args.warmup, args.trace)
-    print(f"[profile] {torch.cuda.get_device_name(0)} | B={args.batch} x "
-          f"{args.seconds} s, per call over {args.calls} calls after {args.warmup} "
-          f"warmups | device busy {s['busy_ms']:.3f} ms | span {s['span_ms']:.3f} ms | "
-          f"idle share {100 * s['idle_share']:.2f}% | {s['events']:.0f} device events | "
-          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    for name, ms, count in s["by_name"][:args.top]:
-        print(f"[profile] {ms:9.3f} ms {100 * ms / s['busy_ms']:6.2f}% "
-              f"x{count:<5g} {name[:110]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = args.trace_dir or tmp
+        os.makedirs(trace_dir, exist_ok=True)
+        summaries = profile_paths(args.batch, args.seconds, args.calls, args.warmup,
+                                  trace_dir)
+    for path, s in summaries.items():
+        print(f"[profile {path}] {torch.cuda.get_device_name(0)} | B={args.batch} x "
+              f"{args.seconds} s, per call over {args.calls} calls after "
+              f"{args.warmup} warmups | device busy {s['busy_ms']:.3f} ms | span "
+              f"{s['span_ms']:.3f} ms | idle share {100 * s['idle_share']:.2f}% | "
+              f"{s['events']:.0f} device events | "
+              f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+              f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+        for name, ms, count in s["by_name"][:args.top]:
+            print(f"[profile {path}] {ms:9.3f} ms {100 * ms / s['busy_ms']:6.2f}% "
+                  f"x{count:<5g} {name[:110]}")
 
 
 if __name__ == "__main__":

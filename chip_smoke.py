@@ -5,16 +5,25 @@
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 1. device: the card's name and power limit, TF32 off for the parity checks;
-2. build: the CUDA kernels from csrc/ (nvcc, sm_90a) and the Triton version;
+2. build: the CUDA kernels from csrc/ (nvcc, sm_90a, one process per source)
+   and the Triton version;
 3. kernels: each kernel against its plain PyTorch version on the card at the
-   enhance path's full-width shapes (B=4 x 8 s, T=801, F=161, C=32, H=256,
-   ragged lengths), with the max abs error, the tolerance and the median time
-   of kernel and plain version (CUDA events, after warmup);
+   full-width shapes its paths give it (B=4 x 8 s, ragged lengths): the
+   enhance path's (T=801, F=161, C=32, LSTM H=256) and the AM's (GN +
+   hardtanh at [4, 401, 81, 32] and [4, 401, 41, 32], GRU T=401, H=512),
+   with the max abs error, the tolerance and the median time of kernel and
+   plain version (CUDA events, after warmup, timed in turns);
 4. slice: the port's enhance CLI on a synthetic corpus with --device cuda,
    counting each kernel's launches; then a full-width B=4 x 8 s batch on the
-   card against the same weights on the CPU, and the batch's real-time factor.
-The line before the last two is a JSON summary of the kernels, the next the
-card's name and power limit, the last {"ok": true, "device": {...}}.
+   card against the same weights on the CPU, and the batch's real-time factor;
+5. recognize: the port's evaluate CLI (noisy and enhanced WER, SI-SNR) on a
+   synthetic corpus with --device cuda, counting each kernel's launches; then
+   the recognition forward (enhancer + AM, 4 x BiGRU-512) at B=4 x 8 s on the
+   card against the same weights on the CPU (logits, greedy ids), and its
+   time per batch with and without the enhancer.
+The line before the last two is a JSON summary of the kernels (launches from
+the recognize phase's CLI run, which runs all five), the next the card's name
+and power limit, the last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SR, B, SECONDS = 16000, 4, 8
 N = SR * SECONDS
 LENGTHS = [N, 112000, 96000, 64000]   # 801, 701, 601 and 401 valid frames of 801
+AM_T = 401                            # AM frames of 801: conv1 halves time (ceil)
+AM_LENGTHS = [401, 351, 301, 201]     # conv_out_length of 801/701/601/401
 
 # Tolerances (max abs error, kernel vs plain version, f32 on the card).  Both
 # sides accumulate in float32 in different orders; each bound is about 3-50x
@@ -41,11 +52,15 @@ LENGTHS = [N, 112000, 96000, 64000]   # 801, 701, 601 and 401 valid frames of 80
 TOL = {
     "stft": (1e-4, "|X| up to ~40 from 320-term f32 sums on unit-scale audio"),
     "istft": (1e-5, "unit-scale audio, 2 x 161-term f32 sums per sample"),
-    "gn_act": (1e-5, "unit-scale normalized output, f32 group sums over ~2.6M values"),
+    "gn_act": (1e-5, "unit-scale normalized output, f32 group sums over 0.1-2.6M values"),
     "lstm": (1e-5, "|y| < 1, f32 rounding carried through 801 recurrent steps"),
+    "gru": (1e-5, "|y| < 1, 512-term f32 dots, rounding carried through 401 steps"),
 }
 SLICE_TOL = (1e-4, "wav in [-1, 1] after STFT, 2 conv+GN, 2 BiLSTM-256 over 801 "
              "steps, ISTFT: f32 rounding of card vs CPU sum orders compounds")
+RECOGNIZE_TOL = (1e-4, "logits O(1) after STFT, enhancer, 2 convs of up to 7392-term "
+                 "f32 sums, 4 BiGRU-512 over 401 steps and FC: card vs CPU sum "
+                 "orders compound")
 
 
 def fail(msg: str) -> None:
@@ -122,6 +137,15 @@ def make_inputs(device):
     return wav.to(device), lengths.to(device), gen
 
 
+def kernel_counters() -> dict:
+    """The five kernel wrappers of the two paths, by kernel name."""
+    from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
+    from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
+    from aas_enhancement_tpu_torch.ops.triton import gn
+    return {"stft": kstft.stft, "istft": kstft.istft, "gn_act": gn.masked_group_norm_act,
+            "lstm": krnn.lstm_scan_tm, "gru": krnn.gru_scan_tm}
+
+
 def phase_kernels(device):
     import torch
     from aas_enhancement_tpu_torch.convert import init_like_flax
@@ -141,39 +165,62 @@ def phase_kernels(device):
     bias = (0.1 * torch.randn(32, generator=gen)).to(device)
     rnn = init_like_flax(BiRNN(161 * 32, 256), gen).to(device)
     m = time_mask(frames, t_len).T.contiguous()
+    # The AM's shapes: GN + hardtanh after conv1 (F 81) and conv2 (F 41), and
+    # the first BiGRU-512 layer over the 41 * 32 conv features.
+    am_frames = torch.tensor(AM_LENGTHS, device=device)
+    x_am = {f: (0.5 + 3.0 * torch.randn(B, AM_T, f, 32, generator=gen)).to(device)
+            for f in (81, 41)}
+    gru = init_like_flax(BiRNN(41 * 32, 512, cell="gru"), gen).to(device)
+    with torch.no_grad():
+        gru.bh.copy_(0.1 * torch.randn(gru.bh.shape, generator=gen))   # n-slice inside r
+    m_am = time_mask(am_frames, AM_T).T.contiguous()
 
     with torch.inference_mode():
         gates = rnn.wx(torch.randn(t_len, B, 161 * 32, generator=gen).to(device))
         gxf, gxb = gates[..., :1024], gates[..., 1024:]          # strided, as in BiRNN
-        cases = {
-            "stft": (kstft.stft, kstft.stft_plain, (wav, 320, 160)),
-            "istft": (kstft.istft, kstft.istft_plain,
-                      (re * gain, im * gain, 320, 160, "hann", True, N)),
-            "gn_act": (gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
-                       (x_gn, scale, bias, frames)),
-            "lstm": (krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain,
-                     (gxf, gxb, m, rnn.wh, rnn.bh)),
+        g_gates = gru.wx(torch.randn(AM_T, B, 41 * 32, generator=gen).to(device))
+        g_xf, g_xb = g_gates[..., :1536], g_gates[..., 1536:]
+        leaky = dict(num_groups=8, act="leaky_relu", slope=0.2)
+        hard = dict(num_groups=8, act="hardtanh")
+        cases = {       # label: (kernel name, wrapper, plain version, args, kwargs)
+            "stft": ("stft", kstft.stft, kstft.stft_plain, (wav, 320, 160), {}),
+            "istft": ("istft", kstft.istft, kstft.istft_plain,
+                      (re * gain, im * gain, 320, 160, "hann", True, N), {}),
+            "gn_act": ("gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
+                       (x_gn, scale, bias, frames), leaky),
+            "gn_act hardtanh [4, 401, 81, 32]": (
+                "gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
+                (x_am[81], scale, bias, am_frames), hard),
+            "gn_act hardtanh [4, 401, 41, 32]": (
+                "gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
+                (x_am[41], scale, bias, am_frames), hard),
+            "lstm": ("lstm", krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain,
+                     (gxf, gxb, m, rnn.wh, rnn.bh), {}),
+            "gru": ("gru", krnn.gru_scan_tm, krnn.gru_scan_tm_plain,
+                    (g_xf, g_xb, m_am, gru.wh, gru.bh), {}),
         }
-        kw = {"gn_act": dict(num_groups=8, act="leaky_relu", slope=0.2)}
         results = {}
-        for name, (kernel, plain, args) in cases.items():
-            k_out = kernel(*args, **kw.get(name, {}))
-            p_out = plain(*args, **kw.get(name, {}))
+        for label, (name, kernel, plain, args, kw) in cases.items():
+            k_out = kernel(*args, **kw)
+            p_out = plain(*args, **kw)
             torch.cuda.synchronize()
             err = max_err(k_out, p_out)
             tol, why = TOL[name]
-            reps = 5 if name == "lstm" else 20
-            run_k = lambda: kernel(*args, **kw.get(name, {}))          # noqa: E731
-            run_p = lambda: plain(*args, **kw.get(name, {}))           # noqa: E731
+            reps = 5 if name in ("lstm", "gru") else 20
+            run_k = lambda: kernel(*args, **kw)                        # noqa: E731
+            run_p = lambda: plain(*args, **kw)                         # noqa: E731
             t_p = cuda_ms(run_p, reps)                                 # in turns:
             t_k = cuda_ms(run_k, reps) + cuda_ms(run_k, reps)          # plain, kernel,
             t_p += cuda_ms(run_p, reps)                                # kernel, plain
             ms, plain_ms = statistics.median(t_k), statistics.median(t_p)
-            print(f"[kernel] {name}: max_abs_err {err:.3e} (tol {tol:.0e}: {why}) | "
+            print(f"[kernel] {label}: max_abs_err {err:.3e} (tol {tol:.0e}: {why}) | "
                   f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
                   f"x{plain_ms / ms:.2f}")
             if not err <= tol:
-                fail(f"{name}: max abs err {err:.3e} > tol {tol:.0e}")
+                fail(f"{label}: max abs err {err:.3e} > tol {tol:.0e}")
+            if name in results:         # the JSON line keeps the first shape's
+                err = max(err, results[name][0])       # times and the worst error
+                ms, plain_ms = results[name][1:]
             results[name] = (err, ms, plain_ms)
     return results
 
@@ -184,12 +231,8 @@ def phase_slice(device, card):
     from aas_enhancement_tpu_torch.config import Config
     from aas_enhancement_tpu_torch.data import generate_corpus, read_manifest, read_wav
     from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
-    from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
-    from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
-    from aas_enhancement_tpu_torch.ops.triton import gn
 
-    counters = {"stft": kstft.stft, "istft": kstft.istft,
-                "gn_act": gn.masked_group_norm_act, "lstm": krnn.lstm_scan_tm}
+    counters = {k: v for k, v in kernel_counters().items() if k != "gru"}
     with tempfile.TemporaryDirectory() as tmp:
         manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
         out_dir = os.path.join(tmp, "enhanced")
@@ -236,18 +279,101 @@ def phase_slice(device, card):
 
     full = torch.full((B,), N, device=device)
     wav_d = wav.to(device)
+    time_batch("[slice]", "enhance", card, lambda: fn_gpu(model_gpu, wav_d, full))
+    return launches
+
+
+def time_batch(tag: str, what: str, card: str, fn) -> float:
+    """Host wall time of one synchronized full-width call: median of 5 after
+    2 warmups (allocator and Triton JIT), TF32 off as set in phase_device."""
+    import torch
     walls = []
     for i in range(7):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn_gpu(model_gpu, wav_d, full)
+        fn()
         torch.cuda.synchronize()
-        if i >= 2:                       # first calls warm up allocator and JIT
+        if i >= 2:
             walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    print(f"[slice] B={B} x {SECONDS} s enhance on {card}: {wall * 1e3:.2f} ms/batch, "
-          f"RTF {wall / (B * SECONDS):.6f}, {B / wall:.1f} utterances/s "
+    print(f"{tag} B={B} x {SECONDS} s {what} on {card}, TF32 off: "
+          f"{wall * 1e3:.2f} ms/batch, RTF {wall / (B * SECONDS):.6f}, "
+          f"{B / wall:.1f} utterances/s "
           f"(median of {len(walls)}; walls ms {[round(w * 1e3, 2) for w in walls]})")
+    return wall
+
+
+def phase_recognize(device, card):
+    import torch
+    from aas_enhancement_tpu_torch.cli import evaluate as cli
+    from aas_enhancement_tpu_torch.config import Config
+    from aas_enhancement_tpu_torch.data import generate_corpus
+    from aas_enhancement_tpu_torch.enhance import init_enhancer
+    from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
+
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+        for fn in counters.values():
+            fn.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--manifest", manifests["noisy"], "--am-checkpoint", "seed:0",
+                      "--enhancer-checkpoint", "seed:1",
+                      "--clean-manifest", manifests["clean"], "--device", "cuda"])
+        launches = {k: fn.launches for k, fn in counters.items()}
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"[recognize] cli.evaluate --device cuda: {json.dumps(line)} "
+          f"| launches {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"the recognize run launched no {name} kernel")
+    if set(line) != {"noisy", "enhanced", "wer_delta", "si_snr"}:
+        fail(f"cli.evaluate printed keys {sorted(line)}")
+    for leg in ("noisy", "enhanced"):
+        r = line[leg]
+        if r["utterances"] != 6 or not 0.0 <= r["wer"] < float("inf"):
+            fail(f"{leg}: {r['utterances']} utterances, WER {r['wer']}")
+    if not all(abs(v) < float("inf") for v in line["si_snr"].values()):
+        fail(f"non-finite SI-SNR/STOI {line['si_snr']}")
+
+    cfg = Config()
+    am_cpu, enh_cpu = init_am(cfg, 0), init_enhancer(cfg, 1)
+    am_gpu, enh_gpu = copy.deepcopy(am_cpu).to(device), copy.deepcopy(enh_cpu).to(device)
+    wav, lengths, _ = make_inputs("cpu")
+    fwd = make_eval_forward(cfg, use_enhancer=True)
+    t0 = time.perf_counter()
+    logits_cpu, pads_cpu = fwd(am_cpu, enh_cpu, wav, lengths)
+    cpu_s = time.perf_counter() - t0
+    logits, pads = fwd(am_gpu, enh_gpu, wav.to(device), lengths.to(device))
+    logits, pads = logits.cpu(), pads.cpu()
+    if logits.shape != (B, AM_T, cfg.am.vocab_size) or not torch.isfinite(logits).all():
+        fail(f"recognition logits shape {tuple(logits.shape)} or non-finite values")
+    valid = pads_cpu < 0.5
+    if not torch.equal(pads, pads_cpu) or valid.sum(1).tolist() != AM_LENGTHS:
+        fail(f"frame paddings differ: valid frames {valid.sum(1).tolist()}")
+    err = (logits - logits_cpu).abs().max().item()
+    tol, why = RECOGNIZE_TOL
+    top2 = logits_cpu.topk(2, dim=-1).values
+    sure = valid & (top2[..., 0] - top2[..., 1] > 2 * tol)
+    same = (logits.argmax(-1) == logits_cpu.argmax(-1)) | ~sure
+    print(f"[recognize] B={B} x {SECONDS} s card vs CPU (same weights): logits "
+          f"max_abs_err {err:.3e} (tol {tol:.0e}: {why}); greedy ids equal on "
+          f"{int((same & sure).sum())} of {int(sure.sum())} valid frames with top-2 "
+          f"margin > {2 * tol:.0e} ({int(valid.sum())} valid); |logit|max "
+          f"{logits_cpu.abs().max().item():.3f}; CPU plain path {cpu_s:.2f} s")
+    if not err <= tol:
+        fail(f"card vs CPU logits error {err:.3e} > {tol:.0e}")
+    if not same.all():
+        fail("greedy ids differ between card and CPU on a frame with a clear margin")
+
+    full = torch.full((B,), N, device=device)
+    wav_d = wav.to(device)
+    fwd_noisy = make_eval_forward(cfg, use_enhancer=False)
+    time_batch("[recognize]", "recognition forward (enhancer + AM)", card,
+               lambda: fwd(am_gpu, enh_gpu, wav_d, full))
+    time_batch("[recognize]", "recognition forward (AM alone, noisy leg)", card,
+               lambda: fwd_noisy(am_gpu, None, wav_d, full))
     return launches
 
 
@@ -258,7 +384,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     phase_build()
     results = phase_kernels(device)
-    launches = phase_slice(device, smi)     # counted in the enhance CLI run only
+    phase_slice(device, smi)                # counts the enhance CLI run's launches
+    launches = phase_recognize(device, smi)  # counts the evaluate CLI run's launches
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "aas_enhancement_tpu")]
@@ -273,6 +400,8 @@ def main() -> int:
                    "aas_enhancement_tpu/ops/pallas/gn_kernel.py:311"),
         "lstm": ("cuda", "aas_enhancement_tpu_torch/csrc/lstm_tm.cu",
                  "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:692"),
+        "gru": ("cuda", "aas_enhancement_tpu_torch/csrc/gru_tm.cu",
+                "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:892"),
     }
     kernels = [{"name": k, "route": r, "source": s, "replaces": rep,
                 "launches": launches[k], "max_abs_err": results[k][0],

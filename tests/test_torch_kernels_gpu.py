@@ -7,14 +7,16 @@ machine without JAX run it without the suite's conftest:
 
 Tolerances are f32 sum-order tolerances (each kernel sums in its own order):
 STFT 1e-4 abs on |X| up to ~30, ISTFT 2e-5 abs + 1e-5 rel on unit-scale
-audio, GroupNorm 1e-5, LSTM 1e-5 over 40 steps.
+audio, GroupNorm 1e-5, LSTM and GRU 1e-5 on |y| < 1 over 40-60 steps, the
+recognition forward's logits 1e-4 (STFT, enhancer and AM sums compound).
 """
 
 import pytest
 import torch
 
-from aas_enhancement_tpu_torch.config import Config, EnhancerConfig
+from aas_enhancement_tpu_torch.config import AMConfig, Config, EnhancerConfig
 from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
+from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
 from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
 from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
 from aas_enhancement_tpu_torch.ops.triton import gn
@@ -84,6 +86,58 @@ def test_lstm_kernel(cuda):
     torch.testing.assert_close(yb, yb_p, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("t,b,h", [(40, 5, 32), (60, 4, 512)])
+def test_gru_kernel(cuda, t, b, h):
+    """b = 5: one full and one partial row tile; H = 512: the AM's width."""
+    gates = _randn(t, b, 6 * h, seed=h, scale=0.5).to(cuda)
+    gxf, gxb = gates[..., :3 * h], gates[..., 3 * h:]   # strided halves
+    wh = _randn(2, h, 3 * h, seed=h + 1, scale=1.0 / h ** 0.5).to(cuda)
+    bh = _randn(2, 3 * h, seed=h + 2, scale=0.1).to(cuda)
+    lengths = torch.tensor([t, t // 2 + 3, 3, t, 1][:b], device=cuda)
+    m = (torch.arange(t, device=cuda)[:, None] < lengths[None]).float()
+    before = krnn.gru_scan_tm.launches
+    yf, yb = krnn.gru_scan_tm(gxf, gxb, m, wh, bh)
+    yf_p, yb_p = krnn.gru_scan_tm_plain(gxf, gxb, m, wh, bh)
+    torch.cuda.synchronize()
+    assert krnn.gru_scan_tm.launches == before + 1
+    torch.testing.assert_close(yf, yf_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(yb, yb_p, rtol=1e-5, atol=1e-5)
+    assert torch.all(yf[3:, 2] == 0) and torch.all(yb[3:, 2] == 0)
+
+
+@pytest.mark.parametrize("f", [81, 41])
+def test_gn_hardtanh_at_am_shapes(cuda, f):
+    x = (0.5 + 3.0 * _randn(4, 401, f, 32, seed=f)).to(cuda)
+    scale, bias = (1 + _randn(32, seed=1, scale=0.1)).to(cuda), _randn(32, seed=2).to(cuda)
+    lengths = torch.tensor([401, 351, 301, 201], device=cuda)
+    y = gn.masked_group_norm_act(x, scale, bias, lengths, num_groups=8, act="hardtanh")
+    y_p = gn.masked_group_norm_act_plain(x, scale, bias, lengths, num_groups=8,
+                                         act="hardtanh")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
+    assert torch.all(y[3, 201:] == 0) and y.min() >= 0 and y.max() <= 20
+
+
+def test_gru_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    t, b, h = 3, 2, 8
+    g = torch.zeros(t, b, 3 * h, device=cuda)
+    m = torch.ones(t, b, device=cuda)
+    wh, bh = torch.zeros(2, h, 3 * h, device=cuda), torch.zeros(2, 3 * h, device=cuda)
+    with pytest.raises(ValueError, match="shapes"):
+        krnn.gru_scan_tm(g, g, m, torch.zeros(2, h, 4 * h, device=cuda), bh)
+    with pytest.raises(ValueError, match="stride"):
+        gt = torch.zeros(t, 3 * h, b, device=cuda).transpose(1, 2)
+        krnn.gru_scan_tm(gt, gt, m, wh, bh)
+    with pytest.raises(TypeError, match="float32"):
+        krnn.gru_scan_tm(g.double(), g.double(), m, wh, bh)
+    with pytest.raises(ValueError, match="H % 4"):
+        g6 = torch.zeros(t, b, 18, device=cuda)
+        krnn.gru_scan_tm(g6, g6, m, torch.zeros(2, 6, 18, device=cuda),
+                         torch.zeros(2, 18, device=cuda))
+    with pytest.raises(NotImplementedError, match="B2'"):
+        krnn.gru_scan_tm(g, g, m, wh.requires_grad_(), bh)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         kstft.stft(torch.zeros(1, 4000, dtype=torch.float64, device=cuda), 320, 160)
@@ -103,3 +157,20 @@ def test_enhance_on_card_matches_cpu(cuda):
     y_cpu = make_enhance_fn(cfg, "cpu")(model, wav, lengths)
     y_gpu = make_enhance_fn(cfg, cuda)(model.to(cuda), wav, lengths).cpu()
     torch.testing.assert_close(y_gpu, y_cpu, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("use_enhancer", [False, True])
+def test_recognition_forward_on_card_matches_cpu(cuda, use_enhancer):
+    cfg = Config().replace(am=AMConfig(rnn_hidden=32, rnn_layers=2, conv_channels=8),
+                           enhancer=EnhancerConfig(conv_channels=8, rnn_hidden=16))
+    am, enh = init_am(cfg, seed=0), init_enhancer(cfg, seed=1)
+    wav = _randn(2, 16000, seed=10, scale=0.3)
+    lengths = torch.tensor([16000, 9000])
+    wav[1, 9000:] = 0
+    fwd = make_eval_forward(cfg, use_enhancer)
+    logits_cpu, pads_cpu = fwd(am, enh, wav, lengths)
+    before = krnn.gru_scan_tm.launches
+    logits, pads = fwd(am.to(cuda), enh.to(cuda), wav.to(cuda), lengths.to(cuda))
+    assert krnn.gru_scan_tm.launches == before + 2
+    torch.testing.assert_close(pads.cpu(), pads_cpu, rtol=0, atol=0)
+    torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=0, atol=1e-4)

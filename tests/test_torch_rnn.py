@@ -1,9 +1,10 @@
-"""Port parity: the masked bidirectional LSTM (aas_enhancement_tpu_torch.ops.rnn,
-.ops.cuda.rnn plain version) against JAX BiRNN(cell="lstm", time_major=True)
-on its XLA scan, and against the Pallas lstm_scan_tm in interpret mode.
+"""Port parity: the masked bidirectional LSTM and GRU
+(aas_enhancement_tpu_torch.ops.rnn, .ops.cuda.rnn plain versions) against JAX
+BiRNN(cell=..., time_major=True) on its XLA scan, and against the Pallas
+lstm_scan_tm / gru_scan_tm in interpret mode.
 
-Tolerance 1e-5 (rtol and atol): bounded LSTM activations, f32 recurrent
-products summed in a different order on each side, over at most 24 steps.
+Tolerance 1e-5 (rtol and atol): bounded activations, f32 recurrent products
+summed in a different order on each side, over at most 24 steps.
 """
 
 import jax
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from aas_enhancement_tpu.ops.pallas.rnn_kernel import gru_scan_tm as gru_pallas
 from aas_enhancement_tpu.ops.pallas.rnn_kernel import lstm_scan_tm as lstm_pallas
 from aas_enhancement_tpu.ops.rnn import BiRNN as JaxBiRNN
 from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
@@ -22,8 +24,8 @@ torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _jax_birnn(x, lengths, hidden):
-    mod = JaxBiRNN(hidden, cell="lstm", time_major=True, impl="xla")
+def _jax_birnn(x, lengths, hidden, cell="lstm"):
+    mod = JaxBiRNN(hidden, cell=cell, time_major=True, impl="xla")
     params = mod.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(lengths))
     # Non-zero biases so bh and the wx bias are exercised too.
     rng = np.random.default_rng(11)
@@ -34,8 +36,8 @@ def _jax_birnn(x, lengths, hidden):
     return p, np.asarray(y)
 
 
-def _torch_birnn(p, d, hidden):
-    mod = BiRNN(d, hidden)
+def _torch_birnn(p, d, hidden, cell="lstm"):
+    mod = BiRNN(d, hidden, cell=cell)
     mod.load_state_dict({"wx.kernel": torch.from_numpy(p["wx"]["kernel"]),
                          "wx.bias": torch.from_numpy(p["wx"]["bias"]),
                          "wh": torch.from_numpy(p["wh"]),
@@ -119,6 +121,84 @@ def test_cpu_tensor_takes_plain_version():
     assert krnn.lstm_scan_tm.launches == before
 
 
-def test_gru_is_not_ported():
-    with pytest.raises(NotImplementedError, match="B2"):
-        BiRNN(4, 4, cell="gru")
+def test_unknown_cell_raises():
+    with pytest.raises(ValueError, match="unknown cell"):
+        BiRNN(4, 4, cell="rnn")
+
+
+@pytest.mark.parametrize("t,b", [(19, 3), (8, 1)])
+def test_gru_birnn_matches_jax(t, b):
+    """Non-zero bh and wx bias: bh's n-slice inside r * (...), wx's outside."""
+    d, hidden = 12, 16
+    rng = np.random.default_rng(t + 50)
+    x = rng.standard_normal((t, b, d)).astype(np.float32)
+    lengths = np.array([t, t - 7, 3][:b], np.int32)
+    p, ref = _jax_birnn(x, lengths, hidden, cell="gru")
+    mod = _torch_birnn(p, d, hidden, cell="gru")
+    assert mod.wh.shape == (2, hidden, 3 * hidden)
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x), torch.from_numpy(lengths)).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+    for i in range(b):
+        assert np.all(got[lengths[i]:, i] == 0.0)
+
+
+def test_gru_plain_matches_pallas_interpret():
+    t, b, h = 16, 2, 8
+    rng = np.random.default_rng(17)
+    gxf, gxb = (0.5 * rng.standard_normal((2, t, b, 3 * h))).astype(np.float32)
+    wh = (0.3 * rng.standard_normal((2, h, 3 * h))).astype(np.float32)
+    bh = (0.1 * rng.standard_normal((2, 3 * h))).astype(np.float32)
+    lengths = np.array([t, 10])
+    m = (np.arange(t)[:, None] < lengths[None]).astype(np.float32)
+    yf_p, yb_p = gru_pallas(jnp.asarray(gxf), jnp.asarray(gxb), jnp.asarray(m),
+                            jnp.asarray(wh), jnp.asarray(bh), True)
+    yf, yb = krnn.gru_scan_tm(*(torch.from_numpy(a) for a in (gxf, gxb, m, wh, bh)))
+    np.testing.assert_allclose(yf.numpy(), np.asarray(yf_p), **TOL)
+    np.testing.assert_allclose(yb.numpy(), np.asarray(yb_p), **TOL)
+
+
+def test_gru_padding_invariance():
+    t, d, hidden = 16, 10, 8
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((t, 2, d)).astype(np.float32)
+    x[11:, 1] = 50.0
+    lengths = torch.tensor([t, 11])
+    mod = BiRNN(d, hidden, cell="gru")
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for prm in mod.parameters():
+            prm.copy_(0.3 * torch.randn(prm.shape, generator=gen))
+        y = mod(torch.from_numpy(x), lengths)
+        y1 = mod(torch.from_numpy(x[:11, 1:2]), torch.tensor([11]))
+    torch.testing.assert_close(y[:11, 1:2], y1, rtol=1e-6, atol=1e-6)
+    assert torch.all(y[11:, 1] == 0.0)
+
+
+def test_gru_n_gate_bias_sits_inside_r():
+    """Zero weights and h = 0 at the first step: gh = bh.  With xr = -30
+    (r -> 0) the n-gate's bias is multiplied away, so h1 = (1 - z) tanh(xn);
+    folding b_hn into gx would give (1 - z) tanh(xn + b_hn) instead."""
+    h = 4
+    gxf = torch.zeros(1, 1, 3 * h)
+    gxf[..., :h] = -30.0                  # r -> 0
+    gxf[..., 2 * h:] = 0.5                # xn
+    bh = torch.zeros(2, 3 * h)
+    bh[:, 2 * h:] = 2.0                   # b_hn, inside r * (...)
+    bh[:, h: 2 * h] = 0.3                 # b_hz: z = sigmoid(0.3)
+    yf, _ = krnn.gru_scan_tm_plain(gxf, torch.zeros_like(gxf), torch.ones(1, 1),
+                                   torch.zeros(2, h, 3 * h), bh)
+    z = torch.sigmoid(torch.tensor(0.3))
+    torch.testing.assert_close(yf[0, 0], ((1 - z) * torch.tanh(torch.tensor(0.5))).expand(h),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_gru_cpu_tensor_takes_plain_version():
+    args = [torch.randn(5, 2, 24, generator=torch.Generator().manual_seed(i))
+            for i in range(2)] + [torch.ones(5, 2), torch.zeros(2, 8, 24),
+                                  torch.zeros(2, 24)]
+    before = krnn.gru_scan_tm.launches
+    a = krnn.gru_scan_tm(*args)
+    b = krnn.gru_scan_tm_plain(*args)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert krnn.gru_scan_tm.launches == before
