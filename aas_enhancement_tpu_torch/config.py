@@ -2,11 +2,11 @@
 ``aas_enhancement_tpu/config.py``).
 
 The same dataclasses, fields and defaults as the JAX package's audio, AM,
-enhancer and data sections, plus the train seed that random init draws from.
-A config JSON written by either package loads here: sections and keys the
-port does not read yet (the discriminator, mesh and the rest of train) are
-skipped, as the JAX package's own ``Config.from_dict`` skips unknown keys,
-and JSON lists become tuples, as there.
+enhancer, discriminator and data sections, and the fields of its train
+section that the port reads.  A config JSON written by either package loads
+here: sections and keys the port does not have (the mesh section, the rest
+of train) are skipped, as the JAX package's own ``Config.from_dict`` skips
+unknown keys, and JSON lists become tuples, as there.
 """
 
 from __future__ import annotations
@@ -70,8 +70,8 @@ class DataConfig:
     """Host-side data pipeline (``data/dataset.py``).
 
     ``augment=True`` raises ``NotImplementedError`` in ``AudioDataset``
-    (augmentation is not ported).  ``use_grain`` is read only by the train
-    loop, which is not ported either.  ``native_decode`` is accepted and
+    (augmentation is not ported).  ``use_grain=True`` raises in the trainer
+    (the grain loader is not ported, ROADMAP A9).  ``native_decode`` is accepted and
     ignored: the port has only the Python reader, whose batches the JAX
     package's native decoder reproduces byte for byte.
     """
@@ -95,10 +95,41 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
-class TrainConfig:
-    """The part of the train section the port reads: the init seed."""
+class DiscriminatorConfig:
+    """Spectrogram discriminator."""
 
+    channels: tuple = (32, 64, 128)
+    dtype: str = "float32"       # only "float32" is ported
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The train section's fields that the port reads, with the JAX package's
+    defaults: the ``aas``, ``adversarial`` and ``acoustic`` objectives with
+    ``grad_accum``.  Fields of what is not ported yet (the ``paired`` and
+    ``am`` objectives, SpecAugment, distillation, checkpoints, validation,
+    prefetch) are skipped when a JAX config JSON loads; ``sortagrad``,
+    ``profile_dir`` and ``streaming_finetune`` are read only to raise.
+    """
+
+    objective: str = "aas"       # "adversarial" | "acoustic" | "aas" ("paired", "am": A8)
+    batch_size: int = 8
+    lr_g: float = 3e-4
+    lr_d: float = 3e-4
+    adam_b1: float = 0.5         # GAN-friendly beta1 for G/D
+    adam_b2: float = 0.999
+    max_grad_norm: float = 400.0
+    lambda_adv: float = 1.0      # weight on the adversarial term of the AAS loss
+    gan_loss: str = "lsgan"      # "lsgan" | "bce"
+    epochs: int = 10
+    steps_per_epoch: int = 0     # 0 = derive from the dataset
+    lr_anneal: float = 1.0       # lr(epoch) = lr / lr_anneal**epoch
+    sortagrad: bool = False
     seed: int = 0
+    log_every: int = 10
+    grad_accum: int = 1          # microbatches per optimizer update
+    profile_dir: str = ""
+    streaming_finetune: bool = False
 
 
 @dataclass(frozen=True)
@@ -106,6 +137,7 @@ class Config:
     audio: AudioConfig = field(default_factory=AudioConfig)
     am: AMConfig = field(default_factory=AMConfig)
     enhancer: EnhancerConfig = field(default_factory=EnhancerConfig)
+    discriminator: DiscriminatorConfig = field(default_factory=DiscriminatorConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
 

@@ -1,9 +1,10 @@
-"""Parameters: flax tree -> ``Enhancer`` / ``AcousticModel`` state_dict, and a
-flax-like random init.
+"""Parameters: flax tree -> ``Enhancer`` / ``AcousticModel`` /
+``Discriminator`` state_dict, and a flax-like random init.
 
 Layouts:
 - conv kernels: flax HWIO -> torch OIHW (``convs.{i}.weight``,
-  ``conv{1,2}.weight``); biases as is;
+  ``conv{1,2}.weight``; the discriminator's ``conv{i}`` -> ``convs.{i}``);
+  biases as is;
 - ``Dense`` kernels stay [in, out] (``ops/dense.py`` keeps flax's layout);
 - BiRNN ``wh`` [2, H, G*H] and ``bh`` [2, G*H] stay as they are, the layout the
   LSTM and GRU kernels read;
@@ -90,6 +91,22 @@ def am_params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             _birnn(sd, f"rnns.{idx}", sub)
         elif name == "fc":
             _pair(sd, "fc", sub, ("kernel", "bias"))
+        else:
+            raise KeyError(f"unexpected flax parameter group {name!r}")
+    return sd
+
+
+def disc_params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax ``Discriminator`` params (``conv0..``, ``head``; with or without
+    the top-level "params" key) -> ``Discriminator`` state_dict of f32 CPU
+    tensors."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, sub in tree.get("params", tree).items():
+        kind, idx = _split(name)
+        if kind == "conv":
+            _conv(sd, f"convs.{idx}", sub)
+        elif name == "head":
+            _pair(sd, "head", sub, ("kernel", "bias"))
         else:
             raise KeyError(f"unexpected flax parameter group {name!r}")
     return sd

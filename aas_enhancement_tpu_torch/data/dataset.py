@@ -6,9 +6,11 @@ come from a few duration buckets (whole seconds at quantiles of the corpus'
 lengths), batches form within a bucket in a seeded per-epoch order, and a
 short last batch is filled by repeating its items (``Batch.size`` counts the
 real rows).  Labels pad to one width per dataset (the longest transcript,
-rounded up to 8) with {0, 1} ``label_paddings``.  The training loop's
-options (SortaGrad order, drop_last, resume skip, batch counts, the unpaired
-clean stream) come with the training slice (ROADMAP A6, A9).
+rounded up to 8) with {0, 1} ``label_paddings``.  The trainer reads batch
+counts (``num_batches``) and the endless unpaired clean stream
+(``UnpairedCleanStream``, padded to the noisy batch's length with
+``make_batch(bucket_override=)``); SortaGrad order, drop_last and the resume
+skip come with the rest of the loop (ROADMAP A9).
 
 Only the Python wav reader is ported: the JAX package's native decoder
 (``DataConfig.native_decode``) gives byte-identical batches, so the flag is
@@ -112,8 +114,10 @@ class AudioDataset:
         out[:n] = wav[:n]
         return out, n
 
-    def make_batch(self, items: list[dict], real_size: int = 0) -> Batch:
-        bucket = max(self.bucket_of(it["num_samples"]) for it in items)
+    def make_batch(self, items: list[dict], real_size: int = 0,
+                   bucket_override: int = 0) -> Batch:
+        bucket = bucket_override or max(self.bucket_of(it["num_samples"])
+                                        for it in items)
         u = self.max_label_len
         b = len(items)
         labels = np.zeros((b, u), np.int32)
@@ -139,6 +143,14 @@ class AudioDataset:
         return Batch(wav=wav, wav_lengths=wav_lengths, labels=labels,
                      label_paddings=label_pad, clean_wav=clean,
                      real_size=real_size or len(items))
+
+    def num_batches(self, batch_size: int) -> int:
+        """Batches per epoch, from item metadata (no wav decode)."""
+        by_bucket: dict[int, int] = {}
+        for it in self.items:
+            b = self.bucket_of(it["num_samples"])
+            by_bucket[b] = by_bucket.get(b, 0) + 1
+        return sum(-(-n // batch_size) for n in by_bucket.values())
 
     def batches(self, batch_size: int, seed: int = 0, epoch: int = 0) -> Iterator[Batch]:
         """Epoch iterator: shuffled within duration buckets, then (epoch > 0)
@@ -170,6 +182,22 @@ def epoch_chunks(dataset: AudioDataset, batch_size: int, seed: int = 0,
     if epoch > 0:
         rng.shuffle(chunks)
     return chunks
+
+
+class UnpairedCleanStream:
+    """Endless stream of clean batches for the discriminator's real side: each
+    batch draws ``batch_size`` items uniformly (with replacement) from the
+    seeded generator, as the JAX package's stream does."""
+
+    def __init__(self, dataset: AudioDataset, batch_size: int, seed: int = 1):
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.rng = np.random.default_rng(seed)
+
+    def next_batch(self, bucket: int) -> Batch:
+        """A clean batch padded to ``bucket`` samples (the noisy batch's length)."""
+        idx = self.rng.integers(0, len(self.ds.items), size=self.batch_size)
+        return self.ds.make_batch([self.ds.items[i] for i in idx], bucket_override=bucket)
 
 
 def _to_int16(x: np.ndarray) -> np.ndarray:

@@ -19,16 +19,20 @@ def uses_kernel(name: str, x: torch.Tensor) -> bool:
 
 
 def check_kernel_inputs(name: str, tensors: tuple[torch.Tensor, ...],
-                        backward: str) -> None:
-    """Raise unless every tensor is float32 on the first one's device and no
-    gradient is wanted: the backward kernel (ROADMAP id ``backward``) is not
-    ported, and a quiet detach would hide that."""
+                        backward: str | None) -> None:
+    """Raise unless every tensor is float32 on the first one's device.
+
+    ``backward`` names the ROADMAP item of a backward kernel that is not
+    ported: then a wanted gradient raises too, since a quiet detach would
+    hide it.  Kernels whose backward is ported (an autograd Function) pass
+    None."""
     for x in tensors:
         if x.dtype != torch.float32:
             raise TypeError(f"{name}: needs float32, got {x.dtype}")
         if x.device != tensors[0].device:
             raise ValueError(f"{name}: inputs on {x.device} and {tensors[0].device}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+    if (backward is not None and torch.is_grad_enabled()
+            and any(x.requires_grad for x in tensors)):
         raise NotImplementedError(
             f"{name}: the backward kernel is not ported yet (ROADMAP {backward}); "
             "call under torch.inference_mode() or torch.no_grad()")

@@ -41,6 +41,16 @@ SIGNATURES = {
     "aas_lstm_tm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # gxf, gxb, gx_stride_t, gx_stride_b, m, wh, bh, yf, yb, T, B, H, stream
     "aas_gru_tm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # ... as aas_lstm_tm_fwd, then hp, cp, act (saved for the backward), T, B, H, stream
+    "aas_lstm_tm_fwd_train": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _P),
+    # ... as aas_gru_tm_fwd, then hp, act (saved for the backward), T, B, H, stream
+    "aas_gru_tm_fwd_train": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _P),
+    # m, whT, cp, act, dyf, dyb, dgx, T, B, H, stream
+    "aas_lstm_tm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # m, whT, hp, act, dyf, dyb, dgx, dgh (or NULL), T, B, H, stream
+    "aas_gru_tm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -1,17 +1,24 @@
-"""Where the device time of one enhance call and one recognition forward
-goes (counterpart of ``aas_enhancement_tpu/utils/profiling.py``).
+"""Where the device time of one enhance call, one recognition forward and
+one AAS train step goes (counterpart of
+``aas_enhancement_tpu/utils/profiling.py``).
 
     python -m aas_enhancement_tpu_torch.utils.profiling [--batch 4] [--seconds 8]
         [--calls 3] [--warmup 3] [--trace-dir traces/]
 
-Runs ``make_enhance_fn`` and then ``make_eval_forward(use_enhancer=True)``
-(enhancer + AM, the evaluate CLI's enhanced leg) at the shipped ``Config``
-width on full rows of random audio, with PyTorch's default TF32 settings as
-the CLIs run, records ``--calls`` calls of each with ``torch.profiler`` (CPU
-and CUDA activity) after ``--warmup`` calls, and prints per call and path:
+Runs ``make_enhance_fn``, then ``make_eval_forward(use_enhancer=True)``
+(enhancer + AM, the evaluate CLI's enhanced leg), both at ``--batch``, then
+one ``aas`` step of ``make_train_step`` (G and D gradients and updates, the
+frozen AM) at ``TrainConfig.batch_size``, at the shipped ``Config`` width on
+full rows of random audio (the step with random transcripts of 48 labels),
+with PyTorch's default TF32 settings as the CLIs run, records ``--calls``
+calls of each with ``torch.profiler`` (CPU and CUDA activity) after
+``--warmup`` calls, and prints per call and path:
 the device time of each kernel name, ranked, with its share; the device busy
-time (the union of kernel, memcpy and memset intervals); and the idle share,
-1 - busy / span, where the span runs from the first device event to the last.
+time (the union of kernel, memcpy and memset intervals); the idle share of the
+profiled span, 1 - busy / span, where the span runs from the first device
+event to the last (the profiler's host cost stretches it); and the idle share
+of an unprofiled call, 1 - busy / wall, where wall is the median host time of
+``--calls`` synchronized calls made right after, in the same process.
 """
 
 from __future__ import annotations
@@ -19,7 +26,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import tempfile
+import time
 from collections import defaultdict
 
 import torch
@@ -60,8 +69,10 @@ def summarize_trace(trace: dict, calls: int = 1) -> dict:
 
 
 def profile_call(fn, calls: int, warmup: int, trace_path: str) -> dict:
-    """Profile ``calls`` calls of ``fn()`` after ``warmup`` calls; the Chrome
-    trace is written to ``trace_path``."""
+    """Profile ``calls`` calls of ``fn()`` after ``warmup`` calls, then time
+    ``calls`` unprofiled ones; the Chrome trace is written to ``trace_path``.
+    The summary gains ``wall_ms`` (median unprofiled call) and ``idle_wall``
+    (1 - busy / wall)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -73,17 +84,31 @@ def profile_call(fn, calls: int, warmup: int, trace_path: str) -> dict:
         torch.cuda.synchronize()
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
-        return summarize_trace(json.load(f), calls)
+        summary = summarize_trace(json.load(f), calls)
+    walls = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    summary["wall_ms"] = statistics.median(walls)
+    summary["idle_wall"] = 1.0 - summary["busy_ms"] / summary["wall_ms"]
+    return summary
 
 
 def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
                   trace_dir: str) -> dict:
-    """{"enhance": summary, "recognize": summary} at ``batch`` x ``seconds``
-    on the GPU, weights drawn from the config's train seed."""
+    """{"enhance": summary, "recognize": summary, "train": summary} at
+    ``batch`` (the step at ``TrainConfig.batch_size``) x ``seconds`` on the
+    GPU, weights drawn from the config's train seed; each summary also holds
+    its ``batch``."""
     from aas_enhancement_tpu_torch.cli.enhance import resolve_device
     from aas_enhancement_tpu_torch.config import Config
     from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
     from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
+    from aas_enhancement_tpu_torch.train.loop import init_state
+    from aas_enhancement_tpu_torch.train.steps import make_train_step
 
     device = resolve_device("cuda")
     cfg = Config()
@@ -95,12 +120,28 @@ def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
     am = init_am(cfg, cfg.train.seed, device)
     enhance = make_enhance_fn(cfg, device)
     recognize = make_eval_forward(cfg, use_enhancer=True)
-    return {
+    out = {
         "enhance": profile_call(lambda: enhance(enhancer, wav, lengths), calls,
                                 warmup, os.path.join(trace_dir, "enhance_trace.json")),
         "recognize": profile_call(lambda: recognize(am, enhancer, wav, lengths), calls,
                                   warmup, os.path.join(trace_dir, "recognize_trace.json")),
     }
+    del enhancer, am
+    state = init_state(cfg, cfg.train.seed, device)
+    step = make_train_step(cfg)
+    train_batch, u = cfg.train.batch_size, 48
+    tb = {"wav": (0.3 * torch.randn(train_batch, n, generator=gen)).to(device),
+          "wav_lengths": torch.full((train_batch,), n, device=device),
+          "labels": torch.randint(1, cfg.am.vocab_size, (train_batch, u),
+                                  generator=gen).to(device),
+          "label_paddings": torch.zeros(train_batch, u, device=device),
+          "clean_wav": (0.3 * torch.randn(train_batch, n, generator=gen)).to(device),
+          "clean_wav_lengths": torch.full((train_batch,), n, device=device)}
+    out["train"] = profile_call(lambda: step(state, tb), calls, warmup,
+                                os.path.join(trace_dir, "train_trace.json"))
+    for path, summary in out.items():
+        summary["batch"] = train_batch if path == "train" else batch
+    return out
 
 
 def main(argv=None) -> None:
@@ -110,7 +151,7 @@ def main(argv=None) -> None:
     p.add_argument("--seconds", type=float, default=8.0)
     p.add_argument("--calls", type=int, default=3)
     p.add_argument("--warmup", type=int, default=3)
-    p.add_argument("--trace-dir", help="keep the two Chrome traces in this directory")
+    p.add_argument("--trace-dir", help="keep the three Chrome traces in this directory")
     p.add_argument("--top", type=int, default=25, help="kernel names to print")
     args = p.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp:
@@ -119,10 +160,12 @@ def main(argv=None) -> None:
         summaries = profile_paths(args.batch, args.seconds, args.calls, args.warmup,
                                   trace_dir)
     for path, s in summaries.items():
-        print(f"[profile {path}] {torch.cuda.get_device_name(0)} | B={args.batch} x "
+        print(f"[profile {path}] {torch.cuda.get_device_name(0)} | B={s['batch']} x "
               f"{args.seconds} s, per call over {args.calls} calls after "
               f"{args.warmup} warmups | device busy {s['busy_ms']:.3f} ms | span "
               f"{s['span_ms']:.3f} ms | idle share {100 * s['idle_share']:.2f}% | "
+              f"unprofiled wall {s['wall_ms']:.3f} ms, idle share "
+              f"{100 * s['idle_wall']:.2f}% | "
               f"{s['events']:.0f} device events | "
               f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
               f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")

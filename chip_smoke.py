@@ -20,16 +20,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    synthetic corpus with --device cuda, counting each kernel's launches; then
    the recognition forward (enhancer + AM, 4 x BiGRU-512) at B=4 x 8 s on the
    card against the same weights on the CPU (logits, greedy ids), and its
-   time per batch with and without the enhancer.
+   time per batch with and without the enhancer;
+6. train: the port's train CLI (--objective aas, 3 steps, B=4) on a synthetic
+   corpus with --device cuda, counting each kernel's launches (the backward
+   kernels included); one AAS step's metrics and G and D gradients at
+   B=4 x 8 s on the card against the same weights and batch on the CPU; and
+   full AAS steps timed at B=8 and B=32 x 8 s.
+The kernels phase also checks the three backward kernels (LSTM, GRU,
+GroupNorm) at B=8 against autograd through the plain versions.
 The line before the last two is a JSON summary of the kernels (launches from
-the recognize phase's CLI run, which runs all five), the next the card's name
-and power limit, the last {"ok": true, "device": {...}}.
+the train phase's CLI run for the kernels of the training path, from the
+recognize phase's for the ISTFT), the next the card's name and power limit,
+the last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import os
@@ -45,6 +54,10 @@ N = SR * SECONDS
 LENGTHS = [N, 112000, 96000, 64000]   # 801, 701, 601 and 401 valid frames of 801
 AM_T = 401                            # AM frames of 801: conv1 halves time (ceil)
 AM_LENGTHS = [401, 351, 301, 201]     # conv_out_length of 801/701/601/401
+BWD_B = 8                             # the backward kernels' batch (TrainConfig default)
+BWD_FRAMES = [801, 701, 601, 401, 801, 751, 501, 301]
+BWD_AM_FRAMES = [401, 351, 301, 201, 401, 376, 251, 151]
+TRAIN_BATCHES = (8, 32)               # timed AAS steps, x 8 s
 
 # Tolerances (max abs error, kernel vs plain version, f32 on the card).  Both
 # sides accumulate in float32 in different orders; each bound is about 3-50x
@@ -55,6 +68,33 @@ TOL = {
     "gn_act": (1e-5, "unit-scale normalized output, f32 group sums over 0.1-2.6M values"),
     "lstm": (1e-5, "|y| < 1, f32 rounding carried through 801 recurrent steps"),
     "gru": (1e-5, "|y| < 1, 512-term f32 dots, rounding carried through 401 steps"),
+}
+# Backward kernels: max abs error over the gradients relative to the largest
+# |gradient| of the same tensor, kernel vs autograd through the plain version.
+BWD_TOL = {
+    "lstm_bwd": (1e-4, "dh carried back through 801 steps of 1024-term f32 dots; "
+                 "dWh sums T*B = 6408 outer products"),
+    "gru_bwd": (1e-4, "dh carried back through 401 steps of 1536-term f32 dots; "
+                "dWh sums T*B = 3208 outer products"),
+    "gn_bwd": (1e-5, "f32 group sums over 0.2-5M values, then one fused elementwise pass"),
+}
+# Card vs CPU, one AAS step from the same weights and batch (f32, TF32 off):
+# metrics relative; each gradient tensor's max abs difference relative to its
+# own max|g|.  A tensor whose CPU max|g| is below GRAD_ZERO of the network's
+# largest |g| is zero to rounding (e.g. a bias whose true gradient cancels)
+# and is held to GRAD_ZERO of the network's max|g| instead.
+TRAIN_TOL = (1e-4, "CTC over 401 frames, D scores, through STFT, conv/GN, 2 "
+             "BiLSTM-256 x 801 and 4 BiGRU-512 x 401 steps: card vs CPU sum orders")
+GRAD_ZERO = 1e-5
+# Measured on an H100, per tensor: G 6.4e-05 to 2.2e-04 (convs.0.bias), D
+# 0 to 1.8e-04 (convs.1.weight); no tensor zero to rounding.
+TRAIN_GRAD_TOL = {
+    "g": (1e-3, "G gradient carried back through CTC, 4 BiGRU-512, the AM's convs and "
+          "GNs, 2 BiLSTM-256 and the enhancer's convs; weight and bias gradients are "
+          "f32 sums of 3208-6408 frames' products that cancel, in cuDNN's and the "
+          "CPU's orders"),
+    "d": (1e-3, "D weight gradients: f32 sums over the clean and the detached enhanced "
+          "batch's frames that cancel, in cuDNN's and the CPU's orders"),
 }
 SLICE_TOL = (1e-4, "wav in [-1, 1] after STFT, 2 conv+GN, 2 BiLSTM-256 over 801 "
              "steps, ISTFT: f32 rounding of card vs CPU sum orders compounds")
@@ -138,12 +178,14 @@ def make_inputs(device):
 
 
 def kernel_counters() -> dict:
-    """The five kernel wrappers of the two paths, by kernel name."""
+    """The eight kernel wrappers of the three paths, by kernel name."""
     from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
     from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
     from aas_enhancement_tpu_torch.ops.triton import gn
     return {"stft": kstft.stft, "istft": kstft.istft, "gn_act": gn.masked_group_norm_act,
-            "lstm": krnn.lstm_scan_tm, "gru": krnn.gru_scan_tm}
+            "lstm": krnn.lstm_scan_tm, "gru": krnn.gru_scan_tm,
+            "lstm_bwd": krnn.lstm_scan_tm_bwd, "gru_bwd": krnn.gru_scan_tm_bwd,
+            "gn_bwd": gn.masked_group_norm_act_bwd}
 
 
 def phase_kernels(device):
@@ -222,7 +264,83 @@ def phase_kernels(device):
                 err = max(err, results[name][0])       # times and the worst error
                 ms, plain_ms = results[name][1:]
             results[name] = (err, ms, plain_ms)
+    kernels_backward(device, gen, results)
     return results
+
+
+def _rnn_call(gates, m, wh, bh, gh: int):
+    """fn -> fn(gxf, gxb, m, wh, bh) on the two strided halves of ``gates``."""
+    return lambda fn: fn(gates[..., :gh], gates[..., gh:], m, wh, bh)
+
+
+def kernels_backward(device, gen, results: dict) -> None:
+    """The backward kernels at the training path's full widths, B=8 with
+    ragged lengths: the kernel autograd Functions' gradients against
+    torch.autograd.grad through the plain versions on the card, and the
+    time of the backward pass alone (the graph built once, kept)."""
+    import torch
+    from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
+    from aas_enhancement_tpu_torch.ops.masking import time_mask
+    from aas_enhancement_tpu_torch.ops.triton import gn
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(device)
+
+    frames = torch.tensor(BWD_FRAMES, device=device)
+    am_frames = torch.tensor(BWD_AM_FRAMES, device=device)
+    cases = {}             # label: (kernel name, fn(wrapper or plain) -> outs, inputs)
+    for name, cell, t_len, h, lens in (("lstm_bwd", "lstm", 1 + N // 160, 256, frames),
+                                       ("gru_bwd", "gru", AM_T, 512, am_frames)):
+        g = 4 if cell == "lstm" else 3
+        gates = randn(t_len, BWD_B, 2 * g * h, scale=0.5).requires_grad_()
+        wh = randn(2, h, g * h, scale=h ** -0.5).requires_grad_()
+        bh = randn(2, g * h, scale=0.1).requires_grad_()
+        m = time_mask(lens, t_len).T.contiguous()
+        pair = ((krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain) if cell == "lstm"
+                else (krnn.gru_scan_tm, krnn.gru_scan_tm_plain))
+        cases[f"{name} T={t_len} B={BWD_B} H={h}"] = (
+            name, _rnn_call(gates, m, wh, bh, g * h), pair, (gates, wh, bh))
+    for act, f, lens, slope in (("leaky_relu", 161, frames, 0.2),
+                                ("hardtanh", 81, am_frames, 0.2),
+                                ("hardtanh", 41, am_frames, 0.2)):
+        t_len = 1 + N // 160 if act == "leaky_relu" else AM_T
+        x = (0.5 + 3.0 * randn(BWD_B, t_len, f, 32)).requires_grad_()
+        scale = (1 + randn(32, scale=0.1)).requires_grad_()
+        bias = randn(32, scale=0.1).requires_grad_()
+        kw = dict(num_groups=8, act=act, slope=slope)
+        cases[f"gn_bwd {act} [{BWD_B}, {t_len}, {f}, 32]"] = (
+            "gn_bwd", lambda fn, x=x, s=scale, b=bias, ln=lens, kw=kw: (fn(x, s, b, ln, **kw),),
+            (gn.masked_group_norm_act, gn.masked_group_norm_act_plain), (x, scale, bias))
+
+    for label, (name, run, (kernel, plain), inputs) in cases.items():
+        outs_k, outs_p = run(kernel), run(plain)
+        cots = tuple(torch.randn(o.shape, generator=gen).to(device) for o in outs_k)
+        grads_k = torch.autograd.grad(outs_k, inputs, cots, retain_graph=True)
+        grads_p = torch.autograd.grad(outs_p, inputs, cots, retain_graph=True)
+        torch.cuda.synchronize()
+        err = max_err(grads_k, grads_p)
+        rel = max((a - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(grads_k, grads_p))
+        tol, why = BWD_TOL[name]
+        back_k = lambda: torch.autograd.grad(outs_k, inputs, cots, retain_graph=True)  # noqa: E731
+        back_p = lambda: torch.autograd.grad(outs_p, inputs, cots, retain_graph=True)  # noqa: E731
+        reps = 3 if name != "gn_bwd" else 10
+        t_p = cuda_ms(back_p, reps, warmup=1)                       # in turns
+        t_k = cuda_ms(back_k, reps, warmup=1) + cuda_ms(back_k, reps, warmup=1)
+        t_p += cuda_ms(back_p, reps, warmup=1)
+        ms, plain_ms = statistics.median(t_k), statistics.median(t_p)
+        grads = "dx, dscale, dbias" if name == "gn_bwd" else "dgxf, dgxb, dwh, dbh"
+        print(f"[kernel] {label}: grads ({grads}) max_abs_err {err:.3e}, relative "
+              f"to max|grad| {rel:.3e} (tol {tol:.0e}: {why}) | "
+              f"backward kernel {ms:.4f} ms | plain backward {plain_ms:.4f} ms | "
+              f"x{plain_ms / ms:.2f}")
+        if not rel <= tol:
+            fail(f"{label}: gradient error {rel:.3e} of max|grad| > tol {tol:.0e}")
+        if name in results:
+            err = max(err, results[name][0])
+            ms, plain_ms = results[name][1:]
+        results[name] = (err, ms, plain_ms)
+        del outs_k, outs_p, grads_k, grads_p
 
 
 def phase_slice(device, card):
@@ -232,7 +350,8 @@ def phase_slice(device, card):
     from aas_enhancement_tpu_torch.data import generate_corpus, read_manifest, read_wav
     from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
 
-    counters = {k: v for k, v in kernel_counters().items() if k != "gru"}
+    counters = {k: v for k, v in kernel_counters().items()
+                if k in ("stft", "istft", "gn_act", "lstm")}
     with tempfile.TemporaryDirectory() as tmp:
         manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
         out_dir = os.path.join(tmp, "enhanced")
@@ -311,7 +430,7 @@ def phase_recognize(device, card):
     from aas_enhancement_tpu_torch.enhance import init_enhancer
     from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
 
-    counters = kernel_counters()
+    counters = {k: v for k, v in kernel_counters().items() if not k.endswith("_bwd")}
     with tempfile.TemporaryDirectory() as tmp:
         manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
         for fn in counters.values():
@@ -377,6 +496,139 @@ def phase_recognize(device, card):
     return launches
 
 
+def train_batch(b: int, gen, lengths: list[int]) -> dict:
+    """An AAS batch of b utterances (sine + noise, valid up to ``lengths``),
+    ragged transcripts of up to 48 labels and an unpaired clean batch, all
+    rows real (weight 1), on the CPU."""
+    import torch
+    reps = -(-b // len(lengths))
+    lens = torch.tensor((lengths * reps)[:b], dtype=torch.int32)
+    t = torch.arange(N) / SR
+    valid = torch.arange(N)[None] < lens[:, None]
+    wav = (0.4 * torch.sin(2 * torch.pi * 440.0 * t)[None]
+           + 0.2 * torch.randn(b, N, generator=gen)) * valid
+    clean = 0.3 * torch.randn(b, N, generator=gen) * valid.flip(0)
+    u = 48
+    n_labels = torch.tensor(([48, 40, 30, 20] * reps)[:b])
+    return {"wav": wav, "wav_lengths": lens,
+            "labels": torch.randint(1, 29, (b, u), generator=gen, dtype=torch.int32),
+            "label_paddings": (torch.arange(u)[None] >= n_labels[:, None]).float(),
+            "clean_wav": clean, "clean_wav_lengths": lens.flip(0),
+            "row_weights": torch.ones(b), "clean_row_weights": torch.ones(b)}
+
+
+def phase_train(device, card):
+    import torch
+    from aas_enhancement_tpu_torch.cli import train as cli
+    from aas_enhancement_tpu_torch.config import Config
+    from aas_enhancement_tpu_torch.data import generate_corpus
+    from aas_enhancement_tpu_torch.train.loop import init_state
+    from aas_enhancement_tpu_torch.train.state import TrainState
+    from aas_enhancement_tpu_torch.train.steps import make_train_step
+
+    counters = {k: v for k, v in kernel_counters().items() if k != "istft"}
+    with tempfile.TemporaryDirectory() as tmp:
+        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+        for fn in counters.values():
+            fn.launches = 0
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli.main(["--objective", "aas", "--noisy-manifest", manifests["noisy"],
+                      "--clean-manifest", manifests["clean"], "--steps", "3",
+                      "--batch-size", "4", "--am-checkpoint", "seed:0",
+                      "--device", "cuda"])
+        launches = {k: fn.launches for k, fn in counters.items()}
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    records = [json.loads(r) for r in err.getvalue().splitlines() if r.startswith("{")]
+    for r in records:
+        print(f"[train] record {json.dumps(r)}")
+    print(f"[train] cli.train --objective aas --steps 3 --batch-size 4 --device cuda: "
+          f"{json.dumps(line)} | launches {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"the train run launched no {name} kernel")
+    if (line.get("final_step") != 3 or records[-1]["step"] != 3
+            or set(line) != {"final_step", "loss_ctc", "loss_adv_g", "loss_g", "loss_d"}
+            or not all(abs(v) < float("inf") for v in line.values())):
+        fail(f"cli.train printed {line} after records {[r['step'] for r in records]}")
+
+    # One AAS step, card vs CPU, from the same weights and batch: metrics and
+    # the G and D gradients (not post-Adam parameters: the first Adam step
+    # moves near-zero gradients by up to +-lr).
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=B))
+    gen = torch.Generator().manual_seed(3)
+    state_cpu = init_state(cfg, cfg.train.seed, "cpu", am_seed=0)
+    state_gpu = TrainState(g=copy.deepcopy(state_cpu.g).to(device),
+                           d=copy.deepcopy(state_cpu.d).to(device),
+                           am=copy.deepcopy(state_cpu.am).to(device))
+    batch = train_batch(B, gen, LENGTHS)
+    step = make_train_step(cfg)
+    t0 = time.perf_counter()
+    grads_cpu, aux_cpu = step.batch_grads(state_cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    grads_gpu, aux_gpu = step.batch_grads(state_gpu, {k: v.to(device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    tol, why = TRAIN_TOL
+    rel = {k: abs(float(aux_gpu[k]) - float(v)) / max(abs(float(v)), 1e-6)
+           for k, v in aux_cpu.items()}
+    print(f"[train] one AAS step B={B} x {SECONDS} s, card vs CPU (same weights and "
+          f"batch): metrics {json.dumps({k: round(float(v), 6) for k, v in aux_gpu.items()})}; "
+          f"largest relative difference {max(rel.values()):.3e} ({max(rel, key=rel.get)}) "
+          f"(tol {tol:.0e}: {why}); CPU plain path {cpu_s:.2f} s")
+    if set(aux_gpu) != set(aux_cpu) or not max(rel.values()) <= tol:
+        fail(f"card vs CPU AAS metrics differ: {rel}")
+    bad = []
+    for net in ("g", "d"):
+        gtol, gwhy = TRAIN_GRAD_TOL[net]
+        scale = max(v.abs().max().item() for v in grads_cpu[net].values())
+        rel, zero = {}, {}
+        for n, v in grads_cpu[net].items():
+            diff = (grads_gpu[net][n].cpu() - v).abs().max().item()
+            if v.abs().max().item() > GRAD_ZERO * scale:
+                rel[n] = diff / v.abs().max().item()
+            else:
+                zero[n] = diff / scale
+        worst = max(rel, key=rel.get)
+        print(f"[train] {net.upper()} gradients ({len(rel)} tensors, each against its own "
+              f"max|g|): largest difference {rel[worst]:.3e} at {worst} (tol {gtol:.0e}: "
+              f"{gwhy}); {len(zero)} tensors zero to rounding (max|g| <= {GRAD_ZERO:.0e} of "
+              f"the network's {scale:.3e}), largest difference "
+              f"{max(zero.values(), default=0.0):.3e} of it (tol {GRAD_ZERO:.0e})")
+        print(f"[train] {net.upper()} gradient differences per tensor: "
+              f"{json.dumps({n: float(f'{e:.3e}') for n, e in {**rel, **zero}.items()})}")
+        bad += [f"{net} {n}: {e:.3e} of its max|g|" for n, e in rel.items() if not e <= gtol]
+        bad += [f"{net} {n}: {e:.3e} of the network's max|g|"
+                for n, e in zero.items() if not e <= GRAD_ZERO]
+    if bad:
+        fail(f"card vs CPU gradients differ: {bad}")
+
+    for b in TRAIN_BATCHES:
+        cfg_b = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=b))
+        state = init_state(cfg_b, cfg.train.seed, device, am_seed=0)
+        step_b = make_train_step(cfg_b)
+        batch = {k: v.to(device) for k, v in train_batch(b, gen, [N]).items()}
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, aux = step_b(state, batch)
+            torch.cuda.synchronize()
+            if i >= 2:
+                walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        if not all(abs(float(v)) < float("inf") for v in aux.values()):
+            fail(f"non-finite AAS metrics at B={b}: {aux}")
+        print(f"[train] B={b} x {SECONDS} s AAS step on {card}, TF32 off: "
+              f"{wall * 1e3:.2f} ms/step, {b / wall:.2f} utterances/s, "
+              f"{b * SECONDS / wall:.1f} s of audio per s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (median of "
+              f"{len(walls)} after 2 warmups; walls ms {[round(w * 1e3, 2) for w in walls]})")
+        del state, batch
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     name, smi = phase_device()
@@ -386,6 +638,7 @@ def main() -> int:
     results = phase_kernels(device)
     phase_slice(device, smi)                # counts the enhance CLI run's launches
     launches = phase_recognize(device, smi)  # counts the evaluate CLI run's launches
+    launches.update(phase_train(device, smi))  # the train CLI run's, for its kernels
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "aas_enhancement_tpu")]
@@ -402,6 +655,12 @@ def main() -> int:
                  "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:692"),
         "gru": ("cuda", "aas_enhancement_tpu_torch/csrc/gru_tm.cu",
                 "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:892"),
+        "lstm_bwd": ("cuda", "aas_enhancement_tpu_torch/csrc/lstm_tm.cu",
+                     "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:640"),
+        "gru_bwd": ("cuda", "aas_enhancement_tpu_torch/csrc/gru_tm.cu",
+                    "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:846"),
+        "gn_bwd": ("triton", "aas_enhancement_tpu_torch/ops/triton/gn.py",
+                   "aas_enhancement_tpu/ops/pallas/gn_kernel.py:272"),
     }
     kernels = [{"name": k, "route": r, "source": s, "replaces": rep,
                 "launches": launches[k], "max_abs_err": results[k][0],

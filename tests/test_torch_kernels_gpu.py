@@ -9,6 +9,10 @@ Tolerances are f32 sum-order tolerances (each kernel sums in its own order):
 STFT 1e-4 abs on |X| up to ~30, ISTFT 2e-5 abs + 1e-5 rel on unit-scale
 audio, GroupNorm 1e-5, LSTM and GRU 1e-5 on |y| < 1 over 40-60 steps, the
 recognition forward's logits 1e-4 (STFT, enhancer and AM sums compound).
+Gradients of the backward kernels against autograd through the plain
+versions: 1e-5 of the largest |gradient| of each tensor plus rtol 1e-4
+(dh carried back through 40-60 steps of G-term f32 dot products; dWh sums
+T * B outer products).
 """
 
 import pytest
@@ -134,18 +138,92 @@ def test_gru_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         g6 = torch.zeros(t, b, 18, device=cuda)
         krnn.gru_scan_tm(g6, g6, m, torch.zeros(2, 6, 18, device=cuda),
                          torch.zeros(2, 18, device=cuda))
-    with pytest.raises(NotImplementedError, match="B2'"):
-        krnn.gru_scan_tm(g, g, m, wh.requires_grad_(), bh)
+    with pytest.raises(ValueError, match="H % 4"):      # the backward's float4 whT
+        g6 = torch.zeros(t, b, 24, device=cuda)
+        krnn.lstm_scan_tm(g6, g6, m, torch.zeros(2, 6, 24, device=cuda,
+                                                 requires_grad=True),
+                          torch.zeros(2, 24, device=cuda))[0].sum().backward()
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         kstft.stft(torch.zeros(1, 4000, dtype=torch.float64, device=cuda), 320, 160)
-    w = torch.zeros(2, 8, 32, device=cuda, requires_grad=True)
-    g = torch.zeros(3, 1, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match="B1'"):
-        krnn.lstm_scan_tm(g, g, torch.ones(3, 1, device=cuda), w,
-                          torch.zeros(2, 32, device=cuda))
+    x = torch.zeros(1, 4000, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A8"):   # STFT has no backward kernel
+        kstft.stft(x, 320, 160)
+
+
+def _grads(outs, inputs, seed):
+    """autograd.grad of sum(out * fixed random weights) w.r.t. inputs."""
+    ws = [_randn(*o.shape, seed=seed + i).to(o.device) for i, o in enumerate(outs)]
+    return torch.autograd.grad(outs, inputs, ws)
+
+
+def _assert_grads_close(got, ref):
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("cell,t,b,h", [("lstm", 40, 5, 32), ("gru", 40, 5, 32),
+                                        ("gru", 60, 4, 512)])
+def test_rnn_backward_kernels(cuda, cell, t, b, h):
+    """dgxf, dgxb, dwh, dbh of the kernel Function against autograd through
+    the plain version; ragged lengths and non-zero bh catch a swapped
+    direction or time order."""
+    g = 4 if cell == "lstm" else 3
+    fn, plain = ((krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain) if cell == "lstm"
+                 else (krnn.gru_scan_tm, krnn.gru_scan_tm_plain))
+    bwd = krnn.lstm_scan_tm_bwd if cell == "lstm" else krnn.gru_scan_tm_bwd
+    gates = _randn(t, b, 2 * g * h, seed=h + 3, scale=0.5).to(cuda).requires_grad_()
+    wh = _randn(2, h, g * h, seed=h + 4, scale=1.0 / h ** 0.5).to(cuda).requires_grad_()
+    bh = _randn(2, g * h, seed=h + 5, scale=0.1).to(cuda).requires_grad_()
+    lengths = torch.tensor([t, t // 2 + 3, 3, t, 1][:b], device=cuda)
+    m = (torch.arange(t, device=cuda)[:, None] < lengths[None]).float()
+    inputs = (gates, wh, bh)
+    before = (fn.launches, bwd.launches)
+    got = _grads(fn(gates[..., :g * h], gates[..., g * h:], m, wh, bh), inputs, 7)
+    ref = _grads(plain(gates[..., :g * h], gates[..., g * h:], m, wh, bh), inputs, 7)
+    torch.cuda.synchronize()
+    assert (fn.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    _assert_grads_close(got, ref)
+    assert torch.all(got[0][3:, 2] == 0)                  # padded frames get no gradient
+
+
+def test_frozen_gru_skips_the_weight_gradient(cuda):
+    t, b, h = 20, 2, 32
+    gates = _randn(t, b, 6 * h, seed=1, scale=0.5).to(cuda).requires_grad_()
+    wh = _randn(2, h, 3 * h, seed=2, scale=0.2).to(cuda)
+    bh = _randn(2, 3 * h, seed=3, scale=0.1).to(cuda)
+    m = torch.ones(t, b, device=cuda)
+    yf, yb = krnn.gru_scan_tm(gates[..., :3 * h], gates[..., 3 * h:], m, wh, bh)
+    (dg,) = torch.autograd.grad((yf + yb).sum(), gates)
+    yf, yb = krnn.gru_scan_tm_plain(gates[..., :3 * h], gates[..., 3 * h:], m, wh, bh)
+    (dg_p,) = torch.autograd.grad((yf + yb).sum(), gates)
+    torch.cuda.synchronize()
+    _assert_grads_close((dg,), (dg_p,))
+    assert wh.grad is None and bh.grad is None
+
+
+@pytest.mark.parametrize("act,shape", [("leaky_relu", (3, 45, 17, 16)),
+                                       ("hardtanh", (3, 45, 17, 16)),
+                                       ("none", (2, 33, 5, 16)),
+                                       ("hardtanh", (4, 401, 41, 32))])
+def test_gn_backward_kernel(cuda, act, shape):
+    b, t, f, c = shape
+    x = (0.5 + 3.0 * _randn(*shape, seed=t)).to(cuda).requires_grad_()
+    scale = (1 + _randn(c, seed=4, scale=0.1)).to(cuda).requires_grad_()
+    bias = _randn(c, seed=5).to(cuda).requires_grad_()
+    lengths = torch.tensor([t, t - 10, 1, t // 2][:b], device=cuda)
+    kw = dict(num_groups=8, act=act)
+    before = gn.masked_group_norm_act_bwd.launches
+    got = _grads((gn.masked_group_norm_act(x, scale, bias, lengths, **kw),),
+                 (x, scale, bias), 11)
+    ref = _grads((gn.masked_group_norm_act_plain(x, scale, bias, lengths, **kw),),
+                 (x, scale, bias), 11)
+    torch.cuda.synchronize()
+    assert gn.masked_group_norm_act_bwd.launches == before + 1
+    _assert_grads_close(got, ref)
+    assert torch.all(got[0][1, t - 10:] == 0)
 
 
 def test_enhance_on_card_matches_cpu(cuda):

@@ -2,10 +2,12 @@
 .ops.triton.gn plain version) against the JAX MaskedGroupNorm and the Pallas
 masked_group_norm_act in interpret mode, on ragged lengths.
 
-Tolerance 1e-5 (rtol and atol): unit-scale activations, f32 statistics summed
-over a few thousand elements in a different order on each side.
+Tolerance 1e-5 (rtol and atol): unit-scale activations and gradients, f32
+statistics summed over a few thousand elements in a different order on each
+side.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -90,3 +92,28 @@ def test_rejects_bad_arguments():
     with pytest.raises(ValueError, match="unknown act"):
         gn.masked_group_norm_act(x, torch.ones(12), torch.zeros(12),
                                  torch.tensor([4]), num_groups=4, act="relu")
+
+
+@pytest.mark.parametrize("act", ["leaky_relu", "hardtanh"])
+def test_plain_gradients_match_pallas_interpret(act):
+    """dx, dscale, dbias of autograd through the plain version against
+    jax.grad through the Pallas masked_group_norm_act (interpret mode): the
+    math the backward kernel B3' implements.  A wide x puts some z past
+    hardtanh's 20 and many below 0."""
+    x, scale, bias, lengths = _data(seed=5)
+    x = 4.0 * x
+    dy = np.random.default_rng(6).standard_normal(x.shape).astype(np.float32)
+
+    def jax_loss(x_, s_, b_):
+        y = gn_pallas(x_, s_, b_, jnp.asarray(lengths), num_groups=8, act=act,
+                      interpret=True)
+        return jnp.sum(y * jnp.asarray(dy))
+
+    ref = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(scale),
+                                               jnp.asarray(bias))
+    inputs = [torch.from_numpy(a).requires_grad_() for a in (x, scale, bias)]
+    y = gn.masked_group_norm_act(*inputs, torch.from_numpy(lengths), num_groups=8, act=act)
+    got = torch.autograd.grad(y, inputs, torch.from_numpy(dy))
+    for name, a, r in zip(("dx", "dscale", "dbias"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), err_msg=name, **TOL)
+    assert np.all(got[0].numpy()[1, lengths[1]:] == 0)

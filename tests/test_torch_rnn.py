@@ -202,3 +202,32 @@ def test_gru_cpu_tensor_takes_plain_version():
     b = krnn.gru_scan_tm_plain(*args)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
     assert krnn.gru_scan_tm.launches == before
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_plain_gradients_match_pallas_vjp_interpret(cell):
+    """dgxf, dgxb, dwh, dbh of autograd through the plain version against
+    jax.vjp of the Pallas lstm_scan_tm / gru_scan_tm (interpret mode), with a
+    ragged mask and non-zero bh: the math the backward kernels B1' / B2'
+    implement, and that the card tests hold them to."""
+    t, b, h = 12, 3, 8
+    g = 4 if cell == "lstm" else 3
+    rng = np.random.default_rng(23 + g)
+    gxf, gxb = (0.5 * rng.standard_normal((2, t, b, g * h))).astype(np.float32)
+    wh = (0.3 * rng.standard_normal((2, h, g * h))).astype(np.float32)
+    bh = (0.1 * rng.standard_normal((2, g * h))).astype(np.float32)
+    lengths = np.array([t, 7, 2])
+    m = (np.arange(t)[:, None] < lengths[None]).astype(np.float32)
+    dyf, dyb = rng.standard_normal((2, t, b, h)).astype(np.float32)
+    pallas = lstm_pallas if cell == "lstm" else gru_pallas
+    _, vjp = jax.vjp(lambda a, c, w, v: pallas(a, c, jnp.asarray(m), w, v, True),
+                     *(jnp.asarray(x) for x in (gxf, gxb, wh, bh)))
+    ref = vjp((jnp.asarray(dyf), jnp.asarray(dyb)))
+    inputs = [torch.from_numpy(x).requires_grad_() for x in (gxf, gxb, wh, bh)]
+    scan = krnn.lstm_scan_tm if cell == "lstm" else krnn.gru_scan_tm
+    yf, yb = scan(inputs[0], inputs[1], torch.from_numpy(m), inputs[2], inputs[3])
+    got = torch.autograd.grad((yf, yb), inputs,
+                              (torch.from_numpy(dyf), torch.from_numpy(dyb)))
+    for name, a, r in zip(("dgxf", "dgxb", "dwh", "dbh"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), err_msg=name, **TOL)
+    assert np.all(got[0].numpy()[7:, 1] == 0) and np.all(got[1].numpy()[2:, 2] == 0)
