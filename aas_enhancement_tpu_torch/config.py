@@ -105,19 +105,21 @@ class DiscriminatorConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """The train section's fields that the port reads, with the JAX package's
-    defaults: the ``aas``, ``adversarial`` and ``acoustic`` objectives with
-    ``grad_accum``.  Fields of what is not ported yet (the ``paired`` and
-    ``am`` objectives, SpecAugment, distillation, checkpoints, validation,
-    prefetch) are skipped when a JAX config JSON loads; ``sortagrad``,
-    ``profile_dir`` and ``streaming_finetune`` are read only to raise.
+    defaults: the ``aas``, ``adversarial``, ``acoustic`` and ``am`` objectives
+    with ``grad_accum``.  Fields of what is not ported yet (the ``paired``
+    objective, checkpoints, validation, prefetch) are skipped when a JAX
+    config JSON loads; ``sortagrad``, ``profile_dir``, ``streaming_finetune``
+    and ``streaming_finetune_am`` are read only to raise.
     """
 
-    objective: str = "aas"       # "adversarial" | "acoustic" | "aas" ("paired", "am": A8)
+    objective: str = "aas"       # "adversarial" | "acoustic" | "aas" | "am" ("paired": A8)
     batch_size: int = 8
     lr_g: float = 3e-4
     lr_d: float = 3e-4
+    lr_am: float = 3e-4
     adam_b1: float = 0.5         # GAN-friendly beta1 for G/D
     adam_b2: float = 0.999
+    momentum: float = 0.9        # SGD momentum of AM pre-training
     max_grad_norm: float = 400.0
     lambda_adv: float = 1.0      # weight on the adversarial term of the AAS loss
     gan_loss: str = "lsgan"      # "lsgan" | "bce"
@@ -129,7 +131,18 @@ class TrainConfig:
     log_every: int = 10
     grad_accum: int = 1          # microbatches per optimizer update
     profile_dir: str = ""
+    spec_augment: bool = False   # SpecAugment on the "am" objective's features
+    sa_time_masks: int = 2
+    sa_time_width: int = 30      # max frames per time stripe
+    sa_freq_masks: int = 2
+    sa_freq_width: int = 13      # max bins per frequency stripe
     streaming_finetune: bool = False
+    streaming_finetune_am: bool = False
+    am_through_enhancer: bool = False  # "am": the AM reads the FROZEN enhancer's
+                                 # output features instead of the raw input
+    distill_lambda: float = 0.0  # "am": weight of the KL term that ties the
+                                 # AM's frame posteriors to those of the AM as
+                                 # the run started (the anchor)
 
 
 @dataclass(frozen=True)

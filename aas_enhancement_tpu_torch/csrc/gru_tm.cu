@@ -58,6 +58,14 @@
 // [T, B, 6H] tensor); m [T, B]; wh [2, H, 3H], whT [2, 3H, H] and bh [2, 3H],
 // contiguous and 16-byte aligned; yf/yb/dyf/dyb [T, B, H].  All f32;
 // H % 4 == 0.
+//
+// The same kernels also replace gru_scan_pallas (rnn_kernel.py:452, forward
+// _gru_fwd_call :370, VJP _gru_bwd_call :406), the recurrence on the stacked
+// layout gx [T, 2, B, 3H], m [T, 2, B] -> y [T, 2, B, H] whose direction 1
+// the caller has already flipped in time: with `stacked` set the entry points
+// pass that layout's strides (rnn_bwd.cuh) and the kernels read gx and write
+// y and dgx [T, 2, B, 3H] in place, both directions walking t = 0..T-1 (the
+// backward T-1..0).  dgh keeps its [2, T, B, 3H] layout beside the saved h.
 
 #include <cuda_runtime.h>
 
@@ -73,7 +81,7 @@ constexpr int kRows = 4;   // batch rows per block
 template <bool kSave>
 __global__ void gru_tm_fwd_kernel(const float* __restrict__ gxf,
                                   const float* __restrict__ gxb,
-                                  long long stride_t, long long stride_b,
+                                  const aas_rnn::Layout L,
                                   const float* __restrict__ m,
                                   const float* __restrict__ wh,
                                   const float* __restrict__ bh,
@@ -97,12 +105,13 @@ __global__ void gru_tm_fwd_kernel(const float* __restrict__ gxf,
   float* y = d == 0 ? yf : yb;
   const float4* w4 = reinterpret_cast<const float4*>(wh + (size_t)d * H * G);
   const float4* b4 = reinterpret_cast<const float4*>(bh + (size_t)d * G);
+  const float* md = m + d * L.m_d;
 
   for (int e = threadIdx.x; e < kRows * H; e += blockDim.x) h_s[e] = 0.f;
   __syncthreads();
 
   for (int s = 0; s < T; ++s) {
-    const int t = d == 0 ? s : T - 1 - s;
+    const int t = aas_rnn::fwd_time(L, d, s, T);
 
     // Recurrent product: one thread per four gate columns 4*j4 .. 4*j4+3,
     // summed over the hidden index in order.
@@ -141,15 +150,15 @@ __global__ void gru_tm_fwd_kernel(const float* __restrict__ gxf,
     for (int e = threadIdx.x; e < nb * H; e += blockDim.x) {
       const int rr = e / H;
       const int u = e - rr * H;
-      const float* x = gx + (size_t)t * stride_t + (size_t)(b0 + rr) * stride_b;
+      const float* x = gx + (size_t)t * L.gx_t + (size_t)(b0 + rr) * L.gx_b;
       const float* g = g_s + rr * G;
       const float r = sigmoid(x[u] + g[u]);
       const float z = sigmoid(x[H + u] + g[H + u]);
       const float n = tanhf(x[2 * H + u] + r * g[2 * H + u]);
       const float h = h_s[e];
       const float h_new = (1.f - z) * n + z * h;
-      const float mt = m[(size_t)t * B + b0 + rr];
-      y[((size_t)t * B + b0 + rr) * H + u] = mt * h_new;
+      const float mt = md[(size_t)t * L.m_t + b0 + rr];
+      y[(size_t)t * L.y_t + (size_t)(b0 + rr) * H + u] = mt * h_new;
       if (kSave) {
         const size_t o = ((size_t)d * T + t) * B + b0 + rr;
         hp[o * H + u] = h;
@@ -165,7 +174,8 @@ __global__ void gru_tm_fwd_kernel(const float* __restrict__ gxf,
   }
 }
 
-__global__ void gru_tm_bwd_kernel(const float* __restrict__ m,
+__global__ void gru_tm_bwd_kernel(const aas_rnn::Layout L,
+                                  const float* __restrict__ m,
                                   const float* __restrict__ whT,
                                   const float* __restrict__ hp,
                                   const float* __restrict__ act,
@@ -186,6 +196,8 @@ __global__ void gru_tm_bwd_kernel(const float* __restrict__ m,
   const int b0 = blockIdx.x * kRows;
   const int nb = min(kRows, B - b0);
   const float* dy = d == 0 ? dyf : dyb;
+  const float* md = m + d * L.m_d;
+  float* dgx_d = dgx + d * L.dg_d;
   const float4* w4 = reinterpret_cast<const float4*>(whT + (size_t)d * G * H);
 
   for (int e = threadIdx.x; e < kRows * H; e += blockDim.x) dh_s[e] = 0.f;
@@ -193,7 +205,7 @@ __global__ void gru_tm_bwd_kernel(const float* __restrict__ m,
   __syncthreads();
 
   for (int s = 0; s < T; ++s) {
-    const int t = d == 0 ? T - 1 - s : s;
+    const int t = aas_rnn::bwd_time(L, d, s, T);
 
     // Cell backward: one thread per (row, hidden unit).
     for (int e = threadIdx.x; e < nb * H; e += blockDim.x) {
@@ -206,9 +218,10 @@ __global__ void gru_tm_bwd_kernel(const float* __restrict__ m,
       const float n = a[2 * H + u];
       const float ghn = a[3 * H + u];
       const float h = hp[o * H + u];
-      const float mt = m[(size_t)t * B + b0 + rr];
+      const float mt = md[(size_t)t * L.m_t + b0 + rr];
       const float dh = dh_s[e];
-      const float dh_upd = mt * (dh + dy[((size_t)t * B + b0 + rr) * H + u]);
+      const float dh_upd =
+          mt * (dh + dy[(size_t)t * L.y_t + (size_t)(b0 + rr) * H + u]);
       const float d_z = dh_upd * (h - n) * z * (1.f - z);
       const float d_n = dh_upd * (1.f - z) * (1.f - n * n);
       const float d_r = d_n * ghn * r * (1.f - r);
@@ -218,7 +231,7 @@ __global__ void gru_tm_bwd_kernel(const float* __restrict__ m,
       g[u] = d_r;
       g[H + u] = d_z;
       g[2 * H + u] = d_hn;
-      float* out = dgx + o * G;
+      float* out = dgx_d + (size_t)t * L.dg_t + (size_t)(b0 + rr) * G;
       out[u] = d_r;
       out[H + u] = d_z;
       out[2 * H + u] = d_n;
@@ -238,8 +251,8 @@ __global__ void gru_tm_bwd_kernel(const float* __restrict__ m,
 }
 
 template <bool kSave>
-int launch_fwd(const float* gxf, const float* gxb, long long stride_t,
-               long long stride_b, const float* m, const float* wh,
+int launch_fwd(const float* gxf, const float* gxb, const aas_rnn::Layout& L,
+               const float* m, const float* wh,
                const float* bh, float* yf, float* yb, float* hp, float* act,
                int T, int B, int H, cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
@@ -255,35 +268,14 @@ int launch_fwd(const float* gxf, const float* gxb, long long stride_t,
   }
   const dim3 grid((B + kRows - 1) / kRows, 2);
   gru_tm_fwd_kernel<kSave><<<grid, threads, smem, stream>>>(
-      gxf, gxb, stride_t, stride_b, m, wh, bh, yf, yb, hp, act, T, B, H);
+      gxf, gxb, L, m, wh, bh, yf, yb, hp, act, T, B, H);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int aas_gru_tm_fwd(const float* gxf, const float* gxb,
-                              long long stride_t, long long stride_b,
-                              const float* m, const float* wh, const float* bh,
-                              float* yf, float* yb, int T, int B, int H,
-                              cudaStream_t stream) {
-  return launch_fwd<false>(gxf, gxb, stride_t, stride_b, m, wh, bh, yf, yb,
-                           nullptr, nullptr, T, B, H, stream);
-}
-
-extern "C" int aas_gru_tm_fwd_train(const float* gxf, const float* gxb,
-                                    long long stride_t, long long stride_b,
-                                    const float* m, const float* wh,
-                                    const float* bh, float* yf, float* yb,
-                                    float* hp, float* act, int T, int B, int H,
-                                    cudaStream_t stream) {
-  return launch_fwd<true>(gxf, gxb, stride_t, stride_b, m, wh, bh, yf, yb, hp,
-                          act, T, B, H, stream);
-}
-
-extern "C" int aas_gru_tm_bwd(const float* m, const float* whT, const float* hp,
-                              const float* act, const float* dyf,
-                              const float* dyb, float* dgx, float* dgh, int T,
-                              int B, int H, cudaStream_t stream) {
+int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
+               const float* hp, const float* act, const float* dyf,
+               const float* dyb, float* dgx, float* dgh, int T, int B, int H,
+               cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
   if (H % 4) return (int)cudaErrorInvalidValue;
   const int G = 3 * H;
@@ -298,6 +290,35 @@ extern "C" int aas_gru_tm_bwd(const float* m, const float* whT, const float* hp,
   }
   const dim3 grid((B + kRows - 1) / kRows, 2);
   gru_tm_bwd_kernel<<<grid, aas_rnn::bwd_threads(G, H), smem, stream>>>(
-      m, whT, hp, act, dyf, dyb, dgx, dgh, T, B, H, splits);
+      L, m, whT, hp, act, dyf, dyb, dgx, dgh, T, B, H, splits);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One entry per direction of the pass, both layouts (`stacked` picks the
+// strides, aas_rnn::make_layout).  gx0/gx1, y0/y1 and dy0/dy1 are the two
+// directions' tensors (time-major) or the two halves of one stacked tensor;
+// gx_t, gx_b are gx's strides in elements.  hp and act are NULL for inference
+// and the buffers the backward reads for training.
+extern "C" int aas_gru_fwd(const float* gx0, const float* gx1, long long gx_t,
+                           long long gx_b, const float* m, const float* wh,
+                           const float* bh, float* y0, float* y1, float* hp,
+                           float* act, int stacked, int T, int B, int H,
+                           cudaStream_t stream) {
+  const aas_rnn::Layout L = aas_rnn::make_layout(stacked, gx_t, gx_b, T, B, H, 3 * H);
+  if (hp == nullptr)
+    return launch_fwd<false>(gx0, gx1, L, m, wh, bh, y0, y1, nullptr, nullptr, T,
+                             B, H, stream);
+  return launch_fwd<true>(gx0, gx1, L, m, wh, bh, y0, y1, hp, act, T, B, H, stream);
+}
+
+// dgx is [2, T, B, 3H] (time-major) or [T, 2, B, 3H] (stacked); dgh
+// [2, T, B, 3H] in both, or NULL when no weight gradient is wanted.
+extern "C" int aas_gru_bwd(const float* m, const float* whT, const float* hp,
+                           const float* act, const float* dy0, const float* dy1,
+                           float* dgx, float* dgh, int stacked, int T, int B,
+                           int H, cudaStream_t stream) {
+  return launch_bwd(aas_rnn::make_layout(stacked, 0, 0, T, B, H, 3 * H), m, whT,
+                    hp, act, dy0, dy1, dgx, dgh, T, B, H, stream);
 }

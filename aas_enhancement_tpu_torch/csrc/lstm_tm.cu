@@ -51,6 +51,14 @@
 // [T, B, 8H] tensor); m [T, B]; wh [2, H, 4H]; whT [2, 4H, H]; bh [2, 4H];
 // yf/yb/dyf/dyb [T, B, H]; saved and dgx tensors as above.  All f32; the
 // backward needs H % 4 == 0 and a 16-byte aligned whT.
+//
+// The same kernels also replace lstm_scan_pallas (rnn_kernel.py:258, forward
+// _lstm_fwd_call :168, VJP _lstm_bwd_call :210), the recurrence on the
+// stacked layout gx [T, 2, B, 4H], m [T, 2, B] -> y [T, 2, B, H] whose
+// direction 1 the caller has already flipped in time: with `stacked` set the
+// entry points pass that layout's strides (rnn_bwd.cuh) and the kernels read
+// gx and write y and dgx [T, 2, B, 4H] in place, both directions walking
+// t = 0..T-1 (the backward T-1..0).  No copy into the time-major layout.
 
 #include <cuda_runtime.h>
 
@@ -65,7 +73,7 @@ constexpr int kRows = 4;   // batch rows per block
 template <bool kSave>
 __global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
                                    const float* __restrict__ gxb,
-                                   long long stride_t, long long stride_b,
+                                   const aas_rnn::Layout L,
                                    const float* __restrict__ m,
                                    const float* __restrict__ wh,
                                    const float* __restrict__ bh,
@@ -88,6 +96,7 @@ __global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
   float* y = d == 0 ? yf : yb;
   const float* w = wh + (size_t)d * H * G;
   const float* bias = bh + (size_t)d * G;
+  const float* md = m + d * L.m_d;
 
   for (int e = threadIdx.x; e < kRows * H; e += blockDim.x) {
     h_s[e] = 0.f;
@@ -96,7 +105,7 @@ __global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
   __syncthreads();
 
   for (int s = 0; s < T; ++s) {
-    const int t = d == 0 ? s : T - 1 - s;
+    const int t = aas_rnn::fwd_time(L, d, s, T);
 
     // Gate pre-activations: one thread per gate column j.
     for (int j = threadIdx.x; j < G; j += blockDim.x) {
@@ -115,7 +124,7 @@ __global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
       for (int rr = 0; rr < kRows; ++rr) {   // static indices keep acc in registers
         if (rr < nb) {
           const float gv =
-              gx[(size_t)t * stride_t + (size_t)(b0 + rr) * stride_b + j];
+              gx[(size_t)t * L.gx_t + (size_t)(b0 + rr) * L.gx_b + j];
           g_s[rr * G + j] = gv + (acc[rr] + bj);
         }
       }
@@ -135,8 +144,8 @@ __global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
       const float so = sigmoid(g[3 * H + u]);
       const float c_new = sf * c + si * tg;
       const float h_new = so * tanhf(c_new);
-      const float mt = m[(size_t)t * B + b0 + rr];
-      y[((size_t)t * B + b0 + rr) * H + u] = mt * h_new;
+      const float mt = md[(size_t)t * L.m_t + b0 + rr];
+      y[(size_t)t * L.y_t + (size_t)(b0 + rr) * H + u] = mt * h_new;
       if (kSave) {
         const size_t o = ((size_t)d * T + t) * B + b0 + rr;
         hp[o * H + u] = h;
@@ -154,7 +163,8 @@ __global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
   }
 }
 
-__global__ void lstm_tm_bwd_kernel(const float* __restrict__ m,
+__global__ void lstm_tm_bwd_kernel(const aas_rnn::Layout L,
+                                   const float* __restrict__ m,
                                    const float* __restrict__ whT,
                                    const float* __restrict__ cp,
                                    const float* __restrict__ act,
@@ -175,6 +185,8 @@ __global__ void lstm_tm_bwd_kernel(const float* __restrict__ m,
   const int b0 = blockIdx.x * kRows;
   const int nb = min(kRows, B - b0);
   const float* dy = d == 0 ? dyf : dyb;
+  const float* md = m + d * L.m_d;
+  float* dgx_d = dgx + d * L.dg_d;
   const float4* w4 = reinterpret_cast<const float4*>(whT + (size_t)d * G * H);
 
   for (int e = threadIdx.x; e < kRows * H; e += blockDim.x) {
@@ -185,7 +197,7 @@ __global__ void lstm_tm_bwd_kernel(const float* __restrict__ m,
   __syncthreads();
 
   for (int s = 0; s < T; ++s) {
-    const int t = d == 0 ? T - 1 - s : s;
+    const int t = aas_rnn::bwd_time(L, d, s, T);
 
     // Cell backward: one thread per (row, hidden unit).
     for (int e = threadIdx.x; e < nb * H; e += blockDim.x) {
@@ -199,10 +211,11 @@ __global__ void lstm_tm_bwd_kernel(const float* __restrict__ m,
       const float so = a[3 * H + u];
       const float c = cp[o * H + u];
       const float tc = tanhf(sf * c + si * tg);
-      const float mt = m[(size_t)t * B + b0 + rr];
+      const float mt = md[(size_t)t * L.m_t + b0 + rr];
       const float dh = dh_s[e];
       const float dc = dc_s[e];
-      const float dh_upd = mt * (dh + dy[((size_t)t * B + b0 + rr) * H + u]);
+      const float dh_upd =
+          mt * (dh + dy[(size_t)t * L.y_t + (size_t)(b0 + rr) * H + u]);
       const float dc_new = dh_upd * so * (1.f - tc * tc) + mt * dc;
       const float d_i = dc_new * tg * si * (1.f - si);
       const float d_f = dc_new * c * sf * (1.f - sf);
@@ -211,7 +224,7 @@ __global__ void lstm_tm_bwd_kernel(const float* __restrict__ m,
       dc_s[e] = dc_new * sf + (1.f - mt) * dc;
       keep_s[e] = (1.f - mt) * dh;
       float* g = dg_s + rr * G;
-      float* out = dgx + o * G;
+      float* out = dgx_d + (size_t)t * L.dg_t + (size_t)(b0 + rr) * G;
       g[u] = out[u] = d_i;
       g[H + u] = out[H + u] = d_f;
       g[2 * H + u] = out[2 * H + u] = d_g;
@@ -226,8 +239,8 @@ __global__ void lstm_tm_bwd_kernel(const float* __restrict__ m,
 }
 
 template <bool kSave>
-int launch_fwd(const float* gxf, const float* gxb, long long stride_t,
-               long long stride_b, const float* m, const float* wh,
+int launch_fwd(const float* gxf, const float* gxb, const aas_rnn::Layout& L,
+               const float* m, const float* wh,
                const float* bh, float* yf, float* yb, float* hp, float* cp,
                float* act, int T, int B, int H, cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
@@ -242,35 +255,14 @@ int launch_fwd(const float* gxf, const float* gxb, long long stride_t,
   }
   const dim3 grid((B + kRows - 1) / kRows, 2);
   lstm_tm_fwd_kernel<kSave><<<grid, threads, smem, stream>>>(
-      gxf, gxb, stride_t, stride_b, m, wh, bh, yf, yb, hp, cp, act, T, B, H);
+      gxf, gxb, L, m, wh, bh, yf, yb, hp, cp, act, T, B, H);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int aas_lstm_tm_fwd(const float* gxf, const float* gxb,
-                               long long stride_t, long long stride_b,
-                               const float* m, const float* wh, const float* bh,
-                               float* yf, float* yb, int T, int B, int H,
-                               cudaStream_t stream) {
-  return launch_fwd<false>(gxf, gxb, stride_t, stride_b, m, wh, bh, yf, yb,
-                           nullptr, nullptr, nullptr, T, B, H, stream);
-}
-
-extern "C" int aas_lstm_tm_fwd_train(const float* gxf, const float* gxb,
-                                     long long stride_t, long long stride_b,
-                                     const float* m, const float* wh,
-                                     const float* bh, float* yf, float* yb,
-                                     float* hp, float* cp, float* act, int T,
-                                     int B, int H, cudaStream_t stream) {
-  return launch_fwd<true>(gxf, gxb, stride_t, stride_b, m, wh, bh, yf, yb, hp,
-                          cp, act, T, B, H, stream);
-}
-
-extern "C" int aas_lstm_tm_bwd(const float* m, const float* whT, const float* cp,
-                               const float* act, const float* dyf,
-                               const float* dyb, float* dgx, int T, int B, int H,
-                               cudaStream_t stream) {
+int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
+               const float* cp, const float* act, const float* dyf,
+               const float* dyb, float* dgx, int T, int B, int H,
+               cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
   if (H % 4) return (int)cudaErrorInvalidValue;
   const int G = 4 * H;
@@ -285,6 +277,35 @@ extern "C" int aas_lstm_tm_bwd(const float* m, const float* whT, const float* cp
   }
   const dim3 grid((B + kRows - 1) / kRows, 2);
   lstm_tm_bwd_kernel<<<grid, aas_rnn::bwd_threads(G, H), smem, stream>>>(
-      m, whT, cp, act, dyf, dyb, dgx, T, B, H, splits);
+      L, m, whT, cp, act, dyf, dyb, dgx, T, B, H, splits);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One entry per direction of the pass, both layouts (`stacked` picks the
+// strides, aas_rnn::make_layout).  gx0/gx1, y0/y1 and dy0/dy1 are the two
+// directions' tensors (time-major) or the two halves of one stacked tensor;
+// gx_t, gx_b are gx's strides in elements.  hp, cp and act are NULL for
+// inference and the buffers the backward reads for training.
+extern "C" int aas_lstm_fwd(const float* gx0, const float* gx1, long long gx_t,
+                            long long gx_b, const float* m, const float* wh,
+                            const float* bh, float* y0, float* y1, float* hp,
+                            float* cp, float* act, int stacked, int T, int B,
+                            int H, cudaStream_t stream) {
+  const aas_rnn::Layout L = aas_rnn::make_layout(stacked, gx_t, gx_b, T, B, H, 4 * H);
+  if (hp == nullptr)
+    return launch_fwd<false>(gx0, gx1, L, m, wh, bh, y0, y1, nullptr, nullptr,
+                             nullptr, T, B, H, stream);
+  return launch_fwd<true>(gx0, gx1, L, m, wh, bh, y0, y1, hp, cp, act, T, B, H,
+                          stream);
+}
+
+// dgx is [2, T, B, 4H] (time-major) or [T, 2, B, 4H] (stacked).
+extern "C" int aas_lstm_bwd(const float* m, const float* whT, const float* cp,
+                            const float* act, const float* dy0, const float* dy1,
+                            float* dgx, int stacked, int T, int B, int H,
+                            cudaStream_t stream) {
+  return launch_bwd(aas_rnn::make_layout(stacked, 0, 0, T, B, H, 4 * H), m, whT,
+                    cp, act, dy0, dy1, dgx, T, B, H, stream);
 }

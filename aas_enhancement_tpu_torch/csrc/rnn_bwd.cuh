@@ -1,5 +1,17 @@
 // Shared pieces of the recurrence kernels in lstm_tm.cu and gru_tm.cu: the
-// float4 FMA, and the transposed recurrent product of the backward kernels.
+// two memory layouts they serve, the float4 FMA, and the transposed recurrent
+// product of the backward kernels.
+//
+// Layouts.  Time-major (lstm_scan_tm, gru_scan_tm): direction d reads its own
+// gx tensor [T, B, G] and writes its own y [T, B, H], both in natural time
+// order, one mask m [T, B] serves both, and direction 1 walks the time index
+// backwards.  Stacked (lstm_scan_pallas and gru_scan_pallas of the TPU
+// package: gx [T, 2, B, G], m [T, 2, B], y [T, 2, B, H] with direction 1
+// already flipped in time by the caller): both directions walk the time index
+// forwards, and a direction is an offset inside one tensor.  The kernels take
+// the strides below and one flag, so the same device code reads either
+// layout in place; what the training forwards save for the backward
+// ([2, T, B, .], indexed by the layout's own time index) is the same for both.
 //
 // Each backward step needs dh = dg @ wh[d]^T + (carry terms): dg is the
 // step's [kRows, G] gate gradient (G = 4H for the LSTM, 3H for the GRU) in
@@ -17,6 +29,38 @@
 #include <cuda_runtime.h>
 
 namespace aas_rnn {
+
+struct Layout {
+  long long gx_t, gx_b;   // gx strides in elements: time, batch row
+  long long m_t, m_d;     // mask strides: time, direction
+  long long y_t;          // y and dy stride: time (batch rows are H apart)
+  long long dg_t, dg_d;   // dgx strides: time, direction (batch rows are G apart)
+  int flip1;              // direction 1 walks the time index backwards
+};
+
+// Time-major: gxf/gxb [T, B, G] with strides (gx_t, gx_b), m [T, B],
+// y [T, B, H] per direction, dgx [2, T, B, G].  Stacked: gx [T, 2, B, G] (so
+// gx_t = 2 B G, gx_b = G), m [T, 2, B], y [T, 2, B, H], dgx [T, 2, B, G],
+// contiguous; direction 1's gx, y and dy pointers are the base plus one
+// direction's rows.  The backward kernels read no gx: they pass 0 strides.
+inline Layout make_layout(int stacked, long long gx_t, long long gx_b, int T,
+                          int B, int H, int G) {
+  if (stacked)
+    return Layout{gx_t, gx_b, 2LL * B, B, 2LL * B * H, 2LL * B * G,
+                  (long long)B * G, 0};
+  return Layout{gx_t, gx_b, B, 0, (long long)B * H, (long long)B * G,
+                (long long)T * B * G, 1};
+}
+
+// The time index of step s: forward kernels walk 0..T-1 (direction 1 of the
+// time-major layout T-1..0), backward kernels the reverse.
+__device__ __forceinline__ int fwd_time(const Layout& L, int d, int s, int T) {
+  return d == 1 && L.flip1 ? T - 1 - s : s;
+}
+
+__device__ __forceinline__ int bwd_time(const Layout& L, int d, int s, int T) {
+  return d == 1 && L.flip1 ? s : T - 1 - s;
+}
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));

@@ -12,6 +12,14 @@ and the flatten to [B, T, F*C] puts feature f*C + c where the JAX model's
 ``reshape(b, t, f*ch)`` does (the first ``wx``'s rows depend on it).
 ``am_blockwise_apply`` (the streaming-matched forward) is not ported yet
 (ROADMAP A11).
+
+conv2 is a ``TapDWConv`` with ``dw_impl="auto"``: when the AM is trained on a
+CUDA device its weight gradient comes from the hand-written kernel
+(``ops/cuda/conv_dw.py``), once per microbatch; a frozen AM (AAS training)
+and inference never compute it.  The JAX model passes ``dw_impl="xla"``
+there because its Pallas kernel measured slower than XLA on a TPU v5e; that
+timing says nothing about this card, so the port keeps the module's own
+default and records the kernel's time beside cuDNN's (PERF.md).
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ import torch
 from torch import nn
 
 from aas_enhancement_tpu_torch.config import AMConfig
-from aas_enhancement_tpu_torch.ops.conv import SameConv2d
+from aas_enhancement_tpu_torch.ops.conv import SameConv2d, TapDWConv
 from aas_enhancement_tpu_torch.ops.dense import Dense
 from aas_enhancement_tpu_torch.ops.masking import apply_time_mask, conv_out_length
 from aas_enhancement_tpu_torch.ops.norm import MaskedGroupNorm
@@ -43,7 +51,7 @@ class AcousticModel(nn.Module):
         c = cfg.conv_channels
         self.conv1 = SameConv2d(1, c, (11, 41), (2, 2), device=device)
         self.gn1 = MaskedGroupNorm(c, num_groups=8, act="hardtanh", device=device)
-        self.conv2 = SameConv2d(c, c, (11, 21), (1, 2), device=device)
+        self.conv2 = TapDWConv(c, c, (11, 21), (1, 2), dw_impl="auto", device=device)
         self.gn2 = MaskedGroupNorm(c, num_groups=8, act="hardtanh", device=device)
         f_out = -(-num_bins // 2)            # conv1 halves F (SAME, ceil) ...
         f_out = -(-f_out // 2)               # ... and so does conv2

@@ -17,6 +17,19 @@ and whose backward launches the backward kernel (``lstm_scan_tm_bwd`` /
 ``gru_scan_tm_bwd``).  Each wrapper counts its kernel launches in
 ``.launches``: the forward wrappers both forward variants, the ``_bwd``
 wrappers the backward kernels.
+
+``lstm_scan_stacked`` / ``gru_scan_stacked`` replace ``::lstm_scan_pallas``
+and ``::gru_scan_pallas`` with their VJPs: the same recurrences on the
+stacked layout gx [T, 2, B, G*H], m [T, 2, B] -> y [T, 2, B, H], whose
+direction 1 the caller has already flipped in time, so both directions walk
+t = 0..T-1.  The same device code serves both layouts through explicit
+strides (``csrc/rnn_bwd.cuh``): the stacked entries read gx and write y and
+dgx in place, with no copy into the time-major layout.  The host code is
+shared too (``_forward``, ``_backward``, ``_ScanFn``): an entry's name says
+which cell and which layout.  The stacked entries have their own wrappers
+and launch counts (``lstm_scan_stacked_bwd``, ``gru_scan_stacked_bwd``).
+The plain versions of the time-major entries are the stacked plain versions
+on a flipped copy.
 """
 
 from __future__ import annotations
@@ -27,29 +40,40 @@ from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_ker
 from aas_enhancement_tpu_torch.utils import kernel_build
 
 
-def lstm_scan_tm_plain(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
-                       wh: torch.Tensor, bh: torch.Tensor
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-step loop with both directions stacked on one [2, B, H] state."""
-    t_len, b, g4 = gxf.shape
+def lstm_scan_stacked_plain(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
+                            bh: torch.Tensor) -> torch.Tensor:
+    """Per-step loop over gx [T, 2, B, 4H] with the state [2, B, H] of both
+    directions."""
+    t_len, _, b, g4 = gx.shape
     h_dim = g4 // 4
-    h = gxf.new_zeros((2, b, h_dim))
-    c = gxf.new_zeros((2, b, h_dim))
-    ys_f, ys_b = [], []
+    h = gx.new_zeros((2, b, h_dim))
+    c = gx.new_zeros((2, b, h_dim))
+    ys = []
     for s in range(t_len):
-        tb = t_len - 1 - s                       # direction 1 walks backwards
-        gx_t = torch.stack([gxf[s], gxb[tb]])
-        m_t = torch.stack([m[s], m[tb]])[..., None]
-        gg = gx_t + (torch.bmm(h, wh) + bh[:, None, :])
+        m_t = m[s][..., None]
+        gg = gx[s] + (torch.bmm(h, wh) + bh[:, None, :])
         i, f, gc, o = gg.split(h_dim, dim=-1)
         c_new = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(gc)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
         h = m_t * h_new + (1.0 - m_t) * h
         c = m_t * c_new + (1.0 - m_t) * c
-        y = h_new * m_t
-        ys_f.append(y[0])
-        ys_b.append(y[1])
-    return torch.stack(ys_f), torch.stack(ys_b[::-1])
+        ys.append(h_new * m_t)
+    return torch.stack(ys)
+
+
+def to_stacked(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Time-major inputs -> the stacked layout: direction 1 flipped in time."""
+    return (torch.stack([gxf, gxb.flip(0)], dim=1),
+            torch.stack([m, m.flip(0)], dim=1))
+
+
+def lstm_scan_tm_plain(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
+                       wh: torch.Tensor, bh: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stacked plain version on direction 1 flipped in time."""
+    ys = lstm_scan_stacked_plain(*to_stacked(gxf, gxb, m), wh, bh)
+    return ys[:, 0], ys[:, 1].flip(0)
 
 
 def lstm_scan_tm(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
@@ -58,39 +82,40 @@ def lstm_scan_tm(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
     """Fused bidirectional LSTM, time-major (see module docstring)."""
     if not uses_kernel("lstm_scan_tm", gxf):
         return lstm_scan_tm_plain(gxf, gxb, m, wh, bh)
-    if _wants_grad(gxf, gxb, wh, bh):
-        return _LSTMFn.apply(gxf, gxb, m, wh, bh)
-    yf, yb, _ = _forward("lstm_scan_tm", 4, gxf, gxb, m, wh, bh, save=False)
-    return yf, yb
+    return _scan("lstm_scan_tm", (gxf, gxb), m, wh, bh)
 
 
 lstm_scan_tm.launches = 0
 
 
-def gru_scan_tm_plain(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
-                      wh: torch.Tensor, bh: torch.Tensor
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-step loop with both directions stacked on one [2, B, H] state."""
-    t_len, b, g3 = gxf.shape
+def gru_scan_stacked_plain(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
+                           bh: torch.Tensor) -> torch.Tensor:
+    """Per-step loop over gx [T, 2, B, 3H] with the state [2, B, H] of both
+    directions."""
+    t_len, _, b, g3 = gx.shape
     h_dim = g3 // 3
-    h = gxf.new_zeros((2, b, h_dim))
-    ys_f, ys_b = [], []
+    h = gx.new_zeros((2, b, h_dim))
+    ys = []
     for s in range(t_len):
-        tb = t_len - 1 - s                       # direction 1 walks backwards
-        gx_t = torch.stack([gxf[s], gxb[tb]])
-        m_t = torch.stack([m[s], m[tb]])[..., None]
+        m_t = m[s][..., None]
         gh = torch.bmm(h, wh) + bh[:, None, :]   # bh's n-slice stays inside r * (...)
-        xr, xz, xn = gx_t.split(h_dim, dim=-1)
+        xr, xz, xn = gx[s].split(h_dim, dim=-1)
         hr, hz, hn = gh.split(h_dim, dim=-1)
         r = torch.sigmoid(xr + hr)
         z = torch.sigmoid(xz + hz)
         n = torch.tanh(xn + r * hn)
         h_new = (1.0 - z) * n + z * h
-        y = m_t * h_new
+        ys.append(m_t * h_new)
         h = m_t * h_new + (1.0 - m_t) * h
-        ys_f.append(y[0])
-        ys_b.append(y[1])
-    return torch.stack(ys_f), torch.stack(ys_b[::-1])
+    return torch.stack(ys)
+
+
+def gru_scan_tm_plain(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
+                      wh: torch.Tensor, bh: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stacked plain version on direction 1 flipped in time."""
+    ys = gru_scan_stacked_plain(*to_stacked(gxf, gxb, m), wh, bh)
+    return ys[:, 0], ys[:, 1].flip(0)
 
 
 def gru_scan_tm(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
@@ -99,62 +124,156 @@ def gru_scan_tm(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
     """Fused bidirectional GRU, time-major (see module docstring)."""
     if not uses_kernel("gru_scan_tm", gxf):
         return gru_scan_tm_plain(gxf, gxb, m, wh, bh)
-    if _wants_grad(gxf, gxb, wh, bh):
-        return _GRUFn.apply(gxf, gxb, m, wh, bh)
-    yf, yb, _ = _forward("gru_scan_tm", 3, gxf, gxb, m, wh, bh, save=False)
-    return yf, yb
+    return _scan("gru_scan_tm", (gxf, gxb), m, wh, bh)
 
 
 gru_scan_tm.launches = 0
 
-_FORWARD = {"lstm_scan_tm": lstm_scan_tm, "gru_scan_tm": gru_scan_tm}
+
+def lstm_scan_stacked(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
+                      bh: torch.Tensor) -> torch.Tensor:
+    """Fused bidirectional LSTM on the stacked layout (see module docstring)."""
+    if not uses_kernel("lstm_scan_stacked", gx):
+        return lstm_scan_stacked_plain(gx, m, wh, bh)
+    return _scan("lstm_scan_stacked", (gx,), m, wh, bh)
 
 
-def _wants_grad(*tensors: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+lstm_scan_stacked.launches = 0
 
 
-def _forward(name: str, gates: int, gxf: torch.Tensor, gxb: torch.Tensor,
-             m: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor, save: bool
-             ) -> tuple[torch.Tensor, torch.Tensor, tuple[torch.Tensor, ...]]:
+def gru_scan_stacked(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
+                     bh: torch.Tensor) -> torch.Tensor:
+    """Fused bidirectional GRU on the stacked layout (see module docstring)."""
+    if not uses_kernel("gru_scan_stacked", gx):
+        return gru_scan_stacked_plain(gx, m, wh, bh)
+    return _scan("gru_scan_stacked", (gx,), m, wh, bh)
+
+
+gru_scan_stacked.launches = 0
+
+_FORWARD = {"lstm_scan_tm": lstm_scan_tm, "gru_scan_tm": gru_scan_tm,
+            "lstm_scan_stacked": lstm_scan_stacked, "gru_scan_stacked": gru_scan_stacked}
+
+
+def _scan(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
+          wh: torch.Tensor, bh: torch.Tensor):
+    """The kernel route of entry ``name``: gx is (gxf, gxb) for a time-major
+    entry and (gx,) for a stacked one; -> (yf, yb) or y."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (*gx, wh, bh)):
+        return _ScanFn.apply(name, m, wh, bh, *gx)
+    ys, _ = _forward(name, gx, m, wh, bh, save=False)
+    return ys[0] if len(ys) == 1 else ys
+
+
+def _gates(name: str) -> int:
+    return 4 if name.startswith("lstm") else 3
+
+
+def _halves(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two directions of a stacked tensor [T, 2, B, .]."""
+    return x[:, 0], x[:, 1]
+
+
+def _forward(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
+             wh: torch.Tensor, bh: torch.Tensor, save: bool
+             ) -> tuple[tuple[torch.Tensor, ...], tuple[torch.Tensor, ...]]:
     """Check what the forward kernels take, raise otherwise, and launch the
-    inference variant, or with ``save`` the training variant, which also
-    returns what the backward kernel reads: (h [2, T, B, H], gate
-    activations [2, T, B, 4H]) and for the LSTM c [2, T, B, H] in between."""
-    check_kernel_inputs(name, (gxf, gxb, m, wh, bh), backward=None)
-    t_len, b, g = gxf.shape
+    inference variant, or with ``save`` the training variant -> (ys, saved):
+    (yf, yb) [T, B, H] for the time-major gx (gxf, gxb), (y,) [T, 2, B, H] for
+    the stacked (gx,); saved is what the backward kernel reads, one layout
+    for both: h [2, T, B, H], for the LSTM also c [2, T, B, H], and the gate
+    activations [2, T, B, 4H]."""
+    check_kernel_inputs(name, (*gx, m, wh, bh), backward=None)
+    gates, stacked = _gates(name), len(gx) == 1
+    if stacked:
+        if gx[0].ndim != 4 or gx[0].shape[1] != 2 or m.shape != gx[0].shape[:3]:
+            raise ValueError(f"{name}: shapes gx {tuple(gx[0].shape)} m {tuple(m.shape)}: "
+                             "need [T, 2, B, G*H] and [T, 2, B]")
+        if not gx[0].is_contiguous():
+            raise ValueError(f"{name}: gx must be contiguous")
+        gx0, gx1 = _halves(gx[0])
+    else:
+        gx0, gx1 = gx
+        if gx0.ndim != 3 or gx1.shape != gx0.shape or m.shape != gx0.shape[:2]:
+            raise ValueError(
+                f"{name}: shapes gxf {tuple(gx0.shape)} gxb {tuple(gx1.shape)} "
+                f"m {tuple(m.shape)} wh {tuple(wh.shape)} bh {tuple(bh.shape)}")
+        if gx0.stride() != gx1.stride() or gx0.stride(2) != 1:
+            raise ValueError(f"{name}: gxf/gxb need unit last stride and equal strides")
+    t_len, b, g = gx0.shape
     h_dim = g // gates
-    if (gxb.shape != gxf.shape or g % gates or m.shape != (t_len, b)
-            or wh.shape != (2, h_dim, g) or bh.shape != (2, g)):
-        raise ValueError(
-            f"{name}: shapes gxf {tuple(gxf.shape)} gxb {tuple(gxb.shape)} "
-            f"m {tuple(m.shape)} wh {tuple(wh.shape)} bh {tuple(bh.shape)}")
-    if gxf.stride() != gxb.stride() or gxf.stride(2) != 1:
-        raise ValueError(f"{name}: gxf/gxb need unit last stride and equal strides")
+    if g % gates or wh.shape != (2, h_dim, g) or bh.shape != (2, g):
+        raise ValueError(f"{name}: shapes wh {tuple(wh.shape)} bh {tuple(bh.shape)} "
+                         f"for {g} gate features")
     if not (m.is_contiguous() and wh.is_contiguous() and bh.is_contiguous()):
         raise ValueError(f"{name}: m, wh, bh must be contiguous")
     if gates == 3 and (h_dim % 4 or wh.data_ptr() % 16 or bh.data_ptr() % 16):
         raise ValueError(f"{name}: needs H % 4 == 0 and 16-byte aligned wh, bh "
                          "(the kernel reads them as float4)")
-    yf = torch.empty((t_len, b, h_dim), dtype=torch.float32, device=gxf.device)
-    yb = torch.empty_like(yf)
-    state = torch.empty((2, t_len, b, h_dim), dtype=torch.float32,
-                        device=gxf.device) if save else None
-    saved: tuple[torch.Tensor, ...] = ()
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=gx0.device)
+
+    if stacked:
+        ys = (empty(t_len, 2, b, h_dim),)
+        y0, y1 = _halves(ys[0])
+    else:
+        ys = y0, y1 = empty(t_len, b, h_dim), empty(t_len, b, h_dim)
+    n_saved = gates - 1                                   # h, (c,) activations
+    saved = ()
     if save:
-        acts = torch.empty((2, t_len, b, 4 * h_dim), dtype=torch.float32,
-                           device=gxf.device)
-        saved = (state, acts) if gates == 3 else (state, torch.empty_like(state), acts)
-    lib = kernel_build.load_library()
-    entry = f"aas_{name.split('_')[0]}_tm_fwd" + ("_train" if save else "")
-    err = getattr(lib, entry)(
-        gxf.data_ptr(), gxb.data_ptr(), gxf.stride(0), gxf.stride(1),
-        m.data_ptr(), wh.data_ptr(), bh.data_ptr(), yf.data_ptr(), yb.data_ptr(),
-        *(x.data_ptr() for x in saved), t_len, b, h_dim,
-        torch.cuda.current_stream(gxf.device).cuda_stream)
+        saved = (*(empty(2, t_len, b, h_dim) for _ in range(n_saved - 1)),
+                 empty(2, t_len, b, 4 * h_dim))
+    entry = f"aas_{name.split('_')[0]}_fwd"
+    err = getattr(kernel_build.load_library(), entry)(
+        gx0.data_ptr(), gx1.data_ptr(), gx0.stride(0), gx0.stride(1),
+        m.data_ptr(), wh.data_ptr(), bh.data_ptr(), y0.data_ptr(), y1.data_ptr(),
+        *([x.data_ptr() for x in saved] or [None] * n_saved), int(stacked),
+        t_len, b, h_dim, torch.cuda.current_stream(gx0.device).cuda_stream)
     kernel_build.check(err, entry)
     _FORWARD[name].launches += 1
-    return yf, yb, saved
+    return ys, saved
+
+
+def _backward(name: str, m: torch.Tensor, wh: torch.Tensor,
+              saved: tuple[torch.Tensor, ...], dys: tuple[torch.Tensor, ...],
+              need_dwh: bool
+              ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor | None,
+                         torch.Tensor | None]:
+    """Launch the backward kernel of entry ``name`` on what its training
+    forward saved and the cotangents dys, (dyf, dyb) or the stacked (dy,) ->
+    (dgx, dwh [2, H, G*H], dbh [2, G*H]) with dgx (dgxf, dgxb) [T, B, G*H] or
+    the stacked (dgx,) [T, 2, B, G*H].  dwh and dbh are None unless
+    ``need_dwh``; without it the GRU kernel writes no dgh (a frozen GRU)."""
+    gates, stacked = _gates(name), len(dys) == 1
+    hp, acts = saved[0], saved[-1]
+    _, t_len, b, h_dim = hp.shape
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=hp.device)
+
+    g = gates * h_dim
+    dgx = empty(t_len, 2, b, g) if stacked else empty(2, t_len, b, g)
+    dys = tuple(dy.contiguous() for dy in dys)
+    dy0, dy1 = _halves(dys[0]) if stacked else dys
+    # The LSTM kernel reads c and the activations, the GRU kernel h and the
+    # activations, and the GRU's dWh needs dgh [2, T, B, 3H] beside dgx (its
+    # n-slice differs); the LSTM's dWh reads dgx itself.
+    state = saved[1] if gates == 4 else hp
+    dgh = empty(2, t_len, b, g) if gates == 3 and need_dwh else None
+    extra = (dgh.data_ptr() if dgh is not None else None,) if gates == 3 else ()
+    entry = f"aas_{name.split('_')[0]}_bwd"
+    err = getattr(kernel_build.load_library(), entry)(
+        m.data_ptr(), _transposed(wh).data_ptr(), state.data_ptr(), acts.data_ptr(),
+        dy0.data_ptr(), dy1.data_ptr(), dgx.data_ptr(), *extra, int(stacked),
+        t_len, b, h_dim, torch.cuda.current_stream(hp.device).cuda_stream)
+    kernel_build.check(err, entry)
+    _BACKWARD[name].launches += 1
+    dwh = dbh = None
+    if need_dwh:
+        dg = dgh if gates == 3 else dgx.transpose(0, 1) if stacked else dgx
+        dwh, dbh = _weight_grads(hp, dg)
+    return ((dgx,) if stacked else (dgx[0], dgx[1])), dwh, dbh
 
 
 def _transposed(wh: torch.Tensor) -> torch.Tensor:
@@ -166,60 +285,10 @@ def _transposed(wh: torch.Tensor) -> torch.Tensor:
     return wh_t
 
 
-def lstm_scan_tm_bwd(m: torch.Tensor, wh: torch.Tensor, hp: torch.Tensor,
-                     cp: torch.Tensor, acts: torch.Tensor, dyf: torch.Tensor,
-                     dyb: torch.Tensor, need_dwh: bool = True
-                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None,
-                                torch.Tensor | None]:
-    """Backward kernel B1' on what the training forward saved ->
-    (dgxf, dgxb [T, B, 4H], dwh [2, H, 4H], dbh [2, 4H]); dwh and dbh are
-    None unless ``need_dwh``."""
-    _, t_len, b, h_dim = hp.shape
-    dgx = torch.empty((2, t_len, b, 4 * h_dim), dtype=torch.float32, device=hp.device)
-    dyf, dyb = dyf.contiguous(), dyb.contiguous()
-    err = kernel_build.load_library().aas_lstm_tm_bwd(
-        m.data_ptr(), _transposed(wh).data_ptr(), cp.data_ptr(), acts.data_ptr(),
-        dyf.data_ptr(), dyb.data_ptr(), dgx.data_ptr(), t_len, b, h_dim,
-        torch.cuda.current_stream(hp.device).cuda_stream)
-    kernel_build.check(err, "aas_lstm_tm_bwd")
-    lstm_scan_tm_bwd.launches += 1
-    dwh, dbh = _weight_grads(hp, dgx) if need_dwh else (None, None)
-    return dgx[0], dgx[1], dwh, dbh
-
-
-lstm_scan_tm_bwd.launches = 0
-
-
-def gru_scan_tm_bwd(m: torch.Tensor, wh: torch.Tensor, hp: torch.Tensor,
-                    acts: torch.Tensor, dyf: torch.Tensor, dyb: torch.Tensor,
-                    need_dwh: bool = True
-                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None,
-                               torch.Tensor | None]:
-    """Backward kernel B2' on what the training forward saved ->
-    (dgxf, dgxb [T, B, 3H], dwh [2, H, 3H], dbh [2, 3H]).  Without
-    ``need_dwh`` (a frozen GRU) the kernel writes no dgh and dwh, dbh are None."""
-    _, t_len, b, h_dim = hp.shape
-    shape = (2, t_len, b, 3 * h_dim)
-    dgx = torch.empty(shape, dtype=torch.float32, device=hp.device)
-    dgh = torch.empty(shape, dtype=torch.float32, device=hp.device) if need_dwh else None
-    dyf, dyb = dyf.contiguous(), dyb.contiguous()
-    err = kernel_build.load_library().aas_gru_tm_bwd(
-        m.data_ptr(), _transposed(wh).data_ptr(), hp.data_ptr(), acts.data_ptr(),
-        dyf.data_ptr(), dyb.data_ptr(), dgx.data_ptr(),
-        dgh.data_ptr() if need_dwh else None, t_len, b, h_dim,
-        torch.cuda.current_stream(hp.device).cuda_stream)
-    kernel_build.check(err, "aas_gru_tm_bwd")
-    gru_scan_tm_bwd.launches += 1
-    dwh, dbh = _weight_grads(hp, dgh) if need_dwh else (None, None)
-    return dgx[0], dgx[1], dwh, dbh
-
-
-gru_scan_tm_bwd.launches = 0
-
-
 def _weight_grads(hp: torch.Tensor, dg: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """dWh[d] = sum_t h_prev[d, t]^T dg[d, t] and dbh[d] = sum_t dg[d, t]."""
+    """dWh[d] = sum_t h_prev[d, t]^T dg[d, t] and dbh[d] = sum_t dg[d, t], for
+    hp [2, T, B, H] and dg [2, T, B, G] (a transposed view is copied)."""
     two, t_len, b, h_dim = hp.shape
     g = dg.shape[-1]
     dwh = torch.bmm(hp.reshape(two, t_len * b, h_dim).transpose(1, 2),
@@ -227,38 +296,48 @@ def _weight_grads(hp: torch.Tensor, dg: torch.Tensor
     return dwh, dg.sum(dim=(1, 2))
 
 
-class _LSTMFn(torch.autograd.Function):
-    """B1 training forward, B1' backward."""
+def lstm_scan_tm_bwd(m, wh, saved, dys, need_dwh: bool = True):
+    """Backward kernel B1' (``_backward``): dys (dyf, dyb) -> ((dgxf, dgxb), dwh, dbh)."""
+    return _backward("lstm_scan_tm", m, wh, saved, dys, need_dwh)
+
+
+def gru_scan_tm_bwd(m, wh, saved, dys, need_dwh: bool = True):
+    """Backward kernel B2' (``_backward``): dys (dyf, dyb) -> ((dgxf, dgxb), dwh, dbh)."""
+    return _backward("gru_scan_tm", m, wh, saved, dys, need_dwh)
+
+
+def lstm_scan_stacked_bwd(m, wh, saved, dys, need_dwh: bool = True):
+    """The backward kernel of B7 (``_backward``): dys (dy,) -> ((dgx,), dwh, dbh)."""
+    return _backward("lstm_scan_stacked", m, wh, saved, dys, need_dwh)
+
+
+def gru_scan_stacked_bwd(m, wh, saved, dys, need_dwh: bool = True):
+    """The backward kernel of B7' (``_backward``): dys (dy,) -> ((dgx,), dwh, dbh)."""
+    return _backward("gru_scan_stacked", m, wh, saved, dys, need_dwh)
+
+
+_BACKWARD = {"lstm_scan_tm": lstm_scan_tm_bwd, "gru_scan_tm": gru_scan_tm_bwd,
+             "lstm_scan_stacked": lstm_scan_stacked_bwd,
+             "gru_scan_stacked": gru_scan_stacked_bwd}
+for _fn in _BACKWARD.values():
+    _fn.launches = 0
+
+
+class _ScanFn(torch.autograd.Function):
+    """Entry ``name``'s training forward and backward kernels; gx is
+    (gxf, gxb) or the stacked (gx,)."""
 
     @staticmethod
-    def forward(ctx, gxf, gxb, m, wh, bh):
-        yf, yb, (hp, cp, acts) = _forward("lstm_scan_tm", 4, gxf, gxb, m, wh, bh,
-                                          save=True)
-        ctx.save_for_backward(m, wh, hp, cp, acts)
-        return yf, yb
+    def forward(ctx, name, m, wh, bh, *gx):
+        ys, saved = _forward(name, gx, m, wh, bh, save=True)
+        ctx.save_for_backward(m, wh, *saved)
+        ctx.name = name
+        return ys[0] if len(ys) == 1 else ys
 
     @staticmethod
-    def backward(ctx, dyf, dyb):
-        m, wh, hp, cp, acts = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        dgxf, dgxb, dwh, dbh = lstm_scan_tm_bwd(m, wh, hp, cp, acts, dyf, dyb,
-                                                need_dwh=need[3] or need[4])
-        return dgxf, dgxb, None, dwh if need[3] else None, dbh if need[4] else None
-
-
-class _GRUFn(torch.autograd.Function):
-    """B2 training forward, B2' backward."""
-
-    @staticmethod
-    def forward(ctx, gxf, gxb, m, wh, bh):
-        yf, yb, (hp, acts) = _forward("gru_scan_tm", 3, gxf, gxb, m, wh, bh, save=True)
-        ctx.save_for_backward(m, wh, hp, acts)
-        return yf, yb
-
-    @staticmethod
-    def backward(ctx, dyf, dyb):
-        m, wh, hp, acts = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        dgxf, dgxb, dwh, dbh = gru_scan_tm_bwd(m, wh, hp, acts, dyf, dyb,
-                                               need_dwh=need[3] or need[4])
-        return dgxf, dgxb, None, dwh if need[3] else None, dbh if need[4] else None
+    def backward(ctx, *dys):
+        m, wh, *saved = ctx.saved_tensors
+        need_wh, need_bh = ctx.needs_input_grad[2:4]
+        dgx, dwh, dbh = _BACKWARD[ctx.name](m, wh, tuple(saved), dys,
+                                            need_dwh=need_wh or need_bh)
+        return (None, None, dwh if need_wh else None, dbh if need_bh else None, *dgx)

@@ -49,3 +49,48 @@ def masked_mean(x: torch.Tensor, lengths: torch.Tensor, axis=(1, 2)) -> torch.Te
     num = (x * mask).sum(dim=axis)
     valid_cells = mask.expand(x.shape).sum(dim=axis)
     return num / torch.clamp(valid_cells, min=1.0)
+
+
+def draw_stripes(gen: torch.Generator, n: int, max_width: int, limit: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``n`` stripes per row, each of width <= ``max_width`` and placed inside
+    [0, limit_b): -> (width, start), int64 [B, n] on ``limit``'s device.
+
+    The random numbers come from ``gen`` on the CPU; only they cross to the
+    device, so a CUDA ``limit`` costs no host sync.  The rule is the JAX
+    ``spec_augment``'s (width uniform on 0..max_width, start = floor(u *
+    max(limit - width, 1))); the stream is torch's, not ``jax.random``'s."""
+    b = limit.shape[0]
+    width = torch.randint(0, max_width + 1, (b, n), generator=gen).to(limit.device)
+    u = torch.rand((b, n), generator=gen).to(limit.device)
+    hi = torch.clamp(limit[:, None] - width, min=1).to(torch.float32)
+    return width, torch.floor(u * hi).to(torch.int64)
+
+
+def stripe_keep(width: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor:
+    """[B, n] stripes -> [B, size] bool keep mask, False inside any stripe."""
+    pos = torch.arange(size, device=width.device)[None, None, :]
+    inside = (pos >= start[..., None]) & (pos < (start + width)[..., None])
+    return ~inside.any(dim=1)
+
+
+def apply_spec_augment(x: torch.Tensor, time_stripes: tuple[torch.Tensor, torch.Tensor],
+                       freq_stripes: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Zero the given (width, start) time and frequency stripes of x [B, T, F]."""
+    keep_t = stripe_keep(*time_stripes, x.shape[1]).to(x.dtype)
+    keep_f = stripe_keep(*freq_stripes, x.shape[2]).to(x.dtype)
+    return x * keep_t[:, :, None] * keep_f[:, None, :]
+
+
+def spec_augment(gen: torch.Generator, x: torch.Tensor, lengths: torch.Tensor,
+                 n_time: int = 2, time_width: int = 30, n_freq: int = 2,
+                 freq_width: int = 13) -> torch.Tensor:
+    """SpecAugment-style masking of [B, T, F] features (Park et al. 2019): per
+    utterance ``n_time`` time stripes of width <= ``time_width`` inside the
+    valid frames and ``n_freq`` frequency stripes of width <= ``freq_width``
+    are zeroed (after per-utterance normalization zero is the feature mean).
+    Time stripes are drawn first, then frequency stripes."""
+    time_stripes = draw_stripes(gen, n_time, time_width, lengths)
+    freq_stripes = draw_stripes(gen, n_freq, freq_width,
+                                torch.full_like(lengths, x.shape[2]))
+    return apply_spec_augment(x, time_stripes, freq_stripes)

@@ -3,7 +3,9 @@ of ``aas_enhancement_tpu/train/loop.py``, the part that runs the step).
 
 Epochs over the noisy dataset's bucketed batches (the JAX package's order);
 for ``adversarial`` / ``aas`` each batch gets an unpaired clean batch of the
-same padded length.  Real rows weigh 1 and the repeat-padded rows of a
+same padded length; ``am`` trains the AM on the one manifest (typically the
+clean corpus) and, with ``distill_lambda`` > 0, anchors it to a frozen copy of
+the AM as the run started.  Real rows weigh 1 and the repeat-padded rows of a
 short batch 0 (``row_weights``; every clean row weighs 1).  Every
 ``log_every`` steps, the first and the last, a record {step, epoch,
 utts_per_sec, metrics...} is kept and printed to stderr as a JSON line.
@@ -14,6 +16,7 @@ profiling raise (ROADMAP A9).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import sys
@@ -28,7 +31,7 @@ from aas_enhancement_tpu_torch.data.dataset import AudioDataset, Batch, Unpaired
 from aas_enhancement_tpu_torch.enhance import init_enhancer
 from aas_enhancement_tpu_torch.evaluation import init_am
 from aas_enhancement_tpu_torch.models.discriminator import Discriminator
-from aas_enhancement_tpu_torch.train.state import TrainState, adam
+from aas_enhancement_tpu_torch.train.state import TrainState, adam, am_sgd
 from aas_enhancement_tpu_torch.train.steps import OBJECTIVES, make_train_step
 
 
@@ -36,14 +39,24 @@ def init_state(cfg: Config, seed: int, device: torch.device | str = "cpu",
                g_seed: int | None = None, am_seed: int | None = None) -> TrainState:
     """The networks the objective needs, drawn on the CPU with flax's init
     distributions and moved to ``device``: G from ``g_seed`` (default
-    ``seed``), D from ``seed + 1``, the frozen AM from ``am_seed`` (default
-    ``seed + 2``)."""
+    ``seed``), D from ``seed + 1``, the AM from ``am_seed`` (default
+    ``seed + 2``).  The AM is frozen for ``acoustic`` / ``aas`` and trained
+    for ``am``, which has no G unless ``am_through_enhancer`` puts the frozen
+    enhancer in front of the AM."""
     objective = cfg.train.objective
     if objective not in OBJECTIVES:
         raise NotImplementedError(f"objective {objective!r}: not yet ported (ROADMAP A8)")
     t = cfg.train
     state = TrainState()
-    state.g = init_enhancer(cfg, seed if g_seed is None else g_seed, device).train()
+    am_seed = seed + 2 if am_seed is None else am_seed
+    g_seed = seed if g_seed is None else g_seed
+    if objective == "am":
+        state.am = init_am(cfg, am_seed, device).train()
+        state.am_opt = am_sgd(cfg, state.am.parameters(), t.lr_am)
+        if t.am_through_enhancer:
+            state.g = init_enhancer(cfg, g_seed, device).requires_grad_(False)
+        return state
+    state.g = init_enhancer(cfg, g_seed, device).train()
     state.g_opt = adam(cfg, state.g.parameters(), t.lr_g)
     if objective in ("adversarial", "aas"):
         gen = torch.Generator().manual_seed(seed + 1)
@@ -51,8 +64,7 @@ def init_state(cfg: Config, seed: int, device: torch.device | str = "cpu",
                                  gen).to(device)
         state.d_opt = adam(cfg, state.d.parameters(), t.lr_d)
     if objective in ("acoustic", "aas"):
-        state.am = init_am(cfg, seed + 2 if am_seed is None else am_seed,
-                           device).requires_grad_(False)
+        state.am = init_am(cfg, am_seed, device).requires_grad_(False)
     return state
 
 
@@ -83,7 +95,8 @@ def _check_ported(cfg: Config) -> None:
             (bool(data.val_manifest), "validation (DataConfig.val_manifest)", "A9"),
             (t.sortagrad, "TrainConfig.sortagrad", "A9"),
             (bool(t.profile_dir), "TrainConfig.profile_dir", "A9"),
-            (t.streaming_finetune, "TrainConfig.streaming_finetune", "A11")):
+            (t.streaming_finetune, "TrainConfig.streaming_finetune", "A11"),
+            (t.streaming_finetune_am, "TrainConfig.streaming_finetune_am", "A11")):
         if on:
             raise NotImplementedError(f"{what}: not yet ported (ROADMAP {item})")
 
@@ -106,7 +119,11 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
                                            t.batch_size, seed=t.seed + 1)
     if state is None:
         state = init_state(cfg, t.seed, device)
-    step = make_train_step(cfg)
+    anchor_am = None
+    if t.objective == "am" and t.distill_lambda > 0.0:
+        # The anchor is the AM exactly as this run started.
+        anchor_am = copy.deepcopy(state.am).requires_grad_(False)
+    step = make_train_step(cfg, anchor_am=anchor_am)
 
     records: list[dict] = []
     last_logged = state.step

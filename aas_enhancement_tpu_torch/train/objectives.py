@@ -1,15 +1,16 @@
-"""Loss functions of the generator objectives, and the on-device features
-and enhancer forward that they and the evaluation share (port of
-``aas_enhancement_tpu/train/objectives.py``).
+"""Loss functions of the generator objectives and of AM pre-training, and
+the on-device features and enhancer forward that they and the evaluation
+share (port of ``aas_enhancement_tpu/train/objectives.py``).
 
 - adversarial: LSGAN or BCE on the spectrogram discriminator;
 - acoustic: CTC of the frozen AM on the enhanced features;
-- AAS: L_G = L_acoustic + lambda * L_adv.
+- AAS: L_G = L_acoustic + lambda * L_adv;
+- am: CTC of the trained AM on (typically clean) speech, optionally with
+  SpecAugment, the frozen enhancer in front and a KL anchor (``distill_kl``).
 
 All on the batch's device and padding-masked; repeat-padded rows carry
 weight 0 (``row_weights``).  The paired objective (``paired_loss``,
-``mr_stft_loss``) and AM pre-training (``am_pretrain_loss``, ``distill_kl``)
-are not ported yet (ROADMAP A8).
+``mr_stft_loss``) is not ported yet (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from aas_enhancement_tpu_torch.models.am import AcousticModel
 from aas_enhancement_tpu_torch.models.discriminator import Discriminator
 from aas_enhancement_tpu_torch.models.enhancer import Enhancer, apply_enhancement
 from aas_enhancement_tpu_torch.ops.ctc import ctc_loss_mean
-from aas_enhancement_tpu_torch.ops.masking import masked_normalize, time_mask
+from aas_enhancement_tpu_torch.ops.masking import masked_normalize, spec_augment, time_mask
 
 
 def wav_f32(wav: torch.Tensor) -> torch.Tensor:
@@ -147,3 +148,64 @@ def discriminator_loss(cfg: Config, disc: Discriminator, enh_log: torch.Tensor,
     return loss, {"loss_d": loss,
                   "d_score_real": _wmean(s_real, w_real, real_denom),
                   "d_score_fake": _wmean(s_fake, w_fake, fake_denom)}
+
+
+def distill_kl(base_logits: torch.Tensor, logits: torch.Tensor,
+               out_lengths: torch.Tensor, weights=None, denom=None) -> torch.Tensor:
+    """Posterior-anchor distillation: the masked mean per frame of
+    KL(softmax(base) || softmax(adapted)), averaged over the batch with the
+    real-row weighting of every other loss.  ``base_logits`` carry no
+    gradient (the anchor never trains)."""
+    base = base_logits.detach().to(torch.float32)
+    log_p = F.log_softmax(base, dim=-1)
+    kl = (log_p.exp() * (log_p - F.log_softmax(logits.to(torch.float32), dim=-1))).sum(-1)
+    fm = time_mask(out_lengths, kl.shape[1], kl.dtype)
+    per_ex = (kl * fm).sum(dim=1) / torch.clamp(fm.sum(dim=1), min=1.0)
+    return _wmean(per_ex, weights, denom)
+
+
+def am_pretrain_loss(cfg: Config, am: AcousticModel, batch: dict, w_denom=None,
+                     gen: torch.Generator | None = None,
+                     enhancer: Enhancer | None = None,
+                     anchor_am: AcousticModel | None = None
+                     ) -> tuple[torch.Tensor, dict]:
+    """AM pre-training on (typically clean) speech: CTC of ``am`` on the
+    normalized log-magnitude features.
+
+    ``gen`` not None enables SpecAugment when ``cfg.train.spec_augment`` (the
+    train step only; an evaluation forward passes none).  ``enhancer`` not
+    None (``TrainConfig.am_through_enhancer``) feeds the AM the FROZEN
+    enhancer's output features instead of the raw input.  ``anchor_am`` not
+    None with ``cfg.train.distill_lambda`` > 0 adds the KL term of
+    ``distill_kl``: the anchor runs on the same features and the trained
+    AM's frame posteriors are pulled toward it."""
+    t = cfg.train
+    if t.streaming_finetune_am:
+        raise NotImplementedError("streaming_finetune_am: the block-streaming AM "
+                                  "forward is not yet ported (ROADMAP A11)")
+    with torch.no_grad():
+        if enhancer is not None:
+            _, log_mag, fl = enhancer_forward(cfg, enhancer, batch["wav"],
+                                              batch["wav_lengths"],
+                                              streaming=t.streaming_finetune)
+        else:
+            _, log_mag, fl = device_features(cfg, batch["wav"], batch["wav_lengths"])
+        am_in = masked_normalize(log_mag, fl)
+        if gen is not None and t.spec_augment:
+            am_in = spec_augment(gen, am_in, fl, t.sa_time_masks, t.sa_time_width,
+                                 t.sa_freq_masks, t.sa_freq_width)
+    logits, out_lengths = am(am_in, fl)
+    logit_paddings = 1.0 - time_mask(out_lengths, logits.shape[1])
+    rw = batch.get("row_weights")
+    loss = ctc_loss_mean(logits, logit_paddings, batch["labels"],
+                         batch["label_paddings"], weights=rw, denom=w_denom)
+    aux = {"loss_ctc_am": loss}
+    if anchor_am is not None and t.distill_lambda > 0.0:
+        with torch.no_grad():
+            base_logits, base_ol = anchor_am(am_in, fl)
+        l_kl = distill_kl(base_logits, logits, torch.minimum(out_lengths, base_ol),
+                          weights=rw, denom=w_denom)
+        loss = loss + t.distill_lambda * l_kl
+        aux["loss_distill"] = l_kl
+        aux["loss_am_total"] = loss
+    return loss, aux

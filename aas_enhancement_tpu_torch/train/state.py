@@ -7,8 +7,13 @@ JAX package's G and D optimizer is ``optax.chain(clip_by_global_norm(400),
 adam(lr_schedule, b1=0.5, b2=0.999))``; here ``apply_update`` clips with
 ``clip_by_global_norm`` (written out, because ``clip_grad_norm_`` adds 1e-6
 to the norm and optax does not) and steps a ``torch.optim.Adam`` (eps 1e-8;
-its non-fused update is optax's formula).  The AM pre-training optimizer
-(SGD with Nesterov momentum) comes with the ``am`` objective (ROADMAP A8).
+its non-fused update is optax's formula).  The AM pre-training optimizer is
+``optax.chain(clip_by_global_norm(400), sgd(lr_schedule, momentum,
+nesterov=True))``: trace = g + mu * trace, update = -lr * (g + mu * trace).
+``torch.optim.SGD(momentum=mu, nesterov=True)`` with its defaults (dampening
+0, no weight decay) computes the same: buf = mu * buf + g, with buf = g at
+the first step, and p -= lr * (g + mu * buf); ``tests/test_torch_train.py``
+holds three steps of it to optax.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ class TrainState:
     d: nn.Module | None = None
     d_opt: torch.optim.Optimizer | None = None
     am: nn.Module | None = None        # frozen during AAS / acoustic
+    am_opt: torch.optim.Optimizer | None = None    # the "am" objective only
 
 
 def lr_schedule(cfg: Config, base_lr: float) -> Callable[[int], float]:
@@ -52,6 +58,13 @@ def adam(cfg: Config, params, base_lr: float) -> torch.optim.Adam:
     the CPU; both are optax's formula)."""
     t = cfg.train
     return torch.optim.Adam(params, lr=base_lr, betas=(t.adam_b1, t.adam_b2), eps=1e-8)
+
+
+def am_sgd(cfg: Config, params, base_lr: float) -> torch.optim.SGD:
+    """The AM pre-training optimizer: SGD with Nesterov momentum (optax's
+    ``sgd(momentum, nesterov=True)``, see the module docstring)."""
+    mu = cfg.train.momentum          # torch refuses nesterov=True without momentum
+    return torch.optim.SGD(params, lr=base_lr, momentum=mu, nesterov=mu > 0)
 
 
 def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Train steps for the generator objectives (port of
+"""Train steps for the generator objectives and AM pre-training (port of
 ``aas_enhancement_tpu/train/steps.py``).
 
 One step of ``aas`` (``adversarial`` and ``acoustic`` are the same code with
@@ -14,8 +14,15 @@ Gradient accumulation (``TrainConfig.grad_accum`` = k > 1): microbatch i
 takes the strided rows {r : r % k == i}; each divides by its SHARE of the
 batch's real-row weight (W / k, per weight stream), and the k gradients and
 metrics are averaged, so the result equals the unaccumulated weighted batch
-mean even when real rows spread unevenly.  The objectives ``paired`` and
-``am`` are not ported yet (ROADMAP A8).
+mean even when real rows spread unevenly.
+
+``am`` (AM pre-training): the gradient of ``am_pretrain_loss`` with respect
+to the AM's parameters only, clipped and applied with SGD and Nesterov
+momentum at ``lr_am``.  SpecAugment draws its stripes from a generator
+seeded from (``train.seed``, ``state.step``) at every microbatch, so a step
+mutates no random state and a resumed run repeats it (the JAX step folds the
+step count into its key the same way).  The objective ``paired`` is not
+ported yet (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.train import objectives as obj
 from aas_enhancement_tpu_torch.train.state import TrainState, apply_update, lr_schedule
 
-OBJECTIVES = ("aas", "adversarial", "acoustic")
+OBJECTIVES = ("aas", "adversarial", "acoustic", "am")
 
 
 def _named_grads(loss: torch.Tensor, module: torch.nn.Module) -> dict[str, torch.Tensor]:
@@ -40,16 +47,20 @@ def _named_grads(loss: torch.Tensor, module: torch.nn.Module) -> dict[str, torch
             for n, p, g in zip(names, params, grads)}
 
 
-def make_train_step(cfg: Config) -> Callable:
+def make_train_step(cfg: Config, anchor_am: torch.nn.Module | None = None) -> Callable:
     """-> step(state, batch) -> (state, metrics), updating ``state`` in place.
+
+    ``anchor_am``: the frozen base AM of the ``am`` objective's KL anchor
+    (``TrainConfig.distill_lambda``); it is never updated.
 
     batch: dict of tensors on the networks' device: wav, wav_lengths, labels,
     label_paddings, optional row_weights, and for adversarial / aas the
     unpaired clean_wav, clean_wav_lengths and optional clean_row_weights.
-    ``step.batch_grads(state, batch)`` -> ({"g": {name: grad}, "d": ...},
-    metrics) is the gradient half of the step, without the update."""
+    ``step.batch_grads(state, batch)`` -> ({"g": {name: grad}, "d": ...} or
+    {"am": ...}, metrics) is the gradient half of the step, without the
+    update."""
     objective = cfg.train.objective
-    if objective in ("paired", "am"):
+    if objective == "paired":
         raise NotImplementedError(f"objective {objective!r}: not yet ported "
                                   "(ROADMAP A8)")
     if objective not in OBJECTIVES:
@@ -63,9 +74,20 @@ def make_train_step(cfg: Config) -> Callable:
     lam = cfg.train.lambda_adv
     g_lr = lr_schedule(cfg, cfg.train.lr_g)
     d_lr = lr_schedule(cfg, cfg.train.lr_d)
+    am_lr = lr_schedule(cfg, cfg.train.lr_am)
 
     def micro_grads(state: TrainState, mb: dict, wd=None, cwd=None
                     ) -> tuple[dict, dict]:
+        if objective == "am":
+            gen = None
+            if cfg.train.spec_augment:
+                gen = torch.Generator().manual_seed((cfg.train.seed << 32) + state.step)
+            loss, aux = obj.am_pretrain_loss(
+                cfg, state.am, mb, w_denom=wd, gen=gen,
+                enhancer=state.g if cfg.train.am_through_enhancer else None,
+                anchor_am=anchor_am)
+            return ({"am": _named_grads(loss, state.am)},
+                    {key: v.detach() for key, v in aux.items()})
         loss, aux = obj.generator_loss(cfg, state.g, state.d if use_adv else None,
                                        state.am if use_ac else None, mb,
                                        use_acoustic=use_ac, use_adv=use_adv,
@@ -112,15 +134,16 @@ def make_train_step(cfg: Config) -> Callable:
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         grads, aux = batch_grads(state, batch)
         max_norm = cfg.train.max_grad_norm
-        for net, opt, lr in (("g", state.g_opt, g_lr), ("d", state.d_opt, d_lr)):
+        for net, opt, lr in (("g", state.g_opt, g_lr), ("d", state.d_opt, d_lr),
+                             ("am", state.am_opt, am_lr)):
             if net in grads:
-                module = state.g if net == "g" else state.d
+                module = getattr(state, net)
                 names = [n for n, _ in module.named_parameters()]
                 norm = apply_update(opt, list(module.parameters()),
                                     [grads[net][n] for n in names], lr(state.step),
                                     max_norm)
-                if net == "g":
-                    aux["g_grad_norm"] = norm
+                if net != "d":
+                    aux[f"{net}_grad_norm"] = norm
         state.step += 1
         return state, aux
 

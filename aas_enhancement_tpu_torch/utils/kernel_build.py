@@ -31,26 +31,31 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
-# C entry points: name -> argtypes.  Each returns its cudaError_t as an int.
+# C entry points: name -> argtypes.  Each returns its cudaError_t as an int
+# (aas_conv_dw_slices a count).
 SIGNATURES = {
     # x, win, re, im, batch, n_padded, n_frames, n_fft, hop, stream
     "aas_stft": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # re, im, win, y, batch, n_frames, n_fft, hop, stream
     "aas_istft": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # gxf, gxb, gx_stride_t, gx_stride_b, m, wh, bh, yf, yb, T, B, H, stream
-    "aas_lstm_tm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # gxf, gxb, gx_stride_t, gx_stride_b, m, wh, bh, yf, yb, T, B, H, stream
-    "aas_gru_tm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # ... as aas_lstm_tm_fwd, then hp, cp, act (saved for the backward), T, B, H, stream
-    "aas_lstm_tm_fwd_train": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _P),
-    # ... as aas_gru_tm_fwd, then hp, act (saved for the backward), T, B, H, stream
-    "aas_gru_tm_fwd_train": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _P),
-    # m, whT, cp, act, dyf, dyb, dgx, T, B, H, stream
-    "aas_lstm_tm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # m, whT, hp, act, dyf, dyb, dgx, dgh (or NULL), T, B, H, stream
-    "aas_gru_tm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # The recurrences, time-major (two tensors per direction) or stacked (two
+    # halves of one tensor); saved buffers NULL for inference:
+    # gx0, gx1, gx_stride_t, gx_stride_b, m, wh, bh, y0, y1, hp, cp, act,
+    # stacked, T, B, H, stream
+    "aas_lstm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # ... as aas_lstm_fwd without cp
+    "aas_gru_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # m, whT, cp, act, dy0, dy1, dgx, stacked, T, B, H, stream
+    "aas_lstm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # m, whT, hp, act, dy0, dy1, dgx, dgh (or NULL), stacked, T, B, H, stream
+    "aas_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # rows (B * T), Fo, kt, kf, ci, co, stride_f, multiprocessors -> slices
+    # (not an error code; 0: the kernel does not take the shape)
+    "aas_conv_dw_slices": (_I, _I, _I, _I, _I, _I, _I, _I),
+    # x, dy, part, dw, x strides (b, t, f), dy strides (b, t, f), B, T, F, Fo,
+    # ci, co, kt, kf, stride_f, pad_t_low, pad_f_low, slices, stream
+    "aas_conv_dw": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _I, _I, _P),
 }
 
 

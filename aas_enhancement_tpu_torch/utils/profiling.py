@@ -1,5 +1,5 @@
-"""Where the device time of one enhance call, one recognition forward and
-one AAS train step goes (counterpart of
+"""Where the device time of one enhance call, one recognition forward, one
+AAS train step and one AM pre-training step goes (counterpart of
 ``aas_enhancement_tpu/utils/profiling.py``).
 
     python -m aas_enhancement_tpu_torch.utils.profiling [--batch 4] [--seconds 8]
@@ -8,8 +8,9 @@ one AAS train step goes (counterpart of
 Runs ``make_enhance_fn``, then ``make_eval_forward(use_enhancer=True)``
 (enhancer + AM, the evaluate CLI's enhanced leg), both at ``--batch``, then
 one ``aas`` step of ``make_train_step`` (G and D gradients and updates, the
-frozen AM) at ``TrainConfig.batch_size``, at the shipped ``Config`` width on
-full rows of random audio (the step with random transcripts of 48 labels),
+frozen AM) and one ``am`` step (the AM's gradients, clip, SGD) at
+``TrainConfig.batch_size``, at the shipped ``Config`` width on full rows of
+random audio (the steps with random transcripts of 48 labels),
 with PyTorch's default TF32 settings as the CLIs run, records ``--calls``
 calls of each with ``torch.profiler`` (CPU and CUDA activity) after
 ``--warmup`` calls, and prints per call and path:
@@ -24,6 +25,7 @@ of an unprofiled call, 1 - busy / wall, where wall is the median host time of
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -99,8 +101,9 @@ def profile_call(fn, calls: int, warmup: int, trace_path: str) -> dict:
 
 def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
                   trace_dir: str) -> dict:
-    """{"enhance": summary, "recognize": summary, "train": summary} at
-    ``batch`` (the step at ``TrainConfig.batch_size``) x ``seconds`` on the
+    """{"enhance": summary, "recognize": summary, "train": summary,
+    "train_am": summary} at ``batch`` (the steps at
+    ``TrainConfig.batch_size``) x ``seconds`` on the
     GPU, weights drawn from the config's train seed; each summary also holds
     its ``batch``."""
     from aas_enhancement_tpu_torch.cli.enhance import resolve_device
@@ -139,8 +142,15 @@ def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
           "clean_wav_lengths": torch.full((train_batch,), n, device=device)}
     out["train"] = profile_call(lambda: step(state, tb), calls, warmup,
                                 os.path.join(trace_dir, "train_trace.json"))
+    del state
+    am_cfg = cfg.replace(train=dataclasses.replace(cfg.train, objective="am"))
+    am_state = init_state(am_cfg, cfg.train.seed, device)
+    am_step = make_train_step(am_cfg)
+    am_tb = {k: v for k, v in tb.items() if not k.startswith("clean")}
+    out["train_am"] = profile_call(lambda: am_step(am_state, am_tb), calls, warmup,
+                                   os.path.join(trace_dir, "train_am_trace.json"))
     for path, summary in out.items():
-        summary["batch"] = train_batch if path == "train" else batch
+        summary["batch"] = train_batch if path.startswith("train") else batch
     return out
 
 
@@ -151,7 +161,7 @@ def main(argv=None) -> None:
     p.add_argument("--seconds", type=float, default=8.0)
     p.add_argument("--calls", type=int, default=3)
     p.add_argument("--warmup", type=int, default=3)
-    p.add_argument("--trace-dir", help="keep the three Chrome traces in this directory")
+    p.add_argument("--trace-dir", help="keep the four Chrome traces in this directory")
     p.add_argument("--top", type=int, default=25, help="kernel names to print")
     args = p.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp:

@@ -25,13 +25,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    corpus with --device cuda, counting each kernel's launches (the backward
    kernels included); one AAS step's metrics and G and D gradients at
    B=4 x 8 s on the card against the same weights and batch on the CPU; and
-   full AAS steps timed at B=8 and B=32 x 8 s.
-The kernels phase also checks the three backward kernels (LSTM, GRU,
-GroupNorm) at B=8 against autograd through the plain versions.
+   full AAS steps timed at B=8 and B=32 x 8 s;
+7. birnn: BiRNN(time_major=False), the route to the stacked-layout LSTM and
+   GRU kernels, forward and backward at H=256 and H=512 against
+   BiRNN(time_major=True) on the transposed input, counting their launches;
+8. train_am: the train CLI with --objective am (AM pre-training, 3 steps,
+   B=4) on the card, counting launches (conv_dw once per microbatch, gru_bwd
+   once per layer); one AM step at B=4 x 8 s against the CPU (metrics, every
+   AM gradient tensor, updated parameters); the kernel names of one step
+   with conv2's dW from the kernel and from cuDNN; AM steps timed at B=8 and
+   B=32 x 8 s, and at B=8 with SpecAugment and the KL anchor.
+The kernels phase also checks the backward kernels (LSTM, GRU, GroupNorm,
+the stacked LSTM and GRU) at B=8 against autograd through the plain versions
+and the conv weight-gradient kernel at the AM's and the enhancer's shapes.
+Each kernel line gives, beside the kernel's and the plain version's time, the
+least time the card could take (bound: the larger of bytes moved once over
+3.35 TB/s and f32 operations over 67 TFLOP/s, the H100's published rates)
+and, where one PyTorch call computes the same function, that call's time.
 The line before the last two is a JSON summary of the kernels (launches from
-the train phase's CLI run for the kernels of the training path, from the
-recognize phase's for the ISTFT), the next the card's name and power limit,
-the last {"ok": true, "device": {...}}.
+the last path above that runs the kernel; "launches_by_path" has each
+path's), the next the card's name and power limit, the last
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ import copy
 import dataclasses
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -57,7 +72,9 @@ AM_LENGTHS = [401, 351, 301, 201]     # conv_out_length of 801/701/601/401
 BWD_B = 8                             # the backward kernels' batch (TrainConfig default)
 BWD_FRAMES = [801, 701, 601, 401, 801, 751, 501, 301]
 BWD_AM_FRAMES = [401, 351, 301, 201, 401, 376, 251, 151]
-TRAIN_BATCHES = (8, 32)               # timed AAS steps, x 8 s
+TRAIN_BATCHES = (8, 32)               # timed AAS and AM steps, x 8 s
+PEAK_BYTES_S = 3.35e12                # H100 SXM: HBM3 bytes/s (published)
+PEAK_F32_S = 67e12                    # H100 SXM: f32 FLOP/s outside the tensor cores
 
 # Tolerances (max abs error, kernel vs plain version, f32 on the card).  Both
 # sides accumulate in float32 in different orders; each bound is about 3-50x
@@ -69,6 +86,7 @@ TOL = {
     "lstm": (1e-5, "|y| < 1, f32 rounding carried through 801 recurrent steps"),
     "gru": (1e-5, "|y| < 1, 512-term f32 dots, rounding carried through 401 steps"),
 }
+TOL["lstm_stacked"], TOL["gru_stacked"] = TOL["lstm"], TOL["gru"]
 # Backward kernels: max abs error over the gradients relative to the largest
 # |gradient| of the same tensor, kernel vs autograd through the plain version.
 BWD_TOL = {
@@ -77,7 +95,12 @@ BWD_TOL = {
     "gru_bwd": (1e-4, "dh carried back through 401 steps of 1536-term f32 dots; "
                 "dWh sums T*B = 3208 outer products"),
     "gn_bwd": (1e-5, "f32 group sums over 0.2-5M values, then one fused elementwise pass"),
+    "conv_dw": (1e-4, "each dW entry is an f32 sum over up to 1.03M positions, added "
+                "row by row and slice by slice in the kernel, by one matmul in the "
+                "plain version"),
 }
+BWD_TOL["lstm_stacked_bwd"] = BWD_TOL["lstm_bwd"]
+BWD_TOL["gru_stacked_bwd"] = BWD_TOL["gru_bwd"]
 # Card vs CPU, one AAS step from the same weights and batch (f32, TF32 off):
 # metrics relative; each gradient tensor's max abs difference relative to its
 # own max|g|.  A tensor whose CPU max|g| is below GRAD_ZERO of the network's
@@ -88,6 +111,14 @@ TRAIN_TOL = (1e-4, "CTC over 401 frames, D scores, through STFT, conv/GN, 2 "
 GRAD_ZERO = 1e-5
 # Measured on an H100, per tensor: G 6.4e-05 to 2.2e-04 (convs.0.bias), D
 # 0 to 1.8e-04 (convs.1.weight); no tensor zero to rounding.
+# One AM step, card vs CPU: each AM gradient tensor against its own max|g|,
+# and the parameters after the SGD update against the CPU's.
+AM_GRAD_TOL = (1e-3, "AM gradient carried back through CTC over 401 frames, 4 "
+               "BiGRU-512 (dWh sums 1604 outer products), two GroupNorms and the "
+               "convs' weight gradients (f32 sums over 0.07-0.5M positions that "
+               "cancel), in the card's and the CPU's orders")
+AM_PARAM_TOL = (1e-6, "p - lr * clipped g with lr 3e-4 and |clipped g| <= 400: the "
+                "gradient's differences, scaled by lr")
 TRAIN_GRAD_TOL = {
     "g": (1e-3, "G gradient carried back through CTC, 4 BiGRU-512, the AM's convs and "
           "GNs, 2 BiLSTM-256 and the enhancer's convs; weight and bias gradients are "
@@ -123,6 +154,43 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> list[float]:
         end.synchronize()
         out.append(start.elapsed_time(end))
     return out
+
+
+def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes moved
+    once over its memory rate and the f32 operations over its FMA rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def in_turns(run_k, run_p, reps: int, warmup: int = 2) -> tuple[float, float]:
+    """Median ms of kernel and plain version, timed plain, kernel, kernel, plain."""
+    t_p = cuda_ms(run_p, reps, warmup)
+    t_k = cuda_ms(run_k, reps, warmup) + cuda_ms(run_k, reps, warmup)
+    t_p += cuda_ms(run_p, reps, warmup)
+    return statistics.median(t_k), statistics.median(t_p)
+
+
+def keep(results: dict, name: str, label: str, err: float, ms: float, plain_ms: float,
+         work: tuple[float, float], library_ms: float | None = None,
+         rel_err: float | None = None) -> str:
+    """Record a kernel's check at the shape ``label``.  The JSON line's own
+    numbers are all the first shape's (the main path's); "shapes" has every
+    shape's, with the error relative to the reference's largest value where
+    the check is relative.  -> the text of its bound and library time."""
+    bound_ms, bound_by = bound(*work)
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    if rel_err is not None:
+        row["rel_err"] = rel_err
+    results.setdefault(name, {**row, "shapes": {}})["shapes"][label] = row
+    lib = "" if library_ms is None else f" | library call {library_ms:.4f} ms"
+    return (f"bound {bound_ms:.4f} ms by {bound_by} ({work[0] / 1e6:.1f} MB, "
+            f"{work[1] / 1e9:.3f} GFLOP){lib}")
 
 
 def max_err(a, b) -> float:
@@ -177,15 +245,32 @@ def make_inputs(device):
     return wav.to(device), lengths.to(device), gen
 
 
+STACKED = ("lstm_stacked", "gru_stacked", "lstm_stacked_bwd", "gru_stacked_bwd")
+
+
 def kernel_counters() -> dict:
-    """The eight kernel wrappers of the three paths, by kernel name."""
+    """The kernel wrappers of all paths, by kernel name."""
+    from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
     from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
     from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
     from aas_enhancement_tpu_torch.ops.triton import gn
     return {"stft": kstft.stft, "istft": kstft.istft, "gn_act": gn.masked_group_norm_act,
             "lstm": krnn.lstm_scan_tm, "gru": krnn.gru_scan_tm,
             "lstm_bwd": krnn.lstm_scan_tm_bwd, "gru_bwd": krnn.gru_scan_tm_bwd,
-            "gn_bwd": gn.masked_group_norm_act_bwd}
+            "gn_bwd": gn.masked_group_norm_act_bwd, "conv_dw": kconv.conv_dw_same,
+            "lstm_stacked": krnn.lstm_scan_stacked, "gru_stacked": krnn.gru_scan_stacked,
+            "lstm_stacked_bwd": krnn.lstm_scan_stacked_bwd,
+            "gru_stacked_bwd": krnn.gru_scan_stacked_bwd}
+
+
+def counted(names, run) -> dict:
+    """Set the named kernels' launch counts to 0, drive ``run()``, and read
+    the counts: {name: launches of that run}."""
+    counters = {k: v for k, v in kernel_counters().items() if k in names}
+    for fn in counters.values():
+        fn.launches = 0
+    run()
+    return {k: fn.launches for k, fn in counters.items()}
 
 
 def phase_kernels(device):
@@ -217,54 +302,88 @@ def phase_kernels(device):
         gru.bh.copy_(0.1 * torch.randn(gru.bh.shape, generator=gen))   # n-slice inside r
     m_am = time_mask(am_frames, AM_T).T.contiguous()
 
+    window = torch.hann_window(320, periodic=True, device=device)
+
+    def rnn_work(gates_t, gh: int, mask, mod):
+        """(bytes, flops) of one bidirectional recurrence over gates [T, B, 2GH]:
+        gx, m, wh, bh read and y written once; the recurrent product's FMAs."""
+        t_n, b_n, h = gates_t.shape[0], gates_t.shape[1], mod.hidden
+        return (nbytes(gates_t, mask, mod.wh, mod.bh) + 2 * t_n * b_n * h * 4,
+                2.0 * 2 * t_n * b_n * h * gh)
+
     with torch.inference_mode():
         gates = rnn.wx(torch.randn(t_len, B, 161 * 32, generator=gen).to(device))
         gxf, gxb = gates[..., :1024], gates[..., 1024:]          # strided, as in BiRNN
         g_gates = gru.wx(torch.randn(AM_T, B, 41 * 32, generator=gen).to(device))
         g_xf, g_xb = g_gates[..., :1536], g_gates[..., 1536:]
+        # The stacked layout of BiRNN(time_major=False): direction 1 flipped.
+        gx_s, m_s = (x.contiguous() for x in krnn.to_stacked(gxf, gxb, m))
+        g_gx_s, g_m_s = (x.contiguous() for x in krnn.to_stacked(g_xf, g_xb, m_am))
         leaky = dict(num_groups=8, act="leaky_relu", slope=0.2)
         hard = dict(num_groups=8, act="hardtanh")
-        cases = {       # label: (kernel name, wrapper, plain version, args, kwargs)
-            "stft": ("stft", kstft.stft, kstft.stft_plain, (wav, 320, 160), {}),
+        # A 320-point real transform per frame needs an FFT's operations
+        # (5 n log2 n), not the direct sum's that the kernels spend.
+        dft_flops = B * t_len * 5.0 * 320 * math.log2(320)
+        cases = {   # label: (kernel name, wrapper, plain, args, kwargs, (bytes, flops), library)
+            "stft": ("stft", kstft.stft, kstft.stft_plain, (wav, 320, 160), {},
+                     (nbytes(wav, re, im), dft_flops),
+                     lambda: torch.stft(wav, 320, 160, window=window, center=True,
+                                        pad_mode="reflect", return_complex=True)),
             "istft": ("istft", kstft.istft, kstft.istft_plain,
-                      (re * gain, im * gain, 320, 160, "hann", True, N), {}),
+                      (re * gain, im * gain, 320, 160, "hann", True, N), {},
+                      (nbytes(re, im, wav), dft_flops),
+                      lambda z=torch.complex(re * gain, im * gain).transpose(1, 2):
+                      torch.istft(z, 320, 160, window=window, center=True, length=N)),
             "gn_act": ("gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
-                       (x_gn, scale, bias, frames), leaky),
+                       (x_gn, scale, bias, frames), leaky,
+                       (2 * nbytes(x_gn), 10.0 * x_gn.numel()), None),
             "gn_act hardtanh [4, 401, 81, 32]": (
                 "gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
-                (x_am[81], scale, bias, am_frames), hard),
+                (x_am[81], scale, bias, am_frames), hard,
+                (2 * nbytes(x_am[81]), 10.0 * x_am[81].numel()), None),
             "gn_act hardtanh [4, 401, 41, 32]": (
                 "gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
-                (x_am[41], scale, bias, am_frames), hard),
+                (x_am[41], scale, bias, am_frames), hard,
+                (2 * nbytes(x_am[41]), 10.0 * x_am[41].numel()), None),
             "lstm": ("lstm", krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain,
-                     (gxf, gxb, m, rnn.wh, rnn.bh), {}),
+                     (gxf, gxb, m, rnn.wh, rnn.bh), {}, rnn_work(gates, 1024, m, rnn), None),
             "gru": ("gru", krnn.gru_scan_tm, krnn.gru_scan_tm_plain,
-                    (g_xf, g_xb, m_am, gru.wh, gru.bh), {}),
+                    (g_xf, g_xb, m_am, gru.wh, gru.bh), {},
+                    rnn_work(g_gates, 1536, m_am, gru), None),
+            "lstm_stacked": ("lstm_stacked", krnn.lstm_scan_stacked,
+                             krnn.lstm_scan_stacked_plain, (gx_s, m_s, rnn.wh, rnn.bh), {},
+                             rnn_work(gates, 1024, m_s, rnn), None),
+            "gru_stacked": ("gru_stacked", krnn.gru_scan_stacked,
+                            krnn.gru_scan_stacked_plain, (g_gx_s, g_m_s, gru.wh, gru.bh), {},
+                            rnn_work(g_gates, 1536, g_m_s, gru), None),
         }
-        results = {}
-        for label, (name, kernel, plain, args, kw) in cases.items():
-            k_out = kernel(*args, **kw)
+        results, outs = {}, {}
+        for label, (name, kernel, plain, args, kw, work, library) in cases.items():
+            k_out = outs[label] = kernel(*args, **kw)
             p_out = plain(*args, **kw)
             torch.cuda.synchronize()
             err = max_err(k_out, p_out)
             tol, why = TOL[name]
-            reps = 5 if name in ("lstm", "gru") else 20
-            run_k = lambda: kernel(*args, **kw)                        # noqa: E731
-            run_p = lambda: plain(*args, **kw)                         # noqa: E731
-            t_p = cuda_ms(run_p, reps)                                 # in turns:
-            t_k = cuda_ms(run_k, reps) + cuda_ms(run_k, reps)          # plain, kernel,
-            t_p += cuda_ms(run_p, reps)                                # kernel, plain
-            ms, plain_ms = statistics.median(t_k), statistics.median(t_p)
+            reps = 5 if name in ("lstm", "gru", "lstm_stacked", "gru_stacked") else 20
+            ms, plain_ms = in_turns(lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
+                                    reps)
+            lib_ms = None if library is None else statistics.median(cuda_ms(library, reps))
+            text = keep(results, name, label, err, ms, plain_ms, work, lib_ms)
             print(f"[kernel] {label}: max_abs_err {err:.3e} (tol {tol:.0e}: {why}) | "
                   f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-                  f"x{plain_ms / ms:.2f}")
+                  f"x{plain_ms / ms:.2f} | {text}")
             if not err <= tol:
                 fail(f"{label}: max abs err {err:.3e} > tol {tol:.0e}")
-            if name in results:         # the JSON line keeps the first shape's
-                err = max(err, results[name][0])       # times and the worst error
-                ms, plain_ms = results[name][1:]
-            results[name] = (err, ms, plain_ms)
+        # One device code serves both layouts: the stacked entries give the
+        # time-major entries' bits (direction 1 flipped back).
+        for cell in ("lstm", "gru"):
+            yf, yb = outs[cell]
+            ys = outs[f"{cell}_stacked"]
+            if not (torch.equal(ys[:, 0], yf) and torch.equal(ys[:, 1].flip(0), yb)):
+                fail(f"{cell}: the stacked entry's output differs from the time-major entry's")
+        print("[kernel] lstm_stacked, gru_stacked: bit-identical to the time-major entries")
     kernels_backward(device, gen, results)
+    kernels_conv_dw(device, gen, results)
     return results
 
 
@@ -277,18 +396,22 @@ def kernels_backward(device, gen, results: dict) -> None:
     """The backward kernels at the training path's full widths, B=8 with
     ragged lengths: the kernel autograd Functions' gradients against
     torch.autograd.grad through the plain versions on the card, and the
-    time of the backward pass alone (the graph built once, kept)."""
+    time of the backward pass alone (the graph built once, kept).  The
+    stacked-layout cases come last and draw from a generator of their own, so
+    the other cases see the random numbers they always saw."""
     import torch
     from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
     from aas_enhancement_tpu_torch.ops.masking import time_mask
     from aas_enhancement_tpu_torch.ops.triton import gn
 
-    def randn(*shape, scale=1.0):
+    def randn(*shape, scale=1.0, gen=gen):
         return (scale * torch.randn(*shape, generator=gen)).to(device)
 
+    gen_stacked = torch.Generator().manual_seed(7)
+    stacked_cases = {}
     frames = torch.tensor(BWD_FRAMES, device=device)
     am_frames = torch.tensor(BWD_AM_FRAMES, device=device)
-    cases = {}             # label: (kernel name, fn(wrapper or plain) -> outs, inputs)
+    cases = {}    # label: (kernel name, fn(wrapper or plain) -> outs, pair, inputs, work)
     for name, cell, t_len, h, lens in (("lstm_bwd", "lstm", 1 + N // 160, 256, frames),
                                        ("gru_bwd", "gru", AM_T, 512, am_frames)):
         g = 4 if cell == "lstm" else 3
@@ -296,10 +419,25 @@ def kernels_backward(device, gen, results: dict) -> None:
         wh = randn(2, h, g * h, scale=h ** -0.5).requires_grad_()
         bh = randn(2, g * h, scale=0.1).requires_grad_()
         m = time_mask(lens, t_len).T.contiguous()
-        pair = ((krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain) if cell == "lstm"
-                else (krnn.gru_scan_tm, krnn.gru_scan_tm_plain))
+        # Read once: the saved h (and c), the saved activations [.., 4H], dy, wh;
+        # written once: dgx, dwh, dbh.  dh = dg wh^T and dWh = h^T dg, one FMA
+        # per term each.
+        cells = 2 * t_len * BWD_B
+        work = (4.0 * (cells * h * ((5 if cell == "gru" else 6) + 1 + g)
+                       + 2 * wh.numel() + bh.numel()),
+                2.0 * 2 * cells * h * g * h)
+        tm = ((krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain) if cell == "lstm"
+              else (krnn.gru_scan_tm, krnn.gru_scan_tm_plain))
         cases[f"{name} T={t_len} B={BWD_B} H={h}"] = (
-            name, _rnn_call(gates, m, wh, bh, g * h), pair, (gates, wh, bh))
+            name, _rnn_call(gates, m, wh, bh, g * h), tm, (gates, wh, bh), work)
+        stacked = ((krnn.lstm_scan_stacked, krnn.lstm_scan_stacked_plain) if cell == "lstm"
+                   else (krnn.gru_scan_stacked, krnn.gru_scan_stacked_plain))
+        gx_s = randn(t_len, 2, BWD_B, g * h, scale=0.5, gen=gen_stacked).requires_grad_()
+        m_s = torch.stack([m, m.flip(0)], dim=1).contiguous()
+        stacked_cases[f"{cell}_stacked_bwd T={t_len} B={BWD_B} H={h}"] = (
+            f"{cell}_stacked_bwd",
+            lambda fn, gx=gx_s, ms=m_s, wh=wh, bh=bh: (fn(gx, ms, wh, bh),),
+            stacked, (gx_s, wh, bh), work)
     for act, f, lens, slope in (("leaky_relu", 161, frames, 0.2),
                                 ("hardtanh", 81, am_frames, 0.2),
                                 ("hardtanh", 41, am_frames, 0.2)):
@@ -310,11 +448,14 @@ def kernels_backward(device, gen, results: dict) -> None:
         kw = dict(num_groups=8, act=act, slope=slope)
         cases[f"gn_bwd {act} [{BWD_B}, {t_len}, {f}, 32]"] = (
             "gn_bwd", lambda fn, x=x, s=scale, b=bias, ln=lens, kw=kw: (fn(x, s, b, ln, **kw),),
-            (gn.masked_group_norm_act, gn.masked_group_norm_act_plain), (x, scale, bias))
+            (gn.masked_group_norm_act, gn.masked_group_norm_act_plain), (x, scale, bias),
+            (3 * nbytes(x), 20.0 * x.numel()))           # x, dy read, dx written
 
-    for label, (name, run, (kernel, plain), inputs) in cases.items():
+    cases.update(stacked_cases)
+    for label, (name, run, (kernel, plain), inputs, work) in cases.items():
         outs_k, outs_p = run(kernel), run(plain)
-        cots = tuple(torch.randn(o.shape, generator=gen).to(device) for o in outs_k)
+        cot_gen = gen_stacked if label in stacked_cases else gen
+        cots = tuple(torch.randn(o.shape, generator=cot_gen).to(device) for o in outs_k)
         grads_k = torch.autograd.grad(outs_k, inputs, cots, retain_graph=True)
         grads_p = torch.autograd.grad(outs_p, inputs, cots, retain_graph=True)
         torch.cuda.synchronize()
@@ -322,25 +463,75 @@ def kernels_backward(device, gen, results: dict) -> None:
         rel = max((a - b).abs().max().item() / b.abs().max().item()
                   for a, b in zip(grads_k, grads_p))
         tol, why = BWD_TOL[name]
-        back_k = lambda: torch.autograd.grad(outs_k, inputs, cots, retain_graph=True)  # noqa: E731
-        back_p = lambda: torch.autograd.grad(outs_p, inputs, cots, retain_graph=True)  # noqa: E731
         reps = 3 if name != "gn_bwd" else 10
-        t_p = cuda_ms(back_p, reps, warmup=1)                       # in turns
-        t_k = cuda_ms(back_k, reps, warmup=1) + cuda_ms(back_k, reps, warmup=1)
-        t_p += cuda_ms(back_p, reps, warmup=1)
-        ms, plain_ms = statistics.median(t_k), statistics.median(t_p)
-        grads = "dx, dscale, dbias" if name == "gn_bwd" else "dgxf, dgxb, dwh, dbh"
+        ms, plain_ms = in_turns(
+            lambda: torch.autograd.grad(outs_k, inputs, cots, retain_graph=True),
+            lambda: torch.autograd.grad(outs_p, inputs, cots, retain_graph=True),
+            reps, warmup=1)
+        grads = {"gn_bwd": "dx, dscale, dbias", "lstm_bwd": "dgxf, dgxb, dwh, dbh",
+                 "gru_bwd": "dgxf, dgxb, dwh, dbh"}.get(name, "dgx, dwh, dbh")
+        text = keep(results, name, label, err, ms, plain_ms, work, rel_err=rel)
         print(f"[kernel] {label}: grads ({grads}) max_abs_err {err:.3e}, relative "
               f"to max|grad| {rel:.3e} (tol {tol:.0e}: {why}) | "
               f"backward kernel {ms:.4f} ms | plain backward {plain_ms:.4f} ms | "
-              f"x{plain_ms / ms:.2f}")
+              f"x{plain_ms / ms:.2f} | {text}")
         if not rel <= tol:
             fail(f"{label}: gradient error {rel:.3e} of max|grad| > tol {tol:.0e}")
-        if name in results:
-            err = max(err, results[name][0])
-            ms, plain_ms = results[name][1:]
-        results[name] = (err, ms, plain_ms)
         del outs_k, outs_p, grads_k, grads_p
+
+
+def kernels_conv_dw(device, gen, results: dict) -> None:
+    """The conv weight-gradient kernel at B=8 against its plain version: the
+    AM's conv2 (11 x 21, stride (1, 2), [8, 401, 81, 32] -> 41 bins) with a
+    ragged dy (zero past each row's length, as the GroupNorm's mask leaves
+    it), and the enhancer's 5 x 5 stride-(1, 1) convs at [8, 801, 161, 32];
+    two runs must give the same bits.  The library call beside it is cuDNN's
+    weight gradient (torch.nn.grad.conv2d_weight), f32 and TF32."""
+    import torch
+    import torch.nn.functional as F
+    from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
+    from aas_enhancement_tpu_torch.ops.masking import time_mask
+
+    tol, why = BWD_TOL["conv_dw"]
+    shapes = (("AM conv2 11x21 s(1,2)", AM_T, 81, 11, 21, (1, 2), BWD_AM_FRAMES),
+              ("enhancer conv 5x5 s(1,1)", 1 + N // 160, 161, 5, 5, (1, 1), BWD_FRAMES))
+    for label, t_len, f, kt, kf, strides, lens in shapes:
+        fo = -(-f // strides[1])
+        x = torch.randn(BWD_B, t_len, f, 32, generator=gen).to(device)
+        mask = time_mask(torch.tensor(lens, device=device), t_len)[:, :, None, None]
+        dy = torch.randn(BWD_B, t_len, fo, 32, generator=gen).to(device) * mask
+        got = kconv.conv_dw_same(x, dy, kt, kf, strides)
+        again = kconv.conv_dw_same(x, dy, kt, kf, strides)
+        ref = kconv.conv_dw_same_plain(x, dy, kt, kf, strides)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"conv_dw {label}: two runs gave different bits")
+        err = max_err(got, ref)
+        rel = err / ref.abs().max().item()
+        ms, plain_ms = in_turns(lambda: kconv.conv_dw_same(x, dy, kt, kf, strides),
+                                lambda: kconv.conv_dw_same_plain(x, dy, kt, kf, strides),
+                                reps=5, warmup=1)
+        # cuDNN's weight gradient on the same tensors (NCHW views of the same
+        # channels-last memory, SAME padding applied to x), for the record only.
+        pads = (*kconv.same_pad(f, kf, strides[1]), *kconv.same_pad(t_len, kt, 1))
+        x_nchw = F.pad(x.permute(0, 3, 1, 2), pads)
+        dy_nchw = dy.permute(0, 3, 1, 2)
+        cudnn = lambda: torch.nn.grad.conv2d_weight(                       # noqa: E731
+            x_nchw, (32, 32, kt, kf), dy_nchw, stride=strides)
+        lib_err = (cudnn().permute(2, 3, 1, 0) - ref).abs().max().item() / ref.abs().max().item()
+        lib_ms = statistics.median(cuda_ms(cudnn, 5))
+        torch.backends.cudnn.allow_tf32 = True
+        lib_tf32_ms = statistics.median(cuda_ms(cudnn, 5))
+        torch.backends.cudnn.allow_tf32 = False
+        work = (nbytes(x, dy, ref), 2.0 * BWD_B * t_len * fo * kt * kf * 32 * 32)
+        text = keep(results, "conv_dw", label, err, ms, plain_ms, work, lib_ms, rel_err=rel)
+        print(f"[kernel] conv_dw {label} x [{BWD_B}, {t_len}, {f}, 32] ragged dy: "
+              f"max_abs_err {err:.3e}, relative to max|dW| {rel:.3e} (tol {tol:.0e}: "
+              f"{why}); same bits on two runs | kernel {ms:.4f} ms | plain {plain_ms:.4f} "
+              f"ms | x{plain_ms / ms:.2f} | {text} (cuDNN wgrad f32, its error "
+              f"{lib_err:.3e}; with TF32 {lib_tf32_ms:.4f} ms)")
+        if not rel <= tol:
+            fail(f"conv_dw {label}: error {rel:.3e} of max|dW| > tol {tol:.0e}")
 
 
 def phase_slice(device, card):
@@ -350,18 +541,17 @@ def phase_slice(device, card):
     from aas_enhancement_tpu_torch.data import generate_corpus, read_manifest, read_wav
     from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
 
-    counters = {k: v for k, v in kernel_counters().items()
-                if k in ("stft", "istft", "gn_act", "lstm")}
     with tempfile.TemporaryDirectory() as tmp:
         manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
         out_dir = os.path.join(tmp, "enhanced")
-        for fn in counters.values():
-            fn.launches = 0
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            cli.main(["--manifest", manifests["noisy"], "--out-dir", out_dir,
-                      "--device", "cuda"])
-        launches = {k: fn.launches for k, fn in counters.items()}
+
+        def run_cli():
+            with contextlib.redirect_stdout(buf):
+                cli.main(["--manifest", manifests["noisy"], "--out-dir", out_dir,
+                          "--device", "cuda"])
+
+        launches = counted(("stft", "istft", "gn_act", "lstm"), run_cli)
         cli_line = json.loads(buf.getvalue().strip().splitlines()[-1])
         print(f"[slice] cli.enhance --device cuda: {json.dumps(cli_line)} "
               f"| launches {json.dumps(launches)}")
@@ -430,17 +620,17 @@ def phase_recognize(device, card):
     from aas_enhancement_tpu_torch.enhance import init_enhancer
     from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
 
-    counters = {k: v for k, v in kernel_counters().items() if not k.endswith("_bwd")}
     with tempfile.TemporaryDirectory() as tmp:
         manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
-        for fn in counters.values():
-            fn.launches = 0
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            cli.main(["--manifest", manifests["noisy"], "--am-checkpoint", "seed:0",
-                      "--enhancer-checkpoint", "seed:1",
-                      "--clean-manifest", manifests["clean"], "--device", "cuda"])
-        launches = {k: fn.launches for k, fn in counters.items()}
+
+        def run_cli():
+            with contextlib.redirect_stdout(buf):
+                cli.main(["--manifest", manifests["noisy"], "--am-checkpoint", "seed:0",
+                          "--enhancer-checkpoint", "seed:1",
+                          "--clean-manifest", manifests["clean"], "--device", "cuda"])
+
+        launches = counted(("stft", "istft", "gn_act", "lstm", "gru"), run_cli)
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
     print(f"[recognize] cli.evaluate --device cuda: {json.dumps(line)} "
           f"| launches {json.dumps(launches)}")
@@ -526,18 +716,19 @@ def phase_train(device, card):
     from aas_enhancement_tpu_torch.train.state import TrainState
     from aas_enhancement_tpu_torch.train.steps import make_train_step
 
-    counters = {k: v for k, v in kernel_counters().items() if k != "istft"}
     with tempfile.TemporaryDirectory() as tmp:
         manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
-        for fn in counters.values():
-            fn.launches = 0
         out, err = io.StringIO(), io.StringIO()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            cli.main(["--objective", "aas", "--noisy-manifest", manifests["noisy"],
-                      "--clean-manifest", manifests["clean"], "--steps", "3",
-                      "--batch-size", "4", "--am-checkpoint", "seed:0",
-                      "--device", "cuda"])
-        launches = {k: fn.launches for k, fn in counters.items()}
+
+        def run_cli():
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                cli.main(["--objective", "aas", "--noisy-manifest", manifests["noisy"],
+                          "--clean-manifest", manifests["clean"], "--steps", "3",
+                          "--batch-size", "4", "--am-checkpoint", "seed:0",
+                          "--device", "cuda"])
+
+        launches = counted(("stft", "gn_act", "lstm", "gru", "lstm_bwd", "gru_bwd",
+                            "gn_bwd"), run_cli)
     line = json.loads(out.getvalue().strip().splitlines()[-1])
     records = [json.loads(r) for r in err.getvalue().splitlines() if r.startswith("{")]
     for r in records:
@@ -629,6 +820,252 @@ def phase_train(device, card):
     return launches
 
 
+def phase_birnn(device):
+    """BiRNN(time_major=False), the route to the stacked-layout kernels:
+    output and gradients (x, wx, wh, bh) against BiRNN(time_major=True) with
+    the same weights on the transposed input, both on the card."""
+    import torch
+    from aas_enhancement_tpu_torch.convert import init_like_flax
+    from aas_enhancement_tpu_torch.ops.rnn import BiRNN
+
+    gen = torch.Generator().manual_seed(11)
+    pairs = []
+    for cell, d, h, t_len, lens in (("lstm", 256, 256, 1 + N // 160, BWD_FRAMES),
+                                    ("gru", 512, 512, AM_T, BWD_AM_FRAMES)):
+        tm = init_like_flax(BiRNN(d, h, cell=cell), gen).to(device)
+        with torch.no_grad():
+            tm.bh.copy_(0.1 * torch.randn(tm.bh.shape, generator=gen))
+        bm = BiRNN(d, h, cell=cell, time_major=False, device=device)
+        bm.load_state_dict(tm.state_dict())
+        x = torch.randn(BWD_B, t_len, d, generator=gen).to(device).requires_grad_()
+        cot = torch.randn(BWD_B, t_len, h, generator=gen).to(device)
+        pairs.append((cell, h, t_len, tm, bm, x, cot, torch.tensor(lens, device=device)))
+
+    got = {}
+
+    def run():
+        for cell, _, _, _, bm, x, cot, lens in pairs:
+            y = bm(x, lens)
+            got[cell] = (y, torch.autograd.grad(y, (x, *bm.parameters()), cot))
+        torch.cuda.synchronize()
+
+    launches = counted(STACKED, run)
+    for cell, h, t_len, tm, _, x, cot, lens in pairs:
+        y_ref = tm(x.transpose(0, 1), lens).transpose(0, 1)
+        ref = torch.autograd.grad(y_ref, (x, *tm.parameters()), cot)
+        y, grads = got[cell]
+        err = max_err(y, y_ref)
+        rel = max((a - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(grads, ref))
+        tol, why = TOL[cell]
+        gtol = BWD_TOL[f"{cell}_bwd"][0]
+        print(f"[birnn] {cell} BiRNN(time_major=False) [{BWD_B}, {t_len}, {h}] vs "
+              f"time_major=True on the transposed input: y max_abs_err {err:.3e} (tol "
+              f"{tol:.0e}: {why}); grads (x, wx.kernel, wx.bias, wh, bh) relative to "
+              f"max|grad| {rel:.3e} (tol {gtol:.0e})")
+        if not (err <= tol and rel <= gtol):
+            fail(f"birnn {cell}: batch-major and time-major routes differ")
+    print(f"[birnn] launches {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"the batch-major BiRNN run launched no {name} kernel")
+    return launches
+
+
+AM_KERNELS = ("stft", "gn_act", "gru", "gru_bwd", "gn_bwd", "conv_dw")
+
+
+def am_batch(b: int, gen, lengths: list[int], device) -> dict:
+    """The noisy rows, transcripts and weights of ``train_batch``, on ``device``."""
+    return {k: v.to(device) for k, v in train_batch(b, gen, lengths).items()
+            if not k.startswith("clean")}
+
+
+def device_kernel_names(fn) -> dict:
+    """{kernel name: launches} of the device kernels of one profiled fn()."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            names[ev.name] = names.get(ev.name, 0) + 1
+    return names
+
+
+def phase_train_am(device, card):
+    import torch
+    from aas_enhancement_tpu_torch.cli import train as cli
+    from aas_enhancement_tpu_torch.config import Config
+    from aas_enhancement_tpu_torch.data import generate_corpus
+    from aas_enhancement_tpu_torch.train.loop import init_state
+    from aas_enhancement_tpu_torch.train.state import TrainState, am_sgd, apply_update
+    from aas_enhancement_tpu_torch.train.steps import make_train_step
+
+    steps, batch_size = 3, 4
+    out, err = io.StringIO(), io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+
+        def run_cli():
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                cli.main(["--objective", "am", "--noisy-manifest", manifests["clean"],
+                          "--steps", str(steps), "--batch-size", str(batch_size),
+                          "--am-checkpoint", "seed:0", "--device", "cuda"])
+
+        launches = counted(AM_KERNELS, run_cli)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    records = [json.loads(r) for r in err.getvalue().splitlines() if r.startswith("{")]
+    for r in records:
+        print(f"[train_am] record {json.dumps(r)}")
+    print(f"[train_am] cli.train --objective am --steps {steps} --batch-size {batch_size} "
+          f"--device cuda: {json.dumps(line)} | launches {json.dumps(launches)}")
+    layers = Config().am.rnn_layers
+    want = {"stft": steps, "gn_act": 2 * steps, "gn_bwd": 2 * steps, "conv_dw": steps,
+            "gru": layers * steps, "gru_bwd": layers * steps}
+    if launches != want:
+        fail(f"the am run's launches {launches} are not {want} (per step: conv_dw 1, "
+             f"gru and gru_bwd {layers})")
+    if (line.get("final_step") != steps or records[-1]["step"] != steps
+            or set(line) != {"final_step", "loss_ctc_am"}
+            or not all(abs(v) < float("inf") for v in line.values())
+            or "am_grad_norm" not in records[-1]):
+        fail(f"cli.train printed {line} after records {records}")
+
+    # One AM step, card vs CPU, from the same weights and batch: metrics,
+    # every gradient tensor, and the parameters after the update.
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, objective="am", batch_size=B))
+    gen = torch.Generator().manual_seed(4)
+    state_cpu = init_state(cfg, cfg.train.seed, "cpu", am_seed=0)
+    am_gpu = copy.deepcopy(state_cpu.am).to(device)
+    state_gpu = TrainState(am=am_gpu, am_opt=am_sgd(cfg, am_gpu.parameters(),
+                                                    cfg.train.lr_am))
+    batch = am_batch(B, gen, LENGTHS, "cpu")
+    step = make_train_step(cfg)
+    t0 = time.perf_counter()
+    grads_cpu, aux_cpu = step.batch_grads(state_cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    batch_gpu = {k: v.to(device) for k, v in batch.items()}
+    grads_gpu, aux_gpu = step.batch_grads(state_gpu, batch_gpu)
+    torch.cuda.synchronize()
+    tol, why = TRAIN_TOL
+    rel = {k: abs(float(aux_gpu[k]) - float(v)) / max(abs(float(v)), 1e-6)
+           for k, v in aux_cpu.items()}
+    print(f"[train_am] one AM step B={B} x {SECONDS} s, card vs CPU (same weights and "
+          f"batch): metrics {json.dumps({k: round(float(v), 6) for k, v in aux_gpu.items()})}; "
+          f"largest relative difference {max(rel.values()):.3e} ({max(rel, key=rel.get)}) "
+          f"(tol {tol:.0e}: {why}); CPU plain path {cpu_s:.2f} s")
+    if set(aux_gpu) != set(aux_cpu) or not max(rel.values()) <= tol:
+        fail(f"card vs CPU AM metrics differ: {rel}")
+    gtol, gwhy = AM_GRAD_TOL
+    scale = max(v.abs().max().item() for v in grads_cpu["am"].values())
+    rel, zero = {}, {}
+    for n, v in grads_cpu["am"].items():
+        diff = (grads_gpu["am"][n].cpu() - v).abs().max().item()
+        if v.abs().max().item() > GRAD_ZERO * scale:
+            rel[n] = diff / v.abs().max().item()
+        else:
+            zero[n] = diff / scale
+    worst = max(rel, key=rel.get)
+    print(f"[train_am] AM gradients ({len(rel)} tensors, each against its own max|g|): "
+          f"largest difference {rel[worst]:.3e} at {worst} (tol {gtol:.0e}: {gwhy}); "
+          f"{len(zero)} tensors zero to rounding (max|g| <= {GRAD_ZERO:.0e} of the "
+          f"network's {scale:.3e}), largest difference "
+          f"{max(zero.values(), default=0.0):.3e} of it (tol {GRAD_ZERO:.0e})")
+    print(f"[train_am] AM gradient differences per tensor: "
+          f"{json.dumps({n: float(f'{e:.3e}') for n, e in {**rel, **zero}.items()})}")
+    bad = [f"{n}: {e:.3e} of its max|g|" for n, e in rel.items() if not e <= gtol]
+    bad += [f"{n}: {e:.3e} of the network's max|g|" for n, e in zero.items()
+            if not e <= GRAD_ZERO]
+    if bad:
+        fail(f"card vs CPU AM gradients differ: {bad}")
+    norms = []
+    for st, grads in ((state_cpu, grads_cpu), (state_gpu, grads_gpu)):    # the update
+        names = [n for n, _ in st.am.named_parameters()]
+        norms.append(float(apply_update(
+            st.am_opt, list(st.am.parameters()), [grads["am"][n] for n in names],
+            cfg.train.lr_am, cfg.train.max_grad_norm)))
+    ptol, pwhy = AM_PARAM_TOL
+    perr = max((p.detach().cpu() - q.detach()).abs().max().item()
+               for p, q in zip(state_gpu.am.parameters(), state_cpu.am.parameters()))
+    print(f"[train_am] parameters after the clipped SGD update, card vs CPU: max_abs_err "
+          f"{perr:.3e} (tol {ptol:.0e}: {pwhy}); am_grad_norm {norms[1]:.3f} (CPU "
+          f"{norms[0]:.3f})")
+    if not perr <= ptol:
+        fail(f"card vs CPU updated AM parameters differ by {perr:.3e}")
+    del state_cpu, state_gpu, am_gpu
+
+    # Kernel names of one B=8 step with conv2's dW from the kernel (the
+    # default) and from cuDNN: the names only the cuDNN run shows are conv2's
+    # cuDNN weight-gradient kernels, and the default run has none of them.
+    cfg8 = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=BWD_B))
+    state = init_state(cfg8, cfg.train.seed, device, am_seed=0)
+    step8 = make_train_step(cfg8)
+    batch8 = am_batch(BWD_B, gen, [N], device)
+    step8(state, batch8)                                       # warm up
+    names = {}
+    for impl in ("auto", "cudnn"):
+        state.am.conv2.dw_impl = impl
+        names[impl] = device_kernel_names(lambda: step8(state, batch8))
+    state.am.conv2.dw_impl = "auto"
+    ours = {n: c for n, c in names["auto"].items() if "conv_dw" in n}
+    only_cudnn = {n: c for n, c in names["cudnn"].items()       # PyTorch's own
+                  if c > names["auto"].get(n, 0)                # elementwise kernels
+                  and "at::native" not in n and not n.startswith("Mem")}   # aside
+    print(f"[train_am] one B={BWD_B} step's device kernels: conv2 dW by the kernel: "
+          f"{json.dumps(ours)}; library kernels that only the dw_impl='cudnn' "
+          f"run launches (or launches more often): {json.dumps(only_cudnn)}")
+    if (sorted(ours.values()) != [1, 1] or any("conv_dw" in n for n in names["cudnn"])
+            or not only_cudnn):
+        fail("the default AM step does not take conv2's dW from the kernel alone: "
+             f"{ours}, only with cudnn: {only_cudnn}")
+    del state
+
+    variants = [(b, {}) for b in TRAIN_BATCHES]
+    variants.append((BWD_B, {"spec_augment": True, "distill_lambda": 0.5}))
+    for b, extra in variants:
+        cfg_b = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=b, **extra))
+        state = init_state(cfg_b, cfg.train.seed, device, am_seed=0)
+        anchor = (copy.deepcopy(state.am).requires_grad_(False)
+                  if extra.get("distill_lambda") else None)
+        step_b = make_train_step(cfg_b, anchor_am=anchor)
+        batch = am_batch(b, gen, [N], device)
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+
+        def timed():
+            for i in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, aux = step_b(state, batch)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    walls.append(time.perf_counter() - t0)
+            return aux
+
+        aux = {}
+        per_step = {k: v / 7 for k, v in counted(
+            AM_KERNELS, lambda: aux.update(timed())).items()}
+        wall = statistics.median(walls)
+        if not all(abs(float(v)) < float("inf") for v in aux.values()):
+            fail(f"non-finite AM metrics at B={b}: {aux}")
+        if extra and set(aux) != {"loss_ctc_am", "loss_distill", "loss_am_total",
+                                  "am_grad_norm"}:
+            fail(f"the anchored AM step's metrics are {sorted(aux)}")
+        what = "AM step" + (" with SpecAugment and the KL anchor (lambda 0.5)" if extra else "")
+        print(f"[train_am] B={b} x {SECONDS} s {what} on {card}, TF32 off: "
+              f"{wall * 1e3:.2f} ms/step, {b / wall:.2f} utterances/s, "
+              f"{b * SECONDS / wall:.1f} s of audio per s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per step "
+              f"{json.dumps(per_step)} (median of {len(walls)} after 2 warmups; walls ms "
+              f"{[round(w * 1e3, 2) for w in walls]})")
+        del state, batch, anchor
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     name, smi = phase_device()
@@ -636,9 +1073,15 @@ def main() -> int:
     device = torch.device("cuda", 0)
     phase_build()
     results = phase_kernels(device)
-    phase_slice(device, smi)                # counts the enhance CLI run's launches
-    launches = phase_recognize(device, smi)  # counts the evaluate CLI run's launches
-    launches.update(phase_train(device, smi))  # the train CLI run's, for its kernels
+    # Each path's launches: counts set to 0 just before it, read just after.
+    by_path = {"enhance": phase_slice(device, smi),        # the enhance CLI run
+               "recognize": phase_recognize(device, smi),  # the evaluate CLI run
+               "aas_step": phase_train(device, smi),       # the train CLI run, aas
+               "birnn_batch_major": phase_birnn(device),
+               "am_step": phase_train_am(device, smi)}     # the train CLI run, am
+    launches = {}
+    for counts in by_path.values():        # the last path that runs a kernel
+        launches.update(counts)
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "aas_enhancement_tpu")]
@@ -661,11 +1104,24 @@ def main() -> int:
                     "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:846"),
         "gn_bwd": ("triton", "aas_enhancement_tpu_torch/ops/triton/gn.py",
                    "aas_enhancement_tpu/ops/pallas/gn_kernel.py:272"),
+        "conv_dw": ("cuda", "aas_enhancement_tpu_torch/csrc/conv_dw.cu",
+                    "aas_enhancement_tpu/ops/pallas/conv_dw_kernel.py:161"),
+        "lstm_stacked": ("cuda", "aas_enhancement_tpu_torch/csrc/lstm_tm.cu",
+                         "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:258"),
+        "gru_stacked": ("cuda", "aas_enhancement_tpu_torch/csrc/gru_tm.cu",
+                        "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:452"),
+        "lstm_stacked_bwd": ("cuda", "aas_enhancement_tpu_torch/csrc/lstm_tm.cu",
+                             "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:210"),
+        "gru_stacked_bwd": ("cuda", "aas_enhancement_tpu_torch/csrc/gru_tm.cu",
+                            "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:406"),
     }
     kernels = [{"name": k, "route": r, "source": s, "replaces": rep,
-                "launches": launches[k], "max_abs_err": results[k][0],
-                "ms": results[k][1], "plain_ms": results[k][2]}
+                "launches": launches[k], **results[k],
+                "launches_by_path": {p: c[k] for p, c in by_path.items() if k in c}}
                for k, (r, s, rep) in meta.items()]
+    for k in kernels:
+        if k["launches"] < 1:
+            fail(f"kernel {k['name']} was launched on no path")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,6 +2,7 @@
 (CPU), the host-side config and data modules against the JAX package's, the
 no-JAX import rule, device errors, and the kernel build."""
 
+import ast
 import dataclasses
 import json
 import os
@@ -101,11 +102,57 @@ def test_package_and_cli_import_no_jax():
             "        importlib.import_module(m.name)\n"
             "import aas_enhancement_tpu_torch.cli.enhance\n"
             "bad = [m for m in sys.modules\n"
-            "       if m.split('.')[0] in ('jax', 'flax', 'aas_enhancement_tpu')]\n"
+            "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'aas_enhancement_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "aas_enhancement_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(pkg):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def test_no_source_of_the_port_imports_jax():
+    """Every import statement (top-level or inside a function) of every file
+    of the port and of chip_smoke.py, read from the syntax tree."""
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "aas_enhancement_tpu"}
+    paths = _port_sources()
+    assert len(paths) > 40 and any(p.endswith("conv_dw.py") for p in paths)
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} imports {n}"
+                    for n in names if n.split(".")[0] in banned]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("enhance", ["--input", "x.wav", "--out-dir", "out"]),
+    ("evaluate", ["--manifest", "m.csv", "--am-checkpoint", "seed:0"]),
+    ("train", ["--objective", "am", "--noisy-manifest", "m.csv"])])
+def test_every_cli_defaults_to_the_card(module, argv, monkeypatch):
+    """Without --device each entry point asks for the GPU, and without one it
+    raises instead of running on the CPU."""
+    import importlib
+    mod = importlib.import_module(f"aas_enhancement_tpu_torch.cli.{module}")
+    with open(mod.__file__) as f:
+        assert 'add_argument("--device", default="cuda"' in f.read()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
 
 
 def test_cuda_device_without_gpu_raises(tmp_path, monkeypatch):

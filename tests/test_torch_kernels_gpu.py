@@ -12,7 +12,8 @@ recognition forward's logits 1e-4 (STFT, enhancer and AM sums compound).
 Gradients of the backward kernels against autograd through the plain
 versions: 1e-5 of the largest |gradient| of each tensor plus rtol 1e-4
 (dh carried back through 40-60 steps of G-term f32 dot products; dWh sums
-T * B outer products).
+T * B outer products).  conv_dw: 1e-4 of max|dW| (f32 sums over up to
+~1e5 positions, in the kernel's slice order and the plain version's).
 """
 
 import pytest
@@ -21,6 +22,8 @@ import torch
 from aas_enhancement_tpu_torch.config import AMConfig, Config, EnhancerConfig
 from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
 from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
+from aas_enhancement_tpu_torch.ops import conv as tconv
+from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
 from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
 from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
 from aas_enhancement_tpu_torch.ops.triton import gn
@@ -187,6 +190,148 @@ def test_rnn_backward_kernels(cuda, cell, t, b, h):
     assert (fn.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
     _assert_grads_close(got, ref)
     assert torch.all(got[0][3:, 2] == 0)                  # padded frames get no gradient
+
+
+@pytest.mark.parametrize("cell,t,b,h", [("lstm", 40, 5, 32), ("gru", 40, 5, 32),
+                                        ("lstm", 30, 4, 256), ("gru", 60, 4, 512)])
+def test_stacked_rnn_kernels(cuda, cell, t, b, h):
+    """y and dgx, dwh, dbh of the stacked-layout entries against the plain
+    version; direction 1 is left-padded (its mask flipped), bh non-zero."""
+    g = 4 if cell == "lstm" else 3
+    fn, plain, bwd = ((krnn.lstm_scan_stacked, krnn.lstm_scan_stacked_plain,
+                       krnn.lstm_scan_stacked_bwd) if cell == "lstm" else
+                      (krnn.gru_scan_stacked, krnn.gru_scan_stacked_plain,
+                       krnn.gru_scan_stacked_bwd))
+    gx = _randn(t, 2, b, g * h, seed=h + 13, scale=0.5).to(cuda).requires_grad_()
+    wh = _randn(2, h, g * h, seed=h + 14, scale=1.0 / h ** 0.5).to(cuda).requires_grad_()
+    bh = _randn(2, g * h, seed=h + 15, scale=0.1).to(cuda).requires_grad_()
+    lengths = torch.tensor([t, t // 2 + 3, 3, t, 1][:b], device=cuda)
+    m0 = (torch.arange(t, device=cuda)[:, None] < lengths[None]).float()
+    m = torch.stack([m0, m0.flip(0)], dim=1).contiguous()
+    with torch.no_grad():
+        before = fn.launches
+        y_inf = fn(gx, m, wh, bh)                              # the inference kernel
+        assert fn.launches == before + 1
+    before = (fn.launches, bwd.launches)
+    y = fn(gx, m, wh, bh)
+    y_p = plain(gx, m, wh, bh)
+    got, ref = _grads((y,), (gx, wh, bh), 9), _grads((y_p,), (gx, wh, bh), 9)
+    torch.cuda.synchronize()
+    assert (fn.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(y_inf, y.detach())
+    _assert_grads_close(got, ref)
+    assert torch.all(got[0][3:, 0, 2] == 0) and torch.all(got[0][:t - 3, 1, 2] == 0)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_batch_major_birnn_matches_time_major(cuda, cell):
+    from aas_enhancement_tpu_torch.convert import init_like_flax
+    from aas_enhancement_tpu_torch.ops.rnn import BiRNN
+    gen = torch.Generator().manual_seed(5)
+    tm = init_like_flax(BiRNN(24, 32, cell=cell), gen).to(cuda)
+    bm = BiRNN(24, 32, cell=cell, time_major=False).to(cuda)
+    bm.load_state_dict(tm.state_dict())
+    x = _randn(6, 50, 24, seed=8).to(cuda)
+    lengths = torch.tensor([50, 31, 7, 50, 1, 20], device=cuda)
+    with torch.no_grad():
+        y_tm = tm(x.transpose(0, 1), lengths).transpose(0, 1)
+        y_bm = bm(x, lengths)
+    torch.testing.assert_close(y_bm, y_tm, rtol=1e-5, atol=1e-5)
+    assert torch.all(y_bm[2, 7:] == 0)
+
+
+CONV_DW_SHAPES = [
+    # b, t, f, ci, co, kt, kf, strides
+    (2, 37, 23, 8, 16, 5, 5, (1, 1)),
+    (2, 33, 21, 8, 8, 3, 7, (1, 1)),
+    (1, 40, 16, 16, 8, 1, 1, (1, 1)),
+    (2, 29, 41, 8, 8, 11, 21, (1, 2)),
+    (2, 30, 17, 8, 8, 5, 5, (1, 2)),
+    (2, 16, 18, 8, 8, 4, 6, (1, 2)),
+    (2, 29, 80, 32, 32, 11, 21, (1, 2)),     # even F: pad (9, 10)
+    (3, 50, 81, 32, 32, 11, 21, (1, 2)),     # the AM's conv2, odd F: pad (10, 10)
+    (2, 40, 33, 32, 32, 5, 5, (1, 1)),       # the enhancer's convs
+    (2, 21, 19, 10, 6, 3, 5, (1, 1)),        # channels not multiples of 4: scalar loads
+    (1, 18, 20, 64, 64, 3, 13, (1, 2)),      # one tile per block, two chunks over grid z
+]
+
+
+@pytest.mark.parametrize("shape", CONV_DW_SHAPES)
+def test_conv_dw_kernel(cuda, shape):
+    b, t, f, ci, co, kt, kf, strides = shape
+    x = _randn(b, t, f, ci, seed=1).to(cuda)
+    dy = _randn(b, t, -(-f // strides[1]), co, seed=2).to(cuda)
+    before = kconv.conv_dw_same.launches
+    got = kconv.conv_dw_same(x, dy, kt, kf, strides)
+    again = kconv.conv_dw_same(x, dy, kt, kf, strides)
+    ref = kconv.conv_dw_same_plain(x, dy, kt, kf, strides)
+    torch.cuda.synchronize()
+    assert kconv.conv_dw_same.launches == before + 2
+    assert got.shape == (kt, kf, ci, co) and torch.equal(got, again)   # same bits twice
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+def test_conv_dw_reads_channels_last_views_in_place(cuda):
+    """An NCHW tensor with channels-last memory, and a dy that is a strided
+    slice, need no copy; a channel stride other than 1 raises."""
+    x = _randn(2, 8, 20, 15, seed=3).to(cuda).contiguous(memory_format=torch.channels_last)
+    dy = _randn(2, 20, 8, 24, seed=4).to(cuda)[..., 4:20]           # [B, T, Fo, 16]
+    got = kconv.conv_dw_same(x.permute(0, 2, 3, 1), dy, 3, 5, (1, 2))
+    ref = kconv.conv_dw_same_plain(x.permute(0, 2, 3, 1), dy, 3, 5, (1, 2))
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+    with pytest.raises(ValueError, match="unit channel stride"):
+        kconv.conv_dw_same(_randn(2, 8, 20, 15).to(cuda).permute(0, 2, 3, 1), dy,
+                           3, 5, (1, 2))
+    with pytest.raises(ValueError, match="does not take"):
+        kconv.conv_dw_same(_randn(1, 4, 4, 128).to(cuda), _randn(1, 4, 4, 64).to(cuda),
+                           3, 3)
+
+
+@pytest.mark.parametrize("dw_impl,launches", [("kernel", 1), ("auto", 1), ("cudnn", 0)])
+def test_tapdw_conv_on_card(cuda, dw_impl, launches):
+    """TapDWConv against SameConv2d with the same weights: primal and dx are
+    cuDNN's on both sides, dW comes from the kernel unless dw_impl is cudnn."""
+    ref = tconv.SameConv2d(8, 16, (5, 7), (1, 2)).to(cuda)
+    mod = tconv.TapDWConv(8, 16, (5, 7), (1, 2), dw_impl=dw_impl).to(cuda)
+    mod.load_state_dict(ref.state_dict())
+    x = _randn(2, 8, 30, 21, seed=6).to(cuda).requires_grad_()
+    cot = _randn(2, 16, 30, 11, seed=7).to(cuda)
+    before = kconv.conv_dw_same.launches
+    y = mod(x)
+    got = torch.autograd.grad(y, (x, mod.weight, mod.bias), cot)
+    y_ref = ref(x)
+    want = torch.autograd.grad(y_ref, (x, ref.weight, ref.bias), cot)
+    torch.cuda.synchronize()
+    assert kconv.conv_dw_same.launches == before + launches
+    assert torch.equal(y, y_ref)
+    _assert_grads_close(got, want)
+    frozen = tconv.TapDWConv(8, 16, (5, 7), (1, 2), dw_impl=dw_impl).to(cuda)
+    frozen.requires_grad_(False)
+    before = kconv.conv_dw_same.launches
+    torch.autograd.grad(frozen(x).sum(), x)
+    assert kconv.conv_dw_same.launches == before          # a frozen conv needs no dW
+
+
+def test_tapdw_auto_takes_cudnn_where_the_kernel_refuses(cuda):
+    """128 -> 128 channels is a 32 x 32 register tiling, more than a block:
+    "auto" asks the wrapper and takes cuDNN, "kernel" raises."""
+    x = _randn(1, 128, 6, 9, seed=1).to(cuda)
+    assert kconv.kernel_slices(x.permute(0, 2, 3, 1), 128, 3, 3, (1, 1)) == 0
+    assert kconv.kernel_slices(x.permute(0, 2, 3, 1), 32, 3, 3, (1, 1)) > 0
+    assert kconv.kernel_slices(x.permute(0, 2, 3, 1), 32, 3, 3, (2, 1)) == 0
+    ref = tconv.SameConv2d(128, 128, (3, 3)).to(cuda)
+    cot = _randn(1, 128, 6, 9, seed=2).to(cuda)
+    (want,) = torch.autograd.grad(ref(x), ref.weight, cot)
+    mod = tconv.TapDWConv(128, 128, (3, 3), dw_impl="auto").to(cuda)
+    mod.load_state_dict(ref.state_dict())
+    before = kconv.conv_dw_same.launches
+    (got,) = torch.autograd.grad(mod(x), mod.weight, cot)
+    assert kconv.conv_dw_same.launches == before
+    _assert_grads_close((got,), (want,))
+    mod.dw_impl = "kernel"
+    with pytest.raises(ValueError, match="does not take"):
+        torch.autograd.grad(mod(x), mod.weight, cot)
 
 
 def test_frozen_gru_skips_the_weight_gradient(cuda):

@@ -1,7 +1,10 @@
 """Port parity: the masked bidirectional LSTM and GRU
 (aas_enhancement_tpu_torch.ops.rnn, .ops.cuda.rnn plain versions) against JAX
 BiRNN(cell=..., time_major=True) on its XLA scan, and against the Pallas
-lstm_scan_tm / gru_scan_tm in interpret mode.
+lstm_scan_tm / gru_scan_tm in interpret mode; the stacked-layout versions
+(lstm_scan_stacked / gru_scan_stacked, BiRNN(time_major=False)) against
+lstm_scan_pallas / gru_scan_pallas in interpret mode and the JAX batch-major
+BiRNN.
 
 Tolerance 1e-5 (rtol and atol): bounded activations, f32 recurrent products
 summed in a different order on each side, over at most 24 steps.
@@ -13,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from aas_enhancement_tpu.ops.pallas.rnn_kernel import gru_scan_pallas, lstm_scan_pallas
 from aas_enhancement_tpu.ops.pallas.rnn_kernel import gru_scan_tm as gru_pallas
 from aas_enhancement_tpu.ops.pallas.rnn_kernel import lstm_scan_tm as lstm_pallas
 from aas_enhancement_tpu.ops.rnn import BiRNN as JaxBiRNN
@@ -231,3 +235,88 @@ def test_plain_gradients_match_pallas_vjp_interpret(cell):
     for name, a, r in zip(("dgxf", "dgxb", "dwh", "dbh"), got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), err_msg=name, **TOL)
     assert np.all(got[0].numpy()[7:, 1] == 0) and np.all(got[1].numpy()[2:, 2] == 0)
+
+
+def _stacked_inputs(cell, t, b, h, seed):
+    """gx [T, 2, B, G*H], m [T, 2, B] with direction 1 flipped (left-padded),
+    wh, non-zero bh."""
+    g = 4 if cell == "lstm" else 3
+    rng = np.random.default_rng(seed)
+    gx = (0.5 * rng.standard_normal((t, 2, b, g * h))).astype(np.float32)
+    wh = (0.3 * rng.standard_normal((2, h, g * h))).astype(np.float32)
+    bh = (0.1 * rng.standard_normal((2, g * h))).astype(np.float32)
+    lengths = np.array([t, 7, 2, t - 1][:b])
+    m0 = (np.arange(t)[:, None] < lengths[None]).astype(np.float32)
+    return gx, np.stack([m0, m0[::-1]], axis=1), wh, bh
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_stacked_plain_matches_pallas_interpret(cell):
+    """Values and all gradients (dgx, dwh, dbh) of the stacked plain versions
+    against lstm_scan_pallas / gru_scan_pallas and their VJPs in interpret
+    mode: ragged lengths, direction 1 left-padded, non-zero bh.  The math
+    that the stacked kernels implement and the card tests hold them to."""
+    t, b, h = 12, 3, 8
+    gx, m, wh, bh = _stacked_inputs(cell, t, b, h, seed=31)
+    cot = np.random.default_rng(5).standard_normal((t, 2, b, h)).astype(np.float32)
+    pallas = lstm_scan_pallas if cell == "lstm" else gru_scan_pallas
+    y_ref, vjp = jax.vjp(lambda a, w, v: pallas(a, jnp.asarray(m), w, v, True),
+                         *(jnp.asarray(x) for x in (gx, wh, bh)))
+    ref = vjp(jnp.asarray(cot))
+    inputs = [torch.from_numpy(x).requires_grad_() for x in (gx, wh, bh)]
+    scan = krnn.lstm_scan_stacked if cell == "lstm" else krnn.gru_scan_stacked
+    y = scan(inputs[0], torch.from_numpy(m), inputs[1], inputs[2])
+    got = torch.autograd.grad(y, inputs, torch.from_numpy(cot))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_ref), **TOL)
+    for name, a, r in zip(("dgx", "dwh", "dbh"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), err_msg=name, **TOL)
+    assert np.all(y.detach().numpy()[7:, 0, 1] == 0)          # direction 0: right padding
+    assert np.all(y.detach().numpy()[:t - 7, 1, 1] == 0)      # direction 1: left padding
+    assert np.all(got[0].numpy()[:t - 2, 1, 2] == 0)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_stacked_cpu_tensor_takes_plain_version(cell):
+    gx, m, wh, bh = (torch.from_numpy(a) for a in _stacked_inputs(cell, 6, 2, 4, seed=2))
+    scan, plain = ((krnn.lstm_scan_stacked, krnn.lstm_scan_stacked_plain) if cell == "lstm"
+                   else (krnn.gru_scan_stacked, krnn.gru_scan_stacked_plain))
+    before = scan.launches
+    assert torch.equal(scan(gx, m, wh, bh), plain(gx, m, wh, bh))
+    assert scan.launches == before
+    # The time-major plain version is the stacked one on direction 1 flipped.
+    tm_plain = krnn.lstm_scan_tm_plain if cell == "lstm" else krnn.gru_scan_tm_plain
+    yf, yb = tm_plain(gx[:, 0], gx[:, 1].flip(0), m[:, 0], wh, bh)
+    ys = plain(gx, torch.stack([m[:, 0], m[:, 0].flip(0)], 1), wh, bh)
+    assert torch.equal(yf, ys[:, 0]) and torch.equal(yb, ys[:, 1].flip(0))
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_batch_major_birnn_matches_jax(cell, impl):
+    """BiRNN(time_major=False) against the JAX module's batch-major route
+    (its XLA scan, and the Pallas stacked kernels in interpret mode) with
+    converted weights, and against the port's time-major route."""
+    b, t, d, hidden = 3, 14, 10, 8
+    rng = np.random.default_rng(41)
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    lengths = np.array([t, 9, 2], np.int32)
+    mod = JaxBiRNN(hidden, cell=cell, time_major=False, impl=impl)
+    params = mod.init(jax.random.key(1), jnp.asarray(x), jnp.asarray(lengths))
+    p = jax.tree_util.tree_map(np.array, params)["params"]
+    p["bh"] = (0.1 * rng.standard_normal(p["bh"].shape)).astype(np.float32)
+    p["wx"]["bias"] = (0.1 * rng.standard_normal(p["wx"]["bias"].shape)).astype(np.float32)
+    ref = np.asarray(mod.apply({"params": p}, jnp.asarray(x), jnp.asarray(lengths)))
+
+    bm = BiRNN(d, hidden, cell=cell, time_major=False)
+    bm.load_state_dict(_torch_birnn(p, d, hidden, cell).state_dict())
+    tm = _torch_birnn(p, d, hidden, cell)
+    assert tm.time_major and not bm.time_major
+    xt, lt = torch.from_numpy(x), torch.from_numpy(lengths)
+    with torch.no_grad():
+        got = bm(xt, lt)
+        got_tm = tm(xt.transpose(0, 1), lt).transpose(0, 1)
+    assert got.shape == (b, t, hidden)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    torch.testing.assert_close(got, got_tm, rtol=1e-6, atol=1e-6)
+    for i in range(b):
+        assert np.all(got.numpy()[i, lengths[i]:] == 0.0)

@@ -1,6 +1,8 @@
-"""Port parity: the generator objectives' train step (aas_enhancement_tpu_torch
-.train) against the JAX package's make_train_step on the CPU, from the same
-converted parameters and the same batch, and the port's train CLI.
+"""Port parity: the train step of the generator objectives and of AM
+pre-training (aas_enhancement_tpu_torch.train) against the JAX package's
+make_train_step on the CPU, from the same converted parameters and the same
+batch, the pieces the AM objective adds (SpecAugment, the KL anchor, SGD with
+Nesterov momentum), and the port's train CLI.
 
 Tolerances (f32 on both sides; the JAX step takes its XLA scans and XLA
 GroupNorm on the CPU, the port its plain versions, so every sum runs in
@@ -17,6 +19,11 @@ another order):
   to JAX's with rtol 1e-3 on entries whose JAX gradient exceeds 1e-3 of the
   network's max|g| (elsewhere rounding noise in g may flip its sign), and to
   |update| <= lr everywhere.
+- the ``am`` step: metrics and gradients as above; its SGD update is linear
+  in the gradient, so the updated parameters are held to JAX's update with
+  rtol 1e-4 plus atol 2e-5 of the network's largest update plus one ulp of
+  the tensor's largest parameter (p + u rounds to f32 on each side, and the
+  update is recovered here as p_new - p).
 """
 
 import dataclasses
@@ -42,18 +49,22 @@ from aas_enhancement_tpu_torch.models.am import AcousticModel
 from aas_enhancement_tpu_torch.models.discriminator import Discriminator
 from aas_enhancement_tpu_torch.models.enhancer import Enhancer
 from aas_enhancement_tpu_torch.train.loop import init_state
-from aas_enhancement_tpu_torch.train.state import TrainState, adam, clip_by_global_norm
+from aas_enhancement_tpu_torch.ops import masking as tmasking
+from aas_enhancement_tpu_torch.train import objectives as tobj
+from aas_enhancement_tpu_torch.train.state import (TrainState, adam, am_sgd, apply_update,
+                                                   clip_by_global_norm, lr_schedule)
 from aas_enhancement_tpu_torch.train.steps import make_train_step
 
 torch.set_num_threads(1)
 
 METRIC_RTOL = 1e-4
-CONVERT = {"g": enhancer_params_from_flax, "d": disc_params_from_flax}
+CONVERT = {"g": enhancer_params_from_flax, "d": disc_params_from_flax,
+           "am": am_params_from_flax}
 
 
-def _cfg(objective, **train_kw):
+def _cfg(objective, am_layers=1, **train_kw):
     return Config(
-        am=AMConfig(rnn_hidden=16, rnn_layers=1, conv_channels=8),
+        am=AMConfig(rnn_hidden=16, rnn_layers=am_layers, conv_channels=8),
         enhancer=EnhancerConfig(conv_channels=8, conv_layers=1, rnn_hidden=12,
                                 rnn_layers=1),
         discriminator=DiscriminatorConfig(channels=(8, 16)),
@@ -85,6 +96,15 @@ def _torch_state(cfg, jstate):
     tcfg = TConfig.from_json(cfg.to_json())
     f = tcfg.audio.num_bins
     state = TrainState()
+    if cfg.train.objective == "am":
+        state.am = AcousticModel(tcfg.am, f)
+        state.am.load_state_dict(am_params_from_flax(jax.device_get(jstate.am_params)))
+        state.am_opt = am_sgd(tcfg, state.am.parameters(), tcfg.train.lr_am)
+        if jstate.g_params:
+            state.g = Enhancer(tcfg.enhancer, f).requires_grad_(False)
+            state.g.load_state_dict(
+                enhancer_params_from_flax(jax.device_get(jstate.g_params)))
+        return tcfg, state
     state.g = Enhancer(tcfg.enhancer, f)
     state.g.load_state_dict(enhancer_params_from_flax(jax.device_get(jstate.g_params)))
     state.g_opt = adam(tcfg, state.g.parameters(), tcfg.train.lr_g)
@@ -157,6 +177,165 @@ def test_step_matches_jax(objective):
         assert torch.equal(state.am.state_dict()[name], v), name
 
 
+@pytest.mark.parametrize("k,anchored,through_g", [(1, False, False), (2, False, False),
+                                                  (1, True, False), (1, False, True),
+                                                  (2, True, True)])
+def test_am_step_matches_jax(k, anchored, through_g):
+    """One ``am`` step (2 convs, 2 x BiGRU-16, ragged batch with a weight-0
+    row) against the JAX step: metrics, every AM gradient and every updated
+    parameter; with grad_accum 2, the KL anchor (another AM's posteriors) and
+    the frozen enhancer in front of the AM."""
+    cfg = _cfg("am", am_layers=2, grad_accum=k, am_through_enhancer=through_g,
+               distill_lambda=0.7 if anchored else 0.0)
+    jstate = jax_init_state(cfg, jax.random.key(0))
+    anchor = (jax_init_state(cfg, jax.random.key(5)).am_params if anchored else None)
+    jstep = jax_make_train_step(cfg, anchor_am_params=anchor)
+    batch = {key: v for key, v in _batch(seed=2, weights=[1, 1, 0, 1],
+                                         clean_weights=[1, 1, 1, 1]).items()
+             if not key.startswith("clean")}
+    jgrads, _ = jax.jit(jstep.batch_grads)(jstate, batch)
+    jnew, jaux = jax.jit(jstep)(jstate, batch)
+
+    tcfg, state = _torch_state(cfg, jstate)
+    anchor_am = None
+    if anchored:
+        anchor_am = AcousticModel(tcfg.am, tcfg.audio.num_bins).requires_grad_(False)
+        anchor_am.load_state_dict(am_params_from_flax(jax.device_get(anchor)))
+    step = make_train_step(tcfg, anchor_am=anchor_am)
+    tbatch = _to_torch(batch)
+    grads, _ = step.batch_grads(state, tbatch)
+    before = {n: p.detach().clone() for n, p in state.am.named_parameters()}
+    g_before = ({n: p.clone() for n, p in state.g.state_dict().items()} if through_g else {})
+    state, aux = step(state, tbatch)
+
+    assert state.step == 1 and set(grads) == set(jgrads) == {"am"}
+    assert set(aux) == set(jaux) and "am_grad_norm" in aux
+    assert ("loss_distill" in aux) == anchored
+    for key, ref in jaux.items():
+        assert float(aux[key]) == pytest.approx(float(ref), rel=METRIC_RTOL, abs=1e-6), key
+    ref = {n: torch.as_tensor(v) for n, v in
+           am_params_from_flax(jax.device_get(jgrads["am"])).items()}
+    assert set(grads["am"]) == set(ref)
+    _assert_grads_close(grads["am"], ref, "am")
+    jnew_params = am_params_from_flax(jax.device_get(jnew.am_params))
+    updates = {n: (p.detach() - before[n]).numpy() for n, p in state.am.named_parameters()}
+    ref_updates = {n: jnew_params[n].numpy() - before[n].numpy() for n in updates}
+    scale = max(np.abs(u).max() for u in ref_updates.values())
+    assert scale > 0
+    for n, upd in updates.items():
+        ulp = 2.0 ** -23 * float(before[n].abs().max())
+        np.testing.assert_allclose(upd, ref_updates[n], rtol=1e-4,
+                                   atol=2e-5 * scale + ulp, err_msg=n)
+    for n, v in g_before.items():                     # the frozen enhancer did not move
+        assert torch.equal(state.g.state_dict()[n], v), n
+    assert all(p.grad is None for p in state.am.parameters())
+
+
+def test_spec_augment_matches_jax_on_the_same_stripes():
+    """jax.random's streams cannot be drawn in torch, so the stripes are drawn
+    here as the JAX spec_augment draws them and handed to the port's masking;
+    the outputs are then equal."""
+    from aas_enhancement_tpu.ops.masking import spec_augment as jax_spec_augment
+    rng = np.random.default_rng(0)
+    b, t, f = 4, 50, 21
+    x = rng.standard_normal((b, t, f)).astype(np.float32)
+    lengths = np.array([50, 31, 6, 1], np.int32)
+    key = jax.random.key(3)
+    n_time, time_width, n_freq, freq_width = 2, 9, 3, 5
+    ref = np.asarray(jax_spec_augment(key, jnp.asarray(x), jnp.asarray(lengths), n_time,
+                                      time_width, n_freq, freq_width))
+    stripes = []
+    keys = jax.random.split(key, 4)
+    for kw, ks, n, max_w, limit in ((keys[0], keys[1], n_time, time_width, lengths),
+                                    (keys[2], keys[3], n_freq, freq_width,
+                                     np.full(b, f, np.int32))):
+        w = jax.random.randint(kw, (b, n), 0, max_w + 1)
+        hi = jnp.maximum(jnp.asarray(limit)[:, None] - w, 1).astype(jnp.float32)
+        start = jnp.floor(jax.random.uniform(ks, (b, n)) * hi).astype(jnp.int32)
+        stripes.append((torch.from_numpy(np.array(w)).long(),
+                        torch.from_numpy(np.array(start)).long()))
+    got = tmasking.apply_spec_augment(torch.from_numpy(x), *stripes)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (ref == 0).any() and (ref != 0).any()
+
+
+def test_spec_augment_draws_stripes_inside_the_valid_region():
+    gen = torch.Generator().manual_seed(1)
+    lengths = torch.tensor([40, 12, 3, 1])
+    width, start = tmasking.draw_stripes(gen, 3, 10, lengths)
+    assert width.shape == start.shape == (4, 3)
+    assert int(width.min()) >= 0 and int(width.max()) <= 10 and int(start.min()) >= 0
+    # A stripe no wider than the row starts where it still fits inside it.
+    fits = width <= lengths[:, None]
+    assert torch.all((start + width)[fits] <= lengths[:, None].expand_as(width)[fits])
+    assert torch.all(start[~fits] == 0)
+    x = torch.ones(4, 40, 21)
+    a = tmasking.spec_augment(torch.Generator().manual_seed(7), x, lengths, 2, 10, 2, 5)
+    b = tmasking.spec_augment(torch.Generator().manual_seed(7), x, lengths, 2, 10, 2, 5)
+    c = tmasking.spec_augment(torch.Generator().manual_seed(8), x, lengths, 2, 10, 2, 5)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert set(a.unique().tolist()) == {0.0, 1.0}
+    keep = tmasking.stripe_keep(torch.tensor([[2, 0]]), torch.tensor([[1, 3]]), 6)
+    assert keep.tolist() == [[True, False, False, True, True, True]]
+
+
+@pytest.mark.parametrize("weights,denom", [(None, None), ([1.0, 0.0, 1.0], None),
+                                           ([1.0, 1.0, 0.0], 1.5)])
+def test_distill_kl_matches_jax(weights, denom):
+    from aas_enhancement_tpu.train.objectives import distill_kl as jax_distill_kl
+    rng = np.random.default_rng(2)
+    base = rng.standard_normal((3, 9, 7)).astype(np.float32)
+    logits = rng.standard_normal((3, 9, 7)).astype(np.float32)
+    out_lengths = np.array([9, 4, 1], np.int32)
+    w = None if weights is None else np.array(weights, np.float32)
+    ref = jax_distill_kl(jnp.asarray(base), jnp.asarray(logits), jnp.asarray(out_lengths),
+                         weights=None if w is None else jnp.asarray(w), denom=denom)
+    lt = torch.from_numpy(logits).requires_grad_()
+    got = tobj.distill_kl(torch.from_numpy(base).requires_grad_(), lt,
+                          torch.from_numpy(out_lengths),
+                          weights=None if w is None else torch.from_numpy(w), denom=denom)
+    assert float(got.detach()) == pytest.approx(float(ref), rel=1e-5)
+    assert float(tobj.distill_kl(lt, lt, torch.from_numpy(out_lengths)).detach()) == \
+        pytest.approx(0.0, abs=1e-7)
+    (dl,) = torch.autograd.grad(got, lt)              # the anchor carries no gradient
+    jd = jax.grad(lambda l_: jax_distill_kl(jnp.asarray(base), l_, jnp.asarray(out_lengths),
+                                            weights=None if w is None else jnp.asarray(w),
+                                            denom=denom))(jnp.asarray(logits))
+    np.testing.assert_allclose(dl.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("momentum", [0.9, 0.0])
+def test_am_optimizer_three_steps_match_optax(momentum):
+    """Clip by global norm, then SGD with Nesterov momentum at the staircase
+    lr: torch.optim.SGD(nesterov=True) behind apply_update against the JAX
+    package's am_optimizer (optax) over three steps, the second one clipped
+    and the third at the annealed lr."""
+    from aas_enhancement_tpu.train.state import am_optimizer
+    cfg = _cfg("am", lr_am=0.05, momentum=momentum, lr_anneal=1.5, steps_per_epoch=2,
+               max_grad_norm=3.0)
+    tcfg = TConfig.from_json(cfg.to_json())
+    rng = np.random.default_rng(6)
+    shapes = ((3, 4), (5,))
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[(scale * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+             for scale in (0.3, 5.0, 0.3)]
+    opt = am_optimizer(cfg)
+    jp = [jnp.asarray(p) for p in params]
+    opt_state = opt.init(jp)
+    tp = [torch.from_numpy(p.copy()).requires_grad_() for p in params]
+    topt = am_sgd(tcfg, tp, tcfg.train.lr_am)
+    lr = lr_schedule(tcfg, tcfg.train.lr_am)
+    for i, g in enumerate(grads):
+        updates, opt_state = opt.update([jnp.asarray(x) for x in g], opt_state, jp)
+        jp = [p + u for p, u in zip(jp, updates)]
+        norm = apply_update(topt, tp, [torch.from_numpy(x) for x in g], lr(i), 3.0)
+        assert (float(norm) > 3.0) == (i == 1)
+        for a, b in zip(tp, jp):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-7, err_msg=f"step {i}")
+    assert lr(2) == pytest.approx(0.05 / 1.5)
+
+
 def test_grad_accum_matches_full_batch_with_uneven_rows():
     """k = 2 splits rows {0, 2} / {1, 3}: 2 vs 1 real noisy rows and 1 vs 2
     real clean rows, so the share denominators matter.  The port's k = 2 is
@@ -205,6 +384,12 @@ def test_init_state_freezes_the_am():
     adv = init_state(cfg.replace(train=dataclasses.replace(cfg.train,
                                                            objective="adversarial")), 0)
     assert adv.am is None and adv.d is not None
+    am = init_state(cfg.replace(train=dataclasses.replace(cfg.train, objective="am")), 0)
+    assert am.g is None and am.d is None and am.am_opt is not None
+    assert all(p.requires_grad for p in am.am.parameters())
+    through = init_state(cfg.replace(train=dataclasses.replace(
+        cfg.train, objective="am", am_through_enhancer=True)), 0)
+    assert through.g_opt is None and not any(p.requires_grad for p in through.g.parameters())
     with pytest.raises(NotImplementedError, match="A8"):
         init_state(cfg.replace(train=dataclasses.replace(cfg.train, objective="paired")), 0)
 
@@ -244,16 +429,53 @@ def test_cli_trains_three_steps_on_cpu(corpus, tmp_path, capsys):
     (["--val-manifest", "v.csv"], "A9"), (["--eval-every", "5"], "A9"),
     (["--metrics", "m.jsonl"], "A9"),
     (["--tensorboard", "tb"], "A9"), (["--profile-dir", "p"], "A9"),
-    (["--sortagrad"], "A9"), (["--spec-augment"], "A8"),
-    (["--am-through-enhancer"], "A8"), (["--streaming-finetune"], "A11"),
+    (["--sortagrad"], "A9"), (["--stream-lookahead", "0.2"], "A11"),
+    (["--stream-history", "1.0"], "A11"), (["--streaming-finetune"], "A11"),
     (["--stream-chunk", "1.0"], "A11"), (["--streaming-finetune-am"], "A11"),
-    (["--objective", "paired"], "A8"), (["--objective", "am"], "A8"),
+    (["--objective", "paired"], "A8"), (["--g-checkpoint", "ckpt_dir"], "A9"),
     (["--am-checkpoint", "ckpt_dir"], "A9")])
 def test_unported_flags_raise(flags, item):
     args = ["--objective", "aas", "--noisy-manifest", "n.csv", "--clean-manifest",
             "c.csv", "--device", "cpu", *flags]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         train_cli.main(args)
+
+
+@pytest.mark.parametrize("extra,keys", [
+    ([], {"loss_ctc_am"}),
+    (["--spec-augment", "--am-through-enhancer", "--g-checkpoint", "seed:1",
+      "--grad-accum", "2"], {"loss_ctc_am"}),
+    (["--distill", "0.5"], {"loss_ctc_am", "loss_distill", "loss_am_total"})])
+def test_cli_am_objective_on_cpu(corpus, tmp_path, capsys, extra, keys):
+    """--objective am: the JAX CLI's final line (final_step and the last
+    record's loss_* keys); the anchor comes from the config (no CLI flag)."""
+    cfg = _cfg("am", am_layers=2)
+    if "--distill" in extra:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, distill_lambda=0.5))
+        extra = []
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=2))
+    path = tmp_path / "cfg.json"
+    path.write_text(cfg.to_json())
+    train_cli.main(["--objective", "am", "--noisy-manifest", corpus["clean"], "--steps", "3",
+                    "--config", str(path), "--am-checkpoint", "seed:0", "--device", "cpu",
+                    *extra])
+    out = capsys.readouterr()
+    line = json.loads(out.out.strip().splitlines()[-1])
+    assert set(line) == {"final_step"} | keys and line["final_step"] == 3
+    assert all(np.isfinite(v) for v in line.values())
+    records = [json.loads(s) for s in out.err.strip().splitlines() if s.startswith("{")]
+    assert [r["step"] for r in records] == [1, 2, 3]
+    assert all("am_grad_norm" in r and "g_grad_norm" not in r for r in records)
+    if "loss_distill" in keys:         # the anchor is the AM as the run started
+        assert records[0]["loss_distill"] == pytest.approx(0.0, abs=1e-6)
+        assert records[-1]["loss_distill"] > 0.0
+
+
+def test_am_through_enhancer_needs_the_am_objective(corpus):
+    with pytest.raises(SystemExit):
+        train_cli.main(["--objective", "aas", "--noisy-manifest", corpus["noisy"],
+                        "--clean-manifest", corpus["clean"], "--am-through-enhancer",
+                        "--device", "cpu"])
 
 
 def test_cuda_device_without_gpu_raises(corpus, monkeypatch):
