@@ -25,6 +25,7 @@ import torch
 from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.data import read_manifest, read_wav, write_wav
 from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
+from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 
 
 def _bucket_length(n: int, buckets: list[int]) -> int:
@@ -34,15 +35,6 @@ def _bucket_length(n: int, buckets: list[int]) -> int:
     # Longer than the largest bucket: round up to its granularity.
     step = buckets[-1]
     return ((n + step - 1) // step) * step
-
-
-def resolve_device(name: str) -> torch.device:
-    """--device -> torch.device; a CUDA device without a GPU is an error."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available "
-                           "(pass --device cpu to run the plain versions)")
-    return device
 
 
 def main(argv=None) -> None:

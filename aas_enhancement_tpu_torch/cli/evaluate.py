@@ -24,7 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from aas_enhancement_tpu_torch.cli.enhance import resolve_device
+from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.enhance import init_enhancer
 from aas_enhancement_tpu_torch.evaluation import evaluate_si_snr, evaluate_wer, init_am

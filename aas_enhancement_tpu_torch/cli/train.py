@@ -33,7 +33,7 @@ import argparse
 import dataclasses
 import json
 
-from aas_enhancement_tpu_torch.cli.enhance import resolve_device
+from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.cli.evaluate import checkpoint_seed
 from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.train.loop import init_state, train

@@ -12,20 +12,69 @@
 //
 // On a TPU the Pallas grid runs in order and carries (h, c) in scratch across
 // grid steps.  Blocks on Hopper run in no order, so the whole time loop lives
-// inside one block: one block per (direction, tile of kRows batch rows), with
-// h, c and the step's gate pre-activations in shared memory.
+// inside the kernel, one (direction, tile of kRows batch rows) per block or
+// per cluster of blocks.
 //
-// Bound on the H100: the recurrence is sequential, and each step needs all of
-// wh[d] (H x 4H f32 = 1 MiB at H = 256), more than an SM's 227 KB of shared
-// memory.  So each step streams wh[d] from L2 into one SM: the kernel is
-// bounded by one SM's L2 bandwidth, about 1 MiB per step whatever the batch.
-// The design amortizes that read over kRows batch rows (each wh element
-// loaded once feeds kRows FMAs), one thread per gate column so the loads are
-// coalesced and 32 warps keep many in flight.  Splitting wh across the SMs
-// of a cluster (distributed shared memory) is the later step that removes
-// the L2 bound.
+// Bound on the H100: the recurrence is T dependent steps, and each step needs
+// all of wh[d] (H x 4H f32 = 1 MiB at H = 256), more than one SM's 227 KB of
+// shared memory.  Two forward kernels, chosen by the shape alone
+// (ops/cuda/rnn.py::lstm_resident_cluster):
 //
-// Training forward (kSave): the same kernel also writes, per direction and
+// Resident (lstm_res_fwd_kernel), where a cluster of C <= 8 blocks can hold
+// wh[d]: block r of the cluster owns the hidden units [r U, (r + 1) U),
+// U = H / C <= 32 and even, and the 4 U gate columns i, f, g, o of those
+// units, so the cell update needs no exchange.  It loads its H x 4U slice of
+// wh[d] into shared memory once per call (128 KB at H = 256, C = 8) as float4
+// (i, f, g, o) per (input, unit).  A warp serves two units and a unit's 16
+// lanes split its inputs: lane kl takes inputs kl, kl + 16, ..., and for each
+// reads one float4 of weights (a warp's 32 loads are contiguous: no bank
+// conflicts) and one float4 of h, the tile's four rows (the two units read
+// the same 16: a broadcast), for 16 FMAs into its 16 (row, gate) sums.  The
+// weights of a lane's first 8 inputs also stay in registers (half of the
+// slice at H = 256): the sweep is bound by shared-memory loads, not by FMAs.
+// Four levels of shuffles then add the 16 lanes' sums and scatter them, each
+// level halving what a lane keeps, so that lane (row, gate) ends with that
+// one total, always added in the same order: no pass through shared memory
+// and no block-wide barrier anywhere in the loop.  Each lane applies its
+// gate's activation, the four lanes of a (unit, row) share the four values
+// and update the same c and h in registers, and the unit's new h of the four
+// rows goes as one 16-byte store into the next-h buffer of every block of the
+// cluster through distributed shared memory: lane i of the unit's 16 sends to
+// block i.  Those writes are st.async stores that each report their 16 bytes
+// to an mbarrier of the receiving block (one per h buffer): a block starts
+// step s when its barrier has counted the 16 H bytes of h[s], so data and
+// signal travel together and there is no cluster-wide barrier in the loop
+// either.  h is double-buffered, and that alone keeps a fast block (or warp)
+// from overwriting what a slow one still reads: to write h[s + 2] into a
+// neighbour's buffer a block needs all of h[s + 1], the part of every warp of
+// the neighbour included, which each of them sends only after its last read
+// of h[s].  The last step sends nothing, so a block may exit when its loop
+// ends.  The stores to global memory (y and what the training variant saves)
+// and the loads of the next step's gx and mask come after the sends: they
+// depend on no h.  Every block of a cluster walks all T steps and sends every
+// h, whatever the tile's number of real rows (a padded row has gx = 0, m = 0
+// and stores nothing to global memory).
+//
+// What bounds a step (NVIDIA H100 80GB HBM3, 700.00 W, T = 801, B = 4,
+// H = 256: 2.0 us a step, 1.61 ms a call on the device alone and 1.73 between
+// two events around the wrapper, where the streaming kernel takes 23 us and
+// 19.0 ms): the sweep (131,072 FMAs = 1024 clocks of the SM's FMA
+// rate, and as many clocks of shared-memory loads once half the weights sit
+// in registers), then a chain of latencies in sequence: four shuffle levels,
+// the activations (expf and a division, two tanhf one after the other),
+// eight more shuffles, the store's hop to seven other SMs and the waiting
+// warps' poll of the mbarrier.  Not L2 any more.  Earlier designs of the same
+// exchange, on the same card: partial sums through shared memory, a 16-way
+// reduction by 128 cell threads and a cluster barrier per step 2.54 ms; the
+// same with the mbarrier exchange 2.33.
+//
+// Streaming (lstm_tm_fwd_kernel), for the shapes no cluster of <= 8 blocks
+// can hold (H = 512: 4 MiB): one block per (direction, kRows rows) streams
+// wh[d] from L2 every step, bounded by one SM's L2 bandwidth (about 1 MiB per
+// step at H = 256 whatever the batch, 23 us a step).  One thread per gate
+// column, so the loads are coalesced, and each wh element feeds kRows FMAs.
+//
+// Training forward (kSave): either forward kernel also writes, per direction and
 // natural time index, the pre-update state h, c ([2, T, B, H] each) and the
 // gate activations sigmoid(i), sigmoid(f + 1), tanh(g), sigmoid(o)
 // ([2, T, B, 4H]).  The Pallas VJP saves h and c and recomputes the gates in
@@ -60,15 +109,270 @@
 // gx and write y and dgx [T, 2, B, 4H] in place, both directions walking
 // t = 0..T-1 (the backward T-1..0).  No copy into the time-major layout.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "rnn_bwd.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
+using aas_rnn::fma4;
 using aas_rnn::sigmoid;
 
-constexpr int kRows = 4;   // batch rows per block
+constexpr int kRows = 4;            // batch rows per block (streaming) or cluster (resident)
+constexpr int kResUnits = 32;       // most hidden units of a resident block: two per warp
+constexpr int kRegChunks = 8;       // chunks of the slice a lane also keeps in registers
+
+// The resident kernel's shared memory in bytes: the slice (padded to whole
+// 16-input chunks), h twice, two mbarriers.  The route function of
+// ops/cuda/rnn.py repeats it to pick the cluster size.
+inline int res_chunks(int H) { return (H + 15) / 16; }
+
+inline size_t res_smem(int H, int U) {
+  const size_t J = res_chunks(H);
+  return ((size_t)U * J * 16 + 2 * 16 * J + 1) * sizeof(float4);
+}
+
+// The mbarriers that count the bytes of h arriving in a block's buffers.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {   // one arrival a phase
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// The phase's one arrival, which also says how many bytes the phase awaits.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :
+               : "r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of the given parity is complete: its bytes, written by
+// any block of the cluster, are then visible.  A wait that never ends is a
+// fault of the kernel: it traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  for (int spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.test_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (!done && spins > (1 << 26)) __trap();
+  }
+}
+
+// The address of this block's shared-memory location `addr` in block `rank`
+// of the cluster.
+__device__ __forceinline__ unsigned map_to_rank(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Store v (16 bytes) at a (possibly remote) shared-memory address and report
+// its bytes to the mbarrier `bar` of the same block.
+__device__ __forceinline__ void st_async4(unsigned addr, const float4& v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+      :
+      : "r"(addr), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+        "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
+}
+
+constexpr unsigned kWarp = 0xffffffffu;
+
+// val[row][gate] += h[row] * w[gate]
+__device__ __forceinline__ void fma_rows(float (&val)[16], const float4& hv, const float4& w) {
+  const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    val[4 * rr] = fmaf(hr[rr], w.x, val[4 * rr]);
+    val[4 * rr + 1] = fmaf(hr[rr], w.y, val[4 * rr + 1]);
+    val[4 * rr + 2] = fmaf(hr[rr], w.z, val[4 * rr + 2]);
+    val[4 * rr + 3] = fmaf(hr[rr], w.w, val[4 * rr + 3]);
+  }
+}
+
+// One level of the add-and-scatter over a unit's 16 lanes: a lane keeps the
+// half of its 2 kHalf sums that its bit kHalf selects and adds its partner's.
+template <int kHalf>
+__device__ __forceinline__ void scatter_add(float (&val)[16], int lane) {
+  const bool upper = lane & kHalf;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float lo = val[i], hi = val[i + kHalf];
+    val[i] = (upper ? hi : lo) + __shfl_xor_sync(kWarp, upper ? lo : hi, kHalf);
+  }
+}
+
+template <bool kSave>
+__global__ void __launch_bounds__(kResUnits * 16, 1)
+lstm_res_fwd_kernel(const float* __restrict__ gxf, const float* __restrict__ gxb,
+                    const aas_rnn::Layout L, const float* __restrict__ m,
+                    const float* __restrict__ wh, const float* __restrict__ bh,
+                    float* __restrict__ yf, float* __restrict__ yb,
+                    float* __restrict__ hp, float* __restrict__ cp,
+                    float* __restrict__ act, int T, int B, int H, int U) {
+  static_assert(kRows == 4, "a lane's 16 sums are 4 rows x 4 gates");
+  extern __shared__ float4 res_smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();       // H / U
+  const int r = (int)cluster.block_rank();
+  const int J = (H + 15) / 16;                   // chunks of 16 inputs, one per lane of a unit
+  const int Hp = 16 * J;
+  float4* w_s = res_smem4;                       // [U / 2][J][2][16]: (i, f, g, o) per input
+  float4* h_s = w_s + (size_t)U * Hp;            // [2][Hp]: h of the four rows, double-buffered
+  // bar[p] counts the bytes arriving in h buffer p (16 H a step).
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(h_s + 2 * Hp);
+
+  const int G = 4 * H;
+  const int d = blockIdx.y;
+  const int b0 = (blockIdx.x / C) * kRows;
+  const int nb = min(kRows, B - b0);
+  const float* gx = d == 0 ? gxf : gxb;
+  float* y = d == 0 ? yf : yb;
+  const float* md = m + d * L.m_d;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  // A unit's 16 lanes split its inputs; after the reduction each holds one
+  // (row, gate) sum of the unit and takes part in that row's cell update.
+  const int uu = lane >> 4;                      // which of the warp's two units
+  const int kl = lane & 15;
+  const int row = (lane >> 2) & 3;
+  const int gate = lane & 3;
+  const int col = r * U + 2 * warp + uu;         // hidden unit
+  const bool valid = row < nb;
+
+  // This block's slice of wh[d], once per call; inputs past H are zero.
+  {
+    const float* w = wh + (size_t)d * H * G + r * U;
+    float* w_f = reinterpret_cast<float*>(w_s);
+    const int n = Hp * 4 * U;
+    for (int e = tid; e < n; e += blockDim.x) {
+      const int eu = e % U;
+      const int g = (e / U) % 4;
+      const int k = e / (4 * U);
+      const size_t slot = (((size_t)(eu >> 1) * J + (k >> 4)) * 2 + (eu & 1)) * 16 + (k & 15);
+      w_f[slot * 4 + g] = k < H ? w[(size_t)k * G + g * H + eu] : 0.f;
+    }
+    for (int e = tid; e < 2 * Hp; e += blockDim.x)
+      h_s[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (tid == 0) {     // buffer 1 receives h[1], buffer 0 (now zero: h[0]) h[2]
+      mbar_init(bar);
+      mbar_init(bar + 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      mbar_expect(bar, 16 * H);
+      mbar_expect(bar + 1, 16 * H);
+    }
+  }
+
+  const float bias = bh[(size_t)d * G + gate * H + col];
+  float c = 0.f, h = 0.f;                        // the same in a cell's four lanes
+  float gx_next = 0.f, m_next = 0.f;
+  auto fetch = [&](int t) {     // this lane's gx and the mask of time index t, for a real row
+    if (valid) {
+      gx_next = gx[(size_t)t * L.gx_t + (size_t)(b0 + row) * L.gx_b + gate * H + col];
+      m_next = md[(size_t)t * L.m_t + b0 + row];
+    }
+  };
+  fetch(aas_rnn::fwd_time(L, d, 0, T));
+  const float4* wl = w_s + (size_t)warp * J * 32 + lane;
+
+  __syncthreads();
+  cluster.sync();       // every block's buffers and mbarriers are ready before any send
+
+  // Where the slice has that many, a lane keeps its weights of the first
+  // kRegChunks chunks in registers: the sweep is bound by shared-memory
+  // loads, and these are half of them at H = 256.
+  const bool in_regs = J >= kRegChunks;
+  float4 wreg[kRegChunks];
+#pragma unroll
+  for (int j = 0; j < kRegChunks; ++j)
+    wreg[j] = in_regs ? wl[32 * j] : make_float4(0.f, 0.f, 0.f, 0.f);
+
+  int p = 0;
+  for (int s = 0; s < T; ++s) {
+    const int t = aas_rnn::fwd_time(L, d, s, T);
+
+    // h[s] has arrived in buffer p: the phase (s - 1) / 2 of its mbarrier is
+    // complete.  Thread 0 then arms the barrier for h[s + 2].
+    if (s > 0) {
+      mbar_wait(bar + p, ((s - 1) >> 1) & 1);
+      if (tid == 0 && s + 2 < T) mbar_expect(bar + p, 16 * H);
+    }
+
+    // This lane's inputs (kl, kl + 16, ...) into the unit's 16 sums.
+    float val[16];          // [row][gate]
+#pragma unroll
+    for (int v = 0; v < 16; ++v) val[v] = 0.f;
+    const float4* hc = h_s + p * Hp + kl;
+    if (in_regs) {
+#pragma unroll
+      for (int j = 0; j < kRegChunks; ++j) fma_rows(val, hc[16 * j], wreg[j]);
+    }
+#pragma unroll 4
+    for (int j = in_regs ? kRegChunks : 0; j < J; ++j) fma_rows(val, hc[16 * j], wl[32 * j]);
+    // Add over the unit's lanes and scatter, so that lane v of the 16 ends
+    // with sum v, always added in the same order.
+    scatter_add<8>(val, lane);
+    scatter_add<4>(val, lane);
+    scatter_add<2>(val, lane);
+    scatter_add<1>(val, lane);
+
+    // Each lane its gate's activation; the cell's four lanes then share them
+    // and update the same (h, c).
+    const float pre = gx_next + (val[0] + bias);
+    const float a = gate == 2 ? tanhf(pre) : sigmoid(gate == 1 ? pre + 1.f : pre);
+    const int cell0 = lane & ~3;
+    const float si = __shfl_sync(kWarp, a, cell0);
+    const float sf = __shfl_sync(kWarp, a, cell0 + 1);
+    const float tg = __shfl_sync(kWarp, a, cell0 + 2);
+    const float so = __shfl_sync(kWarp, a, cell0 + 3);
+    const float mt = m_next;
+    const float c_new = sf * c + si * tg;
+    const float h_new = so * tanhf(c_new);
+    const float h_old = h, c_old = c;
+    h = mt * h_new + (1.f - mt) * h;
+    c = mt * c_new + (1.f - mt) * c;
+
+    // The unit's new h of the four rows, as one 16-byte store into every
+    // block's next-h buffer: lane i of the unit's 16 sends to block i.
+    if (s + 1 < T) {
+      const int unit0 = lane & 16;
+      const float4 h4 = make_float4(
+          __shfl_sync(kWarp, h, unit0), __shfl_sync(kWarp, h, unit0 + 4),
+          __shfl_sync(kWarp, h, unit0 + 8), __shfl_sync(kWarp, h, unit0 + 12));
+      if (kl < C)
+        st_async4(map_to_rank(smem_addr(h_s + (1 - p) * Hp + col), kl), h4,
+                  map_to_rank(smem_addr(bar + (1 - p)), kl));
+    }
+    if (valid) {
+      const size_t o = ((size_t)d * T + t) * B + b0 + row;
+      if (gate == 0) {
+        y[(size_t)t * L.y_t + (size_t)(b0 + row) * H + col] = mt * h_new;
+        if (kSave) {
+          hp[o * H + col] = h_old;
+          cp[o * H + col] = c_old;
+        }
+      }
+      if (kSave) act[o * G + gate * H + col] = a;
+    }
+    if (s + 1 < T) fetch(aas_rnn::fwd_time(L, d, s + 1, T));
+    p ^= 1;
+  }
+}
 
 template <bool kSave>
 __global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
@@ -238,6 +542,60 @@ __global__ void lstm_tm_bwd_kernel(const aas_rnn::Layout L,
   }
 }
 
+// A refused call's code, with the runtime's record of it cleared so that the
+// next launch's check does not report it again.
+int refused(cudaError_t err) {
+  cudaGetLastError();
+  return (int)err;
+}
+
+// The resident route on a cluster of C blocks per (direction, tile of rows).
+template <bool kSave>
+int launch_resident(const float* gxf, const float* gxb, const aas_rnn::Layout& L,
+                    const float* m, const float* wh, const float* bh, float* yf,
+                    float* yb, float* hp, float* cp, float* act, int C, int T, int B,
+                    int H, cudaStream_t stream) {
+  if (T == 0 || B == 0) return 0;
+  if (C < 1 || C > 8 || H % C) return (int)cudaErrorInvalidValue;
+  const int U = H / C;
+  if (U % 2 || U > kResUnits) return (int)cudaErrorInvalidValue;
+  const int threads = 16 * U;           // a warp per two units
+  const size_t smem = res_smem(H, U);
+  auto kernel = lstm_res_fwd_kernel<kSave>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return refused(err);
+
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * ((B + kRows - 1) / kRows), 2);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+
+  // Once per configuration: a cluster that cannot be scheduled is an error
+  // here, not a launch that never starts.
+  static int checked = 0;             // one per variant: the last shape asked about
+  const int key = H * 16 + C;
+  if (checked != key) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return refused(err);
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    checked = key;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, gxf, gxb, L, m, wh, bh, yf, yb, hp, cp, act,
+                           T, B, H, U);
+  if (err != cudaSuccess) return refused(err);
+  return (int)cudaGetLastError();
+}
+
 template <bool kSave>
 int launch_fwd(const float* gxf, const float* gxb, const aas_rnn::Layout& L,
                const float* m, const float* wh,
@@ -287,13 +645,22 @@ int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
 // strides, aas_rnn::make_layout).  gx0/gx1, y0/y1 and dy0/dy1 are the two
 // directions' tensors (time-major) or the two halves of one stacked tensor;
 // gx_t, gx_b are gx's strides in elements.  hp, cp and act are NULL for
-// inference and the buffers the backward reads for training.
+// inference and the buffers the backward reads for training.  `cluster` is
+// the caller's choice of route: the resident kernel on clusters of that many
+// blocks, or 0 for the streaming kernel.
 extern "C" int aas_lstm_fwd(const float* gx0, const float* gx1, long long gx_t,
                             long long gx_b, const float* m, const float* wh,
                             const float* bh, float* y0, float* y1, float* hp,
-                            float* cp, float* act, int stacked, int T, int B,
-                            int H, cudaStream_t stream) {
+                            float* cp, float* act, int stacked, int cluster, int T,
+                            int B, int H, cudaStream_t stream) {
   const aas_rnn::Layout L = aas_rnn::make_layout(stacked, gx_t, gx_b, T, B, H, 4 * H);
+  if (cluster > 0) {
+    if (hp == nullptr)
+      return launch_resident<false>(gx0, gx1, L, m, wh, bh, y0, y1, nullptr, nullptr,
+                                    nullptr, cluster, T, B, H, stream);
+    return launch_resident<true>(gx0, gx1, L, m, wh, bh, y0, y1, hp, cp, act, cluster,
+                                 T, B, H, stream);
+  }
   if (hp == nullptr)
     return launch_fwd<false>(gx0, gx1, L, m, wh, bh, y0, y1, nullptr, nullptr,
                              nullptr, T, B, H, stream);

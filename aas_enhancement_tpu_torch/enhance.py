@@ -19,13 +19,16 @@ from aas_enhancement_tpu_torch.convert import init_like_flax
 from aas_enhancement_tpu_torch.dsp import api as dsp_api
 from aas_enhancement_tpu_torch.dsp.stft import magnitude, phase
 from aas_enhancement_tpu_torch.models.enhancer import Enhancer, apply_enhancement
+from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.ops.masking import masked_normalize
 
 
 def init_enhancer(cfg: Config, seed: int,
-                  device: torch.device | str = "cpu") -> Enhancer:
+                  device: torch.device | str = "cuda") -> Enhancer:
     """A randomly initialized ``Enhancer``, drawn on the CPU from ``seed`` and
-    then moved to ``device``, so every device gets the same weights."""
+    then moved to ``device``, so every device gets the same weights.  The
+    default is the card; without a GPU that raises (pass ``"cpu"``)."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     model = init_like_flax(Enhancer(cfg.enhancer, cfg.audio.num_bins), gen)
     return model.to(device).eval()
@@ -58,9 +61,10 @@ def make_enhance_fn(cfg: Config, device: torch.device | str):
 
 
 def enhance_utterance(cfg: Config, model: Enhancer, wav: np.ndarray,
-                      device: torch.device | str = "cpu") -> np.ndarray:
-    """Single-utterance convenience wrapper."""
-    fn = make_enhance_fn(cfg, device)
+                      device: torch.device | str = "cuda") -> np.ndarray:
+    """Single-utterance convenience wrapper; ``model`` lives on ``device``
+    (the card by default; without a GPU that raises, pass ``"cpu"``)."""
+    fn = make_enhance_fn(cfg, resolve_device(device))
     out = fn(model, torch.from_numpy(np.asarray(wav, np.float32))[None],
              torch.tensor([len(wav)]))
     return out[0].cpu().numpy()

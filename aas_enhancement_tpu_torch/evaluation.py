@@ -26,13 +26,16 @@ from aas_enhancement_tpu_torch.decode.wer import cer, corpus_wer, corpus_wer_ci,
 from aas_enhancement_tpu_torch.labels import decode_ids
 from aas_enhancement_tpu_torch.models.am import AcousticModel
 from aas_enhancement_tpu_torch.models.enhancer import Enhancer
+from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.ops.masking import masked_normalize, time_mask
 from aas_enhancement_tpu_torch.train.objectives import device_features, enhancer_forward
 
 
-def init_am(cfg: Config, seed: int, device: torch.device | str = "cpu") -> AcousticModel:
+def init_am(cfg: Config, seed: int, device: torch.device | str = "cuda") -> AcousticModel:
     """A randomly initialized ``AcousticModel``, drawn on the CPU from ``seed``
-    and then moved to ``device``, so every device gets the same weights."""
+    and then moved to ``device``, so every device gets the same weights.  The
+    default is the card; without a GPU that raises (pass ``"cpu"``)."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     model = init_like_flax(AcousticModel(cfg.am, cfg.audio.num_bins), gen)
     return model.to(device).eval()

@@ -30,6 +30,15 @@ which cell and which layout.  The stacked entries have their own wrappers
 and launch counts (``lstm_scan_stacked_bwd``, ``gru_scan_stacked_bwd``).
 The plain versions of the time-major entries are the stacked plain versions
 on a flipped copy.
+
+The LSTM forward has two device routes, chosen by the shape alone
+(``lstm_resident_cluster``): where a thread-block cluster of at most 8 blocks
+of at most 32 hidden units each can hold wh[d] in shared memory (H = 256: 8
+blocks of 128 KB) the resident kernel runs, otherwise (H = 512) the streaming
+kernel, which reads wh[d] from L2 every step.  The route is no fallback: a
+resident launch that is refused raises.  ``lstm_scan_tm.route`` /
+``lstm_scan_stacked.route`` hold the route of the entry's last launch: the
+cluster size, or 0 for streaming.
 """
 
 from __future__ import annotations
@@ -38,6 +47,31 @@ import torch
 
 from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_kernel
 from aas_enhancement_tpu_torch.utils import kernel_build
+
+
+# The resident LSTM forward kernel's limits (csrc/lstm_tm.cu): shared memory a
+# block may use on Hopper, and most hidden units of a block (two per warp).
+_SMEM_LIMIT = 232448
+_RES_UNITS = 32
+
+
+def lstm_resident_cluster(h_dim: int) -> int:
+    """The LSTM forward's route for hidden width ``h_dim``: the smallest
+    cluster size C of 1, 2, 4, 8 (the portable sizes) that divides H into an
+    even number U = H / C <= 32 of hidden units a block (a warp per two
+    units) and whose blocks can each hold their slice of wh[d] (H padded to a
+    multiple of 16, x 4U), h of a tile's rows twice and two mbarriers in
+    shared memory; 0, the streaming kernel, where none does.  H = 16, 32 ->
+    1, 64 -> 2, 128 -> 4, 256 -> 8, 512 -> 0.  Pure arithmetic on the shape,
+    the same as the kernel's host code does (``res_smem``)."""
+    chunks = -(-h_dim // 16)
+    for c in (1, 2, 4, 8):
+        u = h_dim // c
+        if h_dim < 2 or h_dim % c or u % 2 or u > _RES_UNITS:
+            continue
+        if 16 * (u * chunks * 16 + 2 * 16 * chunks + 1) <= _SMEM_LIMIT:
+            return c
+    return 0
 
 
 def lstm_scan_stacked_plain(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
@@ -86,6 +120,7 @@ def lstm_scan_tm(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
 
 
 lstm_scan_tm.launches = 0
+lstm_scan_tm.route = None
 
 
 def gru_scan_stacked_plain(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
@@ -139,6 +174,7 @@ def lstm_scan_stacked(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
 
 
 lstm_scan_stacked.launches = 0
+lstm_scan_stacked.route = None
 
 
 def gru_scan_stacked(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
@@ -175,14 +211,16 @@ def _halves(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _forward(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
-             wh: torch.Tensor, bh: torch.Tensor, save: bool
+             wh: torch.Tensor, bh: torch.Tensor, save: bool, route: int | None = None
              ) -> tuple[tuple[torch.Tensor, ...], tuple[torch.Tensor, ...]]:
     """Check what the forward kernels take, raise otherwise, and launch the
     inference variant, or with ``save`` the training variant -> (ys, saved):
     (yf, yb) [T, B, H] for the time-major gx (gxf, gxb), (y,) [T, 2, B, H] for
     the stacked (gx,); saved is what the backward kernel reads, one layout
     for both: h [2, T, B, H], for the LSTM also c [2, T, B, H], and the gate
-    activations [2, T, B, 4H]."""
+    activations [2, T, B, 4H].  The LSTM's route (cluster size, 0 =
+    streaming) follows from H (``lstm_resident_cluster``); ``route`` overrides
+    it for measurements that set the two kernels side by side."""
     check_kernel_inputs(name, (*gx, m, wh, bh), backward=None)
     gates, stacked = _gates(name), len(gx) == 1
     if stacked:
@@ -225,13 +263,21 @@ def _forward(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
         saved = (*(empty(2, t_len, b, h_dim) for _ in range(n_saved - 1)),
                  empty(2, t_len, b, 4 * h_dim))
     entry = f"aas_{name.split('_')[0]}_fwd"
+    if gates == 4:
+        route = lstm_resident_cluster(h_dim) if route is None else route
+        what = f"{entry} (" + (f"resident, clusters of {route}" if route else "streaming") + ")"
+    else:
+        what = entry
     err = getattr(kernel_build.load_library(), entry)(
         gx0.data_ptr(), gx1.data_ptr(), gx0.stride(0), gx0.stride(1),
         m.data_ptr(), wh.data_ptr(), bh.data_ptr(), y0.data_ptr(), y1.data_ptr(),
         *([x.data_ptr() for x in saved] or [None] * n_saved), int(stacked),
+        *((route,) if gates == 4 else ()),
         t_len, b, h_dim, torch.cuda.current_stream(gx0.device).cuda_stream)
-    kernel_build.check(err, entry)
+    kernel_build.check(err, what)
     _FORWARD[name].launches += 1
+    if gates == 4:
+        _FORWARD[name].route = route
     return ys, saved
 
 

@@ -4,30 +4,129 @@ plain versions.
 Replace ``aas_enhancement_tpu/ops/pallas/stft_kernel.py::stft_pallas`` and
 ``::istft_pallas``.  ``stft``/``istft`` here take the kernel for a CUDA tensor
 and the plain segment-DFT (``dsp/stft.py``, re-exported as ``stft_plain`` and
-``istft_plain``) for a CPU tensor.  As in the Pallas wrappers, the center
-reflect pad happens before the STFT kernel, and the center trim and length
-padding after the ISTFT kernel.  Each wrapper counts its launches in
+``istft_plain``) for a CPU tensor.  Each wrapper counts its launches in
 ``.launches``.
+
+The STFT kernel computes each frame's transform in two stages for n_fft =
+n1 * n2 (``stft_factors`` picks the pair that needs the fewest operations;
+320 = 32 x 10) and takes the direct sum only where no pair saves operations
+(a prime n_fft); the rule is on n_fft alone and ``stft.route`` holds the
+last launch's (n1, n2), (0, 0) for direct.  Its bases come from one f32 table
+built on the host once per (n_fft, device) (``dft_table``), and the center
+reflect pad is index arithmetic inside the kernel's loads, so the wrapper
+launches one kernel and no copy.  ``stft_factorised_plain`` follows the
+kernel's arithmetic step by step in plain PyTorch (index maps, twiddles,
+real-input symmetry, mirrored indices) and is what the CPU tests hold to
+``stft_plain``.  The center trim and length padding happen after the ISTFT
+kernel, as in the Pallas wrapper.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from aas_enhancement_tpu_torch.dsp.stft import (
-    _check_hop, center_pad, get_window, istft as istft_plain, num_frames,
-    stft as stft_plain, trim)
+    _check_hop, get_window, istft as istft_plain, num_frames, stft as stft_plain, trim)
 from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_kernel
 from aas_enhancement_tpu_torch.utils import kernel_build
 
-__all__ = ["stft", "istft", "stft_plain", "istft_plain"]
+__all__ = ["stft", "istft", "stft_plain", "istft_plain", "stft_factorised_plain",
+           "stft_factors", "dft_table", "reflect_index"]
 
 
 @functools.lru_cache(maxsize=8)
 def _window(name: str, n_fft: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(get_window(name, n_fft)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def dft_table(n_fft: int) -> np.ndarray:
+    """W_N^m = (cos, -sin)(2 pi m / N) for m < N as float32 [N, 2], computed in
+    double precision: exact to f32 rounding."""
+    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _table(n_fft: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(dft_table(n_fft)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def stft_factors(n_fft: int) -> tuple[int, int]:
+    """(n1, n2) with n1 * n2 = n_fft for the two-stage transform, or (0, 0)
+    for the direct sum.  Per frame the stages cost n2 (n1/2+1) n1 2 FMAs
+    (real n1-point DFTs, k1 <= n1/2) and (n1/2+1) n2 n2 4 FMAs (complex
+    n2-point DFTs); the direct sum (n_fft/2+1) n_fft 2.  The cheapest pair is
+    taken if it is cheaper than the direct sum: 320 -> (32, 10), 17,680 FMAs
+    for 103,040; a prime, or 2 x a prime, -> (0, 0)."""
+    best, best_cost = (0, 0), (n_fft // 2 + 1) * n_fft * 2
+    for n1 in range(2, n_fft // 2 + 1):
+        if n_fft % n1:
+            continue
+        n2 = n_fft // n1
+        k1 = n1 // 2 + 1
+        cost = n2 * k1 * n1 * 2 + k1 * n2 * n2 * 4
+        if cost < best_cost:
+            best, best_cost = (n1, n2), cost
+    return best
+
+
+def reflect_index(pos: torch.Tensor, n: int) -> torch.Tensor:
+    """Positions in a reflect-padded signal of n samples (relative to its
+    first real sample, so -n < pos < 2n - 1) -> the real samples they mirror."""
+    pos = pos.abs()
+    return torch.where(pos >= n, 2 * (n - 1) - pos, pos)
+
+
+def stft_factorised_plain(x: torch.Tensor, n_fft: int, hop_length: int,
+                          window: str = "hann", center: bool = True
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic in plain PyTorch: [B, n] -> (re, im)
+    [B, T, n_fft//2+1].  Frames through mirrored indices; for n_fft = n1 n2,
+    n = n2 i1 + i2 and k = k1 + n1 k2: n1-point DFTs of the real data for
+    k1 <= n1/2, the twiddles W_N^(i2 k1), n2-point complex DFTs, and the bins
+    above n_fft/2 stored conjugated at n_fft - k.  Direct sum from the same
+    table where ``stft_factors`` gives (0, 0)."""
+    _check_hop(n_fft, hop_length)
+    x = x.to(torch.float32)
+    b, n = x.shape
+    t = num_frames(n, n_fft, hop_length, center)
+    shift = n_fft // 2 if center else 0
+    pos = torch.arange(t)[:, None] * hop_length + torch.arange(n_fft)[None] - shift
+    inside = pos < n + shift      # an odd n_fft's last frame ends one past the padded signal
+    pos = reflect_index(pos.clamp(max=n + shift - 1), n)
+    win = torch.from_numpy(get_window(window, n_fft))
+    frames = (x[:, pos.to(x.device)] * (win * inside).to(x.device))      # [B, T, N]
+    tab = torch.from_numpy(dft_table(n_fft)).to(x.device)
+    n_bins = n_fft // 2 + 1
+    n1, n2 = stft_factors(n_fft)
+    if n1 == 0:
+        idx = (torch.arange(n_fft)[:, None] * torch.arange(n_bins)[None]) % n_fft
+        return frames @ tab[idx, 0], frames @ tab[idx, 1]
+    ks1 = torch.arange(n1 // 2 + 1)
+    w1 = tab[((torch.arange(n1)[:, None] * ks1[None]) % n1) * n2]        # [i1, k1, 2]
+    xs = frames.reshape(b, t, n1, n2)                                    # [.., i1, i2]
+    a_re = torch.einsum("btij,ik->btkj", xs, w1[..., 0])                 # [.., k1, i2]
+    a_im = torch.einsum("btij,ik->btkj", xs, w1[..., 1])
+    tw = tab[ks1[:, None] * torch.arange(n2)[None]]                      # [k1, i2, 2]
+    a_re, a_im = a_re * tw[..., 0] - a_im * tw[..., 1], a_re * tw[..., 1] + a_im * tw[..., 0]
+    w2 = tab[((torch.arange(n2)[:, None] * torch.arange(n2)[None]) % n2) * n1]   # [i2, k2, 2]
+    x_re = a_re @ w2[..., 0] - a_im @ w2[..., 1]                         # [.., k1, k2]
+    x_im = a_re @ w2[..., 1] + a_im @ w2[..., 0]
+    k = ks1[:, None] + n1 * torch.arange(n2)[None]                       # [k1, k2]
+    direct = k < n_bins
+    mirrored = ~direct & (ks1[:, None] != 0) & (2 * ks1[:, None] != n1)
+    re = x.new_zeros((b, t, n_bins))
+    im = x.new_zeros((b, t, n_bins))
+    re[..., k[direct]] = x_re[..., direct]
+    im[..., k[direct]] = x_im[..., direct]
+    re[..., n_fft - k[mirrored]] = x_re[..., mirrored]
+    im[..., n_fft - k[mirrored]] = -x_im[..., mirrored]
+    return re, im
 
 
 def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: str = "hann",
@@ -40,22 +139,29 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: str = "hann",
     if x.ndim != 2:
         raise ValueError(f"stft: needs [B, n], got {tuple(x.shape)}")
     b, n = x.shape
-    xp = (center_pad(x, n_fft) if center else x).contiguous()
+    if n <= n_fft // 2 if center else n < n_fft:
+        raise ValueError(f"stft: {n} samples are too few for n_fft {n_fft}"
+                         + (" with reflect padding" if center else ""))
+    x = x.contiguous()
     t = num_frames(n, n_fft, hop_length, center)
     f = n_fft // 2 + 1
     re = torch.empty((b, t, f), dtype=torch.float32, device=x.device)
     im = torch.empty_like(re)
-    win = _window(window, n_fft, x.device)
+    n1, n2 = stft_factors(n_fft)
     err = kernel_build.load_library().aas_stft(
-        xp.data_ptr(), win.data_ptr(), re.data_ptr(), im.data_ptr(),
-        b, xp.shape[1], t, n_fft, hop_length,
+        x.data_ptr(), _window(window, n_fft, x.device).data_ptr(),
+        _table(n_fft, x.device).data_ptr(), re.data_ptr(), im.data_ptr(),
+        b, n, t, n_fft, hop_length, int(center), n1, n2,
         torch.cuda.current_stream(x.device).cuda_stream)
-    kernel_build.check(err, "aas_stft")
+    kernel_build.check(err, f"aas_stft (n_fft {n_fft} = {n1} x {n2})" if n1
+                       else "aas_stft (direct)")
     stft.launches += 1
+    stft.route = (n1, n2)
     return re, im
 
 
 stft.launches = 0
+stft.route = None
 
 
 def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,

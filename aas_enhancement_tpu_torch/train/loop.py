@@ -31,18 +31,21 @@ from aas_enhancement_tpu_torch.data.dataset import AudioDataset, Batch, Unpaired
 from aas_enhancement_tpu_torch.enhance import init_enhancer
 from aas_enhancement_tpu_torch.evaluation import init_am
 from aas_enhancement_tpu_torch.models.discriminator import Discriminator
+from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.train.state import TrainState, adam, am_sgd
 from aas_enhancement_tpu_torch.train.steps import OBJECTIVES, make_train_step
 
 
-def init_state(cfg: Config, seed: int, device: torch.device | str = "cpu",
+def init_state(cfg: Config, seed: int, device: torch.device | str = "cuda",
                g_seed: int | None = None, am_seed: int | None = None) -> TrainState:
     """The networks the objective needs, drawn on the CPU with flax's init
     distributions and moved to ``device``: G from ``g_seed`` (default
     ``seed``), D from ``seed + 1``, the AM from ``am_seed`` (default
     ``seed + 2``).  The AM is frozen for ``acoustic`` / ``aas`` and trained
     for ``am``, which has no G unless ``am_through_enhancer`` puts the frozen
-    enhancer in front of the AM."""
+    enhancer in front of the AM.  The default device is the card; without a
+    GPU that raises (pass ``"cpu"``)."""
+    device = resolve_device(device)
     objective = cfg.train.objective
     if objective not in OBJECTIVES:
         raise NotImplementedError(f"objective {objective!r}: not yet ported (ROADMAP A8)")
@@ -103,8 +106,10 @@ def _check_ported(cfg: Config) -> None:
 
 def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
           max_steps: int = 0, state: TrainState | None = None,
-          device: torch.device | str = "cpu") -> tuple[TrainState, list[dict]]:
-    """Run ``cfg.train.objective`` on ``device``.  -> (final state, records)."""
+          device: torch.device | str = "cuda") -> tuple[TrainState, list[dict]]:
+    """Run ``cfg.train.objective`` on ``device`` (the card by default; without
+    a GPU that raises, pass ``"cpu"``).  -> (final state, records)."""
+    device = resolve_device(device)
     _check_ported(cfg)
     t = cfg.train
     ds = AudioDataset(noisy_manifest, cfg.audio, cfg.data)

@@ -34,16 +34,18 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes.  Each returns its cudaError_t as an int
 # (aas_conv_dw_slices a count).
 SIGNATURES = {
-    # x, win, re, im, batch, n_padded, n_frames, n_fft, hop, stream
-    "aas_stft": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, win, table, re, im, batch, n_samples, n_frames, n_fft, hop, center,
+    # n1, n2 (n1 * n2 = n_fft: the two-stage transform; 0, 0: the direct sum), stream
+    "aas_stft": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # re, im, win, y, batch, n_frames, n_fft, hop, stream
     "aas_istft": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # The recurrences, time-major (two tensors per direction) or stacked (two
     # halves of one tensor); saved buffers NULL for inference:
     # gx0, gx1, gx_stride_t, gx_stride_b, m, wh, bh, y0, y1, hp, cp, act,
-    # stacked, T, B, H, stream
-    "aas_lstm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # ... as aas_lstm_fwd without cp
+    # stacked, cluster (blocks per cluster of the resident route, 0: the
+    # streaming route), T, B, H, stream
+    "aas_lstm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # ... as aas_lstm_fwd without cp and cluster
     "aas_gru_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # m, whT, cp, act, dy0, dy1, dgx, stacked, T, B, H, stream
     "aas_lstm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -106,7 +106,7 @@ def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
     ``TrainConfig.batch_size``) x ``seconds`` on the
     GPU, weights drawn from the config's train seed; each summary also holds
     its ``batch``."""
-    from aas_enhancement_tpu_torch.cli.enhance import resolve_device
+    from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
     from aas_enhancement_tpu_torch.config import Config
     from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
     from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward

@@ -12,10 +12,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    enhance path's (T=801, F=161, C=32, LSTM H=256) and the AM's (GN +
    hardtanh at [4, 401, 81, 32] and [4, 401, 41, 32], GRU T=401, H=512),
    with the max abs error, the tolerance and the median time of kernel and
-   plain version (CUDA events, after warmup, timed in turns);
+   plain version (CUDA events, after warmup, timed in turns).  The LSTM
+   lines (resident route: wh[d] in a cluster's shared memory) also give the
+   streaming kernel's and the training variant's time at the same shape;
+   further LSTM cases run B=6 (a partial row tile), B=32 and H=512 (the
+   streaming route), a further STFT case hop 80; the STFT lines also give
+   the device time of the kernel and of the library call from the profiler
+   (one call between two events reads mostly host time at a few microseconds);
 4. slice: the port's enhance CLI on a synthetic corpus with --device cuda,
-   counting each kernel's launches; then a full-width B=4 x 8 s batch on the
-   card against the same weights on the CPU, and the batch's real-time factor;
+   counting each kernel's launches (and failing unless the LSTM took the
+   resident route, here and on every later path); then a full-width B=4 x 8 s
+   batch on the card against the same weights on the CPU, and the batch's
+   real-time factor;
 5. recognize: the port's evaluate CLI (noisy and enhanced WER, SI-SNR) on a
    synthetic corpus with --device cuda, counting each kernel's launches; then
    the recognition forward (enhancer + AM, 4 x BiGRU-512) at B=4 x 8 s on the
@@ -80,7 +88,7 @@ PEAK_F32_S = 67e12                    # H100 SXM: f32 FLOP/s outside the tensor 
 # sides accumulate in float32 in different orders; each bound is about 3-50x
 # the error measured on an H100 at these inputs.
 TOL = {
-    "stft": (1e-4, "|X| up to ~40 from 320-term f32 sums on unit-scale audio"),
+    "stft": (1e-4, "|X| up to ~40 from f32 sums over 320 samples on unit-scale audio"),
     "istft": (1e-5, "unit-scale audio, 2 x 161-term f32 sums per sample"),
     "gn_act": (1e-5, "unit-scale normalized output, f32 group sums over 0.1-2.6M values"),
     "lstm": (1e-5, "|y| < 1, f32 rounding carried through 801 recurrent steps"),
@@ -265,11 +273,17 @@ def kernel_counters() -> dict:
 
 def counted(names, run) -> dict:
     """Set the named kernels' launch counts to 0, drive ``run()``, and read
-    the counts: {name: launches of that run}."""
+    the counts: {name: launches of that run}.  The paths' LSTMs are 256
+    wide: a run whose last LSTM launch was not on the resident route fails."""
     counters = {k: v for k, v in kernel_counters().items() if k in names}
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "route"):
+            fn.route = None
     run()
+    for k, fn in counters.items():
+        if k in ("lstm", "lstm_stacked") and fn.launches and not fn.route:
+            fail(f"{k}: the path's LSTM ran on the streaming route (route {fn.route})")
     return {k: fn.launches for k, fn in counters.items()}
 
 
@@ -324,11 +338,25 @@ def phase_kernels(device):
         # A 320-point real transform per frame needs an FFT's operations
         # (5 n log2 n), not the direct sum's that the kernels spend.
         dft_flops = B * t_len * 5.0 * 320 * math.log2(320)
+        re80, im80 = kstft.stft_plain(wav, 320, 80)
+        # Further LSTM shapes: B=6 (tiles of 4 and 2 rows) at the enhancer's
+        # width, and H=512, which no cluster of 8 holds (the streaming route).
+        lens6 = torch.tensor(LENGTHS + [88000, 1600], device=device)
+        m6 = time_mask(1 + lens6 // 160, t_len).T.contiguous()
+        gates6 = (0.5 * torch.randn(t_len, 6, 2048, generator=gen)).to(device)
+        m32 = time_mask(1 + lens6[torch.arange(32, device=device) % 6] // 160, t_len).T.contiguous()
+        gates32 = (0.5 * torch.randn(t_len, 32, 2048, generator=gen)).to(device)
+        wide = init_like_flax(BiRNN(64, 512), gen).to(device)
+        gates_w = (0.5 * torch.randn(AM_T, B, 4096, generator=gen)).to(device)
         cases = {   # label: (kernel name, wrapper, plain, args, kwargs, (bytes, flops), library)
             "stft": ("stft", kstft.stft, kstft.stft_plain, (wav, 320, 160), {},
                      (nbytes(wav, re, im), dft_flops),
                      lambda: torch.stft(wav, 320, 160, window=window, center=True,
                                         pad_mode="reflect", return_complex=True)),
+            "stft hop 80": ("stft", kstft.stft, kstft.stft_plain, (wav, 320, 80), {},
+                            (nbytes(wav, re80, im80), 2 * dft_flops),
+                            lambda: torch.stft(wav, 320, 80, window=window, center=True,
+                                               pad_mode="reflect", return_complex=True)),
             "istft": ("istft", kstft.istft, kstft.istft_plain,
                       (re * gain, im * gain, 320, 160, "hann", True, N), {},
                       (nbytes(re, im, wav), dft_flops),
@@ -347,6 +375,18 @@ def phase_kernels(device):
                 (2 * nbytes(x_am[41]), 10.0 * x_am[41].numel()), None),
             "lstm": ("lstm", krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain,
                      (gxf, gxb, m, rnn.wh, rnn.bh), {}, rnn_work(gates, 1024, m, rnn), None),
+            "lstm T=801 B=6 H=256 (a partial row tile)": (
+                "lstm", krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain,
+                (gates6[..., :1024], gates6[..., 1024:], m6, rnn.wh, rnn.bh), {},
+                rnn_work(gates6, 1024, m6, rnn), None),
+            "lstm T=801 B=32 H=256 (eight row tiles, 128 blocks)": (
+                "lstm", krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain,
+                (gates32[..., :1024], gates32[..., 1024:], m32, rnn.wh, rnn.bh), {},
+                rnn_work(gates32, 1024, m32, rnn), None),
+            "lstm T=401 B=4 H=512 (the streaming route)": (
+                "lstm", krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain,
+                (gates_w[..., :2048], gates_w[..., 2048:], m_am, wide.wh, wide.bh), {},
+                rnn_work(gates_w, 2048, m_am, wide), None),
             "gru": ("gru", krnn.gru_scan_tm, krnn.gru_scan_tm_plain,
                     (g_xf, g_xb, m_am, gru.wh, gru.bh), {},
                     rnn_work(g_gates, 1536, m_am, gru), None),
@@ -365,10 +405,23 @@ def phase_kernels(device):
             err = max_err(k_out, p_out)
             tol, why = TOL[name]
             reps = 5 if name in ("lstm", "gru", "lstm_stacked", "gru_stacked") else 20
+            if label != name and name == "lstm":
+                reps = 3
             ms, plain_ms = in_turns(lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
                                     reps)
             lib_ms = None if library is None else statistics.median(cuda_ms(library, reps))
             text = keep(results, name, label, err, ms, plain_ms, work, lib_ms)
+            if name == "stft":
+                n1, n2 = kernel.route
+                results[name]["shapes"][label]["kernel_route"] = f"two stages, {n1} x {n2}"
+                results[name].setdefault("kernel_route", f"two stages, {n1} x {n2}")
+                text += f" | route: 320 = {n1} x {n2}"
+                if not n1:
+                    fail(f"{label}: n_fft 320 took the direct sum")
+                text += stft_device_times(results[name]["shapes"][label],
+                                          lambda: kernel(*args, **kw), library)
+            if name in ("lstm", "lstm_stacked"):
+                text += lstm_routes(results, name, label, kernel, args, p_out, reps)
             print(f"[kernel] {label}: max_abs_err {err:.3e} (tol {tol:.0e}: {why}) | "
                   f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
                   f"x{plain_ms / ms:.2f} | {text}")
@@ -385,6 +438,55 @@ def phase_kernels(device):
     kernels_backward(device, gen, results)
     kernels_conv_dw(device, gen, results)
     return results
+
+
+def stft_device_times(row: dict, run_k, run_lib) -> str:
+    """The device time of the STFT kernel and of the library call's kernels
+    (``torch.profiler``, per call over 5 calls).  The CUDA-event times of the
+    line are taken around one call on an idle stream, so for a kernel of a few
+    microseconds they read mostly the wrapper's host time.  -> text."""
+    from aas_enhancement_tpu_torch.utils.profiling import profile_call
+    with tempfile.TemporaryDirectory() as tmp:
+        row["device_ms"], row["library_device_ms"] = (
+            profile_call(fn, 5, 2, os.path.join(tmp, "trace.json"))["busy_ms"]
+            for fn in (run_k, run_lib))
+    return (f" | on the device alone (profiler): kernel {row['device_ms']:.4f} ms, "
+            f"library call {row['library_device_ms']:.4f} ms")
+
+
+def lstm_routes(results: dict, name: str, label: str, kernel, args, p_out, reps: int) -> str:
+    """The route the LSTM wrapper just took at this shape, the time of the
+    training variant on it and, where it is the resident route, the streaming
+    kernel's output and time on the same inputs (through the wrapper's private
+    route argument).  Fails if a 256-wide LSTM was not resident or a 512-wide
+    one was.  -> text for the kernel's line."""
+    import torch
+    from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
+    entry = "lstm_scan_tm" if name == "lstm" else "lstm_scan_stacked"
+    *gx, m, wh, bh = args
+    route, h = kernel.route, wh.shape[1]
+    if bool(route) != (h == 256):
+        fail(f"{label}: H={h} took route {route} (0 is the streaming kernel)")
+    row = results[name]["shapes"][label]
+    row["kernel_route"] = f"resident, clusters of {route}" if route else "streaming"
+    row["training_ms"] = statistics.median(cuda_ms(
+        lambda: krnn._forward(entry, tuple(gx), m, wh, bh, save=True), reps))
+    text = f" | route: {row['kernel_route']} | training variant {row['training_ms']:.4f} ms"
+    if route:
+        stream = lambda: krnn._forward(entry, tuple(gx), m, wh, bh, save=False,   # noqa: E731
+                                       route=0)[0]
+        s_out = stream()
+        torch.cuda.synchronize()
+        err = max_err(s_out if len(s_out) > 1 else s_out[0], p_out)
+        if not err <= TOL[name][0]:
+            fail(f"{label}: the streaming kernel's max abs err {err:.3e}")
+        row["streaming_ms"] = statistics.median(cuda_ms(stream, reps))
+        text += (f" | streaming kernel {row['streaming_ms']:.4f} ms (max_abs_err "
+                 f"{err:.3e}), x{row['streaming_ms'] / row['ms']:.2f}")
+    if label == name:
+        results[name].update({k: row[k] for k in ("kernel_route", "training_ms",
+                                                  "streaming_ms") if k in row})
+    return text
 
 
 def _rnn_call(gates, m, wh, bh, gh: int):
@@ -647,7 +749,7 @@ def phase_recognize(device, card):
         fail(f"non-finite SI-SNR/STOI {line['si_snr']}")
 
     cfg = Config()
-    am_cpu, enh_cpu = init_am(cfg, 0), init_enhancer(cfg, 1)
+    am_cpu, enh_cpu = init_am(cfg, 0, "cpu"), init_enhancer(cfg, 1, "cpu")
     am_gpu, enh_gpu = copy.deepcopy(am_cpu).to(device), copy.deepcopy(enh_cpu).to(device)
     wav, lengths, _ = make_inputs("cpu")
     fwd = make_eval_forward(cfg, use_enhancer=True)

@@ -128,6 +128,72 @@ def test_plain_istft_matches_pallas_interpret():
     np.testing.assert_allclose(y_t, y_p, **WAV_TOL)
 
 
+# n_fft, hop, samples, center, (n1, n2): 320 at both hops and uncentered,
+# another composite, an odd n_fft with odd factors, and a prime (direct sum).
+FACTORISED_CASES = [(320, 160, 8000, True, (32, 10)), (320, 80, 8000, True, (32, 10)),
+                    (320, 160, 4000, False, (32, 10)), (96, 48, 3000, True, (16, 6)),
+                    (75, 25, 2000, True, (15, 5)), (97, 97, 3000, True, (0, 0))]
+
+
+@pytest.mark.parametrize("n_fft,hop,n,center,factors", FACTORISED_CASES)
+def test_factorised_stft_matches_plain_and_jax(n_fft, hop, n, center, factors):
+    """The STFT kernel's arithmetic, step by step in plain PyTorch (two-stage
+    transform with twiddles, real-input symmetry, mirrored indices), against
+    the plain segment DFT and the JAX stft: 1e-4 abs on unit-scale audio
+    (|X| up to ~30, f32 sums in three different orders)."""
+    assert kstft.stft_factors(n_fft) == factors
+    x = _signal(2, n, seed=n_fft)
+    re_f, im_f = kstft.stft_factorised_plain(torch.from_numpy(x), n_fft, hop, center=center)
+    re_p, im_p = tstft.stft(torch.from_numpy(x), n_fft, hop, center=center)
+    re_j, im_j = jstft.stft(jnp.asarray(x), n_fft, hop, center=center)
+    assert re_f.shape == re_p.shape == re_j.shape
+    for got, plain, ref in ((re_f, re_p, re_j), (im_f, im_p, im_j)):
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=1e-4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_fft,factors", [(320, (32, 10)), (512, (32, 16)), (400, (25, 16)),
+                                           (64, (16, 4)), (14, (7, 2)), (97, (0, 0)),
+                                           (8, (0, 0)), (2, (0, 0))])
+def test_stft_factors_save_operations(n_fft, factors):
+    """The pair multiplies to n_fft and costs fewer FMAs than the direct sum;
+    (0, 0), the direct sum, where no pair does."""
+    n1, n2 = kstft.stft_factors(n_fft)
+    assert (n1, n2) == factors
+    direct = (n_fft // 2 + 1) * n_fft * 2
+    if n1:
+        k1 = n1 // 2 + 1
+        assert n1 * n2 == n_fft and n2 * k1 * n1 * 2 + k1 * n2 * n2 * 4 < direct
+    else:
+        for a in range(2, n_fft // 2 + 1):
+            if n_fft % a == 0:
+                b, k1 = n_fft // a, a // 2 + 1
+                assert b * k1 * a * 2 + k1 * b * b * 4 >= direct
+
+
+@pytest.mark.parametrize("n,n_fft", [(50, 16), (200, 320), (161, 320), (1000, 75)])
+def test_mirrored_indices_match_center_pad(n, n_fft):
+    """The reflect pad as index arithmetic (what the kernel's loads do)
+    against F.pad's reflect mode."""
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((2, n)).astype(np.float32))
+    pos = torch.arange(-(n_fft // 2), n + n_fft // 2)
+    idx = kstft.reflect_index(pos, n)
+    assert int(idx.min()) >= 0 and int(idx.max()) < n
+    assert torch.equal(x[:, idx], tstft.center_pad(x, n_fft))
+
+
+def test_dft_table_is_exact_to_f32_rounding():
+    tab = kstft.dft_table(320)
+    m = np.arange(320)
+    assert tab.dtype == np.float32 and tab.shape == (320, 2)
+    np.testing.assert_array_equal(tab[:, 0], np.cos(2 * np.pi * m / 320).astype(np.float32))
+    np.testing.assert_array_equal(tab[:, 1], (-np.sin(2 * np.pi * m / 320)).astype(np.float32))
+    wc, ws = tstft._dft_bases_np(320)           # the plain version's bases: W^(n k mod N)
+    n, k = 7, 93
+    assert abs(tab[(n * k) % 320, 0] - wc[n, k]) < 1e-6
+    assert abs(tab[(n * k) % 320, 1] - ws[n, k]) < 1e-6
+
+
 def test_wrappers_route_cpu_tensors_to_plain_versions():
     x = torch.from_numpy(_signal(2, 4000, seed=8))
     before = (kstft.stft.launches, kstft.istft.launches)

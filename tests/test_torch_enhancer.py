@@ -94,7 +94,7 @@ def test_enhance_utterance_matches_jax_single_row():
     wav = (0.3 * np.random.default_rng(6).standard_normal(8000)).astype(np.float32)
     ref = np.asarray(jax_make_enhance_fn(cfg)(params, jnp.asarray(wav)[None],
                                               jnp.array([8000], jnp.int32)))[0]
-    got = enhance_utterance(cfg, _torch_model(SMALL, params), wav)
+    got = enhance_utterance(cfg, _torch_model(SMALL, params), wav, "cpu")
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
 
 
@@ -102,8 +102,8 @@ def test_random_init_follows_flax_distributions():
     """Same shapes as flax, seeded and repeatable, and the flax moments:
     lecun-normal kernels (std sqrt(1/fan_in)), orthogonal wh, zero biases."""
     cfg = Config()
-    a = init_enhancer(cfg, seed=0)
-    b = init_enhancer(cfg, seed=0)
+    a = init_enhancer(cfg, seed=0, device="cpu")
+    b = init_enhancer(cfg, seed=0, device="cpu")
     assert all(torch.equal(u, v) for u, v in zip(a.state_dict().values(),
                                                  b.state_dict().values()))
     w = a.blstms[0].wx.kernel

@@ -7,7 +7,7 @@ machine without JAX run it without the suite's conftest:
 
 Tolerances are f32 sum-order tolerances (each kernel sums in its own order):
 STFT 1e-4 abs on |X| up to ~30, ISTFT 2e-5 abs + 1e-5 rel on unit-scale
-audio, GroupNorm 1e-5, LSTM and GRU 1e-5 on |y| < 1 over 40-60 steps, the
+audio, GroupNorm 1e-5, LSTM and GRU 1e-5 on |y| < 1 over 20-60 steps, the
 recognition forward's logits 1e-4 (STFT, enhancer and AM sums compound).
 Gradients of the backward kernels against autograd through the plain
 versions: 1e-5 of the largest |gradient| of each tensor plus rtol 1e-4
@@ -44,16 +44,29 @@ def _randn(*shape, seed=0, scale=1.0):
     return scale * torch.randn(*shape, generator=torch.Generator().manual_seed(seed))
 
 
-@pytest.mark.parametrize("n,center", [(16000, True), (16001, True), (8000, False)])
-def test_stft_kernel(cuda, n, center):
+@pytest.mark.parametrize("n,center,n_fft,hop,route", [
+    (16000, True, 320, 160, (32, 10)), (16001, True, 320, 160, (32, 10)),
+    (8000, False, 320, 160, (32, 10)), (16000, True, 320, 80, (32, 10)),
+    (6000, True, 96, 48, (16, 6)), (4000, True, 75, 25, (15, 5)),   # odd n_fft, odd factors
+    (5000, True, 97, 97, (0, 0)),                                   # a prime: the direct sum
+    (200, True, 320, 160, (32, 10))])               # both edges mirrored inside one frame
+def test_stft_kernel(cuda, n, center, n_fft, hop, route):
     x = _randn(3, n, seed=n, scale=0.3).to(cuda)
     before = kstft.stft.launches
-    re, im = kstft.stft(x, 320, 160, center=center)
-    re_p, im_p = kstft.stft_plain(x, 320, 160, center=center)
+    re, im = kstft.stft(x, n_fft, hop, center=center)
+    re_p, im_p = kstft.stft_plain(x, n_fft, hop, center=center)
     torch.cuda.synchronize()
-    assert kstft.stft.launches == before + 1
+    assert kstft.stft.launches == before + 1 and kstft.stft.route == route
     torch.testing.assert_close(re, re_p, rtol=0, atol=1e-4)
     torch.testing.assert_close(im, im_p, rtol=0, atol=1e-4)
+    re_f, im_f = kstft.stft_factorised_plain(x, n_fft, hop, center=center)
+    torch.testing.assert_close(re, re_f, rtol=0, atol=1e-4)
+    torch.testing.assert_close(im, im_f, rtol=0, atol=1e-4)
+
+
+def test_stft_refuses_too_few_samples(cuda):
+    with pytest.raises(ValueError, match="too few"):
+        kstft.stft(torch.zeros(1, 160, device=cuda), 320, 160)
 
 
 @pytest.mark.parametrize("length", [16000, 15000, 17000, None])
@@ -165,6 +178,75 @@ def _grads(outs, inputs, seed):
 def _assert_grads_close(got, ref):
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+LSTM_ROUTES = [(40, 5, 32, 1),      # one block holds wh[d]; a partial row tile
+               (30, 4, 256, 8),     # the enhancer's width: clusters of 8
+               (25, 9, 64, 2),      # three row tiles, the last with one row
+               (24, 6, 128, 4),     # clusters of 4
+               (18, 2, 48, 2),      # 24 units a block, H no multiple of 32
+               (20, 3, 512, 0)]     # 64 units a block even in a cluster of 8: streaming
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("t,b,h,route", LSTM_ROUTES)
+def test_lstm_forward_routes(cuda, t, b, h, route, stacked):
+    """The LSTM forward on the route its H gives it, inference and training
+    variants, both layouts: y against the plain version (1e-5), gradients
+    through the backward kernel against autograd through the plain version."""
+    assert krnn.lstm_resident_cluster(h) == route
+    wh = _randn(2, h, 4 * h, seed=h + 4, scale=1.0 / h ** 0.5).to(cuda).requires_grad_()
+    bh = _randn(2, 4 * h, seed=h + 5, scale=0.1).to(cuda).requires_grad_()
+    lengths = torch.tensor([t, t // 2 + 3, 3, t, 1, t - 1, 2, t, t // 3][:b], device=cuda)
+    m = (torch.arange(t, device=cuda)[:, None] < lengths[None]).float()
+    if stacked:
+        gx = _randn(t, 2, b, 4 * h, seed=h + 6, scale=0.5).to(cuda).requires_grad_()
+        m = torch.stack([m, m.flip(0)], dim=1).contiguous()
+        fn, plain = krnn.lstm_scan_stacked, krnn.lstm_scan_stacked_plain
+        run = lambda f: (f(gx, m, wh, bh),)                             # noqa: E731
+    else:
+        gx = _randn(t, b, 8 * h, seed=h + 6, scale=0.5).to(cuda).requires_grad_()
+        fn, plain = krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain
+        run = lambda f: f(gx[..., :4 * h], gx[..., 4 * h:], m, wh, bh)  # noqa: E731
+    with torch.no_grad():
+        y_inf = run(fn)                                         # the inference variant
+    assert fn.route == route
+    fn.route = None
+    ys, ys_p = run(fn), run(plain)                              # the training variant
+    got, ref = _grads(ys, (gx, wh, bh), 9), _grads(ys_p, (gx, wh, bh), 9)
+    torch.cuda.synchronize()
+    assert fn.route == route
+    for y, y_i, y_p in zip(ys, y_inf, ys_p):
+        torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
+        assert torch.equal(y_i, y.detach())
+    _assert_grads_close(got, ref)
+
+
+def test_lstm_routes_agree_and_a_refused_route_raises(cuda):
+    """The private route argument: at H = 64 the streaming kernel and the
+    resident one on clusters of 2, 4 or 8 agree to rounding; a cluster that
+    does not divide H, or that leaves a block more than 32 units, raises."""
+    t, b, h = 12, 5, 64
+    gates = _randn(t, b, 8 * h, seed=1, scale=0.5).to(cuda)
+    gx = (gates[..., :4 * h], gates[..., 4 * h:])
+    wh = _randn(2, h, 4 * h, seed=2, scale=0.1).to(cuda)
+    bh = _randn(2, 4 * h, seed=3, scale=0.1).to(cuda)
+    m = torch.ones(t, b, device=cuda)
+    outs = {r: krnn._forward("lstm_scan_tm", gx, m, wh, bh, save=False, route=r)[0]
+            for r in (0, 2, 4, 8)}
+    torch.cuda.synchronize()
+    for r in (2, 4, 8):
+        torch.testing.assert_close(outs[r][0], outs[0][0], rtol=0, atol=1e-6)
+        torch.testing.assert_close(outs[r][1], outs[0][1], rtol=0, atol=1e-6)
+    for refused in (3, 1):
+        with pytest.raises(RuntimeError, match=f"resident, clusters of {refused}"):
+            krnn._forward("lstm_scan_tm", gx, m, wh, bh, save=False, route=refused)
+    h = 512
+    gates = torch.zeros(2, 1, 8 * h, device=cuda)
+    with pytest.raises(RuntimeError, match="resident, clusters of 8"):
+        krnn._forward("lstm_scan_tm", (gates[..., :4 * h], gates[..., 4 * h:]),
+                      torch.ones(2, 1, device=cuda), torch.zeros(2, h, 4 * h, device=cuda),
+                      torch.zeros(2, 4 * h, device=cuda), save=False, route=8)
 
 
 @pytest.mark.parametrize("cell,t,b,h", [("lstm", 40, 5, 32), ("gru", 40, 5, 32),
@@ -373,7 +455,7 @@ def test_gn_backward_kernel(cuda, act, shape):
 
 def test_enhance_on_card_matches_cpu(cuda):
     cfg = Config().replace(enhancer=EnhancerConfig(conv_channels=8, rnn_hidden=16))
-    model = init_enhancer(cfg, seed=0)
+    model = init_enhancer(cfg, seed=0, device="cpu")
     wav = _randn(2, 16000, seed=9, scale=0.3)
     lengths = torch.tensor([16000, 9000])
     wav[1, 9000:] = 0
@@ -386,7 +468,7 @@ def test_enhance_on_card_matches_cpu(cuda):
 def test_recognition_forward_on_card_matches_cpu(cuda, use_enhancer):
     cfg = Config().replace(am=AMConfig(rnn_hidden=32, rnn_layers=2, conv_channels=8),
                            enhancer=EnhancerConfig(conv_channels=8, rnn_hidden=16))
-    am, enh = init_am(cfg, seed=0), init_enhancer(cfg, seed=1)
+    am, enh = init_am(cfg, seed=0, device="cpu"), init_enhancer(cfg, seed=1, device="cpu")
     wav = _randn(2, 16000, seed=10, scale=0.3)
     lengths = torch.tensor([16000, 9000])
     wav[1, 9000:] = 0

@@ -320,3 +320,33 @@ def test_batch_major_birnn_matches_jax(cell, impl):
     torch.testing.assert_close(got, got_tm, rtol=1e-6, atol=1e-6)
     for i in range(b):
         assert np.all(got.numpy()[i, lengths[i]:] == 0.0)
+
+
+@pytest.mark.parametrize("h,cluster", [(16, 1), (32, 1), (48, 2), (64, 2), (128, 4), (192, 8),
+                                       (256, 8), (512, 0), (250, 0), (33, 0), (320, 0),
+                                       (1024, 0)])
+def test_lstm_route_follows_the_width(h, cluster):
+    """The LSTM forward's route is a rule on H alone: the smallest cluster of
+    1, 2, 4, 8 blocks that divides H into an even number of at most 32 hidden
+    units a block whose slice of wh[d] plus state fits a block's 227 KB; 0
+    (streaming) for 512 and 320 (more than 32 units a block even in a cluster
+    of 8), for 250 (125 units in a cluster of 2: too many, and odd) and for
+    33 (no cluster size divides it into an even number)."""
+    assert krnn.lstm_resident_cluster(h) == cluster
+    if cluster:
+        u, chunks = h // cluster, -(-h // 16)
+        assert h % cluster == 0 and u % 2 == 0 and u <= 32
+        assert 16 * (u * chunks * 16 + 2 * 16 * chunks + 1) <= 232448
+        for smaller in (c for c in (1, 2, 4) if c < cluster and h % c == 0):
+            assert h // smaller > 32 or (h // smaller) % 2
+
+
+def test_lstm_route_is_recorded_only_on_the_card():
+    """On the CPU the wrappers run the plain version: no launch, no route."""
+    t, b, h = 5, 2, 8
+    rng = np.random.default_rng(0)
+    gx = torch.from_numpy(rng.standard_normal((t, b, 8 * h)).astype(np.float32))
+    before = (krnn.lstm_scan_tm.launches, krnn.lstm_scan_tm.route)
+    krnn.lstm_scan_tm(gx[..., :4 * h], gx[..., 4 * h:], torch.ones(t, b),
+                      torch.zeros(2, h, 4 * h), torch.zeros(2, 4 * h))
+    assert (krnn.lstm_scan_tm.launches, krnn.lstm_scan_tm.route) == before

@@ -377,21 +377,21 @@ def test_clip_by_global_norm_is_optax():
 
 def test_init_state_freezes_the_am():
     cfg = TConfig.from_json(_cfg("aas").to_json())
-    state = init_state(cfg, seed=0)
+    state = init_state(cfg, seed=0, device="cpu")
     assert state.g is not None and state.d is not None and state.am is not None
     assert not any(p.requires_grad for p in state.am.parameters())
     assert all(p.requires_grad for p in state.g.parameters())
     adv = init_state(cfg.replace(train=dataclasses.replace(cfg.train,
-                                                           objective="adversarial")), 0)
+                                                           objective="adversarial")), 0, "cpu")
     assert adv.am is None and adv.d is not None
-    am = init_state(cfg.replace(train=dataclasses.replace(cfg.train, objective="am")), 0)
+    am = init_state(cfg.replace(train=dataclasses.replace(cfg.train, objective="am")), 0, "cpu")
     assert am.g is None and am.d is None and am.am_opt is not None
     assert all(p.requires_grad for p in am.am.parameters())
     through = init_state(cfg.replace(train=dataclasses.replace(
-        cfg.train, objective="am", am_through_enhancer=True)), 0)
+        cfg.train, objective="am", am_through_enhancer=True)), 0, "cpu")
     assert through.g_opt is None and not any(p.requires_grad for p in through.g.parameters())
     with pytest.raises(NotImplementedError, match="A8"):
-        init_state(cfg.replace(train=dataclasses.replace(cfg.train, objective="paired")), 0)
+        init_state(cfg.replace(train=dataclasses.replace(cfg.train, objective="paired")), 0, "cpu")
 
 
 @pytest.fixture(scope="module")
