@@ -44,7 +44,8 @@
 // to an mbarrier of the receiving block (one per h buffer): a block starts
 // step s when its barrier has counted the 16 H bytes of h[s], so data and
 // signal travel together and there is no cluster-wide barrier in the loop
-// either.  h is double-buffered, and that alone keeps a fast block (or warp)
+// either (rnn_cluster.cuh has these pieces; the GRU's resident kernel shares
+// them).  h is double-buffered, and that alone keeps a fast block (or warp)
 // from overwriting what a slow one still reads: to write h[s + 2] into a
 // neighbour's buffer a block needs all of h[s + 1], the part of every warp of
 // the neighbour included, which each of them sends only after its last read
@@ -113,13 +114,23 @@
 #include <cuda_runtime.h>
 
 #include "rnn_bwd.cuh"
+#include "rnn_cluster.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 
 using aas_rnn::fma4;
+using aas_rnn::kWarp;
+using aas_rnn::map_to_rank;
+using aas_rnn::mbar_expect;
+using aas_rnn::mbar_init;
+using aas_rnn::mbar_wait;
+using aas_rnn::refused;
+using aas_rnn::scatter_add;
 using aas_rnn::sigmoid;
+using aas_rnn::smem_addr;
+using aas_rnn::st_async4;
 
 constexpr int kRows = 4;            // batch rows per block (streaming) or cluster (resident)
 constexpr int kResUnits = 32;       // most hidden units of a resident block: two per warp
@@ -135,63 +146,6 @@ inline size_t res_smem(int H, int U) {
   return ((size_t)U * J * 16 + 2 * 16 * J + 1) * sizeof(float4);
 }
 
-// The mbarriers that count the bytes of h arriving in a block's buffers.
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {   // one arrival a phase
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// The phase's one arrival, which also says how many bytes the phase awaits.
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :
-               : "r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of the given parity is complete: its bytes, written by
-// any block of the cluster, are then visible.  A wait that never ends is a
-// fault of the kernel: it traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  unsigned done = 0;
-  for (int spins = 0; !done; ++spins) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.test_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (!done && spins > (1 << 26)) __trap();
-  }
-}
-
-// The address of this block's shared-memory location `addr` in block `rank`
-// of the cluster.
-__device__ __forceinline__ unsigned map_to_rank(unsigned addr, int rank) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-// Store v (16 bytes) at a (possibly remote) shared-memory address and report
-// its bytes to the mbarrier `bar` of the same block.
-__device__ __forceinline__ void st_async4(unsigned addr, const float4& v, unsigned bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
-      :
-      : "r"(addr), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
-        "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
-      : "memory");
-}
-
-constexpr unsigned kWarp = 0xffffffffu;
-
 // val[row][gate] += h[row] * w[gate]
 __device__ __forceinline__ void fma_rows(float (&val)[16], const float4& hv, const float4& w) {
   const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
@@ -201,18 +155,6 @@ __device__ __forceinline__ void fma_rows(float (&val)[16], const float4& hv, con
     val[4 * rr + 1] = fmaf(hr[rr], w.y, val[4 * rr + 1]);
     val[4 * rr + 2] = fmaf(hr[rr], w.z, val[4 * rr + 2]);
     val[4 * rr + 3] = fmaf(hr[rr], w.w, val[4 * rr + 3]);
-  }
-}
-
-// One level of the add-and-scatter over a unit's 16 lanes: a lane keeps the
-// half of its 2 kHalf sums that its bit kHalf selects and adds its partner's.
-template <int kHalf>
-__device__ __forceinline__ void scatter_add(float (&val)[16], int lane) {
-  const bool upper = lane & kHalf;
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) {
-    const float lo = val[i], hi = val[i + kHalf];
-    val[i] = (upper ? hi : lo) + __shfl_xor_sync(kWarp, upper ? lo : hi, kHalf);
   }
 }
 
@@ -542,42 +484,30 @@ __global__ void lstm_tm_bwd_kernel(const aas_rnn::Layout L,
   }
 }
 
-// A refused call's code, with the runtime's record of it cleared so that the
-// next launch's check does not report it again.
-int refused(cudaError_t err) {
-  cudaGetLastError();
-  return (int)err;
+// The resident route's launch configuration on clusters of C blocks per
+// (direction, tile of rows); 0, or the code of what refuses it.
+template <bool kSave>
+int resident_config(int C, int B, int H, cudaStream_t stream, cudaLaunchAttribute* attr,
+                    cudaLaunchConfig_t* cfg) {
+  if (C < 1 || C > aas_rnn::kPortableCluster || H % C) return (int)cudaErrorInvalidValue;
+  const int U = H / C;
+  if (U % 2 || U > kResUnits) return (int)cudaErrorInvalidValue;
+  return aas_rnn::cluster_config(lstm_res_fwd_kernel<kSave>, C,
+                                 dim3(C * ((B + kRows - 1) / kRows), 2), 16 * U,
+                                 res_smem(H, U), stream, attr, cfg);   // a warp per two units
 }
 
-// The resident route on a cluster of C blocks per (direction, tile of rows).
 template <bool kSave>
 int launch_resident(const float* gxf, const float* gxb, const aas_rnn::Layout& L,
                     const float* m, const float* wh, const float* bh, float* yf,
                     float* yb, float* hp, float* cp, float* act, int C, int T, int B,
                     int H, cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
-  if (C < 1 || C > 8 || H % C) return (int)cudaErrorInvalidValue;
-  const int U = H / C;
-  if (U % 2 || U > kResUnits) return (int)cudaErrorInvalidValue;
-  const int threads = 16 * U;           // a warp per two units
-  const size_t smem = res_smem(H, U);
   auto kernel = lstm_res_fwd_kernel<kSave>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return refused(err);
-
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * ((B + kRows - 1) / kRows), 2);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchConfig_t cfg;
+  int rc = resident_config<kSave>(C, B, H, stream, attr, &cfg);
+  if (rc) return rc;
 
   // Once per configuration: a cluster that cannot be scheduled is an error
   // here, not a launch that never starts.
@@ -585,13 +515,12 @@ int launch_resident(const float* gxf, const float* gxb, const aas_rnn::Layout& L
   const int key = H * 16 + C;
   if (checked != key) {
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return refused(err);
-    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    rc = aas_rnn::active_clusters(kernel, cfg, &clusters);
+    if (rc) return rc;
     checked = key;
   }
-  err = cudaLaunchKernelEx(&cfg, kernel, gxf, gxb, L, m, wh, bh, yf, yb, hp, cp, act,
-                           T, B, H, U);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, gxf, gxb, L, m, wh, bh, yf,
+                                             yb, hp, cp, act, T, B, H, H / C);
   if (err != cudaSuccess) return refused(err);
   return (int)cudaGetLastError();
 }
@@ -666,6 +595,22 @@ extern "C" int aas_lstm_fwd(const float* gx0, const float* gx1, long long gx_t,
                              nullptr, T, B, H, stream);
   return launch_fwd<true>(gx0, gx1, L, m, wh, bh, y0, y1, hp, cp, act, T, B, H,
                           stream);
+}
+
+// The clusters of `cluster` blocks of the resident forward kernel (training
+// variant with `save`) that the card can run at once at width H, as
+// cudaOccupancyMaxActiveClusters counts them; minus the error's code where
+// the shape is refused or no such cluster can be scheduled.
+extern "C" int aas_lstm_res_clusters(int cluster, int save, int H) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  int clusters = 0;
+  int rc = save ? resident_config<true>(cluster, kRows, H, nullptr, attr, &cfg)
+                : resident_config<false>(cluster, kRows, H, nullptr, attr, &cfg);
+  if (!rc)
+    rc = save ? aas_rnn::active_clusters(lstm_res_fwd_kernel<true>, cfg, &clusters)
+              : aas_rnn::active_clusters(lstm_res_fwd_kernel<false>, cfg, &clusters);
+  return rc ? -rc : clusters;
 }
 
 // dgx is [2, T, B, 4H] (time-major) or [T, 2, B, 4H] (stacked).

@@ -31,14 +31,17 @@ and launch counts (``lstm_scan_stacked_bwd``, ``gru_scan_stacked_bwd``).
 The plain versions of the time-major entries are the stacked plain versions
 on a flipped copy.
 
-The LSTM forward has two device routes, chosen by the shape alone
-(``lstm_resident_cluster``): where a thread-block cluster of at most 8 blocks
-of at most 32 hidden units each can hold wh[d] in shared memory (H = 256: 8
-blocks of 128 KB) the resident kernel runs, otherwise (H = 512) the streaming
-kernel, which reads wh[d] from L2 every step.  The route is no fallback: a
-resident launch that is refused raises.  ``lstm_scan_tm.route`` /
-``lstm_scan_stacked.route`` hold the route of the entry's last launch: the
-cluster size, or 0 for streaming.
+Both forwards have two device routes, chosen by the shape alone
+(``lstm_resident_cluster``, ``gru_resident_cluster``).  Where a thread-block
+cluster of blocks of at most 32 hidden units each can hold wh[d] in shared
+memory the resident kernel runs: wh[d] is read once per call and h travels
+between the blocks through distributed shared memory.  The LSTM takes
+clusters of at most 8 blocks (H = 256: 8 blocks of 128 KB), the GRU, with
+three gates, of at most 16 (H = 512: 16 blocks of 192 KB).  Otherwise (an
+LSTM at H = 512, either cell at H = 1024) the streaming kernel runs, which
+reads wh[d] from L2 every step.  The route is no fallback: a resident launch
+that is refused raises.  Each forward wrapper's ``.route`` holds the route of
+its last launch: the cluster size, or 0 for streaming.
 """
 
 from __future__ import annotations
@@ -49,8 +52,9 @@ from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_ker
 from aas_enhancement_tpu_torch.utils import kernel_build
 
 
-# The resident LSTM forward kernel's limits (csrc/lstm_tm.cu): shared memory a
-# block may use on Hopper, and most hidden units of a block (two per warp).
+# The resident forward kernels' limits (csrc/lstm_tm.cu, csrc/gru_tm.cu):
+# shared memory a block may use on Hopper, and most hidden units of a block
+# (two per warp).
 _SMEM_LIMIT = 232448
 _RES_UNITS = 32
 
@@ -72,6 +76,43 @@ def lstm_resident_cluster(h_dim: int) -> int:
         if 16 * (u * chunks * 16 + 2 * 16 * chunks + 1) <= _SMEM_LIMIT:
             return c
     return 0
+
+
+def gru_resident_cluster(h_dim: int) -> int:
+    """The GRU forward's route for hidden width ``h_dim``: the smallest
+    cluster size C of 1, 2, 4, 8, 16 (16 is above the portable size: the
+    launcher asks for it) that divides H into an even number U = H / C <= 32
+    of hidden units a block and whose blocks can each hold their slice of
+    wh[d] (12 bytes per unit and input, H padded to a multiple of 64 inputs),
+    h of a tile's rows twice (16 bytes per input) and two mbarriers in shared
+    memory; 0, the streaming kernel, where none does.  H = 8, 16, 32 -> 1,
+    64 -> 2, 128 -> 4, 256 -> 8, 320 and 512 -> 16, 250 and 1024 -> 0.  Pure
+    arithmetic on the shape, the same as the kernel's host code does
+    (``res_smem``)."""
+    padded = 64 * -(-h_dim // 64)
+    for c in (1, 2, 4, 8, 16):
+        u = h_dim // c
+        if h_dim < 2 or h_dim % c or u % 2 or u > _RES_UNITS:
+            continue
+        if 12 * u * padded + 32 * padded + 16 <= _SMEM_LIMIT:
+            return c
+    return 0
+
+
+def resident_clusters_at_once(cell: str, h_dim: int, cluster: int | None = None,
+                              save: bool = False) -> int:
+    """How many clusters of the resident forward kernel of ``cell`` ("lstm" or
+    "gru"; ``save``: its training variant) the card can run at once at width
+    ``h_dim``, as ``cudaOccupancyMaxActiveClusters`` counts them; raises where
+    the shape has no resident route or the card can schedule no such cluster.
+    More tiles of rows than that run in waves."""
+    if cluster is None:
+        cluster = (lstm_resident_cluster if cell == "lstm" else gru_resident_cluster)(h_dim)
+    entry = f"aas_{cell}_res_clusters"
+    n = getattr(kernel_build.load_library(), entry)(cluster, int(save), h_dim)
+    if n < 1:
+        raise RuntimeError(f"{entry} (clusters of {cluster}, H = {h_dim}): CUDA error {-n}")
+    return n
 
 
 def lstm_scan_stacked_plain(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
@@ -163,6 +204,7 @@ def gru_scan_tm(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
 
 
 gru_scan_tm.launches = 0
+gru_scan_tm.route = None
 
 
 def lstm_scan_stacked(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
@@ -186,6 +228,7 @@ def gru_scan_stacked(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
 
 
 gru_scan_stacked.launches = 0
+gru_scan_stacked.route = None
 
 _FORWARD = {"lstm_scan_tm": lstm_scan_tm, "gru_scan_tm": gru_scan_tm,
             "lstm_scan_stacked": lstm_scan_stacked, "gru_scan_stacked": gru_scan_stacked}
@@ -218,9 +261,10 @@ def _forward(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
     (yf, yb) [T, B, H] for the time-major gx (gxf, gxb), (y,) [T, 2, B, H] for
     the stacked (gx,); saved is what the backward kernel reads, one layout
     for both: h [2, T, B, H], for the LSTM also c [2, T, B, H], and the gate
-    activations [2, T, B, 4H].  The LSTM's route (cluster size, 0 =
-    streaming) follows from H (``lstm_resident_cluster``); ``route`` overrides
-    it for measurements that set the two kernels side by side."""
+    activations [2, T, B, 4H].  The route (cluster size, 0 = streaming)
+    follows from H (``lstm_resident_cluster``, ``gru_resident_cluster``);
+    ``route`` overrides it for measurements that set the two kernels side by
+    side."""
     check_kernel_inputs(name, (*gx, m, wh, bh), backward=None)
     gates, stacked = _gates(name), len(gx) == 1
     if stacked:
@@ -263,21 +307,17 @@ def _forward(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
         saved = (*(empty(2, t_len, b, h_dim) for _ in range(n_saved - 1)),
                  empty(2, t_len, b, 4 * h_dim))
     entry = f"aas_{name.split('_')[0]}_fwd"
-    if gates == 4:
-        route = lstm_resident_cluster(h_dim) if route is None else route
-        what = f"{entry} (" + (f"resident, clusters of {route}" if route else "streaming") + ")"
-    else:
-        what = entry
+    if route is None:
+        route = (lstm_resident_cluster if gates == 4 else gru_resident_cluster)(h_dim)
+    what = f"{entry} (" + (f"resident, clusters of {route}" if route else "streaming") + ")"
     err = getattr(kernel_build.load_library(), entry)(
         gx0.data_ptr(), gx1.data_ptr(), gx0.stride(0), gx0.stride(1),
         m.data_ptr(), wh.data_ptr(), bh.data_ptr(), y0.data_ptr(), y1.data_ptr(),
-        *([x.data_ptr() for x in saved] or [None] * n_saved), int(stacked),
-        *((route,) if gates == 4 else ()),
+        *([x.data_ptr() for x in saved] or [None] * n_saved), int(stacked), route,
         t_len, b, h_dim, torch.cuda.current_stream(gx0.device).cuda_stream)
     kernel_build.check(err, what)
     _FORWARD[name].launches += 1
-    if gates == 4:
-        _FORWARD[name].route = route
+    _FORWARD[name].route = route
     return ys, saved
 
 

@@ -32,7 +32,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 # C entry points: name -> argtypes.  Each returns its cudaError_t as an int
-# (aas_conv_dw_slices a count).
+# (aas_conv_dw_slices and the two aas_*_res_clusters a count).
 SIGNATURES = {
     # x, win, table, re, im, batch, n_samples, n_frames, n_fft, hop, center,
     # n1, n2 (n1 * n2 = n_fft: the two-stage transform; 0, 0: the direct sum), stream
@@ -45,8 +45,13 @@ SIGNATURES = {
     # stacked, cluster (blocks per cluster of the resident route, 0: the
     # streaming route), T, B, H, stream
     "aas_lstm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # ... as aas_lstm_fwd without cp and cluster
-    "aas_gru_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # ... as aas_lstm_fwd without cp
+    "aas_gru_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # cluster, save (the training variant), H -> the clusters of the resident
+    # forward kernel the card runs at once (not an error code; minus the
+    # cudaError_t where it can run none)
+    "aas_lstm_res_clusters": (_I, _I, _I),
+    "aas_gru_res_clusters": (_I, _I, _I),
     # m, whT, cp, act, dy0, dy1, dgx, stacked, T, B, H, stream
     "aas_lstm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # m, whT, hp, act, dy0, dy1, dgx, dgh (or NULL), stacked, T, B, H, stream

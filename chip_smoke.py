@@ -12,18 +12,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    enhance path's (T=801, F=161, C=32, LSTM H=256) and the AM's (GN +
    hardtanh at [4, 401, 81, 32] and [4, 401, 41, 32], GRU T=401, H=512),
    with the max abs error, the tolerance and the median time of kernel and
-   plain version (CUDA events, after warmup, timed in turns).  The LSTM
-   lines (resident route: wh[d] in a cluster's shared memory) also give the
-   streaming kernel's and the training variant's time at the same shape;
-   further LSTM cases run B=6 (a partial row tile), B=32 and H=512 (the
-   streaming route), a further STFT case hop 80; the STFT lines also give
-   the device time of the kernel and of the library call from the profiler
-   (one call between two events reads mostly host time at a few microseconds);
+   plain version (CUDA events, after warmup, timed in turns).  The LSTM and
+   GRU lines (resident route: wh[d] in a cluster's shared memory) also give
+   the streaming kernel's and the training variant's time at the same shape,
+   the kernel's device time from the profiler and the number of the route's
+   clusters the card runs at once; further LSTM cases run B=6 (a
+   partial row tile), B=32, H=64 and 128 (clusters of 2 and 4) and H=512 (the
+   streaming route), further GRU cases B=8 and B=32, a further STFT case hop
+   80; the STFT lines also give the device time of the kernel and of the
+   library call from the profiler (one call between two events reads mostly
+   host time at a few microseconds);
 4. slice: the port's enhance CLI on a synthetic corpus with --device cuda,
-   counting each kernel's launches (and failing unless the LSTM took the
-   resident route, here and on every later path); then a full-width B=4 x 8 s
-   batch on the card against the same weights on the CPU, and the batch's
-   real-time factor;
+   counting each kernel's launches (and failing unless the LSTM and, on the
+   later paths, the 512-wide GRU took the resident route); then a full-width
+   B=4 x 8 s batch on the card against the same weights on the CPU, and the
+   batch's real-time factor;
 5. recognize: the port's evaluate CLI (noisy and enhanced WER, SI-SNR) on a
    synthetic corpus with --device cuda, counting each kernel's launches; then
    the recognition forward (enhancer + AM, 4 x BiGRU-512) at B=4 x 8 s on the
@@ -254,6 +257,10 @@ def make_inputs(device):
 
 
 STACKED = ("lstm_stacked", "gru_stacked", "lstm_stacked_bwd", "gru_stacked_bwd")
+RECURRENT = ("lstm", "gru", "lstm_stacked", "gru_stacked")
+# The forward route each width must take: blocks per cluster of the resident
+# kernel, 0 for the streaming kernel.
+RNN_ROUTES = {"lstm": {64: 2, 128: 4, 256: 8, 512: 0}, "gru": {512: 16}}
 
 
 def kernel_counters() -> dict:
@@ -273,8 +280,9 @@ def kernel_counters() -> dict:
 
 def counted(names, run) -> dict:
     """Set the named kernels' launch counts to 0, drive ``run()``, and read
-    the counts: {name: launches of that run}.  The paths' LSTMs are 256
-    wide: a run whose last LSTM launch was not on the resident route fails."""
+    the counts: {name: launches of that run}.  The paths' LSTMs are 256 wide
+    and their GRUs 512: a run whose last LSTM or GRU launch was not on the
+    resident route fails."""
     counters = {k: v for k, v in kernel_counters().items() if k in names}
     for fn in counters.values():
         fn.launches = 0
@@ -282,8 +290,8 @@ def counted(names, run) -> dict:
             fn.route = None
     run()
     for k, fn in counters.items():
-        if k in ("lstm", "lstm_stacked") and fn.launches and not fn.route:
-            fail(f"{k}: the path's LSTM ran on the streaming route (route {fn.route})")
+        if k in RECURRENT and fn.launches and not fn.route:
+            fail(f"{k}: the path's recurrence ran on the streaming route (route {fn.route})")
     return {k: fn.launches for k, fn in counters.items()}
 
 
@@ -348,6 +356,17 @@ def phase_kernels(device):
         gates32 = (0.5 * torch.randn(t_len, 32, 2048, generator=gen)).to(device)
         wide = init_like_flax(BiRNN(64, 512), gen).to(device)
         gates_w = (0.5 * torch.randn(AM_T, B, 4096, generator=gen)).to(device)
+        # The LSTM's clusters of 2 and 4 (H=64, 128) and the GRU at the train
+        # steps' batches, from a generator of their own so that the cases
+        # above see the random numbers they always saw.
+        gen_more = torch.Generator().manual_seed(5)
+        narrow = {h: init_like_flax(BiRNN(64, h), gen_more).to(device) for h in (64, 128)}
+        gates_n = {h: (0.5 * torch.randn(t_len, B, 8 * h, generator=gen_more)).to(device)
+                   for h in narrow}
+        g_gates_b = {b: (0.5 * torch.randn(AM_T, b, 3072, generator=gen_more)).to(device)
+                     for b in TRAIN_BATCHES}
+        m_am_b = {b: time_mask(am_frames[torch.arange(b, device=device) % B], AM_T)
+                  .T.contiguous() for b in TRAIN_BATCHES}
         cases = {   # label: (kernel name, wrapper, plain, args, kwargs, (bytes, flops), library)
             "stft": ("stft", kstft.stft, kstft.stft_plain, (wav, 320, 160), {},
                      (nbytes(wav, re, im), dft_flops),
@@ -387,9 +406,19 @@ def phase_kernels(device):
                 "lstm", krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain,
                 (gates_w[..., :2048], gates_w[..., 2048:], m_am, wide.wh, wide.bh), {},
                 rnn_work(gates_w, 2048, m_am, wide), None),
+            **{f"lstm T=801 B=4 H={h} (clusters of {RNN_ROUTES['lstm'][h]})": (
+                "lstm", krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain,
+                (gates_n[h][..., :4 * h], gates_n[h][..., 4 * h:], m, narrow[h].wh,
+                 narrow[h].bh), {}, rnn_work(gates_n[h], 4 * h, m, narrow[h]), None)
+               for h in narrow},
             "gru": ("gru", krnn.gru_scan_tm, krnn.gru_scan_tm_plain,
                     (g_xf, g_xb, m_am, gru.wh, gru.bh), {},
                     rnn_work(g_gates, 1536, m_am, gru), None),
+            **{f"gru T=401 B={b} H=512 ({-(-b // 4)} clusters a direction)": (
+                "gru", krnn.gru_scan_tm, krnn.gru_scan_tm_plain,
+                (g_gates_b[b][..., :1536], g_gates_b[b][..., 1536:], m_am_b[b], gru.wh,
+                 gru.bh), {}, rnn_work(g_gates_b[b], 1536, m_am_b[b], gru), None)
+               for b in TRAIN_BATCHES},
             "lstm_stacked": ("lstm_stacked", krnn.lstm_scan_stacked,
                              krnn.lstm_scan_stacked_plain, (gx_s, m_s, rnn.wh, rnn.bh), {},
                              rnn_work(gates, 1024, m_s, rnn), None),
@@ -404,8 +433,8 @@ def phase_kernels(device):
             torch.cuda.synchronize()
             err = max_err(k_out, p_out)
             tol, why = TOL[name]
-            reps = 5 if name in ("lstm", "gru", "lstm_stacked", "gru_stacked") else 20
-            if label != name and name == "lstm":
+            reps = 5 if name in RECURRENT else 20
+            if label != name and name in RECURRENT:
                 reps = 3
             ms, plain_ms = in_turns(lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
                                     reps)
@@ -418,10 +447,10 @@ def phase_kernels(device):
                 text += f" | route: 320 = {n1} x {n2}"
                 if not n1:
                     fail(f"{label}: n_fft 320 took the direct sum")
-                text += stft_device_times(results[name]["shapes"][label],
-                                          lambda: kernel(*args, **kw), library)
-            if name in ("lstm", "lstm_stacked"):
-                text += lstm_routes(results, name, label, kernel, args, p_out, reps)
+                text += device_times(results[name]["shapes"][label],
+                                     lambda: kernel(*args, **kw), library)
+            if name in RECURRENT:
+                text += rnn_routes(results, name, label, kernel, args, p_out, reps)
             print(f"[kernel] {label}: max_abs_err {err:.3e} (tol {tol:.0e}: {why}) | "
                   f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
                   f"x{plain_ms / ms:.2f} | {text}")
@@ -440,38 +469,51 @@ def phase_kernels(device):
     return results
 
 
-def stft_device_times(row: dict, run_k, run_lib) -> str:
-    """The device time of the STFT kernel and of the library call's kernels
-    (``torch.profiler``, per call over 5 calls).  The CUDA-event times of the
-    line are taken around one call on an idle stream, so for a kernel of a few
-    microseconds they read mostly the wrapper's host time.  -> text."""
+def device_times(row: dict, run_k, run_lib=None) -> str:
+    """The device time of a kernel's launches and, where there is one, of the
+    library call's kernels (``torch.profiler``, per call over 5 calls).  The
+    CUDA-event times of the line are taken around one call on an idle stream,
+    so they hold the wrapper's host time too: most of the reading for a
+    kernel of a few microseconds.  -> text."""
     from aas_enhancement_tpu_torch.utils.profiling import profile_call
     with tempfile.TemporaryDirectory() as tmp:
-        row["device_ms"], row["library_device_ms"] = (
-            profile_call(fn, 5, 2, os.path.join(tmp, "trace.json"))["busy_ms"]
-            for fn in (run_k, run_lib))
-    return (f" | on the device alone (profiler): kernel {row['device_ms']:.4f} ms, "
-            f"library call {row['library_device_ms']:.4f} ms")
+        row["device_ms"] = profile_call(run_k, 5, 2, os.path.join(tmp, "k.json"))["busy_ms"]
+        text = f" | on the device alone (profiler): kernel {row['device_ms']:.4f} ms"
+        if run_lib is not None:
+            row["library_device_ms"] = profile_call(
+                run_lib, 5, 2, os.path.join(tmp, "lib.json"))["busy_ms"]
+            text += f", library call {row['library_device_ms']:.4f} ms"
+    return text
 
 
-def lstm_routes(results: dict, name: str, label: str, kernel, args, p_out, reps: int) -> str:
-    """The route the LSTM wrapper just took at this shape, the time of the
-    training variant on it and, where it is the resident route, the streaming
-    kernel's output and time on the same inputs (through the wrapper's private
-    route argument).  Fails if a 256-wide LSTM was not resident or a 512-wide
-    one was.  -> text for the kernel's line."""
+def rnn_routes(results: dict, name: str, label: str, kernel, args, p_out, reps: int) -> str:
+    """The route the LSTM or GRU wrapper just took at this shape, the time of
+    the training variant on it, the kernel's device time from the profiler
+    and, where it is the resident route, the streaming kernel's output and
+    time on the same inputs (through the wrapper's private route argument);
+    with it the number of its clusters the card runs at once.
+    Fails if the width did not take the route ``RNN_ROUTES`` names.  -> text
+    for the kernel's line."""
     import torch
     from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
-    entry = "lstm_scan_tm" if name == "lstm" else "lstm_scan_stacked"
+    cell = name.split("_")[0]
+    entry = f"{cell}_scan_stacked" if name.endswith("stacked") else f"{cell}_scan_tm"
     *gx, m, wh, bh = args
     route, h = kernel.route, wh.shape[1]
-    if bool(route) != (h == 256):
-        fail(f"{label}: H={h} took route {route} (0 is the streaming kernel)")
+    if route != RNN_ROUTES[cell][h]:
+        fail(f"{label}: H={h} took route {route}, not {RNN_ROUTES[cell][h]} "
+             "(0 is the streaming kernel)")
     row = results[name]["shapes"][label]
     row["kernel_route"] = f"resident, clusters of {route}" if route else "streaming"
     row["training_ms"] = statistics.median(cuda_ms(
         lambda: krnn._forward(entry, tuple(gx), m, wh, bh, save=True), reps))
-    text = f" | route: {row['kernel_route']} | training variant {row['training_ms']:.4f} ms"
+    text = f" | route: {row['kernel_route']}"
+    if route:
+        row["clusters_at_once"] = krnn.resident_clusters_at_once(cell, h)
+        text += (f", {row['clusters_at_once']} such clusters at once by "
+                 "cudaOccupancyMaxActiveClusters")
+    text += f" | training variant {row['training_ms']:.4f} ms"
+    text += device_times(row, lambda: kernel(*args))
     if route:
         stream = lambda: krnn._forward(entry, tuple(gx), m, wh, bh, save=False,   # noqa: E731
                                        route=0)[0]
@@ -484,8 +526,9 @@ def lstm_routes(results: dict, name: str, label: str, kernel, args, p_out, reps:
         text += (f" | streaming kernel {row['streaming_ms']:.4f} ms (max_abs_err "
                  f"{err:.3e}), x{row['streaming_ms'] / row['ms']:.2f}")
     if label == name:
-        results[name].update({k: row[k] for k in ("kernel_route", "training_ms",
-                                                  "streaming_ms") if k in row})
+        results[name].update({k: row[k] for k in ("kernel_route", "training_ms", "device_ms",
+                                                  "streaming_ms", "clusters_at_once")
+                              if k in row})
     return text
 
 
@@ -1173,14 +1216,23 @@ def main() -> int:
     name, smi = phase_device()
     import torch
     device = torch.device("cuda", 0)
-    phase_build()
-    results = phase_kernels(device)
+    took = {}
+
+    def timed(what: str, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        took[what] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("build", phase_build)
+    results = timed("kernels", phase_kernels, device)
     # Each path's launches: counts set to 0 just before it, read just after.
-    by_path = {"enhance": phase_slice(device, smi),        # the enhance CLI run
-               "recognize": phase_recognize(device, smi),  # the evaluate CLI run
-               "aas_step": phase_train(device, smi),       # the train CLI run, aas
-               "birnn_batch_major": phase_birnn(device),
-               "am_step": phase_train_am(device, smi)}     # the train CLI run, am
+    by_path = {"enhance": timed("enhance", phase_slice, device, smi),   # the enhance CLI run
+               "recognize": timed("recognize", phase_recognize, device, smi),   # evaluate CLI
+               "aas_step": timed("aas_step", phase_train, device, smi),   # train CLI, aas
+               "birnn_batch_major": timed("birnn", phase_birnn, device),
+               "am_step": timed("am_step", phase_train_am, device, smi)}   # train CLI, am
+    print(f"[time] seconds per phase: {json.dumps(took)}")
     launches = {}
     for counts in by_path.values():        # the last path that runs a kernel
         launches.update(counts)

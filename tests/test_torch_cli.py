@@ -19,7 +19,7 @@ from aas_enhancement_tpu.data.wav import read_wav
 from aas_enhancement_tpu_torch import config as tconfig
 from aas_enhancement_tpu_torch import data as tdata
 from aas_enhancement_tpu_torch.cli import enhance as cli
-from aas_enhancement_tpu_torch.utils import kernel_build, profiling
+from aas_enhancement_tpu_torch.utils import kernel_build, profiling, rnn_bench
 
 torch.set_num_threads(1)
 
@@ -61,6 +61,46 @@ def test_config_reads_a_jax_config_json():
     assert got.train.seed == 7
     assert (got.audio.n_fft, got.audio.hop_length, got.audio.num_bins) == (320, 160, 161)
     assert tconfig.Config.from_json(got.to_json()) == got
+
+
+def _jax_fields_the_port_lacks():
+    """{section: {field: JAX default}} read from the two packages' dataclasses."""
+    ported = {f.name: {g.name for g in dataclasses.fields(f.default_factory)}
+              for f in dataclasses.fields(tconfig.Config)}
+    lacking = {}
+    for f in dataclasses.fields(Config):
+        for g in dataclasses.fields(f.default_factory):
+            if g.name not in ported.get(f.name, ()):
+                lacking.setdefault(f.name, {})[g.name] = getattr(f.default_factory(), g.name)
+    return lacking
+
+
+def test_config_fields_the_port_lacks_are_an_explicit_list():
+    """Every field of the JAX config that the port's dataclasses lack stands
+    in the port's ``UNPORTED`` table with the JAX default and the ROADMAP item
+    that ports its consumer: dropping a field is a decision, never silent."""
+    listed = {s: {k: default for k, (default, _) in v.items()}
+              for s, v in tconfig.UNPORTED.items()}
+    assert listed == _jax_fields_the_port_lacks()
+    items = {item for v in tconfig.UNPORTED.values() for _, item in v.values()}
+    assert items == {"A8", "A9a", "A9b", "A11", "A12", "A15"}
+    with open(os.path.join(REPO, "ROADMAP.md")) as f:
+        roadmap = f.read()
+    for item in items:
+        assert f"**{item}" in roadmap or f"{item}." in roadmap, item
+
+
+@pytest.mark.parametrize("section,name", [(s, k) for s, v in tconfig.UNPORTED.items()
+                                          for k in v])
+def test_config_refuses_a_non_default_value_of_an_unported_field(section, name):
+    """A JAX config JSON with such a field off its default raises, naming the
+    field and the ROADMAP item; the same JSON with the default loads."""
+    default, item = tconfig.UNPORTED[section][name]
+    d = json.loads(Config().to_json())
+    assert d[section][name] == default and tconfig.Config.from_dict(d) == tconfig.Config()
+    d[section][name] = default + "x" if isinstance(default, str) else default + 1
+    with pytest.raises(NotImplementedError, match=rf"{section}\.{name} .*ROADMAP {item}\b"):
+        tconfig.Config.from_dict(d)
 
 
 def test_config_defaults_match_jax():
@@ -232,3 +272,11 @@ def test_profiler_needs_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profiling.main(["--batch", "1", "--seconds", "0.1"])
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_bench_needs_a_gpu(monkeypatch, cell):
+    """The timing script measures on the card or raises: no CPU numbers."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rnn_bench.main(["--cell", cell, "--hidden", "16", "--frames", "3", "--batch", "1"])

@@ -249,6 +249,128 @@ def test_lstm_routes_agree_and_a_refused_route_raises(cuda):
                       torch.zeros(2, 4 * h, device=cuda), save=False, route=8)
 
 
+GRU_ROUTE = {16: 1, 64: 2, 128: 4, 256: 8, 512: 16}
+GRU_SHAPES = [(1, 1, 16), (2, 4, 16), (50, 6, 16),          # one block holds wh[d]
+              (3, 6, 64), (50, 8, 64), (401, 1, 64),        # clusters of 2
+              (3, 1, 128), (50, 6, 128), (2, 8, 128),       # clusters of 4
+              (50, 4, 256), (2, 8, 256), (401, 6, 256),     # clusters of 8; all of wh in registers
+              (401, 4, 512), (401, 8, 512), (50, 6, 512),   # the AM's width: clusters of 16
+              (1, 8, 512), (2, 1, 512), (3, 4, 512)]        # the double buffer's edges
+
+
+def _gru_inputs(cuda, t, b, h, stacked):
+    """gx (time-major: [T, B, 6H], the kernel reads its strided halves),
+    ragged right-padded masks with one all-padded row where b > 2, wh, bh."""
+    wh = _randn(2, h, 3 * h, seed=h + 4, scale=1.0 / h ** 0.5).to(cuda).requires_grad_()
+    bh = _randn(2, 3 * h, seed=h + 5, scale=0.1).to(cuda).requires_grad_()
+    lengths = torch.tensor([t, t // 2 + 1, 0, t, 1, t - 1, 2, t][:b], device=cuda).clamp(max=t)
+    m = (torch.arange(t, device=cuda)[:, None] < lengths[None]).float()
+    if stacked:
+        gx = _randn(t, 2, b, 3 * h, seed=h + 6, scale=0.5).to(cuda).requires_grad_()
+        m = torch.stack([m, m.flip(0)], dim=1).contiguous()
+    else:
+        gx = _randn(t, b, 6 * h, seed=h + 6, scale=0.5).to(cuda).requires_grad_()
+    return gx, m, wh, bh
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("t,b,h", GRU_SHAPES)
+def test_gru_forward_routes(cuda, t, b, h, stacked):
+    """The GRU forward on the route its H gives it, inference and training
+    variants, both layouts: y against the plain version (1e-5), the same bits
+    on a second run, gradients through the resident training forward and the
+    backward kernel against autograd through the plain version."""
+    route = GRU_ROUTE[h]
+    assert krnn.gru_resident_cluster(h) == route
+    gx, m, wh, bh = _gru_inputs(cuda, t, b, h, stacked)
+    if stacked:
+        fn, plain = krnn.gru_scan_stacked, krnn.gru_scan_stacked_plain
+        run = lambda f: (f(gx, m, wh, bh),)                             # noqa: E731
+    else:
+        fn, plain = krnn.gru_scan_tm, krnn.gru_scan_tm_plain
+        run = lambda f: f(gx[..., :3 * h], gx[..., 3 * h:], m, wh, bh)  # noqa: E731
+    with torch.no_grad():
+        before = fn.launches
+        y_inf, y_again = run(fn), run(fn)                       # the inference variant
+    assert fn.route == route and fn.launches == before + 2
+    fn.route = None
+    ys, ys_p = run(fn), run(plain)                              # the training variant
+    got, ref = _grads(ys, (gx, wh, bh), 9), _grads(ys_p, (gx, wh, bh), 9)
+    torch.cuda.synchronize()
+    assert fn.route == route
+    for y, y_i, y_a, y_p in zip(ys, y_inf, y_again, ys_p):
+        torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
+        assert torch.equal(y_i, y.detach()) and torch.equal(y_i, y_a)
+    _assert_grads_close(got, ref)
+    if b > 2:                                                   # the all-padded row
+        row = (slice(None), slice(None), 2) if stacked else (slice(None), 2)
+        assert all(torch.all(y[row] == 0) for y in ys) and torch.all(got[0][row] == 0)
+
+
+@pytest.mark.parametrize("t,b,h", [(50, 6, 64), (3, 8, 128), (50, 5, 256), (401, 4, 512),
+                                   (2, 3, 512)])
+def test_gru_resident_matches_streaming_on_both_layouts(cuda, t, b, h):
+    """The resident and the streaming kernel on the same inputs: y and every
+    tensor the training variant saves (h, r, z, n, ghn) within 1e-5; the
+    stacked entry gives the time-major entry's bits, saved tensors included."""
+    gx, m, wh, bh = (x.detach() for x in _gru_inputs(cuda, t, b, h, False))
+    halves = (gx[..., :3 * h], gx[..., 3 * h:])
+    (yf, yb), (hp, act) = krnn._forward("gru_scan_tm", halves, m, wh, bh, save=True)
+    assert krnn.gru_scan_tm.route == GRU_ROUTE[h]
+    (yf_s, yb_s), (hp_s, act_s) = krnn._forward("gru_scan_tm", halves, m, wh, bh, save=True,
+                                                route=0)
+    assert krnn.gru_scan_tm.route == 0
+    torch.cuda.synchronize()
+    for name, a, ref in (("yf", yf, yf_s), ("yb", yb, yb_s), ("h", hp, hp_s),
+                         *((g, act[..., i * h:(i + 1) * h], act_s[..., i * h:(i + 1) * h])
+                           for i, g in enumerate(("r", "z", "n", "ghn")))):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, ref, rtol=0, atol=1e-5, msg=lambda s, n=name: f"{n}: {s}")
+    gx_st, m_st = (x.contiguous() for x in krnn.to_stacked(*halves, m))
+    (y_st,), (hp_st, act_st) = krnn._forward("gru_scan_stacked", (gx_st,), m_st, wh, bh,
+                                             save=True)
+    assert krnn.gru_scan_stacked.route == GRU_ROUTE[h]
+    assert torch.equal(y_st[:, 0], yf) and torch.equal(y_st[:, 1].flip(0), yb)
+    assert torch.equal(hp_st[0], hp[0]) and torch.equal(hp_st[1].flip(0), hp[1])
+    assert torch.equal(act_st[0], act[0]) and torch.equal(act_st[1].flip(0), act[1])
+
+
+def test_gru_refused_route_raises_and_the_card_holds_a_cluster_of_16(cuda):
+    """The private route argument: a cluster that does not divide H, one above
+    16 blocks, and one that leaves a block more than 32 units are refused by
+    the launcher and the wrapper raises; nothing gives way to the streaming
+    kernel.  The occupancy calculator finds room for at least one cluster of
+    16 blocks at H = 512, for both variants."""
+    t, b, h = 6, 5, 64
+    gx, m, wh, bh = (x.detach() for x in _gru_inputs(cuda, t, b, h, False))
+    halves = (gx[..., :3 * h], gx[..., 3 * h:])
+    outs = {r: krnn._forward("gru_scan_tm", halves, m, wh, bh, save=False, route=r)[0]
+            for r in (0, 2, 4, 8, 16)}
+    torch.cuda.synchronize()
+    for r in (2, 4, 8, 16):
+        torch.testing.assert_close(outs[r][0], outs[0][0], rtol=0, atol=1e-6)
+        torch.testing.assert_close(outs[r][1], outs[0][1], rtol=0, atol=1e-6)
+    before = krnn.gru_scan_tm.launches
+    for refused in (3, 32, 1):
+        with pytest.raises(RuntimeError, match=f"resident, clusters of {refused}"):
+            krnn._forward("gru_scan_tm", halves, m, wh, bh, save=False, route=refused)
+    h = 512
+    gates = torch.zeros(2, 1, 6 * h, device=cuda)
+    with pytest.raises(RuntimeError, match="resident, clusters of 8"):
+        krnn._forward("gru_scan_tm", (gates[..., :3 * h], gates[..., 3 * h:]),
+                      torch.ones(2, 1, device=cuda), torch.zeros(2, h, 3 * h, device=cuda),
+                      torch.zeros(2, 3 * h, device=cuda), save=False, route=8)
+    assert krnn.gru_scan_tm.launches == before
+    assert krnn.resident_clusters_at_once("gru", 512) >= 1
+    assert krnn.resident_clusters_at_once("gru", 512, save=True) >= 1
+    assert krnn.resident_clusters_at_once("lstm", 256) >= 1
+    for cell in ("gru", "lstm"):                 # 64 units a block; no resident route
+        with pytest.raises(RuntimeError, match="clusters of 8"):
+            krnn.resident_clusters_at_once(cell, 512, cluster=8)
+        with pytest.raises(RuntimeError, match="clusters of 0"):
+            krnn.resident_clusters_at_once(cell, 1024)
+
+
 @pytest.mark.parametrize("cell,t,b,h", [("lstm", 40, 5, 32), ("gru", 40, 5, 32),
                                         ("gru", 60, 4, 512)])
 def test_rnn_backward_kernels(cuda, cell, t, b, h):

@@ -350,3 +350,38 @@ def test_lstm_route_is_recorded_only_on_the_card():
     krnn.lstm_scan_tm(gx[..., :4 * h], gx[..., 4 * h:], torch.ones(t, b),
                       torch.zeros(2, h, 4 * h), torch.zeros(2, 4 * h))
     assert (krnn.lstm_scan_tm.launches, krnn.lstm_scan_tm.route) == before
+
+
+@pytest.mark.parametrize("h,cluster", [(8, 1), (16, 1), (32, 1), (64, 2), (128, 4), (250, 0),
+                                       (256, 8), (320, 16), (512, 16), (1024, 0)])
+def test_gru_route_follows_the_width(h, cluster):
+    """The GRU forward's route is a rule on H alone: the smallest cluster of
+    1, 2, 4, 8, 16 blocks that divides H into an even number of at most 32
+    hidden units a block whose slice of wh[d] (12 bytes per unit and input, H
+    padded to 64 inputs) plus h twice and two mbarriers fits a block's 227 KB;
+    0 (streaming) for 1024 (64 units a block even in a cluster of 16) and for
+    250 (125 units in a cluster of 2: too many, and odd).  The AM's 512 takes
+    clusters of 16 blocks of 192 KB + 16 KB + 16 bytes."""
+    assert krnn.gru_resident_cluster(h) == cluster
+    if cluster:
+        u, padded = h // cluster, 64 * -(-h // 64)
+        assert h % cluster == 0 and u % 2 == 0 and u <= 32
+        assert 12 * u * padded + 32 * padded + 16 <= 232448
+        for smaller in (c for c in (1, 2, 4, 8) if c < cluster and h % c == 0):
+            assert h // smaller > 32 or (h // smaller) % 2
+    if h == 512:
+        assert 12 * 32 * 512 + 32 * 512 + 16 == 213008
+
+
+def test_gru_route_is_recorded_only_on_the_card():
+    """On the CPU the wrappers run the plain version: no launch, no route."""
+    t, b, h = 5, 2, 8
+    rng = np.random.default_rng(0)
+    gx = torch.from_numpy(rng.standard_normal((t, b, 6 * h)).astype(np.float32))
+    for fn, args in ((krnn.gru_scan_tm, (gx[..., :3 * h], gx[..., 3 * h:], torch.ones(t, b))),
+                     (krnn.gru_scan_stacked,
+                      (gx.reshape(t, b, 2, 3 * h).transpose(1, 2).contiguous(),
+                       torch.ones(t, 2, b)))):
+        before = (fn.launches, fn.route)
+        fn(*args, torch.zeros(2, h, 3 * h), torch.zeros(2, 3 * h))
+        assert (fn.launches, fn.route) == before and fn.route is None
