@@ -100,14 +100,12 @@
 // Training forward (kSave): either forward kernel also writes, per direction and
 // natural time index, the pre-update state h ([2, T, B, H]) and r, z, n and
 // ghn = (h @ wh[d] + bh[d])_n ([2, T, B, 4H]).  The Pallas VJP saves h alone
-// and recomputes gh in its backward, which would read wh[d] as well as
-// wh[d]^T every step; with the gates saved the backward reads only wh[d]^T,
-// as many bytes per step as the forward (52 MB more per layer at B = 8,
-// T = 401, H = 512).
+// and recomputes gh in its backward, which would need the forward's product
+// again every step; with the gates saved the backward's only product is the
+// transposed one (52 MB more per layer at B = 8, T = 401, H = 512).
 //
-// Backward: one block per (direction, kRows rows), walking each direction's
-// time in reverse (direction 0 t = T-1..0, direction 1 t = 0..T-1), carrying
-// the masked dh in shared memory, as _gru_tm_bwd_kernel does:
+// Backward, as _gru_tm_bwd_kernel, walking each direction's time in reverse
+// (direction 0 t = T-1..0, direction 1 t = 0..T-1) and carrying dh:
 //   dh_upd = m (dh + dy[t]);  dz = dh_upd (h - n) z (1 - z)
 //   dn = dh_upd (1 - z) (1 - n^2);  dr = dn ghn r (1 - r)
 //   dgx = [dr, dz, dn];  dgh = [dr, dz, dn * r]
@@ -115,9 +113,27 @@
 // It writes dgx [2, T, B, 3H] (the gradient of gxf and gxb) and, when the
 // caller wants dWh or dbh (a trained GRU; not the frozen AM), dgh
 // [2, T, B, 3H]; the wrapper sums those into dWh and dbh with torch.matmul,
-// as the JAX VJP does outside its kernel.  The transposed product is
-// rnn_bwd.cuh's, bound like the forward by one SM's read of wh[d]^T (3 MiB)
-// per step.
+// as the JAX VJP does outside its kernel.  Two kernels, chosen by the shape
+// alone (ops/cuda/rnn.py::bwd_resident_cluster: the forward's route):
+//
+// Resident (rnn_cluster.cuh::res_bwd_kernel<GruBwdCell>), wherever the
+// resident forward runs: the forward's cluster and ownership (block k owns
+// 32 units and their r, z, n columns of wh[d]), but the slice in registers,
+// 2 inputs of dh x 96 columns = 192 floats in each of 256 threads at
+// H = 512; each block sends every other block its part of dh (a
+// reduce-scatter through distributed shared memory, 16 H bytes a step into
+// each block, as the forward's broadcast of h).  Bound by the product
+// (196,608 FMAs a block and step at H = 512) and the exchange's latency:
+// 2.36 us a step, 0.94 ms at T = 401, B = 8 on the device, on an NVIDIA H100
+// 80GB HBM3 (700 W).  One input of dh a thread in 512 threads (96 weights,
+// 128 registers) was slower: 1.12 against 0.93 ms on full rows.
+//
+// Streaming (gru_tm_bwd_kernel), for H = 1024 and as the measurement's other
+// side (route 0): one block per (direction, kRows rows) keeps dh and dgh in
+// shared memory and streams whT [2, 3H, H] (transposed once per call by the
+// wrapper) through rnn_bwd.cuh's product: bound like the streaming forward by
+// one SM's read of wh[d]^T (3 MiB) per step: 33 us a step on the device at
+// H = 512 (13.4 ms at T = 401, B = 8) on an NVIDIA H100 80GB HBM3 (700 W).
 //
 // Layout: gxf/gxb [T, B, 3H] with unit stride in the last dim and strides
 // (stride_t, stride_b) in elements (they may be the two halves of one
@@ -589,6 +605,30 @@ int launch_resident(const float* gxf, const float* gxb, const aas_rnn::Layout& L
   return (int)cudaGetLastError();
 }
 
+// The GRU's cell backward of one (unit, row) for the resident backward
+// kernel (rnn_cluster.cuh): gru_tm_bwd_kernel's arithmetic, with the summed
+// partials of dh in and the carry kept in a register.
+struct GruBwdCell {
+  static constexpr int kGates = 3;
+  static constexpr int kOutputs = 2;    // inputs of dh a thread owns: 192 weights
+  float carry = 0.f;                    // dh_upd z + (1 - m) dh of the step before
+
+  __device__ __forceinline__ void step(const aas_rnn::BwdIn& in, float part,
+                                       float (&gx)[3], float (&gh)[3]) {
+    const float r = in.a[0], z = in.a[1], n = in.a[2], ghn = in.a[3];
+    const float dh = part + carry;
+    const float dh_upd = in.m * (dh + in.dy);
+    const float d_z = dh_upd * (in.st - n) * z * (1.f - z);
+    const float d_n = dh_upd * (1.f - z) * (1.f - n * n);
+    const float d_r = d_n * ghn * r * (1.f - r);
+    carry = dh_upd * z + (1.f - in.m) * dh;
+    gx[0] = gh[0] = d_r;
+    gx[1] = gh[1] = d_z;
+    gx[2] = d_n;
+    gh[2] = d_n * r;
+  }
+};
+
 int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
                const float* hp, const float* act, const float* dyf,
                const float* dyb, float* dgx, float* dgh, int T, int B, int H,
@@ -639,28 +679,36 @@ extern "C" int aas_gru_fwd(const float* gx0, const float* gx1, long long gx_t,
   return launch_fwd<true>(gx0, gx1, L, m, wh, bh, y0, y1, hp, act, T, B, H, stream);
 }
 
-// The clusters of `cluster` blocks of the resident forward kernel (training
-// variant with `save`) that the card can run at once at width H, as
-// cudaOccupancyMaxActiveClusters counts them; minus the error's code where
-// the shape is refused or no such cluster can be scheduled.
-extern "C" int aas_gru_res_clusters(int cluster, int save, int H) {
+// The clusters of `cluster` blocks of a resident kernel that the card can run
+// at once at width H, as cudaOccupancyMaxActiveClusters counts them: the
+// forward's inference (variant 0) or training variant (1), or the backward
+// (2); minus the error's code where the shape is refused or no such cluster
+// can be scheduled.
+extern "C" int aas_gru_res_clusters(int cluster, int variant, int H) {
+  if (variant == 2) return aas_rnn::res_bwd_clusters<GruBwdCell>(cluster, H);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   int clusters = 0;
-  int rc = save ? resident_config<true>(cluster, kRows, H, nullptr, attr, &cfg)
-                : resident_config<false>(cluster, kRows, H, nullptr, attr, &cfg);
+  int rc = variant ? resident_config<true>(cluster, kRows, H, nullptr, attr, &cfg)
+                   : resident_config<false>(cluster, kRows, H, nullptr, attr, &cfg);
   if (!rc)
-    rc = save ? aas_rnn::active_clusters(gru_res_fwd_kernel<true>, cfg, &clusters)
-              : aas_rnn::active_clusters(gru_res_fwd_kernel<false>, cfg, &clusters);
+    rc = variant ? aas_rnn::active_clusters(gru_res_fwd_kernel<true>, cfg, &clusters)
+                 : aas_rnn::active_clusters(gru_res_fwd_kernel<false>, cfg, &clusters);
   return rc ? -rc : clusters;
 }
 
 // dgx is [2, T, B, 3H] (time-major) or [T, 2, B, 3H] (stacked); dgh
-// [2, T, B, 3H] in both, or NULL when no weight gradient is wanted.
-extern "C" int aas_gru_bwd(const float* m, const float* whT, const float* hp,
+// [2, T, B, 3H] in both, or NULL when no weight gradient is wanted.  As in
+// aas_gru_fwd, `cluster` is the route: the resident kernel on clusters of
+// that many blocks, w = wh [2, H, 3H]; or 0, the streaming kernel, w = whT
+// [2, 3H, H].
+extern "C" int aas_gru_bwd(const float* m, const float* w, const float* hp,
                            const float* act, const float* dy0, const float* dy1,
-                           float* dgx, float* dgh, int stacked, int T, int B,
+                           float* dgx, float* dgh, int stacked, int cluster, int T, int B,
                            int H, cudaStream_t stream) {
-  return launch_bwd(aas_rnn::make_layout(stacked, 0, 0, T, B, H, 3 * H), m, whT,
-                    hp, act, dy0, dy1, dgx, dgh, T, B, H, stream);
+  const aas_rnn::Layout L = aas_rnn::make_layout(stacked, 0, 0, T, B, H, 3 * H);
+  if (cluster > 0)
+    return aas_rnn::launch_res_bwd<GruBwdCell>(
+        aas_rnn::BwdArgs{L, m, w, hp, act, dy0, dy1, dgx, dgh, T, B, H}, cluster, stream);
+  return launch_bwd(L, m, w, hp, act, dy0, dy1, dgx, dgh, T, B, H, stream);
 }

@@ -79,22 +79,39 @@
 // natural time index, the pre-update state h, c ([2, T, B, H] each) and the
 // gate activations sigmoid(i), sigmoid(f + 1), tanh(g), sigmoid(o)
 // ([2, T, B, 4H]).  The Pallas VJP saves h and c and recomputes the gates in
-// its backward, which would read wh[d] as well as wh[d]^T every step; with
-// the activations saved the backward reads only wh[d]^T, as many bytes per
-// step as the forward (32 MB more per layer at B = 8, T = 801).
+// its backward, which would need the forward's product again every step;
+// with the activations saved the backward's only product is the transposed
+// one (32 MB more per layer at B = 8, T = 801).
 //
-// Backward: one block per (direction, kRows rows), walking each direction's
-// time in reverse (direction 0 t = T-1..0, direction 1 t = 0..T-1), carrying
-// the masked dh and dc in shared memory, as _lstm_tm_bwd_kernel does:
+// Backward, as _lstm_tm_bwd_kernel, walking each direction's time in reverse
+// (direction 0 t = T-1..0, direction 1 t = 0..T-1) and carrying dh and dc:
 //   dh_upd = m (dh + dy[t]);  dc_upd = m dc
 //   do = dh_upd tanh(c') so (1 - so);  dc' = dh_upd so (1 - tanh^2 c') + dc_upd
 //   df = dc' c sf (1 - sf);  di = dc' tg si (1 - si);  dg = dc' si (1 - tg^2)
 //   dc <- dc' sf + (1 - m) dc;   dh <- [di, df, dg, do] @ wh[d]^T + (1 - m) dh
 // It writes dgx [2, T, B, 4H] (the gradient of gxf and gxb); dWh and dbh are
 // sums over time of products of that with h, done by the wrapper in
-// torch.matmul as the JAX VJP does them outside its kernel.  The transposed
-// product is rnn_bwd.cuh's, bound like the forward by one SM's read of
-// wh[d]^T (1 MiB) per step.
+// torch.matmul as the JAX VJP does them outside its kernel.  Two kernels,
+// chosen by the shape alone (ops/cuda/rnn.py::bwd_resident_cluster: the
+// forward's route):
+//
+// Resident (rnn_cluster.cuh::res_bwd_kernel<LstmBwdCell>), wherever the
+// resident forward runs (H <= 256): the forward's cluster and ownership, the
+// slice in registers (one input of dh x 128 columns in each of 256 threads
+// at H = 256), each block's part of dh reduce-scattered to the units' owners
+// through distributed shared memory.  Bound by the product (131,072 FMAs a
+// block and step at H = 256) and the exchange's latency: 1.97 us a step,
+// 1.58 ms at T = 801, B = 8 on the device, on an NVIDIA H100 80GB HBM3
+// (700 W).
+//
+// Streaming (lstm_tm_bwd_kernel), for H = 512 (beside the streaming forward:
+// 128 weights a thread in 512 threads would need 2 x 65,536 registers) and as
+// the measurement's other side (route 0): one block per (direction, kRows
+// rows) keeps dh, dc and the gate gradients in shared memory and streams whT
+// [2, 4H, H] (transposed once per call by the wrapper) through rnn_bwd.cuh's
+// product: bound by one SM's read of wh[d]^T (1 MiB at H = 256) per step:
+// 12.1 us a step on the device at H = 256 (9.7 ms at T = 801, B = 8) on an
+// NVIDIA H100 80GB HBM3 (700 W).
 //
 // Layout: gxf/gxb [T, B, 4H] with unit stride in the last dim and strides
 // (stride_t, stride_b) in elements (they may be the two halves of one
@@ -546,6 +563,31 @@ int launch_fwd(const float* gxf, const float* gxb, const aas_rnn::Layout& L,
   return (int)cudaGetLastError();
 }
 
+// The LSTM's cell backward of one (unit, row) for the resident backward
+// kernel (rnn_cluster.cuh): lstm_tm_bwd_kernel's arithmetic, with the summed
+// partials of dh in and the carries kept in registers.
+struct LstmBwdCell {
+  static constexpr int kGates = 4;
+  static constexpr int kOutputs = 1;    // inputs of dh a thread owns: 128 weights
+  float carry = 0.f;                    // (1 - m) dh of the step before
+  float dc = 0.f;
+
+  __device__ __forceinline__ void step(const aas_rnn::BwdIn& in, float part,
+                                       float (&gx)[4], float (&gh)[4]) {
+    const float si = in.a[0], sf = in.a[1], tg = in.a[2], so = in.a[3], c = in.st;
+    const float tc = tanhf(sf * c + si * tg);
+    const float dh = part + carry;
+    const float dh_upd = in.m * (dh + in.dy);
+    const float dc_new = dh_upd * so * (1.f - tc * tc) + in.m * dc;
+    gx[0] = gh[0] = dc_new * tg * si * (1.f - si);
+    gx[1] = gh[1] = dc_new * c * sf * (1.f - sf);
+    gx[2] = gh[2] = dc_new * si * (1.f - tg * tg);
+    gx[3] = gh[3] = dh_upd * tc * so * (1.f - so);
+    dc = dc_new * sf + (1.f - in.m) * dc;
+    carry = (1.f - in.m) * dh;
+  }
+};
+
 int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
                const float* cp, const float* act, const float* dyf,
                const float* dyb, float* dgx, int T, int B, int H,
@@ -597,27 +639,36 @@ extern "C" int aas_lstm_fwd(const float* gx0, const float* gx1, long long gx_t,
                           stream);
 }
 
-// The clusters of `cluster` blocks of the resident forward kernel (training
-// variant with `save`) that the card can run at once at width H, as
-// cudaOccupancyMaxActiveClusters counts them; minus the error's code where
-// the shape is refused or no such cluster can be scheduled.
-extern "C" int aas_lstm_res_clusters(int cluster, int save, int H) {
+// The clusters of `cluster` blocks of a resident kernel that the card can run
+// at once at width H, as cudaOccupancyMaxActiveClusters counts them: the
+// forward's inference (variant 0) or training variant (1), or the backward
+// (2); minus the error's code where the shape is refused or no such cluster
+// can be scheduled.
+extern "C" int aas_lstm_res_clusters(int cluster, int variant, int H) {
+  if (variant == 2) return aas_rnn::res_bwd_clusters<LstmBwdCell>(cluster, H);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   int clusters = 0;
-  int rc = save ? resident_config<true>(cluster, kRows, H, nullptr, attr, &cfg)
-                : resident_config<false>(cluster, kRows, H, nullptr, attr, &cfg);
+  int rc = variant ? resident_config<true>(cluster, kRows, H, nullptr, attr, &cfg)
+                   : resident_config<false>(cluster, kRows, H, nullptr, attr, &cfg);
   if (!rc)
-    rc = save ? aas_rnn::active_clusters(lstm_res_fwd_kernel<true>, cfg, &clusters)
-              : aas_rnn::active_clusters(lstm_res_fwd_kernel<false>, cfg, &clusters);
+    rc = variant ? aas_rnn::active_clusters(lstm_res_fwd_kernel<true>, cfg, &clusters)
+                 : aas_rnn::active_clusters(lstm_res_fwd_kernel<false>, cfg, &clusters);
   return rc ? -rc : clusters;
 }
 
-// dgx is [2, T, B, 4H] (time-major) or [T, 2, B, 4H] (stacked).
-extern "C" int aas_lstm_bwd(const float* m, const float* whT, const float* cp,
+// dgx is [2, T, B, 4H] (time-major) or [T, 2, B, 4H] (stacked).  As in
+// aas_lstm_fwd, `cluster` is the route: the resident kernel on clusters of
+// that many blocks, w = wh [2, H, 4H]; or 0, the streaming kernel, w = whT
+// [2, 4H, H].
+extern "C" int aas_lstm_bwd(const float* m, const float* w, const float* cp,
                             const float* act, const float* dy0, const float* dy1,
-                            float* dgx, int stacked, int T, int B, int H,
+                            float* dgx, int stacked, int cluster, int T, int B, int H,
                             cudaStream_t stream) {
-  return launch_bwd(aas_rnn::make_layout(stacked, 0, 0, T, B, H, 4 * H), m, whT,
-                    cp, act, dy0, dy1, dgx, T, B, H, stream);
+  const aas_rnn::Layout L = aas_rnn::make_layout(stacked, 0, 0, T, B, H, 4 * H);
+  if (cluster > 0)
+    return aas_rnn::launch_res_bwd<LstmBwdCell>(
+        aas_rnn::BwdArgs{L, m, w, cp, act, dy0, dy1, dgx, nullptr, T, B, H}, cluster,
+        stream);
+  return launch_bwd(L, m, w, cp, act, dy0, dy1, dgx, T, B, H, stream);
 }

@@ -1,6 +1,6 @@
 // Shared pieces of the recurrence kernels in lstm_tm.cu and gru_tm.cu: the
 // two memory layouts they serve, the float4 FMA, and the transposed recurrent
-// product of the backward kernels.
+// product of the streaming backward kernels.
 //
 // Layouts.  Time-major (lstm_scan_tm, gru_scan_tm): direction d reads its own
 // gx tensor [T, B, G] and writes its own y [T, B, H], both in natural time
@@ -13,16 +13,23 @@
 // layout in place; what the training forwards save for the backward
 // ([2, T, B, .], indexed by the layout's own time index) is the same for both.
 //
-// Each backward step needs dh = dg @ wh[d]^T + (carry terms): dg is the
-// step's [kRows, G] gate gradient (G = 4H for the LSTM, 3H for the GRU) in
-// shared memory, and the product reads all of wh[d] again, as the forward
-// does.  The kernels take whT [2, G, H] (wh transposed once per call by the
-// wrapper), so that a warp's threads, each owning four adjacent hidden units,
-// read one row of whT in coalesced 16-byte loads: the same access pattern as
-// the forward's reads of wh.  H / 4 threads cover a row, which would leave
-// most of a block idle (64 threads at H = 256), so the G-long sum is split
-// into `splits` contiguous ranges, each summed by its own H / 4 threads into
-// a partial in shared memory; a second pass adds the partials in order.
+// Each backward step needs dh = dg @ wh[d]^T + (carry terms), dg the step's
+// [kRows, G] gate gradient (G = 4H for the LSTM, 3H for the GRU).  Two
+// routes, chosen by the shape alone (ops/cuda/rnn.py::bwd_resident_cluster):
+// the resident backward (rnn_cluster.cuh::res_bwd_kernel) keeps each block's
+// gate columns of wh[d] in registers across a cluster and reduce-scatters
+// the partial dh through distributed shared memory, bound by its product
+// (1536 clocks of FMAs a step for the GRU at H = 512) and the exchange's
+// latency; the streaming backward, below, is one block per (direction, kRows
+// rows) that reads all of wh[d] again every step, bound by one SM's read of
+// it from L2 (33 us a step on the device for the GRU at H = 512, 12.1 for the
+// LSTM at H = 256, on an NVIDIA H100 80GB HBM3 at 700 W).  It takes whT
+// [2, G, H] (wh transposed once per call by the wrapper), so that a warp's
+// threads, each owning four adjacent hidden units, read one row of whT in
+// coalesced 16-byte loads.  H / 4 threads cover a row, which would leave most
+// of a block idle (64 threads at H = 256), so the G-long sum is split into
+// `splits` contiguous ranges, each summed by its own H / 4 threads into a
+// partial in shared memory; a second pass adds the partials in order.
 
 #pragma once
 

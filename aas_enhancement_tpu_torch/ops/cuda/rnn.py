@@ -39,8 +39,12 @@ between the blocks through distributed shared memory.  The LSTM takes
 clusters of at most 8 blocks (H = 256: 8 blocks of 128 KB), the GRU, with
 three gates, of at most 16 (H = 512: 16 blocks of 192 KB).  Otherwise (an
 LSTM at H = 512, either cell at H = 1024) the streaming kernel runs, which
-reads wh[d] from L2 every step.  The route is no fallback: a resident launch
-that is refused raises.  Each forward wrapper's ``.route`` holds the route of
+reads wh[d] from L2 every step.  The backwards take the forward's route at
+the same width (``bwd_resident_cluster``): the resident backward keeps each
+block's gate columns of wh[d] in registers and reduce-scatters the partial dh
+through distributed shared memory; the streaming backward reads whT from L2
+every step.  A route is no fallback: a resident launch that is refused
+raises.  Each wrapper's ``.route``, forward and backward, holds the route of
 its last launch: the cluster size, or 0 for streaming.
 """
 
@@ -99,17 +103,31 @@ def gru_resident_cluster(h_dim: int) -> int:
     return 0
 
 
+def bwd_resident_cluster(cell: str, h_dim: int) -> int:
+    """The backward's route for ``cell`` ("lstm" or "gru") at width ``h_dim``:
+    the forward's (``lstm_resident_cluster`` / ``gru_resident_cluster``).  The
+    resident backward's own limits hold wherever the forward is resident (at
+    most 32 units a block, so LSTM H <= 256, GRU H <= 512): one thread per
+    input of dh (LSTM, 128 weights) or per two (GRU, 192), at least 128 and at
+    most 256 threads of 255 registers; shared memory 16 (2 H + 2 x gates x 32)
+    + 16 bytes.  The kernel's host code checks them (``res_bwd_config``).  The
+    LSTM at H = 512 streams in both passes."""
+    return (lstm_resident_cluster if cell == "lstm" else gru_resident_cluster)(h_dim)
+
+
 def resident_clusters_at_once(cell: str, h_dim: int, cluster: int | None = None,
-                              save: bool = False) -> int:
+                              save: bool = False, backward: bool = False) -> int:
     """How many clusters of the resident forward kernel of ``cell`` ("lstm" or
-    "gru"; ``save``: its training variant) the card can run at once at width
-    ``h_dim``, as ``cudaOccupancyMaxActiveClusters`` counts them; raises where
-    the shape has no resident route or the card can schedule no such cluster.
-    More tiles of rows than that run in waves."""
+    "gru"; ``save``: its training variant), or with ``backward`` of its
+    resident backward, the card can run at once at width ``h_dim``, as
+    ``cudaOccupancyMaxActiveClusters`` counts them; raises where the shape has
+    no resident route or the card can schedule no such cluster.  More tiles
+    of rows than that run in waves."""
     if cluster is None:
         cluster = (lstm_resident_cluster if cell == "lstm" else gru_resident_cluster)(h_dim)
     entry = f"aas_{cell}_res_clusters"
-    n = getattr(kernel_build.load_library(), entry)(cluster, int(save), h_dim)
+    n = getattr(kernel_build.load_library(), entry)(cluster, 2 if backward else int(save),
+                                                     h_dim)
     if n < 1:
         raise RuntimeError(f"{entry} (clusters of {cluster}, H = {h_dim}): CUDA error {-n}")
     return n
@@ -323,14 +341,17 @@ def _forward(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
 
 def _backward(name: str, m: torch.Tensor, wh: torch.Tensor,
               saved: tuple[torch.Tensor, ...], dys: tuple[torch.Tensor, ...],
-              need_dwh: bool
+              need_dwh: bool, route: int | None = None
               ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor | None,
                          torch.Tensor | None]:
     """Launch the backward kernel of entry ``name`` on what its training
     forward saved and the cotangents dys, (dyf, dyb) or the stacked (dy,) ->
     (dgx, dwh [2, H, G*H], dbh [2, G*H]) with dgx (dgxf, dgxb) [T, B, G*H] or
     the stacked (dgx,) [T, 2, B, G*H].  dwh and dbh are None unless
-    ``need_dwh``; without it the GRU kernel writes no dgh (a frozen GRU)."""
+    ``need_dwh``; without it the GRU kernel writes no dgh (a frozen GRU).
+    The route (cluster size, 0 = streaming) follows from H
+    (``bwd_resident_cluster``); ``route`` overrides it for measurements that
+    set the two kernels side by side."""
     gates, stacked = _gates(name), len(dys) == 1
     hp, acts = saved[0], saved[-1]
     _, t_len, b, h_dim = hp.shape
@@ -348,13 +369,21 @@ def _backward(name: str, m: torch.Tensor, wh: torch.Tensor,
     state = saved[1] if gates == 4 else hp
     dgh = empty(2, t_len, b, g) if gates == 3 and need_dwh else None
     extra = (dgh.data_ptr() if dgh is not None else None,) if gates == 3 else ()
-    entry = f"aas_{name.split('_')[0]}_bwd"
+    cell = name.split("_")[0]
+    if route is None:
+        route = bwd_resident_cluster(cell, h_dim)
+    # The resident kernel reads its blocks' columns of wh itself; the
+    # streaming kernel reads rows of whT.
+    w = wh if route else _transposed(wh)
+    entry = f"aas_{cell}_bwd"
+    what = f"{entry} (" + (f"resident, clusters of {route}" if route else "streaming") + ")"
     err = getattr(kernel_build.load_library(), entry)(
-        m.data_ptr(), _transposed(wh).data_ptr(), state.data_ptr(), acts.data_ptr(),
-        dy0.data_ptr(), dy1.data_ptr(), dgx.data_ptr(), *extra, int(stacked),
+        m.data_ptr(), w.data_ptr(), state.data_ptr(), acts.data_ptr(),
+        dy0.data_ptr(), dy1.data_ptr(), dgx.data_ptr(), *extra, int(stacked), route,
         t_len, b, h_dim, torch.cuda.current_stream(hp.device).cuda_stream)
-    kernel_build.check(err, entry)
+    kernel_build.check(err, what)
     _BACKWARD[name].launches += 1
+    _BACKWARD[name].route = route
     dwh = dbh = None
     if need_dwh:
         dg = dgh if gates == 3 else dgx.transpose(0, 1) if stacked else dgx
@@ -363,7 +392,8 @@ def _backward(name: str, m: torch.Tensor, wh: torch.Tensor,
 
 
 def _transposed(wh: torch.Tensor) -> torch.Tensor:
-    """whT [2, G, H], contiguous, which the backward kernels read as float4."""
+    """whT [2, G, H], contiguous, which the streaming backward kernels read as
+    float4."""
     wh_t = wh.detach().transpose(1, 2).contiguous()
     if wh_t.shape[2] % 4 or wh_t.data_ptr() % 16:
         raise ValueError(f"backward: needs H % 4 == 0 and a 16-byte aligned whT, "
@@ -407,6 +437,7 @@ _BACKWARD = {"lstm_scan_tm": lstm_scan_tm_bwd, "gru_scan_tm": gru_scan_tm_bwd,
              "gru_scan_stacked": gru_scan_stacked_bwd}
 for _fn in _BACKWARD.values():
     _fn.launches = 0
+    _fn.route = None
 
 
 class _ScanFn(torch.autograd.Function):

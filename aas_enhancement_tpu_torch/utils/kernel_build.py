@@ -47,15 +47,17 @@ SIGNATURES = {
     "aas_lstm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # ... as aas_lstm_fwd without cp
     "aas_gru_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # cluster, save (the training variant), H -> the clusters of the resident
-    # forward kernel the card runs at once (not an error code; minus the
-    # cudaError_t where it can run none)
+    # cluster, variant (0 the forward's inference kernel, 1 its training
+    # variant, 2 the backward), H -> the clusters of that resident kernel the
+    # card runs at once (not an error code; minus the cudaError_t where it
+    # can run none)
     "aas_lstm_res_clusters": (_I, _I, _I),
     "aas_gru_res_clusters": (_I, _I, _I),
-    # m, whT, cp, act, dy0, dy1, dgx, stacked, T, B, H, stream
-    "aas_lstm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # m, whT, hp, act, dy0, dy1, dgx, dgh (or NULL), stacked, T, B, H, stream
-    "aas_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # m, w (wh for the resident route, whT for the streaming one), cp, act,
+    # dy0, dy1, dgx, stacked, cluster (as in aas_lstm_fwd), T, B, H, stream
+    "aas_lstm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # m, w, hp, act, dy0, dy1, dgx, dgh (or NULL), stacked, cluster, T, B, H, stream
+    "aas_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # rows (B * T), Fo, kt, kf, ci, co, stride_f, multiprocessors -> slices
     # (not an error code; 0: the kernel does not take the shape)
     "aas_conv_dw_slices": (_I, _I, _I, _I, _I, _I, _I, _I),

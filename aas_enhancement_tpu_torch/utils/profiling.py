@@ -99,6 +99,44 @@ def profile_call(fn, calls: int, warmup: int, trace_path: str) -> dict:
     return summary
 
 
+def device_time(run, match: str | None = None, alone=None, calls: int = 5,
+                warmup: int = 2, tries: int = 2) -> tuple[float, str]:
+    """The device time per call of ``run``'s work, or with ``match`` of its
+    kernels whose name holds it -> (ms, source).  From ``torch.profiler``
+    ("profiler") where a session recorded every kernel the same number of
+    times in each of ``calls`` calls; in a long process the profiler has been
+    seen on an H100 to drop kernel events (most often the last call's, so
+    that a reading came out 4/5 of the truth), so after ``tries`` sessions
+    that did not, the time is taken between two CUDA events around
+    ``alone()`` (default ``run()``: the launches of the kernels to time) on a
+    stream that a sleeping kernel keeps busy while the host enqueues the
+    call, so that no host time falls between the events ("events on a busy
+    stream")."""
+    for _ in range(tries):
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                summary = profile_call(run, calls, warmup, os.path.join(tmp, "trace.json"))
+            except RuntimeError:                   # no device event at all
+                continue
+        ms = summary["busy_ms"] if match is None else sum(
+            t for name, t, _ in summary["by_name"] if match in name)
+        if ms > 0 and all(float(n).is_integer() for _, _, n in summary["by_name"]):
+            return ms, "profiler"
+    fn = alone or run
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        torch.cuda._sleep(20_000_000)      # ~10 ms at 2 GHz: longer than a call's host time
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), "events on a busy stream"
+
+
 def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
                   trace_dir: str) -> dict:
     """{"enhance": summary, "recognize": summary, "train": summary,
@@ -179,6 +217,11 @@ def main(argv=None) -> None:
               f"{s['events']:.0f} device events | "
               f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
               f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+        uneven = [name for name, _, count in s["by_name"] if not float(count).is_integer()]
+        if uneven:      # dropped profiler events, or work that varies between calls
+            print(f"[profile {path}] {len(uneven)} kernel names ran a fractional number of "
+                  f"times a call (dropped profiler events, or work that varies between "
+                  f"calls): {[n[:60] for n in uneven[:3]]}")
         for name, ms, count in s["by_name"][:args.top]:
             print(f"[profile {path}] {ms:9.3f} ms {100 * ms / s['busy_ms']:6.2f}% "
                   f"x{count:<5g} {name[:110]}")

@@ -19,9 +19,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    clusters the card runs at once; further LSTM cases run B=6 (a
    partial row tile), B=32, H=64 and 128 (clusters of 2 and 4) and H=512 (the
    streaming route), further GRU cases B=8 and B=32, a further STFT case hop
-   80; the STFT lines also give the device time of the kernel and of the
-   library call from the profiler (one call between two events reads mostly
-   host time at a few microseconds);
+   80; the STFT, ISTFT and GroupNorm lines also give the device time of the
+   kernel and of the library call from the profiler (one call between two
+   events reads mostly host time at a few microseconds);
 4. slice: the port's enhance CLI on a synthetic corpus with --device cuda,
    counting each kernel's launches (and failing unless the LSTM and, on the
    later paths, the 512-wide GRU took the resident route); then a full-width
@@ -47,8 +47,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    with conv2's dW from the kernel and from cuDNN; AM steps timed at B=8 and
    B=32 x 8 s, and at B=8 with SpecAugment and the KL anchor.
 The kernels phase also checks the backward kernels (LSTM, GRU, GroupNorm,
-the stacked LSTM and GRU) at B=8 against autograd through the plain versions
-and the conv weight-gradient kernel at the AM's and the enhancer's shapes.
+the stacked LSTM and GRU) at B=8, and the GRU's at B=32, against autograd
+through the plain versions, and the conv weight-gradient kernel at the AM's
+and the enhancer's shapes.  The recurrences' backward lines give the route
+(resident: wh[d] in a cluster's registers), the clusters the card runs at
+once, the kernel alone between events and on the device, the same bits on
+two calls, and the streaming backward's time and gradient error on the same
+inputs; the paths fail unless their backward ran resident too.
 Each kernel line gives, beside the kernel's and the plain version's time, the
 least time the card could take (bound: the larger of bytes moved once over
 3.35 TB/s and f32 operations over 67 TFLOP/s, the H100's published rates)
@@ -258,6 +263,7 @@ def make_inputs(device):
 
 STACKED = ("lstm_stacked", "gru_stacked", "lstm_stacked_bwd", "gru_stacked_bwd")
 RECURRENT = ("lstm", "gru", "lstm_stacked", "gru_stacked")
+RECURRENT_BWD = ("lstm_bwd", "gru_bwd", "lstm_stacked_bwd", "gru_stacked_bwd")
 # The forward route each width must take: blocks per cluster of the resident
 # kernel, 0 for the streaming kernel.
 RNN_ROUTES = {"lstm": {64: 2, 128: 4, 256: 8, 512: 0}, "gru": {512: 16}}
@@ -281,8 +287,8 @@ def kernel_counters() -> dict:
 def counted(names, run) -> dict:
     """Set the named kernels' launch counts to 0, drive ``run()``, and read
     the counts: {name: launches of that run}.  The paths' LSTMs are 256 wide
-    and their GRUs 512: a run whose last LSTM or GRU launch was not on the
-    resident route fails."""
+    and their GRUs 512: a run whose last LSTM or GRU launch, forward or
+    backward, was not on the resident route fails."""
     counters = {k: v for k, v in kernel_counters().items() if k in names}
     for fn in counters.values():
         fn.launches = 0
@@ -290,7 +296,7 @@ def counted(names, run) -> dict:
             fn.route = None
     run()
     for k, fn in counters.items():
-        if k in RECURRENT and fn.launches and not fn.route:
+        if k in RECURRENT + RECURRENT_BWD and fn.launches and not fn.route:
             fail(f"{k}: the path's recurrence ran on the streaming route (route {fn.route})")
     return {k: fn.launches for k, fn in counters.items()}
 
@@ -447,8 +453,12 @@ def phase_kernels(device):
                 text += f" | route: 320 = {n1} x {n2}"
                 if not n1:
                     fail(f"{label}: n_fft 320 took the direct sum")
-                text += device_times(results[name]["shapes"][label],
-                                     lambda: kernel(*args, **kw), library)
+            if name in ("stft", "istft", "gn_act"):
+                row = results[name]["shapes"][label]
+                text += device_times(row, lambda: kernel(*args, **kw), library)
+                if label == name:
+                    results[name].update({k: row[k] for k in (
+                        "device_ms", "device_ms_by", "library_device_ms") if k in row})
             if name in RECURRENT:
                 text += rnn_routes(results, name, label, kernel, args, p_out, reps)
             print(f"[kernel] {label}: max_abs_err {err:.3e} (tol {tol:.0e}: {why}) | "
@@ -471,18 +481,18 @@ def phase_kernels(device):
 
 def device_times(row: dict, run_k, run_lib=None) -> str:
     """The device time of a kernel's launches and, where there is one, of the
-    library call's kernels (``torch.profiler``, per call over 5 calls).  The
-    CUDA-event times of the line are taken around one call on an idle stream,
-    so they hold the wrapper's host time too: most of the reading for a
-    kernel of a few microseconds.  -> text."""
-    from aas_enhancement_tpu_torch.utils.profiling import profile_call
-    with tempfile.TemporaryDirectory() as tmp:
-        row["device_ms"] = profile_call(run_k, 5, 2, os.path.join(tmp, "k.json"))["busy_ms"]
-        text = f" | on the device alone (profiler): kernel {row['device_ms']:.4f} ms"
-        if run_lib is not None:
-            row["library_device_ms"] = profile_call(
-                run_lib, 5, 2, os.path.join(tmp, "lib.json"))["busy_ms"]
-            text += f", library call {row['library_device_ms']:.4f} ms"
+    library call's kernels (``utils.profiling.device_time``: the profiler, or
+    where it dropped events CUDA events on a busy stream).  The CUDA-event
+    times of the line are taken around one call on an idle stream, so they
+    hold the wrapper's host time too: most of the reading for a kernel of a
+    few microseconds.  -> text."""
+    from aas_enhancement_tpu_torch.utils.profiling import device_time
+    row["device_ms"], row["device_ms_by"] = device_time(run_k)
+    text = (f" | on the device alone ({row['device_ms_by']}): kernel "
+            f"{row['device_ms']:.4f} ms")
+    if run_lib is not None:
+        row["library_device_ms"], by = device_time(run_lib)
+        text += f", library call {row['library_device_ms']:.4f} ms ({by})"
     return text
 
 
@@ -527,7 +537,8 @@ def rnn_routes(results: dict, name: str, label: str, kernel, args, p_out, reps: 
                  f"{err:.3e}), x{row['streaming_ms'] / row['ms']:.2f}")
     if label == name:
         results[name].update({k: row[k] for k in ("kernel_route", "training_ms", "device_ms",
-                                                  "streaming_ms", "clusters_at_once")
+                                                  "device_ms_by", "streaming_ms",
+                                                  "clusters_at_once")
                               if k in row})
     return text
 
@@ -541,9 +552,11 @@ def kernels_backward(device, gen, results: dict) -> None:
     """The backward kernels at the training path's full widths, B=8 with
     ragged lengths: the kernel autograd Functions' gradients against
     torch.autograd.grad through the plain versions on the card, and the
-    time of the backward pass alone (the graph built once, kept).  The
-    stacked-layout cases come last and draw from a generator of their own, so
-    the other cases see the random numbers they always saw."""
+    time of the backward pass alone (the graph built once, kept).  For the
+    recurrences also (``rnn_bwd_routes``) the route, the kernel alone, the
+    streaming backward on the same inputs, and the GRU at B=32.  The
+    stacked-layout cases and the B=32 case come last and draw from generators
+    of their own, so the other cases see the random numbers they always saw."""
     import torch
     from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
     from aas_enhancement_tpu_torch.ops.masking import time_mask
@@ -553,36 +566,50 @@ def kernels_backward(device, gen, results: dict) -> None:
         return (scale * torch.randn(*shape, generator=gen)).to(device)
 
     gen_stacked = torch.Generator().manual_seed(7)
-    stacked_cases = {}
+    gen_b32 = torch.Generator().manual_seed(9)
+    later = {}
     frames = torch.tensor(BWD_FRAMES, device=device)
     am_frames = torch.tensor(BWD_AM_FRAMES, device=device)
-    cases = {}    # label: (kernel name, fn(wrapper or plain) -> outs, pair, inputs, work)
-    for name, cell, t_len, h, lens in (("lstm_bwd", "lstm", 1 + N // 160, 256, frames),
-                                       ("gru_bwd", "gru", AM_T, 512, am_frames)):
+    # label: (kernel name, fn(wrapper or plain) -> outs, pair, inputs, work,
+    # (entry, gx, m, wh, bh) of a recurrence or None, the cotangents' generator)
+    cases = {}
+
+    def rnn_case(name, cell, t_len, h, b, lens, gen_x):
         g = 4 if cell == "lstm" else 3
-        gates = randn(t_len, BWD_B, 2 * g * h, scale=0.5).requires_grad_()
-        wh = randn(2, h, g * h, scale=h ** -0.5).requires_grad_()
-        bh = randn(2, g * h, scale=0.1).requires_grad_()
+        gates = randn(t_len, b, 2 * g * h, scale=0.5, gen=gen_x).requires_grad_()
+        wh = randn(2, h, g * h, scale=h ** -0.5, gen=gen_x).requires_grad_()
+        bh = randn(2, g * h, scale=0.1, gen=gen_x).requires_grad_()
         m = time_mask(lens, t_len).T.contiguous()
         # Read once: the saved h (and c), the saved activations [.., 4H], dy, wh;
         # written once: dgx, dwh, dbh.  dh = dg wh^T and dWh = h^T dg, one FMA
         # per term each.
-        cells = 2 * t_len * BWD_B
+        cells = 2 * t_len * b
         work = (4.0 * (cells * h * ((5 if cell == "gru" else 6) + 1 + g)
                        + 2 * wh.numel() + bh.numel()),
                 2.0 * 2 * cells * h * g * h)
         tm = ((krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain) if cell == "lstm"
               else (krnn.gru_scan_tm, krnn.gru_scan_tm_plain))
-        cases[f"{name} T={t_len} B={BWD_B} H={h}"] = (
-            name, _rnn_call(gates, m, wh, bh, g * h), tm, (gates, wh, bh), work)
+        halves = (gates[..., :g * h], gates[..., g * h:])
+        return (name, _rnn_call(gates, m, wh, bh, g * h), tm, (gates, wh, bh), work,
+                (f"{cell}_scan_tm", halves, m, wh, bh), gen_x), (g, m, wh, bh, work)
+
+    for name, cell, t_len, h, lens in (("lstm_bwd", "lstm", 1 + N // 160, 256, frames),
+                                       ("gru_bwd", "gru", AM_T, 512, am_frames)):
+        cases[f"{name} T={t_len} B={BWD_B} H={h}"], (g, m, wh, bh, work) = rnn_case(
+            name, cell, t_len, h, BWD_B, lens, gen)
         stacked = ((krnn.lstm_scan_stacked, krnn.lstm_scan_stacked_plain) if cell == "lstm"
                    else (krnn.gru_scan_stacked, krnn.gru_scan_stacked_plain))
         gx_s = randn(t_len, 2, BWD_B, g * h, scale=0.5, gen=gen_stacked).requires_grad_()
         m_s = torch.stack([m, m.flip(0)], dim=1).contiguous()
-        stacked_cases[f"{cell}_stacked_bwd T={t_len} B={BWD_B} H={h}"] = (
+        later[f"{cell}_stacked_bwd T={t_len} B={BWD_B} H={h}"] = (
             f"{cell}_stacked_bwd",
             lambda fn, gx=gx_s, ms=m_s, wh=wh, bh=bh: (fn(gx, ms, wh, bh),),
-            stacked, (gx_s, wh, bh), work)
+            stacked, (gx_s, wh, bh), work, (f"{cell}_scan_stacked", (gx_s,), m_s, wh, bh),
+            gen_stacked)
+    b32 = TRAIN_BATCHES[-1]
+    later[f"gru_bwd T={AM_T} B={b32} H=512 (waves of clusters)"] = rnn_case(
+        "gru_bwd", "gru", AM_T, 512, b32, am_frames[torch.arange(b32, device=device) % BWD_B],
+        gen_b32)[0]
     for act, f, lens, slope in (("leaky_relu", 161, frames, 0.2),
                                 ("hardtanh", 81, am_frames, 0.2),
                                 ("hardtanh", 41, am_frames, 0.2)):
@@ -594,12 +621,11 @@ def kernels_backward(device, gen, results: dict) -> None:
         cases[f"gn_bwd {act} [{BWD_B}, {t_len}, {f}, 32]"] = (
             "gn_bwd", lambda fn, x=x, s=scale, b=bias, ln=lens, kw=kw: (fn(x, s, b, ln, **kw),),
             (gn.masked_group_norm_act, gn.masked_group_norm_act_plain), (x, scale, bias),
-            (3 * nbytes(x), 20.0 * x.numel()))           # x, dy read, dx written
+            (3 * nbytes(x), 20.0 * x.numel()), None, gen)           # x, dy read, dx written
 
-    cases.update(stacked_cases)
-    for label, (name, run, (kernel, plain), inputs, work) in cases.items():
+    cases.update(later)
+    for label, (name, run, (kernel, plain), inputs, work, rnn, cot_gen) in cases.items():
         outs_k, outs_p = run(kernel), run(plain)
-        cot_gen = gen_stacked if label in stacked_cases else gen
         cots = tuple(torch.randn(o.shape, generator=cot_gen).to(device) for o in outs_k)
         grads_k = torch.autograd.grad(outs_k, inputs, cots, retain_graph=True)
         grads_p = torch.autograd.grad(outs_p, inputs, cots, retain_graph=True)
@@ -609,20 +635,89 @@ def kernels_backward(device, gen, results: dict) -> None:
                   for a, b in zip(grads_k, grads_p))
         tol, why = BWD_TOL[name]
         reps = 3 if name != "gn_bwd" else 10
+        backward_k = lambda: torch.autograd.grad(outs_k, inputs, cots,   # noqa: E731
+                                                 retain_graph=True)
         ms, plain_ms = in_turns(
-            lambda: torch.autograd.grad(outs_k, inputs, cots, retain_graph=True),
-            lambda: torch.autograd.grad(outs_p, inputs, cots, retain_graph=True),
+            backward_k, lambda: torch.autograd.grad(outs_p, inputs, cots, retain_graph=True),
             reps, warmup=1)
         grads = {"gn_bwd": "dx, dscale, dbias", "lstm_bwd": "dgxf, dgxb, dwh, dbh",
                  "gru_bwd": "dgxf, dgxb, dwh, dbh"}.get(name, "dgx, dwh, dbh")
         text = keep(results, name, label, err, ms, plain_ms, work, rel_err=rel)
+        row = results[name]["shapes"][label]
+        if rnn is None:
+            text += device_times(row, backward_k)
+        else:
+            text += rnn_bwd_routes(row, name, label, rnn, cots, grads_p)
+        if next(iter(results[name]["shapes"])) == label:    # the main path's shape
+            results[name].update({k: v for k, v in row.items() if k not in results[name]})
         print(f"[kernel] {label}: grads ({grads}) max_abs_err {err:.3e}, relative "
               f"to max|grad| {rel:.3e} (tol {tol:.0e}: {why}) | "
-              f"backward kernel {ms:.4f} ms | plain backward {plain_ms:.4f} ms | "
+              f"backward pass {ms:.4f} ms | plain backward {plain_ms:.4f} ms | "
               f"x{plain_ms / ms:.2f} | {text}")
         if not rel <= tol:
             fail(f"{label}: gradient error {rel:.3e} of max|grad| > tol {tol:.0e}")
         del outs_k, outs_p, grads_k, grads_p
+
+
+def rnn_bwd_routes(row: dict, name: str, label: str, rnn, cots, grads_p) -> str:
+    """The route the LSTM or GRU backward wrapper just took at this shape
+    (failing unless it is the one ``RNN_ROUTES`` names for the width), and
+    with it, on what the training forward saves for these inputs: two calls
+    of the kernel alone (``_backward``, the weight gradients included) must
+    give the same bits; the streaming backward (route 0) on the same inputs,
+    its gradient error against the plain version; both timed in turns
+    between CUDA events and on the device (``utils.profiling.device_time``);
+    the clusters of the resident backward the card runs at once.  -> text for
+    the kernel's line."""
+    import torch
+    from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
+    from aas_enhancement_tpu_torch.utils.profiling import device_time
+    entry, gx, m, wh, bh = rnn
+    cell = entry.split("_")[0]
+    h = wh.shape[1]
+    route = krnn._BACKWARD[entry].route
+    if route != RNN_ROUTES[cell][h]:
+        fail(f"{label}: H={h} took backward route {route}, not {RNN_ROUTES[cell][h]}")
+    with torch.no_grad():
+        _, saved = krnn._forward(entry, tuple(x.detach() for x in gx), m, wh.detach(),
+                                 bh.detach(), save=True)
+
+    def backward(r):      # the cotangents: (dy,) stacked, (dyf, dyb) time-major
+        dgx, dwh, dbh = krnn._backward(entry, m, wh.detach(), saved, cots, True, route=r)
+        return (torch.cat(dgx, dim=-1) if len(dgx) == 2 else dgx[0], dwh, dbh)
+
+    def kernel_only(r):
+        return krnn._backward(entry, m, wh.detach(), saved, cots, False, route=r)
+
+    first, again, stream = backward(None), backward(None), backward(0)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail(f"{label}: two calls of the backward kernel gave different bits")
+    s_rel = max((a - b).abs().max().item() / b.abs().max().item()
+                for a, b in zip(stream, grads_p))
+    if not s_rel <= BWD_TOL[name][0]:
+        fail(f"{label}: the streaming backward's gradient error {s_rel:.3e} of max|grad|")
+    row["kernel_route"] = f"resident, clusters of {route}" if route else "streaming"
+    row["clusters_at_once"] = krnn.resident_clusters_at_once(cell, h, route, backward=True)
+    row["kernel_ms"], row["streaming_ms"] = in_turns(lambda: backward(None),
+                                                     lambda: backward(0), 5, warmup=1)
+    # On the device: the backward kernel's own time (without the weight
+    # gradients' products and, where the profiler dropped events, for the
+    # GRU without dgh's stores).
+    row["device_ms"], row["device_ms_by"] = device_time(
+        lambda: backward(None), "res_bwd_kernel", alone=lambda: kernel_only(None))
+    row["streaming_device_ms"], by = device_time(
+        lambda: backward(0), "tm_bwd_kernel", alone=lambda: kernel_only(0))
+    row["streaming_rel_err"] = s_rel
+    dev, s_dev = row["device_ms"], row["streaming_device_ms"]
+    return (f" | route: {row['kernel_route']}, {row['clusters_at_once']} such clusters at "
+            f"once by cudaOccupancyMaxActiveClusters; same bits on two calls | the kernel "
+            f"alone (with dWh, dbh) {row['kernel_ms']:.4f} ms, on the device "
+            f"{dev:.4f} ms ({row['device_ms_by']}), {1e3 * dev / gx[0].shape[0]:.3f} us a "
+            f"step | streaming backward {row['streaming_ms']:.4f} ms, on the device "
+            f"{s_dev:.4f} ms ({by}) (gradient error {s_rel:.3e} of max|grad|), "
+            f"x{row['streaming_ms'] / row['kernel_ms']:.2f} between events, "
+            f"x{s_dev / dev:.2f} on the device")
 
 
 def kernels_conv_dw(device, gen, results: dict) -> None:

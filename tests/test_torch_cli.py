@@ -268,15 +268,60 @@ def test_trace_summary_merges_device_intervals():
         profiling.summarize_trace({"traceEvents": ev[3:4]})
 
 
+@pytest.mark.parametrize("dropped", [False, True])
+def test_device_time_reads_no_session_that_dropped_events(monkeypatch, dropped):
+    """A profiler session in which a kernel did not run the same number of
+    times in each call (here 4 of 5 calls: 0.8 a call) or that recorded no
+    device event is not read; after two such sessions the time comes from
+    CUDA events around the call that launches only the kernel to time."""
+    bad = [{"busy_ms": 0.9, "by_name": [("void k<1>()", 0.8, 0.8), ("copy", 0.1, 1.0)]},
+           RuntimeError("the trace holds no device events")]
+    good = {"busy_ms": 1.1, "by_name": [("void k<1>()", 1.0, 1.0), ("copy", 0.1, 2.0)]}
+    sessions = iter(bad if dropped else [bad[0], good])
+
+    def profile_call(*_):
+        s = next(sessions)
+        if isinstance(s, Exception):
+            raise s
+        return s
+
+    class Event:
+        def __init__(self, **_):
+            pass
+
+        def record(self):
+            pass
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, _):
+            return 1.25
+
+    monkeypatch.setattr(profiling, "profile_call", profile_call)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    alone = []
+    got = profiling.device_time(lambda: None, "k<1>", alone=lambda: alone.append(1))
+    if dropped:
+        assert got == (1.25, "events on a busy stream") and len(alone) == 6
+    else:
+        assert got == (1.0, "profiler") and not alone
+
+
 def test_profiler_needs_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profiling.main(["--batch", "1", "--seconds", "0.1"])
 
 
+@pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
-def test_rnn_bench_needs_a_gpu(monkeypatch, cell):
-    """The timing script measures on the card or raises: no CPU numbers."""
+def test_rnn_bench_needs_a_gpu(monkeypatch, cell, backward):
+    """The timing script measures on the card or raises, forward and
+    backward: no CPU numbers."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        rnn_bench.main(["--cell", cell, "--hidden", "16", "--frames", "3", "--batch", "1"])
+        rnn_bench.main(["--cell", cell, "--hidden", "16", "--frames", "3", "--batch", "1"]
+                       + ["--backward"] * backward)

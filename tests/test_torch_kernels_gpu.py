@@ -12,8 +12,10 @@ recognition forward's logits 1e-4 (STFT, enhancer and AM sums compound).
 Gradients of the backward kernels against autograd through the plain
 versions: 1e-5 of the largest |gradient| of each tensor plus rtol 1e-4
 (dh carried back through 40-60 steps of G-term f32 dot products; dWh sums
-T * B outer products).  conv_dw: 1e-4 of max|dW| (f32 sums over up to
-~1e5 positions, in the kernel's slice order and the plain version's).
+T * B outer products); the resident and the streaming backward against each
+other: 1e-4 of the largest |gradient| (each sums dh in its own order).
+conv_dw: 1e-4 of max|dW| (f32 sums over up to ~1e5 positions, in the
+kernel's slice order and the plain version's).
 """
 
 import pytest
@@ -154,11 +156,11 @@ def test_gru_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         g6 = torch.zeros(t, b, 18, device=cuda)
         krnn.gru_scan_tm(g6, g6, m, torch.zeros(2, 6, 18, device=cuda),
                          torch.zeros(2, 18, device=cuda))
-    with pytest.raises(ValueError, match="H % 4"):      # the backward's float4 whT
-        g6 = torch.zeros(t, b, 24, device=cuda)
-        krnn.lstm_scan_tm(g6, g6, m, torch.zeros(2, 6, 24, device=cuda,
-                                                 requires_grad=True),
-                          torch.zeros(2, 24, device=cuda))[0].sum().backward()
+    with pytest.raises(ValueError, match="H % 4"):      # the streaming backward's float4 whT
+        g6, wh6 = torch.zeros(t, b, 24, device=cuda), torch.zeros(2, 6, 24, device=cuda)
+        ys, saved = krnn._forward("lstm_scan_tm", (g6, g6), m, wh6,
+                                  torch.zeros(2, 24, device=cuda), save=True)
+        krnn._backward("lstm_scan_tm", m, wh6, saved, ys, True, route=0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -215,7 +217,8 @@ def test_lstm_forward_routes(cuda, t, b, h, route, stacked):
     ys, ys_p = run(fn), run(plain)                              # the training variant
     got, ref = _grads(ys, (gx, wh, bh), 9), _grads(ys_p, (gx, wh, bh), 9)
     torch.cuda.synchronize()
-    assert fn.route == route
+    bwd = krnn.lstm_scan_stacked_bwd if stacked else krnn.lstm_scan_tm_bwd
+    assert fn.route == route and bwd.route == route       # H = 512: both passes stream
     for y, y_i, y_p in zip(ys, y_inf, ys_p):
         torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
         assert torch.equal(y_i, y.detach())
@@ -297,7 +300,8 @@ def test_gru_forward_routes(cuda, t, b, h, stacked):
     ys, ys_p = run(fn), run(plain)                              # the training variant
     got, ref = _grads(ys, (gx, wh, bh), 9), _grads(ys_p, (gx, wh, bh), 9)
     torch.cuda.synchronize()
-    assert fn.route == route
+    bwd = krnn.gru_scan_stacked_bwd if stacked else krnn.gru_scan_tm_bwd
+    assert fn.route == route and bwd.route == route
     for y, y_i, y_a, y_p in zip(ys, y_inf, y_again, ys_p):
         torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
         assert torch.equal(y_i, y.detach()) and torch.equal(y_i, y_a)
@@ -426,6 +430,93 @@ def test_stacked_rnn_kernels(cuda, cell, t, b, h):
     assert torch.equal(y_inf, y.detach())
     _assert_grads_close(got, ref)
     assert torch.all(got[0][3:, 0, 2] == 0) and torch.all(got[0][:t - 3, 1, 2] == 0)
+
+
+BWD_CLUSTER = {64: 2, 128: 4, 256: 8, 512: 16}
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("b", [5, 32])
+@pytest.mark.parametrize("cell,h", [("gru", 64), ("gru", 128), ("gru", 256), ("gru", 512),
+                                    ("lstm", 64), ("lstm", 128), ("lstm", 256)])
+def test_resident_backward(cuda, cell, h, b, stacked):
+    """The resident backward at every cluster size, on what the training
+    forward saved: dgx, dwh, dbh against autograd through the plain version
+    (ragged lengths with an all-padded row, non-zero bh; B = 5 leaves a tile
+    with padded rows, B = 32 runs 8 tiles a direction, in waves at H = 512);
+    two calls give the same bits; without the weight gradient (a frozen GRU:
+    no dgh) dgx keeps its bits; the streaming backward (route 0) agrees
+    within 1e-4 of max|grad|."""
+    g, t = (4 if cell == "lstm" else 3), 37
+    name = f"{cell}_scan_{'stacked' if stacked else 'tm'}"
+    route = krnn.bwd_resident_cluster(cell, h)
+    assert route == BWD_CLUSTER[h]
+    wh = _randn(2, h, g * h, seed=h + 21, scale=h ** -0.5).to(cuda)
+    bh = _randn(2, g * h, seed=h + 22, scale=0.1).to(cuda)
+    lengths = torch.tensor([t, t // 2 + 1, 0, t, 1, t - 1, 2, t] * 4, device=cuda)[:b]
+    m = (torch.arange(t, device=cuda)[:, None] < lengths[None]).float()
+    if stacked:
+        gx = (_randn(t, 2, b, g * h, seed=h + 23, scale=0.5).to(cuda),)
+        m = torch.stack([m, m.flip(0)], dim=1).contiguous()
+        plain = krnn.lstm_scan_stacked_plain if cell == "lstm" else krnn.gru_scan_stacked_plain
+        run_plain = lambda x, w, v: (plain(*x, m, w, v),)                     # noqa: E731
+    else:
+        full = _randn(t, b, 2 * g * h, seed=h + 23, scale=0.5).to(cuda)
+        gx = (full[..., :g * h], full[..., g * h:])
+        plain = krnn.lstm_scan_tm_plain if cell == "lstm" else krnn.gru_scan_tm_plain
+        run_plain = lambda x, w, v: plain(*x, m, w, v)                        # noqa: E731
+    ys, saved = krnn._forward(name, gx, m, wh, bh, save=True)
+    dys = tuple(_randn(*y.shape, seed=h + 24 + i).to(cuda) for i, y in enumerate(ys))
+    bwd = krnn._BACKWARD[name]
+    before = bwd.launches
+    got = krnn._backward(name, m, wh, saved, dys, True)
+    assert bwd.route == route
+    again = krnn._backward(name, m, wh, saved, dys, True)
+    frozen = krnn._backward(name, m, wh, saved, dys, False)
+    stream = krnn._backward(name, m, wh, saved, dys, True, route=0)
+    assert bwd.route == 0 and bwd.launches == before + 4
+    inputs = [x.detach().clone().requires_grad_() for x in (*gx, wh, bh)]
+    ref = torch.autograd.grad(run_plain(inputs[:-2], *inputs[-2:]), inputs, dys)
+    torch.cuda.synchronize()
+
+    def flat(out):
+        return (*out[0], out[1], out[2])
+
+    _assert_grads_close(flat(got), ref)
+    assert all(torch.equal(x, y) for x, y in zip(flat(got), flat(again)))
+    assert frozen[1] is None and frozen[2] is None
+    assert all(torch.equal(x, y) for x, y in zip(frozen[0], got[0]))
+    for x, y in zip(flat(stream), flat(got)):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-4 * float(y.abs().max()))
+    row = (slice(None), slice(None), 2) if stacked else (slice(None), 2)
+    assert all(torch.all(x[row] == 0) for x in got[0])        # the all-padded row
+
+
+def test_backward_refused_route_raises(cuda):
+    """The backward's private route argument: a cluster that does not divide
+    H, one that leaves a block more than 32 units, and the LSTM at H = 512 on
+    clusters of 16 (512 threads of 128 weights: more registers than an SM
+    has) are refused by the launcher and the wrapper raises, launching
+    nothing.  The occupancy calculator finds room for the AM's and the
+    enhancer's resident backward."""
+    t, b = 4, 3
+    for cell, h, refused in (("gru", 64, 3), ("gru", 64, 1), ("lstm", 64, 3),
+                             ("lstm", 512, 16)):
+        g = 4 if cell == "lstm" else 3
+        name = f"{cell}_scan_tm"
+        gx = _randn(t, b, 2 * g * h, seed=1, scale=0.5).to(cuda)
+        m = torch.ones(t, b, device=cuda)
+        wh = _randn(2, h, g * h, seed=2, scale=h ** -0.5).to(cuda)
+        ys, saved = krnn._forward(name, (gx[..., :g * h], gx[..., g * h:]), m, wh,
+                                  torch.zeros(2, g * h, device=cuda), save=True)
+        before = krnn._BACKWARD[name].launches
+        with pytest.raises(RuntimeError, match=f"resident, clusters of {refused}"):
+            krnn._backward(name, m, wh, saved, ys, True, route=refused)
+        assert krnn._BACKWARD[name].launches == before
+    assert krnn.resident_clusters_at_once("gru", 512, backward=True) >= 1
+    assert krnn.resident_clusters_at_once("lstm", 256, backward=True) >= 1
+    with pytest.raises(RuntimeError, match="clusters of 16"):
+        krnn.resident_clusters_at_once("lstm", 512, cluster=16, backward=True)
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])

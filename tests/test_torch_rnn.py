@@ -208,17 +208,20 @@ def test_gru_cpu_tensor_takes_plain_version():
     assert krnn.gru_scan_tm.launches == before
 
 
+@pytest.mark.parametrize("h", [8, 16, 64])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
-def test_plain_gradients_match_pallas_vjp_interpret(cell):
+def test_plain_gradients_match_pallas_vjp_interpret(cell, h):
     """dgxf, dgxb, dwh, dbh of autograd through the plain version against
     jax.vjp of the Pallas lstm_scan_tm / gru_scan_tm (interpret mode), with a
     ragged mask and non-zero bh: the math the backward kernels B1' / B2'
-    implement, and that the card tests hold them to."""
-    t, b, h = 12, 3, 8
+    implement, and that the card tests hold them to, at widths one block
+    (8, 16) and a cluster of two blocks (64) hold on the card.  wh shrinks
+    as 1 / sqrt(H), so every width keeps the gates out of saturation."""
+    t, b = 12, 3
     g = 4 if cell == "lstm" else 3
     rng = np.random.default_rng(23 + g)
     gxf, gxb = (0.5 * rng.standard_normal((2, t, b, g * h))).astype(np.float32)
-    wh = (0.3 * rng.standard_normal((2, h, g * h))).astype(np.float32)
+    wh = (0.3 * (8 / h) ** 0.5 * rng.standard_normal((2, h, g * h))).astype(np.float32)
     bh = (0.1 * rng.standard_normal((2, g * h))).astype(np.float32)
     lengths = np.array([t, 7, 2])
     m = (np.arange(t)[:, None] < lengths[None]).astype(np.float32)
@@ -239,24 +242,25 @@ def test_plain_gradients_match_pallas_vjp_interpret(cell):
 
 def _stacked_inputs(cell, t, b, h, seed):
     """gx [T, 2, B, G*H], m [T, 2, B] with direction 1 flipped (left-padded),
-    wh, non-zero bh."""
+    wh (0.3 at H = 8, shrinking as 1 / sqrt(H)), non-zero bh."""
     g = 4 if cell == "lstm" else 3
     rng = np.random.default_rng(seed)
     gx = (0.5 * rng.standard_normal((t, 2, b, g * h))).astype(np.float32)
-    wh = (0.3 * rng.standard_normal((2, h, g * h))).astype(np.float32)
+    wh = (0.3 * (8 / max(h, 8)) ** 0.5 * rng.standard_normal((2, h, g * h))).astype(np.float32)
     bh = (0.1 * rng.standard_normal((2, g * h))).astype(np.float32)
     lengths = np.array([t, 7, 2, t - 1][:b])
     m0 = (np.arange(t)[:, None] < lengths[None]).astype(np.float32)
     return gx, np.stack([m0, m0[::-1]], axis=1), wh, bh
 
 
+@pytest.mark.parametrize("h", [8, 16, 64])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
-def test_stacked_plain_matches_pallas_interpret(cell):
+def test_stacked_plain_matches_pallas_interpret(cell, h):
     """Values and all gradients (dgx, dwh, dbh) of the stacked plain versions
     against lstm_scan_pallas / gru_scan_pallas and their VJPs in interpret
     mode: ragged lengths, direction 1 left-padded, non-zero bh.  The math
     that the stacked kernels implement and the card tests hold them to."""
-    t, b, h = 12, 3, 8
+    t, b = 12, 3
     gx, m, wh, bh = _stacked_inputs(cell, t, b, h, seed=31)
     cot = np.random.default_rng(5).standard_normal((t, 2, b, h)).astype(np.float32)
     pallas = lstm_scan_pallas if cell == "lstm" else gru_scan_pallas
@@ -385,3 +389,65 @@ def test_gru_route_is_recorded_only_on_the_card():
         before = (fn.launches, fn.route)
         fn(*args, torch.zeros(2, h, 3 * h), torch.zeros(2, 3 * h))
         assert (fn.launches, fn.route) == before and fn.route is None
+
+
+LSTM_WIDTHS = [16, 32, 48, 64, 128, 192, 256, 512, 250, 33, 320, 1024]
+GRU_WIDTHS = [8, 16, 32, 64, 128, 250, 256, 320, 512, 1024]
+
+
+@pytest.mark.parametrize("cell,h", [("lstm", h) for h in LSTM_WIDTHS]
+                         + [("gru", h) for h in GRU_WIDTHS])
+def test_backward_route_follows_the_width(cell, h):
+    """The backward's route is a rule on H alone: the forward's cluster at
+    the same width, and the resident backward's own arithmetic holds there.
+    A block has one thread per input of dh (LSTM) or per two (GRU), whole
+    warps, at least 128 (4 rows x 32 slots of the cell backward) and at most
+    256, so that each keeps its weights, 128 (LSTM) or 192 (GRU) floats, in
+    registers: 256 threads x 255 registers fit the SM's 65,536.  Its shared
+    memory holds the partials of dh and the gate gradients twice: 18 KB at
+    the AM's 512.  The LSTM at 512 and both cells at 1024 stream."""
+    fwd = (krnn.lstm_resident_cluster if cell == "lstm" else krnn.gru_resident_cluster)(h)
+    route = krnn.bwd_resident_cluster(cell, h)
+    assert route == fwd
+    gates, outputs = (4, 1) if cell == "lstm" else (3, 2)
+    # csrc/rnn_cluster.cuh::res_bwd_threads, ::res_bwd_smem
+    threads = max(128, 32 * -(-h // (32 * outputs)))
+    smem = 16 * (2 * h + 2 * gates * 32) + 16
+    if route:
+        assert h % route == 0 and h // route <= 32
+        assert threads % 32 == 0 and 128 <= threads <= 256 and threads * outputs >= h
+        assert threads * 255 <= 65536 and outputs * gates * 32 <= 192
+        assert smem <= 232448
+    if (cell, h) in (("gru", 512), ("lstm", 256)):
+        assert (route, threads) == (16 if cell == "gru" else 8, 256)
+    if (cell, h) == ("gru", 512):
+        assert smem == 19472
+    if (cell, h) in (("lstm", 512), ("lstm", 1024), ("gru", 1024)):
+        assert route == 0 and threads > 256        # the streaming backward
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_backward_wrappers_launch_nothing_on_the_cpu(cell, stacked):
+    """On the CPU autograd differentiates the plain version: the backward
+    wrappers launch nothing and record no route, and the gradients are the
+    plain version's."""
+    t, b, h = 6, 2, 8
+    gx, m, wh, bh = (torch.from_numpy(a) for a in _stacked_inputs(cell, t, b, h, seed=3))
+    gx.requires_grad_()
+    wh.requires_grad_()
+    if stacked:
+        scan = krnn.lstm_scan_stacked if cell == "lstm" else krnn.gru_scan_stacked
+        bwd = krnn.lstm_scan_stacked_bwd if cell == "lstm" else krnn.gru_scan_stacked_bwd
+        run = lambda f: f(gx, m, wh, bh)                                  # noqa: E731
+        plain = krnn.lstm_scan_stacked_plain if cell == "lstm" else krnn.gru_scan_stacked_plain
+    else:
+        scan = krnn.lstm_scan_tm if cell == "lstm" else krnn.gru_scan_tm
+        bwd = krnn.lstm_scan_tm_bwd if cell == "lstm" else krnn.gru_scan_tm_bwd
+        run = lambda f: sum(f(gx[:, 0], gx[:, 1], m[:, 0], wh, bh))       # noqa: E731
+        plain = krnn.lstm_scan_tm_plain if cell == "lstm" else krnn.gru_scan_tm_plain
+    before = (bwd.launches, bwd.route)
+    got = torch.autograd.grad(run(scan).sum(), (gx, wh))
+    ref = torch.autograd.grad(run(plain).sum(), (gx, wh))
+    assert (bwd.launches, bwd.route) == before and bwd.route is None
+    assert all(torch.equal(a, r) for a, r in zip(got, ref))
