@@ -3,7 +3,7 @@
 
 On a CUDA device the path runs through four hand-written kernels: the STFT
 and ISTFT (``csrc/stft.cu``, ``csrc/istft.cu``), masked GroupNorm +
-leaky_relu (``ops/triton/gn.py``) and the BiLSTM recurrence
+leaky_relu (``csrc/gn.cu``, one cooperative launch) and the BiLSTM recurrence
 (``csrc/lstm_tm.cu``).  The convolutions and the dense products are
 ``F.conv2d`` and ``torch.matmul``.  On the CPU every kernel's plain version
 runs instead.

@@ -1,0 +1,156 @@
+"""Masked GroupNorm + activation, forward: the CUDA kernel (``csrc/gn.cu``) and
+the plain version.
+
+Replaces ``aas_enhancement_tpu/ops/pallas/gn_kernel.py::masked_group_norm_act``
+forward (``_lane_stats``, ``_finalize_stats``, ``_apply``).  For a CUDA
+tensor ``masked_group_norm_act`` launches one cooperative kernel that sums
+x and x^2 over the valid frames, passes a grid-wide barrier, finalizes the
+per-(batch, group) statistics (count lengths * F * C/G, var = E[x^2] -
+mean^2 clamped at 0, eps inside the rsqrt) and applies
+y = act(x * inv_c + off_c) with act leaky_relu(slope) or hardtanh(0, 20), 0 on
+padded frames; see the source for the design.  It is the only device kernel
+of a forward call: the wrapper allocates the output and one scratch buffer
+(the per-(b, c) mean and inv the backward reads, and the per-item partial
+sums) and reads the lengths in the integer type it is given.  Where a
+gradient is wanted the call goes through ``_GNActFn``, whose backward is the
+Triton kernel pair ``ops/triton/gn.py::masked_group_norm_act_bwd``.  A CPU
+tensor runs ``masked_group_norm_act_plain``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_kernel
+from aas_enhancement_tpu_torch.ops.masking import time_mask
+from aas_enhancement_tpu_torch.ops.triton.gn import ACTS, masked_group_norm_act_bwd
+from aas_enhancement_tpu_torch.utils import kernel_build
+
+ROWS_PER_ITEM = 8      # frames per work item: kRows in csrc/gn.cu
+
+
+def _activate(y: torch.Tensor, act: str, slope: float) -> torch.Tensor:
+    if act == "leaky_relu":
+        return torch.where(y >= 0, y, slope * y)
+    if act == "hardtanh":
+        return torch.clamp(y, 0.0, 20.0)
+    return y
+
+
+def _group_stats(s1_g: torch.Tensor, s2_g: torch.Tensor, lengths: torch.Tensor,
+                 f: int, c: int, g: int, eps: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(B, G) sums -> per-(B, G) (mean, inv = 1/sqrt(var + eps))."""
+    count = torch.clamp(lengths.to(torch.float32) * (f * (c // g)), min=1.0)[:, None]
+    mean = s1_g / count
+    var = torch.clamp(s2_g / count - mean ** 2, min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def masked_group_norm_act_plain(x: torch.Tensor, scale: torch.Tensor,
+                                bias: torch.Tensor, lengths: torch.Tensor, *,
+                                num_groups: int, eps: float = 1e-5,
+                                act: str = "none", slope: float = 0.2) -> torch.Tensor:
+    """Plain PyTorch version: same math as ``ops/norm.py::MaskedGroupNorm`` in JAX."""
+    b, t, f, c = x.shape
+    g = num_groups
+    mask = time_mask(lengths, t, torch.float32)[:, :, None, None]
+    xm = (x.to(torch.float32) * mask).reshape(b, t, f, g, c // g)
+    mean, inv = _group_stats(xm.sum(dim=(1, 2, 4)), (xm * xm).sum(dim=(1, 2, 4)),
+                             lengths, f, c, g, eps)
+    inv_c = inv.repeat_interleave(c // g, dim=1) * scale
+    off_c = bias - (mean * inv).repeat_interleave(c // g, dim=1) * scale
+    y = (x * inv_c[:, None, None, :] + off_c[:, None, None, :]) * mask
+    return _activate(y, act, slope)
+
+
+def _gn_cuda(x, scale, bias, lengths, g, eps, act, slope):
+    """The kernel -> (y, scratch): scratch [2 B C + partials] holds the mean
+    and the inv per (B, C) (``_stats``), then the per-item partial sums."""
+    b, t, f, c = x.shape
+    y = torch.empty_like(x)
+    n_part = b * -(-t // ROWS_PER_ITEM) * g * 2
+    scratch = torch.empty(2 * b * c + n_part, dtype=torch.float32, device=x.device)
+    mean = scratch.data_ptr()
+    err = kernel_build.load_library().aas_gn_act_fwd(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
+        int(lengths.dtype == torch.int64), y.data_ptr(), mean, mean + 4 * b * c,
+        mean + 8 * b * c, n_part, b, t, f, c, g, eps, ACTS[act], slope,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernel_build.check(err, "aas_gn_act_fwd (cooperative launch)")
+    return y, scratch
+
+
+def _stats(scratch: torch.Tensor, b: int, c: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward's (mean, inv), each [B, C], from its scratch."""
+    return scratch[: 2 * b * c].view(2, b, c).unbind(0)
+
+
+class _GNActFn(torch.autograd.Function):
+    """B3 forward (the CUDA kernel), B3' backward (the Triton kernels)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, lengths, num_groups, eps, act, slope):
+        y, scratch = _gn_cuda(x, scale, bias, lengths, num_groups, eps, act, slope)
+        ctx.save_for_backward(x, scale, bias, lengths,
+                              *_stats(scratch, x.shape[0], x.shape[3]))
+        ctx.cfg = dict(num_groups=num_groups, act=act, slope=slope)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias, lengths, mean, inv = ctx.saved_tensors
+        dx, dscale, dbias = masked_group_norm_act_bwd(x, dy, scale, bias, lengths,
+                                                      mean, inv, **ctx.cfg)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dscale if need[1] else None,
+                dbias if need[2] else None, None, None, None, None, None)
+
+
+def masked_group_norm_act(x: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, lengths: torch.Tensor, *,
+                          num_groups: int, eps: float = 1e-5,
+                          act: str = "none", slope: float = 0.2) -> torch.Tensor:
+    """Masked GroupNorm + activation over [B, T, F, C].
+
+    A CUDA tensor runs the kernel, one launch a call, counted in
+    ``.launches`` (where a gradient is wanted through ``_GNActFn``, whose
+    backward is ``masked_group_norm_act_bwd``); a CPU tensor runs
+    ``masked_group_norm_act_plain``.
+    """
+    if x.ndim != 4 or x.shape[-1] % num_groups:
+        raise ValueError(f"needs [B, T, F, C] with C % {num_groups} == 0, "
+                         f"got {tuple(x.shape)}")
+    if act not in ACTS:
+        raise ValueError(f"unknown act {act!r}")
+    if not uses_kernel("masked_group_norm_act", x):
+        return masked_group_norm_act_plain(x, scale, bias, lengths,
+                                           num_groups=num_groups, eps=eps,
+                                           act=act, slope=slope)
+    check_kernel_inputs("masked_group_norm_act", (x, scale, bias), backward=None)
+    b, t, f, c = x.shape
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("masked_group_norm_act: needs a contiguous, 16-byte aligned x")
+    if c % 4 or c > 256 or num_groups > 32 or x.numel() == 0:
+        raise ValueError(f"masked_group_norm_act: the kernel takes C % 4 == 0, C <= 256, "
+                         f"at most 32 groups and a non-empty x, got {tuple(x.shape)}, "
+                         f"{num_groups} groups")
+    if scale.shape != (c,) or bias.shape != (c,):
+        raise ValueError("masked_group_norm_act: scale/bias must be [C]")
+    if lengths.shape != (b,):
+        raise ValueError("masked_group_norm_act: lengths must be [B]")
+    if lengths.dtype not in (torch.int32, torch.int64):
+        lengths = lengths.to(torch.int64)
+    if lengths.device != x.device:
+        lengths = lengths.to(x.device)
+    lengths = lengths.contiguous()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    if torch.is_grad_enabled() and any(v.requires_grad for v in (x, scale, bias)):
+        y = _GNActFn.apply(x, scale, bias, lengths, num_groups, eps, act, slope)
+    else:
+        y = _gn_cuda(x, scale, bias, lengths, num_groups, eps, act, slope)[0]
+    masked_group_norm_act.launches += 1
+    return y
+
+
+masked_group_norm_act.launches = 0

@@ -7,18 +7,21 @@ and the plain segment-DFT (``dsp/stft.py``, re-exported as ``stft_plain`` and
 ``istft_plain``) for a CPU tensor.  Each wrapper counts its launches in
 ``.launches``.
 
-The STFT kernel computes each frame's transform in two stages for n_fft =
+Both kernels compute each frame's transform in two stages for n_fft =
 n1 * n2 (``stft_factors`` picks the pair that needs the fewest operations;
-320 = 32 x 10) and takes the direct sum only where no pair saves operations
-(a prime n_fft); the rule is on n_fft alone and ``stft.route`` holds the
-last launch's (n1, n2), (0, 0) for direct.  Its bases come from one f32 table
-built on the host once per (n_fft, device) (``dft_table``), and the center
-reflect pad is index arithmetic inside the kernel's loads, so the wrapper
-launches one kernel and no copy.  ``stft_factorised_plain`` follows the
-kernel's arithmetic step by step in plain PyTorch (index maps, twiddles,
-real-input symmetry, mirrored indices) and is what the CPU tests hold to
-``stft_plain``.  The center trim and length padding happen after the ISTFT
-kernel, as in the Pallas wrapper.
+320 = 32 x 10), the ISTFT as the adjoint of the STFT's stages, and take the
+direct sum only where no pair saves operations (a prime n_fft) or, for the
+ISTFT, where more than 8 frames cover a sample (``istft_route``); the rule is
+on the shape alone and ``stft.route`` / ``istft.route`` hold the last
+launch's (n1, n2), (0, 0) for direct.  Their bases come from one f32 table
+built on the host once per (n_fft, device) (``dft_table``).  The STFT's
+center reflect pad is index arithmetic inside the kernel's loads, and the
+ISTFT kernel writes the trimmed output (center trim, then cut or zero-pad to
+``length``), so each wrapper launches one kernel and no copy.
+``stft_factorised_plain`` and ``istft_factorised_plain`` follow the kernels'
+arithmetic step by step in plain PyTorch (index maps, twiddles, real-input
+symmetry, mirrored indices) and are what the CPU tests hold to the plain
+segment DFT and to the JAX package.
 """
 
 from __future__ import annotations
@@ -29,12 +32,16 @@ import numpy as np
 import torch
 
 from aas_enhancement_tpu_torch.dsp.stft import (
-    _check_hop, get_window, istft as istft_plain, num_frames, stft as stft_plain, trim)
+    _check_hop, cola_norm, get_window, istft as istft_plain, num_frames, stft as stft_plain,
+    trim)
 from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_kernel
 from aas_enhancement_tpu_torch.utils import kernel_build
 
 __all__ = ["stft", "istft", "stft_plain", "istft_plain", "stft_factorised_plain",
-           "stft_factors", "dft_table", "reflect_index"]
+           "istft_factorised_plain", "stft_factors", "istft_route", "dft_table",
+           "reflect_index"]
+
+ISTFT_MAX_OVERLAP = 8      # frames over a sample that the factorised ISTFT kernel takes
 
 
 @functools.lru_cache(maxsize=8)
@@ -73,6 +80,14 @@ def stft_factors(n_fft: int) -> tuple[int, int]:
         if cost < best_cost:
             best, best_cost = (n1, n2), cost
     return best
+
+
+def istft_route(n_fft: int, hop_length: int) -> tuple[int, int]:
+    """The ISTFT kernel's route: ``stft_factors(n_fft)`` where at most
+    ``ISTFT_MAX_OVERLAP`` frames cover a sample, else (0, 0), the direct sum."""
+    if n_fft // hop_length > ISTFT_MAX_OVERLAP:
+        return 0, 0
+    return stft_factors(n_fft)
 
 
 def reflect_index(pos: torch.Tensor, n: int) -> torch.Tensor:
@@ -129,6 +144,56 @@ def stft_factorised_plain(x: torch.Tensor, n_fft: int, hop_length: int,
     return re, im
 
 
+def istft_factorised_plain(re: torch.Tensor, im: torch.Tensor, n_fft: int,
+                           hop_length: int, window: str = "hann", center: bool = True,
+                           length: int | None = None) -> torch.Tensor:
+    """The ISTFT kernel's arithmetic in plain PyTorch: (re, im)
+    [B, T, n_fft//2+1] -> wav [B, num_samples].  Spectra scaled by 1/n_fft and
+    extended by Y[N - k] = conj(Y[k]); for n_fft = n1 n2, n = n2 i1 + i2 and
+    k = k1 + n1 k2: n2-point complex inverse DFTs over k2 for k1 <= n1/2, the
+    twiddles conj(W_N^(i2 k1)), the rows 0 < k1 < n1/2 weighted 2 for their
+    mirrors, and n1-point DFTs keeping the real part; the direct sum (weights
+    1 at DC and Nyquist, 2 elsewhere) from the same table where ``istft_route``
+    gives (0, 0).  Then window, overlap-add, COLA divide and trim."""
+    _check_hop(n_fft, hop_length)
+    sre = re.to(torch.float32) / n_fft
+    sim = im.to(torch.float32) / n_fft
+    b, t, n_bins = sre.shape
+    tab = torch.from_numpy(dft_table(n_fft)).to(sre.device)
+    n1, n2 = istft_route(n_fft, hop_length)
+    if n1 == 0:
+        k = torch.arange(n_bins)
+        g = torch.where((k == 0) | (2 * k == n_fft), 1.0, 2.0).to(sre.device)
+        idx = (torch.arange(n_fft)[None] * k[:, None]) % n_fft              # [k, n]
+        frames = (sre * g) @ tab[idx, 0] + (sim * g) @ tab[idx, 1]
+    else:
+        ks1 = torch.arange(n1 // 2 + 1)
+        k = ks1[:, None] + n1 * torch.arange(n2)[None]                      # [k1, k2]
+        mirrored = (2 * k > n_fft).to(sre.device)
+        src = torch.where(2 * k > n_fft, n_fft - k, k)
+        y_re = sre[..., src]                                                # [.., k1, k2]
+        y_im = torch.where(mirrored, -sim[..., src], sim[..., src])
+        w2 = tab[((torch.arange(n2)[:, None] * torch.arange(n2)[None]) % n2) * n1]   # [k2, i2]
+        b_re = y_re @ w2[..., 0] + y_im @ w2[..., 1]                        # [.., k1, i2]
+        b_im = y_im @ w2[..., 0] - y_re @ w2[..., 1]
+        tw = tab[ks1[:, None] * torch.arange(n2)[None]]                     # [k1, i2, 2]
+        g = torch.where((ks1 == 0) | (2 * ks1 == n1), 1.0, 2.0)[:, None].to(sre.device)
+        twx, twy = g * tw[..., 0], g * tw[..., 1]
+        v_re = b_re * twx + b_im * twy
+        v_im = b_im * twx - b_re * twy
+        w1 = tab[((torch.arange(n1)[:, None] * ks1[None]) % n1) * n2]       # [i1, k1, 2]
+        x = (torch.einsum("btkj,ik->btij", v_re, w1[..., 0])
+             + torch.einsum("btkj,ik->btij", v_im, w1[..., 1]))             # [.., i1, i2]
+        frames = x.reshape(b, t, n_fft)
+    frames = frames * torch.from_numpy(get_window(window, n_fft)).to(sre.device)
+    k_ov = n_fft // hop_length
+    y = sre.new_zeros((b, t - 1 + k_ov, hop_length))
+    for q in range(k_ov):               # frame t - q covers hop-row t at offset q * hop
+        y[:, q: q + t] += frames[..., q * hop_length: (q + 1) * hop_length]
+    wsq = torch.from_numpy(cola_norm(t, n_fft, hop_length, window)).to(sre.device)
+    return trim(y.reshape(b, -1) / torch.clamp(wsq, min=1e-8), n_fft, center, length)
+
+
 def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: str = "hann",
          center: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """[B, num_samples] -> (re, im) each [B, T, n_fft//2+1]."""
@@ -167,7 +232,9 @@ stft.route = None
 def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
           window: str = "hann", center: bool = True,
           length: int | None = None) -> torch.Tensor:
-    """(re, im) [B, T, n_fft//2+1] -> wav [B, num_samples]."""
+    """(re, im) [B, T, n_fft//2+1] -> wav [B, num_samples]: the overlap-add
+    buffer [(T-1)*hop + n_fft] with the center trim (n_fft//2 samples off its
+    head), then cut or zero-padded to ``length``."""
     if not uses_kernel("istft", re):
         return istft_plain(re, im, n_fft, hop_length, window, center, length)
     _check_hop(n_fft, hop_length)
@@ -175,18 +242,24 @@ def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
     if re.ndim != 3 or re.shape != im.shape or re.shape[2] != n_fft // 2 + 1:
         raise ValueError(f"istft: needs re, im [B, T, {n_fft // 2 + 1}], got "
                          f"{tuple(re.shape)}, {tuple(im.shape)}")
-    re, im = re.contiguous(), im.contiguous()
     b, t, _ = re.shape
-    y = torch.empty((b, (t - 1 + n_fft // hop_length) * hop_length),
-                    dtype=torch.float32, device=re.device)
-    win = _window(window, n_fft, re.device)
+    if t == 0:
+        raise ValueError("istft: needs at least one frame")
+    re, im = re.contiguous(), im.contiguous()
+    shift = n_fft // 2 if center else 0
+    out_len = (t - 1 + n_fft // hop_length) * hop_length - shift if length is None else length
+    y = torch.empty((b, out_len), dtype=torch.float32, device=re.device)
+    n1, n2 = istft_route(n_fft, hop_length)
     err = kernel_build.load_library().aas_istft(
-        re.data_ptr(), im.data_ptr(), win.data_ptr(), y.data_ptr(),
-        b, t, n_fft, hop_length,
-        torch.cuda.current_stream(re.device).cuda_stream)
-    kernel_build.check(err, "aas_istft")
+        re.data_ptr(), im.data_ptr(), _window(window, n_fft, re.device).data_ptr(),
+        _table(n_fft, re.device).data_ptr(), y.data_ptr(), b, t, n_fft, hop_length,
+        shift, out_len, n1, n2, torch.cuda.current_stream(re.device).cuda_stream)
+    kernel_build.check(err, f"aas_istft (n_fft {n_fft} = {n1} x {n2})" if n1
+                       else "aas_istft (direct)")
     istft.launches += 1
-    return trim(y, n_fft, center, length)
+    istft.route = (n1, n2)
+    return y
 
 
 istft.launches = 0
+istft.route = None

@@ -1,8 +1,9 @@
 """Length-masked GroupNorm (port of ``aas_enhancement_tpu/ops/norm.py``).
 
 Statistics come from valid frames only, so a padded batch gives the same
-outputs as per-utterance runs.  The math lives in ``ops/triton/gn.py``: the
-Triton kernels for a CUDA tensor, the plain version for a CPU tensor.
+outputs as per-utterance runs.  The math lives in ``ops/cuda/gn.py``: the
+CUDA kernel for a CUDA tensor (its backward the Triton kernels of
+``ops/triton/gn.py``), the plain version for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from aas_enhancement_tpu_torch.ops.triton.gn import masked_group_norm_act
+from aas_enhancement_tpu_torch.ops.cuda.gn import masked_group_norm_act
 
 
 class MaskedGroupNorm(nn.Module):

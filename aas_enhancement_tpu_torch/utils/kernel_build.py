@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C entry points: name -> argtypes.  Each returns its cudaError_t as an int
 # (aas_conv_dw_slices and the two aas_*_res_clusters a count).
@@ -37,8 +38,9 @@ SIGNATURES = {
     # x, win, table, re, im, batch, n_samples, n_frames, n_fft, hop, center,
     # n1, n2 (n1 * n2 = n_fft: the two-stage transform; 0, 0: the direct sum), stream
     "aas_stft": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # re, im, win, y, batch, n_frames, n_fft, hop, stream
-    "aas_istft": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # re, im, win, table, y, batch, n_frames, n_fft, hop, shift (the center
+    # trim), out_len, n1, n2 (as in aas_stft), stream
+    "aas_istft": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # The recurrences, time-major (two tensors per direction) or stacked (two
     # halves of one tensor); saved buffers NULL for inference:
     # gx0, gx1, gx_stride_t, gx_stride_b, m, wh, bh, y0, y1, hp, cp, act,
@@ -61,6 +63,11 @@ SIGNATURES = {
     # rows (B * T), Fo, kt, kf, ci, co, stride_f, multiprocessors -> slices
     # (not an error code; 0: the kernel does not take the shape)
     "aas_conv_dw_slices": (_I, _I, _I, _I, _I, _I, _I, _I),
+    # x, scale, bias, lengths, lengths are int64 (else int32), y, mean, inv,
+    # partials, partials' length, B, T, F, C, G, eps, act (0 none, 1 leaky_relu,
+    # 2 hardtanh), slope, stream: one cooperative launch
+    "aas_gn_act_fwd": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _I,
+                       _F, _P),
     # x, dy, part, dw, x strides (b, t, f), dy strides (b, t, f), B, T, F, Fo,
     # ci, co, kt, kf, stride_f, pad_t_low, pad_f_low, slices, stream
     "aas_conv_dw": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,

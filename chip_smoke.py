@@ -18,20 +18,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the kernel's device time from the profiler and the number of the route's
    clusters the card runs at once; further LSTM cases run B=6 (a
    partial row tile), B=32, H=64 and 128 (clusters of 2 and 4) and H=512 (the
-   streaming route), further GRU cases B=8 and B=32, a further STFT case hop
-   80; the STFT, ISTFT and GroupNorm lines also give the device time of the
-   kernel and of the library call from the profiler (one call between two
-   events reads mostly host time at a few microseconds);
+   streaming route), further GRU cases B=8 and B=32, further STFT and ISTFT
+   cases hop 80; the STFT, ISTFT and GroupNorm lines also give the device
+   time of the kernel and of the library call from the profiler (one call
+   between two events reads mostly host time at a few microseconds), the
+   STFT and ISTFT lines their route (n_fft 320 must take the two-stage
+   transform), the ISTFT and GroupNorm lines check the same bits on two calls;
 4. slice: the port's enhance CLI on a synthetic corpus with --device cuda,
    counting each kernel's launches (and failing unless the LSTM and, on the
    later paths, the 512-wide GRU took the resident route); then a full-width
-   B=4 x 8 s batch on the card against the same weights on the CPU, and the
-   batch's real-time factor;
+   B=4 x 8 s batch on the card against the same weights on the CPU, the
+   device kernels of one such call (the profiler's count, and those of the
+   GroupNorm forward and the ISTFT: one each a wrapper call), and the batch's
+   real-time factor;
 5. recognize: the port's evaluate CLI (noisy and enhanced WER, SI-SNR) on a
    synthetic corpus with --device cuda, counting each kernel's launches; then
    the recognition forward (enhancer + AM, 4 x BiGRU-512) at B=4 x 8 s on the
-   card against the same weights on the CPU (logits, greedy ids), and its
-   time per batch with and without the enhancer;
+   card against the same weights on the CPU (logits, greedy ids), the device
+   kernels of one call, and its time per batch with and without the enhancer;
 6. train: the port's train CLI (--objective aas, 3 steps, B=4) on a synthetic
    corpus with --device cuda, counting each kernel's launches (the backward
    kernels included); one AAS step's metrics and G and D gradients at
@@ -243,9 +247,9 @@ def phase_build():
     so = kernel_build.build()
     kernel_build.load_library()
     print(f"[build] {so} in {time.perf_counter() - t0:.1f} s | triton {triton.__version__}")
-    with open(so[:-3] + ".log") as f:
+    with open(so[:-3] + ".log") as f:        # each kernel's mangled name, then its use
         for line in f:
-            if "Used" in line or "spill" in line:
+            if "Compiling entry function" in line or "Used" in line or "spill" in line:
                 print(f"[build] ptxas: {line.strip()}")
 
 
@@ -272,13 +276,14 @@ RNN_ROUTES = {"lstm": {64: 2, 128: 4, 256: 8, 512: 0}, "gru": {512: 16}}
 def kernel_counters() -> dict:
     """The kernel wrappers of all paths, by kernel name."""
     from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
+    from aas_enhancement_tpu_torch.ops.cuda import gn
     from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
     from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
-    from aas_enhancement_tpu_torch.ops.triton import gn
+    from aas_enhancement_tpu_torch.ops.triton import gn as tgn
     return {"stft": kstft.stft, "istft": kstft.istft, "gn_act": gn.masked_group_norm_act,
             "lstm": krnn.lstm_scan_tm, "gru": krnn.gru_scan_tm,
             "lstm_bwd": krnn.lstm_scan_tm_bwd, "gru_bwd": krnn.gru_scan_tm_bwd,
-            "gn_bwd": gn.masked_group_norm_act_bwd, "conv_dw": kconv.conv_dw_same,
+            "gn_bwd": tgn.masked_group_norm_act_bwd, "conv_dw": kconv.conv_dw_same,
             "lstm_stacked": krnn.lstm_scan_stacked, "gru_stacked": krnn.gru_scan_stacked,
             "lstm_stacked_bwd": krnn.lstm_scan_stacked_bwd,
             "gru_stacked_bwd": krnn.gru_scan_stacked_bwd}
@@ -304,11 +309,11 @@ def counted(names, run) -> dict:
 def phase_kernels(device):
     import torch
     from aas_enhancement_tpu_torch.convert import init_like_flax
+    from aas_enhancement_tpu_torch.ops.cuda import gn
     from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
     from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
     from aas_enhancement_tpu_torch.ops.masking import time_mask
     from aas_enhancement_tpu_torch.ops.rnn import BiRNN
-    from aas_enhancement_tpu_torch.ops.triton import gn
 
     wav, lengths, gen = make_inputs(device)
     frames = 1 + lengths // 160
@@ -353,6 +358,7 @@ def phase_kernels(device):
         # (5 n log2 n), not the direct sum's that the kernels spend.
         dft_flops = B * t_len * 5.0 * 320 * math.log2(320)
         re80, im80 = kstft.stft_plain(wav, 320, 80)
+        gain80 = torch.rand(re80.shape, generator=torch.Generator().manual_seed(13)).to(device)
         # Further LSTM shapes: B=6 (tiles of 4 and 2 rows) at the enhancer's
         # width, and H=512, which no cluster of 8 holds (the streaming route).
         lens6 = torch.tensor(LENGTHS + [88000, 1600], device=device)
@@ -387,6 +393,12 @@ def phase_kernels(device):
                       (nbytes(re, im, wav), dft_flops),
                       lambda z=torch.complex(re * gain, im * gain).transpose(1, 2):
                       torch.istft(z, 320, 160, window=window, center=True, length=N)),
+            "istft hop 80": ("istft", kstft.istft, kstft.istft_plain,
+                             (re80 * gain80, im80 * gain80, 320, 80, "hann", True, N), {},
+                             (nbytes(re80, im80, wav), 2 * dft_flops),
+                             lambda z=torch.complex(re80 * gain80, im80 * gain80)
+                             .transpose(1, 2): torch.istft(z, 320, 80, window=window,
+                                                           center=True, length=N)),
             "gn_act": ("gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
                        (x_gn, scale, bias, frames), leaky,
                        (2 * nbytes(x_gn), 10.0 * x_gn.numel()), None),
@@ -446,13 +458,19 @@ def phase_kernels(device):
                                     reps)
             lib_ms = None if library is None else statistics.median(cuda_ms(library, reps))
             text = keep(results, name, label, err, ms, plain_ms, work, lib_ms)
-            if name == "stft":
+            if name in ("stft", "istft"):
                 n1, n2 = kernel.route
                 results[name]["shapes"][label]["kernel_route"] = f"two stages, {n1} x {n2}"
                 results[name].setdefault("kernel_route", f"two stages, {n1} x {n2}")
                 text += f" | route: 320 = {n1} x {n2}"
                 if not n1:
                     fail(f"{label}: n_fft 320 took the direct sum")
+            if name in ("istft", "gn_act"):
+                again = kernel(*args, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(again, k_out):
+                    fail(f"{label}: two calls of the kernel gave different bits")
+                text += " | same bits on two calls"
             if name in ("stft", "istft", "gn_act"):
                 row = results[name]["shapes"][label]
                 text += device_times(row, lambda: kernel(*args, **kw), library)
@@ -558,9 +576,9 @@ def kernels_backward(device, gen, results: dict) -> None:
     stacked-layout cases and the B=32 case come last and draw from generators
     of their own, so the other cases see the random numbers they always saw."""
     import torch
+    from aas_enhancement_tpu_torch.ops.cuda import gn
     from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
     from aas_enhancement_tpu_torch.ops.masking import time_mask
-    from aas_enhancement_tpu_torch.ops.triton import gn
 
     def randn(*shape, scale=1.0, gen=gen):
         return (scale * torch.randn(*shape, generator=gen)).to(device)
@@ -828,8 +846,20 @@ def phase_slice(device, card):
 
     full = torch.full((B,), N, device=device)
     wav_d = wav.to(device)
+    print_device_kernels("[slice]", "enhance call", lambda: fn_gpu(model_gpu, wav_d, full))
     time_batch("[slice]", "enhance", card, lambda: fn_gpu(model_gpu, wav_d, full))
     return launches
+
+
+def print_device_kernels(tag: str, what: str, fn) -> None:
+    """The device kernels of one profiled full-width call: their number, and
+    those of the GroupNorm forward and the ISTFT (one launch a wrapper call).
+    Late in this process the profiler has dropped events: a reading, no check."""
+    names = device_kernel_names(fn)
+    ours = {n[:40]: c for n, c in names.items() if "gn_act" in n or "istft" in n}
+    print(f"{tag} one B={B} x {SECONDS} s {what}: {sum(names.values())} device kernels "
+          f"by torch.profiler, {len(names)} names; GroupNorm forward and ISTFT: "
+          f"{json.dumps(ours)}")
 
 
 def time_batch(tag: str, what: str, card: str, fn) -> float:
@@ -919,6 +949,8 @@ def phase_recognize(device, card):
     full = torch.full((B,), N, device=device)
     wav_d = wav.to(device)
     fwd_noisy = make_eval_forward(cfg, use_enhancer=False)
+    print_device_kernels("[recognize]", "recognition forward (enhancer + AM)",
+                         lambda: fwd(am_gpu, enh_gpu, wav_d, full))
     time_batch("[recognize]", "recognition forward (enhancer + AM)", card,
                lambda: fwd(am_gpu, enh_gpu, wav_d, full))
     time_batch("[recognize]", "recognition forward (AM alone, noisy leg)", card,
@@ -1341,7 +1373,7 @@ def main() -> int:
                  "aas_enhancement_tpu/ops/pallas/stft_kernel.py:71"),
         "istft": ("cuda", "aas_enhancement_tpu_torch/csrc/istft.cu",
                   "aas_enhancement_tpu/ops/pallas/stft_kernel.py:160"),
-        "gn_act": ("triton", "aas_enhancement_tpu_torch/ops/triton/gn.py",
+        "gn_act": ("cuda", "aas_enhancement_tpu_torch/csrc/gn.cu",
                    "aas_enhancement_tpu/ops/pallas/gn_kernel.py:311"),
         "lstm": ("cuda", "aas_enhancement_tpu_torch/csrc/lstm_tm.cu",
                  "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:692"),

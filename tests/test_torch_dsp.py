@@ -1,5 +1,6 @@
 """Port parity: masking and STFT/ISTFT (aas_enhancement_tpu_torch.ops.masking,
-.dsp, .ops.cuda.stft) against the JAX package on the CPU.
+.dsp, .ops.cuda.stft and its kernels' factorised plain versions) against the
+JAX package on the CPU.
 
 Inputs come from numpy seeds and go through both.  Tolerances are f32
 tolerances: both sides sum 160-sample segment products in float32, in
@@ -150,6 +151,52 @@ def test_factorised_stft_matches_plain_and_jax(n_fft, hop, n, center, factors):
     for got, plain, ref in ((re_f, re_p, re_j), (im_f, im_p, im_j)):
         np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=1e-4)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
+
+
+# n_fft, hop, center, length, route: 320 at both hops with a length shorter
+# than, equal to and longer than the 16000-sample signal and none, uncentered,
+# another composite, and n_ffts whose route is the direct sum (a prime; more
+# than 8 frames over a sample).
+ISTFT_CASES = [(320, 160, True, 16000, (32, 10)), (320, 160, True, 15000, (32, 10)),
+               (320, 160, True, 17000, (32, 10)), (320, 160, True, None, (32, 10)),
+               (320, 80, True, 16000, (32, 10)), (320, 80, True, 17000, (32, 10)),
+               (320, 160, False, None, (32, 10)), (320, 80, False, 15000, (32, 10)),
+               (96, 48, True, None, (16, 6)), (97, 97, True, 3000, (0, 0)),
+               (320, 32, True, 16000, (0, 0))]
+
+
+@pytest.mark.parametrize("n_fft,hop,center,length,route", ISTFT_CASES)
+def test_factorised_istft_matches_plain_and_jax(n_fft, hop, center, length, route):
+    """The ISTFT kernel's arithmetic, step by step in plain PyTorch (inverse
+    two-stage transform of the conjugate-extended spectrum, row weights,
+    gather overlap-add, trim), against the plain segment DFT, the JAX istft
+    and, where n_fft = 2 hop, the Pallas istft_pallas in interpret mode:
+    1e-5 abs on unit-scale samples (f32 sums of 161 terms in different
+    orders) wherever the COLA divisor (the sum of window^2 over the frames) is
+    at least 0.5, which is every sample the enhance path keeps; 1e-4
+    relative at an untrimmed edge, where the divisor nears 0 and amplifies
+    the sum-order noise of these random spectra's samples (up to ~1e3)."""
+    assert kstft.istft_route(n_fft, hop) == route
+    rng = np.random.default_rng(n_fft + hop)
+    t = 1 + 16000 // hop
+    re, im = rng.standard_normal((2, 2, t, n_fft // 2 + 1)).astype(np.float32)
+    got = kstft.istft_factorised_plain(torch.from_numpy(re), torch.from_numpy(im), n_fft,
+                                       hop, center=center, length=length).numpy()
+    refs = [tstft.istft(torch.from_numpy(re), torch.from_numpy(im), n_fft, hop,
+                        center=center, length=length).numpy(),
+            np.asarray(jstft.istft(jnp.asarray(re), jnp.asarray(im), n_fft, hop,
+                                   center=center, length=length))]
+    if n_fft == 2 * hop:
+        refs.append(np.asarray(istft_pallas(jnp.asarray(re), jnp.asarray(im), n_fft, hop,
+                                            center=center, length=length, interpret=True)))
+    divisor = tstft.trim(torch.from_numpy(tstft.cola_norm(t, n_fft, hop, "hann"))[None],
+                         n_fft, center, length)[0].numpy()
+    inner = divisor >= 0.5
+    assert inner.any()
+    for ref in refs:
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got[..., inner], ref[..., inner], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("n_fft,factors", [(320, (32, 10)), (512, (32, 16)), (400, (25, 16)),

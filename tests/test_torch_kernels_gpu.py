@@ -7,7 +7,8 @@ machine without JAX run it without the suite's conftest:
 
 Tolerances are f32 sum-order tolerances (each kernel sums in its own order):
 STFT 1e-4 abs on |X| up to ~30, ISTFT 2e-5 abs + 1e-5 rel on unit-scale
-audio, GroupNorm 1e-5, LSTM and GRU 1e-5 on |y| < 1 over 20-60 steps, the
+audio (rel for the untrimmed edges, where the COLA divisor nears 0), GroupNorm
+1e-5, LSTM and GRU 1e-5 on |y| < 1 over 20-60 steps, the
 recognition forward's logits 1e-4 (STFT, enhancer and AM sums compound).
 Gradients of the backward kernels against autograd through the plain
 versions: 1e-5 of the largest |gradient| of each tensor plus rtol 1e-4
@@ -26,9 +27,10 @@ from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
 from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
 from aas_enhancement_tpu_torch.ops import conv as tconv
 from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
+from aas_enhancement_tpu_torch.ops.cuda import gn
 from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
 from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
-from aas_enhancement_tpu_torch.ops.triton import gn
+from aas_enhancement_tpu_torch.ops.triton import gn as tgn
 
 pytestmark = pytest.mark.gpu
 
@@ -79,6 +81,32 @@ def test_istft_kernel(cuda, length):
     y_p = kstft.istft_plain(re, im, 320, 160, length=length)
     torch.cuda.synchronize()
     torch.testing.assert_close(y, y_p, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("n_fft,hop,center,length,route", [
+    (320, 80, True, 16000, (32, 10)), (320, 80, True, None, (32, 10)),
+    (320, 160, False, None, (32, 10)), (320, 160, False, 20000, (32, 10)),
+    (96, 48, True, 9000, (16, 6)), (75, 25, True, None, (15, 5)),
+    (320, 64, True, 16000, (32, 10)),               # 5 frames a sample: 16 a block
+    (97, 97, True, 5000, (0, 0)), (320, 32, True, 16000, (0, 0))])   # direct sums
+def test_istft_kernel_routes(cuda, n_fft, hop, center, length, route):
+    """The route the shape gives (recorded in istft.route), the trimmed output
+    written by the kernel (a contiguous [B, length] tensor), against the plain
+    version and the factorised plain version; the same bits on two calls."""
+    t = 1 + 16000 // hop
+    re = _randn(3, t, n_fft // 2 + 1, seed=hop).to(cuda)
+    im = _randn(3, t, n_fft // 2 + 1, seed=hop + 1).to(cuda)
+    before = kstft.istft.launches
+    y = kstft.istft(re, im, n_fft, hop, center=center, length=length)
+    again = kstft.istft(re, im, n_fft, hop, center=center, length=length)
+    y_p = kstft.istft_plain(re, im, n_fft, hop, center=center, length=length)
+    y_f = kstft.istft_factorised_plain(re, im, n_fft, hop, center=center, length=length)
+    torch.cuda.synchronize()
+    assert kstft.istft.launches == before + 2 and kstft.istft.route == route
+    assert y.is_contiguous() and y.shape == y_p.shape
+    assert torch.equal(y, again)
+    torch.testing.assert_close(y, y_p, rtol=1e-4, atol=2e-5)
+    torch.testing.assert_close(y, y_f, rtol=1e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("act", ["none", "leaky_relu", "hardtanh"])
@@ -161,6 +189,71 @@ def test_gru_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         ys, saved = krnn._forward("lstm_scan_tm", (g6, g6), m, wh6,
                                   torch.zeros(2, 24, device=cuda), save=True)
         krnn._backward("lstm_scan_tm", m, wh6, saved, ys, True, route=0)
+
+
+def _device_kernels(fn) -> list[str]:
+    """Names of the device kernels one fn() launched (torch.profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and "Memcpy" not in ev.name
+            and "Memset" not in ev.name]
+
+
+# (b, t, f, c, groups, lengths): a length-0 row and T = 45 (a partial last item
+# of 8 frames); lanes F*C = 68 and 272, no multiple of a block's 256 threads x
+# 4 lanes; C = 12 in 4 groups (a thread's 4 channels span two groups); C = 32
+# with int64 lengths past T.
+GN_EDGE = [(3, 45, 17, 4, 2, [45, 0, 13]), (2, 19, 17, 16, 8, [19, 7]),
+           (3, 33, 5, 12, 4, [1, 33, 20]), (2, 9, 3, 32, 8, [40, 9])]
+
+
+@pytest.mark.parametrize("b,t,f,c,groups,lens", GN_EDGE)
+@pytest.mark.parametrize("act", ["leaky_relu", "hardtanh"])
+def test_gn_kernel_edge_shapes(cuda, b, t, f, c, groups, lens, act):
+    """The cooperative forward against the plain version (1e-5) on edge
+    shapes, lengths as int32 and int64; padded frames 0; the same bits on two
+    calls; the per-(B, C) mean and inv it saves for the backward against the
+    plain version's group statistics."""
+    x = (0.5 + 2.0 * _randn(b, t, f, c, seed=t + c)).to(cuda)
+    scale = (1 + _randn(c, seed=4, scale=0.1)).to(cuda)
+    bias = _randn(c, seed=5).to(cuda)
+    kw = dict(num_groups=groups, act=act)
+    for dtype in (torch.int32, torch.int64):
+        lengths = torch.tensor(lens, dtype=dtype, device=cuda)
+        y = gn.masked_group_norm_act(x, scale, bias, lengths, **kw)
+        again = gn.masked_group_norm_act(x, scale, bias, lengths, **kw)
+        y_p = gn.masked_group_norm_act_plain(x, scale, bias, lengths, **kw)
+        mean, inv = gn._stats(gn._gn_cuda(x, scale, bias, lengths, groups, 1e-5, act,
+                                          0.2)[1], b, c)
+        torch.cuda.synchronize()
+        assert torch.equal(y, again)
+        torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
+        for i, n in enumerate(lens):
+            assert torch.all(y[i, n:] == 0)
+        mask = (torch.arange(t, device=cuda)[None] < lengths[:, None]).float()
+        xm = (x * mask[:, :, None, None]).reshape(b, t, f, groups, c // groups)
+        mean_p, inv_p = gn._group_stats(xm.sum(dim=(1, 2, 4)), (xm * xm).sum(dim=(1, 2, 4)),
+                                        lengths, f, c, groups, 1e-5)
+        rep = c // groups
+        torch.testing.assert_close(mean, mean_p.repeat_interleave(rep, 1), rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(inv, inv_p.repeat_interleave(rep, 1), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_gn_forward_is_one_device_kernel(cuda, grad):
+    """One GN forward call, at the enhancer's width, launches one device
+    kernel (the cooperative one), with or without autograd's Function."""
+    x = _randn(2, 101, 161, 32, seed=6).to(cuda).requires_grad_(grad)
+    scale, bias = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
+    lengths = torch.tensor([101, 60], device=cuda)
+    call = lambda: gn.masked_group_norm_act(x, scale, bias, lengths, num_groups=8,  # noqa: E731
+                                            act="leaky_relu")
+    call()
+    names = _device_kernels(call)
+    assert len(names) == 1 and "gn_act_fwd_kernel" in names[0], names
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -655,13 +748,13 @@ def test_gn_backward_kernel(cuda, act, shape):
     bias = _randn(c, seed=5).to(cuda).requires_grad_()
     lengths = torch.tensor([t, t - 10, 1, t // 2][:b], device=cuda)
     kw = dict(num_groups=8, act=act)
-    before = gn.masked_group_norm_act_bwd.launches
+    before = tgn.masked_group_norm_act_bwd.launches
     got = _grads((gn.masked_group_norm_act(x, scale, bias, lengths, **kw),),
                  (x, scale, bias), 11)
     ref = _grads((gn.masked_group_norm_act_plain(x, scale, bias, lengths, **kw),),
                  (x, scale, bias), 11)
     torch.cuda.synchronize()
-    assert gn.masked_group_norm_act_bwd.launches == before + 1
+    assert tgn.masked_group_norm_act_bwd.launches == before + 1
     _assert_grads_close(got, ref)
     assert torch.all(got[0][1, t - 10:] == 0)
 

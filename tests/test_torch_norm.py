@@ -1,6 +1,7 @@
 """Port parity: masked GroupNorm + activation (aas_enhancement_tpu_torch.ops.norm,
-.ops.triton.gn plain version) against the JAX MaskedGroupNorm and the Pallas
-masked_group_norm_act in interpret mode, on ragged lengths.
+.ops.cuda.gn plain version) against the JAX MaskedGroupNorm and the Pallas
+masked_group_norm_act in interpret mode, on ragged lengths, a length-0 row and
+frame counts that are no multiple of the forward kernel's 8-frame items.
 
 Tolerance 1e-5 (rtol and atol): unit-scale activations and gradients, f32
 statistics summed over a few thousand elements in a different order on each
@@ -16,20 +17,25 @@ import torch
 from aas_enhancement_tpu.ops.norm import MaskedGroupNorm as JaxGN
 from aas_enhancement_tpu.ops.pallas.gn_kernel import masked_group_norm_act as gn_pallas
 from aas_enhancement_tpu_torch.ops.norm import MaskedGroupNorm
-from aas_enhancement_tpu_torch.ops.triton import gn
+from aas_enhancement_tpu_torch.ops.cuda import gn
 
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _data(b=2, t=20, f=17, c=16, seed=0):
+def _data(b=2, t=20, f=17, c=16, seed=0, lengths=None):
     rng = np.random.default_rng(seed)
     x = (0.5 + rng.standard_normal((b, t, f, c))).astype(np.float32)
     scale = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
     bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
-    lengths = np.array([t, t - 9][:b], np.int32)
+    lengths = np.array([t, t - 9][:b] if lengths is None else lengths, np.int32)
     return x, scale, bias, lengths
+
+
+# (b, t, f, c, lengths): ragged; a length-0 row and T = 21 (items of 8 frames:
+# a partial last one); C = 32 at T = 13 with a row past T's last item start.
+SHAPES = [(2, 20, 17, 16, None), (3, 21, 5, 16, [21, 0, 9]), (2, 13, 9, 32, [13, 9])]
 
 
 def _jax_ref(x, scale, bias, lengths, act):
@@ -38,9 +44,11 @@ def _jax_ref(x, scale, bias, lengths, act):
                                 jnp.asarray(x), jnp.asarray(lengths)))
 
 
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("act", ["none", "leaky_relu", "hardtanh"])
-def test_module_matches_jax(act):
-    x, scale, bias, lengths = _data(seed=1)
+def test_module_matches_jax(act, shape):
+    *dims, lens = shape
+    x, scale, bias, lengths = _data(*dims, seed=1, lengths=lens)
     mod = MaskedGroupNorm(x.shape[-1], num_groups=8, act=act)
     with torch.no_grad():
         mod.scale.copy_(torch.from_numpy(scale))
@@ -50,8 +58,10 @@ def test_module_matches_jax(act):
     assert np.all(got[1, lengths[1]:] == 0.0)
 
 
-def test_plain_matches_pallas_interpret():
-    x, scale, bias, lengths = _data(seed=2)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_matches_pallas_interpret(shape):
+    *dims, lens = shape
+    x, scale, bias, lengths = _data(*dims, seed=2, lengths=lens)
     got = gn.masked_group_norm_act_plain(
         torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias),
         torch.from_numpy(lengths), num_groups=8, act="leaky_relu").numpy()
