@@ -3,8 +3,8 @@
 The JAX package beside it is the reference; every module here mirrors its
 counterpart's path (``dsp/stft.py`` <-> ``aas_enhancement_tpu/dsp/stft.py``)
 and is tested against it on the CPU.  The math the JAX package wrote as Pallas
-kernels runs here as hand-written Hopper kernels (``csrc/*.cu``, built by
-``utils/kernel_build.py``, and ``ops/triton/``).  A CPU tensor takes each
+kernels runs here as hand-written Hopper kernels in CUDA C++ (``csrc/*.cu``,
+built by ``utils/kernel_build.py``).  A CPU tensor takes each
 kernel's plain PyTorch version; a CUDA tensor launches the kernel or raises.
 
 Ported so far: the enhancement path (STFT -> conv + BiLSTM enhancer -> ISTFT),

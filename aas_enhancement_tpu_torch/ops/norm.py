@@ -2,8 +2,8 @@
 
 Statistics come from valid frames only, so a padded batch gives the same
 outputs as per-utterance runs.  The math lives in ``ops/cuda/gn.py``: the
-CUDA kernel for a CUDA tensor (its backward the Triton kernels of
-``ops/triton/gn.py``), the plain version for a CPU tensor.
+CUDA kernels for a CUDA tensor (forward and backward, each one cooperative
+launch of ``csrc/gn.cu``), the plain version for a CPU tensor.
 """
 
 from __future__ import annotations

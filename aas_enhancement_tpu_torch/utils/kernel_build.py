@@ -68,6 +68,11 @@ SIGNATURES = {
     # 2 hardtanh), slope, stream: one cooperative launch
     "aas_gn_act_fwd": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _I,
                        _F, _P),
+    # x, dy, scale, bias, lengths, lengths are int64 (else int32), mean, inv,
+    # dx, dscale, dbias, scratch (per-row, then per-item sums), its length, B,
+    # T, F, C, G, act, slope, stream: the backward, one cooperative launch
+    "aas_gn_act_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                       _I, _I, _F, _P),
     # x, dy, part, dw, x strides (b, t, f), dy strides (b, t, f), B, T, F, Fo,
     # ci, co, kt, kf, stride_f, pad_t_low, pad_f_low, slices, stream
     "aas_conv_dw": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,

@@ -29,7 +29,10 @@ import dataclasses
 import json
 import os
 import statistics
+import subprocess
+import sys
 import tempfile
+import textwrap
 import time
 from collections import defaultdict
 
@@ -135,6 +138,51 @@ def device_time(run, match: str | None = None, alone=None, calls: int = 5,
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), "events on a busy stream"
+
+
+def device_kernel_names(fn) -> dict:
+    """{name: launches} of the device events (kernels, copies, sets) that
+    ``torch.profiler`` records for one ``fn()``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            names[ev.name] = names.get(ev.name, 0) + 1
+    return names
+
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_FRESH = """
+import json, sys
+sys.path.insert(0, {root!r})
+import torch
+from aas_enhancement_tpu_torch.utils.profiling import device_kernel_names
+{setup}
+out = []
+for fn in calls:
+    fn()
+    torch.cuda.synchronize()
+    out.append(device_kernel_names(fn))
+print(json.dumps(out))
+"""
+
+
+def kernel_names_in_fresh_process(setup: str, timeout: float = 300) -> list[dict]:
+    """``device_kernel_names`` of each call in the list ``calls`` that the
+    Python source ``setup`` defines (``torch`` imported), each called once
+    before, in a fresh Python process.  Late in a long process on an H100,
+    torch.profiler has left a kernel's record out of a session while keeping
+    the session's other records (the GroupNorm backward, in ``chip_smoke.py``
+    and in the GPU tests); in a fresh process it has not."""
+    code = _FRESH.format(root=_ROOT, setup=textwrap.dedent(setup))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"profiling in a fresh process failed: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def profile_paths(batch: int, seconds: float, calls: int, warmup: int,

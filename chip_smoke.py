@@ -5,8 +5,8 @@
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 1. device: the card's name and power limit, TF32 off for the parity checks;
-2. build: the CUDA kernels from csrc/ (nvcc, sm_90a, one process per source)
-   and the Triton version;
+2. build: the CUDA kernels from csrc/ (nvcc, sm_90a, one process per source),
+   with each kernel's registers, shared memory and spills from ptxas;
 3. kernels: each kernel against its plain PyTorch version on the card at the
    full-width shapes its paths give it (B=4 x 8 s, ragged lengths): the
    enhance path's (T=801, F=161, C=32, LSTM H=256) and the AM's (GN +
@@ -57,7 +57,12 @@ and the enhancer's shapes.  The recurrences' backward lines give the route
 (resident: wh[d] in a cluster's registers), the clusters the card runs at
 once, the kernel alone between events and on the device, the same bits on
 two calls, and the streaming backward's time and gradient error on the same
-inputs; the paths fail unless their backward ran resident too.
+inputs; the paths fail unless their backward ran resident too.  The
+GroupNorm backward lines give the wrapper alone (on the forward kernel's
+saved mean and inv) against the plain closed form, the same bits on two
+calls, the device kernels of one call (profiled in a fresh process; it fails
+unless one) and the device time of the whole backward pass and of the
+wrapper alone.
 Each kernel line gives, beside the kernel's and the plain version's time, the
 least time the card could take (bound: the larger of bytes moved once over
 3.35 TB/s and f32 operations over 67 TFLOP/s, the H100's published rates)
@@ -187,6 +192,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def valid_share(lengths, t_len: int) -> float:
+    """The share of [B, T] frames that lengths [B] leaves valid."""
+    return lengths.clamp(max=t_len).sum().item() / (lengths.numel() * t_len)
+
+
 def in_turns(run_k, run_p, reps: int, warmup: int = 2) -> tuple[float, float]:
     """Median ms of kernel and plain version, timed plain, kernel, kernel, plain."""
     t_p = cuda_ms(run_p, reps, warmup)
@@ -241,12 +251,11 @@ def phase_device():
 
 
 def phase_build():
-    import triton
     from aas_enhancement_tpu_torch.utils import kernel_build
     t0 = time.perf_counter()
     so = kernel_build.build()
     kernel_build.load_library()
-    print(f"[build] {so} in {time.perf_counter() - t0:.1f} s | triton {triton.__version__}")
+    print(f"[build] {so} in {time.perf_counter() - t0:.1f} s")
     with open(so[:-3] + ".log") as f:        # each kernel's mangled name, then its use
         for line in f:
             if "Compiling entry function" in line or "Used" in line or "spill" in line:
@@ -279,11 +288,10 @@ def kernel_counters() -> dict:
     from aas_enhancement_tpu_torch.ops.cuda import gn
     from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
     from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
-    from aas_enhancement_tpu_torch.ops.triton import gn as tgn
     return {"stft": kstft.stft, "istft": kstft.istft, "gn_act": gn.masked_group_norm_act,
             "lstm": krnn.lstm_scan_tm, "gru": krnn.gru_scan_tm,
             "lstm_bwd": krnn.lstm_scan_tm_bwd, "gru_bwd": krnn.gru_scan_tm_bwd,
-            "gn_bwd": tgn.masked_group_norm_act_bwd, "conv_dw": kconv.conv_dw_same,
+            "gn_bwd": gn.masked_group_norm_act_bwd, "conv_dw": kconv.conv_dw_same,
             "lstm_stacked": krnn.lstm_scan_stacked, "gru_stacked": krnn.gru_scan_stacked,
             "lstm_stacked_bwd": krnn.lstm_scan_stacked_bwd,
             "gru_stacked_bwd": krnn.gru_scan_stacked_bwd}
@@ -354,6 +362,12 @@ def phase_kernels(device):
         g_gx_s, g_m_s = (x.contiguous() for x in krnn.to_stacked(g_xf, g_xb, m_am))
         leaky = dict(num_groups=8, act="leaky_relu", slope=0.2)
         hard = dict(num_groups=8, act="hardtanh")
+        # The GroupNorm forward reads x on the valid frames only, and writes y
+        # whole (0 on padded frames).
+        gn_fwd_work = {x.shape[2]: ((valid_share(lens, x.shape[1]) + 1) * nbytes(x),
+                                    10.0 * valid_share(lens, x.shape[1]) * x.numel())
+                       for x, lens in ((x_gn, frames), (x_am[81], am_frames),
+                                       (x_am[41], am_frames))}
         # A 320-point real transform per frame needs an FFT's operations
         # (5 n log2 n), not the direct sum's that the kernels spend.
         dft_flops = B * t_len * 5.0 * 320 * math.log2(320)
@@ -400,16 +414,13 @@ def phase_kernels(device):
                              .transpose(1, 2): torch.istft(z, 320, 80, window=window,
                                                            center=True, length=N)),
             "gn_act": ("gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
-                       (x_gn, scale, bias, frames), leaky,
-                       (2 * nbytes(x_gn), 10.0 * x_gn.numel()), None),
+                       (x_gn, scale, bias, frames), leaky, gn_fwd_work[161], None),
             "gn_act hardtanh [4, 401, 81, 32]": (
                 "gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
-                (x_am[81], scale, bias, am_frames), hard,
-                (2 * nbytes(x_am[81]), 10.0 * x_am[81].numel()), None),
+                (x_am[81], scale, bias, am_frames), hard, gn_fwd_work[81], None),
             "gn_act hardtanh [4, 401, 41, 32]": (
                 "gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
-                (x_am[41], scale, bias, am_frames), hard,
-                (2 * nbytes(x_am[41]), 10.0 * x_am[41].numel()), None),
+                (x_am[41], scale, bias, am_frames), hard, gn_fwd_work[41], None),
             "lstm": ("lstm", krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain,
                      (gxf, gxb, m, rnn.wh, rnn.bh), {}, rnn_work(gates, 1024, m, rnn), None),
             "lstm T=801 B=6 H=256 (a partial row tile)": (
@@ -589,7 +600,8 @@ def kernels_backward(device, gen, results: dict) -> None:
     frames = torch.tensor(BWD_FRAMES, device=device)
     am_frames = torch.tensor(BWD_AM_FRAMES, device=device)
     # label: (kernel name, fn(wrapper or plain) -> outs, pair, inputs, work,
-    # (entry, gx, m, wh, bh) of a recurrence or None, the cotangents' generator)
+    # (entry, gx, m, wh, bh) of a recurrence or the GroupNorm's (lengths,
+    # options), the cotangents' generator)
     cases = {}
 
     def rnn_case(name, cell, t_len, h, b, lens, gen_x):
@@ -628,6 +640,7 @@ def kernels_backward(device, gen, results: dict) -> None:
     later[f"gru_bwd T={AM_T} B={b32} H=512 (waves of clusters)"] = rnn_case(
         "gru_bwd", "gru", AM_T, 512, b32, am_frames[torch.arange(b32, device=device) % BWD_B],
         gen_b32)[0]
+    gn_shapes = []
     for act, f, lens, slope in (("leaky_relu", 161, frames, 0.2),
                                 ("hardtanh", 81, am_frames, 0.2),
                                 ("hardtanh", 41, am_frames, 0.2)):
@@ -636,13 +649,16 @@ def kernels_backward(device, gen, results: dict) -> None:
         scale = (1 + randn(32, scale=0.1)).requires_grad_()
         bias = randn(32, scale=0.1).requires_grad_()
         kw = dict(num_groups=8, act=act, slope=slope)
+        gn_shapes.append((BWD_B, t_len, f, 32, act, lens.tolist()))
+        valid = valid_share(lens, t_len)     # x, dy read on the valid frames, dx written whole
         cases[f"gn_bwd {act} [{BWD_B}, {t_len}, {f}, 32]"] = (
             "gn_bwd", lambda fn, x=x, s=scale, b=bias, ln=lens, kw=kw: (fn(x, s, b, ln, **kw),),
             (gn.masked_group_norm_act, gn.masked_group_norm_act_plain), (x, scale, bias),
-            (3 * nbytes(x), 20.0 * x.numel()), None, gen)           # x, dy read, dx written
+            ((2 * valid + 1) * nbytes(x), 20.0 * valid * x.numel()), (lens, kw), gen)
 
     cases.update(later)
-    for label, (name, run, (kernel, plain), inputs, work, rnn, cot_gen) in cases.items():
+    gn_names = iter(gn_bwd_kernels(gn_shapes))      # in the order of the gn_bwd cases
+    for label, (name, run, (kernel, plain), inputs, work, detail, cot_gen) in cases.items():
         outs_k, outs_p = run(kernel), run(plain)
         cots = tuple(torch.randn(o.shape, generator=cot_gen).to(device) for o in outs_k)
         grads_k = torch.autograd.grad(outs_k, inputs, cots, retain_graph=True)
@@ -662,10 +678,11 @@ def kernels_backward(device, gen, results: dict) -> None:
                  "gru_bwd": "dgxf, dgxb, dwh, dbh"}.get(name, "dgx, dwh, dbh")
         text = keep(results, name, label, err, ms, plain_ms, work, rel_err=rel)
         row = results[name]["shapes"][label]
-        if rnn is None:
+        if name == "gn_bwd":
             text += device_times(row, backward_k)
+            text += gn_bwd_alone(row, label, inputs, cots[0], *detail, next(gn_names))
         else:
-            text += rnn_bwd_routes(row, name, label, rnn, cots, grads_p)
+            text += rnn_bwd_routes(row, name, label, detail, cots, grads_p)
         if next(iter(results[name]["shapes"])) == label:    # the main path's shape
             results[name].update({k: v for k, v in row.items() if k not in results[name]})
         print(f"[kernel] {label}: grads ({grads}) max_abs_err {err:.3e}, relative "
@@ -675,6 +692,65 @@ def kernels_backward(device, gen, results: dict) -> None:
         if not rel <= tol:
             fail(f"{label}: gradient error {rel:.3e} of max|grad| > tol {tol:.0e}")
         del outs_k, outs_p, grads_k, grads_p
+
+
+def gn_bwd_kernels(shapes: list) -> list:
+    """{kernel name: launches} of the device kernels of one GroupNorm backward
+    wrapper call at each (B, T, F, C, act, lengths) of ``shapes``, each on the
+    mean and inv its forward kernel saved, in a fresh process
+    (``utils.profiling.kernel_names_in_fresh_process``)."""
+    from aas_enhancement_tpu_torch.utils.profiling import kernel_names_in_fresh_process
+    return kernel_names_in_fresh_process(f"""
+from aas_enhancement_tpu_torch.ops.cuda import gn
+calls = []
+for b, t, f, c, act, lens in {shapes!r}:
+    x = torch.randn(b, t, f, c, device="cuda")
+    scale, bias = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+    lengths = torch.tensor(lens, device="cuda")
+    stats = gn._stats(gn._gn_cuda(x, scale, bias, lengths, 8, 1e-5, act, 0.2)[1], b, c)
+    args = (x, torch.randn_like(x), scale, bias, lengths, *stats)
+    calls.append(lambda args=args, act=act: gn.masked_group_norm_act_bwd(
+        *args, num_groups=8, act=act))
+""")
+
+
+def gn_bwd_alone(row: dict, label: str, inputs, dy, lengths, kw: dict, names: list) -> str:
+    """The GroupNorm backward wrapper alone, on the mean and inv that the
+    forward kernel saves for these inputs and on the case's cotangent:
+    against the plain closed form (``masked_group_norm_act_bwd_plain``),
+    each gradient's error relative to its max|value|, failing past the
+    tolerance; the same bits on two calls; the device kernels of one call
+    (``names``, from ``gn_bwd_kernels``: failing unless exactly one); both
+    timed in turns between CUDA events; the wrapper's device time alone
+    (``utils.profiling.device_time``; the line's ``device_ms`` is the whole
+    backward pass's).  -> text for the kernel's line."""
+    import torch
+    from aas_enhancement_tpu_torch.ops.cuda import gn
+    from aas_enhancement_tpu_torch.utils.profiling import device_time
+    x, scale, bias = (v.detach() for v in inputs)
+    scratch = gn._gn_cuda(x, scale, bias, lengths, kw["num_groups"], 1e-5, kw["act"],
+                          kw["slope"])[1]
+    args = (x, dy, scale, bias, lengths, *gn._stats(scratch, x.shape[0], x.shape[3]))
+    kernel = lambda: gn.masked_group_norm_act_bwd(*args, **kw)          # noqa: E731
+    plain = lambda: gn.masked_group_norm_act_bwd_plain(*args, **kw)     # noqa: E731
+    first, again, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail(f"{label}: two calls of the backward kernel gave different bits")
+    rel = max((a - r).abs().max().item() / r.abs().max().item() for a, r in zip(first, ref))
+    if not rel <= BWD_TOL["gn_bwd"][0]:
+        fail(f"{label}: the backward kernel's error {rel:.3e} of max|grad| against the "
+             "closed form")
+    if sum(names.values()) != 1 or "gn_act_bwd_kernel" not in next(iter(names)):
+        fail(f"{label}: one backward call launched {names}, not one device kernel")
+    row["alone_rel_err"] = rel
+    row["kernel_ms"], row["closed_form_ms"] = in_turns(kernel, plain, 10, warmup=1)
+    row["alone_device_ms"], row["alone_device_ms_by"] = device_time(kernel)
+    return (f" | the wrapper alone: error {rel:.3e} of max|grad| against the closed form; "
+            f"same bits on two calls; 1 device kernel a call ({next(iter(names))[:40]}); "
+            f"{row['kernel_ms']:.4f} ms between events (closed form "
+            f"{row['closed_form_ms']:.4f} ms); on the device {row['alone_device_ms']:.4f} ms "
+            f"({row['alone_device_ms_by']})")
 
 
 def rnn_bwd_routes(row: dict, name: str, label: str, rnn, cots, grads_p) -> str:
@@ -855,6 +931,7 @@ def print_device_kernels(tag: str, what: str, fn) -> None:
     """The device kernels of one profiled full-width call: their number, and
     those of the GroupNorm forward and the ISTFT (one launch a wrapper call).
     Late in this process the profiler has dropped events: a reading, no check."""
+    from aas_enhancement_tpu_torch.utils.profiling import device_kernel_names
     names = device_kernel_names(fn)
     ours = {n[:40]: c for n, c in names.items() if "gn_act" in n or "istft" in n}
     print(f"{tag} one B={B} x {SECONDS} s {what}: {sum(names.values())} device kernels "
@@ -864,7 +941,7 @@ def print_device_kernels(tag: str, what: str, fn) -> None:
 
 def time_batch(tag: str, what: str, card: str, fn) -> float:
     """Host wall time of one synchronized full-width call: median of 5 after
-    2 warmups (allocator and Triton JIT), TF32 off as set in phase_device."""
+    2 warmups (allocator), TF32 off as set in phase_device."""
     import torch
     walls = []
     for i in range(7):
@@ -1153,20 +1230,6 @@ def am_batch(b: int, gen, lengths: list[int], device) -> dict:
             if not k.startswith("clean")}
 
 
-def device_kernel_names(fn) -> dict:
-    """{kernel name: launches} of the device kernels of one profiled fn()."""
-    import torch
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            names[ev.name] = names.get(ev.name, 0) + 1
-    return names
-
-
 def phase_train_am(device, card):
     import torch
     from aas_enhancement_tpu_torch.cli import train as cli
@@ -1175,6 +1238,7 @@ def phase_train_am(device, card):
     from aas_enhancement_tpu_torch.train.loop import init_state
     from aas_enhancement_tpu_torch.train.state import TrainState, am_sgd, apply_update
     from aas_enhancement_tpu_torch.train.steps import make_train_step
+    from aas_enhancement_tpu_torch.utils.profiling import device_kernel_names
 
     steps, batch_size = 3, 4
     out, err = io.StringIO(), io.StringIO()
@@ -1383,7 +1447,7 @@ def main() -> int:
                      "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:640"),
         "gru_bwd": ("cuda", "aas_enhancement_tpu_torch/csrc/gru_tm.cu",
                     "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:846"),
-        "gn_bwd": ("triton", "aas_enhancement_tpu_torch/ops/triton/gn.py",
+        "gn_bwd": ("cuda", "aas_enhancement_tpu_torch/csrc/gn.cu",
                    "aas_enhancement_tpu/ops/pallas/gn_kernel.py:272"),
         "conv_dw": ("cuda", "aas_enhancement_tpu_torch/csrc/conv_dw.cu",
                     "aas_enhancement_tpu/ops/pallas/conv_dw_kernel.py:161"),

@@ -138,8 +138,7 @@ def test_wav_io_matches_jax(tmp_path):
 def test_package_and_cli_import_no_jax():
     code = ("import sys, pkgutil, importlib, aas_enhancement_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-            "    if not m.name.endswith('.gn_kernels'):   # needs triton\n"
-            "        importlib.import_module(m.name)\n"
+            "    importlib.import_module(m.name)\n"
             "import aas_enhancement_tpu_torch.cli.enhance\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'aas_enhancement_tpu')]\n"
@@ -308,6 +307,20 @@ def test_device_time_reads_no_session_that_dropped_events(monkeypatch, dropped):
         assert got == (1.25, "events on a busy stream") and len(alone) == 6
     else:
         assert got == (1.0, "profiler") and not alone
+
+
+@pytest.mark.parametrize("setup,want", [
+    ("calls = []", []),
+    ("import aas_enhancement_tpu_torch.ops.cuda.gn\nraise SystemExit('setup failed')",
+     RuntimeError)])
+def test_kernel_names_in_fresh_process(setup, want):
+    """The child imports the package from this checkout and returns one entry
+    per call; a setup that fails raises with the child's stderr."""
+    if want is RuntimeError:
+        with pytest.raises(RuntimeError, match="setup failed"):
+            profiling.kernel_names_in_fresh_process(setup, timeout=120)
+    else:
+        assert profiling.kernel_names_in_fresh_process(setup, timeout=120) == want
 
 
 def test_profiler_needs_a_gpu(monkeypatch):

@@ -13,7 +13,8 @@ recognition forward's logits 1e-4 (STFT, enhancer and AM sums compound).
 Gradients of the backward kernels against autograd through the plain
 versions: 1e-5 of the largest |gradient| of each tensor plus rtol 1e-4
 (dh carried back through 40-60 steps of G-term f32 dot products; dWh sums
-T * B outer products); the resident and the streaming backward against each
+T * B outer products), and so the GroupNorm backward kernel alone against its
+plain closed form; the resident and the streaming backward against each
 other: 1e-4 of the largest |gradient| (each sums dh in its own order).
 conv_dw: 1e-4 of max|dW| (f32 sums over up to ~1e5 positions, in the
 kernel's slice order and the plain version's).
@@ -30,7 +31,7 @@ from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
 from aas_enhancement_tpu_torch.ops.cuda import gn
 from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
 from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
-from aas_enhancement_tpu_torch.ops.triton import gn as tgn
+from aas_enhancement_tpu_torch.utils.profiling import kernel_names_in_fresh_process
 
 pytestmark = pytest.mark.gpu
 
@@ -191,17 +192,6 @@ def test_gru_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         krnn._backward("lstm_scan_tm", m, wh6, saved, ys, True, route=0)
 
 
-def _device_kernels(fn) -> list[str]:
-    """Names of the device kernels one fn() launched (torch.profiler)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [ev.name for ev in prof.events()
-            if ev.device_type == torch.autograd.DeviceType.CUDA and "Memcpy" not in ev.name
-            and "Memset" not in ev.name]
-
-
 # (b, t, f, c, groups, lengths): a length-0 row and T = 45 (a partial last item
 # of 8 frames); lanes F*C = 68 and 272, no multiple of a block's 256 threads x
 # 4 lanes; C = 12 in 4 groups (a thread's 4 channels span two groups); C = 32
@@ -245,14 +235,18 @@ def test_gn_kernel_edge_shapes(cuda, b, t, f, c, groups, lens, act):
 @pytest.mark.parametrize("grad", [False, True])
 def test_gn_forward_is_one_device_kernel(cuda, grad):
     """One GN forward call, at the enhancer's width, launches one device
-    kernel (the cooperative one), with or without autograd's Function."""
-    x = _randn(2, 101, 161, 32, seed=6).to(cuda).requires_grad_(grad)
-    scale, bias = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
-    lengths = torch.tensor([101, 60], device=cuda)
-    call = lambda: gn.masked_group_norm_act(x, scale, bias, lengths, num_groups=8,  # noqa: E731
-                                            act="leaky_relu")
-    call()
-    names = _device_kernels(call)
+    kernel (the cooperative one), with or without autograd's Function
+    (profiled in a fresh process, as the backward below)."""
+    names, = kernel_names_in_fresh_process(f"""
+from aas_enhancement_tpu_torch.ops.cuda import gn
+x = torch.randn(2, 101, 161, 32, device="cuda").requires_grad_({grad})
+scale, bias = torch.ones(32, device="cuda"), torch.zeros(32, device="cuda")
+lengths = torch.tensor([101, 60], device="cuda")
+calls = [lambda: gn.masked_group_norm_act(x, scale, bias, lengths, num_groups=8,
+                                          act="leaky_relu")]
+""")
+    names = [n for n, k in names.items() for _ in range(k)
+             if "Memcpy" not in n and "Memset" not in n]
     assert len(names) == 1 and "gn_act_fwd_kernel" in names[0], names
 
 
@@ -748,15 +742,99 @@ def test_gn_backward_kernel(cuda, act, shape):
     bias = _randn(c, seed=5).to(cuda).requires_grad_()
     lengths = torch.tensor([t, t - 10, 1, t // 2][:b], device=cuda)
     kw = dict(num_groups=8, act=act)
-    before = tgn.masked_group_norm_act_bwd.launches
+    before = gn.masked_group_norm_act_bwd.launches
     got = _grads((gn.masked_group_norm_act(x, scale, bias, lengths, **kw),),
                  (x, scale, bias), 11)
     ref = _grads((gn.masked_group_norm_act_plain(x, scale, bias, lengths, **kw),),
                  (x, scale, bias), 11)
     torch.cuda.synchronize()
-    assert tgn.masked_group_norm_act_bwd.launches == before + 1
+    assert gn.masked_group_norm_act_bwd.launches == before + 1
     _assert_grads_close(got, ref)
     assert torch.all(got[0][1, t - 10:] == 0)
+
+
+# (b, t, f, c, groups, lengths): partial last items of 8 frames (T = 21, 13),
+# length-0 rows, a length past T; C = 16, 32 and 64 in 4, 8 and 32 groups.
+GN_BWD_EDGE = [(3, 21, 5, 16, 4, [21, 0, 9]), (2, 13, 9, 32, 8, [13, 9]),
+               (2, 13, 7, 64, 32, [20, 5]), (3, 21, 17, 32, 32, [0, 21, 1])]
+
+
+@pytest.mark.parametrize("b,t,f,c,groups,lens", GN_BWD_EDGE)
+@pytest.mark.parametrize("act", ["none", "leaky_relu", "hardtanh"])
+def test_gn_backward_kernel_edge_shapes(cuda, b, t, f, c, groups, lens, act):
+    """The backward kernel alone, fed the forward kernel's own saved mean and
+    inv, against the plain closed form, lengths as int32 and int64: dx 0 on
+    padded frames, the same bits for dx, dscale and dbias on two calls."""
+    x = (0.5 + 3.0 * _randn(b, t, f, c, seed=t + c)).to(cuda)
+    scale = (1 + _randn(c, seed=4, scale=0.1)).to(cuda)
+    bias = _randn(c, seed=5).to(cuda)
+    dy = _randn(b, t, f, c, seed=6).to(cuda)
+    kw = dict(num_groups=groups, act=act)
+    for dtype in (torch.int32, torch.int64):
+        lengths = torch.tensor(lens, dtype=dtype, device=cuda)
+        mean, inv = gn._stats(gn._gn_cuda(x, scale, bias, lengths, groups, 1e-5, act,
+                                          0.2)[1], b, c)
+        before = gn.masked_group_norm_act_bwd.launches
+        got = gn.masked_group_norm_act_bwd(x, dy, scale, bias, lengths, mean, inv, **kw)
+        again = gn.masked_group_norm_act_bwd(x, dy, scale, bias, lengths, mean, inv, **kw)
+        ref = gn.masked_group_norm_act_bwd_plain(x, dy, scale, bias, lengths, mean, inv, **kw)
+        torch.cuda.synchronize()
+        assert gn.masked_group_norm_act_bwd.launches == before + 2
+        assert all(torch.equal(a, r) for a, r in zip(got, again))
+        _assert_grads_close(got, ref)
+        for i, n in enumerate(lens):
+            assert torch.all(got[0][i, n:] == 0)
+
+
+def test_gn_backward_dy_layouts_and_refusals(cuda):
+    """A dy 4 bytes off 16-byte alignment, and a non-contiguous one, give the
+    bits of the same values in a fresh tensor; a wrong scale shape, and more
+    groups than the kernel takes, raise."""
+    shape = (2, 19, 9, 32)
+    x = (0.5 + _randn(*shape, seed=1)).to(cuda)
+    scale, bias = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
+    lengths = torch.tensor([19, 11], device=cuda)
+    mean, inv = gn._stats(gn._gn_cuda(x, scale, bias, lengths, 8, 1e-5, "none", 0.2)[1],
+                          2, 32)
+    dy = _randn(*shape, seed=2).to(cuda)
+    flat = torch.empty(dy.numel() + 1, device=cuda)
+    flat[1:] = dy.flatten()
+    odd = [flat[1:].view(shape), dy.transpose(1, 2).contiguous().transpose(1, 2)]
+    assert odd[0].data_ptr() % 16 and not odd[1].is_contiguous()
+    call = lambda d: gn.masked_group_norm_act_bwd(x, d, scale, bias, lengths,  # noqa: E731
+                                                  mean, inv, num_groups=8)
+    want = call(dy)
+    for d in odd:
+        assert all(torch.equal(a, r) for a, r in zip(call(d), want))
+    with pytest.raises(ValueError, match="scale and bias"):
+        gn.masked_group_norm_act_bwd(x, dy, scale[:16], bias, lengths, mean, inv,
+                                     num_groups=8)
+    with pytest.raises(RuntimeError, match="aas_gn_act_bwd"):      # 33 groups: the kernel's
+        gn.masked_group_norm_act_bwd(x, dy, scale, bias, lengths, mean, inv,  # refusal
+                                     num_groups=33)
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_gn_backward_is_one_device_kernel(cuda, frozen):
+    """The backward pass through one GN call, at the enhancer's width, runs
+    one device kernel (the cooperative one), whether scale and bias want a
+    gradient or are frozen (the AAS step's AM).  Profiled in a fresh process:
+    late in this file's process the profiler has left the backward kernel's
+    record out of a session (on an H100, with the session's other records
+    present), and in a fresh process it has not."""
+    names, = kernel_names_in_fresh_process(f"""
+from aas_enhancement_tpu_torch.ops.cuda import gn
+frozen = {frozen}
+x = torch.randn(2, 101, 161, 32, device="cuda").requires_grad_()
+scale = torch.ones(32, device="cuda", requires_grad=not frozen)
+bias = torch.zeros(32, device="cuda", requires_grad=not frozen)
+y = gn.masked_group_norm_act(x, scale, bias, torch.tensor([101, 60], device="cuda"),
+                             num_groups=8, act="leaky_relu")
+dy = torch.randn_like(y)
+inputs = (x,) if frozen else (x, scale, bias)
+calls = [lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True)]
+""")
+    assert sum(names.values()) == 1 and "gn_act_bwd_kernel" in next(iter(names)), names
 
 
 def test_enhance_on_card_matches_cpu(cuda):

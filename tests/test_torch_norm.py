@@ -18,6 +18,7 @@ from aas_enhancement_tpu.ops.norm import MaskedGroupNorm as JaxGN
 from aas_enhancement_tpu.ops.pallas.gn_kernel import masked_group_norm_act as gn_pallas
 from aas_enhancement_tpu_torch.ops.norm import MaskedGroupNorm
 from aas_enhancement_tpu_torch.ops.cuda import gn
+from aas_enhancement_tpu_torch.ops.masking import time_mask
 
 torch.set_num_threads(1)
 
@@ -127,3 +128,82 @@ def test_plain_gradients_match_pallas_interpret(act):
     for name, a, r in zip(("dx", "dscale", "dbias"), got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), err_msg=name, **TOL)
     assert np.all(got[0].numpy()[1, lengths[1]:] == 0)
+
+
+# ---------------------------------------------------------------- backward
+# masked_group_norm_act_bwd_plain, the closed form the backward kernel B3'
+# computes, from the forward's per-(B, C) mean and inv.
+
+
+def _bwd_data(shape, seed):
+    """Inputs of the backward at ``shape``: x with rare spikes and a wide
+    scale, so that z = x_hat * scale + bias lies past hardtanh's 20 as well
+    as below 0 on valid frames; a cotangent; mean and inv [B, C] from the
+    plain forward's group statistics."""
+    *dims, lens = shape
+    x, scale, bias, lengths = _data(*dims, seed=seed, lengths=lens)
+    rng = np.random.default_rng(seed + 100)
+    x = np.where(rng.random(x.shape) < 0.01, 30.0 * x, x).astype(np.float32)
+    scale = (4.0 * scale).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    b, t, f, c = x.shape
+    lt = torch.from_numpy(lengths)
+    mask = time_mask(lt, t)[:, :, None, None]
+    xm = (torch.from_numpy(x) * mask).reshape(b, t, f, 8, c // 8)
+    mean, inv = gn._group_stats(xm.sum(dim=(1, 2, 4)), (xm * xm).sum(dim=(1, 2, 4)),
+                                lt, f, c, 8, 1e-5)
+    mean, inv = (v.repeat_interleave(c // 8, dim=1) for v in (mean, inv))
+    z = (torch.from_numpy(x) * inv[:, None, None] - (mean * inv)[:, None, None]) \
+        * torch.from_numpy(scale) + torch.from_numpy(bias)
+    valid = z[mask.expand_as(z).bool()]
+    assert (valid > 20).any() and (valid < 0).any()
+    return x, scale, bias, lengths, dy, mean, inv
+
+
+def _bwd_plain(x, scale, bias, lengths, dy, mean, inv, act):
+    args = [torch.from_numpy(a) for a in (x, dy, scale, bias, lengths)]
+    x_t, dy_t, *rest = args
+    return gn.masked_group_norm_act_bwd_plain(x_t, dy_t, *rest, mean, inv, num_groups=8,
+                                              act=act)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("act", ["none", "leaky_relu", "hardtanh"])
+def test_bwd_plain_matches_pallas_vjp(act, shape):
+    """(dx, dscale, dbias) of the closed form against jax.vjp through the
+    Pallas masked_group_norm_act in interpret mode, which runs _gn_bwd."""
+    x, scale, bias, lengths, dy, mean, inv = _bwd_data(shape, seed=7)
+    fn = lambda x_, s_, b_: gn_pallas(x_, s_, b_, jnp.asarray(lengths),    # noqa: E731
+                                      num_groups=8, act=act, interpret=True)
+    _, vjp = jax.vjp(fn, jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+    ref = vjp(jnp.asarray(dy))
+    got = _bwd_plain(x, scale, bias, lengths, dy, mean, inv, act)
+    for name, a, r in zip(("dx", "dscale", "dbias"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("act", ["none", "leaky_relu", "hardtanh"])
+def test_bwd_plain_matches_autograd(act, shape):
+    """The closed form against autograd through masked_group_norm_act_plain;
+    dx exactly 0 on padded frames (a length-0 row among SHAPES)."""
+    x, scale, bias, lengths, dy, mean, inv = _bwd_data(shape, seed=8)
+    inputs = [torch.from_numpy(a).requires_grad_() for a in (x, scale, bias)]
+    y = gn.masked_group_norm_act_plain(*inputs, torch.from_numpy(lengths), num_groups=8,
+                                       act=act)
+    ref = torch.autograd.grad(y, inputs, torch.from_numpy(dy))
+    got = _bwd_plain(x, scale, bias, lengths, dy, mean, inv, act)
+    for name, a, r in zip(("dx", "dscale", "dbias"), got, ref):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), err_msg=name, **TOL)
+    for i, n in enumerate(lengths):
+        assert torch.all(got[0][i, n:] == 0)
+
+
+def test_bwd_cpu_tensor_takes_plain_version():
+    x, scale, bias, lengths, dy, mean, inv = _bwd_data(SHAPES[1], seed=9)
+    before = gn.masked_group_norm_act_bwd.launches
+    args = [torch.from_numpy(a) for a in (x, dy, scale, bias, lengths)]
+    got = gn.masked_group_norm_act_bwd(*args, mean, inv, num_groups=8, act="hardtanh")
+    ref = gn.masked_group_norm_act_bwd_plain(*args, mean, inv, num_groups=8, act="hardtanh")
+    assert all(torch.equal(a, r) for a, r in zip(got, ref))
+    assert gn.masked_group_norm_act_bwd.launches == before
