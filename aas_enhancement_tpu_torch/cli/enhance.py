@@ -7,7 +7,10 @@ with the real-time factor (wall seconds / audio seconds) ends the run.
 
 Usage:
   python -m aas_enhancement_tpu_torch.cli.enhance --manifest noisy_manifest.csv \
-      --out-dir out/ [--device cuda|cpu]
+      --out-dir out/ [--checkpoint ckpt_g/] [--device cuda|cpu]
+``--checkpoint`` takes a train-CLI checkpoint directory of the port (a JAX
+package's directory converts with ``scripts/orbax_to_torch.py``); without
+``--config`` its ``enhancer`` and ``audio`` config sections are used.
 Without --checkpoint the network is random-init from the config's train seed.
 """
 
@@ -26,6 +29,7 @@ from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.data import read_manifest, read_wav, write_wav
 from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
+from aas_enhancement_tpu_torch.train.loop import load_state
 
 
 def _bucket_length(n: int, buckets: list[int]) -> int:
@@ -43,7 +47,7 @@ def main(argv=None) -> None:
     p.add_argument("--input", help="single noisy wav")
     p.add_argument("--manifest", help="noisy manifest CSV (wav_path,txt_path)")
     p.add_argument("--out-dir", required=True)
-    p.add_argument("--checkpoint", help="checkpoint dir (not yet ported)")
+    p.add_argument("--checkpoint", help="checkpoint dir (omit for random init)")
     p.add_argument("--config", help="config JSON (defaults used if omitted)")
     p.add_argument("--mode", choices=["mask", "mapping"], default=None)
     p.add_argument("--streaming", action="store_true",
@@ -51,9 +55,6 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.checkpoint:
-        raise NotImplementedError("--checkpoint: loading checkpoints is not yet "
-                                  "ported (ROADMAP A9)")
     if args.streaming:
         raise NotImplementedError("--streaming: streaming enhancement is not yet "
                                   "ported (ROADMAP A11)")
@@ -66,7 +67,16 @@ def main(argv=None) -> None:
         cfg = Config()
     if args.mode:
         cfg = cfg.replace(enhancer=dataclasses.replace(cfg.enhancer, mode=args.mode))
+    state = None
+    if args.checkpoint:
+        state, ck_cfg = load_state(args.checkpoint, device)
+        if state.g is None:
+            raise SystemExit(f"{args.checkpoint}: checkpoint has no enhancer")
+        if not args.config:
+            cfg = cfg.replace(enhancer=ck_cfg.enhancer, audio=ck_cfg.audio)
     model = init_enhancer(cfg, cfg.train.seed, device)
+    if state is not None:        # the network of the config, the checkpoint's weights
+        model.load_state_dict(state.g.state_dict())
 
     paths = []
     if args.input:

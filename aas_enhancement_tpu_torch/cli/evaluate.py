@@ -11,12 +11,16 @@ Usage:
       --am-checkpoint seed:0 [--enhancer-checkpoint seed:1] \\
       [--clean-manifest clean.csv] [--config cfg.json] [--device cuda|cpu]
 
-Weights: reading the JAX package's Orbax checkpoints is not ported yet
-(ROADMAP A9).  Until it is, a checkpoint flag takes ``seed:N``, which draws
-that network's weights from ``torch.Generator().manual_seed(N)`` with flax's
-init distributions; any other value raises.  The beam decoders and LM flags
-(``--decoder beam|device``, ``--lm``, ``--word-lm``, ``--tune-lm-manifest``)
-raise until ROADMAP A10 / A13 port them.
+Weights: ``--am-checkpoint`` and ``--enhancer-checkpoint`` take a train-CLI
+checkpoint directory of the port (``train/loop.py::load_state``; a JAX
+package's directory converts with ``scripts/orbax_to_torch.py``) or
+``seed:N``, which draws that network's weights from
+``torch.Generator().manual_seed(N)`` with flax's init distributions.  Without
+``--config`` the ``am`` and ``audio`` config sections come from the AM's
+checkpoint; the ``enhancer`` section always comes from the enhancer's, as in
+the JAX CLI.  The beam decoders and LM flags (``--decoder beam|device``,
+``--lm``, ``--word-lm``, ``--tune-lm-manifest``) raise until ROADMAP A10 /
+A13 port them.
 """
 
 from __future__ import annotations
@@ -28,15 +32,14 @@ from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.enhance import init_enhancer
 from aas_enhancement_tpu_torch.evaluation import evaluate_si_snr, evaluate_wer, init_am
+from aas_enhancement_tpu_torch.train.loop import load_state
 
 
-def checkpoint_seed(flag: str, value: str) -> int:
-    """``seed:N`` -> N; anything else is a checkpoint path, which waits for A9."""
+def checkpoint_seed(value: str) -> int | None:
+    """``seed:N`` -> N; a checkpoint directory -> None."""
     if value.startswith("seed:"):
         return int(value[len("seed:"):])
-    raise NotImplementedError(
-        f"{flag} {value}: loading checkpoints is not yet ported (ROADMAP A9); "
-        "pass seed:N to draw the weights from seed N")
+    return None
 
 
 def main(argv=None) -> None:
@@ -44,9 +47,10 @@ def main(argv=None) -> None:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--manifest", required=True)
     p.add_argument("--am-checkpoint", required=True,
-                   help="seed:N (random weights from seed N; checkpoints: ROADMAP A9)")
+                   help="checkpoint dir, or seed:N (random weights from seed N)")
     p.add_argument("--enhancer-checkpoint",
-                   help="seed:N; if given, also report WER on enhanced input + delta")
+                   help="checkpoint dir or seed:N; if given, also report WER on "
+                        "enhanced input + delta")
     p.add_argument("--config", help="config JSON")
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--decoder", choices=["greedy", "beam", "device"], default="greedy",
@@ -75,9 +79,6 @@ def main(argv=None) -> None:
         road = "A10" if args.decoder == "beam" else "A13"
         raise NotImplementedError(f"--decoder {args.decoder}: not yet ported "
                                   f"(ROADMAP {road})")
-    am_seed = checkpoint_seed("--am-checkpoint", args.am_checkpoint)
-    g_seed = (checkpoint_seed("--enhancer-checkpoint", args.enhancer_checkpoint)
-              if args.enhancer_checkpoint else None)
     device = resolve_device(args.device)
 
     if args.config:
@@ -85,8 +86,28 @@ def main(argv=None) -> None:
             cfg = Config.from_json(f.read())
     else:
         cfg = Config()
-    am = init_am(cfg, am_seed, device)
-    enhancer = init_enhancer(cfg, g_seed, device) if g_seed is not None else None
+    am_seed = checkpoint_seed(args.am_checkpoint)
+    if am_seed is None:
+        am_state, am_cfg = load_state(args.am_checkpoint, device)
+        am = am_state.am
+        if am is None:
+            raise SystemExit(f"{args.am_checkpoint}: checkpoint has no acoustic model "
+                             f"(objective was {am_cfg.train.objective!r})")
+        if not args.config:
+            cfg = cfg.replace(am=am_cfg.am, audio=am_cfg.audio)
+    else:
+        am = init_am(cfg, am_seed, device)
+    enhancer = None
+    if args.enhancer_checkpoint:
+        g_seed = checkpoint_seed(args.enhancer_checkpoint)
+        if g_seed is None:
+            g_state, g_cfg = load_state(args.enhancer_checkpoint, device)
+            enhancer = g_state.g
+            if enhancer is None:
+                raise SystemExit(f"{args.enhancer_checkpoint}: checkpoint has no enhancer")
+            cfg = cfg.replace(enhancer=g_cfg.enhancer)
+        else:
+            enhancer = init_enhancer(cfg, g_seed, device)
 
     result = {"noisy": evaluate_wer(cfg, am, args.manifest, batch_size=args.batch_size)}
     if enhancer is not None:

@@ -8,23 +8,28 @@
                --am-through-enhancer (the frozen enhancer in front of the AM)
 
 Same flags and final JSON line as the JAX CLI, plus ``--device``.  Metric
-records go to stderr as JSON lines; the last stdout line is
-{"final_step": N, "loss_...": ...}.
+records go to stderr as JSON lines (and to ``--metrics`` / ``--tensorboard``);
+the last stdout line is {"final_step": N, "loss_...": ..., and with
+``--val-manifest`` "val_wer" (and "val_wer_noisy")}.
 
 Usage:
   python -m aas_enhancement_tpu_torch.cli.train --objective aas \\
       --noisy-manifest noisy.csv --clean-manifest clean.csv --steps 100 \\
-      [--am-checkpoint seed:0] [--config cfg.json] [--device cuda|cpu]
+      [--am-checkpoint ckpt_am/] [--checkpoint-dir ckpt_g/ [--continue-from]] \\
+      [--val-manifest dev.csv --eval-every 50] [--config cfg.json] [--device cuda|cpu]
 
-Weights: reading the JAX package's Orbax checkpoints is not ported yet
-(ROADMAP A9), so ``--am-checkpoint`` and ``--g-checkpoint`` take ``seed:N``
-(that network's weights drawn from seed N with flax's init distributions;
-for ``am`` the AM's initial weights and the frozen enhancer's).
+Weights: ``--am-checkpoint`` and ``--g-checkpoint`` take a train-CLI
+checkpoint directory of the port (``train/loop.py::load_state``; a JAX
+package's directory converts with ``scripts/orbax_to_torch.py``) or
+``seed:N`` (that network's weights drawn from seed N with flax's init
+distributions).  The frozen AM keeps the checkpoint's architecture (its
+``am`` config section), and so does a warm-started or frozen enhancer; for
+``adversarial`` / ``aas`` the ``--g-checkpoint``'s discriminator comes too;
+for ``adversarial`` the ``--am-checkpoint`` is validation's decode-only AM.
+``config.json`` is written into ``--checkpoint-dir`` before training.
 Not ported yet, and raising with their ROADMAP item: the objective
-``paired`` (A8); ``--checkpoint-dir``, ``--continue-from``, ``--val-manifest``,
-``--eval-every``, ``--metrics``, ``--tensorboard``, ``--profile-dir`` and
-``--sortagrad`` (A9); ``--streaming-finetune``, ``--streaming-finetune-am``
-and ``--stream-*`` (A11).
+``paired`` (A8); ``--streaming-finetune``, ``--streaming-finetune-am`` and
+``--stream-*`` (A11).
 """
 
 from __future__ import annotations
@@ -32,19 +37,16 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.cli.evaluate import checkpoint_seed
 from aas_enhancement_tpu_torch.config import Config
-from aas_enhancement_tpu_torch.train.loop import init_state, train
+from aas_enhancement_tpu_torch.train.loop import init_state, load_state, train
 
-# flag (argparse dest) -> ROADMAP item of what it needs
-_UNPORTED = {
-    "checkpoint_dir": "A9", "resume": "A9", "val_manifest": "A9", "metrics": "A9",
-    "tensorboard": "A9", "profile_dir": "A9", "sortagrad": "A9",
-    "streaming_finetune": "A11", "streaming_finetune_am": "A11",
-    "stream_chunk": "A11", "stream_lookahead": "A11", "stream_history": "A11",
-}
+# flags (argparse dest) of streaming fine-tuning, ROADMAP A11
+_UNPORTED = ("streaming_finetune", "streaming_finetune_am", "stream_chunk",
+             "stream_lookahead", "stream_history")
 
 
 def main(argv=None) -> None:
@@ -56,8 +58,9 @@ def main(argv=None) -> None:
                    help="training manifest (the clean manifest for --objective am)")
     p.add_argument("--clean-manifest", help="unpaired clean corpus (adversarial, aas)")
     p.add_argument("--am-checkpoint",
-                   help="seed:N, the frozen AM of acoustic/aas or the initial AM of "
-                        "am (checkpoints: ROADMAP A9)")
+                   help="AM checkpoint dir or seed:N: the frozen AM of acoustic/aas, "
+                        "the initial AM of am, the decode-only validation AM of "
+                        "adversarial")
     p.add_argument("--config", help="config JSON file")
     p.add_argument("--steps", type=int, default=0, help="stop after N steps (0 = epochs)")
     p.add_argument("--epochs", type=int, default=0)
@@ -66,14 +69,18 @@ def main(argv=None) -> None:
                    help="split each batch into k microbatches, one update")
     p.add_argument("--lambda-adv", type=float, default=None)
     p.add_argument("--log-every", type=int, default=0)
-    p.add_argument("--val-manifest", help="(validation: ROADMAP A9)")
-    p.add_argument("--eval-every", type=int, default=-1, help="(validation only)")
+    p.add_argument("--val-manifest",
+                   help="dev manifest: periodic greedy-WER validation + best-WER "
+                        "checkpoint selection")
+    p.add_argument("--eval-every", type=int, default=-1,
+                   help="validate every N steps (0 = each epoch end)")
     p.add_argument("--lr-anneal", type=float, default=None,
                    help="per-epoch LR divisor, e.g. 1.1")
     p.add_argument("--spec-augment", action="store_true",
                    help="SpecAugment time and frequency masking of the AM's "
                         "features (objective am)")
-    p.add_argument("--sortagrad", action="store_true", help="(ROADMAP A9)")
+    p.add_argument("--sortagrad", action="store_true",
+                   help="serve epoch 0 strictly shortest-first")
     p.add_argument("--streaming-finetune", action="store_true", help="(ROADMAP A11)")
     p.add_argument("--stream-chunk", type=float, default=None, help="(ROADMAP A11)")
     p.add_argument("--stream-lookahead", type=float, default=None, help="(ROADMAP A11)")
@@ -83,34 +90,32 @@ def main(argv=None) -> None:
                    help="objective am: feed the AM the FROZEN enhancer's output "
                         "features (the enhancer from --g-checkpoint)")
     p.add_argument("--g-checkpoint",
-                   help="seed:N, the enhancer's initial weights (frozen with "
-                        "--am-through-enhancer)")
-    p.add_argument("--checkpoint-dir", default="", help="(ROADMAP A9)")
+                   help="enhancer checkpoint dir or seed:N: the warm start of the "
+                        "generator objectives (with its discriminator for "
+                        "adversarial/aas), the frozen enhancer of "
+                        "--am-through-enhancer")
+    p.add_argument("--checkpoint-dir", default="")
     p.add_argument("--continue-from", dest="resume", action="store_true",
-                   help="(ROADMAP A9)")
-    p.add_argument("--metrics", help="(JSONL metrics file: ROADMAP A9)")
-    p.add_argument("--profile-dir", help="(ROADMAP A9)")
-    p.add_argument("--tensorboard", help="(ROADMAP A9)")
+                   help="resume from the latest checkpoint in --checkpoint-dir")
+    p.add_argument("--metrics", help="JSONL metrics path")
+    p.add_argument("--profile-dir",
+                   help="write a torch.profiler trace of a few steady-state steps "
+                        "into this dir (Chrome/Perfetto)")
+    p.add_argument("--tensorboard",
+                   help="TensorBoard log dir (needs the tensorboard package)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    for dest, item in _UNPORTED.items():
-        value = getattr(args, dest)
-        if value not in (None, False, ""):
-            flag = "--continue-from" if dest == "resume" else "--" + dest.replace("_", "-")
-            raise NotImplementedError(f"{flag}: not yet ported (ROADMAP {item})")
-    if args.eval_every >= 0:
-        raise NotImplementedError("--eval-every: validation is not yet ported (ROADMAP A9)")
+    for dest in _UNPORTED:
+        if getattr(args, dest) not in (None, False):
+            raise NotImplementedError(f"--{dest.replace('_', '-')}: not yet ported "
+                                      "(ROADMAP A11)")
     if args.objective == "paired":
         raise NotImplementedError("--objective paired: not yet ported (ROADMAP A8)")
     if args.am_through_enhancer and args.objective != "am":
         p.error("--am-through-enhancer only applies to --objective am")
     if args.objective in ("adversarial", "aas") and not args.clean_manifest:
         p.error(f"--objective {args.objective} requires --clean-manifest (unpaired corpus)")
-    am_seed = (checkpoint_seed("--am-checkpoint", args.am_checkpoint)
-               if args.am_checkpoint else None)
-    g_seed = (checkpoint_seed("--g-checkpoint", args.g_checkpoint)
-              if args.g_checkpoint else None)
     device = resolve_device(args.device)
 
     if args.config:
@@ -123,31 +128,76 @@ def main(argv=None) -> None:
                        ("grad_accum", args.grad_accum), ("log_every", args.log_every)):
         if value:
             tr[key] = value
-    if args.lambda_adv is not None:
-        tr["lambda_adv"] = args.lambda_adv
-    if args.lr_anneal is not None:
-        tr["lr_anneal"] = args.lr_anneal
-    if args.spec_augment:
-        tr["spec_augment"] = True
-    if args.am_through_enhancer:
-        tr["am_through_enhancer"] = True
+    for key, value in (("lambda_adv", args.lambda_adv), ("lr_anneal", args.lr_anneal),
+                       ("profile_dir", args.profile_dir)):
+        if value is not None:
+            tr[key] = value
+    if args.eval_every >= 0:
+        tr["eval_every"] = args.eval_every
+    for key in ("sortagrad", "spec_augment", "am_through_enhancer"):
+        if getattr(args, key):
+            tr[key] = True
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, **tr))
+    if args.val_manifest:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, val_manifest=args.val_manifest))
 
-    if am_seed is None and args.objective in ("acoustic", "aas"):
+    am_seed, am = None, None
+    if args.am_checkpoint:
+        am_seed = checkpoint_seed(args.am_checkpoint)
+        if am_seed is None:
+            am_state, am_cfg = load_state(args.am_checkpoint, device)
+            am = am_state.am
+            if am is None:
+                p.error(f"{args.am_checkpoint}: checkpoint has no acoustic model "
+                        f"(objective was {am_cfg.train.objective!r})")
+            cfg = cfg.replace(am=am_cfg.am)    # the frozen AM keeps its architecture
+    elif args.objective in ("acoustic", "aas"):
         print("WARNING: no --am-checkpoint given; using a RANDOM-INIT frozen AM "
               "(fine for smoke tests, useless as supervision)", flush=True)
-    if args.am_through_enhancer and g_seed is None:
+    g_seed, g, d = None, None, None
+    if args.g_checkpoint:
+        g_seed = checkpoint_seed(args.g_checkpoint)
+        if g_seed is None:
+            g_state, g_cfg = load_state(args.g_checkpoint, device)
+            g = g_state.g
+            if g is None:
+                p.error(f"{args.g_checkpoint}: checkpoint has no enhancer "
+                        f"(objective was {g_cfg.train.objective!r})")
+            cfg = cfg.replace(enhancer=g_cfg.enhancer)    # G keeps its architecture
+            if args.objective in ("adversarial", "aas") and g_state.d is not None:
+                d = g_state.d
+                cfg = cfg.replace(discriminator=g_cfg.discriminator)
+    elif args.am_through_enhancer:
         print("WARNING: --am-through-enhancer without --g-checkpoint; the frozen "
               "enhancer is RANDOM-INIT (fine for smoke tests, not a deployment "
               "distribution)", flush=True)
+
     state = init_state(cfg, cfg.train.seed, device, g_seed=g_seed, am_seed=am_seed)
+    # Graft the loaded networks' weights; the optimizers keep their parameters.
+    for name, net in (("am", am), ("g", g), ("d", d)):
+        if net is not None and getattr(state, name) is not None:
+            getattr(state, name).load_state_dict(net.state_dict())
+    if args.checkpoint_dir:
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        with open(os.path.join(args.checkpoint_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+
     state, records = train(cfg, args.noisy_manifest, args.clean_manifest,
-                           max_steps=args.steps, state=state, device=device)
+                           max_steps=args.steps, state=state, device=device,
+                           metrics_path=args.metrics, tensorboard_dir=args.tensorboard,
+                           checkpoint_dir=args.checkpoint_dir or None, resume=args.resume,
+                           eval_am=am if args.objective == "adversarial" else None)
 
     final = next((r for r in reversed(records)
                   if any(k.startswith("loss") for k in r)), {})
-    print(json.dumps({"final_step": int(state.step),
-                      **{k: v for k, v in final.items() if k.startswith("loss")}}))
+    out = {"final_step": int(state.step),
+           **{k: v for k, v in final.items() if k.startswith("loss")}}
+    last_val = next((r for r in reversed(records) if "val_wer" in r), None)
+    if last_val is not None:
+        out["val_wer"] = last_val["val_wer"]
+        if "val_wer_noisy" in last_val:
+            out["val_wer_noisy"] = last_val["val_wer_noisy"]
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ The same dataclasses, fields and defaults as the JAX package's audio, AM,
 enhancer, discriminator and data sections, and the fields of its train
 section that the port reads.  A config JSON written by either package loads
 here as long as the fields the port does not have yet (``UNPORTED``: the
-mesh section, the rest of train, ``audio.stft_impl``) hold their defaults: a
+mesh section, the paired objective's and streaming's train fields,
+``audio.stft_impl``) hold their defaults: a
 non-default value of one raises instead of vanishing, naming the ROADMAP item
 that ports the field's consumer.  Keys that neither package knows are
 skipped, as the JAX package's own ``Config.from_dict`` skips them, and JSON
@@ -29,13 +30,6 @@ UNPORTED = {
     "audio": {"stft_impl": ("auto", "A15")},       # one STFT route on the card, by decision
     "train": {
         "lambda_mrstft": (0.0, "A8"),              # the paired objective's MR-STFT term
-        "checkpoint_dir": ("checkpoints", "A9a"),
-        "checkpoint_every": (500, "A9a"),
-        "eval_every": (0, "A9b"),
-        "eval_batch_size": (4, "A9b"),
-        "prefetch": (2, "A9b"),
-        "profile_start": (10, "A9b"),
-        "profile_steps": (3, "A9b"),
         "stream_chunk_s": (1.0, "A11"),
         "stream_lookahead_s": (0.2, "A11"),
         "stream_history_s": (1.0, "A11"),
@@ -98,7 +92,7 @@ class DataConfig:
 
     ``augment=True`` raises ``NotImplementedError`` in ``AudioDataset``
     (augmentation is not ported).  ``use_grain=True`` raises in the trainer
-    (the grain loader is not ported, ROADMAP A9).  ``native_decode`` is accepted and
+    (the grain loader is not ported, ROADMAP A9b).  ``native_decode`` is accepted and
     ignored: the port has only the Python reader, whose batches the JAX
     package's native decoder reproduces byte for byte.
     """
@@ -133,11 +127,11 @@ class DiscriminatorConfig:
 class TrainConfig:
     """The train section's fields that the port reads, with the JAX package's
     defaults: the ``aas``, ``adversarial``, ``acoustic`` and ``am`` objectives
-    with ``grad_accum``.  Fields of what is not ported yet (the ``paired``
-    objective, checkpoints, validation, prefetch, streaming) load only at
-    their defaults (``UNPORTED``); ``sortagrad``, ``profile_dir``,
-    ``streaming_finetune`` and ``streaming_finetune_am`` are read only to
-    raise.
+    with ``grad_accum``, checkpoints, validation, input prefetch, SortaGrad
+    and profiling.  Fields of what is not ported yet (the ``paired``
+    objective's MR-STFT weight, streaming) load only at their defaults
+    (``UNPORTED``); ``streaming_finetune`` and ``streaming_finetune_am`` are
+    read only to raise.
     """
 
     objective: str = "aas"       # "adversarial" | "acoustic" | "aas" | "am" ("paired": A8)
@@ -154,11 +148,20 @@ class TrainConfig:
     epochs: int = 10
     steps_per_epoch: int = 0     # 0 = derive from the dataset
     lr_anneal: float = 1.0       # lr(epoch) = lr / lr_anneal**epoch
-    sortagrad: bool = False
+    sortagrad: bool = False      # epoch 0 served strictly shortest-first
     seed: int = 0
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_every: int = 500
     log_every: int = 10
+    eval_every: int = 0          # validate every N steps; 0 = at each epoch end
+                                 # (only when data.val_manifest is set)
+    eval_batch_size: int = 4     # batch size of in-training validation
+    prefetch: int = 2            # batches assembled and moved to the device
+                                 # ahead of the step (one thread); 0 = synchronous
     grad_accum: int = 1          # microbatches per optimizer update
-    profile_dir: str = ""
+    profile_dir: str = ""        # torch.profiler trace of profile_steps steps
+    profile_start: int = 10      # from the first step >= profile_start
+    profile_steps: int = 3
     spec_augment: bool = False   # SpecAugment on the "am" objective's features
     sa_time_masks: int = 2
     sa_time_width: int = 30      # max frames per time stripe

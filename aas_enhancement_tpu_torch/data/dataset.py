@@ -9,8 +9,10 @@ real rows).  Labels pad to one width per dataset (the longest transcript,
 rounded up to 8) with {0, 1} ``label_paddings``.  The trainer reads batch
 counts (``num_batches``) and the endless unpaired clean stream
 (``UnpairedCleanStream``, padded to the noisy batch's length with
-``make_batch(bucket_override=)``); SortaGrad order, drop_last and the resume
-skip come with the rest of the loop (ROADMAP A9).
+``make_batch(bucket_override=)``); ``batches`` and ``epoch_chunks`` also
+serve SortaGrad's shortest-first epoch and ``drop_last``, and the resume
+fast-forward skips batches (``batches(start=)``) and clean draws
+(``UnpairedCleanStream.skip``) without decoding them.
 
 Only the Python wav reader is ported: the JAX package's native decoder
 (``DataConfig.native_decode``) gives byte-identical batches, so the flag is
@@ -152,17 +154,27 @@ class AudioDataset:
             by_bucket[b] = by_bucket.get(b, 0) + 1
         return sum(-(-n // batch_size) for n in by_bucket.values())
 
-    def batches(self, batch_size: int, seed: int = 0, epoch: int = 0) -> Iterator[Batch]:
+    def batches(self, batch_size: int, seed: int = 0, epoch: int = 0,
+                drop_last: bool = False, sorted_order: bool = False,
+                start: int = 0) -> Iterator[Batch]:
         """Epoch iterator: shuffled within duration buckets, then (epoch > 0)
-        in shuffled batch order."""
-        for chunk, orig in epoch_chunks(self, batch_size, seed, epoch):
+        in shuffled batch order; ``sorted_order`` serves the epoch strictly
+        shortest-first (SortaGrad).  ``start`` skips the first batches
+        without decoding them (the resume fast-forward)."""
+        chunks = epoch_chunks(self, batch_size, seed, epoch,
+                              drop_last=drop_last, sorted_order=sorted_order)
+        for chunk, orig in chunks[start:]:
             yield self.make_batch(chunk, real_size=orig)
 
 
 def epoch_chunks(dataset: AudioDataset, batch_size: int, seed: int = 0,
-                 epoch: int = 0) -> list[tuple[list[dict], int]]:
+                 epoch: int = 0, drop_last: bool = False,
+                 sorted_order: bool = False) -> list[tuple[list[dict], int]]:
     """One epoch's batch composition: [(items, real_size)], decode-free.
-    The same draws as the JAX package, so both serve identical epochs."""
+    The same draws as the JAX package, so both serve identical epochs:
+    ``sorted_order`` keeps each bucket in duration order (a stable sort) and
+    the buckets in size order; ``drop_last`` drops a short final batch
+    instead of repeat-padding it."""
     rng = np.random.default_rng(seed + epoch * 9973)
     by_bucket: dict[int, list[dict]] = {}
     for it in dataset.items:
@@ -171,15 +183,20 @@ def epoch_chunks(dataset: AudioDataset, batch_size: int, seed: int = 0,
     chunks = []
     for bucket in sorted(by_bucket):
         items = by_bucket[bucket]
-        order = rng.permutation(len(items))
+        if sorted_order:
+            order = np.argsort([it["num_samples"] for it in items], kind="stable")
+        else:
+            order = rng.permutation(len(items))
         for i in range(0, len(items), batch_size):
             chunk = [items[k] for k in order[i: i + batch_size]]
+            if drop_last and len(chunk) < batch_size:
+                continue
             # Pad a short final batch by repeating its items (static shapes).
             orig = len(chunk)
             while len(chunk) < batch_size:
                 chunk.append(chunk[len(chunk) % orig])
             chunks.append((chunk, orig))
-    if epoch > 0:
+    if epoch > 0 and not sorted_order:
         rng.shuffle(chunks)
     return chunks
 
@@ -193,11 +210,21 @@ class UnpairedCleanStream:
         self.ds = dataset
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
+        self._draws = 0      # batches drawn or skipped: the position the JAX
+                             # package keys its clean-side augmentation on
 
     def next_batch(self, bucket: int) -> Batch:
         """A clean batch padded to ``bucket`` samples (the noisy batch's length)."""
         idx = self.rng.integers(0, len(self.ds.items), size=self.batch_size)
+        self._draws += 1
         return self.ds.make_batch([self.ds.items[i] for i in idx], bucket_override=bucket)
+
+    def skip(self) -> None:
+        """Advance the stream by one batch without decoding it: the draws of
+        ``next_batch``, so a resumed run sees the clean batches of an
+        uninterrupted one."""
+        self.rng.integers(0, len(self.ds.items), size=self.batch_size)
+        self._draws += 1
 
 
 def _to_int16(x: np.ndarray) -> np.ndarray:

@@ -1,17 +1,29 @@
-"""The training loop: bucketed batches -> train steps -> metric records (port
-of ``aas_enhancement_tpu/train/loop.py``, the part that runs the step).
+"""The training loop: bucketed batches -> train steps -> metric records,
+checkpoints, resume and validation (port of ``aas_enhancement_tpu/train/loop.py``).
 
-Epochs over the noisy dataset's bucketed batches (the JAX package's order);
-for ``adversarial`` / ``aas`` each batch gets an unpaired clean batch of the
-same padded length; ``am`` trains the AM on the one manifest (typically the
-clean corpus) and, with ``distill_lambda`` > 0, anchors it to a frozen copy of
-the AM as the run started.  Real rows weigh 1 and the repeat-padded rows of a
-short batch 0 (``row_weights``; every clean row weighs 1).  Every
-``log_every`` steps, the first and the last, a record {step, epoch,
-utts_per_sec, metrics...} is kept and printed to stderr as a JSON line.
-Batches are assembled synchronously (the JAX loop's prefetch thread is not
-ported).  Checkpoints, resume, validation, the grain loader, SortaGrad and
-profiling raise (ROADMAP A9).
+Epochs over the noisy dataset's bucketed batches (the JAX package's order,
+SortaGrad's shortest-first order on epoch 0 with ``train.sortagrad``); for
+``adversarial`` / ``aas`` each batch gets an unpaired clean batch of the same
+padded length; ``am`` trains the AM on the one manifest (typically the clean
+corpus) and, with ``distill_lambda`` > 0, anchors it to a frozen copy of the
+AM as the run started.  Real rows weigh 1 and the repeat-padded rows of a
+short batch 0 (``row_weights``; every clean row weighs 1).  A producer thread
+assembles ``train.prefetch`` batches ahead of the step and moves them to the
+device (one thread, so the batch order and the clean stream's draws are
+those of the synchronous loop).  Every ``log_every`` steps, the first and the
+last, a record {step, epoch, utts_per_sec, metrics...} is kept and written by
+``utils/metrics.py::MetricsLogger`` (stderr, optionally a JSONL file and
+TensorBoard).
+
+With a ``checkpoint_dir`` the state is saved every ``checkpoint_every``
+steps and at the end (``utils/checkpoint.py``); ``resume`` restores the
+newest step and fast-forwards the data to it (batches skipped undecoded, one
+clean draw skipped per step taken), so the run continues bit for bit on the
+CPU.  With ``data.val_manifest`` greedy WER/CER is measured every
+``eval_every`` steps (0: at each epoch's end) and the best step is kept in
+``<checkpoint_dir>/best_ckpt`` with ``best.json``.  ``profile_dir`` writes a
+``torch.profiler`` Chrome trace of ``profile_steps`` steps.  The grain loader
+and streaming fine-tuning raise (ROADMAP A9b, A11).
 """
 
 from __future__ import annotations
@@ -19,7 +31,9 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
-import sys
+import os
+import queue
+import threading
 import time
 
 import numpy as np
@@ -29,11 +43,14 @@ from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.convert import init_like_flax
 from aas_enhancement_tpu_torch.data.dataset import AudioDataset, Batch, UnpairedCleanStream
 from aas_enhancement_tpu_torch.enhance import init_enhancer
-from aas_enhancement_tpu_torch.evaluation import init_am
+from aas_enhancement_tpu_torch.evaluation import (eval_dataset, evaluate_wer, init_am,
+                                                  make_eval_forward)
 from aas_enhancement_tpu_torch.models.discriminator import Discriminator
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.train.state import TrainState, adam, am_sgd
 from aas_enhancement_tpu_torch.train.steps import OBJECTIVES, make_train_step
+from aas_enhancement_tpu_torch.utils import checkpoint as ckpt
+from aas_enhancement_tpu_torch.utils.metrics import MetricsLogger
 
 
 def init_state(cfg: Config, seed: int, device: torch.device | str = "cuda",
@@ -71,6 +88,36 @@ def init_state(cfg: Config, seed: int, device: torch.device | str = "cuda",
     return state
 
 
+def load_state(checkpoint_dir: str, device: torch.device | str = "cuda"
+               ) -> tuple[TrainState, Config]:
+    """The networks of a train-CLI checkpoint directory (its ``config.json``
+    and newest step), on ``device``, for evaluation, enhancement or a warm
+    start: a fresh ``init_state`` of the checkpoint's config with the saved
+    networks loaded and the step count set; a network the checkpoint lacks
+    is None.  The optimizers stay fresh (no optimizer state is carried);
+    ``train(resume=True)`` restores everything instead."""
+    device = resolve_device(device)
+    cfg_path = os.path.join(checkpoint_dir, "config.json")
+    if not os.path.exists(cfg_path):
+        raise FileNotFoundError(
+            f"{checkpoint_dir}: no config.json — not a train-CLI checkpoint dir")
+    with open(cfg_path) as f:
+        cfg = Config.from_json(f.read())
+    step = ckpt.latest_step(checkpoint_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint found in {checkpoint_dir}")
+    blob = ckpt.read(checkpoint_dir, step, device)
+    state = init_state(cfg, 0, device)
+    for name in ("g", "d", "am"):
+        if name in blob:
+            getattr(state, name).load_state_dict(blob[name])
+        else:
+            setattr(state, name, None)
+            setattr(state, name + "_opt", None)
+    state.step = int(blob["step"])
+    return state, cfg
+
+
 def batch_dict(cfg: Config, batch: Batch, clean_stream: UnpairedCleanStream | None,
                device: torch.device | str) -> dict[str, torch.Tensor]:
     """A host batch (+ a clean batch for the GAN objectives) with row
@@ -94,21 +141,160 @@ def batch_dict(cfg: Config, batch: Batch, clean_stream: UnpairedCleanStream | No
 def _check_ported(cfg: Config) -> None:
     t, data = cfg.train, cfg.data
     for on, what, item in (
-            (data.use_grain, "DataConfig.use_grain (the grain loader)", "A9"),
-            (bool(data.val_manifest), "validation (DataConfig.val_manifest)", "A9"),
-            (t.sortagrad, "TrainConfig.sortagrad", "A9"),
-            (bool(t.profile_dir), "TrainConfig.profile_dir", "A9"),
+            (data.use_grain, "DataConfig.use_grain (the grain loader)", "A9b"),
             (t.streaming_finetune, "TrainConfig.streaming_finetune", "A11"),
             (t.streaming_finetune_am, "TrainConfig.streaming_finetune_am", "A11")):
         if on:
             raise NotImplementedError(f"{what}: not yet ported (ROADMAP {item})")
 
 
+class _Validator:
+    """In-training validation: greedy WER/CER on ``cfg.data.val_manifest``.
+
+    The decode AM is the state's own (``am``, ``acoustic``, ``aas``) or the
+    decode-only ``eval_am`` (``adversarial``); the generator objectives
+    decode the enhancer's output, and their noisy-input WER (the AM is
+    frozen) is measured once and logged with every eval.  The best WER's
+    state is kept in ``<checkpoint_dir>/best_ckpt`` (one step) with
+    ``best.json``."""
+
+    def __init__(self, cfg: Config, eval_am, records: list, logger: MetricsLogger,
+                 checkpoint_dir: str | None):
+        self.cfg = cfg
+        self.eval_am = eval_am
+        self.records = records
+        self.logger = logger
+        self.checkpoint_dir = checkpoint_dir
+        self.ds = eval_dataset(cfg, cfg.data.val_manifest)
+        self.use_enhancer = cfg.train.objective != "am"
+        self.forward = make_eval_forward(cfg, use_enhancer=self.use_enhancer)
+        self.noisy_wer = None
+        self.best_wer = float("inf")
+        self.last_eval_step = -1
+
+    def run(self, state: TrainState, s: int, epoch: int) -> dict | None:
+        self.last_eval_step = s
+        am = state.am if state.am is not None else self.eval_am
+        if am is None:
+            return None      # adversarial without a decode-only AM
+        bs = self.cfg.train.eval_batch_size
+        res = evaluate_wer(self.cfg, am, self.ds,
+                           enhancer=state.g if self.use_enhancer else None,
+                           batch_size=bs, forward=self.forward)
+        rec = {"step": s, "epoch": epoch, "val_wer": res["wer"], "val_cer": res["cer"]}
+        if self.use_enhancer:
+            if self.noisy_wer is None:
+                self.noisy_wer = evaluate_wer(self.cfg, am, self.ds, batch_size=bs)["wer"]
+            rec["val_wer_noisy"] = self.noisy_wer
+        self.records.append(rec)
+        self.logger.log(s, **{k: v for k, v in rec.items() if k != "step"})
+        if res["wer"] < self.best_wer:
+            self.best_wer = res["wer"]
+            if self.checkpoint_dir:
+                ckpt.save(os.path.join(self.checkpoint_dir, "best_ckpt"), s, state,
+                          max_to_keep=1)
+                with open(os.path.join(self.checkpoint_dir, "best.json"), "w") as f:
+                    json.dump({"step": s, "val_wer": res["wer"], "val_cer": res["cer"]}, f)
+        return rec
+
+
+def _prefetched(gen, depth: int):
+    """Run ``gen`` in a producer thread, ``depth`` items ahead of the
+    consumer; ``depth <= 0`` iterates synchronously.  One producer, so the
+    items come in ``gen``'s order; an early exit of the consumer stops it."""
+    if depth <= 0:
+        yield from gen
+        return
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    end = object()
+    stop = threading.Event()
+    err: list[BaseException] = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in gen:
+                if not put(item):
+                    return
+        except BaseException as e:       # re-raised in the consumer
+            err.append(e)
+        finally:
+            put(end)
+
+    t = threading.Thread(target=worker, daemon=True, name="aas-input-prefetch")
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        t.join()
+
+
+class _Profile:
+    """A ``torch.profiler`` trace of the steps after the first step >=
+    ``profile_start``, ``profile_steps`` of them (or to the end of training),
+    written as a Chrome/Perfetto trace into ``profile_dir``."""
+
+    def __init__(self, cfg: Config, device: torch.device):
+        self.t = cfg.train
+        self.device = device
+        self.prof = None
+        self.first = 0
+        self.done = not self.t.profile_dir
+
+    def after_step(self, s: int) -> None:
+        if self.done:
+            return
+        if self.prof is None and s >= self.t.profile_start:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+            self.first = s
+        elif self.prof is not None and s >= self.first + self.t.profile_steps:
+            self.stop(s)
+
+    def stop(self, s: int) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.t.profile_dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(
+            self.t.profile_dir, f"steps_{self.first + 1}-{s}.pt.trace.json"))
+        self.prof = None
+        self.done = True
+
+
 def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
           max_steps: int = 0, state: TrainState | None = None,
-          device: torch.device | str = "cuda") -> tuple[TrainState, list[dict]]:
+          device: torch.device | str = "cuda", metrics_path: str | None = None,
+          tensorboard_dir: str | None = None, checkpoint_dir: str | None = None,
+          resume: bool = False, eval_am: torch.nn.Module | None = None
+          ) -> tuple[TrainState, list[dict]]:
     """Run ``cfg.train.objective`` on ``device`` (the card by default; without
-    a GPU that raises, pass ``"cpu"``).  -> (final state, records)."""
+    a GPU that raises, pass ``"cpu"``).  -> (final state, records).
+
+    ``max_steps`` counts global steps (a resumed run stops at the same step
+    as an uninterrupted one).  ``eval_am`` is the decode-only AM of
+    validation for an objective that trains without one (the JAX package's
+    ``eval_am_params``)."""
     device = resolve_device(device)
     _check_ported(cfg)
     t = cfg.train
@@ -124,19 +310,46 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
                                            t.batch_size, seed=t.seed + 1)
     if state is None:
         state = init_state(cfg, t.seed, device)
+    if checkpoint_dir and resume:
+        last = ckpt.latest_step(checkpoint_dir)
+        if last is not None:
+            ckpt.restore(checkpoint_dir, last, state)
     anchor_am = None
     if t.objective == "am" and t.distill_lambda > 0.0:
-        # The anchor is the AM exactly as this run started.
+        # The anchor is the AM exactly as this run started (after a restore).
         anchor_am = copy.deepcopy(state.am).requires_grad_(False)
     step = make_train_step(cfg, anchor_am=anchor_am)
-
+    logger = MetricsLogger(metrics_path, tensorboard_dir=tensorboard_dir)
     records: list[dict] = []
-    last_logged = state.step
+    validator = (_Validator(cfg, eval_am, records, logger, checkpoint_dir)
+                 if cfg.data.val_manifest else None)
+    profile = _Profile(cfg, device)
+
+    # Resume: fast-forward the data to the restored step.  The epoch's batch
+    # count is order-independent, and the clean stream draws once a step.
+    steps_done = state.step
+    start_epoch, skip = divmod(steps_done, ds.num_batches(t.batch_size))
+    if clean_stream is not None:
+        for _ in range(steps_done):
+            clean_stream.skip()
+
+    def prepared(epoch: int, offset: int):
+        batches = ds.batches(t.batch_size, t.seed, epoch,
+                             sorted_order=t.sortagrad and epoch == 0, start=offset)
+        for i, batch in enumerate(batches, start=offset):
+            yield i, batch_dict(cfg, batch, clean_stream, device)
+
+    last_logged = steps_done         # this process's first step, for utts/s
     t_last = time.perf_counter()
-    for epoch in range(t.epochs):
-        for i, batch in enumerate(ds.batches(t.batch_size, t.seed, epoch)):
-            state, aux = step(state, batch_dict(cfg, batch, clean_stream, device))
+    done = False
+    for epoch in range(start_epoch, t.epochs):
+        if done:
+            break
+        offset = skip if epoch == start_epoch else 0
+        for i, bd in _prefetched(prepared(epoch, offset), t.prefetch):
+            state, aux = step(state, bd)
             s = state.step
+            profile.after_step(s)
             is_last = bool(max_steps and s >= max_steps) or (
                 epoch == t.epochs - 1 and i == t.steps_per_epoch - 1)
             if s % t.log_every == 0 or s == 1 or is_last:
@@ -147,8 +360,22 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
                 t_last = now
                 rec = {"step": s, "epoch": epoch, "utts_per_sec": utts_sec, **metrics}
                 records.append(rec)
-                print(json.dumps(rec), file=sys.stderr, flush=True)
+                logger.log(s, **{k: v for k, v in rec.items() if k != "step"})
                 last_logged = s
+            if checkpoint_dir and s % t.checkpoint_every == 0:
+                ckpt.save(checkpoint_dir, s, state)
+            if validator and t.eval_every and s % t.eval_every == 0:
+                validator.run(state, s, epoch)
             if max_steps and s >= max_steps:
-                return state, records
+                done = True
+                break
+        if validator and not t.eval_every:
+            validator.run(state, state.step, epoch)
+
+    if validator and state.step != validator.last_eval_step:
+        validator.run(state, state.step, t.epochs - 1)
+    if checkpoint_dir:
+        ckpt.save(checkpoint_dir, state.step, state)
+    profile.stop(state.step)          # training ended inside the trace window
+    logger.close()
     return state, records

@@ -49,7 +49,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    once per layer); one AM step at B=4 x 8 s against the CPU (metrics, every
    AM gradient tensor, updated parameters); the kernel names of one step
    with conv2's dW from the kernel and from cuDNN; AM steps timed at B=8 and
-   B=32 x 8 s, and at B=8 with SpecAugment and the KL anchor.
+   B=32 x 8 s, and at B=8 with SpecAugment and the KL anchor;
+9. checkpoint: the CLIs with checkpoint directories at full width on the
+   card (B=4, 6 synthetic utterances): AM pre-training saved at step 2 and
+   resumed with --continue-from to step 4 against an uninterrupted 4-step
+   run (losses of steps 3-4), the saved AM (load_state) on the card against
+   the CPU, AAS fine-tuning with --am-checkpoint DIR and validation every
+   step, cli.evaluate and cli.enhance from both directories; each run's
+   launches, the save and load seconds, the checkpoints' MB and the seconds
+   of a validation.
 The kernels phase also checks the backward kernels (LSTM, GRU, GroupNorm,
 the stacked LSTM and GRU) at B=8, and the GRU's at B=32, against autograd
 through the plain versions, and the conv weight-gradient kernel at the AM's
@@ -152,6 +160,10 @@ TRAIN_GRAD_TOL = {
     "d": (1e-3, "D weight gradients: f32 sums over the clean and the detached enhanced "
           "batch's frames that cancel, in cuDNN's and the CPU's orders"),
 }
+# Resume on the card: 4 uninterrupted AM steps against 2 + save + resume + 2
+# (bit for bit on the CPU, tests/test_torch_loop.py).
+RESUME_TOL = (1e-4, "AM CTC losses of steps 3-4, each side after its own SGD steps on "
+              "the card: cuDNN's conv backward may sum in another order each run")
 SLICE_TOL = (1e-4, "wav in [-1, 1] after STFT, 2 conv+GN, 2 BiLSTM-256 over 801 "
              "steps, ISTFT: f32 rounding of card vs CPU sum orders compounds")
 RECOGNIZE_TOL = (1e-4, "logits O(1) after STFT, enhancer, 2 convs of up to 7392-term "
@@ -1402,6 +1414,167 @@ def phase_train_am(device, card):
     return launches
 
 
+CKPT_KERNELS = ("stft", "istft", "gn_act", "lstm", "gru", "lstm_bwd", "gru_bwd",
+                "gn_bwd", "conv_dw")
+
+
+def _cli_run(tag: str, main, argv: list[str]) -> tuple[dict, list[dict], dict]:
+    """Drive one CLI with its launches counted -> (last stdout line, stderr
+    records, launches)."""
+    out, err = io.StringIO(), io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            main(argv)
+
+    t0 = time.perf_counter()
+    launches = counted(CKPT_KERNELS, run)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    records = [json.loads(r) for r in err.getvalue().splitlines() if r.startswith("{")]
+    print(f"[checkpoint] {tag}: {time.perf_counter() - t0:.2f} s, {json.dumps(line)[:400]} "
+          f"| launches {json.dumps(launches)}")
+    return line, records, launches
+
+
+def phase_checkpoint(device, card):
+    """The CLIs with real checkpoints at full width on the card: AM
+    pre-training saved at step 2 and resumed to 4 (against an uninterrupted
+    run), the saved AM on the card against the CPU, AAS fine-tuning from it
+    with validation, then evaluate and enhance from both directories."""
+    import torch
+    from aas_enhancement_tpu_torch.cli import enhance as enhance_cli
+    from aas_enhancement_tpu_torch.cli import evaluate as eval_cli
+    from aas_enhancement_tpu_torch.cli import train as train_cli
+    from aas_enhancement_tpu_torch.data import generate_corpus
+    from aas_enhancement_tpu_torch.evaluation import make_eval_forward
+    from aas_enhancement_tpu_torch.train.loop import init_state, load_state
+    from aas_enhancement_tpu_torch.utils import checkpoint as ckpt
+
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def mb(path):
+        return os.path.getsize(os.path.join(path, ckpt.STATE_FILE)) / 1e6
+
+    with tempfile.TemporaryDirectory() as tmp:
+        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+        am_dir, g_dir = os.path.join(tmp, "am"), os.path.join(tmp, "g")
+        am = ["--objective", "am", "--noisy-manifest", m["clean"], "--batch-size", str(B),
+              "--log-every", "1", "--am-checkpoint", "seed:0", "--device", "cuda"]
+        _, full, n = _cli_run("cli.train --objective am --steps 4 (uninterrupted)",
+                              train_cli.main, [*am, "--steps", "4"])
+        add(n)
+        _, _, n = _cli_run("cli.train --objective am --steps 2 --checkpoint-dir",
+                           train_cli.main, [*am, "--steps", "2", "--checkpoint-dir", am_dir])
+        add(n)
+        line, resumed, n = _cli_run(
+            "cli.train --objective am --steps 4 --checkpoint-dir --continue-from",
+            train_cli.main, [*am, "--steps", "4", "--checkpoint-dir", am_dir,
+                             "--continue-from"])
+        add(n)
+        if line.get("final_step") != 4 or sorted(os.listdir(am_dir)) != ["2", "4",
+                                                                         "config.json"]:
+            fail(f"the resumed am run printed {line}, left {sorted(os.listdir(am_dir))}")
+        tol, why = RESUME_TOL
+        want = {r["step"]: r["loss_ctc_am"] for r in full}
+        got = {r["step"]: r["loss_ctc_am"] for r in resumed}
+        if sorted(got) != [3, 4]:
+            fail(f"the resumed run logged steps {sorted(got)}, not 3 and 4")
+        gap = max(abs(got[s] - want[s]) / abs(want[s]) for s in got)
+        print(f"[checkpoint] resumed steps 3-4 against the uninterrupted run on {card}: "
+              f"loss_ctc_am {json.dumps(got)} vs {json.dumps({s: want[s] for s in got})}, "
+              f"largest relative difference {gap:.3e} (tol {tol:.0e}: {why})")
+        if not gap <= tol or not all(abs(v) < float("inf") for v in got.values()):
+            fail(f"resume gap {gap:.3e} > {tol:.0e}")
+
+        # Save and load times and sizes, and the saved AM on the card vs the CPU.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, cfg = load_state(am_dir, device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        state_cpu, _ = load_state(am_dir, "cpu")
+        if state.step != 4 or state.am is None:
+            fail(f"load_state gave step {state.step}, AM {state.am is not None}")
+        wav, lengths, _ = make_inputs("cpu")
+        fwd = make_eval_forward(cfg, use_enhancer=False)
+        logits_cpu, _ = fwd(state_cpu.am, None, wav, lengths)
+        logits = fwd(state.am, None, wav.to(device), lengths.to(device))[0].cpu()
+        err = (logits - logits_cpu).abs().max().item()
+        rtol, rwhy = RECOGNIZE_TOL
+        print(f"[checkpoint] the saved AM (step 4) on the card vs the CPU, B={B} x "
+              f"{SECONDS} s noisy leg: logits max_abs_err {err:.3e} (tol {rtol:.0e}: {rwhy})")
+        if not err <= rtol or not torch.isfinite(logits).all():
+            fail(f"card vs CPU logits of the loaded AM differ by {err:.3e}")
+
+        def timed_save(path, step, cfg_):
+            """A save as training makes it: the restored state, optimizers too."""
+            full_state = init_state(cfg_, 0, device)
+            ckpt.restore(path, step, full_state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(path + "_copy", step, full_state)
+            return time.perf_counter() - t0
+
+        save_s = timed_save(am_dir, 4, cfg)
+        del state, state_cpu
+
+        aas = ["--objective", "aas", "--noisy-manifest", m["noisy"], "--clean-manifest",
+               m["clean"], "--batch-size", str(B), "--steps", "2", "--am-checkpoint", am_dir,
+               "--checkpoint-dir", g_dir, "--val-manifest", m["noisy"], "--eval-every", "1",
+               "--device", "cuda"]
+        line, records, n = _cli_run("cli.train --objective aas --am-checkpoint DIR "
+                                    "--val-manifest --eval-every 1", train_cli.main, aas)
+        add(n)
+        vals = [r for r in records if "val_wer" in r]
+        if (line.get("final_step") != 2 or [r["step"] for r in vals] != [1, 2]
+                or not {"val_wer", "val_wer_noisy", "loss_g"} <= set(line)
+                or not all(abs(v) < float("inf") for v in line.values())
+                or not os.path.exists(os.path.join(g_dir, "best.json"))):
+            fail(f"the aas run printed {line}, validation records {vals}")
+        t0 = time.perf_counter()
+        _, g_cfg = load_state(g_dir, device)
+        torch.cuda.synchronize()
+        g_load_s = time.perf_counter() - t0
+        g_save_s = timed_save(g_dir, 2, g_cfg)
+
+        line, _, n = _cli_run("cli.evaluate --am-checkpoint DIR --enhancer-checkpoint DIR",
+                              eval_cli.main, ["--manifest", m["noisy"], "--am-checkpoint",
+                                              am_dir, "--enhancer-checkpoint", g_dir,
+                                              "--device", "cuda"])
+        add(n)
+        if (set(line) != {"noisy", "enhanced", "wer_delta"}
+                or any(line[k]["utterances"] != 6 or not 0.0 <= line[k]["wer"] < float("inf")
+                       for k in ("noisy", "enhanced"))):
+            fail(f"cli.evaluate printed {line}")
+        line, _, n = _cli_run("cli.enhance --checkpoint DIR", enhance_cli.main,
+                              ["--manifest", m["noisy"], "--out-dir", os.path.join(tmp, "enh"),
+                               "--checkpoint", g_dir, "--device", "cuda"])
+        add(n)
+        if line.get("utterances") != 6 or len(os.listdir(os.path.join(tmp, "enh"))) != 6:
+            fail(f"cli.enhance printed {line}")
+        sizes = {"am": mb(os.path.join(am_dir, "4")), "aas": mb(os.path.join(g_dir, "2"))}
+    val_s = [b["t"] - a["t"] for a, b in zip(records, records[1:]) if "val_wer" in b]
+    print(f"[checkpoint] on {card}: save (synchronous, CPU copies, torch.save) AM + SGD "
+          f"momentum {sizes['am']:.1f} MB in {save_s:.3f} s, AAS state (G + Adam, D + Adam, "
+          f"frozen AM) {sizes['aas']:.1f} MB in {g_save_s:.3f} s; load_state onto the card "
+          f"(init_state, then the saved networks) AM {load_s:.3f} s, AAS {g_load_s:.3f} s; "
+          f"validation seconds per eval (the logger's clock, the first with the noisy "
+          f"leg) {[round(v, 3) for v in val_s]}")
+    print(f"[checkpoint] launches of the phase's CLI runs: {json.dumps(total)}")
+    for name in ("gru", "gn_act", "stft", "lstm", "istft"):
+        if not total.get(name):
+            fail(f"the checkpoint phase launched no {name} kernel")
+    bad = [mod for mod in sys.modules if mod.split(".")[0] in ("jax", "flax",
+                                                                "aas_enhancement_tpu")]
+    if bad:
+        fail(f"JAX or the JAX package was imported: {bad[:5]}")
+    return total
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     name, smi = phase_device()
@@ -1422,7 +1595,8 @@ def main() -> int:
                "recognize": timed("recognize", phase_recognize, device, smi),   # evaluate CLI
                "aas_step": timed("aas_step", phase_train, device, smi),   # train CLI, aas
                "birnn_batch_major": timed("birnn", phase_birnn, device),
-               "am_step": timed("am_step", phase_train_am, device, smi)}   # train CLI, am
+               "am_step": timed("am_step", phase_train_am, device, smi),   # train CLI, am
+               "checkpoint": timed("checkpoint", phase_checkpoint, device, smi)}   # CLIs, dirs
     print(f"[time] seconds per phase: {json.dumps(took)}")
     launches = {}
     for counts in by_path.values():        # the last path that runs a kernel

@@ -1,0 +1,244 @@
+"""Port checkpoints (aas_enhancement_tpu_torch/utils/checkpoint.py,
+train/loop.py::load_state) and the converter of the JAX package's Orbax
+checkpoints (scripts/orbax_to_torch.py), on the CPU, at tiny widths.
+
+Tolerances: a save/load round trip is exact (``torch.equal`` on every tensor
+of every network and optimizer state).  A converted checkpoint is held to the
+JAX package's ``apply`` on the same parameters to 1e-5 (AM logits, enhancer
+output: f32 sums in another order, values O(1)).  The evaluate CLI on a
+converted checkpoint prints the JAX CLI's WER and CER exactly (greedy
+hypotheses of logits that agree to ~1e-6).
+"""
+
+import importlib.util
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aas_enhancement_tpu.cli import evaluate as jax_eval_cli
+from aas_enhancement_tpu.config import (AMConfig, Config, DataConfig,
+                                        DiscriminatorConfig, EnhancerConfig,
+                                        TrainConfig)
+from aas_enhancement_tpu.data.synthetic import generate_corpus
+from aas_enhancement_tpu.models.am import AcousticModel as JaxAcousticModel
+from aas_enhancement_tpu.models.enhancer import Enhancer as JaxEnhancer
+from aas_enhancement_tpu.train.loop import init_state as jax_init_state
+from aas_enhancement_tpu.train.loop import train as jax_train
+from aas_enhancement_tpu.utils import checkpoint as jckpt
+from aas_enhancement_tpu_torch.cli import evaluate as eval_cli
+from aas_enhancement_tpu_torch.config import Config as TConfig
+from aas_enhancement_tpu_torch.train.loop import init_state, load_state
+from aas_enhancement_tpu_torch.train.steps import make_train_step
+from aas_enhancement_tpu_torch.utils import checkpoint as ckpt
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "orbax_to_torch", os.path.join(REPO, "scripts", "orbax_to_torch.py"))
+orbax_to_torch = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(orbax_to_torch)
+
+
+def _cfg(objective, **train_kw):
+    return Config(
+        am=AMConfig(rnn_hidden=16, rnn_layers=1, conv_channels=8),
+        enhancer=EnhancerConfig(conv_channels=8, conv_layers=1, rnn_hidden=12,
+                                rnn_layers=1),
+        discriminator=DiscriminatorConfig(channels=(8, 16)),
+        train=TrainConfig(objective=objective, batch_size=4, log_every=1, **train_kw),
+        data=DataConfig(num_buckets=1))
+
+
+def _batch(seed=0):
+    rng = np.random.default_rng(seed)
+    lengths = np.array([4000, 3300, 2500, 4000], np.int32)
+    wav = (0.1 * rng.standard_normal((4, 4000))).astype(np.float32)
+    wav *= np.arange(4000)[None] < lengths[:, None]
+    labels = rng.integers(1, 7, size=(4, 8)).astype(np.int32)
+    batch = {"wav": wav, "wav_lengths": lengths, "labels": labels,
+             "label_paddings": np.zeros((4, 8), np.float32),
+             "clean_wav": (0.1 * rng.standard_normal((4, 4000))).astype(np.float32),
+             "clean_wav_lengths": np.array([4000, 4000, 3000, 2000], np.int32)}
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _tensors(obj, prefix=""):
+    """Every tensor of a (nested) state_dict, by path."""
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    out = {}
+    items = obj.items() if isinstance(obj, dict) else enumerate(obj) \
+        if isinstance(obj, (list, tuple)) else ()
+    for k, v in items:
+        out.update(_tensors(v, f"{prefix}/{k}"))
+    return out
+
+
+def _parts(state):
+    return {n: getattr(state, n).state_dict() for n in ckpt.NETWORKS
+            if getattr(state, n) is not None}
+
+
+@pytest.mark.parametrize("objective", ["aas", "am"])
+def test_save_restore_round_trip(tmp_path, objective):
+    """Networks and optimizer states (Adam's moments and step, SGD's momentum
+    buffers) come back bit for bit into a state drawn from another seed;
+    three steps are kept, no ``.tmp`` directory stays, a step at or below
+    the newest is skipped."""
+    cfg = TConfig.from_json(_cfg(objective).to_json())
+    state = init_state(cfg, 0, "cpu")
+    step = make_train_step(cfg)
+    for i in range(2):
+        step(state, _batch(i))
+    d = str(tmp_path / "ck")
+    assert ckpt.latest_step(d) is None
+    for s in (1, 2, 3, 4, 5):
+        state.step = s
+        assert ckpt.save(d, s, state)
+    assert not ckpt.save(d, 4, state) and not ckpt.save(d, 5, state)
+    assert sorted(os.listdir(d)) == ["3", "4", "5"] and ckpt.latest_step(d) == 5
+    saved = torch.load(os.path.join(d, "5", "state.pt"), weights_only=True)
+    assert set(saved) == {"step"} | set(_parts(state))
+
+    other = init_state(cfg, 9, "cpu")
+    ckpt.restore(d, 5, other)
+    assert other.step == 5
+    want, got = _parts(state), _parts(other)
+    for name in want:
+        a, b = _tensors(want[name]), _tensors(got[name])
+        assert a.keys() == b.keys() and a, name
+        for k in a:
+            assert torch.equal(a[k], b[k]), (name, k)
+    opt = getattr(other, "g_opt" if objective == "aas" else "am_opt")
+    assert len(opt.state) == len(opt.param_groups[0]["params"])
+
+
+def test_load_state_carries_networks_only(tmp_path):
+    cfg = TConfig.from_json(_cfg("aas").to_json())
+    state = init_state(cfg, 0, "cpu")
+    make_train_step(cfg)(state, _batch())
+    d = tmp_path / "ck"
+    d.mkdir()
+    (d / "config.json").write_text(cfg.to_json())
+    ckpt.save(str(d), 1, state)
+    got, got_cfg = load_state(str(d), "cpu")
+    assert got_cfg == cfg and got.step == 1
+    for name in ("g", "d", "am"):
+        for (k, a), b in zip(getattr(state, name).state_dict().items(),
+                             getattr(got, name).state_dict().values()):
+            assert torch.equal(a, b), (name, k)
+    assert got.g_opt is not None and not got.g_opt.state      # fresh, as in JAX
+
+
+def test_a_directory_without_config_or_step_raises(tmp_path):
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        load_state(str(tmp_path), "cpu")
+    (tmp_path / "config.json").write_text(TConfig().to_json())
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        load_state(str(tmp_path), "cpu")
+
+
+def test_an_orbax_directory_raises_naming_the_converter(tmp_path):
+    """A JAX package's directory is refused, with the converter's name,
+    before anything is loaded."""
+    cfg = _cfg("am")
+    d = str(tmp_path / "jax_ck")
+    mgr = jckpt.make_manager(d)
+    jckpt.save(mgr, 3, jax.device_get(jax_init_state(cfg, jax.random.key(0))))
+    mgr.wait_until_finished()
+    mgr.close()
+    with open(os.path.join(d, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    assert ckpt.latest_step(d) == 3
+    with pytest.raises(ValueError, match="scripts/orbax_to_torch.py"):
+        load_state(d, "cpu")
+    state = init_state(TConfig.from_json(cfg.to_json()), 0, "cpu")
+    before = [p.clone() for p in state.am.parameters()]
+    with pytest.raises(ValueError, match="orbax_to_torch"):
+        ckpt.restore(d, 3, state)
+    assert all(torch.equal(a, b) for a, b in zip(before, state.am.parameters()))
+
+
+def _jax_checkpoint(cfg, d, step, seed=0):
+    """A JAX state saved as the JAX train CLI leaves it: Orbax + config.json."""
+    jstate = jax_init_state(cfg, jax.random.key(seed))
+    jstate = jstate.replace(step=jnp.asarray(step, jnp.int32))
+    mgr = jckpt.make_manager(d)
+    jckpt.save(mgr, step, jax.device_get(jstate))
+    mgr.wait_until_finished()
+    mgr.close()
+    with open(os.path.join(d, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    return jstate
+
+
+@pytest.mark.parametrize("objective", ["am", "aas"])
+def test_converted_checkpoint_matches_jax_apply(tmp_path, objective):
+    """JAX init_state -> Orbax -> converter -> the port's load_state: the AM's
+    logits and the enhancer's output equal JAX's apply to 1e-5, the step
+    carries over, and resuming from it raises (no optimizer state)."""
+    cfg = _cfg(objective)
+    src, dst = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jstate = _jax_checkpoint(cfg, src, 7)
+    assert orbax_to_torch.convert(src, dst) == 7
+    assert json.load(open(os.path.join(dst, "config.json"))) == json.loads(cfg.to_json())
+    state, tcfg = load_state(dst, "cpu")
+    assert state.step == 7 and tcfg == TConfig.from_json(cfg.to_json())
+    assert (state.g is None) == (objective == "am") and (state.d is None) == (objective == "am")
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 30, 161)).astype(np.float32)
+    lengths = np.array([30, 21], np.int32)
+    ref, ref_len = JaxAcousticModel(cfg.am).apply(jstate.am_params, jnp.asarray(x),
+                                                  jnp.asarray(lengths))
+    with torch.no_grad():
+        got, got_len = state.am(torch.from_numpy(x), torch.from_numpy(lengths))
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(ref_len))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+    if objective == "aas":
+        ref = JaxEnhancer(cfg.enhancer).apply(jstate.g_params, jnp.asarray(x),
+                                              jnp.asarray(lengths))
+        with torch.no_grad():
+            got = state.g(torch.from_numpy(x), torch.from_numpy(lengths))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+    fresh = init_state(tcfg, 0, "cpu")
+    with pytest.raises(ValueError, match="no optimizer state"):
+        ckpt.restore(dst, 7, fresh)
+    with pytest.raises(FileExistsError):
+        orbax_to_torch.convert(src, dst)
+
+
+def test_jax_trained_checkpoint_evaluates_alike(tmp_path, capsys, monkeypatch):
+    """The slice against JAX: two JAX ``am`` steps with a checkpoint dir (the
+    JAX CLI's layout), converted; the port's evaluate CLI on the converted
+    dir prints the JAX evaluate CLI's WER and CER on the JAX dir."""
+    monkeypatch.setattr("aas_enhancement_tpu.utils.jax_cache.enable", lambda *a: None)
+    corpus = generate_corpus(str(tmp_path / "corpus"), n_utts=4, seed=5)
+    cfg = _cfg("am", lr_am=0.05)
+    src, dst = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jstate = jax_init_state(cfg, jax.random.key(0))
+    rng = np.random.default_rng(1)      # move the biases off 0: non-blank hypotheses
+    jstate = jstate.replace(am_params=jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + (0.3 * rng.standard_normal(a.shape).astype(np.float32)
+                                   if a.ndim == 1 else 0.0), jax.device_get(jstate.am_params)))
+    os.makedirs(src)
+    with open(os.path.join(src, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    jax_train(cfg, corpus["clean"], max_steps=2, checkpoint_dir=src, state=jstate)
+    assert orbax_to_torch.convert(src, dst) == 2
+
+    jax_eval_cli.main(["--manifest", corpus["noisy"], "--am-checkpoint", src])
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    eval_cli.main(["--manifest", corpus["noisy"], "--am-checkpoint", dst, "--device", "cpu"])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(got) == set(ref) == {"noisy"}
+    assert got["noisy"]["utterances"] == ref["noisy"]["utterances"] == 4
+    for k in ("wer", "cer", "wer_ci95", "sample_ref", "sample_hyp"):
+        assert got["noisy"][k] == ref["noisy"][k], k

@@ -21,7 +21,8 @@ from aas_enhancement_tpu_torch.data import generate_corpus
 from aas_enhancement_tpu_torch.enhance import enhance_utterance, init_enhancer
 from aas_enhancement_tpu_torch.evaluation import init_am
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
-from aas_enhancement_tpu_torch.train.loop import init_state, train
+from aas_enhancement_tpu_torch.train.loop import init_state, load_state, train
+from aas_enhancement_tpu_torch.utils import checkpoint as ckpt
 
 torch.set_num_threads(1)
 
@@ -103,3 +104,17 @@ def test_same_weights_on_every_device():
         assert torch.equal(p, q)
     other = init_enhancer(dataclasses.replace(CFG), 4, "cpu")
     assert any(not torch.equal(p, q) for p, q in zip(a.parameters(), other.parameters()))
+
+
+def test_load_state_defaults_to_the_card(tmp_path, no_gpu):
+    """A checkpoint directory loads onto the card unless the caller asks for
+    the CPU; without a GPU the default raises."""
+    assert inspect.signature(load_state).parameters["device"].default == "cuda"
+    (tmp_path / "config.json").write_text(CFG.to_json())
+    ckpt.save(str(tmp_path), 1, init_state(CFG, 0, "cpu"))
+    for dev in ((), ("cuda",)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load_state(str(tmp_path), *dev)
+    state, _ = load_state(str(tmp_path), "cpu")
+    assert {p.device.type for net in (state.g, state.d, state.am)
+            for p in net.parameters()} == {"cpu"}

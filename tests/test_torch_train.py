@@ -28,6 +28,7 @@ another order):
 
 import dataclasses
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -434,11 +435,43 @@ def test_cli_trains_three_steps_on_cpu(corpus, tmp_path, capsys):
     (["--stream-chunk", "1.0"], "A11"), (["--streaming-finetune-am"], "A11"),
     (["--objective", "paired"], "A8"), (["--g-checkpoint", "ckpt_dir"], "A9"),
     (["--am-checkpoint", "ckpt_dir"], "A9")])
-def test_unported_flags_raise(flags, item):
+def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
+    """Streaming fine-tuning (A11) and the paired objective (A8) raise.  The
+    A9 flags are ported: a checkpoint directory without config.json raises
+    as the JAX CLI's load_state does, and every other flag reaches the
+    config or the loop (``init_state`` and ``train`` stubbed here; the loop
+    itself is driven in tests/test_torch_loop.py)."""
     args = ["--objective", "aas", "--noisy-manifest", "n.csv", "--clean-manifest",
-            "c.csv", "--device", "cpu", *flags]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        train_cli.main(args)
+            "c.csv", "--device", "cpu"]
+    if item != "A9":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            train_cli.main([*args, *flags])
+        return
+    if flags[0] in ("--g-checkpoint", "--am-checkpoint"):
+        with pytest.raises(FileNotFoundError, match="no config.json"):
+            train_cli.main([*args, flags[0], str(tmp_path / flags[1])])
+        return
+    seen = {}
+
+    def fake_train(cfg, *a, **kw):
+        seen.update(kw, cfg=cfg)
+        return TrainState(step=0), []
+
+    monkeypatch.setattr(train_cli, "init_state", lambda *a, **kw: TrainState())
+    monkeypatch.setattr(train_cli, "train", fake_train)
+    monkeypatch.chdir(tmp_path)
+    train_cli.main([*args, *flags])
+    t = seen["cfg"].train
+    reached = {"--checkpoint-dir": seen["checkpoint_dir"] == "ck"
+               and os.path.exists("ck/config.json"),
+               "--continue-from": seen["resume"] is True,
+               "--val-manifest": seen["cfg"].data.val_manifest == "v.csv",
+               "--eval-every": t.eval_every == 5,
+               "--metrics": seen["metrics_path"] == "m.jsonl",
+               "--tensorboard": seen["tensorboard_dir"] == "tb",
+               "--profile-dir": t.profile_dir == "p",
+               "--sortagrad": t.sortagrad is True}
+    assert reached[flags[0]], (flags, seen)
 
 
 @pytest.mark.parametrize("extra,keys", [
