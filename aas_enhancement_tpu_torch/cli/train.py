@@ -1,5 +1,8 @@
 """`train` entry point of the port (counterpart of ``aas_enhancement_tpu/cli/train.py``).
 
+  paired       L1 between enhanced and clean log-magnitudes (plus the config's
+               lambda_mrstft x the MR-STFT loss), needs --clean-manifest: the
+               paired clean corpus, in the noisy manifest's order
   adversarial  GAN on the spectrogram discriminator, needs --clean-manifest (unpaired)
   acoustic     CTC of the frozen AM on the enhanced features
   aas          both: L_G = L_CTC + lambda_adv * L_adv, needs --clean-manifest
@@ -10,7 +13,7 @@
 Same flags and final JSON line as the JAX CLI, plus ``--device``.  Metric
 records go to stderr as JSON lines (and to ``--metrics`` / ``--tensorboard``);
 the last stdout line is {"final_step": N, "loss_...": ..., and with
-``--val-manifest`` "val_wer" (and "val_wer_noisy")}.
+``--val-manifest`` "val_wer" (and, but for ``paired``, "val_wer_noisy")}.
 
 Usage:
   python -m aas_enhancement_tpu_torch.cli.train --objective aas \\
@@ -25,11 +28,13 @@ package's directory converts with ``scripts/orbax_to_torch.py``) or
 distributions).  The frozen AM keeps the checkpoint's architecture (its
 ``am`` config section), and so does a warm-started or frozen enhancer; for
 ``adversarial`` / ``aas`` the ``--g-checkpoint``'s discriminator comes too;
-for ``adversarial`` the ``--am-checkpoint`` is validation's decode-only AM.
+for ``paired`` and ``adversarial`` the ``--am-checkpoint`` is validation's
+decode-only AM.  An ``am`` run keeps the ``--g-checkpoint``'s enhancer
+frozen in its state, also without ``--am-through-enhancer`` (the step does
+not read it then), so its checkpoints carry it, as the JAX CLI's do.
 ``config.json`` is written into ``--checkpoint-dir`` before training.
-Not ported yet, and raising with their ROADMAP item: the objective
-``paired`` (A8); ``--streaming-finetune``, ``--streaming-finetune-am`` and
-``--stream-*`` (A11).
+Not ported yet, and raising with their ROADMAP item: ``--streaming-finetune``,
+``--streaming-finetune-am`` and ``--stream-*`` (A11).
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ import os
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.cli.evaluate import checkpoint_seed
 from aas_enhancement_tpu_torch.config import Config
-from aas_enhancement_tpu_torch.train.loop import init_state, load_state, train
+from aas_enhancement_tpu_torch.enhance import init_enhancer
+from aas_enhancement_tpu_torch.train.loop import init_state, keep_frozen_g, load_state, train
 
 # flags (argparse dest) of streaming fine-tuning, ROADMAP A11
 _UNPORTED = ("streaming_finetune", "streaming_finetune_am", "stream_chunk",
@@ -56,11 +62,13 @@ def main(argv=None) -> None:
                    choices=["paired", "adversarial", "acoustic", "aas", "am"])
     p.add_argument("--noisy-manifest", required=True,
                    help="training manifest (the clean manifest for --objective am)")
-    p.add_argument("--clean-manifest", help="unpaired clean corpus (adversarial, aas)")
+    p.add_argument("--clean-manifest",
+                   help="paired clean corpus (paired) or unpaired clean corpus "
+                        "(adversarial, aas)")
     p.add_argument("--am-checkpoint",
                    help="AM checkpoint dir or seed:N: the frozen AM of acoustic/aas, "
                         "the initial AM of am, the decode-only validation AM of "
-                        "adversarial")
+                        "paired/adversarial")
     p.add_argument("--config", help="config JSON file")
     p.add_argument("--steps", type=int, default=0, help="stop after N steps (0 = epochs)")
     p.add_argument("--epochs", type=int, default=0)
@@ -110,10 +118,10 @@ def main(argv=None) -> None:
         if getattr(args, dest) not in (None, False):
             raise NotImplementedError(f"--{dest.replace('_', '-')}: not yet ported "
                                       "(ROADMAP A11)")
-    if args.objective == "paired":
-        raise NotImplementedError("--objective paired: not yet ported (ROADMAP A8)")
     if args.am_through_enhancer and args.objective != "am":
         p.error("--am-through-enhancer only applies to --objective am")
+    if args.objective == "paired" and not args.clean_manifest:
+        p.error("--objective paired requires --clean-manifest (paired targets)")
     if args.objective in ("adversarial", "aas") and not args.clean_manifest:
         p.error(f"--objective {args.objective} requires --clean-manifest (unpaired corpus)")
     device = resolve_device(args.device)
@@ -177,16 +185,22 @@ def main(argv=None) -> None:
     for name, net in (("am", am), ("g", g), ("d", d)):
         if net is not None and getattr(state, name) is not None:
             getattr(state, name).load_state_dict(net.state_dict())
+    if args.g_checkpoint and state.g is None:
+        # An objective that builds no G (am without --am-through-enhancer)
+        # keeps the given one frozen in its state, as the JAX CLI grafts it.
+        keep_frozen_g(state, cfg, device, g if g is not None
+                      else init_enhancer(cfg, g_seed, device))
     if args.checkpoint_dir:
         os.makedirs(args.checkpoint_dir, exist_ok=True)
         with open(os.path.join(args.checkpoint_dir, "config.json"), "w") as f:
             f.write(cfg.to_json())
 
     state, records = train(cfg, args.noisy_manifest, args.clean_manifest,
-                           max_steps=args.steps, state=state, device=device,
-                           metrics_path=args.metrics, tensorboard_dir=args.tensorboard,
+                           paired=args.objective == "paired", max_steps=args.steps,
+                           state=state, device=device, metrics_path=args.metrics,
+                           tensorboard_dir=args.tensorboard,
                            checkpoint_dir=args.checkpoint_dir or None, resume=args.resume,
-                           eval_am=am if args.objective == "adversarial" else None)
+                           eval_am=am if args.objective in ("paired", "adversarial") else None)
 
     final = next((r for r in reversed(records)
                   if any(k.startswith("loss") for k in r)), {})

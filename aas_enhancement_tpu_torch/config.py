@@ -5,8 +5,8 @@ The same dataclasses, fields and defaults as the JAX package's audio, AM,
 enhancer, discriminator and data sections, and the fields of its train
 section that the port reads.  A config JSON written by either package loads
 here as long as the fields the port does not have yet (``UNPORTED``: the
-mesh section, the paired objective's and streaming's train fields,
-``audio.stft_impl``) hold their defaults: a
+mesh section, streaming's train fields, ``audio.stft_impl``) hold their
+defaults: a
 non-default value of one raises instead of vanishing, naming the ROADMAP item
 that ports the field's consumer.  Keys that neither package knows are
 skipped, as the JAX package's own ``Config.from_dict`` skips them, and JSON
@@ -29,7 +29,6 @@ from typing import Any
 UNPORTED = {
     "audio": {"stft_impl": ("auto", "A15")},       # one STFT route on the card, by decision
     "train": {
-        "lambda_mrstft": (0.0, "A8"),              # the paired objective's MR-STFT term
         "stream_chunk_s": (1.0, "A11"),
         "stream_lookahead_s": (0.2, "A11"),
         "stream_history_s": (1.0, "A11"),
@@ -90,8 +89,8 @@ class EnhancerConfig:
 class DataConfig:
     """Host-side data pipeline (``data/dataset.py``).
 
-    ``augment=True`` raises ``NotImplementedError`` in ``AudioDataset``
-    (augmentation is not ported).  ``use_grain=True`` raises in the trainer
+    ``augment=True`` perturbs each unpaired training wav (``data/augment.py``:
+    speed, gain, noise from ``noise_dir``).  ``use_grain=True`` raises in the trainer
     (the grain loader is not ported, ROADMAP A9b).  ``native_decode`` is accepted and
     ignored: the port has only the Python reader, whose batches the JAX
     package's native decoder reproduces byte for byte.
@@ -126,15 +125,17 @@ class DiscriminatorConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """The train section's fields that the port reads, with the JAX package's
-    defaults: the ``aas``, ``adversarial``, ``acoustic`` and ``am`` objectives
-    with ``grad_accum``, checkpoints, validation, input prefetch, SortaGrad
-    and profiling.  Fields of what is not ported yet (the ``paired``
-    objective's MR-STFT weight, streaming) load only at their defaults
-    (``UNPORTED``); ``streaming_finetune`` and ``streaming_finetune_am`` are
-    read only to raise.
+    defaults: the ``paired``, ``aas``, ``adversarial``, ``acoustic`` and
+    ``am`` objectives (and ``enhance_only``, ``preset("single_utterance")``'s,
+    which builds G and trains nothing) with ``grad_accum``, checkpoints,
+    validation, input prefetch, SortaGrad and profiling.  Fields of what is
+    not ported yet (streaming) load only at their defaults (``UNPORTED``);
+    ``streaming_finetune`` and ``streaming_finetune_am`` are read only to
+    raise.
     """
 
-    objective: str = "aas"       # "adversarial" | "acoustic" | "aas" | "am" ("paired": A8)
+    objective: str = "aas"       # "paired" | "adversarial" | "acoustic" | "aas" | "am"
+                                 # | "enhance_only"
     batch_size: int = 8
     lr_g: float = 3e-4
     lr_d: float = 3e-4
@@ -144,6 +145,8 @@ class TrainConfig:
     momentum: float = 0.9        # SGD momentum of AM pre-training
     max_grad_norm: float = 400.0
     lambda_adv: float = 1.0      # weight on the adversarial term of the AAS loss
+    lambda_mrstft: float = 0.0   # "paired": weight of the multi-resolution STFT loss
+                                 # on the reconstructed waveform (0 = off)
     gan_loss: str = "lsgan"      # "lsgan" | "bce"
     epochs: int = 10
     steps_per_epoch: int = 0     # 0 = derive from the dataset
@@ -214,3 +217,20 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+# The five driver acceptance configs, as the JAX package names them.
+def preset(name: str) -> Config:
+    """The five graded end-to-end configs, smallest first: ``single_utterance``
+    (the ``enhance_only`` objective at batch 1), ``paired``, ``adversarial``,
+    ``acoustic`` and ``aas``, each the default ``Config`` with that objective."""
+    base = Config()
+    objective = {"single_utterance": "enhance_only", "paired": "paired",
+                 "adversarial": "adversarial", "acoustic": "acoustic",
+                 "aas": "aas"}.get(name)
+    if objective is None:
+        raise ValueError(f"unknown preset: {name!r}")
+    train = dataclasses.replace(base.train, objective=objective)
+    if name == "single_utterance":
+        train = dataclasses.replace(train, batch_size=1)
+    return base.replace(train=train)

@@ -14,9 +14,17 @@ serve SortaGrad's shortest-first epoch and ``drop_last``, and the resume
 fast-forward skips batches (``batches(start=)``) and clean draws
 (``UnpairedCleanStream.skip``) without decoding them.
 
+With ``DataConfig.augment`` every unpaired training wav is perturbed
+(``data/augment.py``: speed, gain, noise from ``noise_dir``) by a generator
+keyed on (epoch, manifest position), so a resumed run, which skips batches
+undecoded, sees the audio of an uninterrupted one; the clean stream keys its
+draws on their count.  Paired targets stay unaugmented, sample-aligned with
+their clean side.  Bucket lengths then allow for speed perturbation's
+longest output (x1.12), as the JAX package's do.
+
 Only the Python wav reader is ported: the JAX package's native decoder
 (``DataConfig.native_decode``) gives byte-identical batches, so the flag is
-ignored here.  Augmentation (``DataConfig.augment``) is not ported and raises.
+ignored here.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Iterator
 import numpy as np
 
 from aas_enhancement_tpu_torch.config import AudioConfig, DataConfig
+from aas_enhancement_tpu_torch.data.augment import NoiseInjector, augment_wav
 from aas_enhancement_tpu_torch.data.manifest import read_manifest, read_transcript
 from aas_enhancement_tpu_torch.data.wav import read_wav
 from aas_enhancement_tpu_torch.labels import LABELS, encode
@@ -58,12 +67,12 @@ class AudioDataset:
 
     def __init__(self, manifest_path: str, audio: AudioConfig, data: DataConfig,
                  labels: str = LABELS, paired_manifest: str | None = None):
-        if data.augment:
-            raise NotImplementedError("DataConfig.augment: data augmentation is not "
-                                      "yet ported (ROADMAP A8)")
         self.audio = audio
         self.data = data
         self.labels = labels
+        self.noise = None
+        if data.augment and data.noise_dir:
+            self.noise = NoiseInjector(data.noise_dir, audio.sample_rate)
         entries = read_manifest(manifest_path)
         paired = read_manifest(paired_manifest) if paired_manifest else None
         if paired is not None and len(paired) != len(entries):
@@ -71,16 +80,20 @@ class AudioDataset:
 
         self.items = []
         sr = audio.sample_rate
+        # Speed perturbation lengthens a wav by up to 1/0.9: bucket by the
+        # longest augmented length, so augmented audio never outgrows its bucket.
+        length_margin = 1.12 if data.augment else 1.0
         for i, (wav_path, txt_path) in enumerate(entries):
             n = _wav_num_samples(wav_path)
             dur = n / sr
             if dur < data.min_duration or dur > data.max_duration:
                 continue
             self.items.append({
+                "idx": i,            # the manifest position: the augmentation's key
                 "wav": wav_path,
                 "txt": txt_path,
                 "clean_wav": paired[i][0] if paired else None,
-                "num_samples": int(n),
+                "num_samples": int(n * length_margin),
             })
         if not self.items:
             raise ValueError(f"no usable utterances in {manifest_path}")
@@ -107,17 +120,28 @@ class AudioDataset:
                 return b
         return self.bucket_sizes[-1]
 
-    def _read(self, path: str, bucket: int) -> tuple[np.ndarray, int]:
+    def _augment(self, wav: np.ndarray, idx: int, epoch: int) -> np.ndarray:
+        """The JAX package's draws: a generator seeded on (epoch, position)."""
+        d = self.data
+        rng = np.random.default_rng((0xA46, epoch, idx))
+        return augment_wav(wav, rng, noise=self.noise, noise_prob=d.noise_prob,
+                           snr_range=tuple(d.noise_snr_range), speed=d.augment_speed,
+                           gain=d.augment_gain)
+
+    def _read(self, path: str, bucket: int, augment_key: tuple[int, int] | None = None
+              ) -> tuple[np.ndarray, int]:
         wav, sr = read_wav(path)
         if sr != self.audio.sample_rate:
             raise ValueError(f"{path}: sample rate {sr} != {self.audio.sample_rate}")
+        if augment_key is not None:
+            wav = self._augment(wav, *augment_key)
         n = min(len(wav), bucket)
         out = np.zeros(bucket, np.float32)
         out[:n] = wav[:n]
         return out, n
 
     def make_batch(self, items: list[dict], real_size: int = 0,
-                   bucket_override: int = 0) -> Batch:
+                   bucket_override: int = 0, epoch: int = 0) -> Batch:
         bucket = bucket_override or max(self.bucket_of(it["num_samples"])
                                         for it in items)
         u = self.max_label_len
@@ -134,7 +158,9 @@ class AudioDataset:
         wav_lengths = np.zeros(b, np.int32)
         clean = np.zeros((b, bucket), np.float32) if has_clean else None
         for j, it in enumerate(items):
-            wav[j], wav_lengths[j] = self._read(it["wav"], bucket)
+            # Only unpaired inputs are augmented: a paired target stays aligned.
+            key = (it["idx"], epoch) if self.data.augment and not it["clean_wav"] else None
+            wav[j], wav_lengths[j] = self._read(it["wav"], bucket, key)
             if has_clean:
                 clean[j] = self._read(it["clean_wav"], bucket)[0]
         if self.data.feed_dtype == "int16":
@@ -164,7 +190,7 @@ class AudioDataset:
         chunks = epoch_chunks(self, batch_size, seed, epoch,
                               drop_last=drop_last, sorted_order=sorted_order)
         for chunk, orig in chunks[start:]:
-            yield self.make_batch(chunk, real_size=orig)
+            yield self.make_batch(chunk, real_size=orig, epoch=epoch)
 
 
 def epoch_chunks(dataset: AudioDataset, batch_size: int, seed: int = 0,
@@ -217,7 +243,8 @@ class UnpairedCleanStream:
         """A clean batch padded to ``bucket`` samples (the noisy batch's length)."""
         idx = self.rng.integers(0, len(self.ds.items), size=self.batch_size)
         self._draws += 1
-        return self.ds.make_batch([self.ds.items[i] for i in idx], bucket_override=bucket)
+        return self.ds.make_batch([self.ds.items[i] for i in idx], bucket_override=bucket,
+                                  epoch=self._draws - 1)
 
     def skip(self) -> None:
         """Advance the stream by one batch without decoding it: the draws of

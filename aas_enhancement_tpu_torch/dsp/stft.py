@@ -94,6 +94,16 @@ def phase(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     return torch.atan2(im, re)
 
 
+def inverse_weights(n_fft: int) -> np.ndarray:
+    """g_k for the n_fft//2+1 bins: 1 at DC and Nyquist, 2 elsewhere (the
+    inverse real DFT counts each interior bin for its mirror)."""
+    g = np.full((n_fft // 2 + 1,), 2.0, np.float32)
+    g[0] = 1.0
+    if n_fft % 2 == 0:
+        g[-1] = 1.0
+    return g
+
+
 def cola_norm(n_frames: int, n_fft: int, hop_length: int, window: str) -> np.ndarray:
     """Window-square sum over the overlap-add buffer, [(T-1)*hop + n_fft]."""
     hop = hop_length
@@ -127,18 +137,15 @@ def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
     batch_shape = re.shape[:-2]
     re = re.reshape((-1,) + re.shape[-2:])
     im = im.reshape((-1,) + im.shape[-2:])
-    b, t, f = re.shape
+    b, t, _ = re.shape
     hop = hop_length
     k = n_fft // hop
 
     win = get_window(window, n_fft)
     wc, ws = _dft_bases_np(n_fft)
-    # x = (1/n_fft) * (re @ (g*cos)^T + im @ (g*sin)^T), g = 1 at DC/Nyquist,
-    # 2 elsewhere (sin basis already negated); the synthesis window folds in.
-    wgt = np.full((f,), 2.0, np.float32)
-    wgt[0] = 1.0
-    if n_fft % 2 == 0:
-        wgt[-1] = 1.0
+    # x = (1/n_fft) * (re @ (g*cos)^T + im @ (g*sin)^T) (sin basis already
+    # negated); the synthesis window folds in.
+    wgt = inverse_weights(n_fft)
     icos = torch.from_numpy((wc * wgt[None, :]).T / n_fft * win[None, :]).to(re.device)
     isin = torch.from_numpy((ws * wgt[None, :]).T / n_fft * win[None, :]).to(re.device)
 

@@ -76,7 +76,7 @@ def conv_dw_same(x: torch.Tensor, dy: torch.Tensor, kt: int, kf: int,
     NCHW tensor (``t.permute(0, 2, 3, 1)``) is read in place."""
     if not uses_kernel("conv_dw_same", x):
         return conv_dw_same_plain(x, dy, kt, kf, strides)
-    check_kernel_inputs("conv_dw_same", (x, dy), backward=None)
+    check_kernel_inputs("conv_dw_same", (x, dy))
     _check_shapes(x, dy, strides)
     if x.stride(3) != 1 or dy.stride(3) != 1:
         raise ValueError(f"conv_dw_same: needs unit channel stride, got x strides "

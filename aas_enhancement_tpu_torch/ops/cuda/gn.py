@@ -140,8 +140,7 @@ def masked_group_norm_act_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Te
     if not uses_kernel("masked_group_norm_act_bwd", x):
         return masked_group_norm_act_bwd_plain(x, dy, scale, bias, lengths, mean, inv,
                                                num_groups=num_groups, act=act, slope=slope)
-    check_kernel_inputs("masked_group_norm_act_bwd", (x, dy, scale, bias, mean, inv),
-                        backward=None)
+    check_kernel_inputs("masked_group_norm_act_bwd", (x, dy, scale, bias, mean, inv))
     b, t, f, c = x.shape
     if (dy.shape != x.shape or mean.shape != (b, c) or inv.shape != (b, c)
             or scale.shape != (c,) or bias.shape != (c,)):
@@ -216,7 +215,7 @@ def masked_group_norm_act(x: torch.Tensor, scale: torch.Tensor,
         return masked_group_norm_act_plain(x, scale, bias, lengths,
                                            num_groups=num_groups, eps=eps,
                                            act=act, slope=slope)
-    check_kernel_inputs("masked_group_norm_act", (x, scale, bias), backward=None)
+    check_kernel_inputs("masked_group_norm_act", (x, scale, bias))
     b, t, f, c = x.shape
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("masked_group_norm_act: needs a contiguous, 16-byte aligned x")

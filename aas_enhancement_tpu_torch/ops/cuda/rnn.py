@@ -283,7 +283,7 @@ def _forward(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
     follows from H (``lstm_resident_cluster``, ``gru_resident_cluster``);
     ``route`` overrides it for measurements that set the two kernels side by
     side."""
-    check_kernel_inputs(name, (*gx, m, wh, bh), backward=None)
+    check_kernel_inputs(name, (*gx, m, wh, bh))
     gates, stacked = _gates(name), len(gx) == 1
     if stacked:
         if gx[0].ndim != 4 or gx[0].shape[1] != 2 or m.shape != gx[0].shape[:3]:

@@ -22,6 +22,18 @@ ISTFT kernel writes the trimmed output (center trim, then cut or zero-pad to
 arithmetic step by step in plain PyTorch (index maps, twiddles, real-input
 symmetry, mirrored indices) and are what the CPU tests hold to the plain
 segment DFT and to the JAX package.
+
+Gradients (no TPU counterpart: the JAX package differentiates its matmul-DFT
+with XLA): on the card a wanted gradient takes an autograd Function whose
+backward is a kernel of its own, the adjoint of the forward's linear map.
+``stft_vjp`` (``csrc/istft.cu``: the inverse transform's stages with weight
+1 on every bin, the window, an overlap-add with no division, and the reflect
+pad folded back) and ``istft_vjp`` (``csrc/stft.cu``: the trim undone, the
+COLA divide, the window, the forward transform's stages, each bin scaled by
+g_k / n_fft).  ``stft_vjp_plain`` and ``istft_vjp_plain`` write the same
+adjoints out in plain PyTorch; CPU tensors take them, and the CPU tests hold
+them to ``torch.autograd`` through ``stft_plain`` / ``istft_plain`` and to
+``jax.vjp`` of the JAX package's functions.
 """
 
 from __future__ import annotations
@@ -32,14 +44,14 @@ import numpy as np
 import torch
 
 from aas_enhancement_tpu_torch.dsp.stft import (
-    _check_hop, cola_norm, get_window, istft as istft_plain, num_frames, stft as stft_plain,
-    trim)
+    _check_hop, _dft_bases_np, cola_norm, get_window, inverse_weights, istft as istft_plain,
+    num_frames, stft as stft_plain, trim)
 from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_kernel
 from aas_enhancement_tpu_torch.utils import kernel_build
 
 __all__ = ["stft", "istft", "stft_plain", "istft_plain", "stft_factorised_plain",
-           "istft_factorised_plain", "stft_factors", "istft_route", "dft_table",
-           "reflect_index"]
+           "istft_factorised_plain", "stft_vjp", "istft_vjp", "stft_vjp_plain",
+           "istft_vjp_plain", "stft_factors", "istft_route", "dft_table", "reflect_index"]
 
 ISTFT_MAX_OVERLAP = 8      # frames over a sample that the factorised ISTFT kernel takes
 
@@ -194,13 +206,62 @@ def istft_factorised_plain(re: torch.Tensor, im: torch.Tensor, n_fft: int,
     return trim(y.reshape(b, -1) / torch.clamp(wsq, min=1e-8), n_fft, center, length)
 
 
-def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: str = "hann",
-         center: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """[B, num_samples] -> (re, im) each [B, T, n_fft//2+1]."""
-    if not uses_kernel("stft", x):
-        return stft_plain(x, n_fft, hop_length, window, center)
+def stft_vjp_plain(dre: torch.Tensor, dim: torch.Tensor, n_samples: int, n_fft: int,
+                   hop_length: int, window: str = "hann", center: bool = True
+                   ) -> torch.Tensor:
+    """The adjoint of ``stft_plain``'s linear map: (dre, dim) [B, T,
+    n_fft//2+1] -> dx [B, n_samples].  Each frame's gradient is dre_k cos -
+    dim_k sin summed over the bins with weight 1 on every bin, times the
+    window; the frames overlap-add (no division) into the padded signal's
+    gradient, whose positions fold back onto the samples they were read
+    from: the center pad's mirrors onto the samples they mirror, the zero
+    tail nowhere."""
     _check_hop(n_fft, hop_length)
-    check_kernel_inputs("stft", (x,), backward="A8")
+    dre, dim = dre.to(torch.float32), dim.to(torch.float32)
+    b, t, _ = dre.shape
+    hop, k = hop_length, n_fft // hop_length
+    wc, ws = (torch.from_numpy(m).to(dre.device) for m in _dft_bases_np(n_fft))
+    win = torch.from_numpy(get_window(window, n_fft)).to(dre.device)
+    frames = (dre @ wc.T + dim @ ws.T) * win                       # [B, T, n_fft]
+    buf = dre.new_zeros((b, t - 1 + k, hop))
+    for q in range(k):
+        buf[:, q: q + t] += frames[..., q * hop: (q + 1) * hop]
+    buf = buf.reshape(b, -1)
+    shift = n_fft // 2 if center else 0
+    pos = torch.arange(buf.shape[1], device=dre.device) - shift    # in the real signal
+    keep = pos < n_samples + shift                                 # not the zero tail
+    src = reflect_index(pos[keep], n_samples) if center else pos[keep]
+    return dre.new_zeros((b, n_samples)).index_add_(1, src, buf[:, keep])
+
+
+def istft_vjp_plain(dy: torch.Tensor, n_frames: int, n_fft: int, hop_length: int,
+                    window: str = "hann", center: bool = True
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The adjoint of ``istft_plain``'s linear map: dy [B, L] (the gradient
+    of its output, ``length`` L) -> (dre, dim) [B, n_frames, n_fft//2+1].
+    The trim undone (dy placed after the center trim, zero elsewhere), the
+    COLA divide, each frame's samples times the window, the real DFT, and
+    bin k scaled by g_k / n_fft."""
+    _check_hop(n_fft, hop_length)
+    dy = dy.to(torch.float32)
+    b, length = dy.shape
+    hop, k = hop_length, n_fft // hop_length
+    buf_len = (n_frames - 1 + k) * hop
+    shift = n_fft // 2 if center else 0
+    m = max(0, min(length, buf_len - shift))
+    buf = dy.new_zeros((b, buf_len))
+    buf[:, shift: shift + m] = dy[:, :m]
+    wsq = torch.from_numpy(cola_norm(n_frames, n_fft, hop, window)).to(dy.device)
+    rows = (buf / torch.clamp(wsq, min=1e-8)).reshape(b, n_frames - 1 + k, hop)
+    win = torch.from_numpy(get_window(window, n_fft)).to(dy.device)
+    frames = torch.cat([rows[:, q: q + n_frames] for q in range(k)], dim=2) * win
+    wc, ws = (torch.from_numpy(m).to(dy.device) for m in _dft_bases_np(n_fft))
+    g = torch.from_numpy(inverse_weights(n_fft) / n_fft).to(dy.device)
+    return (frames @ wc) * g, (frames @ ws) * g
+
+
+def _stft_kernel(x: torch.Tensor, n_fft: int, hop_length: int, window: str,
+                 center: bool) -> tuple[torch.Tensor, torch.Tensor]:
     if x.ndim != 2:
         raise ValueError(f"stft: needs [B, n], got {tuple(x.shape)}")
     b, n = x.shape
@@ -225,20 +286,75 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: str = "hann",
     return re, im
 
 
+class _StftFn(torch.autograd.Function):
+    """The STFT kernel forward, ``stft_vjp``'s kernel backward."""
+
+    @staticmethod
+    def forward(ctx, x, n_fft, hop_length, window, center):
+        ctx.args = (x.shape[1], n_fft, hop_length, window, center)
+        return _stft_kernel(x, n_fft, hop_length, window, center)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dre, dim):
+        return stft_vjp(dre, dim, *ctx.args), None, None, None, None
+
+
+def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: str = "hann",
+         center: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, num_samples] -> (re, im) each [B, T, n_fft//2+1].  On the card a
+    wanted gradient of x runs ``stft_vjp``'s kernel in the backward."""
+    if not uses_kernel("stft", x):
+        return stft_plain(x, n_fft, hop_length, window, center)
+    _check_hop(n_fft, hop_length)
+    check_kernel_inputs("stft", (x,))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _StftFn.apply(x, n_fft, hop_length, window, center)
+    return _stft_kernel(x, n_fft, hop_length, window, center)
+
+
 stft.launches = 0
 stft.route = None
 
 
-def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
-          window: str = "hann", center: bool = True,
-          length: int | None = None) -> torch.Tensor:
-    """(re, im) [B, T, n_fft//2+1] -> wav [B, num_samples]: the overlap-add
-    buffer [(T-1)*hop + n_fft] with the center trim (n_fft//2 samples off its
-    head), then cut or zero-padded to ``length``."""
-    if not uses_kernel("istft", re):
-        return istft_plain(re, im, n_fft, hop_length, window, center, length)
+def stft_vjp(dre: torch.Tensor, dim: torch.Tensor, n_samples: int, n_fft: int,
+             hop_length: int, window: str = "hann", center: bool = True) -> torch.Tensor:
+    """The STFT's VJP: (dre, dim) [B, T, n_fft//2+1] -> dx [B, n_samples]
+    (``stft_vjp_plain`` on the CPU).  The kernel's route is the ISTFT's
+    (``istft_route``); ``stft_vjp.route`` holds the last launch's."""
+    if not uses_kernel("stft_vjp", dre):
+        return stft_vjp_plain(dre, dim, n_samples, n_fft, hop_length, window, center)
     _check_hop(n_fft, hop_length)
-    check_kernel_inputs("istft", (re, im), backward="A8")
+    check_kernel_inputs("stft_vjp", (dre, dim))
+    b, t, f = dre.shape
+    if dim.shape != dre.shape or f != n_fft // 2 + 1:
+        raise ValueError(f"stft_vjp: needs dre, dim [B, T, {n_fft // 2 + 1}], got "
+                         f"{tuple(dre.shape)}, {tuple(dim.shape)}")
+    shift = n_fft // 2 if center else 0
+    if t != num_frames(n_samples, n_fft, hop_length, center) or n_samples <= shift:
+        raise ValueError(f"stft_vjp: {t} frames do not come from {n_samples} samples")
+    dre, dim = dre.contiguous(), dim.contiguous()
+    buf = torch.empty((b, (t - 1 + n_fft // hop_length) * hop_length), dtype=torch.float32,
+                      device=dre.device)
+    dx = torch.empty((b, n_samples), dtype=torch.float32, device=dre.device)
+    n1, n2 = istft_route(n_fft, hop_length)
+    err = kernel_build.load_library().aas_stft_vjp(
+        dre.data_ptr(), dim.data_ptr(), _window(window, n_fft, dre.device).data_ptr(),
+        _table(n_fft, dre.device).data_ptr(), buf.data_ptr(), dx.data_ptr(), b, n_samples,
+        t, n_fft, hop_length, shift, n1, n2, torch.cuda.current_stream(dre.device).cuda_stream)
+    kernel_build.check(err, f"aas_stft_vjp (n_fft {n_fft} = {n1} x {n2})" if n1
+                       else "aas_stft_vjp (direct)")
+    stft_vjp.launches += 1
+    stft_vjp.route = (n1, n2)
+    return dx
+
+
+stft_vjp.launches = 0
+stft_vjp.route = None
+
+
+def _istft_kernel(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
+                  window: str, center: bool, length: int | None) -> torch.Tensor:
     if re.ndim != 3 or re.shape != im.shape or re.shape[2] != n_fft // 2 + 1:
         raise ValueError(f"istft: needs re, im [B, T, {n_fft // 2 + 1}], got "
                          f"{tuple(re.shape)}, {tuple(im.shape)}")
@@ -261,5 +377,70 @@ def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
     return y
 
 
+class _IstftFn(torch.autograd.Function):
+    """The ISTFT kernel forward, ``istft_vjp``'s kernel backward."""
+
+    @staticmethod
+    def forward(ctx, re, im, n_fft, hop_length, window, center, length):
+        ctx.args = (re.shape[1], n_fft, hop_length, window, center)
+        return _istft_kernel(re, im, n_fft, hop_length, window, center, length)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        return (*istft_vjp(dy, *ctx.args), None, None, None, None, None)
+
+
+def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
+          window: str = "hann", center: bool = True,
+          length: int | None = None) -> torch.Tensor:
+    """(re, im) [B, T, n_fft//2+1] -> wav [B, num_samples]: the overlap-add
+    buffer [(T-1)*hop + n_fft] with the center trim (n_fft//2 samples off its
+    head), then cut or zero-padded to ``length``.  On the card a wanted
+    gradient of re or im runs ``istft_vjp``'s kernel in the backward."""
+    if not uses_kernel("istft", re):
+        return istft_plain(re, im, n_fft, hop_length, window, center, length)
+    _check_hop(n_fft, hop_length)
+    check_kernel_inputs("istft", (re, im))
+    if torch.is_grad_enabled() and (re.requires_grad or im.requires_grad):
+        return _IstftFn.apply(re, im, n_fft, hop_length, window, center, length)
+    return _istft_kernel(re, im, n_fft, hop_length, window, center, length)
+
+
 istft.launches = 0
 istft.route = None
+
+
+def istft_vjp(dy: torch.Tensor, n_frames: int, n_fft: int, hop_length: int,
+              window: str = "hann", center: bool = True
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ISTFT's VJP: dy [B, L] -> (dre, dim) [B, n_frames, n_fft//2+1]
+    (``istft_vjp_plain`` on the CPU).  The kernel's route is the STFT's
+    (``stft_factors``); ``istft_vjp.route`` holds the last launch's."""
+    if not uses_kernel("istft_vjp", dy):
+        return istft_vjp_plain(dy, n_frames, n_fft, hop_length, window, center)
+    _check_hop(n_fft, hop_length)
+    check_kernel_inputs("istft_vjp", (dy,))
+    if dy.ndim != 2 or n_frames < 1:
+        raise ValueError(f"istft_vjp: needs dy [B, L] and frames, got {tuple(dy.shape)}, "
+                         f"{n_frames}")
+    dy = dy.contiguous()
+    b, length = dy.shape
+    f = n_fft // 2 + 1
+    dre = torch.empty((b, n_frames, f), dtype=torch.float32, device=dy.device)
+    dim = torch.empty_like(dre)
+    n1, n2 = stft_factors(n_fft)
+    err = kernel_build.load_library().aas_istft_vjp(
+        dy.data_ptr(), _window(window, n_fft, dy.device).data_ptr(),
+        _table(n_fft, dy.device).data_ptr(), dre.data_ptr(), dim.data_ptr(), b, length,
+        n_frames, n_fft, hop_length, n_fft // 2 if center else 0, n1, n2,
+        torch.cuda.current_stream(dy.device).cuda_stream)
+    kernel_build.check(err, f"aas_istft_vjp (n_fft {n_fft} = {n1} x {n2})" if n1
+                       else "aas_istft_vjp (direct)")
+    istft_vjp.launches += 1
+    istft_vjp.route = (n1, n2)
+    return dre, dim
+
+
+istft_vjp.launches = 0
+istft_vjp.route = None

@@ -31,21 +31,11 @@ def uses_kernel(name: str, x: torch.Tensor) -> bool:
     raise ValueError(f"{name}: no implementation for device {x.device}")
 
 
-def check_kernel_inputs(name: str, tensors: tuple[torch.Tensor, ...],
-                        backward: str | None) -> None:
-    """Raise unless every tensor is float32 on the first one's device.
-
-    ``backward`` names the ROADMAP item of a backward kernel that is not
-    ported: then a wanted gradient raises too, since a quiet detach would
-    hide it.  Kernels whose backward is ported (an autograd Function) pass
-    None."""
+def check_kernel_inputs(name: str, tensors: tuple[torch.Tensor, ...]) -> None:
+    """Raise unless every tensor is float32 on the first one's device.  (Every
+    kernel's gradient is an autograd Function with a backward kernel.)"""
     for x in tensors:
         if x.dtype != torch.float32:
             raise TypeError(f"{name}: needs float32, got {x.dtype}")
         if x.device != tensors[0].device:
             raise ValueError(f"{name}: inputs on {x.device} and {tensors[0].device}")
-    if (backward is not None and torch.is_grad_enabled()
-            and any(x.requires_grad for x in tensors)):
-        raise NotImplementedError(
-            f"{name}: the backward kernel is not ported yet (ROADMAP {backward}); "
-            "call under torch.inference_mode() or torch.no_grad()")

@@ -3,17 +3,19 @@ checkpoints, resume and validation (port of ``aas_enhancement_tpu/train/loop.py`
 
 Epochs over the noisy dataset's bucketed batches (the JAX package's order,
 SortaGrad's shortest-first order on epoch 0 with ``train.sortagrad``); for
-``adversarial`` / ``aas`` each batch gets an unpaired clean batch of the same
-padded length; ``am`` trains the AM on the one manifest (typically the clean
-corpus) and, with ``distill_lambda`` > 0, anchors it to a frozen copy of the
-AM as the run started.  Real rows weigh 1 and the repeat-padded rows of a
-short batch 0 (``row_weights``; every clean row weighs 1).  A producer thread
-assembles ``train.prefetch`` batches ahead of the step and moves them to the
-device (one thread, so the batch order and the clean stream's draws are
-those of the synchronous loop).  Every ``log_every`` steps, the first and the
-last, a record {step, epoch, utts_per_sec, metrics...} is kept and written by
-``utils/metrics.py::MetricsLogger`` (stderr, optionally a JSONL file and
-TensorBoard).
+``paired`` each batch carries its paired clean rows (``train(paired=True)``
+reads the clean manifest in the noisy one's order); for ``adversarial`` /
+``aas`` each batch gets an unpaired clean batch of the same padded length;
+``am`` trains the AM on the one manifest (typically the clean corpus) and,
+with ``distill_lambda`` > 0, anchors it to a frozen copy of the AM as the run
+started.  Real rows weigh 1 and the repeat-padded rows of a short batch 0
+(``row_weights``; the paired clean rows alike, every unpaired clean row 1).
+A producer thread assembles ``train.prefetch`` batches ahead of the step and
+moves them to the device (one thread, so the batch order and the clean
+stream's draws are those of the synchronous loop).  Every ``log_every``
+steps, the first and the last, a record {step, epoch, utts_per_sec,
+metrics...} is kept and written by ``utils/metrics.py::MetricsLogger``
+(stderr, optionally a JSONL file and TensorBoard).
 
 With a ``checkpoint_dir`` the state is saved every ``checkpoint_every``
 steps and at the end (``utils/checkpoint.py``); ``resume`` restores the
@@ -58,14 +60,17 @@ def init_state(cfg: Config, seed: int, device: torch.device | str = "cuda",
     """The networks the objective needs, drawn on the CPU with flax's init
     distributions and moved to ``device``: G from ``g_seed`` (default
     ``seed``), D from ``seed + 1``, the AM from ``am_seed`` (default
-    ``seed + 2``).  The AM is frozen for ``acoustic`` / ``aas`` and trained
-    for ``am``, which has no G unless ``am_through_enhancer`` puts the frozen
-    enhancer in front of the AM.  The default device is the card; without a
-    GPU that raises (pass ``"cpu"``)."""
+    ``seed + 2``).  G is trained (with Adam) for ``paired``, ``adversarial``,
+    ``acoustic``, ``aas`` and ``enhance_only``.  The AM is frozen for
+    ``acoustic`` / ``aas`` and trained for ``am``, which has no G unless
+    ``am_through_enhancer`` puts the frozen enhancer in front of the AM (a G
+    that a checkpoint or the CLI supplies is kept frozen beside it all the
+    same: ``keep_frozen_g``).  The default device is the card; without a GPU
+    that raises (pass ``"cpu"``)."""
     device = resolve_device(device)
     objective = cfg.train.objective
-    if objective not in OBJECTIVES:
-        raise NotImplementedError(f"objective {objective!r}: not yet ported (ROADMAP A8)")
+    if objective not in OBJECTIVES + ("enhance_only",):
+        raise ValueError(f"unknown objective: {objective!r}")
     t = cfg.train
     state = TrainState()
     am_seed = seed + 2 if am_seed is None else am_seed
@@ -86,6 +91,17 @@ def init_state(cfg: Config, seed: int, device: torch.device | str = "cuda",
     if objective in ("acoustic", "aas"):
         state.am = init_am(cfg, am_seed, device).requires_grad_(False)
     return state
+
+
+def keep_frozen_g(state: TrainState, cfg: Config, device: torch.device | str,
+                  g: torch.nn.Module | None = None) -> torch.nn.Module:
+    """The state's G, or, where the objective builds none (``am`` without
+    ``am_through_enhancer``), ``g`` (default: a fresh enhancer of ``cfg`` to
+    load weights into) kept frozen in the state, so that a checkpoint saves
+    it, as the JAX package keeps any G its state was given."""
+    if state.g is None:
+        state.g = (g if g is not None else init_enhancer(cfg, 0, device)).requires_grad_(False)
+    return state.g
 
 
 def load_state(checkpoint_dir: str, device: torch.device | str = "cuda"
@@ -109,7 +125,9 @@ def load_state(checkpoint_dir: str, device: torch.device | str = "cuda"
     blob = ckpt.read(checkpoint_dir, step, device)
     state = init_state(cfg, 0, device)
     for name in ("g", "d", "am"):
-        if name in blob:
+        if name == "g" and "g" in blob:
+            keep_frozen_g(state, cfg, device).load_state_dict(blob["g"])
+        elif name in blob:
             getattr(state, name).load_state_dict(blob[name])
         else:
             setattr(state, name, None)
@@ -120,12 +138,18 @@ def load_state(checkpoint_dir: str, device: torch.device | str = "cuda"
 
 def batch_dict(cfg: Config, batch: Batch, clean_stream: UnpairedCleanStream | None,
                device: torch.device | str) -> dict[str, torch.Tensor]:
-    """A host batch (+ a clean batch for the GAN objectives) with row
-    weights, on ``device``.  Both have ``batch_size`` rows (a short batch is
-    repeat-padded by ``epoch_chunks``), which ``make_train_step`` requires to
-    be a multiple of ``grad_accum``."""
+    """A host batch (+ its paired clean rows, or an unpaired clean batch for
+    the GAN objectives) with row weights, on ``device``.  Both have
+    ``batch_size`` rows (a short batch is repeat-padded by ``epoch_chunks``),
+    which ``make_train_step`` requires to be a multiple of ``grad_accum``.
+    The paired clean rows weigh as their noisy rows, every unpaired clean row 1."""
     d = {"wav": batch.wav, "wav_lengths": batch.wav_lengths,
          "labels": batch.labels, "label_paddings": batch.label_paddings}
+    paired = cfg.train.objective == "paired"
+    if paired:
+        if batch.clean_wav is None:
+            raise ValueError("paired objective needs a paired clean manifest")
+        d["clean_wav"] = batch.clean_wav
     if clean_stream is not None:
         cb = clean_stream.next_batch(batch.wav.shape[1])
         d["clean_wav"] = cb.wav
@@ -134,7 +158,8 @@ def batch_dict(cfg: Config, batch: Batch, clean_stream: UnpairedCleanStream | No
     rw[: batch.size] = 1.0
     d["row_weights"] = rw
     if "clean_wav" in d:
-        d["clean_row_weights"] = np.ones(d["clean_wav"].shape[0], np.float32)
+        d["clean_row_weights"] = rw.copy() if paired else np.ones(d["clean_wav"].shape[0],
+                                                                  np.float32)
     return {key: torch.from_numpy(v).to(device) for key, v in d.items()}
 
 
@@ -152,11 +177,11 @@ class _Validator:
     """In-training validation: greedy WER/CER on ``cfg.data.val_manifest``.
 
     The decode AM is the state's own (``am``, ``acoustic``, ``aas``) or the
-    decode-only ``eval_am`` (``adversarial``); the generator objectives
-    decode the enhancer's output, and their noisy-input WER (the AM is
-    frozen) is measured once and logged with every eval.  The best WER's
-    state is kept in ``<checkpoint_dir>/best_ckpt`` (one step) with
-    ``best.json``."""
+    decode-only ``eval_am`` (``paired``, ``adversarial``); the generator
+    objectives decode the enhancer's output, and all but ``paired`` log
+    their noisy-input WER (the AM is frozen), measured once, with every
+    eval.  The best WER's state is kept in ``<checkpoint_dir>/best_ckpt``
+    (one step) with ``best.json``."""
 
     def __init__(self, cfg: Config, eval_am, records: list, logger: MetricsLogger,
                  checkpoint_dir: str | None):
@@ -167,6 +192,7 @@ class _Validator:
         self.checkpoint_dir = checkpoint_dir
         self.ds = eval_dataset(cfg, cfg.data.val_manifest)
         self.use_enhancer = cfg.train.objective != "am"
+        self.log_noisy = self.use_enhancer and cfg.train.objective != "paired"
         self.forward = make_eval_forward(cfg, use_enhancer=self.use_enhancer)
         self.noisy_wer = None
         self.best_wer = float("inf")
@@ -176,13 +202,13 @@ class _Validator:
         self.last_eval_step = s
         am = state.am if state.am is not None else self.eval_am
         if am is None:
-            return None      # adversarial without a decode-only AM
+            return None      # paired / adversarial without a decode-only AM
         bs = self.cfg.train.eval_batch_size
         res = evaluate_wer(self.cfg, am, self.ds,
                            enhancer=state.g if self.use_enhancer else None,
                            batch_size=bs, forward=self.forward)
         rec = {"step": s, "epoch": epoch, "val_wer": res["wer"], "val_cer": res["cer"]}
-        if self.use_enhancer:
+        if self.log_noisy:
             if self.noisy_wer is None:
                 self.noisy_wer = evaluate_wer(self.cfg, am, self.ds, batch_size=bs)["wer"]
             rec["val_wer_noisy"] = self.noisy_wer
@@ -286,19 +312,23 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
           max_steps: int = 0, state: TrainState | None = None,
           device: torch.device | str = "cuda", metrics_path: str | None = None,
           tensorboard_dir: str | None = None, checkpoint_dir: str | None = None,
-          resume: bool = False, eval_am: torch.nn.Module | None = None
-          ) -> tuple[TrainState, list[dict]]:
+          resume: bool = False, eval_am: torch.nn.Module | None = None,
+          paired: bool = False) -> tuple[TrainState, list[dict]]:
     """Run ``cfg.train.objective`` on ``device`` (the card by default; without
     a GPU that raises, pass ``"cpu"``).  -> (final state, records).
 
-    ``max_steps`` counts global steps (a resumed run stops at the same step
-    as an uninterrupted one).  ``eval_am`` is the decode-only AM of
-    validation for an objective that trains without one (the JAX package's
+    ``paired`` reads ``clean_manifest`` as the noisy one's paired clean
+    corpus (same order), the ``paired`` objective's targets; otherwise it is
+    the unpaired clean corpus of ``adversarial`` / ``aas``.  ``max_steps``
+    counts global steps (a resumed run stops at the same step as an
+    uninterrupted one).  ``eval_am`` is the decode-only AM of validation for
+    an objective that trains without one (the JAX package's
     ``eval_am_params``)."""
     device = resolve_device(device)
     _check_ported(cfg)
     t = cfg.train
-    ds = AudioDataset(noisy_manifest, cfg.audio, cfg.data)
+    ds = AudioDataset(noisy_manifest, cfg.audio, cfg.data,
+                      paired_manifest=clean_manifest if paired else None)
     if t.steps_per_epoch == 0:       # the staircase LR needs the epoch length
         t = dataclasses.replace(t, steps_per_epoch=ds.num_batches(t.batch_size))
         cfg = cfg.replace(train=t)

@@ -2,6 +2,9 @@
 the on-device features and enhancer forward that they and the evaluation
 share (port of ``aas_enhancement_tpu/train/objectives.py``).
 
+- paired: L1 between enhanced and clean log-magnitudes, optionally plus
+  ``lambda_mrstft`` times the multi-resolution STFT loss (``mr_stft_loss``)
+  on the waveform reconstructed with the noisy phase;
 - adversarial: LSGAN or BCE on the spectrogram discriminator;
 - acoustic: CTC of the frozen AM on the enhanced features;
 - AAS: L_G = L_acoustic + lambda * L_adv;
@@ -9,8 +12,8 @@ share (port of ``aas_enhancement_tpu/train/objectives.py``).
   SpecAugment, the frozen enhancer in front and a KL anchor (``distill_kl``).
 
 All on the batch's device and padding-masked; repeat-padded rows carry
-weight 0 (``row_weights``).  The paired objective (``paired_loss``,
-``mr_stft_loss``) is not ported yet (ROADMAP A8).
+weight 0 (``row_weights``).  On the card the MR-STFT term's gradient runs
+through the STFT's and the ISTFT's VJP kernels (``ops/cuda/stft.py``).
 """
 
 from __future__ import annotations
@@ -20,11 +23,12 @@ import torch.nn.functional as F
 
 from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.dsp import api as dsp_api
-from aas_enhancement_tpu_torch.dsp.stft import magnitude
+from aas_enhancement_tpu_torch.dsp.stft import magnitude, phase
 from aas_enhancement_tpu_torch.models.am import AcousticModel
 from aas_enhancement_tpu_torch.models.discriminator import Discriminator
 from aas_enhancement_tpu_torch.models.enhancer import Enhancer, apply_enhancement
 from aas_enhancement_tpu_torch.ops.ctc import ctc_loss_mean
+from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
 from aas_enhancement_tpu_torch.ops.masking import masked_normalize, spec_augment, time_mask
 
 
@@ -35,32 +39,43 @@ def wav_f32(wav: torch.Tensor) -> torch.Tensor:
     return wav
 
 
-def device_features(cfg: Config, wav: torch.Tensor, wav_lengths: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Padded wav [B, N] -> (mag, log_mag [B, T, F], frame_lengths [B]) on
-    the wav's device; an int16 feed converts to f32 there."""
+def _spectral_features(cfg: Config, re: torch.Tensor, im: torch.Tensor,
+                       wav_lengths: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """An STFT -> (mag, log_mag, frame_lengths)."""
     a = cfg.audio
-    wav = wav_f32(wav)
-    re, im = dsp_api.stft(a, wav)
     mag = magnitude(re, im)
-    log_mag = torch.log1p(mag)
     if a.center:
         frame_lengths = 1 + wav_lengths // a.hop_length
     else:
         frame_lengths = 1 + (wav_lengths - a.n_fft) // a.hop_length
-    return mag, log_mag, frame_lengths.to(torch.int64)
+    return mag, torch.log1p(mag), frame_lengths.to(torch.int64)
+
+
+def device_features(cfg: Config, wav: torch.Tensor, wav_lengths: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Padded wav [B, N] -> (mag, log_mag [B, T, F], frame_lengths [B]) on
+    the wav's device; an int16 feed converts to f32 there."""
+    re, im = dsp_api.stft(cfg.audio, wav_f32(wav))
+    return _spectral_features(cfg, re, im, wav_lengths)
+
+
+def _enhance(cfg: Config, enhancer: Enhancer, mag: torch.Tensor, log_mag: torch.Tensor,
+             fl: torch.Tensor, streaming: bool) -> torch.Tensor:
+    """Noisy (mag, log_mag) -> enhanced magnitude."""
+    if streaming:
+        raise NotImplementedError("streaming=True: the blockwise streaming "
+                                  "enhancer is not yet ported (ROADMAP A11)")
+    net_in = masked_normalize(log_mag, fl) if cfg.audio.normalize else log_mag
+    return apply_enhancement(cfg.enhancer, enhancer(net_in, fl), mag)
 
 
 def enhancer_forward(cfg: Config, enhancer: Enhancer, wav: torch.Tensor,
                      wav_lengths: torch.Tensor, streaming: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Noisy wav -> (enhanced_mag, enhanced_log_mag, frame_lengths)."""
-    if streaming:
-        raise NotImplementedError("streaming=True: the blockwise streaming "
-                                  "enhancer is not yet ported (ROADMAP A11)")
     mag, log_mag, fl = device_features(cfg, wav, wav_lengths)
-    net_in = masked_normalize(log_mag, fl) if cfg.audio.normalize else log_mag
-    enh_mag = apply_enhancement(cfg.enhancer, enhancer(net_in, fl), mag)
+    enh_mag = _enhance(cfg, enhancer, mag, log_mag, fl, streaming)
     return enh_mag, torch.log1p(enh_mag), fl
 
 
@@ -77,6 +92,68 @@ def _wmean(x: torch.Tensor, weights: torch.Tensor | None = None,
     d = w.sum() if denom is None else torch.as_tensor(denom, dtype=x.dtype,
                                                       device=x.device)
     return (x * w).sum() / torch.clamp(d, min=1e-6)
+
+
+def masked_l1(pred: torch.Tensor, target: torch.Tensor, lengths: torch.Tensor,
+              weights=None, denom=None) -> torch.Tensor:
+    """Mean |pred - target| over each row's valid frames and all bins, then
+    the weighted batch mean."""
+    mask = time_mask(lengths, pred.shape[1], pred.dtype)[:, :, None]
+    per_ex = ((pred - target).abs() * mask).sum(dim=(1, 2)) / torch.clamp(
+        mask.sum(dim=(1, 2)) * pred.shape[2], min=1.0)
+    return _wmean(per_ex, weights, denom)
+
+
+MR_RESOLUTIONS = ((256, 64), (512, 128), (1024, 256))
+
+
+def mr_stft_loss(est_wav: torch.Tensor, ref_wav: torch.Tensor, wav_lengths: torch.Tensor,
+                 weights=None, denom=None, resolutions: tuple = MR_RESOLUTIONS
+                 ) -> torch.Tensor:
+    """Multi-resolution STFT loss (Parallel WaveGAN): the mean over the
+    resolutions (n_fft, hop), Hann window, center pad, of spectral
+    convergence plus log-magnitude L1, on each row's valid frames, then the
+    weighted batch mean.  Both waves in f32 [-1, 1) scale.  The STFTs are
+    the port's kernel on the card; the estimate's gradient takes
+    ``stft_vjp``."""
+    eps = 1e-7
+    total = est_wav.new_zeros((), dtype=torch.float32)
+    for n_fft, hop in resolutions:
+        mag_e = magnitude(*kstft.stft(est_wav.to(torch.float32), n_fft, hop, "hann", True))
+        mag_r = magnitude(*kstft.stft(ref_wav.to(torch.float32), n_fft, hop, "hann", True))
+        fm = time_mask(1 + wav_lengths // hop, mag_e.shape[1])[:, :, None]     # [B, T, 1]
+        nvalid = torch.clamp(fm.sum(dim=(1, 2)) * mag_e.shape[2], min=1.0)
+        diff = torch.sqrt((((mag_r - mag_e) * fm) ** 2).sum(dim=(1, 2)) + eps)
+        ref_n = torch.sqrt(((mag_r * fm) ** 2).sum(dim=(1, 2)) + eps)
+        logl1 = ((torch.log(mag_r + eps) - torch.log(mag_e + eps)).abs() * fm
+                 ).sum(dim=(1, 2)) / nvalid
+        total = total + _wmean(diff / ref_n + logl1, weights, denom)
+    return total / len(resolutions)
+
+
+def paired_loss(cfg: Config, enhancer: Enhancer, batch: dict, w_denom=None
+                ) -> tuple[torch.Tensor, dict]:
+    """Config 2: L1 between enhanced and clean log-magnitudes, optionally plus
+    ``lambda_mrstft`` times ``mr_stft_loss`` on the waveform reconstructed
+    from the enhanced magnitude and the noisy phase (the inference output).
+    The noisy STFT runs once, for the features and the phase."""
+    noisy = wav_f32(batch["wav"])
+    re, im = dsp_api.stft(cfg.audio, noisy)
+    mag, log_mag, fl = _spectral_features(cfg, re, im, batch["wav_lengths"])
+    enh_mag = _enhance(cfg, enhancer, mag, log_mag, fl, cfg.train.streaming_finetune)
+    _, clean_log, _ = device_features(cfg, batch["clean_wav"], batch["wav_lengths"])
+    rw = batch.get("row_weights")
+    loss = masked_l1(torch.log1p(enh_mag), clean_log, fl, rw, w_denom)
+    aux = {"loss_paired": loss}
+    if cfg.train.lambda_mrstft > 0.0:
+        enh_wav = dsp_api.reconstruct(cfg.audio, enh_mag, phase(re, im),
+                                      length=noisy.shape[1])
+        l_mr = mr_stft_loss(enh_wav, wav_f32(batch["clean_wav"]), batch["wav_lengths"],
+                            weights=rw, denom=w_denom)
+        loss = loss + cfg.train.lambda_mrstft * l_mr
+        aux["loss_mrstft"] = l_mr
+        aux["loss_paired_total"] = loss
+    return loss, aux
 
 
 def gan_g_loss(cfg: Config, scores_fake: torch.Tensor, weights=None,

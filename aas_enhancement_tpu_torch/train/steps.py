@@ -1,7 +1,8 @@
 """Train steps for the generator objectives and AM pre-training (port of
 ``aas_enhancement_tpu/train/steps.py``).
 
-One step of ``aas`` (``adversarial`` and ``acoustic`` are the same code with
+One step of ``paired``: the gradient of ``paired_loss`` with respect to G's
+parameters, clipped and applied with Adam.  One step of ``aas`` (``adversarial`` and ``acoustic`` are the same code with
 one loss term off): the enhancer runs once; the G gradient is that of
 ``generator_loss`` with respect to G's parameters only (taken with
 ``torch.autograd.grad``, so the adversarial term leaves nothing on D's
@@ -21,8 +22,7 @@ to the AM's parameters only, clipped and applied with SGD and Nesterov
 momentum at ``lr_am``.  SpecAugment draws its stripes from a generator
 seeded from (``train.seed``, ``state.step``) at every microbatch, so a step
 mutates no random state and a resumed run repeats it (the JAX step folds the
-step count into its key the same way).  The objective ``paired`` is not
-ported yet (ROADMAP A8).
+step count into its key the same way).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.train import objectives as obj
 from aas_enhancement_tpu_torch.train.state import TrainState, apply_update, lr_schedule
 
-OBJECTIVES = ("aas", "adversarial", "acoustic", "am")
+OBJECTIVES = ("paired", "aas", "adversarial", "acoustic", "am")
 
 
 def _named_grads(loss: torch.Tensor, module: torch.nn.Module) -> dict[str, torch.Tensor]:
@@ -54,15 +54,13 @@ def make_train_step(cfg: Config, anchor_am: torch.nn.Module | None = None) -> Ca
     (``TrainConfig.distill_lambda``); it is never updated.
 
     batch: dict of tensors on the networks' device: wav, wav_lengths, labels,
-    label_paddings, optional row_weights, and for adversarial / aas the
-    unpaired clean_wav, clean_wav_lengths and optional clean_row_weights.
+    label_paddings, optional row_weights, and the paired clean_wav (paired)
+    or the unpaired clean_wav, clean_wav_lengths and optional
+    clean_row_weights (adversarial / aas).
     ``step.batch_grads(state, batch)`` -> ({"g": {name: grad}, "d": ...} or
     {"am": ...}, metrics) is the gradient half of the step, without the
     update."""
     objective = cfg.train.objective
-    if objective == "paired":
-        raise NotImplementedError(f"objective {objective!r}: not yet ported "
-                                  "(ROADMAP A8)")
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective: {objective!r}")
     k = max(1, cfg.train.grad_accum)
@@ -87,6 +85,10 @@ def make_train_step(cfg: Config, anchor_am: torch.nn.Module | None = None) -> Ca
                 enhancer=state.g if cfg.train.am_through_enhancer else None,
                 anchor_am=anchor_am)
             return ({"am": _named_grads(loss, state.am)},
+                    {key: v.detach() for key, v in aux.items()})
+        if objective == "paired":
+            loss, aux = obj.paired_loss(cfg, state.g, mb, w_denom=wd)
+            return ({"g": _named_grads(loss, state.g)},
                     {key: v.detach() for key, v in aux.items()})
         loss, aux = obj.generator_loss(cfg, state.g, state.d if use_adv else None,
                                        state.am if use_ac else None, mb,

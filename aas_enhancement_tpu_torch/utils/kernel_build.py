@@ -41,6 +41,14 @@ SIGNATURES = {
     # re, im, win, table, y, batch, n_frames, n_fft, hop, shift (the center
     # trim), out_len, n1, n2 (as in aas_stft), stream
     "aas_istft": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # The STFT's VJP: dre, dim, win, table, buf (the padded signal's gradient,
+    # [batch, (n_frames - 1 + n_fft / hop) hop]), dx, batch, n_samples,
+    # n_frames, n_fft, hop, shift (n_fft / 2 with the center pad, else 0),
+    # n1, n2 (as in aas_istft), stream
+    "aas_stft_vjp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # The ISTFT's VJP: dy, win, table, dre, dim, batch, out_len (dy's length),
+    # n_frames, n_fft, hop, shift (the center trim), n1, n2 (as in aas_stft), stream
+    "aas_istft_vjp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # The recurrences, time-major (two tensors per direction) or stacked (two
     # halves of one tensor); saved buffers NULL for inference:
     # gx0, gx1, gx_stride_t, gx_stride_b, m, wh, bh, y0, y1, hp, cp, act,

@@ -1,6 +1,6 @@
 """Where the device time of one enhance call, one recognition forward, one
-AAS train step and one AM pre-training step goes (counterpart of
-``aas_enhancement_tpu/utils/profiling.py``).
+AAS train step, one AM pre-training step and one paired step goes
+(counterpart of ``aas_enhancement_tpu/utils/profiling.py``).
 
     python -m aas_enhancement_tpu_torch.utils.profiling [--batch 4] [--seconds 8]
         [--calls 3] [--warmup 3] [--trace-dir traces/]
@@ -8,7 +8,9 @@ AAS train step and one AM pre-training step goes (counterpart of
 Runs ``make_enhance_fn``, then ``make_eval_forward(use_enhancer=True)``
 (enhancer + AM, the evaluate CLI's enhanced leg), both at ``--batch``, then
 one ``aas`` step of ``make_train_step`` (G and D gradients and updates, the
-frozen AM) and one ``am`` step (the AM's gradients, clip, SGD) at
+frozen AM), one ``am`` step (the AM's gradients, clip, SGD) and one
+``paired`` step with ``lambda_mrstft`` 0.5 (G's gradient through the
+MR-STFT term's STFT and ISTFT adjoints, clip, Adam) at
 ``TrainConfig.batch_size``, at the shipped ``Config`` width on full rows of
 random audio (the steps with random transcripts of 48 labels),
 with PyTorch's default TF32 settings as the CLIs run, records ``--calls``
@@ -188,7 +190,7 @@ def kernel_names_in_fresh_process(setup: str, timeout: float = 300) -> list[dict
 def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
                   trace_dir: str) -> dict:
     """{"enhance": summary, "recognize": summary, "train": summary,
-    "train_am": summary} at ``batch`` (the steps at
+    "train_am": summary, "train_paired": summary} at ``batch`` (the steps at
     ``TrainConfig.batch_size``) x ``seconds`` on the
     GPU, weights drawn from the config's train seed; each summary also holds
     its ``batch``."""
@@ -235,6 +237,15 @@ def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
     am_tb = {k: v for k, v in tb.items() if not k.startswith("clean")}
     out["train_am"] = profile_call(lambda: am_step(am_state, am_tb), calls, warmup,
                                    os.path.join(trace_dir, "train_am_trace.json"))
+    del am_state
+    # The paired step with the MR-STFT term: every kernel of the objective.
+    p_cfg = cfg.replace(train=dataclasses.replace(cfg.train, objective="paired",
+                                                  lambda_mrstft=0.5))
+    p_state = init_state(p_cfg, cfg.train.seed, device)
+    p_step = make_train_step(p_cfg)
+    p_tb = {k: tb[k] for k in ("wav", "wav_lengths", "clean_wav")}
+    out["train_paired"] = profile_call(lambda: p_step(p_state, p_tb), calls, warmup,
+                                       os.path.join(trace_dir, "train_paired_trace.json"))
     for path, summary in out.items():
         summary["batch"] = train_batch if path.startswith("train") else batch
     return out
@@ -247,7 +258,7 @@ def main(argv=None) -> None:
     p.add_argument("--seconds", type=float, default=8.0)
     p.add_argument("--calls", type=int, default=3)
     p.add_argument("--warmup", type=int, default=3)
-    p.add_argument("--trace-dir", help="keep the four Chrome traces in this directory")
+    p.add_argument("--trace-dir", help="keep the five Chrome traces in this directory")
     p.add_argument("--top", type=int, default=25, help="kernel names to print")
     args = p.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp:

@@ -57,11 +57,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the CPU, AAS fine-tuning with --am-checkpoint DIR and validation every
    step, cli.evaluate and cli.enhance from both directories; each run's
    launches, the save and load seconds, the checkpoints' MB and the seconds
-   of a validation.
+   of a validation;
+10. paired: one paired step (G's gradient of the L1 between enhanced and
+   clean log-magnitudes, clip, Adam) at B=8 x 8 s, with lambda_mrstft 0 and
+   0.5 (the MR-STFT term, whose gradient runs through the STFT's and the
+   ISTFT's VJP kernels), card vs CPU (metrics, every G gradient tensor) and
+   its launches; steps timed at B=8 and B=32; then cli.train --objective
+   paired (lambda_mrstft 0.5, B=4, 3 steps) with a checkpoint directory,
+   cli.enhance from it, and an am run given it as --g-checkpoint, whose
+   directory keeps that enhancer and enhances too.
 The kernels phase also checks the backward kernels (LSTM, GRU, GroupNorm,
 the stacked LSTM and GRU) at B=8, and the GRU's at B=32, against autograd
-through the plain versions, and the conv weight-gradient kernel at the AM's
-and the enhancer's shapes.  The recurrences' backward lines give the route
+through the plain versions, the conv weight-gradient kernel at the AM's
+and the enhancer's shapes, and the STFT's and the ISTFT's VJP kernels (no
+TPU counterpart: the JAX package differentiates its matmul-DFT with XLA) at
+the MR-STFT loss's resolutions (256, 64), (512, 128), (1024, 256) and the
+enhancer's (320, 160), B=8 x 8 s, ragged, against their plain versions (and
+the forward STFT at the three MR n_fft), with the library call
+torch.autograd.grad through torch.stft / torch.istft beside them.  The recurrences' backward lines give the route
 (resident: wh[d] in a cluster's registers), the clusters the card runs at
 once, the kernel alone between events and on the device, the same bits on
 two calls, and the streaming backward's time and gradient error on the same
@@ -166,6 +179,34 @@ RESUME_TOL = (1e-4, "AM CTC losses of steps 3-4, each side after its own SGD ste
               "the card: cuDNN's conv backward may sum in another order each run")
 SLICE_TOL = (1e-4, "wav in [-1, 1] after STFT, 2 conv+GN, 2 BiLSTM-256 over 801 "
              "steps, ISTFT: f32 rounding of card vs CPU sum orders compounds")
+VJP_TOL = (1e-4, "each gradient entry an f32 sum of up to n_fft terms, in the kernel's "
+           "two-stage order and the plain version's matmul order, relative to max|g|")
+MR_PAIRS = ((256, 64), (512, 128), (1024, 256))     # the MR-STFT loss's resolutions
+# One paired step, card vs CPU from the same weights and batch: metrics
+# relative, each G gradient tensor against its own max|g| (GRAD_ZERO as the
+# AAS step's).
+PAIRED_TOL = (1e-4, "L1 of log-magnitudes over 8 x 801 x 161 bins after STFT, 2 conv+GN, "
+              "2 BiLSTM-256 x 801; with the MR-STFT term ISTFT + 3 x 2 STFTs: card vs "
+              "CPU sum orders")
+PAIRED_GRAD_TOL = {
+    0.0: (1e-3, "G gradient back through log1p, the mask, 2 BiLSTM-256 x 801 and 2 "
+          "conv+GN: f32 sums of 6408 frames' products that cancel, in cuDNN's and the "
+          "CPU's orders"),
+    # Measured on an H100: 5.8e-05 without the MR-STFT term, 9.5e-04 with it.
+    0.5: (3e-3, "as without the MR-STFT term, plus its log-magnitude L1, which passes "
+          "sign(.) / (|X| + 1e-7) back from every bin: f32 rounding of |X| near 0 moves "
+          "G's gradient by ~1e-4-1e-3 of its max (the JAX step's own gradient moves "
+          "4.3e-04 under a 1e-7 change of its input, tests/test_torch_paired.py)")}
+PAIRED_KERNELS = ("stft", "istft", "gn_act", "lstm", "lstm_bwd", "gn_bwd", "stft_vjp",
+                  "istft_vjp")
+# Launches of one paired step at the shipped enhancer (2 conv + GN, 2 BiLSTM):
+# the noisy and the clean STFT, and with the MR-STFT term the ISTFT, 3 + 3
+# STFTs and the adjoints of the ISTFT and of the estimate's 3 STFTs.
+PAIRED_LAUNCHES = {
+    0.0: {"stft": 2, "istft": 0, "gn_act": 2, "lstm": 2, "lstm_bwd": 2, "gn_bwd": 2,
+          "stft_vjp": 0, "istft_vjp": 0},
+    0.5: {"stft": 8, "istft": 1, "gn_act": 2, "lstm": 2, "lstm_bwd": 2, "gn_bwd": 2,
+          "stft_vjp": 3, "istft_vjp": 1}}
 RECOGNIZE_TOL = (1e-4, "logits O(1) after STFT, enhancer, 2 convs of up to 7392-term "
                  "f32 sums, 4 BiGRU-512 over 401 steps and FC: card vs CPU sum "
                  "orders compound")
@@ -306,7 +347,8 @@ def kernel_counters() -> dict:
             "gn_bwd": gn.masked_group_norm_act_bwd, "conv_dw": kconv.conv_dw_same,
             "lstm_stacked": krnn.lstm_scan_stacked, "gru_stacked": krnn.gru_scan_stacked,
             "lstm_stacked_bwd": krnn.lstm_scan_stacked_bwd,
-            "gru_stacked_bwd": krnn.gru_scan_stacked_bwd}
+            "gru_stacked_bwd": krnn.gru_scan_stacked_bwd,
+            "stft_vjp": kstft.stft_vjp, "istft_vjp": kstft.istft_vjp}
 
 
 def counted(names, run) -> dict:
@@ -517,7 +559,116 @@ def phase_kernels(device):
         print("[kernel] lstm_stacked, gru_stacked: bit-identical to the time-major entries")
     kernels_backward(device, gen, results)
     kernels_conv_dw(device, gen, results)
+    kernels_vjp(device, results)
     return results
+
+
+def kernels_vjp(device, results: dict) -> None:
+    """The STFT's and the ISTFT's VJP kernels against their plain versions
+    (the written-out adjoints) at B=8 x 8 s, ragged: cotangents zero past
+    each row's valid frames or samples, as a masked loss gives them.  The
+    main path's shape comes first (stft_vjp: the MR-STFT loss's (256, 64);
+    istft_vjp: the enhancer's (320, 160)).  Also the forward STFT at the MR
+    n_fft.  Library: torch.autograd.grad through torch.stft / torch.istft,
+    the graph built once, the backward alone timed."""
+    import torch
+    from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
+
+    gen = torch.Generator().manual_seed(17)
+    lens = torch.tensor([(f - 1) * 160 for f in BWD_FRAMES])
+    b = len(lens)
+    x = (0.3 * torch.randn(b, N, generator=gen) * (torch.arange(N)[None] < lens[:, None]))
+    x = x.to(device)
+    dy = (torch.randn(b, N, generator=gen) * (torch.arange(N)[None] < lens[:, None])).to(device)
+    tol, why = VJP_TOL
+
+    def rel(got, ref) -> float:
+        err = max(max_err(g, r) for g, r in zip(got, ref))
+        return err, err / max(r.abs().max().item() for r in ref)
+
+    for n_fft, hop in MR_PAIRS:                 # the forward at the MR resolutions
+        window = torch.hann_window(n_fft, periodic=True, device=device)
+        with torch.inference_mode():
+            out = kstft.stft(x, n_fft, hop)
+            ref = kstft.stft_plain(x, n_fft, hop)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            run_k = lambda n_fft=n_fft, hop=hop: kstft.stft(x, n_fft, hop)      # noqa: E731
+            lib = lambda n_fft=n_fft, hop=hop, w=window: torch.stft(      # noqa: E731
+                x, n_fft, hop, window=w, center=True, pad_mode="reflect", return_complex=True)
+            ms, plain_ms = in_turns(run_k, lambda: kstft.stft_plain(x, n_fft, hop), 10)
+            lib_ms = statistics.median(cuda_ms(lib, 10))
+            t_len = out[0].shape[1]
+            label = f"stft n_fft {n_fft} hop {hop} B={b} (MR-STFT)"
+            text = keep(results, "stft", label, err, ms, plain_ms,
+                        (nbytes(x, *out), b * t_len * 5.0 * n_fft * math.log2(n_fft)), lib_ms)
+            row = results["stft"]["shapes"][label]
+            row["kernel_route"] = f"two stages, {kstft.stft.route[0]} x {kstft.stft.route[1]}"
+            text += f" | route {row['kernel_route']}" + device_times(row, run_k, lib)
+        print(f"[kernel] {label}: max_abs_err {err:.3e} (tol {TOL['stft'][0]:.0e}) | kernel "
+              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | {text}")
+        if not err <= TOL["stft"][0] or not kstft.stft.route[0]:
+            fail(f"{label}: max abs err {err:.3e}, route {kstft.stft.route}")
+
+    for name, pairs in (("stft_vjp", MR_PAIRS + ((320, 160),)),
+                        ("istft_vjp", ((320, 160),) + MR_PAIRS)):
+        for n_fft, hop in pairs:
+            window = torch.hann_window(n_fft, periodic=True, device=device)
+            t_len = 1 + N // hop
+            f = n_fft // 2 + 1
+            valid = (torch.arange(t_len)[None] < (1 + lens // hop)[:, None])[..., None]
+            dre = (torch.randn(b, t_len, f, generator=gen) * valid).to(device)
+            dim = (torch.randn(b, t_len, f, generator=gen) * valid).to(device)
+            flops = b * t_len * 5.0 * n_fft * math.log2(n_fft)
+            if name == "stft_vjp":
+                run_k = lambda a=dre, c=dim, n=n_fft, h=hop: kstft.stft_vjp(a, c, N, n, h)  # noqa: E731
+                run_p = lambda a=dre, c=dim, n=n_fft, h=hop: kstft.stft_vjp_plain(  # noqa: E731
+                    a, c, N, n, h)
+                xg = x.clone().requires_grad_()
+                z = torch.stft(xg, n_fft, hop, window=window, center=True, pad_mode="reflect",
+                               return_complex=True)
+                gz = torch.complex(dre, dim).transpose(1, 2)
+                lib = lambda z=z, xg=xg, gz=gz: torch.autograd.grad(  # noqa: E731
+                    z, xg, gz, retain_graph=True)
+                work = (nbytes(dre, dim) + b * N * 4, flops)
+                grads = "dx"
+            else:
+                run_k = lambda n=n_fft, h=hop, t=t_len: kstft.istft_vjp(dy, t, n, h)  # noqa: E731
+                run_p = lambda n=n_fft, h=hop, t=t_len: kstft.istft_vjp_plain(  # noqa: E731
+                    dy, t, n, h)
+                zr, zi = dre.clone().requires_grad_(), dim.clone().requires_grad_()
+                y = torch.istft(torch.complex(zr, zi).transpose(1, 2), n_fft, hop,
+                                window=window, center=True, length=N)
+                lib = lambda y=y, zr=zr, zi=zi: torch.autograd.grad(  # noqa: E731
+                    y, (zr, zi), dy, retain_graph=True)
+                work = (nbytes(dy, dre, dim), flops)
+                grads = "dre, dim"
+            out_k = run_k()
+            again = run_k()
+            out_p = run_p()
+            torch.cuda.synchronize()
+            out_k, again, out_p = ((o,) if torch.is_tensor(o) else o for o in (out_k, again, out_p))
+            err, rel_err = rel(out_k, out_p)
+            if not all(torch.equal(a, c) for a, c in zip(out_k, again)):
+                fail(f"{name} ({n_fft}, {hop}): two calls of the kernel gave different bits")
+            route = getattr(kstft, name).route
+            ms, plain_ms = in_turns(run_k, run_p, 10)
+            lib_ms = statistics.median(cuda_ms(lib, 10))
+            label = f"{name} n_fft {n_fft} hop {hop} B={b}"
+            text = keep(results, name, label, err, ms, plain_ms, work, lib_ms, rel_err=rel_err)
+            row = results[name]["shapes"][label]
+            row["kernel_route"] = (f"two stages, {route[0]} x {route[1]}" if route[0]
+                                   else "direct")
+            text += f" | route {row['kernel_route']} | same bits on two calls"
+            text += device_times(row, run_k, lib)
+            if next(iter(results[name]["shapes"])) == label:
+                results[name].update({k: v for k, v in row.items() if k not in results[name]})
+            print(f"[kernel] {label}: {grads} max_abs_err {err:.3e}, relative to max|g| "
+                  f"{rel_err:.3e} (tol {tol:.0e}: {why}) | kernel {ms:.4f} ms | plain "
+                  f"{plain_ms:.4f} ms | x{plain_ms / ms:.2f} | {text}")
+            if not rel_err <= tol or not route[0]:
+                fail(f"{label}: gradient error {rel_err:.3e} of max|g|, route {route}")
+            del lib
 
 
 def device_times(row: dict, run_k, run_lib=None) -> str:
@@ -1418,9 +1569,10 @@ CKPT_KERNELS = ("stft", "istft", "gn_act", "lstm", "gru", "lstm_bwd", "gru_bwd",
                 "gn_bwd", "conv_dw")
 
 
-def _cli_run(tag: str, main, argv: list[str]) -> tuple[dict, list[dict], dict]:
-    """Drive one CLI with its launches counted -> (last stdout line, stderr
-    records, launches)."""
+def _cli_run(tag: str, main, argv: list[str], phase: str = "checkpoint",
+             names: tuple = CKPT_KERNELS) -> tuple[dict, list[dict], dict]:
+    """Drive one CLI with the launches of ``names`` counted -> (last stdout
+    line, stderr records, launches)."""
     out, err = io.StringIO(), io.StringIO()
 
     def run():
@@ -1428,10 +1580,10 @@ def _cli_run(tag: str, main, argv: list[str]) -> tuple[dict, list[dict], dict]:
             main(argv)
 
     t0 = time.perf_counter()
-    launches = counted(CKPT_KERNELS, run)
+    launches = counted(names, run)
     line = json.loads(out.getvalue().strip().splitlines()[-1])
     records = [json.loads(r) for r in err.getvalue().splitlines() if r.startswith("{")]
-    print(f"[checkpoint] {tag}: {time.perf_counter() - t0:.2f} s, {json.dumps(line)[:400]} "
+    print(f"[{phase}] {tag}: {time.perf_counter() - t0:.2f} s, {json.dumps(line)[:400]} "
           f"| launches {json.dumps(launches)}")
     return line, records, launches
 
@@ -1575,6 +1727,174 @@ def phase_checkpoint(device, card):
     return total
 
 
+def paired_batch(b: int, gen, lengths: list[int]) -> dict:
+    """A paired batch of b utterances: clean = a tone plus noise, noisy =
+    clean plus more noise, both valid up to ``lengths``; all rows real."""
+    import torch
+    reps = -(-b // len(lengths))
+    lens = torch.tensor((lengths * reps)[:b], dtype=torch.int32)
+    t = torch.arange(N) / SR
+    valid = torch.arange(N)[None] < lens[:, None]
+    clean = (0.3 * torch.sin(2 * torch.pi * 220.0 * t)[None]
+             + 0.1 * torch.randn(b, N, generator=gen)) * valid
+    noisy = (clean + 0.2 * torch.randn(b, N, generator=gen)) * valid
+    return {"wav": noisy, "wav_lengths": lens, "clean_wav": clean,
+            "row_weights": torch.ones(b), "clean_row_weights": torch.ones(b)}
+
+
+def phase_paired(device, card):
+    """The paired objective: one step card vs CPU at B=8 x 8 s with and
+    without the MR-STFT term, its launches, timed steps at B=8 and B=32, and
+    the train CLI -> checkpoint -> enhance chain, with the C1 case (an am run
+    keeps the --g-checkpoint's enhancer).  -> the launches of one paired step
+    with the MR-STFT term (the path that runs every kernel of the objective)
+    and those of the CLI runs."""
+    import torch
+    from aas_enhancement_tpu_torch.cli import enhance as enhance_cli
+    from aas_enhancement_tpu_torch.cli import train as train_cli
+    from aas_enhancement_tpu_torch.config import Config
+    from aas_enhancement_tpu_torch.data import generate_corpus
+    from aas_enhancement_tpu_torch.train.loop import init_state, load_state
+    from aas_enhancement_tpu_torch.train.state import TrainState, adam
+    from aas_enhancement_tpu_torch.train.steps import make_train_step
+
+    gen = torch.Generator().manual_seed(21)
+    lengths8 = [(f - 1) * 160 for f in BWD_FRAMES]
+    step_launches = {}
+    for lam in (0.0, 0.5):
+        cfg = Config()
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, objective="paired",
+                                                    batch_size=BWD_B, lambda_mrstft=lam))
+        state_cpu = init_state(cfg, cfg.train.seed, "cpu")
+        g_gpu = copy.deepcopy(state_cpu.g).to(device)
+        state_gpu = TrainState(g=g_gpu, g_opt=adam(cfg, g_gpu.parameters(), cfg.train.lr_g))
+        batch = paired_batch(BWD_B, gen, lengths8)
+        batch_gpu = {k: v.to(device) for k, v in batch.items()}
+        step = make_train_step(cfg)
+        t0 = time.perf_counter()
+        grads_cpu, aux_cpu = step.batch_grads(state_cpu, batch)
+        cpu_s = time.perf_counter() - t0
+        grads_gpu, aux_gpu = step.batch_grads(state_gpu, batch_gpu)
+        torch.cuda.synchronize()
+        tol, why = PAIRED_TOL
+        rel = {k: abs(float(aux_gpu[k]) - float(v)) / max(abs(float(v)), 1e-6)
+               for k, v in aux_cpu.items()}
+        print(f"[paired] one paired step (lambda_mrstft {lam}) B={BWD_B} x {SECONDS} s, "
+              f"card vs CPU (same weights and batch): metrics "
+              f"{json.dumps({k: round(float(v), 6) for k, v in aux_gpu.items()})}; largest "
+              f"relative difference {max(rel.values()):.3e} ({max(rel, key=rel.get)}) (tol "
+              f"{tol:.0e}: {why}); CPU plain path {cpu_s:.2f} s")
+        if set(aux_gpu) != set(aux_cpu) or not max(rel.values()) <= tol:
+            fail(f"card vs CPU paired metrics differ: {rel}")
+        gtol, gwhy = PAIRED_GRAD_TOL[lam]
+        scale = max(v.abs().max().item() for v in grads_cpu["g"].values())
+        rel, zero = {}, {}
+        for n, v in grads_cpu["g"].items():
+            diff = (grads_gpu["g"][n].cpu() - v).abs().max().item()
+            if v.abs().max().item() > GRAD_ZERO * scale:
+                rel[n] = diff / v.abs().max().item()
+            else:
+                zero[n] = diff / scale
+        worst = max(rel, key=rel.get)
+        print(f"[paired] G gradients ({len(rel)} tensors, each against its own max|g|): "
+              f"largest difference {rel[worst]:.3e} at {worst} (tol {gtol:.0e}: {gwhy}); "
+              f"{len(zero)} tensors zero to rounding, largest difference "
+              f"{max(zero.values(), default=0.0):.3e} of the network's max|g| (tol "
+              f"{GRAD_ZERO:.0e}); per tensor "
+              f"{json.dumps({n: float(f'{e:.3e}') for n, e in {**rel, **zero}.items()})}")
+        bad = [f"{n}: {e:.3e}" for n, e in rel.items() if not e <= gtol]
+        bad += [f"{n}: {e:.3e} (zero)" for n, e in zero.items() if not e <= GRAD_ZERO]
+        if bad:
+            fail(f"card vs CPU paired gradients differ (lambda_mrstft {lam}): {bad}")
+        aux = {}
+        launches = counted(PAIRED_KERNELS, lambda: aux.update(step(state_gpu, batch_gpu)[1]))
+        print(f"[paired] launches of one paired step (lambda_mrstft {lam}): "
+              f"{json.dumps(launches)}")
+        if launches != PAIRED_LAUNCHES[lam]:
+            fail(f"a paired step (lambda_mrstft {lam}) launched {launches}, not "
+                 f"{PAIRED_LAUNCHES[lam]}")
+        if not all(abs(float(v)) < float("inf") for v in aux.values()):
+            fail(f"non-finite paired metrics: {aux}")
+        step_launches = launches
+        del state_cpu, state_gpu, grads_cpu, grads_gpu
+
+        for b in TRAIN_BATCHES:
+            cfg_b = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=b))
+            state = init_state(cfg_b, cfg.train.seed, device)
+            step_b = make_train_step(cfg_b)
+            batch = {k: v.to(device) for k, v in paired_batch(b, gen, [N]).items()}
+            torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for i in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, aux = step_b(state, batch)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    walls.append(time.perf_counter() - t0)
+            wall = statistics.median(walls)
+            if not all(abs(float(v)) < float("inf") for v in aux.values()):
+                fail(f"non-finite paired metrics at B={b}: {aux}")
+            print(f"[paired] B={b} x {SECONDS} s paired step (lambda_mrstft {lam}) on {card}, "
+                  f"TF32 off: {wall * 1e3:.2f} ms/step, {b / wall:.2f} utterances/s, "
+                  f"{b * SECONDS / wall:.1f} s of audio per s; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (median of "
+                  f"{len(walls)} after 2 warmups; walls ms {[round(w * 1e3, 2) for w in walls]})")
+            del state, batch
+
+    # The CLIs: paired training with a checkpoint directory, enhance from it,
+    # and an am run given it as --g-checkpoint (C1: its directory keeps G).
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+        cfg = Config()
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, lambda_mrstft=0.5))
+        cfg_path = os.path.join(tmp, "paired.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg.to_json())
+        p_dir, am_dir = os.path.join(tmp, "paired"), os.path.join(tmp, "am")
+        names = PAIRED_KERNELS + ("gru", "gru_bwd", "conv_dw")
+        runs = (
+            ("cli.train --objective paired (lambda_mrstft 0.5) --checkpoint-dir", train_cli.main,
+             ["--objective", "paired", "--noisy-manifest", m["noisy"], "--clean-manifest",
+              m["clean"], "--batch-size", str(B), "--steps", "3", "--config", cfg_path,
+              "--checkpoint-dir", p_dir, "--device", "cuda"]),
+            ("cli.enhance --checkpoint PAIRED_DIR", enhance_cli.main,
+             ["--manifest", m["noisy"], "--out-dir", os.path.join(tmp, "enh_p"),
+              "--checkpoint", p_dir, "--device", "cuda"]),
+            ("cli.train --objective am --g-checkpoint PAIRED_DIR --checkpoint-dir",
+             train_cli.main, ["--objective", "am", "--noisy-manifest", m["clean"],
+                              "--batch-size", str(B), "--steps", "1", "--am-checkpoint",
+                              "seed:0", "--g-checkpoint", p_dir, "--checkpoint-dir", am_dir,
+                              "--device", "cuda"]),
+            ("cli.enhance --checkpoint AM_DIR (the kept enhancer)", enhance_cli.main,
+             ["--manifest", m["noisy"], "--out-dir", os.path.join(tmp, "enh_am"),
+              "--checkpoint", am_dir, "--device", "cuda"]))
+        lines = []
+        for tag, main, argv in runs:
+            line, _, n = _cli_run(tag, main, argv, phase="paired", names=names)
+            lines.append(line)
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
+        if (set(lines[0]) != {"final_step", "loss_paired", "loss_mrstft", "loss_paired_total"}
+                or lines[0]["final_step"] != 3
+                or not all(abs(v) < float("inf") for v in lines[0].values())):
+            fail(f"cli.train --objective paired printed {lines[0]}")
+        for line, sub in ((lines[1], "enh_p"), (lines[3], "enh_am")):
+            if line.get("utterances") != 6 or len(os.listdir(os.path.join(tmp, sub))) != 6:
+                fail(f"cli.enhance printed {line}")
+        g_paired = load_state(p_dir, "cpu")[0].g.state_dict()
+        g_kept = load_state(am_dir, "cpu")[0].g.state_dict()
+        if not all(torch.equal(v, g_kept[k]) for k, v in g_paired.items()):
+            fail("the am run's checkpoint does not carry the --g-checkpoint's enhancer")
+    print(f"[paired] the am run's checkpoint carries the paired run's enhancer bit for bit; "
+          f"launches of the phase's CLI runs: {json.dumps(total)}")
+    for name in ("stft_vjp", "istft_vjp", "lstm_bwd", "istft"):
+        if not total.get(name):
+            fail(f"the paired CLI runs launched no {name} kernel")
+    return step_launches, total
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     name, smi = phase_device()
@@ -1597,6 +1917,8 @@ def main() -> int:
                "birnn_batch_major": timed("birnn", phase_birnn, device),
                "am_step": timed("am_step", phase_train_am, device, smi),   # train CLI, am
                "checkpoint": timed("checkpoint", phase_checkpoint, device, smi)}   # CLIs, dirs
+    paired_step, by_path["paired_cli"] = timed("paired", phase_paired, device, smi)
+    by_path["paired_step"] = paired_step      # last: the JSON's launches of its kernels
     print(f"[time] seconds per phase: {json.dumps(took)}")
     launches = {}
     for counts in by_path.values():        # the last path that runs a kernel
@@ -1633,6 +1955,11 @@ def main() -> int:
                              "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:210"),
         "gru_stacked_bwd": ("cuda", "aas_enhancement_tpu_torch/csrc/gru_tm.cu",
                             "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:406"),
+        # No TPU kernel: the JAX package differentiates its matmul-DFT with XLA.
+        "stft_vjp": ("cuda", "aas_enhancement_tpu_torch/csrc/istft.cu",
+                     "aas_enhancement_tpu/dsp/stft.py:78 (no TPU kernel: XLA's VJP of stft)"),
+        "istft_vjp": ("cuda", "aas_enhancement_tpu_torch/csrc/stft.cu",
+                      "aas_enhancement_tpu/dsp/stft.py:139 (no TPU kernel: XLA's VJP of istft)"),
     }
     kernels = [{"name": k, "route": r, "source": s, "replaces": rep,
                 "launches": launches[k], **results[k],

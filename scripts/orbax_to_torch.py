@@ -6,7 +6,8 @@ restore_rehosted`` and the directory's ``config.json``, maps ``g_params``,
 ``d_params`` and ``am_params`` with the port's ``convert.py``, loads them
 into the port's networks of that config (so a mismatch raises here, not
 later), and writes ``DST/<step>/state.pt`` with the step and a copy of
-``config.json``.  Networks only, as the JAX ``load_state`` restores networks
+``config.json``.  A G that the objective does not train (an ``am`` run given
+``--g-checkpoint``) is kept, frozen, as the JAX ``load_state`` returns it.  Networks only, as the JAX ``load_state`` restores networks
 only: the optimizer states are not converted, so ``--continue-from`` on the
 result raises ("no optimizer state"); evaluate, enhance, ``--am-checkpoint``
 and ``--g-checkpoint`` take it.
@@ -39,7 +40,7 @@ def convert(src: str, dst: str) -> int:
     from aas_enhancement_tpu_torch.convert import (am_params_from_flax,
                                                    disc_params_from_flax,
                                                    enhancer_params_from_flax)
-    from aas_enhancement_tpu_torch.train.loop import init_state
+    from aas_enhancement_tpu_torch.train.loop import init_state, keep_frozen_g
     from aas_enhancement_tpu_torch.utils import checkpoint as tckpt
 
     cfg_path = os.path.join(src, "config.json")
@@ -61,7 +62,8 @@ def convert(src: str, dst: str) -> int:
                           ("d", "d_params", disc_params_from_flax),
                           ("am", "am_params", am_params_from_flax)):
         if raw.get(key):
-            getattr(state, name).load_state_dict(fn(raw[key]))
+            net = keep_frozen_g(state, cfg, "cpu") if name == "g" else getattr(state, name)
+            net.load_state_dict(fn(raw[key]))
         else:
             setattr(state, name, None)
         setattr(state, name + "_opt", None)

@@ -3,7 +3,11 @@ train/loop.py::load_state) and the converter of the JAX package's Orbax
 checkpoints (scripts/orbax_to_torch.py), on the CPU, at tiny widths.
 
 Tolerances: a save/load round trip is exact (``torch.equal`` on every tensor
-of every network and optimizer state).  A converted checkpoint is held to the
+of every network and optimizer state).  The enhance CLIs of both packages on
+one converted checkpoint write wavs within one PCM16 step (1/32767: both
+round the same f32 output, which agrees to 1e-5, to 16 bits; a sample that
+lies near a rounding edge may land on the step beside), and the enhancers
+they load give the same output to 1e-5.  A converted checkpoint is held to the
 JAX package's ``apply`` on the same parameters to 1e-5 (AM logits, enhancer
 output: f32 sums in another order, values O(1)).  The evaluate CLI on a
 converted checkpoint prints the JAX CLI's WER and CER exactly (greedy
@@ -20,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from aas_enhancement_tpu.cli import enhance as jax_enhance_cli
 from aas_enhancement_tpu.cli import evaluate as jax_eval_cli
 from aas_enhancement_tpu.config import (AMConfig, Config, DataConfig,
                                         DiscriminatorConfig, EnhancerConfig,
@@ -30,7 +35,11 @@ from aas_enhancement_tpu.models.enhancer import Enhancer as JaxEnhancer
 from aas_enhancement_tpu.train.loop import init_state as jax_init_state
 from aas_enhancement_tpu.train.loop import train as jax_train
 from aas_enhancement_tpu.utils import checkpoint as jckpt
+from aas_enhancement_tpu_torch.cli import enhance as enhance_cli
 from aas_enhancement_tpu_torch.cli import evaluate as eval_cli
+from aas_enhancement_tpu_torch.cli import train as train_cli
+from aas_enhancement_tpu_torch.data.wav import read_wav
+from aas_enhancement_tpu_torch.enhance import init_enhancer
 from aas_enhancement_tpu_torch.config import Config as TConfig
 from aas_enhancement_tpu_torch.train.loop import init_state, load_state
 from aas_enhancement_tpu_torch.train.steps import make_train_step
@@ -85,7 +94,7 @@ def _parts(state):
             if getattr(state, n) is not None}
 
 
-@pytest.mark.parametrize("objective", ["aas", "am"])
+@pytest.mark.parametrize("objective", ["aas", "am", "paired"])
 def test_save_restore_round_trip(tmp_path, objective):
     """Networks and optimizer states (Adam's moments and step, SGD's momentum
     buffers) come back bit for bit into a state drawn from another seed;
@@ -115,7 +124,7 @@ def test_save_restore_round_trip(tmp_path, objective):
         assert a.keys() == b.keys() and a, name
         for k in a:
             assert torch.equal(a[k], b[k]), (name, k)
-    opt = getattr(other, "g_opt" if objective == "aas" else "am_opt")
+    opt = getattr(other, "am_opt" if objective == "am" else "g_opt")
     assert len(opt.state) == len(opt.param_groups[0]["params"])
 
 
@@ -242,3 +251,94 @@ def test_jax_trained_checkpoint_evaluates_alike(tmp_path, capsys, monkeypatch):
     assert got["noisy"]["utterances"] == ref["noisy"]["utterances"] == 4
     for k in ("wer", "cer", "wer_ci95", "sample_ref", "sample_hyp"):
         assert got["noisy"][k] == ref["noisy"][k], k
+
+
+def _wavs(d):
+    return {n: read_wav(os.path.join(d, n))[0] for n in sorted(os.listdir(d))}
+
+
+def test_jax_am_checkpoint_with_an_enhancer_converts_and_enhances(tmp_path, monkeypatch):
+    """A JAX ``am`` state that carries a G (the JAX train CLI grafts a
+    ``--g-checkpoint`` into any objective's state) converts with its G kept,
+    frozen; the enhance CLIs of both packages on it write the same wavs."""
+    monkeypatch.setattr("aas_enhancement_tpu.utils.jax_cache.enable", lambda *a: None)
+    cfg = _cfg("am")
+    src, dst = str(tmp_path / "jax"), str(tmp_path / "torch")
+    g_params = jax_init_state(_cfg("aas"), jax.random.key(4)).g_params
+    jstate = jax_init_state(cfg, jax.random.key(0)).replace(
+        g_params=g_params, step=jnp.asarray(3, jnp.int32))
+    mgr = jckpt.make_manager(src)
+    jckpt.save(mgr, 3, jax.device_get(jstate))
+    mgr.wait_until_finished()
+    mgr.close()
+    with open(os.path.join(src, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    assert orbax_to_torch.convert(src, dst) == 3
+    state, _ = load_state(dst, "cpu")
+    assert state.am is not None and state.g is not None and state.g_opt is None
+    assert not any(p.requires_grad for p in state.g.parameters())
+    x = np.random.default_rng(2).standard_normal((2, 30, 161)).astype(np.float32)
+    lengths = np.array([30, 17], np.int32)
+    ref = JaxEnhancer(cfg.enhancer).apply(g_params, jnp.asarray(x), jnp.asarray(lengths))
+    with torch.no_grad():
+        got = state.g(torch.from_numpy(x), torch.from_numpy(lengths))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+    corpus = generate_corpus(str(tmp_path / "corpus"), n_utts=3, seed=6)
+    jout, tout = str(tmp_path / "enh_jax"), str(tmp_path / "enh_torch")
+    jax_enhance_cli.main(["--manifest", corpus["noisy"], "--out-dir", jout,
+                          "--checkpoint", src])
+    enhance_cli.main(["--manifest", corpus["noisy"], "--out-dir", tout, "--checkpoint", dst,
+                      "--device", "cpu"])
+    ref, got = _wavs(jout), _wavs(tout)
+    assert list(got) == list(ref) and len(got) == 3
+    for name in ref:
+        assert got[name].shape == ref[name].shape
+        assert np.abs(got[name] - ref[name]).max() <= 1.0 / 32767 + 1e-7, name
+
+
+def test_am_run_with_a_g_checkpoint_saves_the_enhancer(tmp_path, capsys):
+    """The port's ``am`` run keeps the ``--g-checkpoint``'s enhancer (without
+    ``--am-through-enhancer``: frozen, never read by the step), so its
+    checkpoint carries it and ``cli.enhance --checkpoint`` enhances."""
+    corpus = generate_corpus(str(tmp_path / "corpus"), n_utts=4, seed=7)
+    cfg = TConfig.from_json(_cfg("am").to_json())
+    path = tmp_path / "cfg.json"
+    path.write_text(cfg.to_json())
+    d = str(tmp_path / "ck")
+    train_cli.main(["--objective", "am", "--noisy-manifest", corpus["clean"], "--steps", "2",
+                    "--batch-size", "2", "--config", str(path), "--am-checkpoint", "seed:0",
+                    "--g-checkpoint", "seed:1", "--checkpoint-dir", d, "--device", "cpu"])
+    state, _ = load_state(d, "cpu")
+    assert state.step == 2 and state.g is not None
+    want = init_enhancer(cfg, 1, "cpu").state_dict()
+    assert all(torch.equal(v, state.g.state_dict()[k]) for k, v in want.items())
+    out = str(tmp_path / "enh")
+    enhance_cli.main(["--manifest", corpus["noisy"], "--out-dir", out, "--checkpoint", d,
+                      "--device", "cpu"])
+    assert len(os.listdir(out)) == 4
+    capsys.readouterr()
+
+
+def test_converted_paired_checkpoint_matches_jax_apply(tmp_path):
+    """A JAX ``paired`` state (G + Adam) converts: the enhancer's output
+    equals JAX's apply to 1e-5; the port's own paired state saves G + Adam."""
+    cfg = _cfg("paired")
+    src, dst = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jstate = _jax_checkpoint(cfg, src, 5)
+    assert orbax_to_torch.convert(src, dst) == 5
+    state, tcfg = load_state(dst, "cpu")
+    assert state.step == 5 and state.d is None and state.am is None
+    assert state.g_opt is not None and all(p.requires_grad for p in state.g.parameters())
+    x = np.random.default_rng(4).standard_normal((2, 30, 161)).astype(np.float32)
+    lengths = np.array([30, 12], np.int32)
+    ref = JaxEnhancer(cfg.enhancer).apply(jstate.g_params, jnp.asarray(x),
+                                          jnp.asarray(lengths))
+    with torch.no_grad():
+        got = state.g(torch.from_numpy(x), torch.from_numpy(lengths))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+    own = init_state(tcfg, 0, "cpu")
+    d = str(tmp_path / "own")
+    ckpt.save(d, 1, own)
+    assert set(torch.load(os.path.join(d, "1", "state.pt"), weights_only=True)) == {
+        "step", "g", "g_opt"}

@@ -275,8 +275,11 @@ def test_unported_options_raise(corpus, nets):
         teval.evaluate_wer(tcfg, nets[2], corpus["noisy"], decoder="beam")
     with pytest.raises(NotImplementedError, match="A13"):
         teval.evaluate_wer(tcfg, nets[2], corpus["noisy"], decoder="device")
-    with pytest.raises(NotImplementedError, match="augment"):
-        AudioDataset(corpus["noisy"], tcfg.audio, tconfig.DataConfig(augment=True))
+    augmenting = AudioDataset(corpus["noisy"], tcfg.audio, tconfig.DataConfig(augment=True))
+    assert augmenting.data.augment and augmenting.noise is None      # no noise_dir
+    assert [it["num_samples"] for it in augmenting.items] == [
+        int(it["num_samples"] * 1.12) for it in AudioDataset(
+            corpus["noisy"], tcfg.audio, tconfig.DataConfig()).items]
     with pytest.raises(NotImplementedError, match="A11"):
         enhancer_forward(tcfg, nets[3], torch.zeros(1, 1600), torch.tensor([1600]),
                          streaming=True)

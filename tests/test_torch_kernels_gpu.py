@@ -69,6 +69,68 @@ def test_stft_kernel(cuda, n, center, n_fft, hop, route):
     torch.testing.assert_close(im, im_f, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("n_fft,hop,route", [(256, 64, (32, 8)), (512, 128, (32, 16)),
+                                            (1024, 256, (64, 16))])
+def test_stft_kernel_at_the_mr_stft_resolutions(cuda, n_fft, hop, route):
+    """The MR-STFT loss's resolutions: n_fft = 4 hop, up to 1024 (the
+    factorised kernel's largest shared memory, 104 KB), ragged rows."""
+    x = _randn(8, 48000, seed=n_fft, scale=0.3).to(cuda)
+    x[3, 30001:] = 0
+    re, im = kstft.stft(x, n_fft, hop)
+    re_p, im_p = kstft.stft_plain(x, n_fft, hop)
+    torch.cuda.synchronize()
+    assert kstft.stft.route == route
+    torch.testing.assert_close(re, re_p, rtol=0, atol=1e-4)
+    torch.testing.assert_close(im, im_p, rtol=0, atol=1e-4)
+
+
+# The STFT's and the ISTFT's VJP kernels against their plain versions: the
+# MR-STFT resolutions and the enhancer's, ragged lengths, the direct routes
+# (a prime n_fft; more than 8 frames over a sample for stft_vjp), no center
+# pad.  Limit: 1e-4 of the gradient's max|g| (f32 sums of up to n_fft terms
+# in the kernels' order and the plain version's matmul order).
+VJP_CASES = [(256, 64, True, 8000), (512, 128, True, 7777), (1024, 256, True, 9000),
+             (320, 160, True, 16000), (320, 160, False, 16001), (37, 37, True, 3000),
+             (2048, 128, True, 12000)]
+
+
+def _vjp_err(got, ref):
+    scale = max(float(r.abs().max()) for r in ref)
+    return max(float((g - r).abs().max()) for g, r in zip(got, ref)) / scale
+
+
+@pytest.mark.parametrize("n_fft,hop,center,n", VJP_CASES)
+def test_stft_vjp_kernel(cuda, n_fft, hop, center, n):
+    t = 1 + (n // hop if center else (n - n_fft) // hop)
+    dre = _randn(3, t, n_fft // 2 + 1, seed=n).to(cuda)
+    dim = _randn(3, t, n_fft // 2 + 1, seed=n + 1).to(cuda)
+    before = kstft.stft_vjp.launches
+    dx = kstft.stft_vjp(dre, dim, n, n_fft, hop, center=center)
+    again = kstft.stft_vjp(dre, dim, n, n_fft, hop, center=center)
+    ref = kstft.stft_vjp_plain(dre, dim, n, n_fft, hop, center=center)
+    torch.cuda.synchronize()
+    assert kstft.stft_vjp.launches == before + 2
+    assert kstft.stft_vjp.route == kstft.istft_route(n_fft, hop)
+    assert dx.shape == (3, n) and torch.equal(dx, again)
+    assert _vjp_err((dx,), (ref,)) <= 1e-4
+
+
+@pytest.mark.parametrize("n_fft,hop,center,n", VJP_CASES)
+def test_istft_vjp_kernel(cuda, n_fft, hop, center, n):
+    t = 1 + (n // hop if center else (n - n_fft) // hop)
+    for length in (n, n - 3 * hop - 1, n + 2 * hop):      # cut, exact, zero-padded
+        dy = _randn(3, length, seed=length).to(cuda)
+        before = kstft.istft_vjp.launches
+        got = kstft.istft_vjp(dy, t, n_fft, hop, center=center)
+        again = kstft.istft_vjp(dy, t, n_fft, hop, center=center)
+        ref = kstft.istft_vjp_plain(dy, t, n_fft, hop, center=center)
+        torch.cuda.synchronize()
+        assert kstft.istft_vjp.launches == before + 2
+        assert kstft.istft_vjp.route == kstft.stft_factors(n_fft)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        assert _vjp_err(got, ref) <= 1e-4
+
+
 def test_stft_refuses_too_few_samples(cuda):
     with pytest.raises(ValueError, match="too few"):
         kstft.stft(torch.zeros(1, 160, device=cuda), 320, 160)
@@ -253,9 +315,20 @@ calls = [lambda: gn.masked_group_norm_act(x, scale, bias, lengths, num_groups=8,
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         kstft.stft(torch.zeros(1, 4000, dtype=torch.float64, device=cuda), 320, 160)
-    x = torch.zeros(1, 4000, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A8"):   # STFT has no backward kernel
-        kstft.stft(x, 320, 160)
+    # A wanted gradient differentiates through the VJP kernels, never a plain version.
+    x = _randn(2, 4000, seed=3).to(cuda).requires_grad_()
+    before = (kstft.stft_vjp.launches, kstft.istft_vjp.launches)
+    re, im = kstft.stft(x, 320, 160)
+    y = kstft.istft(re * 0.5, im, 320, 160, length=4000)
+    dy = _randn(2, 4000, seed=4).to(cuda)
+    gx, = torch.autograd.grad(y, x, dy)
+    assert (kstft.stft_vjp.launches, kstft.istft_vjp.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+    x_p = x.detach().cpu().requires_grad_()
+    re_p, im_p = kstft.stft_plain(x_p, 320, 160)
+    ref, = torch.autograd.grad(kstft.istft_plain(re_p * 0.5, im_p, 320, 160, length=4000),
+                               x_p, dy.cpu())
+    assert _vjp_err((gx.cpu(),), (ref,)) <= 1e-4
 
 
 def _grads(outs, inputs, seed):

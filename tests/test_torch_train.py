@@ -391,8 +391,10 @@ def test_init_state_freezes_the_am():
     through = init_state(cfg.replace(train=dataclasses.replace(
         cfg.train, objective="am", am_through_enhancer=True)), 0, "cpu")
     assert through.g_opt is None and not any(p.requires_grad for p in through.g.parameters())
-    with pytest.raises(NotImplementedError, match="A8"):
-        init_state(cfg.replace(train=dataclasses.replace(cfg.train, objective="paired")), 0, "cpu")
+    paired = init_state(cfg.replace(train=dataclasses.replace(cfg.train, objective="paired")),
+                        0, "cpu")
+    assert paired.g_opt is not None and all(p.requires_grad for p in paired.g.parameters())
+    assert paired.d is None and paired.am is None
 
 
 @pytest.fixture(scope="module")
@@ -433,14 +435,15 @@ def test_cli_trains_three_steps_on_cpu(corpus, tmp_path, capsys):
     (["--sortagrad"], "A9"), (["--stream-lookahead", "0.2"], "A11"),
     (["--stream-history", "1.0"], "A11"), (["--streaming-finetune"], "A11"),
     (["--stream-chunk", "1.0"], "A11"), (["--streaming-finetune-am"], "A11"),
-    (["--objective", "paired"], "A8"), (["--g-checkpoint", "ckpt_dir"], "A9"),
+    (["--objective", "paired"], "A9"), (["--g-checkpoint", "ckpt_dir"], "A9"),
     (["--am-checkpoint", "ckpt_dir"], "A9")])
 def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
-    """Streaming fine-tuning (A11) and the paired objective (A8) raise.  The
-    A9 flags are ported: a checkpoint directory without config.json raises
+    """Streaming fine-tuning (A11) raises.  The A9 flags and the paired
+    objective are ported: a checkpoint directory without config.json raises
     as the JAX CLI's load_state does, and every other flag reaches the
     config or the loop (``init_state`` and ``train`` stubbed here; the loop
-    itself is driven in tests/test_torch_loop.py)."""
+    itself is driven in tests/test_torch_loop.py; ``--objective paired``
+    reaches ``train(paired=True)``)."""
     args = ["--objective", "aas", "--noisy-manifest", "n.csv", "--clean-manifest",
             "c.csv", "--device", "cpu"]
     if item != "A9":
@@ -470,7 +473,8 @@ def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
                "--metrics": seen["metrics_path"] == "m.jsonl",
                "--tensorboard": seen["tensorboard_dir"] == "tb",
                "--profile-dir": t.profile_dir == "p",
-               "--sortagrad": t.sortagrad is True}
+               "--sortagrad": t.sortagrad is True,
+               "--objective": t.objective == "paired" and seen["paired"] is True}
     assert reached[flags[0]], (flags, seen)
 
 
