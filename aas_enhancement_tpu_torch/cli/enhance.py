@@ -5,9 +5,14 @@ Each utterance is padded to a 2/4/8/16 s bucket, run through the
 STFT -> enhancer -> ISTFT path on ``--device`` and written; one JSON line
 with the real-time factor (wall seconds / audio seconds) ends the run.
 
+With ``--streaming`` each utterance goes through ``streaming.enhance_stream``
+instead, in pushes of 0.1 s: blocks of ``--history-seconds`` | ``--chunk-seconds``
+| ``--lookahead-seconds``, normalized with running moments.
+
 Usage:
   python -m aas_enhancement_tpu_torch.cli.enhance --manifest noisy_manifest.csv \
       --out-dir out/ [--checkpoint ckpt_g/] [--device cuda|cpu]
+      [--streaming [--chunk-seconds 1.0 --lookahead-seconds 0.2 --history-seconds 1.0]]
 ``--checkpoint`` takes a train-CLI checkpoint directory of the port (a JAX
 package's directory converts with ``scripts/orbax_to_torch.py``); without
 ``--config`` its ``enhancer`` and ``audio`` config sections are used.
@@ -29,6 +34,7 @@ from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.data import read_manifest, read_wav, write_wav
 from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
+from aas_enhancement_tpu_torch.streaming import enhance_stream
 from aas_enhancement_tpu_torch.train.loop import load_state
 
 
@@ -51,13 +57,16 @@ def main(argv=None) -> None:
     p.add_argument("--config", help="config JSON (defaults used if omitted)")
     p.add_argument("--mode", choices=["mask", "mapping"], default=None)
     p.add_argument("--streaming", action="store_true",
-                   help="chunked streaming path (not yet ported)")
+                   help="chunked streaming path (block-bidirectional, "
+                        "chunk+lookahead latency) instead of whole-utterance")
+    p.add_argument("--chunk-seconds", type=float, default=1.0)
+    p.add_argument("--lookahead-seconds", type=float, default=0.2)
+    p.add_argument("--history-seconds", type=float, default=1.0,
+                   help="left context per block (warm fwd-BLSTM state; "
+                        "adds compute, not latency)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.streaming:
-        raise NotImplementedError("--streaming: streaming enhancement is not yet "
-                                  "ported (ROADMAP A11)")
     device = resolve_device(args.device)
 
     if args.config:
@@ -99,10 +108,15 @@ def main(argv=None) -> None:
         n = len(wav)
 
         t0 = time.perf_counter()
-        x = np.zeros(_bucket_length(n, buckets), np.float32)
-        x[:n] = wav
-        out = fn(model, torch.from_numpy(x)[None], torch.tensor([n]))
-        enhanced = out[0, :n].cpu().numpy()          # waits for the device
+        if args.streaming:
+            enhanced = np.concatenate(list(enhance_stream(
+                cfg, model, wav, args.chunk_seconds, args.lookahead_seconds,
+                args.history_seconds, device=device)))
+        else:
+            x = np.zeros(_bucket_length(n, buckets), np.float32)
+            x[:n] = wav
+            out = fn(model, torch.from_numpy(x)[None], torch.tensor([n]))
+            enhanced = out[0, :n].cpu().numpy()          # waits for the device
         wall = time.perf_counter() - t0
 
         write_wav(os.path.join(args.out_dir, os.path.basename(path)), enhanced, sr)

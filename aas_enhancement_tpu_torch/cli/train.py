@@ -33,8 +33,10 @@ decode-only AM.  An ``am`` run keeps the ``--g-checkpoint``'s enhancer
 frozen in its state, also without ``--am-through-enhancer`` (the step does
 not read it then), so its checkpoints carry it, as the JAX CLI's do.
 ``config.json`` is written into ``--checkpoint-dir`` before training.
-Not ported yet, and raising with their ROADMAP item: ``--streaming-finetune``,
-``--streaming-finetune-am`` and ``--stream-*`` (A11).
+``--streaming-finetune`` trains G (or the ``am`` objective's frozen G runs)
+through the blockwise streaming forward, ``--streaming-finetune-am`` the AM,
+at the ``--stream-chunk`` / ``--stream-lookahead`` / ``--stream-history``
+operating point in seconds (the config's ``train.stream_*_s``).
 """
 
 from __future__ import annotations
@@ -49,10 +51,6 @@ from aas_enhancement_tpu_torch.cli.evaluate import checkpoint_seed
 from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.enhance import init_enhancer
 from aas_enhancement_tpu_torch.train.loop import init_state, keep_frozen_g, load_state, train
-
-# flags (argparse dest) of streaming fine-tuning, ROADMAP A11
-_UNPORTED = ("streaming_finetune", "streaming_finetune_am", "stream_chunk",
-             "stream_lookahead", "stream_history")
 
 
 def main(argv=None) -> None:
@@ -89,11 +87,18 @@ def main(argv=None) -> None:
                         "features (objective am)")
     p.add_argument("--sortagrad", action="store_true",
                    help="serve epoch 0 strictly shortest-first")
-    p.add_argument("--streaming-finetune", action="store_true", help="(ROADMAP A11)")
-    p.add_argument("--stream-chunk", type=float, default=None, help="(ROADMAP A11)")
-    p.add_argument("--stream-lookahead", type=float, default=None, help="(ROADMAP A11)")
-    p.add_argument("--stream-history", type=float, default=None, help="(ROADMAP A11)")
-    p.add_argument("--streaming-finetune-am", action="store_true", help="(ROADMAP A11)")
+    p.add_argument("--streaming-finetune", action="store_true",
+                   help="train G through the block-bidirectional streaming forward "
+                        "(chunked inference parity)")
+    p.add_argument("--stream-chunk", type=float, default=None,
+                   help="streaming fine-tuning chunk seconds (default 1.0)")
+    p.add_argument("--stream-lookahead", type=float, default=None,
+                   help="streaming fine-tuning lookahead seconds (default 0.2)")
+    p.add_argument("--stream-history", type=float, default=None,
+                   help="streaming fine-tuning history seconds (default 1.0)")
+    p.add_argument("--streaming-finetune-am", action="store_true",
+                   help="objective am: train the AM through the block-streaming AM "
+                        "forward at the --stream-* operating point")
     p.add_argument("--am-through-enhancer", action="store_true",
                    help="objective am: feed the AM the FROZEN enhancer's output "
                         "features (the enhancer from --g-checkpoint)")
@@ -114,10 +119,6 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    for dest in _UNPORTED:
-        if getattr(args, dest) not in (None, False):
-            raise NotImplementedError(f"--{dest.replace('_', '-')}: not yet ported "
-                                      "(ROADMAP A11)")
     if args.am_through_enhancer and args.objective != "am":
         p.error("--am-through-enhancer only applies to --objective am")
     if args.objective == "paired" and not args.clean_manifest:
@@ -137,12 +138,16 @@ def main(argv=None) -> None:
         if value:
             tr[key] = value
     for key, value in (("lambda_adv", args.lambda_adv), ("lr_anneal", args.lr_anneal),
-                       ("profile_dir", args.profile_dir)):
+                       ("profile_dir", args.profile_dir),
+                       ("stream_chunk_s", args.stream_chunk),
+                       ("stream_lookahead_s", args.stream_lookahead),
+                       ("stream_history_s", args.stream_history)):
         if value is not None:
             tr[key] = value
     if args.eval_every >= 0:
         tr["eval_every"] = args.eval_every
-    for key in ("sortagrad", "spec_augment", "am_through_enhancer"):
+    for key in ("sortagrad", "spec_augment", "am_through_enhancer", "streaming_finetune",
+                "streaming_finetune_am"):
         if getattr(args, key):
             tr[key] = True
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, **tr))

@@ -5,10 +5,9 @@ The same dataclasses, fields and defaults as the JAX package's audio, AM,
 enhancer, discriminator and data sections, and the fields of its train
 section that the port reads.  A config JSON written by either package loads
 here as long as the fields the port does not have yet (``UNPORTED``: the
-mesh section, streaming's train fields, ``audio.stft_impl``) hold their
-defaults: a
-non-default value of one raises instead of vanishing, naming the ROADMAP item
-that ports the field's consumer.  Keys that neither package knows are
+mesh section and ``audio.stft_impl``) hold their defaults: a non-default
+value of one raises instead of vanishing, naming the ROADMAP item that
+ports the field's consumer.  Keys that neither package knows are
 skipped, as the JAX package's own ``Config.from_dict`` skips them, and JSON
 lists become tuples, as there.
 """
@@ -28,11 +27,6 @@ from typing import Any
 # a field the port drops is listed here or the test fails.
 UNPORTED = {
     "audio": {"stft_impl": ("auto", "A15")},       # one STFT route on the card, by decision
-    "train": {
-        "stream_chunk_s": (1.0, "A11"),
-        "stream_lookahead_s": (0.2, "A11"),
-        "stream_history_s": (1.0, "A11"),
-    },
     "mesh": {"data_axis": ("data", "A12"), "num_devices": (0, "A12")},
 }
 
@@ -128,10 +122,9 @@ class TrainConfig:
     defaults: the ``paired``, ``aas``, ``adversarial``, ``acoustic`` and
     ``am`` objectives (and ``enhance_only``, ``preset("single_utterance")``'s,
     which builds G and trains nothing) with ``grad_accum``, checkpoints,
-    validation, input prefetch, SortaGrad and profiling.  Fields of what is
-    not ported yet (streaming) load only at their defaults (``UNPORTED``);
-    ``streaming_finetune`` and ``streaming_finetune_am`` are read only to
-    raise.
+    validation, input prefetch, SortaGrad, profiling and streaming
+    fine-tuning (``streaming_finetune``, ``streaming_finetune_am`` at the
+    ``stream_*_s`` operating point).
     """
 
     objective: str = "aas"       # "paired" | "adversarial" | "acoustic" | "aas" | "am"
@@ -170,10 +163,15 @@ class TrainConfig:
     sa_time_width: int = 30      # max frames per time stripe
     sa_freq_masks: int = 2
     sa_freq_width: int = 13      # max bins per frequency stripe
-    streaming_finetune: bool = False
-    streaming_finetune_am: bool = False
+    streaming_finetune: bool = False  # G trains through the blockwise streaming
+                                 # forward (models/enhancer.py::blockwise_apply)
+    streaming_finetune_am: bool = False  # "am": the AM trains through the block-
+                                 # streaming AM forward (models/am.py::am_blockwise_apply)
     am_through_enhancer: bool = False  # "am": the AM reads the FROZEN enhancer's
                                  # output features instead of the raw input
+    stream_chunk_s: float = 1.0  # the streaming fine-tuning operating point; it
+    stream_lookahead_s: float = 0.2  # should match the served one
+    stream_history_s: float = 1.0    # (streaming.StreamingEnhancer)
     distill_lambda: float = 0.0  # "am": weight of the KL term that ties the
                                  # AM's frame posteriors to those of the AM as
                                  # the run started (the anchor)

@@ -6,7 +6,8 @@ and ISTFT (``csrc/stft.cu``, ``csrc/istft.cu``), masked GroupNorm +
 leaky_relu (``csrc/gn.cu``, one cooperative launch) and the BiLSTM recurrence
 (``csrc/lstm_tm.cu``).  The convolutions and the dense products are
 ``F.conv2d`` and ``torch.matmul``.  On the CPU every kernel's plain version
-runs instead.
+runs instead.  ``make_streaming_enhance_fn`` is the same path for one block
+of a stream, normalized with running moments (``streaming.py`` drives it).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from aas_enhancement_tpu_torch.dsp import api as dsp_api
 from aas_enhancement_tpu_torch.dsp.stft import magnitude, phase
 from aas_enhancement_tpu_torch.models.enhancer import Enhancer, apply_enhancement
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
-from aas_enhancement_tpu_torch.ops.masking import masked_normalize
+from aas_enhancement_tpu_torch.ops.masking import (masked_normalize, running_normalize,
+                                                   time_mask, window_stats)
 
 
 def init_enhancer(cfg: Config, seed: int,
@@ -56,6 +58,49 @@ def make_enhance_fn(cfg: Config, device: torch.device | str):
         out = model(net_in, frame_lengths)
         enhanced_mag = apply_enhancement(enh_cfg, out, mag)
         return dsp_api.reconstruct(a, enhanced_mag, ph, length=wav.shape[-1])
+
+    return enhance
+
+
+def make_streaming_enhance_fn(cfg: Config, device: torch.device | str):
+    """The streaming variant of ``make_enhance_fn``, normalized with RUNNING
+    moments (JAX ``make_streaming_enhance_fn``):
+
+    fn(model, wav [B, n], lengths [B], stats_start, stats_end, run_sum,
+       run_sumsq, run_count) -> (enhanced [B, n], block_sum [B],
+       block_sumsq [B], block_count [B]), all on ``device``.
+
+    A streamed block cannot see the whole utterance, so the caller carries
+    the moments of the log-magnitudes seen so far, and the block is
+    normalized with those plus its own.  Every row is an independent stream:
+    the stats window and the running moments are scalars (broadcast) or [B]
+    tensors.  The increments returned count only the valid frames t with
+    stats_start <= t < stats_end (the frames this block consumes: earlier
+    ones are history already counted, later ones lookahead the next block
+    owns); the whole block is normalized all the same."""
+    a = cfg.audio
+    enh_cfg = cfg.enhancer
+    device = torch.device(device)
+
+    @torch.inference_mode()
+    def enhance(model: Enhancer, wav: torch.Tensor, lengths: torch.Tensor,
+                stats_start, stats_end, run_sum, run_sumsq, run_count):
+        wav = torch.as_tensor(wav).to(device=device, dtype=torch.float32)
+        lengths = torch.as_tensor(lengths).to(device=device, dtype=torch.int64)
+        run = tuple(torch.as_tensor(r, dtype=torch.float32, device=device).reshape(-1)
+                    for r in (run_sum, run_sumsq, run_count))
+        re, im = dsp_api.stft(a, wav)
+        mag = magnitude(re, im)
+        log_mag = torch.log1p(mag)
+        frame_lengths = (1 + lengths // a.hop_length if a.center
+                         else 1 + (lengths - a.n_fft) // a.hop_length)
+        valid = time_mask(frame_lengths, log_mag.shape[1])
+        inc = window_stats(log_mag, valid, stats_start, stats_end)
+        net_in = running_normalize(log_mag, valid, inc, run) if a.normalize else log_mag
+        out = model(net_in, frame_lengths)
+        enhanced_mag = apply_enhancement(enh_cfg, out, mag)
+        wav_out = dsp_api.reconstruct(a, enhanced_mag, phase(re, im), length=wav.shape[-1])
+        return (wav_out, *inc)
 
     return enhance
 

@@ -10,8 +10,8 @@ Layout as in ``models/enhancer.py``: the GroupNorm output [B, T, F, C] stays
 contiguous and is viewed as NCHW with channels-last memory for the next conv,
 and the flatten to [B, T, F*C] puts feature f*C + c where the JAX model's
 ``reshape(b, t, f*ch)`` does (the first ``wx``'s rows depend on it).
-``am_blockwise_apply`` (the streaming-matched forward) is not ported yet
-(ROADMAP A11).
+``am_blockwise_apply`` is the streaming-matched forward of
+``TrainConfig.streaming_finetune_am``.
 
 conv2 is a ``TapDWConv`` with ``dw_impl="auto"``: when the AM is trained on a
 CUDA device its weight gradient comes from the hand-written kernel
@@ -30,7 +30,8 @@ from torch import nn
 from aas_enhancement_tpu_torch.config import AMConfig
 from aas_enhancement_tpu_torch.ops.conv import SameConv2d, TapDWConv
 from aas_enhancement_tpu_torch.ops.dense import Dense
-from aas_enhancement_tpu_torch.ops.masking import apply_time_mask, conv_out_length
+from aas_enhancement_tpu_torch.ops.masking import (apply_time_mask, conv_out_length,
+                                                   stream_windows)
 from aas_enhancement_tpu_torch.ops.norm import MaskedGroupNorm
 from aas_enhancement_tpu_torch.ops.rnn import BiRNN
 
@@ -75,3 +76,33 @@ class AcousticModel(nn.Module):
             x = rnn(x, out_lengths)
         logits = self.fc(x.transpose(0, 1))                       # [B, T', V]
         return apply_time_mask(logits, out_lengths), out_lengths
+
+
+def am_blockwise_apply(model: AcousticModel, am_in: torch.Tensor, lengths: torch.Tensor,
+                       chunk_f: int, look_f: int, hist_f: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The streaming-matched AM forward (JAX ``am_blockwise_apply``): windows of
+    [history | chunk | lookahead] input frames in ONE ``model`` call, and of
+    each window only the chunk's AM frames [hist_f / 2, (hist_f + chunk_f) / 2)
+    kept.  AM frame j centers on input frame 2j (conv1's time stride 2,
+    SAME), so these are exactly the chunk's absolute AM frames when
+    ``chunk_f`` and ``hist_f`` are even; block 0's zero history is the
+    stream-start buffer.  Mirrors ``streaming_asr.StreamingRecognizer``, but
+    normalized with the whole utterance's moments and with the last chunk's
+    zero-padded lookahead for the flush block.
+
+    -> (logits [B, ceil(T / 2), V] on the offline frame grid, out_lengths
+    [B]), which CTC and greedy decoding read like the offline forward's."""
+    if chunk_f % 2 or hist_f % 2:
+        raise ValueError(
+            f"chunk_f ({chunk_f}) and hist_f ({hist_f}) must be EVEN input "
+            f"frames for exact AM frame stitching (conv1 time stride 2)")
+    b, t, _ = am_in.shape
+    blocks, blk_len, nb = stream_windows(am_in, lengths, chunk_f, look_f, hist_f)
+    logits, _ = model(blocks, blk_len)
+    h_am, c_am = hist_f // 2, chunk_f // 2
+    v = logits.shape[-1]
+    logits = logits.reshape(b, nb, -1, v)[:, :, h_am: h_am + c_am]
+    out_lengths = conv_out_length(lengths, 11, 2, "SAME")
+    logits = logits.reshape(b, nb * c_am, v)[:, :-(-t // 2)]
+    return apply_time_mask(logits, out_lengths), out_lengths

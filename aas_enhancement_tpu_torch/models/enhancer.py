@@ -8,6 +8,9 @@ Layout: activations between the convs stay in channels-last memory, so the
 NCHW conv output viewed as [B, T, F, C] is contiguous for the GroupNorm
 kernel, and the flatten to [B, T, F*C] puts feature f*C + c where the JAX
 model's ``reshape(b, t, f*c)`` does (the ``wx`` rows depend on it).
+
+``blockwise_apply`` is the streaming-matched forward of streaming
+fine-tuning; ``enhanced_log_mag`` the enhanced features from the output.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from torch import nn
 
 from aas_enhancement_tpu_torch.config import EnhancerConfig
 from aas_enhancement_tpu_torch.ops.dense import Dense
-from aas_enhancement_tpu_torch.ops.masking import apply_time_mask
+from aas_enhancement_tpu_torch.ops.masking import apply_time_mask, stream_windows
 from aas_enhancement_tpu_torch.ops.norm import MaskedGroupNorm
 from aas_enhancement_tpu_torch.ops.rnn import BiRNN
 
@@ -66,9 +69,38 @@ class Enhancer(nn.Module):
         return apply_time_mask(out, lengths)
 
 
+def blockwise_apply(model: Enhancer, net_in: torch.Tensor, lengths: torch.Tensor,
+                    chunk_f: int, look_f: int, hist_f: int) -> torch.Tensor:
+    """The streaming-matched enhancer forward (JAX ``blockwise_apply``): windows
+    of [history | chunk | lookahead] frames (``ops/masking.py::stream_windows``),
+    all of them in ONE ``model`` call over [B * nb, W, F], and only each
+    window's chunk kept, re-stitched to [B, T, F] and zeroed past ``lengths``.
+    The BiLSTM's forward state is warm across ``hist_f`` frames only and its
+    backward direction sees ``look_f`` future frames, as in
+    ``streaming.StreamingEnhancer``; training through it
+    (``TrainConfig.streaming_finetune``) fits G to chunked inference.  Unlike
+    live inference the input is normalized with the whole utterance's moments
+    and the blocks are frame-aligned.  A ragged batch's trailing windows have
+    length 0."""
+    b, t, _ = net_in.shape
+    blocks, blk_len, nb = stream_windows(net_in, lengths, chunk_f, look_f, hist_f)
+    out = model(blocks, blk_len)
+    out = out.reshape(b, nb, blocks.shape[1], -1)[:, :, hist_f: hist_f + chunk_f]
+    return apply_time_mask(out.reshape(b, nb * chunk_f, -1)[:, :t], lengths)
+
+
 def apply_enhancement(cfg: EnhancerConfig, out: torch.Tensor,
                       noisy_mag: torch.Tensor) -> torch.Tensor:
     """Combine the network output with the noisy magnitude -> enhanced magnitude."""
     if cfg.mode == "mask":
         return out * noisy_mag
     return torch.expm1(out)
+
+
+def enhanced_log_mag(cfg: EnhancerConfig, out: torch.Tensor,
+                     noisy_log_mag_raw: torch.Tensor) -> torch.Tensor:
+    """The enhanced log1p-magnitude (what the AM and the discriminator read)
+    from the network output and the UNNORMALIZED noisy log1p-magnitude."""
+    if cfg.mode == "mask":
+        return torch.log1p(out * torch.expm1(noisy_log_mag_raw))
+    return out

@@ -2,7 +2,12 @@
 
 Variable-length utterances ride in padded buffers with explicit length
 vectors; every op respects them, so outputs on padded frames are zero and
-valid frames do not depend on the padding.
+valid frames do not depend on the padding.  The streaming paths' helpers
+live here too: ``window_stats`` and ``running_normalize`` (the running
+moments of ``enhance.py``'s and ``streaming_asr.py``'s streaming forwards,
+JAX ``enhance.py:72`` and ``streaming_asr.py::_window_stats``) and
+``stream_windows`` (the windows of the blockwise forwards, JAX
+``models/enhancer.py::blockwise_apply``).
 """
 
 from __future__ import annotations
@@ -40,6 +45,51 @@ def masked_normalize(x: torch.Tensor, lengths: torch.Tensor,
     mean = (x * mask).sum(dim=(1, 2), keepdim=True) / count
     var = (((x - mean) ** 2) * mask).sum(dim=(1, 2), keepdim=True) / count
     return ((x - mean) / torch.sqrt(var + eps)) * mask
+
+
+def window_stats(x: torch.Tensor, valid: torch.Tensor, stats_start, stats_end
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Moments of [B, T, F] x over the valid frames t with stats_start <= t <
+    stats_end -> ([B] sum, sum of squares, count of cells).  The window bounds
+    are scalars (broadcast) or [B] tensors (one window a row)."""
+    t_idx = torch.arange(x.shape[1], device=x.device)[None, :]
+    ss = torch.as_tensor(stats_start, device=x.device).reshape(-1, 1)
+    se = torch.as_tensor(stats_end, device=x.device).reshape(-1, 1)
+    new = valid * (t_idx >= ss) * (t_idx < se)
+    new_f = new[:, :, None]
+    return ((x * new_f).sum(dim=(1, 2)), ((x ** 2) * new_f).sum(dim=(1, 2)),
+            new.sum(dim=1) * x.shape[2])
+
+
+def running_normalize(x: torch.Tensor, valid: torch.Tensor, inc, run) -> torch.Tensor:
+    """Normalize [B, T, F] x with the running moments ``run`` (sum, sum of
+    squares, count; [B] each or scalars) plus this block's ``inc``, padded
+    frames zeroed: var = max(E[x^2] - mean^2, 0), eps 1e-5 inside the sqrt."""
+    tot = torch.clamp(run[2] + inc[2], min=1.0)
+    mean = (run[0] + inc[0]) / tot
+    var = torch.clamp((run[1] + inc[1]) / tot - mean ** 2, min=0.0)
+    return ((x - mean[:, None, None]) / torch.sqrt(var[:, None, None] + 1e-5)
+            ) * valid[:, :, None]
+
+
+def stream_windows(x: torch.Tensor, lengths: torch.Tensor, chunk_f: int, look_f: int,
+                   hist_f: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """[B, T, F] x -> (windows [B * nb, W, F], their valid lengths [B * nb],
+    nb): nb = ceil(T / chunk_f) windows a row of W = hist_f + chunk_f +
+    look_f frames, window k holding frames k * chunk_f - hist_f + j, zeros
+    outside [0, T), gathered with one index tensor.  A window's length counts
+    the frames before the row's end, block 0's leading zero history included
+    (the stream-start buffer is silence too), clipped to [0, W]."""
+    b, t, f = x.shape
+    nb = -(-t // chunk_f)
+    window = hist_f + chunk_f + look_f
+    padded = torch.nn.functional.pad(x, (0, 0, hist_f, nb * chunk_f - t + look_f))
+    starts = torch.arange(nb, device=x.device) * chunk_f
+    idx = starts[:, None] + torch.arange(window, device=x.device)[None, :]
+    blocks = padded[:, idx, :].reshape(b * nb, window, f)
+    blk_len = torch.clamp(lengths.to(torch.int64)[:, None] - (starts[None, :] - hist_f),
+                          0, window)
+    return blocks, blk_len.reshape(b * nb), nb
 
 
 def masked_mean(x: torch.Tensor, lengths: torch.Tensor, axis=(1, 2)) -> torch.Tensor:

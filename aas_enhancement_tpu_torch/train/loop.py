@@ -25,7 +25,7 @@ CPU.  With ``data.val_manifest`` greedy WER/CER is measured every
 ``eval_every`` steps (0: at each epoch's end) and the best step is kept in
 ``<checkpoint_dir>/best_ckpt`` with ``best.json``.  ``profile_dir`` writes a
 ``torch.profiler`` Chrome trace of ``profile_steps`` steps.  The grain loader
-and streaming fine-tuning raise (ROADMAP A9b, A11).
+raises (ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -164,13 +164,9 @@ def batch_dict(cfg: Config, batch: Batch, clean_stream: UnpairedCleanStream | No
 
 
 def _check_ported(cfg: Config) -> None:
-    t, data = cfg.train, cfg.data
-    for on, what, item in (
-            (data.use_grain, "DataConfig.use_grain (the grain loader)", "A9b"),
-            (t.streaming_finetune, "TrainConfig.streaming_finetune", "A11"),
-            (t.streaming_finetune_am, "TrainConfig.streaming_finetune_am", "A11")):
-        if on:
-            raise NotImplementedError(f"{what}: not yet ported (ROADMAP {item})")
+    if cfg.data.use_grain:
+        raise NotImplementedError("DataConfig.use_grain (the grain loader): not yet "
+                                  "ported (ROADMAP A9b)")
 
 
 class _Validator:

@@ -11,6 +11,10 @@ share (port of ``aas_enhancement_tpu/train/objectives.py``).
 - am: CTC of the trained AM on (typically clean) speech, optionally with
   SpecAugment, the frozen enhancer in front and a KL anchor (``distill_kl``).
 
+``TrainConfig.streaming_finetune`` runs every generator objective's enhancer
+(and the ``am`` objective's frozen one) through the blockwise streaming
+forward, ``streaming_finetune_am`` the ``am`` objective's AM.
+
 All on the batch's device and padding-masked; repeat-padded rows carry
 weight 0 (``row_weights``).  On the card the MR-STFT term's gradient runs
 through the STFT's and the ISTFT's VJP kernels (``ops/cuda/stft.py``).
@@ -24,9 +28,10 @@ import torch.nn.functional as F
 from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.dsp import api as dsp_api
 from aas_enhancement_tpu_torch.dsp.stft import magnitude, phase
-from aas_enhancement_tpu_torch.models.am import AcousticModel
+from aas_enhancement_tpu_torch.models.am import AcousticModel, am_blockwise_apply
 from aas_enhancement_tpu_torch.models.discriminator import Discriminator
-from aas_enhancement_tpu_torch.models.enhancer import Enhancer, apply_enhancement
+from aas_enhancement_tpu_torch.models.enhancer import (Enhancer, apply_enhancement,
+                                                       blockwise_apply)
 from aas_enhancement_tpu_torch.ops.ctc import ctc_loss_mean
 from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
 from aas_enhancement_tpu_torch.ops.masking import masked_normalize, spec_augment, time_mask
@@ -60,14 +65,27 @@ def device_features(cfg: Config, wav: torch.Tensor, wav_lengths: torch.Tensor
     return _spectral_features(cfg, re, im, wav_lengths)
 
 
+def stream_frames(cfg: Config, min_chunk: int) -> dict:
+    """The streaming fine-tuning operating point in frames: chunk (at least
+    ``min_chunk``), lookahead and history of ``TrainConfig.stream_*_s``,
+    truncated to whole frames as the JAX objectives do."""
+    t = cfg.train
+    fps = cfg.audio.sample_rate / cfg.audio.hop_length
+    return {"chunk_f": max(min_chunk, int(t.stream_chunk_s * fps)),
+            "look_f": int(t.stream_lookahead_s * fps),
+            "hist_f": int(t.stream_history_s * fps)}
+
+
 def _enhance(cfg: Config, enhancer: Enhancer, mag: torch.Tensor, log_mag: torch.Tensor,
              fl: torch.Tensor, streaming: bool) -> torch.Tensor:
-    """Noisy (mag, log_mag) -> enhanced magnitude."""
-    if streaming:
-        raise NotImplementedError("streaming=True: the blockwise streaming "
-                                  "enhancer is not yet ported (ROADMAP A11)")
+    """Noisy (mag, log_mag) -> enhanced magnitude; ``streaming`` runs the
+    blockwise forward (``models/enhancer.py::blockwise_apply``)."""
     net_in = masked_normalize(log_mag, fl) if cfg.audio.normalize else log_mag
-    return apply_enhancement(cfg.enhancer, enhancer(net_in, fl), mag)
+    if streaming:
+        out = blockwise_apply(enhancer, net_in, fl, **stream_frames(cfg, 1))
+    else:
+        out = enhancer(net_in, fl)
+    return apply_enhancement(cfg.enhancer, out, mag)
 
 
 def enhancer_forward(cfg: Config, enhancer: Enhancer, wav: torch.Tensor,
@@ -255,11 +273,11 @@ def am_pretrain_loss(cfg: Config, am: AcousticModel, batch: dict, w_denom=None,
     enhancer's output features instead of the raw input.  ``anchor_am`` not
     None with ``cfg.train.distill_lambda`` > 0 adds the KL term of
     ``distill_kl``: the anchor runs on the same features and the trained
-    AM's frame posteriors are pulled toward it."""
+    AM's frame posteriors are pulled toward it.  ``TrainConfig.
+    streaming_finetune_am`` trains through the block-streaming AM forward
+    (``models/am.py::am_blockwise_apply``); the anchor stays on the offline
+    forward, masked to the shorter of the two lengths (they agree)."""
     t = cfg.train
-    if t.streaming_finetune_am:
-        raise NotImplementedError("streaming_finetune_am: the block-streaming AM "
-                                  "forward is not yet ported (ROADMAP A11)")
     with torch.no_grad():
         if enhancer is not None:
             _, log_mag, fl = enhancer_forward(cfg, enhancer, batch["wav"],
@@ -271,7 +289,10 @@ def am_pretrain_loss(cfg: Config, am: AcousticModel, batch: dict, w_denom=None,
         if gen is not None and t.spec_augment:
             am_in = spec_augment(gen, am_in, fl, t.sa_time_masks, t.sa_time_width,
                                  t.sa_freq_masks, t.sa_freq_width)
-    logits, out_lengths = am(am_in, fl)
+    if t.streaming_finetune_am:
+        logits, out_lengths = am_blockwise_apply(am, am_in, fl, **stream_frames(cfg, 2))
+    else:
+        logits, out_lengths = am(am_in, fl)
     logit_paddings = 1.0 - time_mask(out_lengths, logits.shape[1])
     rw = batch.get("row_weights")
     loss = ctc_loss_mean(logits, logit_paddings, batch["labels"],

@@ -1,6 +1,7 @@
 """Where the device time of one enhance call, one recognition forward, one
-AAS train step, one AM pre-training step and one paired step goes
-(counterpart of ``aas_enhancement_tpu/utils/profiling.py``).
+AAS train step, one AM pre-training step, one paired step and one chunk call
+of the streaming enhancer and recognizer goes (counterpart of
+``aas_enhancement_tpu/utils/profiling.py``).
 
     python -m aas_enhancement_tpu_torch.utils.profiling [--batch 4] [--seconds 8]
         [--calls 3] [--warmup 3] [--trace-dir traces/]
@@ -11,7 +12,10 @@ one ``aas`` step of ``make_train_step`` (G and D gradients and updates, the
 frozen AM), one ``am`` step (the AM's gradients, clip, SGD) and one
 ``paired`` step with ``lambda_mrstft`` 0.5 (G's gradient through the
 MR-STFT term's STFT and ISTFT adjoints, clip, Adam) at
-``TrainConfig.batch_size``, at the shipped ``Config`` width on full rows of
+``TrainConfig.batch_size``, then one steady-state chunk call (``feed`` of
+1 s) of ``StreamingEnhancer`` and of ``StreamingRecognizer`` with the
+enhancer at B=1 and ``TrainConfig``'s stream operating point, all at the
+shipped ``Config`` width on full rows of
 random audio (the steps with random transcripts of 48 labels),
 with PyTorch's default TF32 settings as the CLIs run, records ``--calls``
 calls of each with ``torch.profiler`` (CPU and CUDA activity) after
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -190,10 +195,11 @@ def kernel_names_in_fresh_process(setup: str, timeout: float = 300) -> list[dict
 def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
                   trace_dir: str) -> dict:
     """{"enhance": summary, "recognize": summary, "train": summary,
-    "train_am": summary, "train_paired": summary} at ``batch`` (the steps at
-    ``TrainConfig.batch_size``) x ``seconds`` on the
-    GPU, weights drawn from the config's train seed; each summary also holds
-    its ``batch``."""
+    "train_am": summary, "train_paired": summary, "stream_enhance": summary,
+    "stream_recognize": summary} at ``batch`` (the steps at
+    ``TrainConfig.batch_size``, the streaming chunk calls at 1) x ``seconds``
+    on the GPU, weights drawn from the config's train seed; each summary also
+    holds its ``batch``."""
     from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
     from aas_enhancement_tpu_torch.config import Config
     from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
@@ -217,7 +223,6 @@ def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
         "recognize": profile_call(lambda: recognize(am, enhancer, wav, lengths), calls,
                                   warmup, os.path.join(trace_dir, "recognize_trace.json")),
     }
-    del enhancer, am
     state = init_state(cfg, cfg.train.seed, device)
     step = make_train_step(cfg)
     train_batch, u = cfg.train.batch_size, 48
@@ -246,8 +251,33 @@ def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
     p_tb = {k: tb[k] for k in ("wav", "wav_lengths", "clean_wav")}
     out["train_paired"] = profile_call(lambda: p_step(p_state, p_tb), calls, warmup,
                                        os.path.join(trace_dir, "train_paired_trace.json"))
+    del p_state
+    # One chunk call of the streaming engines at TrainConfig's operating point
+    # (chunk 1.0, lookahead 0.2, history 1.0 s), B=1, in steady state: host
+    # work, copies and the device call of one window.
+    from aas_enhancement_tpu_torch.streaming import StreamingEnhancer
+    from aas_enhancement_tpu_torch.streaming_asr import StreamingRecognizer
+    t = cfg.train
+    kw = dict(chunk_seconds=t.stream_chunk_s, lookahead_seconds=t.stream_lookahead_s,
+              history_seconds=t.stream_history_s)
+    chunk = int(t.stream_chunk_s * cfg.audio.sample_rate)
+    audio = (0.3 * torch.randn(64 * chunk, generator=gen)).numpy()
+    engines = {"stream_enhance": StreamingEnhancer(cfg, enhancer, device=device, **kw),
+               "stream_recognize": StreamingRecognizer(cfg, am, enhancer, device=device,
+                                                       **kw)}
+    for path, eng in engines.items():
+        eng.feed(audio[: int(t.stream_lookahead_s * cfg.audio.sample_rate)])
+        pos = itertools.count()
+
+        def feed(eng=eng, pos=pos):
+            i = next(pos) % 63 * chunk
+            eng.feed(audio[i: i + chunk])
+
+        out[path] = profile_call(feed, calls, warmup,
+                                 os.path.join(trace_dir, f"{path}_trace.json"))
     for path, summary in out.items():
-        summary["batch"] = train_batch if path.startswith("train") else batch
+        summary["batch"] = (train_batch if path.startswith("train")
+                            else 1 if path.startswith("stream") else batch)
     return out
 
 
@@ -258,7 +288,7 @@ def main(argv=None) -> None:
     p.add_argument("--seconds", type=float, default=8.0)
     p.add_argument("--calls", type=int, default=3)
     p.add_argument("--warmup", type=int, default=3)
-    p.add_argument("--trace-dir", help="keep the five Chrome traces in this directory")
+    p.add_argument("--trace-dir", help="keep the seven Chrome traces in this directory")
     p.add_argument("--top", type=int, default=25, help="kernel names to print")
     args = p.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp:
@@ -267,8 +297,10 @@ def main(argv=None) -> None:
         summaries = profile_paths(args.batch, args.seconds, args.calls, args.warmup,
                                   trace_dir)
     for path, s in summaries.items():
+        what = ("one 1 s chunk call" if path.startswith("stream")
+                else f"{args.seconds} s")
         print(f"[profile {path}] {torch.cuda.get_device_name(0)} | B={s['batch']} x "
-              f"{args.seconds} s, per call over {args.calls} calls after "
+              f"{what}, per call over {args.calls} calls after "
               f"{args.warmup} warmups | device busy {s['busy_ms']:.3f} ms | span "
               f"{s['span_ms']:.3f} ms | idle share {100 * s['idle_share']:.2f}% | "
               f"unprofiled wall {s['wall_ms']:.3f} ms, idle share "

@@ -59,13 +59,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    launches, the save and load seconds, the checkpoints' MB and the seconds
    of a validation;
 10. paired: one paired step (G's gradient of the L1 between enhanced and
-   clean log-magnitudes, clip, Adam) at B=8 x 8 s, with lambda_mrstft 0 and
-   0.5 (the MR-STFT term, whose gradient runs through the STFT's and the
-   ISTFT's VJP kernels), card vs CPU (metrics, every G gradient tensor) and
+   clean log-magnitudes, clip, Adam), ragged, at B=4 x 8 s with
+   lambda_mrstft 0 and at B=8 with 0.5 (the MR-STFT term, whose gradient
+   runs through the STFT's and the ISTFT's VJP kernels), card vs CPU (metrics, every G gradient tensor) and
    its launches; steps timed at B=8 and B=32; then cli.train --objective
    paired (lambda_mrstft 0.5, B=4, 3 steps) with a checkpoint directory,
    cli.enhance from it, and an am run given it as --g-checkpoint, whose
-   directory keeps that enhancer and enhances too.
+   directory keeps that enhancer and enhances too;
+11. streaming: the four streaming engines (StreamingEnhancer, B=1;
+   BatchedStreamingEnhancer, 8 streams; StreamingRecognizer and
+   BatchedStreamingRecognizer with the enhancer in front) at chunk 1.0,
+   lookahead 0.2, history 1.0 s on 8 synthetic streams pushed in 0.1 s
+   pieces, card vs CPU (samples, log-probs or logits, greedy ids), each
+   engine's launches; each engine's steady-state chunk call timed (ms, RTF,
+   device busy and idle share, launches a call); one aas step with
+   streaming_finetune and one am step with streaming_finetune_am at B=4 x
+   8 s card vs CPU (metrics, every gradient tensor) with their launches, and
+   both timed at B=8 and B=32 x 8 s with busy time, peak memory and the
+   recurrences' routes, clusters at once and waves; then cli.enhance
+   --streaming and cli.train --streaming-finetune / --streaming-finetune-am
+   (2 steps, B=4) on their default device, the card.
 The kernels phase also checks the backward kernels (LSTM, GRU, GroupNorm,
 the stacked LSTM and GRU) at B=8, and the GRU's at B=32, against autograd
 through the plain versions, the conv weight-gradient kernel at the AM's
@@ -185,7 +198,7 @@ MR_PAIRS = ((256, 64), (512, 128), (1024, 256))     # the MR-STFT loss's resolut
 # One paired step, card vs CPU from the same weights and batch: metrics
 # relative, each G gradient tensor against its own max|g| (GRAD_ZERO as the
 # AAS step's).
-PAIRED_TOL = (1e-4, "L1 of log-magnitudes over 8 x 801 x 161 bins after STFT, 2 conv+GN, "
+PAIRED_TOL = (1e-4, "L1 of log-magnitudes over 4-8 x 801 x 161 bins after STFT, 2 conv+GN, "
               "2 BiLSTM-256 x 801; with the MR-STFT term ISTFT + 3 x 2 STFTs: card vs "
               "CPU sum orders")
 PAIRED_GRAD_TOL = {
@@ -283,6 +296,46 @@ def max_err(a, b) -> float:
     if not torch.isfinite(a).all():
         fail("non-finite kernel output")
     return (a - b).abs().max().item()
+
+
+def check_step(phase: str, what: str, aux_cpu, aux_gpu, grads_cpu, grads_gpu,
+               grad_tols: dict, metric_tol: tuple = TRAIN_TOL) -> None:
+    """Card vs CPU of one step: its metrics (relative, ``metric_tol``) and each
+    network's gradient tensors (``grad_tols``: net -> (tol, why)), each against
+    its own max|g|.  A tensor whose CPU max|g| is below GRAD_ZERO of the
+    network's is zero to rounding and is held to GRAD_ZERO of the network's."""
+    tol, why = metric_tol
+    rel = {k: abs(float(aux_gpu[k]) - float(v)) / max(abs(float(v)), 1e-6)
+           for k, v in aux_cpu.items()}
+    print(f"[{phase}] {what}, card vs CPU (same weights and batch): metrics "
+          f"{json.dumps({k: round(float(v), 6) for k, v in aux_gpu.items()})}; largest "
+          f"relative difference {max(rel.values()):.3e} ({max(rel, key=rel.get)}) (tol "
+          f"{tol:.0e}: {why})")
+    if set(aux_gpu) != set(aux_cpu) or not max(rel.values()) <= tol:
+        fail(f"{what}: card vs CPU metrics differ: {rel}")
+    bad = []
+    for net, (gtol, gwhy) in grad_tols.items():
+        scale = max(v.abs().max().item() for v in grads_cpu[net].values())
+        rel, zero = {}, {}
+        for n, v in grads_cpu[net].items():
+            diff = (grads_gpu[net][n].cpu() - v).abs().max().item()
+            if v.abs().max().item() > GRAD_ZERO * scale:
+                rel[n] = diff / v.abs().max().item()
+            else:
+                zero[n] = diff / scale
+        worst = max(rel, key=rel.get)
+        print(f"[{phase}] {net.upper()} gradients ({len(rel)} tensors, each against its own "
+              f"max|g|): largest difference {rel[worst]:.3e} at {worst} (tol {gtol:.0e}: "
+              f"{gwhy}); {len(zero)} tensors zero to rounding (max|g| <= {GRAD_ZERO:.0e} of "
+              f"the network's {scale:.3e}), largest difference "
+              f"{max(zero.values(), default=0.0):.3e} of it (tol {GRAD_ZERO:.0e})")
+        print(f"[{phase}] {net.upper()} gradient differences per tensor: "
+              f"{json.dumps({n: float(f'{e:.3e}') for n, e in {**rel, **zero}.items()})}")
+        bad += [f"{net} {n}: {e:.3e} of its max|g|" for n, e in rel.items() if not e <= gtol]
+        bad += [f"{net} {n}: {e:.3e} of the network's max|g|"
+                for n, e in zero.items() if not e <= GRAD_ZERO]
+    if bad:
+        fail(f"{what}: card vs CPU gradients differ: {bad}")
 
 
 def phase_device():
@@ -1272,39 +1325,8 @@ def phase_train(device, card):
     cpu_s = time.perf_counter() - t0
     grads_gpu, aux_gpu = step.batch_grads(state_gpu, {k: v.to(device) for k, v in batch.items()})
     torch.cuda.synchronize()
-    tol, why = TRAIN_TOL
-    rel = {k: abs(float(aux_gpu[k]) - float(v)) / max(abs(float(v)), 1e-6)
-           for k, v in aux_cpu.items()}
-    print(f"[train] one AAS step B={B} x {SECONDS} s, card vs CPU (same weights and "
-          f"batch): metrics {json.dumps({k: round(float(v), 6) for k, v in aux_gpu.items()})}; "
-          f"largest relative difference {max(rel.values()):.3e} ({max(rel, key=rel.get)}) "
-          f"(tol {tol:.0e}: {why}); CPU plain path {cpu_s:.2f} s")
-    if set(aux_gpu) != set(aux_cpu) or not max(rel.values()) <= tol:
-        fail(f"card vs CPU AAS metrics differ: {rel}")
-    bad = []
-    for net in ("g", "d"):
-        gtol, gwhy = TRAIN_GRAD_TOL[net]
-        scale = max(v.abs().max().item() for v in grads_cpu[net].values())
-        rel, zero = {}, {}
-        for n, v in grads_cpu[net].items():
-            diff = (grads_gpu[net][n].cpu() - v).abs().max().item()
-            if v.abs().max().item() > GRAD_ZERO * scale:
-                rel[n] = diff / v.abs().max().item()
-            else:
-                zero[n] = diff / scale
-        worst = max(rel, key=rel.get)
-        print(f"[train] {net.upper()} gradients ({len(rel)} tensors, each against its own "
-              f"max|g|): largest difference {rel[worst]:.3e} at {worst} (tol {gtol:.0e}: "
-              f"{gwhy}); {len(zero)} tensors zero to rounding (max|g| <= {GRAD_ZERO:.0e} of "
-              f"the network's {scale:.3e}), largest difference "
-              f"{max(zero.values(), default=0.0):.3e} of it (tol {GRAD_ZERO:.0e})")
-        print(f"[train] {net.upper()} gradient differences per tensor: "
-              f"{json.dumps({n: float(f'{e:.3e}') for n, e in {**rel, **zero}.items()})}")
-        bad += [f"{net} {n}: {e:.3e} of its max|g|" for n, e in rel.items() if not e <= gtol]
-        bad += [f"{net} {n}: {e:.3e} of the network's max|g|"
-                for n, e in zero.items() if not e <= GRAD_ZERO]
-    if bad:
-        fail(f"card vs CPU gradients differ: {bad}")
+    check_step("train", f"one AAS step B={B} x {SECONDS} s (CPU plain path {cpu_s:.2f} s)",
+               aux_cpu, aux_gpu, grads_cpu, grads_gpu, TRAIN_GRAD_TOL)
 
     for b in TRAIN_BATCHES:
         cfg_b = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=b))
@@ -1450,37 +1472,8 @@ def phase_train_am(device, card):
     batch_gpu = {k: v.to(device) for k, v in batch.items()}
     grads_gpu, aux_gpu = step.batch_grads(state_gpu, batch_gpu)
     torch.cuda.synchronize()
-    tol, why = TRAIN_TOL
-    rel = {k: abs(float(aux_gpu[k]) - float(v)) / max(abs(float(v)), 1e-6)
-           for k, v in aux_cpu.items()}
-    print(f"[train_am] one AM step B={B} x {SECONDS} s, card vs CPU (same weights and "
-          f"batch): metrics {json.dumps({k: round(float(v), 6) for k, v in aux_gpu.items()})}; "
-          f"largest relative difference {max(rel.values()):.3e} ({max(rel, key=rel.get)}) "
-          f"(tol {tol:.0e}: {why}); CPU plain path {cpu_s:.2f} s")
-    if set(aux_gpu) != set(aux_cpu) or not max(rel.values()) <= tol:
-        fail(f"card vs CPU AM metrics differ: {rel}")
-    gtol, gwhy = AM_GRAD_TOL
-    scale = max(v.abs().max().item() for v in grads_cpu["am"].values())
-    rel, zero = {}, {}
-    for n, v in grads_cpu["am"].items():
-        diff = (grads_gpu["am"][n].cpu() - v).abs().max().item()
-        if v.abs().max().item() > GRAD_ZERO * scale:
-            rel[n] = diff / v.abs().max().item()
-        else:
-            zero[n] = diff / scale
-    worst = max(rel, key=rel.get)
-    print(f"[train_am] AM gradients ({len(rel)} tensors, each against its own max|g|): "
-          f"largest difference {rel[worst]:.3e} at {worst} (tol {gtol:.0e}: {gwhy}); "
-          f"{len(zero)} tensors zero to rounding (max|g| <= {GRAD_ZERO:.0e} of the "
-          f"network's {scale:.3e}), largest difference "
-          f"{max(zero.values(), default=0.0):.3e} of it (tol {GRAD_ZERO:.0e})")
-    print(f"[train_am] AM gradient differences per tensor: "
-          f"{json.dumps({n: float(f'{e:.3e}') for n, e in {**rel, **zero}.items()})}")
-    bad = [f"{n}: {e:.3e} of its max|g|" for n, e in rel.items() if not e <= gtol]
-    bad += [f"{n}: {e:.3e} of the network's max|g|" for n, e in zero.items()
-            if not e <= GRAD_ZERO]
-    if bad:
-        fail(f"card vs CPU AM gradients differ: {bad}")
+    check_step("train_am", f"one AM step B={B} x {SECONDS} s (CPU plain path {cpu_s:.2f} s)",
+               aux_cpu, aux_gpu, grads_cpu, grads_gpu, {"am": AM_GRAD_TOL})
     norms = []
     for st, grads in ((state_cpu, grads_cpu), (state_gpu, grads_gpu)):    # the update
         names = [n for n, _ in st.am.named_parameters()]
@@ -1743,8 +1736,8 @@ def paired_batch(b: int, gen, lengths: list[int]) -> dict:
 
 
 def phase_paired(device, card):
-    """The paired objective: one step card vs CPU at B=8 x 8 s with and
-    without the MR-STFT term, its launches, timed steps at B=8 and B=32, and
+    """The paired objective: one step card vs CPU without (B=4 x 8 s) and
+    with (B=8) the MR-STFT term, its launches, timed steps at B=8 and B=32, and
     the train CLI -> checkpoint -> enhance chain, with the C1 case (an am run
     keeps the --g-checkpoint's enhancer).  -> the launches of one paired step
     with the MR-STFT term (the path that runs every kernel of the objective)
@@ -1759,16 +1752,19 @@ def phase_paired(device, card):
     from aas_enhancement_tpu_torch.train.steps import make_train_step
 
     gen = torch.Generator().manual_seed(21)
-    lengths8 = [(f - 1) * 160 for f in BWD_FRAMES]
     step_launches = {}
-    for lam in (0.0, 0.5):
+    # Card vs CPU: without the MR-STFT term at B=4 (LENGTHS), with it at B=8
+    # (BWD_FRAMES), where PAIRED_GRAD_TOL[0.5] was measured: the term's
+    # conditioning depends on the batch (rows ending in long silences).
+    for lam, b_check, lens in ((0.0, B, LENGTHS),
+                               (0.5, BWD_B, [(f - 1) * 160 for f in BWD_FRAMES])):
         cfg = Config()
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, objective="paired",
-                                                    batch_size=BWD_B, lambda_mrstft=lam))
+                                                    batch_size=b_check, lambda_mrstft=lam))
         state_cpu = init_state(cfg, cfg.train.seed, "cpu")
         g_gpu = copy.deepcopy(state_cpu.g).to(device)
         state_gpu = TrainState(g=g_gpu, g_opt=adam(cfg, g_gpu.parameters(), cfg.train.lr_g))
-        batch = paired_batch(BWD_B, gen, lengths8)
+        batch = paired_batch(b_check, gen, lens)
         batch_gpu = {k: v.to(device) for k, v in batch.items()}
         step = make_train_step(cfg)
         t0 = time.perf_counter()
@@ -1776,36 +1772,9 @@ def phase_paired(device, card):
         cpu_s = time.perf_counter() - t0
         grads_gpu, aux_gpu = step.batch_grads(state_gpu, batch_gpu)
         torch.cuda.synchronize()
-        tol, why = PAIRED_TOL
-        rel = {k: abs(float(aux_gpu[k]) - float(v)) / max(abs(float(v)), 1e-6)
-               for k, v in aux_cpu.items()}
-        print(f"[paired] one paired step (lambda_mrstft {lam}) B={BWD_B} x {SECONDS} s, "
-              f"card vs CPU (same weights and batch): metrics "
-              f"{json.dumps({k: round(float(v), 6) for k, v in aux_gpu.items()})}; largest "
-              f"relative difference {max(rel.values()):.3e} ({max(rel, key=rel.get)}) (tol "
-              f"{tol:.0e}: {why}); CPU plain path {cpu_s:.2f} s")
-        if set(aux_gpu) != set(aux_cpu) or not max(rel.values()) <= tol:
-            fail(f"card vs CPU paired metrics differ: {rel}")
-        gtol, gwhy = PAIRED_GRAD_TOL[lam]
-        scale = max(v.abs().max().item() for v in grads_cpu["g"].values())
-        rel, zero = {}, {}
-        for n, v in grads_cpu["g"].items():
-            diff = (grads_gpu["g"][n].cpu() - v).abs().max().item()
-            if v.abs().max().item() > GRAD_ZERO * scale:
-                rel[n] = diff / v.abs().max().item()
-            else:
-                zero[n] = diff / scale
-        worst = max(rel, key=rel.get)
-        print(f"[paired] G gradients ({len(rel)} tensors, each against its own max|g|): "
-              f"largest difference {rel[worst]:.3e} at {worst} (tol {gtol:.0e}: {gwhy}); "
-              f"{len(zero)} tensors zero to rounding, largest difference "
-              f"{max(zero.values(), default=0.0):.3e} of the network's max|g| (tol "
-              f"{GRAD_ZERO:.0e}); per tensor "
-              f"{json.dumps({n: float(f'{e:.3e}') for n, e in {**rel, **zero}.items()})}")
-        bad = [f"{n}: {e:.3e}" for n, e in rel.items() if not e <= gtol]
-        bad += [f"{n}: {e:.3e} (zero)" for n, e in zero.items() if not e <= GRAD_ZERO]
-        if bad:
-            fail(f"card vs CPU paired gradients differ (lambda_mrstft {lam}): {bad}")
+        check_step("paired", f"one paired step (lambda_mrstft {lam}) B={b_check} x "
+                   f"{SECONDS} s (CPU plain path {cpu_s:.2f} s)", aux_cpu, aux_gpu,
+                   grads_cpu, grads_gpu, {"g": PAIRED_GRAD_TOL[lam]}, PAIRED_TOL)
         aux = {}
         launches = counted(PAIRED_KERNELS, lambda: aux.update(step(state_gpu, batch_gpu)[1]))
         print(f"[paired] launches of one paired step (lambda_mrstft {lam}): "
@@ -1895,6 +1864,451 @@ def phase_paired(device, card):
     return step_launches, total
 
 
+# Streaming (ROADMAP A11a, A11b): the four serving engines at TrainConfig's
+# operating point (chunk 1.0 s, lookahead 0.2 s, history 1.0 s; windows of
+# 35200 samples, 221 STFT frames, 111 AM frames) and the two blockwise
+# fine-tuning steps (B * 9 windows of 220 frames at 8 s).
+STREAM_KW = dict(chunk_seconds=1.0, lookahead_seconds=0.2, history_seconds=1.0)
+STREAMS = 8                                          # the batched engines' slots
+STREAM_SECONDS = (6.0, 5.35, 4.7, 4.05, 3.5, 2.9, 2.25, 0.8)   # card-vs-CPU streams
+STREAM_TOL = (1e-4, "samples in [-1, 1] and log-probs O(1) after STFT, 2 conv+GN, 2 "
+              "BiLSTM-256 over 221 steps (and the AM's convs, 4 BiGRU-512 over 111), "
+              "each block normalized with moments the earlier blocks summed: card vs "
+              "CPU sum orders")
+STREAM_PATHS = {"stream_enhance": ("stft", "istft", "gn_act", "lstm"),
+                "stream_batched_enhance": ("stft", "istft", "gn_act", "lstm"),
+                "stream_recognize": ("stft", "gn_act", "lstm", "gru"),
+                "stream_batched_recognize": ("stft", "gn_act", "lstm", "gru")}
+STREAM_AAS_KERNELS = ("stft", "gn_act", "lstm", "gru", "lstm_bwd", "gru_bwd", "gn_bwd")
+
+
+def stream_wav(seconds: float, gen):
+    """Synthetic capture audio, numpy f32: a gliding tone plus noise."""
+    import torch
+    n = int(seconds * SR)
+    t = torch.arange(n) / SR
+    x = 0.4 * torch.sin(2 * torch.pi * (300.0 + 40.0 * t) * t) + 0.2 * torch.randn(
+        n, generator=gen)
+    return x.numpy().astype("float32")
+
+
+def tap(eng, keep=None) -> list:
+    """Wrap an engine's device call: one entry per call (``keep(args, out)``,
+    or None), so a run's calls are counted and its outputs can be read."""
+    calls, fn = [], eng._fn
+
+    def wrapped(*args):
+        out = fn(*args)
+        calls.append(None if keep is None else keep(args, out))
+        return out
+
+    eng._fn = wrapped
+    return calls
+
+
+def drive_batched(eng, wavs, push: int) -> dict:
+    """Open one slot per stream, feed every stream ``push`` samples a round,
+    tick until idle after each round, end the streams and drain ->
+    {slot: emitted pieces}."""
+    slots = [eng.open() for _ in wavs]
+    out = {s: [] for s in slots}
+
+    def drain():
+        got = eng.step()
+        while got:
+            for s, y in got.items():
+                out[s].append(y)
+            got = eng.step()
+
+    for i in range(0, max(len(w) for w in wavs), push):
+        for s, w in zip(slots, wavs):
+            if i < len(w):
+                eng.feed(s, w[i: i + push])
+        drain()
+    for s in slots:
+        eng.end_stream(s)
+    drain()
+    return out
+
+
+def clear_ids(got, ref, margin: float) -> tuple[int, int]:
+    """Argmax ids of two [T, V] score arrays -> (frames where the reference's
+    top-2 margin exceeds ``margin``, those of them where the ids differ)."""
+    import numpy as np
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    sure = top2[:, 1] - top2[:, 0] > margin
+    return int(sure.sum()), int((sure & (got.argmax(-1) != ref.argmax(-1))).sum())
+
+
+def serving_timings(tag: str, card: str, call, n_streams: int, names, reps: int = 10):
+    """Time a steady-state chunk call ``call()`` (one device call of the
+    engine, with its host work): host wall per call (median of ``reps`` after
+    3 warmups), RTF (wall over the audio the call emits: n_streams chunks),
+    our kernels' launches per call, and from the profiler (3 calls after 2
+    warmups, then 3 unprofiled) the device busy time, device events and the
+    idle share 1 - busy / wall."""
+    import numpy as np
+    from aas_enhancement_tpu_torch.utils.profiling import profile_call
+    for _ in range(3):
+        call()
+    walls = []
+
+    def timed():
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            call()
+            walls.append(time.perf_counter() - t0)
+
+    per_call = {k: v / reps for k, v in counted(names, timed).items()}
+    wall = statistics.median(walls)
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = profile_call(call, 3, 2, os.path.join(tmp, "trace.json"))
+    uneven = [n for n, _, c in prof["by_name"] if not float(c).is_integer()]
+    chunk_s = STREAM_KW["chunk_seconds"]
+    print(f"[streaming] {tag} on {card}, TF32 off: {wall * 1e3:.3f} ms per chunk call "
+          f"({n_streams} x {chunk_s} s of audio), RTF {wall / (n_streams * chunk_s):.6f}; "
+          f"device busy {prof['busy_ms']:.3f} ms, {prof['events']:.0f} device events a "
+          f"call, idle share {100 * (1 - prof['busy_ms'] / (wall * 1e3)):.1f}% of the "
+          f"median wall ({100 * prof['idle_wall']:.1f}% of the profiler's own unprofiled "
+          f"walls, {prof['wall_ms']:.3f} ms); our kernels' launches a call "
+          f"{json.dumps(per_call)}; walls ms {[round(w * 1e3, 3) for w in walls]}"
+          + (f"; the profiler dropped events ({len(uneven)} names uneven)" if uneven else ""))
+    top = [(n[:60], round(ms, 4)) for n, ms, _ in prof["by_name"][:6]]
+    print(f"[streaming] {tag}: device time by kernel a call (ms): {json.dumps(top)}")
+    return {"wall_ms": wall * 1e3, "busy_ms": prof["busy_ms"], "launches": per_call,
+            "rtf": float(np.float64(wall / (n_streams * chunk_s)))}
+
+
+def rnn_waves(cell: str, h: int, rows: int, t_len: int, train: bool) -> str:
+    """The route and waves of a recurrence's launch over ``rows`` sequences of
+    ``t_len`` steps: tiles of 4 rows x 2 directions over the clusters the
+    card runs at once (forward: the training variant when ``train``)."""
+    from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
+    cluster = krnn.bwd_resident_cluster(cell, h)
+    tiles = 2 * -(-rows // 4)
+    parts = []
+    for what, kw in (("fwd", {"save": train}), ("bwd", {"backward": True})):
+        if what == "bwd" and not train:
+            continue
+        at_once = krnn.resident_clusters_at_once(cell, h, **kw)
+        waves = -(-tiles // at_once)
+        parts.append(f"{what} {at_once} clusters at once -> {waves} waves x {t_len} = "
+                     f"{waves * t_len} sequential steps")
+    return (f"{cell}-{h} resident in clusters of {cluster}, {rows} rows = {tiles} tiles: "
+            + "; ".join(parts))
+
+
+def phase_streaming(device, card):
+    """Streaming enhancement and recognition on the card at the shipped widths:
+    the four serving engines on 8 synthetic streams (pushes of 0.1 s) against
+    the CPU, each engine's chunk call timed in steady state (ms, RTF, busy,
+    idle share, launches); one ``aas`` step with ``streaming_finetune`` and
+    one ``am`` step with ``streaming_finetune_am`` at B=4 x 8 s against the
+    CPU, their launches, routes and waves, and both timed at B=8 and B=32
+    x 8 s.  -> {path: launches}."""
+    import numpy as np
+    import torch
+    from aas_enhancement_tpu_torch.config import Config
+    from aas_enhancement_tpu_torch.enhance import init_enhancer
+    from aas_enhancement_tpu_torch.evaluation import init_am
+    from aas_enhancement_tpu_torch.streaming import BatchedStreamingEnhancer, StreamingEnhancer
+    from aas_enhancement_tpu_torch.streaming_asr import (BatchedStreamingRecognizer,
+                                                         StreamingRecognizer,
+                                                         make_streaming_asr_fn)
+    from aas_enhancement_tpu_torch.train.loop import init_state
+    from aas_enhancement_tpu_torch.train.state import TrainState
+    from aas_enhancement_tpu_torch.train.steps import make_train_step
+    from aas_enhancement_tpu_torch.utils.profiling import profile_call
+
+    cfg = Config()
+    gen = torch.Generator().manual_seed(31)
+    enh_cpu, am_cpu = init_enhancer(cfg, 1, "cpu"), init_am(cfg, 0, "cpu")
+    enh_gpu, am_gpu = copy.deepcopy(enh_cpu).to(device), copy.deepcopy(am_cpu).to(device)
+    wavs = [stream_wav(s, gen) for s in STREAM_SECONDS]
+    push = SR // 10
+    tol, why = STREAM_TOL
+    by_path = {}
+
+    # --- serving, card vs CPU -------------------------------------------------
+    def single(dev, g):
+        eng = StreamingEnhancer(cfg, g, device=dev, **STREAM_KW)
+        calls = tap(eng, keep=lambda args, out: out[0].cpu().numpy())
+        out = [eng.feed(wavs[0][i: i + push]) for i in range(0, len(wavs[0]), push)]
+        return (np.concatenate(out + [eng.flush()]), calls), len(calls)
+
+    def batched(dev, g):
+        eng = BatchedStreamingEnhancer(cfg, g, max_streams=STREAMS, device=dev, **STREAM_KW)
+        calls = tap(eng)
+        out = drive_batched(eng, wavs, push)
+        return [np.concatenate(out[s]) for s in sorted(out)], len(calls)
+
+    def recognizer(dev, a, g):
+        rec = StreamingRecognizer(cfg, a, g, collect_logits=True, device=dev, **STREAM_KW)
+        calls = tap(rec, keep=lambda args, out: out[0].cpu().numpy())
+        ids = [i for k in range(0, len(wavs[0]), push) for i in rec.feed(wavs[0][k: k + push])]
+        ids += rec.flush()
+        return (ids, rec.log_probs(), rec.transcript(), calls), len(calls)
+
+    def batched_recognizer(dev, a, g):
+        eng = BatchedStreamingRecognizer(cfg, a, g, max_streams=STREAMS, device=dev,
+                                         **STREAM_KW)
+        ticks = tap(eng, keep=lambda args, out: (out[0].cpu().numpy(), args[3].cpu().numpy(),
+                                                 out[1].cpu().numpy()))
+        drive_batched(eng, wavs, push)
+        return ([eng.transcript(s) for s in range(len(wavs))], ticks), len(ticks)
+
+    runs = (("stream_enhance", "StreamingEnhancer, B=1", single, (enh_cpu,), (enh_gpu,)),
+            ("stream_batched_enhance", f"BatchedStreamingEnhancer, {STREAMS} streams",
+             batched, (enh_cpu,), (enh_gpu,)),
+            ("stream_recognize", "StreamingRecognizer with the enhancer, B=1", recognizer,
+             (am_cpu, enh_cpu), (am_gpu, enh_gpu)),
+            ("stream_batched_recognize", f"BatchedStreamingRecognizer with the enhancer, "
+             f"{STREAMS} streams", batched_recognizer, (am_cpu, enh_cpu), (am_gpu, enh_gpu)))
+    for path, what, run, nets_cpu, nets_gpu in runs:
+        t0 = time.perf_counter()
+        ref, _ = run("cpu", *nets_cpu)
+        cpu_s = time.perf_counter() - t0
+        res = {}
+        by_path[path] = counted(STREAM_PATHS[path],
+                                lambda: res.update(zip(("got", "calls"),
+                                                       run(device, *nets_gpu))))
+        got, n_calls = res["got"], res["calls"]
+        per_call = {k: round(v / n_calls, 3) for k, v in by_path[path].items()}
+        if path == "stream_enhance":
+            (got, blocks), (ref, ref_blocks) = got, ref
+            if got.shape != wavs[0].shape or not np.isfinite(got).all():
+                fail(f"{what}: {got.shape} samples for {wavs[0].shape}, or non-finite")
+            by_call = [float(f"{np.abs(x - y).max():.2e}") for x, y in zip(blocks, ref_blocks)]
+            err = float(np.abs(got - ref).max())
+            detail = f"{got.size} samples (the windows, call by call: {by_call})"
+        elif path == "stream_batched_enhance":
+            if [g.shape for g in got] != [w.shape for w in wavs]:
+                fail(f"{what}: emitted {[g.shape for g in got]}")
+            err = max(float(np.abs(g - r).max()) for g, r in zip(got, ref))
+            detail = f"{sum(g.size for g in got)} samples of {len(got)} streams"
+        elif path == "stream_recognize":
+            (ids, lp, text, logits), (ref_ids, ref_lp, ref_text, ref_logits) = got, ref
+            frames = (1 + len(wavs[0]) // cfg.audio.hop_length + 1) // 2
+            if lp.shape != ref_lp.shape or len(ids) != frames:
+                fail(f"{what}: {len(ids)} frames for the offline {frames}")
+            err = float(np.abs(lp - ref_lp).max())
+            sure, differ = clear_ids(lp, ref_lp, 2 * tol)
+            by_call = [float(f"{np.abs(x - y).max():.2e}") for x, y in zip(logits, ref_logits)]
+            detail = (f"log-probs of {len(ids)} frames (the windows' logits, call by call: "
+                      f"{by_call}); ids differ on {differ} of {sure} "
+                      f"frames with a top-2 margin > {2 * tol:.0e}; transcripts "
+                      f"{'equal' if text == ref_text else 'differ'}")
+            if differ:
+                fail(f"{what}: greedy ids differ on frames with a clear margin")
+        else:
+            (texts, ticks), (ref_texts, ref_ticks) = got, ref
+            err, sure, differ, per_tick = 0.0, 0, 0, []
+            for (lg, lens, ol), (lr, _, olr) in zip(ticks, ref_ticks):
+                if not np.array_equal(ol, olr):
+                    fail(f"{what}: out_lengths {ol} vs {olr}")
+                busy = np.flatnonzero(lens > 0)                # the slots with a job
+                per_tick.append(float(f"{np.abs(lg[busy] - lr[busy]).max():.2e}"))
+                err = max(err, per_tick[-1])
+                for r in busy:
+                    s, d = clear_ids(lg[r, :ol[r]], lr[r, :ol[r]], 2 * tol)
+                    sure, differ = sure + s, differ + d
+            detail = (f"logits of {len(ticks)} ticks' busy rows ({per_tick}); ids differ on {differ} "
+                      f"of {sure} frames with a top-2 margin > {2 * tol:.0e}; transcripts "
+                      f"{'equal' if texts == ref_texts else 'differ'}")
+            if len(ticks) != len(ref_ticks) or differ:
+                fail(f"{what}: {len(ticks)} vs {len(ref_ticks)} ticks, or greedy ids "
+                     "differ on frames with a clear margin")
+        print(f"[streaming] {what}, card vs CPU over whole streams ({n_calls} device calls, "
+              f"pushes of 0.1 s): max_abs_err {err:.3e} on {detail} (tol {tol:.0e}: {why}); "
+              f"launches {json.dumps(by_path[path])}, a call {json.dumps(per_call)}; CPU "
+              f"{cpu_s:.2f} s")
+        if not err <= tol:
+            fail(f"{what}: card vs CPU error {err:.3e} > {tol:.0e}")
+        for name, count in by_path[path].items():
+            if count == 0:
+                fail(f"{what} launched no {name} kernel")
+
+    # Where a stream's first window (its history is synthetic silence) parts
+    # card from CPU: the enhancer's first conv and GroupNorm, windows 1 and 2.
+    hist, look = (int(STREAM_KW[k] * SR) for k in ("history_seconds", "lookahead_seconds"))
+    chunk = int(STREAM_KW["chunk_seconds"] * SR)
+    for k in (0, 1):
+        block = np.zeros((1, hist + chunk + look), np.float32)
+        block[0, max(0, hist - k * chunk): hist] = wavs[0][max(0, (k - 1) * chunk): k * chunk]
+        block[0, hist:] = wavs[0][k * chunk: (k + 1) * chunk + look]
+        stages = {}
+        for dev, (a, g) in (("cpu", (am_cpu, enh_cpu)), (device, (am_gpu, enh_gpu))):
+            hooks = [m.register_forward_hook(
+                lambda mod, i, o, key=(str(dev), name): stages.__setitem__(key, o.cpu()))
+                for name, m in (("conv 1", g.convs[0]), ("GroupNorm 1", g.gns[0]))]
+            make_streaming_asr_fn(cfg, True, dev)(
+                a, g, torch.from_numpy(block), torch.tensor([block.shape[1]]),
+                torch.tensor([hist // cfg.audio.hop_length]),
+                torch.tensor([(hist + chunk) // cfg.audio.hop_length]),
+                torch.zeros(3, 1), torch.zeros(3, 1))
+            for h in hooks:
+                h.remove()
+        diffs = {name: f"{(stages[(str(device), name)] - stages[('cpu', name)]).abs().max():.2e}"
+                 for name in ("conv 1", "GroupNorm 1")}
+        print(f"[streaming] recognizer window {k + 1} ({'silent' if k == 0 else 'audio'} "
+              f"history), the enhancer's outputs card vs CPU: {json.dumps(diffs)}")
+
+    # --- serving, steady-state chunk calls on the card -------------------------
+    long = stream_wav(120.0, gen)
+    pos = {"i": 0}
+
+    def next_chunk():
+        i = pos["i"] % (len(long) - chunk)
+        pos["i"] += chunk
+        return long[i: i + chunk]
+
+    eng = StreamingEnhancer(cfg, enh_gpu, device=device, **STREAM_KW)
+    eng.feed(long[: int(STREAM_KW["lookahead_seconds"] * SR)])
+    serving_timings("StreamingEnhancer B=1", card, lambda: eng.feed(next_chunk()), 1,
+                    STREAM_PATHS["stream_enhance"])
+    beng = BatchedStreamingEnhancer(cfg, enh_gpu, max_streams=STREAMS, device=device,
+                                    **STREAM_KW)
+    slots = [beng.open() for _ in range(STREAMS)]
+    for s in slots:
+        beng.feed(s, long[: int(STREAM_KW["lookahead_seconds"] * SR)])
+
+    def tick(engine):
+        for s in slots:
+            engine.feed(s, next_chunk())
+        if len(engine.step()) != STREAMS:
+            fail("a batched tick did not advance every stream")
+
+    serving_timings(f"BatchedStreamingEnhancer {STREAMS} streams", card, lambda: tick(beng),
+                    STREAMS, STREAM_PATHS["stream_batched_enhance"])
+    rec = StreamingRecognizer(cfg, am_gpu, enh_gpu, device=device, **STREAM_KW)
+    rec.feed(long[: int(STREAM_KW["lookahead_seconds"] * SR)])
+    serving_timings("StreamingRecognizer (enhancer + AM) B=1", card,
+                    lambda: rec.feed(next_chunk()), 1, STREAM_PATHS["stream_recognize"])
+    breng = BatchedStreamingRecognizer(cfg, am_gpu, enh_gpu, max_streams=STREAMS,
+                                       device=device, **STREAM_KW)
+    for s in [breng.open() for _ in range(STREAMS)]:
+        breng.feed(s, long[: int(STREAM_KW["lookahead_seconds"] * SR)])
+    serving_timings(f"BatchedStreamingRecognizer (enhancer + AM) {STREAMS} streams", card,
+                    lambda: tick(breng), STREAMS, STREAM_PATHS["stream_batched_recognize"])
+    del eng, beng, rec, breng
+
+    # --- blockwise fine-tuning steps ---------------------------------------------
+    from aas_enhancement_tpu_torch.train.objectives import stream_frames
+    fr = stream_frames(cfg, 2)                          # chunk 100, lookahead 20, history 100
+    nb = -(-(1 + N // cfg.audio.hop_length) // fr["chunk_f"])      # windows a row
+    window = fr["hist_f"] + fr["chunk_f"] + fr["look_f"]
+    steps = (("stream_aas_step", "aas step with streaming_finetune",
+              dict(objective="aas", streaming_finetune=True), STREAM_AAS_KERNELS,
+              {"g": TRAIN_GRAD_TOL["g"], "d": TRAIN_GRAD_TOL["d"]}),
+             ("stream_am_step", "am step with streaming_finetune_am",
+              dict(objective="am", streaming_finetune_am=True), AM_KERNELS,
+              {"am": AM_GRAD_TOL}))
+    for path, what, train_kw, names, grad_tols in steps:
+        cfg_s = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=B, **train_kw))
+        state_cpu = init_state(cfg_s, cfg.train.seed, "cpu", am_seed=0)
+        state_gpu = TrainState(**{k: copy.deepcopy(getattr(state_cpu, k)).to(device)
+                                  for k in ("g", "d", "am") if getattr(state_cpu, k) is not None})
+        batch = train_batch(B, gen, LENGTHS)
+        if train_kw["objective"] == "am":
+            batch = {k: v for k, v in batch.items() if not k.startswith("clean")}
+        step = make_train_step(cfg_s)
+        t0 = time.perf_counter()
+        grads_cpu, aux_cpu = step.batch_grads(state_cpu, batch)
+        cpu_s = time.perf_counter() - t0
+        res = {}
+        by_path[path] = counted(names, lambda: res.update(zip(("grads", "aux"), step.batch_grads(
+            state_gpu, {k: v.to(device) for k, v in batch.items()}))))
+        torch.cuda.synchronize()
+        check_step("streaming", f"one {what} B={B} x {SECONDS} s (CPU {cpu_s:.2f} s)",
+                   aux_cpu, res["aux"], grads_cpu, res["grads"], grad_tols)
+        print(f"[streaming] {what}: launches {json.dumps(by_path[path])}")
+        for name, count in by_path[path].items():
+            if count == 0:
+                fail(f"the {what} launched no {name} kernel")
+        del state_cpu, state_gpu, grads_cpu, res
+
+        for b in TRAIN_BATCHES:
+            cfg_b = cfg_s.replace(train=dataclasses.replace(cfg_s.train, batch_size=b))
+            state = init_state(cfg_b, cfg.train.seed, device, am_seed=0)
+            step_b = make_train_step(cfg_b)
+            batch = {k: v.to(device) for k, v in train_batch(b, gen, [N]).items()
+                     if train_kw["objective"] != "am" or not k.startswith("clean")}
+            torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for i in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, aux = step_b(state, batch)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    walls.append(time.perf_counter() - t0)
+            wall = statistics.median(walls)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if not all(abs(float(v)) < float("inf") for v in aux.values()):
+                fail(f"non-finite metrics of the {what} at B={b}: {aux}")
+            with tempfile.TemporaryDirectory() as tmp:
+                prof = profile_call(lambda: step_b(state, batch), 2, 1,
+                                    os.path.join(tmp, "trace.json"))
+            uneven = [n for n, _, c in prof["by_name"] if not float(c).is_integer()]
+            if train_kw["objective"] == "am":
+                routes = [rnn_waves("gru", cfg.am.rnn_hidden, b * nb, window // 2, True)]
+            else:
+                routes = [rnn_waves("lstm", cfg.enhancer.rnn_hidden, b * nb, window, True),
+                          rnn_waves("gru", cfg.am.rnn_hidden, b, AM_T, True)]
+            top = [(n[:50], round(ms, 3), c) for n, ms, c in prof["by_name"][:8]]
+            print(f"[streaming] B={b} {what}: device time by kernel a step (ms, launches): "
+                  f"{json.dumps(top)}")
+            print(f"[streaming] B={b} x {SECONDS} s {what} on {card}, TF32 off: "
+                  f"{wall * 1e3:.2f} ms/step, {b / wall:.2f} utterances/s; device busy "
+                  f"{prof['busy_ms']:.2f} ms ({prof['events']:.0f} device events, idle "
+                  f"{100 * (1 - prof['busy_ms'] / (wall * 1e3)):.1f}% of the wall); peak "
+                  f"device memory {peak:.2f} GiB; {' | '.join(routes)} (median of "
+                  f"{len(walls)} after 2 warmups; walls ms {[round(w * 1e3, 2) for w in walls]})"
+                  + (f"; the profiler dropped events ({len(uneven)} names uneven)"
+                     if uneven else ""))
+            del state, batch
+
+    # --- the CLIs, on their default device (the card) --------------------------
+    from aas_enhancement_tpu_torch.cli import enhance as enhance_cli
+    from aas_enhancement_tpu_torch.cli import train as train_cli
+    from aas_enhancement_tpu_torch.data import generate_corpus, read_manifest, read_wav
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+        out_dir = os.path.join(tmp, "enh")
+        point = ["--stream-chunk", "1.0", "--stream-lookahead", "0.2", "--stream-history", "1.0"]
+        runs = (("cli.enhance --streaming", enhance_cli.main,
+                 ["--manifest", m["noisy"], "--out-dir", out_dir, "--streaming",
+                  "--chunk-seconds", "1.0", "--lookahead-seconds", "0.2",
+                  "--history-seconds", "1.0"], {"stft", "istft", "gn_act", "lstm"}),
+                ("cli.train --objective aas --streaming-finetune", train_cli.main,
+                 ["--objective", "aas", "--noisy-manifest", m["noisy"], "--clean-manifest",
+                  m["clean"], "--steps", "2", "--batch-size", str(B), "--am-checkpoint",
+                  "seed:0", "--streaming-finetune", *point], {"lstm_bwd", "gru_bwd", "gn_bwd"}),
+                ("cli.train --objective am --streaming-finetune-am", train_cli.main,
+                 ["--objective", "am", "--noisy-manifest", m["clean"], "--steps", "2",
+                  "--batch-size", str(B), "--am-checkpoint", "seed:0",
+                  "--streaming-finetune-am", *point], {"gru_bwd", "conv_dw"}))
+        for tag, main, argv, need in runs:
+            line, _, n = _cli_run(f"{tag} (no --device: the card)", main, argv,
+                                  phase="streaming", names=CKPT_KERNELS)
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
+            if [k for k in need if not n[k]]:
+                fail(f"{tag} launched none of {sorted(k for k in need if not n[k])}")
+            if main is enhance_cli.main:
+                for wav_path, _ in read_manifest(m["noisy"]):
+                    x, _ = read_wav(wav_path)
+                    y, _ = read_wav(os.path.join(out_dir, os.path.basename(wav_path)))
+                    if line.get("utterances") != 6 or len(y) != len(x):
+                        fail(f"{tag}: {line}, {wav_path}: {len(y)} samples for {len(x)}")
+            elif line.get("final_step") != 2 or not all(
+                    abs(v) < float("inf") for v in line.values()):
+                fail(f"{tag} printed {line}")
+    by_path["stream_cli"] = total
+    return by_path
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     name, smi = phase_device()
@@ -1918,7 +2332,8 @@ def main() -> int:
                "am_step": timed("am_step", phase_train_am, device, smi),   # train CLI, am
                "checkpoint": timed("checkpoint", phase_checkpoint, device, smi)}   # CLIs, dirs
     paired_step, by_path["paired_cli"] = timed("paired", phase_paired, device, smi)
-    by_path["paired_step"] = paired_step      # last: the JSON's launches of its kernels
+    by_path["paired_step"] = paired_step      # the JSON's launches of stft_vjp, istft_vjp
+    by_path.update(timed("streaming", phase_streaming, device, smi))   # last: the others'
     print(f"[time] seconds per phase: {json.dumps(took)}")
     launches = {}
     for counts in by_path.values():        # the last path that runs a kernel

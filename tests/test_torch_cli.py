@@ -83,7 +83,7 @@ def test_config_fields_the_port_lacks_are_an_explicit_list():
               for s, v in tconfig.UNPORTED.items()}
     assert listed == _jax_fields_the_port_lacks()
     items = {item for v in tconfig.UNPORTED.values() for _, item in v.values()}
-    assert items == {"A11", "A12", "A15"}
+    assert items == {"A12", "A15"}
     with open(os.path.join(REPO, "ROADMAP.md")) as f:
         roadmap = f.read()
     for item in items:
@@ -91,11 +91,13 @@ def test_config_fields_the_port_lacks_are_an_explicit_list():
 
 
 # Train fields that stood in UNPORTED until checkpoints, validation, prefetch
-# and profiling were ported (ROADMAP A9a, A9b), and the paired objective's
-# MR-STFT weight (A8): they now load at any value.
+# and profiling were ported (ROADMAP A9a, A9b), the paired objective's
+# MR-STFT weight (A8) and streaming fine-tuning's operating point (A11):
+# they now load at any value.
 PORTED_TRAIN_FIELDS = ("checkpoint_dir", "checkpoint_every", "eval_every",
                        "eval_batch_size", "prefetch", "profile_start", "profile_steps",
-                       "lambda_mrstft")
+                       "lambda_mrstft", "stream_chunk_s", "stream_lookahead_s",
+                       "stream_history_s")
 
 
 @pytest.mark.parametrize("section,name", [(s, k) for s, v in tconfig.UNPORTED.items()
@@ -107,7 +109,7 @@ def test_config_refuses_a_non_default_value_of_an_unported_field(section, name):
     field ported since loads off its default into the port's dataclass."""
     d = json.loads(Config().to_json())
     if name in PORTED_TRAIN_FIELDS:
-        assert name not in tconfig.UNPORTED[section]
+        assert name not in tconfig.UNPORTED.get(section, {})
         d[section][name] = d[section][name] + "x" if name == "checkpoint_dir" \
             else d[section][name] + 1
         assert getattr(tconfig.Config.from_dict(d).train, name) == d[section][name]
@@ -217,16 +219,109 @@ def test_cuda_device_without_gpu_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--checkpoint", "ckpt"], ["--streaming"]])
-def test_unported_options_raise(tmp_path, flag):
-    """--streaming waits for ROADMAP A11; --checkpoint is ported, and a
-    directory without config.json raises as the JAX CLI's load_state does."""
+def test_unported_options_raise(tmp_path, flag, monkeypatch):
+    """Both options are ported.  --checkpoint: a directory without
+    config.json raises as the JAX CLI's load_state does.  --streaming (ROADMAP
+    A11): each wav goes through ``enhance_stream`` with the chunk, lookahead
+    and history flags, on the device asked for."""
     argv = ["--input", "x.wav", "--out-dir", str(tmp_path), "--device", "cpu"]
     if flag[0] == "--checkpoint":
         with pytest.raises(FileNotFoundError, match="no config.json"):
             cli.main([*argv, "--checkpoint", str(tmp_path / flag[1])])
         return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main([*argv, *flag])
+    seen = []
+
+    def fake_stream(cfg, model, wav, *args, **kw):
+        seen.append((len(wav), args, kw))
+        yield wav
+
+    x = (0.1 * np.random.default_rng(0).standard_normal(4000)).astype(np.float32)
+    tdata.write_wav(str(tmp_path / "x.wav"), x, 16000)
+    monkeypatch.setattr(cli, "enhance_stream", fake_stream)
+    argv[1] = str(tmp_path / "x.wav")
+    argv[3] = str(tmp_path / "out")
+    cli.main([*argv, "--config", _small_config(tmp_path / "cfg.json"), *flag,
+              "--chunk-seconds", "0.5", "--lookahead-seconds", "0.3",
+              "--history-seconds", "0.4"])
+    assert seen == [(4000, (0.5, 0.3, 0.4), {"device": torch.device("cpu")})]
+    assert os.path.exists(tmp_path / "out" / "x.wav")
+
+
+def test_streaming_cli_matches_jax(tmp_path, capsys, monkeypatch):
+    """``cli.enhance --streaming`` of both packages on 2 synthetic utterances
+    (random-init enhancers from the same seed do not agree across packages,
+    so both read one converted checkpoint): the same wavs to the PCM16 step
+    on unit-scale audio."""
+    import importlib.util
+
+    import jax
+    from aas_enhancement_tpu.cli import enhance as jax_cli
+    from aas_enhancement_tpu.train.loop import init_state as jax_init_state
+    from aas_enhancement_tpu.utils import checkpoint as jckpt
+    spec = importlib.util.spec_from_file_location(
+        "orbax_to_torch", os.path.join(REPO, "scripts", "orbax_to_torch.py"))
+    orbax_to_torch = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(orbax_to_torch)
+
+    monkeypatch.setattr("aas_enhancement_tpu.utils.jax_cache.enable", lambda *a: None)
+    cfg = Config().replace(enhancer=EnhancerConfig(conv_channels=8, conv_layers=1,
+                                                   rnn_hidden=16, rnn_layers=1))
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, objective="paired"))
+    src, dst = str(tmp_path / "jax"), str(tmp_path / "torch")
+    mgr = jckpt.make_manager(src)
+    jckpt.save(mgr, 1, jax.device_get(jax_init_state(cfg, jax.random.key(3))))
+    mgr.wait_until_finished()
+    mgr.close()
+    with open(os.path.join(src, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    orbax_to_torch.convert(src, dst)
+    corpus = generate_corpus(str(tmp_path / "corpus"), n_utts=2, seed=5)
+    flags = ["--streaming", "--chunk-seconds", "0.5", "--lookahead-seconds", "0.1",
+             "--history-seconds", "0.5"]
+    jax_cli.main(["--manifest", corpus["noisy"], "--out-dir", str(tmp_path / "j"),
+                  "--checkpoint", src, *flags])
+    cli.main(["--manifest", corpus["noisy"], "--out-dir", str(tmp_path / "t"),
+              "--checkpoint", dst, "--device", "cpu", *flags])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1])["utterances"] == 2
+    names = sorted(os.listdir(tmp_path / "j"))
+    assert names == sorted(os.listdir(tmp_path / "t")) and len(names) == 2
+    for name in names:
+        ref, _ = read_wav(str(tmp_path / "j" / name))
+        got, _ = read_wav(str(tmp_path / "t" / name))
+        noisy, _ = read_wav(str(tmp_path / "corpus" / "noisy" / name))
+        assert got.shape == ref.shape == noisy.shape
+        assert np.abs(got - ref).max() <= 1.0 / 32767 + 1e-7, name
+
+
+@pytest.mark.parametrize("objective,flag", [("aas", "--streaming-finetune"),
+                                            ("am", "--streaming-finetune-am")])
+def test_train_cli_streaming_finetune_on_cpu(tmp_path, capsys, objective, flag):
+    """One step of each streaming fine-tuning objective through the train CLI
+    on the CPU, at a small width and a 0.2 / 0.05 / 0.1 s operating point."""
+    from aas_enhancement_tpu.config import (AMConfig, DataConfig, DiscriminatorConfig,
+                                            TrainConfig)
+    corpus = generate_corpus(str(tmp_path / "corpus"), n_utts=2, seed=2, vocab_chars=6)
+    cfg = Config(am=AMConfig(rnn_hidden=16, rnn_layers=1, conv_channels=8),
+                 enhancer=EnhancerConfig(conv_channels=8, conv_layers=1, rnn_hidden=12,
+                                         rnn_layers=1),
+                 discriminator=DiscriminatorConfig(channels=(8, 16)),
+                 train=TrainConfig(batch_size=2, log_every=1), data=DataConfig(num_buckets=1))
+    path = tmp_path / "cfg.json"
+    path.write_text(cfg.to_json())
+    from aas_enhancement_tpu_torch.cli import train as train_cli
+    argv = ["--objective", objective, "--steps", "1", "--config", str(path),
+            "--am-checkpoint", "seed:0", "--device", "cpu", flag, "--stream-chunk", "0.2",
+            "--stream-lookahead", "0.05", "--stream-history", "0.1"]
+    if objective == "am":
+        argv += ["--noisy-manifest", corpus["clean"]]
+    else:
+        argv += ["--noisy-manifest", corpus["noisy"], "--clean-manifest", corpus["clean"]]
+    train_cli.main(argv)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["final_step"] == 1
+    assert ("loss_ctc_am" if objective == "am" else "loss_g") in line
+    assert all(np.isfinite(v) for v in line.values())
 
 
 def test_bucket_lengths():

@@ -280,9 +280,18 @@ def test_unported_options_raise(corpus, nets):
     assert [it["num_samples"] for it in augmenting.items] == [
         int(it["num_samples"] * 1.12) for it in AudioDataset(
             corpus["noisy"], tcfg.audio, tconfig.DataConfig()).items]
-    with pytest.raises(NotImplementedError, match="A11"):
-        enhancer_forward(tcfg, nets[3], torch.zeros(1, 1600), torch.tensor([1600]),
-                         streaming=True)
+    # The streaming forward is ported (ROADMAP A11): JAX's enhancer_forward
+    # with streaming=True on the same wav, 2 windows of 100 + 20 + 100 frames.
+    wav = (0.1 * np.random.default_rng(9).standard_normal((2, 16800))).astype(np.float32)
+    wl = np.array([16800, 9000], np.int32)
+    from aas_enhancement_tpu.train.objectives import enhancer_forward as jax_enhancer_forward
+    ref = jax_enhancer_forward(_cfgs()[0], nets[1], jnp.asarray(wav), jnp.asarray(wl),
+                               streaming=True)
+    with torch.no_grad():
+        got = enhancer_forward(tcfg, nets[3], torch.from_numpy(wav), torch.from_numpy(wl),
+                               streaming=True)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):

@@ -20,6 +20,7 @@ conv_dw: 1e-4 of max|dW| (f32 sums over up to ~1e5 positions, in the
 kernel's slice order and the plain version's).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -936,3 +937,131 @@ def test_recognition_forward_on_card_matches_cpu(cuda, use_enhancer):
     assert krnn.gru_scan_tm.launches == before + 2
     torch.testing.assert_close(pads.cpu(), pads_cpu, rtol=0, atol=0)
     torch.testing.assert_close(logits.cpu(), logits_cpu, rtol=0, atol=1e-4)
+
+
+# The streaming paths' shapes (blockwise fine-tuning, batched serving): B * nb
+# windows of 220 input frames (the enhancer's LSTM-256) or 110 AM frames (the
+# AM's GRU-512), the trailing windows of the short rows at length 0, and more
+# tiles of 4 rows than the card runs clusters at once (waves).
+STREAM_RNN = [("lstm", 220, 72, 256), ("gru", 110, 72, 512), ("gru", 110, 40, 512)]
+
+
+def _stream_lengths(b, t, cuda):
+    """9 windows a row: full, then a ragged last window and length-0 ones."""
+    per_row = [t] * 5 + [t // 2 + 3, 1, 0, 0]
+    return torch.tensor((per_row * -(-b // 9))[:b], device=cuda)
+
+
+@pytest.mark.parametrize("cell,t,b,h", STREAM_RNN)
+def test_resident_rnn_at_the_streaming_shapes(cuda, cell, t, b, h):
+    """The resident forward (inference and training variants) and backward
+    through the wrappers, at the streaming windows' shapes, against the
+    plain versions: y to 1e-5, the gradients of gx, wh and bh as the other
+    backward tests; rows of length 0 give y = 0 and dgx = 0; the tiles run in
+    more than one wave."""
+    g = 4 if cell == "lstm" else 3
+    scan = krnn.lstm_scan_tm if cell == "lstm" else krnn.gru_scan_tm
+    plain = krnn.lstm_scan_tm_plain if cell == "lstm" else krnn.gru_scan_tm_plain
+    bwd = krnn.lstm_scan_tm_bwd if cell == "lstm" else krnn.gru_scan_tm_bwd
+    lengths = _stream_lengths(b, t, cuda)
+    m = (torch.arange(t, device=cuda)[:, None] < lengths[None]).float()
+    full = _randn(t, b, 2 * g * h, seed=h + 31, scale=0.5).to(cuda).requires_grad_()
+    wh = _randn(2, h, g * h, seed=h + 32, scale=h ** -0.5).to(cuda).requires_grad_()
+    bh = _randn(2, g * h, seed=h + 33, scale=0.1).to(cuda).requires_grad_()
+    cluster = krnn.bwd_resident_cluster(cell, h)
+    tiles = 2 * -(-b // 4)
+    assert tiles > krnn.resident_clusters_at_once(cell, h, save=True)
+    assert tiles > krnn.resident_clusters_at_once(cell, h, backward=True)
+    with torch.no_grad():
+        y_inf = scan(full[..., :g * h], full[..., g * h:], m, wh, bh)
+    assert scan.route == cluster
+    ys = scan(full[..., :g * h], full[..., g * h:], m, wh, bh)
+    before = bwd.launches
+    got = _grads(ys, (full, wh, bh), 41)
+    assert scan.route == cluster and bwd.route == cluster and bwd.launches == before + 1
+    inputs = [x.detach().clone().requires_grad_() for x in (full, wh, bh)]
+    ys_p = plain(inputs[0][..., :g * h], inputs[0][..., g * h:], m, *inputs[1:])
+    ref = _grads(ys_p, inputs, 41)
+    torch.cuda.synchronize()
+    for y, y_p, y_i in zip(ys, ys_p, y_inf):
+        torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
+        assert torch.equal(y, y_i)
+    _assert_grads_close(got, ref)
+    zero = lengths == 0
+    assert zero.any()
+    assert all(torch.all(y[:, zero] == 0) for y in ys)
+    assert torch.all(got[0][:, zero] == 0)
+
+
+@pytest.mark.parametrize("act,shape", [("leaky_relu", (18, 220, 161, 32)),
+                                       ("hardtanh", (72, 110, 81, 32)),
+                                       ("hardtanh", (72, 110, 41, 32))])
+def test_gn_at_the_streaming_shapes(cuda, act, shape):
+    """The GroupNorm forward and backward kernels on the streaming windows'
+    shapes (the enhancer's GN over 220 frames, the AM's two over 110 AM
+    frames), rows of length 0 among them: y against the plain version to
+    1e-5; the backward (through autograd's Function) against the plain
+    closed form on the forward kernel's saved mean and inv, as the other
+    backward tests hold it, and bit for bit against the backward wrapper
+    alone.  (Autograd through the plain forward computes z = x * inv_c +
+    off_c in another order than the closed form's x_hat * scale + bias: over
+    20M entries one z lies within rounding of 0, where leaky_relu' is 1 on
+    one side and 0.2 on the other.)  Length-0 rows give y = 0 and dx = 0."""
+    b, t, f, c = shape
+    x = (0.5 + 2.0 * _randn(*shape, seed=b + f)).to(cuda).requires_grad_()
+    scale = (1 + _randn(c, seed=4, scale=0.1)).to(cuda).requires_grad_()
+    bias = _randn(c, seed=5).to(cuda).requires_grad_()
+    dy = _randn(*shape, seed=51).to(cuda)
+    lengths = _stream_lengths(b, t, cuda)
+    kw = dict(num_groups=8, act=act)
+    before = (gn.masked_group_norm_act.launches, gn.masked_group_norm_act_bwd.launches)
+    y = gn.masked_group_norm_act(x, scale, bias, lengths, **kw)
+    got = torch.autograd.grad(y, (x, scale, bias), dy)
+    mean, inv = gn._stats(gn._gn_cuda(x.detach(), scale.detach(), bias.detach(), lengths,
+                                      8, 1e-5, act, 0.2)[1], b, c)
+    args = (x.detach(), dy, scale.detach(), bias.detach(), lengths, mean, inv)
+    alone = gn.masked_group_norm_act_bwd(*args, **kw)
+    ref = gn.masked_group_norm_act_bwd_plain(*args, **kw)
+    y_p = gn.masked_group_norm_act_plain(x, scale, bias, lengths, **kw)
+    torch.cuda.synchronize()
+    assert (gn.masked_group_norm_act.launches, gn.masked_group_norm_act_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(a, r) for a, r in zip(got, alone))
+    _assert_grads_close(got, ref)
+    zero = lengths == 0
+    assert torch.all(y[zero] == 0) and torch.all(got[0][zero] == 0)
+
+
+def test_streaming_paths_on_card_match_cpu(cuda):
+    """A small streaming enhancer and recognizer (one stream, 0.5 s chunks)
+    and their batched engines with an idle slot, card against CPU: the
+    emitted samples to 1e-4, the recognizer's log-probs to 1e-4."""
+    from aas_enhancement_tpu_torch.streaming import (BatchedStreamingEnhancer,
+                                                     StreamingEnhancer)
+    from aas_enhancement_tpu_torch.streaming_asr import StreamingRecognizer
+    cfg = Config().replace(am=AMConfig(rnn_hidden=32, rnn_layers=2, conv_channels=8),
+                           enhancer=EnhancerConfig(conv_channels=8, rnn_hidden=16))
+    am, enh = init_am(cfg, seed=0, device="cpu"), init_enhancer(cfg, seed=1, device="cpu")
+    am_d, enh_d = init_am(cfg, seed=0, device=cuda), init_enhancer(cfg, seed=1, device=cuda)
+    kw = dict(chunk_seconds=0.5, lookahead_seconds=0.1, history_seconds=0.5)
+    wav = _randn(21000, seed=12, scale=0.3).numpy()
+    out = {}
+    for dev, g, a in (("cpu", enh, am), (cuda, enh_d, am_d)):
+        eng = StreamingEnhancer(cfg, g, device=dev, **kw)
+        batched = BatchedStreamingEnhancer(cfg, g, max_streams=2, device=dev, **kw)
+        slot = batched.open()
+        batched.feed(slot, wav)
+        batched.end_stream(slot)
+        pieces = []
+        got = batched.step()
+        while got:
+            pieces.append(got[slot])
+            got = batched.step()
+        rec = StreamingRecognizer(cfg, a, g, collect_logits=True, device=dev, **kw)
+        rec.feed(wav)
+        rec.flush()
+        out[str(dev)] = (eng.feed(wav), eng.flush(), np.concatenate(pieces), rec.log_probs())
+    for c_arr, g_arr in zip(out["cpu"], out[str(cuda)]):
+        assert c_arr.shape == g_arr.shape
+        np.testing.assert_allclose(g_arr, c_arr, rtol=0, atol=1e-4)

@@ -432,24 +432,20 @@ def test_cli_trains_three_steps_on_cpu(corpus, tmp_path, capsys):
     (["--val-manifest", "v.csv"], "A9"), (["--eval-every", "5"], "A9"),
     (["--metrics", "m.jsonl"], "A9"),
     (["--tensorboard", "tb"], "A9"), (["--profile-dir", "p"], "A9"),
-    (["--sortagrad"], "A9"), (["--stream-lookahead", "0.2"], "A11"),
-    (["--stream-history", "1.0"], "A11"), (["--streaming-finetune"], "A11"),
-    (["--stream-chunk", "1.0"], "A11"), (["--streaming-finetune-am"], "A11"),
+    (["--sortagrad"], "A9"), (["--stream-lookahead", "0.3"], "A11"),
+    (["--stream-history", "0.5"], "A11"), (["--streaming-finetune"], "A11"),
+    (["--stream-chunk", "0.4"], "A11"), (["--streaming-finetune-am"], "A11"),
     (["--objective", "paired"], "A9"), (["--g-checkpoint", "ckpt_dir"], "A9"),
     (["--am-checkpoint", "ckpt_dir"], "A9")])
 def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
-    """Streaming fine-tuning (A11) raises.  The A9 flags and the paired
-    objective are ported: a checkpoint directory without config.json raises
-    as the JAX CLI's load_state does, and every other flag reaches the
-    config or the loop (``init_state`` and ``train`` stubbed here; the loop
-    itself is driven in tests/test_torch_loop.py; ``--objective paired``
-    reaches ``train(paired=True)``)."""
+    """The flags of the A9 and A11 items are ported: a checkpoint directory
+    without config.json raises as the JAX CLI's load_state does, and every
+    other flag reaches the config or the loop (``init_state`` and ``train``
+    stubbed here; the loop itself is driven in tests/test_torch_loop.py;
+    ``--objective paired`` reaches ``train(paired=True)``; the streaming
+    fine-tuning flags (A11) reach ``TrainConfig`` as the JAX CLI maps them)."""
     args = ["--objective", "aas", "--noisy-manifest", "n.csv", "--clean-manifest",
             "c.csv", "--device", "cpu"]
-    if item != "A9":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            train_cli.main([*args, *flags])
-        return
     if flags[0] in ("--g-checkpoint", "--am-checkpoint"):
         with pytest.raises(FileNotFoundError, match="no config.json"):
             train_cli.main([*args, flags[0], str(tmp_path / flags[1])])
@@ -474,7 +470,12 @@ def test_unported_flags_raise(flags, item, tmp_path, monkeypatch):
                "--tensorboard": seen["tensorboard_dir"] == "tb",
                "--profile-dir": t.profile_dir == "p",
                "--sortagrad": t.sortagrad is True,
-               "--objective": t.objective == "paired" and seen["paired"] is True}
+               "--objective": t.objective == "paired" and seen["paired"] is True,
+               "--stream-lookahead": t.stream_lookahead_s == 0.3 and t.stream_chunk_s == 1.0,
+               "--stream-history": t.stream_history_s == 0.5,
+               "--streaming-finetune": t.streaming_finetune and not t.streaming_finetune_am,
+               "--stream-chunk": t.stream_chunk_s == 0.4,
+               "--streaming-finetune-am": t.streaming_finetune_am}
     assert reached[flags[0]], (flags, seen)
 
 
