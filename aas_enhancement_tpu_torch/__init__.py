@@ -10,7 +10,11 @@ kernel's plain PyTorch version; a CUDA tensor launches the kernel or raises.
 Ported so far: the enhancement path (STFT -> conv + BiLSTM enhancer -> ISTFT),
 driven by ``python -m aas_enhancement_tpu_torch.cli.enhance``, and the
 recognition path (STFT -> enhancer -> DeepSpeech2 AM with BiGRUs -> greedy
-CTC -> WER), driven by ``python -m aas_enhancement_tpu_torch.cli.evaluate``.
+CTC -> WER), driven by ``python -m aas_enhancement_tpu_torch.cli.evaluate``;
+the objectives, checkpoints and streaming engines around them; and serving:
+the live TCP server (``cli.serve``) and the exported enhancer
+(``cli.export``, ``torch.export`` over the kernels registered as operators
+in ``ops/library.py``).
 
 This package imports torch and never jax or flax.
 """

@@ -33,6 +33,7 @@ import torch
 from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.data import read_manifest, read_wav, write_wav
 from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
+from aas_enhancement_tpu_torch.models.enhancer import Enhancer
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.streaming import enhance_stream
 from aas_enhancement_tpu_torch.train.loop import load_state
@@ -83,9 +84,13 @@ def main(argv=None) -> None:
             raise SystemExit(f"{args.checkpoint}: checkpoint has no enhancer")
         if not args.config:
             cfg = cfg.replace(enhancer=ck_cfg.enhancer, audio=ck_cfg.audio)
-    model = init_enhancer(cfg, cfg.train.seed, device)
-    if state is not None:        # the network of the config, the checkpoint's weights
-        model.load_state_dict(state.g.state_dict())
+    if state is None:
+        model = init_enhancer(cfg, cfg.train.seed, device)
+    else:        # the network of the config, the checkpoint's weights (no draw)
+        with torch.device("meta"):
+            model = Enhancer(cfg.enhancer, cfg.audio.num_bins)
+        model.load_state_dict(state.g.state_dict(), assign=True)
+        model.eval()
 
     paths = []
     if args.input:

@@ -6,14 +6,17 @@ and ISTFT (``csrc/stft.cu``, ``csrc/istft.cu``), masked GroupNorm +
 leaky_relu (``csrc/gn.cu``, one cooperative launch) and the BiLSTM recurrence
 (``csrc/lstm_tm.cu``).  The convolutions and the dense products are
 ``F.conv2d`` and ``torch.matmul``.  On the CPU every kernel's plain version
-runs instead.  ``make_streaming_enhance_fn`` is the same path for one block
-of a stream, normalized with running moments (``streaming.py`` drives it).
+runs instead.  ``EnhancePipeline`` is the path as one module, which
+``make_enhance_fn`` runs and ``serving.py`` exports.
+``make_streaming_enhance_fn`` is the same path for one block of a stream,
+normalized with running moments (``streaming.py`` drives it).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.convert import init_like_flax
@@ -36,18 +39,24 @@ def init_enhancer(cfg: Config, seed: int,
     return model.to(device).eval()
 
 
-def make_enhance_fn(cfg: Config, device: torch.device | str):
-    """Returns fn(model, wav [B, n], lengths [B]) -> enhanced wav [B, n] on
-    ``device`` (the model must already live there)."""
-    a = cfg.audio
-    enh_cfg = cfg.enhancer
-    device = torch.device(device)
+class EnhancePipeline(nn.Module):
+    """The enhance path as one module: forward(wav [B, n], lengths [B]) ->
+    enhanced wav [B, n] (STFT, log1p, masked normalization, ``model``,
+    ``apply_enhancement``, ISTFT with the noisy phase), on the device of its
+    inputs and ``model``.  ``make_enhance_fn`` calls it under
+    ``torch.inference_mode()``; ``serving.py::export_enhancer`` exports it
+    with ``torch.export``, where each kernel is one operator node."""
 
-    @torch.inference_mode()
-    def enhance(model: Enhancer, wav: torch.Tensor,
-                lengths: torch.Tensor) -> torch.Tensor:
-        wav = wav.to(device=device, dtype=torch.float32)
-        lengths = lengths.to(device=device, dtype=torch.int64)
+    def __init__(self, cfg: Config, model: Enhancer):
+        super().__init__()
+        self.audio = cfg.audio
+        self.enh_cfg = cfg.enhancer
+        self.model = model
+
+    def forward(self, wav: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        a = self.audio
+        wav = wav.to(torch.float32)
+        lengths = lengths.to(torch.int64)
         re, im = dsp_api.stft(a, wav)
         mag = magnitude(re, im)
         ph = phase(re, im)
@@ -55,9 +64,21 @@ def make_enhance_fn(cfg: Config, device: torch.device | str):
         frame_lengths = (1 + lengths // a.hop_length if a.center
                          else 1 + (lengths - a.n_fft) // a.hop_length)
         net_in = masked_normalize(log_mag, frame_lengths) if a.normalize else log_mag
-        out = model(net_in, frame_lengths)
-        enhanced_mag = apply_enhancement(enh_cfg, out, mag)
+        out = self.model(net_in, frame_lengths)
+        enhanced_mag = apply_enhancement(self.enh_cfg, out, mag)
         return dsp_api.reconstruct(a, enhanced_mag, ph, length=wav.shape[-1])
+
+
+def make_enhance_fn(cfg: Config, device: torch.device | str):
+    """Returns fn(model, wav [B, n], lengths [B]) -> enhanced wav [B, n] on
+    ``device`` (the model must already live there): ``EnhancePipeline``
+    under ``torch.inference_mode()``."""
+    device = torch.device(device)
+
+    @torch.inference_mode()
+    def enhance(model: Enhancer, wav: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+        return EnhancePipeline(cfg, model)(wav.to(device), lengths.to(device))
 
     return enhance
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from aas_enhancement_tpu_torch.ops import library
 from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_kernel
 from aas_enhancement_tpu_torch.ops.masking import time_mask
 from aas_enhancement_tpu_torch.utils import kernel_build
@@ -75,10 +76,30 @@ def masked_group_norm_act_plain(x: torch.Tensor, scale: torch.Tensor,
     return _activate(y, act, slope)
 
 
-def _gn_cuda(x, scale, bias, lengths, g, eps, act, slope):
-    """The kernel -> (y, scratch): scratch [2 B C + partials] holds the mean
-    and the inv per (B, C) (``_stats``), then the per-item partial sums."""
+def gn_kernel(x, scale, bias, lengths, g, eps, act, slope):
+    """The forward kernel's launcher (the ``aas_torch::masked_group_norm_act``
+    operator's CUDA implementation, and ``_GNActFn``'s forward): checks what
+    the kernel takes, raises otherwise, launches once and counts it in
+    ``masked_group_norm_act.launches`` -> (y, scratch): scratch
+    [2 B C + partials] holds the mean and the inv per (B, C) (``_stats``),
+    then the per-item partial sums.  ``lengths`` [B] int32 or int64 on x's
+    device (the wrapper's ``_kernel_lengths``)."""
+    check_kernel_inputs("masked_group_norm_act", (x, scale, bias))
     b, t, f, c = x.shape
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("masked_group_norm_act: needs a contiguous, 16-byte aligned x")
+    if c % 4 or c > 256 or g > 32 or x.numel() == 0:
+        raise ValueError(f"masked_group_norm_act: the kernel takes C % 4 == 0, C <= 256, "
+                         f"at most 32 groups and a non-empty x, got {tuple(x.shape)}, "
+                         f"{g} groups")
+    if scale.shape != (c,) or bias.shape != (c,):
+        raise ValueError("masked_group_norm_act: scale/bias must be [C]")
+    if (lengths.shape != (b,) or lengths.dtype not in (torch.int32, torch.int64)
+            or lengths.device != x.device or not lengths.is_contiguous()):
+        raise ValueError("masked_group_norm_act: lengths must be [B], int32 or int64, "
+                         "contiguous, on x's device")
+    if not (scale.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("masked_group_norm_act: scale and bias must be contiguous")
     y = torch.empty_like(x)
     n_part = b * -(-t // ROWS_PER_ITEM) * g * 2
     scratch = torch.empty(2 * b * c + n_part, dtype=torch.float32, device=x.device)
@@ -89,6 +110,7 @@ def _gn_cuda(x, scale, bias, lengths, g, eps, act, slope):
         mean + 8 * b * c, n_part, b, t, f, c, g, eps, ACTS[act], slope,
         torch.cuda.current_stream(x.device).cuda_stream)
     kernel_build.check(err, "aas_gn_act_fwd (cooperative launch)")
+    masked_group_norm_act.launches += 1
     return y, scratch
 
 
@@ -179,7 +201,7 @@ class _GNActFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, lengths, num_groups, eps, act, slope):
-        y, scratch = _gn_cuda(x, scale, bias, lengths, num_groups, eps, act, slope)
+        y, scratch = gn_kernel(x, scale, bias, lengths, num_groups, eps, act, slope)
         ctx.save_for_backward(x, scale, bias, lengths,
                               *_stats(scratch, x.shape[0], x.shape[3]))
         ctx.cfg = dict(num_groups=num_groups, act=act, slope=slope)
@@ -201,44 +223,36 @@ def masked_group_norm_act(x: torch.Tensor, scale: torch.Tensor,
                           act: str = "none", slope: float = 0.2) -> torch.Tensor:
     """Masked GroupNorm + activation over [B, T, F, C].
 
-    A CUDA tensor runs the kernel, one launch a call, counted in
-    ``.launches`` (where a gradient is wanted through ``_GNActFn``, whose
-    backward is ``masked_group_norm_act_bwd``); a CPU tensor runs
-    ``masked_group_norm_act_plain``.
+    Without a wanted gradient, the operator ``aas_torch::masked_group_norm_act``
+    (``ops/library.py``): on the card the kernel (``gn_kernel``, one launch a
+    call, counted in ``.launches``), on the CPU ``masked_group_norm_act_plain``.
+    With one, on the card ``_GNActFn``, whose backward is
+    ``masked_group_norm_act_bwd``, and on the CPU autograd through the plain
+    version.
     """
     if x.ndim != 4 or x.shape[-1] % num_groups:
         raise ValueError(f"needs [B, T, F, C] with C % {num_groups} == 0, "
                          f"got {tuple(x.shape)}")
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}")
-    if not uses_kernel("masked_group_norm_act", x):
-        return masked_group_norm_act_plain(x, scale, bias, lengths,
-                                           num_groups=num_groups, eps=eps,
-                                           act=act, slope=slope)
-    check_kernel_inputs("masked_group_norm_act", (x, scale, bias))
-    b, t, f, c = x.shape
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("masked_group_norm_act: needs a contiguous, 16-byte aligned x")
-    if c % 4 or c > 256 or num_groups > 32 or x.numel() == 0:
-        raise ValueError(f"masked_group_norm_act: the kernel takes C % 4 == 0, C <= 256, "
-                         f"at most 32 groups and a non-empty x, got {tuple(x.shape)}, "
-                         f"{num_groups} groups")
-    if scale.shape != (c,) or bias.shape != (c,):
-        raise ValueError("masked_group_norm_act: scale/bias must be [C]")
-    if lengths.shape != (b,):
-        raise ValueError("masked_group_norm_act: lengths must be [B]")
+    kernel = uses_kernel("masked_group_norm_act", x)
+    if kernel:
+        lengths = _kernel_lengths(lengths, x)
+        scale, bias = scale.contiguous(), bias.contiguous()
+    if torch.is_grad_enabled() and any(v.requires_grad for v in (x, scale, bias)):
+        if kernel:
+            return _GNActFn.apply(x, scale, bias, lengths, num_groups, eps, act, slope)
+        return masked_group_norm_act_plain(x, scale, bias, lengths, num_groups=num_groups,
+                                           eps=eps, act=act, slope=slope)
+    return library.masked_group_norm_act(x, scale, bias, lengths, num_groups, eps, act, slope)
+
+
+def _kernel_lengths(lengths: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Lengths as the kernel reads them: int32 or int64, on x's device,
+    contiguous."""
     if lengths.dtype not in (torch.int32, torch.int64):
         lengths = lengths.to(torch.int64)
-    if lengths.device != x.device:
-        lengths = lengths.to(x.device)
-    lengths = lengths.contiguous()
-    scale, bias = scale.contiguous(), bias.contiguous()
-    if torch.is_grad_enabled() and any(v.requires_grad for v in (x, scale, bias)):
-        y = _GNActFn.apply(x, scale, bias, lengths, num_groups, eps, act, slope)
-    else:
-        y = _gn_cuda(x, scale, bias, lengths, num_groups, eps, act, slope)[0]
-    masked_group_norm_act.launches += 1
-    return y
+    return lengths.to(x.device).contiguous()
 
 
 masked_group_norm_act.launches = 0

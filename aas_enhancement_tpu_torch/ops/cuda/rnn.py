@@ -10,7 +10,9 @@ backward direction's output at time t; G = 4 (LSTM) or 3 (GRU).
 
 ``lstm_scan_tm`` / ``gru_scan_tm`` take the plain version for CPU tensors
 (autograd differentiates it).  For CUDA tensors they launch the inference
-kernel, which saves nothing, or, when a gradient is wanted, a
+kernel, which saves nothing (through the operators ``aas_torch::lstm_scan_tm``
+/ ``::gru_scan_tm`` of ``ops/library.py``, which take the plain version on
+the CPU), or, when a gradient is wanted, a
 ``torch.autograd.Function`` whose forward is the training variant of the
 same kernel (it also saves the pre-update states and the gate activations)
 and whose backward launches the backward kernel (``lstm_scan_tm_bwd`` /
@@ -52,6 +54,7 @@ from __future__ import annotations
 
 import torch
 
+from aas_enhancement_tpu_torch.ops import library
 from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_kernel
 from aas_enhancement_tpu_torch.utils import kernel_build
 
@@ -172,10 +175,15 @@ def lstm_scan_tm_plain(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
 def lstm_scan_tm(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
                  wh: torch.Tensor, bh: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused bidirectional LSTM, time-major (see module docstring)."""
-    if not uses_kernel("lstm_scan_tm", gxf):
+    """Fused bidirectional LSTM, time-major (see module docstring).  Without a
+    wanted gradient, the operator ``aas_torch::lstm_scan_tm``
+    (``ops/library.py``: ``scan_kernel`` on the card, the plain version on
+    the CPU)."""
+    if _wants_grad(gxf, gxb, wh, bh):
+        if uses_kernel("lstm_scan_tm", gxf):
+            return _ScanFn.apply("lstm_scan_tm", m, wh, bh, gxf, gxb)
         return lstm_scan_tm_plain(gxf, gxb, m, wh, bh)
-    return _scan("lstm_scan_tm", (gxf, gxb), m, wh, bh)
+    return library.lstm_scan_tm(gxf, gxb, m, wh, bh)
 
 
 lstm_scan_tm.launches = 0
@@ -215,10 +223,15 @@ def gru_scan_tm_plain(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
 def gru_scan_tm(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
                 wh: torch.Tensor, bh: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused bidirectional GRU, time-major (see module docstring)."""
-    if not uses_kernel("gru_scan_tm", gxf):
+    """Fused bidirectional GRU, time-major (see module docstring).  Without a
+    wanted gradient, the operator ``aas_torch::gru_scan_tm``
+    (``ops/library.py``: ``scan_kernel`` on the card, the plain version on
+    the CPU)."""
+    if _wants_grad(gxf, gxb, wh, bh):
+        if uses_kernel("gru_scan_tm", gxf):
+            return _ScanFn.apply("gru_scan_tm", m, wh, bh, gxf, gxb)
         return gru_scan_tm_plain(gxf, gxb, m, wh, bh)
-    return _scan("gru_scan_tm", (gxf, gxb), m, wh, bh)
+    return library.gru_scan_tm(gxf, gxb, m, wh, bh)
 
 
 gru_scan_tm.launches = 0
@@ -252,12 +265,24 @@ _FORWARD = {"lstm_scan_tm": lstm_scan_tm, "gru_scan_tm": gru_scan_tm,
             "lstm_scan_stacked": lstm_scan_stacked, "gru_scan_stacked": gru_scan_stacked}
 
 
+def _wants_grad(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def _scan(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
           wh: torch.Tensor, bh: torch.Tensor):
-    """The kernel route of entry ``name``: gx is (gxf, gxb) for a time-major
-    entry and (gx,) for a stacked one; -> (yf, yb) or y."""
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (*gx, wh, bh)):
+    """The kernel route of a stacked entry ``name`` (gx is (gx,)) -> y."""
+    if _wants_grad(*gx, wh, bh):
         return _ScanFn.apply(name, m, wh, bh, *gx)
+    return scan_kernel(name, gx, m, wh, bh)
+
+
+def scan_kernel(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
+                wh: torch.Tensor, bh: torch.Tensor):
+    """The inference forward kernel of entry ``name`` (the CUDA
+    implementation of the operators ``aas_torch::lstm_scan_tm`` and
+    ``::gru_scan_tm``): gx is (gxf, gxb) for a time-major entry and (gx,)
+    for a stacked one; -> (yf, yb) or y."""
     ys, _ = _forward(name, gx, m, wh, bh, save=False)
     return ys[0] if len(ys) == 1 else ys
 

@@ -4,8 +4,10 @@ plain versions.
 Replace ``aas_enhancement_tpu/ops/pallas/stft_kernel.py::stft_pallas`` and
 ``::istft_pallas``.  ``stft``/``istft`` here take the kernel for a CUDA tensor
 and the plain segment-DFT (``dsp/stft.py``, re-exported as ``stft_plain`` and
-``istft_plain``) for a CPU tensor.  Each wrapper counts its launches in
-``.launches``.
+``istft_plain``) for a CPU tensor; without a wanted gradient they go through
+the operators ``aas_torch::stft`` / ``aas_torch::istft`` (``ops/library.py``),
+whose CUDA implementations are ``stft_kernel`` / ``istft_kernel``.  Each
+launcher counts its launches in the wrapper's ``.launches``.
 
 Both kernels compute each frame's transform in two stages for n_fft =
 n1 * n2 (``stft_factors`` picks the pair that needs the fewest operations;
@@ -46,12 +48,14 @@ import torch
 from aas_enhancement_tpu_torch.dsp.stft import (
     _check_hop, _dft_bases_np, cola_norm, get_window, inverse_weights, istft as istft_plain,
     num_frames, stft as stft_plain, trim)
+from aas_enhancement_tpu_torch.ops import library
 from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_kernel
 from aas_enhancement_tpu_torch.utils import kernel_build
 
-__all__ = ["stft", "istft", "stft_plain", "istft_plain", "stft_factorised_plain",
-           "istft_factorised_plain", "stft_vjp", "istft_vjp", "stft_vjp_plain",
-           "istft_vjp_plain", "stft_factors", "istft_route", "dft_table", "reflect_index"]
+__all__ = ["stft", "istft", "stft_kernel", "istft_kernel", "stft_plain", "istft_plain",
+           "stft_factorised_plain", "istft_factorised_plain", "stft_vjp", "istft_vjp",
+           "stft_vjp_plain", "istft_vjp_plain", "stft_factors", "istft_route", "dft_table",
+           "reflect_index"]
 
 ISTFT_MAX_OVERLAP = 8      # frames over a sample that the factorised ISTFT kernel takes
 
@@ -260,8 +264,12 @@ def istft_vjp_plain(dy: torch.Tensor, n_frames: int, n_fft: int, hop_length: int
     return (frames @ wc) * g, (frames @ ws) * g
 
 
-def _stft_kernel(x: torch.Tensor, n_fft: int, hop_length: int, window: str,
-                 center: bool) -> tuple[torch.Tensor, torch.Tensor]:
+def stft_kernel(x: torch.Tensor, n_fft: int, hop_length: int, window: str,
+                center: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The STFT kernel's launcher (the ``aas_torch::stft`` operator's CUDA
+    implementation, and ``_StftFn``'s forward): one launch, counted."""
+    _check_hop(n_fft, hop_length)
+    check_kernel_inputs("stft", (x,))
     if x.ndim != 2:
         raise ValueError(f"stft: needs [B, n], got {tuple(x.shape)}")
     b, n = x.shape
@@ -292,7 +300,7 @@ class _StftFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, n_fft, hop_length, window, center):
         ctx.args = (x.shape[1], n_fft, hop_length, window, center)
-        return _stft_kernel(x, n_fft, hop_length, window, center)
+        return stft_kernel(x, n_fft, hop_length, window, center)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -302,15 +310,16 @@ class _StftFn(torch.autograd.Function):
 
 def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: str = "hann",
          center: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """[B, num_samples] -> (re, im) each [B, T, n_fft//2+1].  On the card a
-    wanted gradient of x runs ``stft_vjp``'s kernel in the backward."""
-    if not uses_kernel("stft", x):
-        return stft_plain(x, n_fft, hop_length, window, center)
-    _check_hop(n_fft, hop_length)
-    check_kernel_inputs("stft", (x,))
+    """[B, num_samples] -> (re, im) each [B, T, n_fft//2+1].  Without a
+    wanted gradient, the operator ``aas_torch::stft`` (``ops/library.py``:
+    the kernel on the card, the plain version on the CPU); with one, on the
+    card ``_StftFn``, whose backward runs ``stft_vjp``'s kernel, and on the
+    CPU autograd through the plain version."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return _StftFn.apply(x, n_fft, hop_length, window, center)
-    return _stft_kernel(x, n_fft, hop_length, window, center)
+        if uses_kernel("stft", x):
+            return _StftFn.apply(x, n_fft, hop_length, window, center)
+        return stft_plain(x, n_fft, hop_length, window, center)
+    return library.stft(x, n_fft, hop_length, window, center)
 
 
 stft.launches = 0
@@ -353,8 +362,12 @@ stft_vjp.launches = 0
 stft_vjp.route = None
 
 
-def _istft_kernel(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
-                  window: str, center: bool, length: int | None) -> torch.Tensor:
+def istft_kernel(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
+                 window: str, center: bool, length: int | None) -> torch.Tensor:
+    """The ISTFT kernel's launcher (the ``aas_torch::istft`` operator's CUDA
+    implementation, and ``_IstftFn``'s forward): one launch, counted."""
+    _check_hop(n_fft, hop_length)
+    check_kernel_inputs("istft", (re, im))
     if re.ndim != 3 or re.shape != im.shape or re.shape[2] != n_fft // 2 + 1:
         raise ValueError(f"istft: needs re, im [B, T, {n_fft // 2 + 1}], got "
                          f"{tuple(re.shape)}, {tuple(im.shape)}")
@@ -383,7 +396,7 @@ class _IstftFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, re, im, n_fft, hop_length, window, center, length):
         ctx.args = (re.shape[1], n_fft, hop_length, window, center)
-        return _istft_kernel(re, im, n_fft, hop_length, window, center, length)
+        return istft_kernel(re, im, n_fft, hop_length, window, center, length)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -396,15 +409,15 @@ def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
           length: int | None = None) -> torch.Tensor:
     """(re, im) [B, T, n_fft//2+1] -> wav [B, num_samples]: the overlap-add
     buffer [(T-1)*hop + n_fft] with the center trim (n_fft//2 samples off its
-    head), then cut or zero-padded to ``length``.  On the card a wanted
-    gradient of re or im runs ``istft_vjp``'s kernel in the backward."""
-    if not uses_kernel("istft", re):
-        return istft_plain(re, im, n_fft, hop_length, window, center, length)
-    _check_hop(n_fft, hop_length)
-    check_kernel_inputs("istft", (re, im))
+    head), then cut or zero-padded to ``length``.  Without a wanted gradient,
+    the operator ``aas_torch::istft`` (``ops/library.py``); with one, on the
+    card ``_IstftFn``, whose backward runs ``istft_vjp``'s kernel, and on the
+    CPU autograd through the plain version."""
     if torch.is_grad_enabled() and (re.requires_grad or im.requires_grad):
-        return _IstftFn.apply(re, im, n_fft, hop_length, window, center, length)
-    return _istft_kernel(re, im, n_fft, hop_length, window, center, length)
+        if uses_kernel("istft", re):
+            return _IstftFn.apply(re, im, n_fft, hop_length, window, center, length)
+        return istft_plain(re, im, n_fft, hop_length, window, center, length)
+    return library.istft(re, im, n_fft, hop_length, window, center, length)
 
 
 istft.launches = 0

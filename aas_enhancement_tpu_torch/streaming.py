@@ -151,6 +151,15 @@ class BatchedStreamingEnhancer:
         self._fn = make_streaming_enhance_fn(cfg, self.device)
         self._slots: list[dict | None] = [None] * max_streams
 
+    def warm(self) -> None:
+        """One device call over idle rows (all of length 0), outputs dropped
+        and no slot touched: on the card the kernels build and launch in the
+        caller's thread, where a failure raises."""
+        b = self.max_streams
+        idle = np.zeros(b, np.int64)
+        _run_block(self._fn, self.model, self.device, np.zeros((b, self._window), np.float32),
+                   idle, idle, idle, np.zeros((3, b), np.float32))
+
     def open(self) -> int:
         for s in range(self.max_streams):
             if self._slots[s] is None:

@@ -225,6 +225,15 @@ class BatchedStreamingRecognizer:
         self._fn = make_streaming_asr_fn(cfg, enhancer is not None, self.device)
         self._slots: list[dict | None] = [None] * max_streams
 
+    def warm(self) -> None:
+        """One device call over idle rows (all of length 0), outputs dropped
+        and no slot touched: on the card the kernels build and launch in the
+        caller's thread, where a failure raises."""
+        b = self.max_streams
+        idle, runs = np.zeros(b, np.int64), np.zeros((3, b), np.float32)
+        _run_blocks(self._fn, self.am, self.enhancer, self.device,
+                    np.zeros((b, self._window), np.float32), idle, idle, idle, runs, runs)
+
     def open(self) -> int:
         for s in range(self.max_streams):
             if self._slots[s] is None:

@@ -45,9 +45,11 @@ from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.convert import init_like_flax
 from aas_enhancement_tpu_torch.data.dataset import AudioDataset, Batch, UnpairedCleanStream
 from aas_enhancement_tpu_torch.enhance import init_enhancer
-from aas_enhancement_tpu_torch.evaluation import (eval_dataset, evaluate_wer, init_am,
+from aas_enhancement_tpu_torch.evaluation import (eval_dataset, evaluate_wer,
                                                   make_eval_forward)
+from aas_enhancement_tpu_torch.models.am import AcousticModel
 from aas_enhancement_tpu_torch.models.discriminator import Discriminator
+from aas_enhancement_tpu_torch.models.enhancer import Enhancer
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.train.state import TrainState, adam, am_sgd
 from aas_enhancement_tpu_torch.train.steps import OBJECTIVES, make_train_step
@@ -68,28 +70,59 @@ def init_state(cfg: Config, seed: int, device: torch.device | str = "cuda",
     same: ``keep_frozen_g``).  The default device is the card; without a GPU
     that raises (pass ``"cpu"``)."""
     device = resolve_device(device)
+    seeds = {"g": seed if g_seed is None else g_seed, "d": seed + 1,
+             "am": seed + 2 if am_seed is None else am_seed}
+    return _with_optimizers(cfg, _networks(cfg, device, seeds))
+
+
+def _networks(cfg: Config, device: torch.device, seeds: dict[str, int] | None
+              ) -> TrainState:
+    """The networks of ``cfg``'s objective in ``init_state``'s modes (trained
+    ones in train mode; frozen ones in eval mode, without gradients): each
+    drawn on the CPU from ``seeds[name]`` with flax's init distributions and
+    moved to ``device``, or, with ``seeds`` None, built on the meta device
+    (no draw, no memory) for ``load_state`` to give the saved tensors."""
     objective = cfg.train.objective
     if objective not in OBJECTIVES + ("enhance_only",):
         raise ValueError(f"unknown objective: {objective!r}")
-    t = cfg.train
+    bins = cfg.audio.num_bins
+    nets = {"g": lambda: Enhancer(cfg.enhancer, bins),
+            "d": lambda: Discriminator(cfg.discriminator, bins),
+            "am": lambda: AcousticModel(cfg.am, bins)}
+
+    def build(name: str) -> torch.nn.Module:
+        if seeds is None:
+            with torch.device("meta"):
+                return nets[name]()
+        gen = torch.Generator().manual_seed(seeds[name])
+        return init_like_flax(nets[name](), gen).to(device)
+
     state = TrainState()
-    am_seed = seed + 2 if am_seed is None else am_seed
-    g_seed = seed if g_seed is None else g_seed
     if objective == "am":
-        state.am = init_am(cfg, am_seed, device).train()
-        state.am_opt = am_sgd(cfg, state.am.parameters(), t.lr_am)
-        if t.am_through_enhancer:
-            state.g = init_enhancer(cfg, g_seed, device).requires_grad_(False)
+        state.am = build("am").train()
+        if cfg.train.am_through_enhancer:
+            state.g = build("g").eval().requires_grad_(False)
         return state
-    state.g = init_enhancer(cfg, g_seed, device).train()
-    state.g_opt = adam(cfg, state.g.parameters(), t.lr_g)
+    state.g = build("g").train()
     if objective in ("adversarial", "aas"):
-        gen = torch.Generator().manual_seed(seed + 1)
-        state.d = init_like_flax(Discriminator(cfg.discriminator, cfg.audio.num_bins),
-                                 gen).to(device)
-        state.d_opt = adam(cfg, state.d.parameters(), t.lr_d)
+        state.d = build("d").train()
     if objective in ("acoustic", "aas"):
-        state.am = init_am(cfg, am_seed, device).requires_grad_(False)
+        state.am = build("am").eval().requires_grad_(False)
+    return state
+
+
+def _with_optimizers(cfg: Config, state: TrainState) -> TrainState:
+    """Fresh optimizers for the networks the objective trains: SGD with
+    Nesterov momentum for the AM of ``am``, Adam for G and D otherwise."""
+    t = cfg.train
+    if t.objective == "am":
+        if state.am is not None:
+            state.am_opt = am_sgd(cfg, state.am.parameters(), t.lr_am)
+        return state
+    if state.g is not None:
+        state.g_opt = adam(cfg, state.g.parameters(), t.lr_g)
+    if state.d is not None:
+        state.d_opt = adam(cfg, state.d.parameters(), t.lr_d)
     return state
 
 
@@ -107,11 +140,13 @@ def keep_frozen_g(state: TrainState, cfg: Config, device: torch.device | str,
 def load_state(checkpoint_dir: str, device: torch.device | str = "cuda"
                ) -> tuple[TrainState, Config]:
     """The networks of a train-CLI checkpoint directory (its ``config.json``
-    and newest step), on ``device``, for evaluation, enhancement or a warm
-    start: a fresh ``init_state`` of the checkpoint's config with the saved
-    networks loaded and the step count set; a network the checkpoint lacks
-    is None.  The optimizers stay fresh (no optimizer state is carried);
-    ``train(resume=True)`` restores everything instead."""
+    and newest step), on ``device``, for evaluation, enhancement, serving or
+    a warm start: ``init_state``'s networks for the checkpoint's config, in
+    its modes, holding the saved tensors (built on the meta device and given
+    the tensors read onto ``device``: no random draw, no copy), with fresh
+    optimizers and the step count set; a network the checkpoint lacks is
+    None.  No optimizer state is carried; ``train(resume=True)`` restores
+    everything instead."""
     device = resolve_device(device)
     cfg_path = os.path.join(checkpoint_dir, "config.json")
     if not os.path.exists(cfg_path):
@@ -123,17 +158,18 @@ def load_state(checkpoint_dir: str, device: torch.device | str = "cuda"
     if step is None:
         raise FileNotFoundError(f"no checkpoint found in {checkpoint_dir}")
     blob = ckpt.read(checkpoint_dir, step, device)
-    state = init_state(cfg, 0, device)
+    state = _networks(cfg, device, None)
+    if "g" in blob and state.g is None:
+        with torch.device("meta"):
+            g = Enhancer(cfg.enhancer, cfg.audio.num_bins)
+        keep_frozen_g(state, cfg, device, g.eval())
     for name in ("g", "d", "am"):
-        if name == "g" and "g" in blob:
-            keep_frozen_g(state, cfg, device).load_state_dict(blob["g"])
-        elif name in blob:
-            getattr(state, name).load_state_dict(blob[name])
+        if name in blob:
+            getattr(state, name).load_state_dict(blob[name], assign=True)
         else:
             setattr(state, name, None)
-            setattr(state, name + "_opt", None)
     state.step = int(blob["step"])
-    return state, cfg
+    return _with_optimizers(cfg, state), cfg
 
 
 def batch_dict(cfg: Config, batch: Batch, clean_stream: UnpairedCleanStream | None,

@@ -101,7 +101,7 @@ def cases(device) -> dict:
         dy = torch.randn(8, t, f, 32, generator=gen).to(device)
         lengths = torch.tensor(lens, device=device)
         work = (2 * _valid(lens, t) + 1) * 4 * x.numel()
-        mean, inv = gn._stats(gn._gn_cuda(x, scale, bias, lengths, 8, 1e-5, act, 0.2)[1], 8, 32)
+        mean, inv = gn._stats(gn.gn_kernel(x, scale, bias, lengths, 8, 1e-5, act, 0.2)[1], 8, 32)
         out[f"gn_bwd {act} [8, {t}, {f}, 32]"] = (
             lambda x=x, dy=dy, lengths=lengths, mean=mean, inv=inv, act=act:
             gn.masked_group_norm_act_bwd(x, dy, scale, bias, lengths, mean, inv,

@@ -79,6 +79,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    recurrences' routes, clusters at once and waves; then cli.enhance
    --streaming and cli.train --streaming-finetune / --streaming-finetune-am
    (2 steps, B=4) on their default device, the card.
+12. serve: a full-width checkpoint directory (aas: G, D, the AM) written
+   here; load_state's seconds against the random draw it made before this
+   port's serving slice (init_state + load_state_dict); cli.serve with no
+   --device (the card) at its defaults, --port 0 --max-streams 8, in a
+   process of its own (start-up seconds to its JSON line, stopped with
+   Ctrl-C) and in this one through start_server (launches counted): enhance
+   mode (chunk 1.0, lookahead 0.2, history 0.5 s) with 8 concurrent
+   sessions of 0.8-6 s against StreamingEnhancer on the card and the CPU,
+   transcribe mode (lookahead 0.5 s) against StreamingRecognizer's
+   transcripts on the card (ids with a small top-2 margin counted), a 9th
+   session refused, each session's seconds from its end-of-stream sent to
+   received; engine ticks timed at 1, 8 and 64 busy slots of 64, and at 1
+   of 1 and 8 of 8, in both modes (ms, headroom chunk / tick, busy, idle
+   share, launches a tick, the recurrences' waves);
+13. export: cli.export --batch-sizes 1,8 --seconds 8 from that directory
+   on the card; the artifact loaded in a fresh process that imports no
+   model or training code and reads no checkpoint, at B=1 and B=8 (ragged)
+   x 8 s and a (1, 10000) input (the (1, 128000) bucket), against
+   make_enhance_fn on the card with the same weights, each call's launches
+   (STFT 1, ISTFT 1, GN 2, LSTM 2), an uncovered shape refused, load
+   seconds and MB; artifact and live calls timed in turns.
 The kernels phase also checks the backward kernels (LSTM, GRU, GroupNorm,
 the stacked LSTM and GRU) at B=8, and the GRU's at B=32, against autograd
 through the plain versions, the conv weight-gradient kernel at the AM's
@@ -116,6 +137,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -923,7 +945,7 @@ for b, t, f, c, act, lens in {shapes!r}:
     x = torch.randn(b, t, f, c, device="cuda")
     scale, bias = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
     lengths = torch.tensor(lens, device="cuda")
-    stats = gn._stats(gn._gn_cuda(x, scale, bias, lengths, 8, 1e-5, act, 0.2)[1], b, c)
+    stats = gn._stats(gn.gn_kernel(x, scale, bias, lengths, 8, 1e-5, act, 0.2)[1], b, c)
     args = (x, torch.randn_like(x), scale, bias, lengths, *stats)
     calls.append(lambda args=args, act=act: gn.masked_group_norm_act_bwd(
         *args, num_groups=8, act=act))
@@ -944,8 +966,8 @@ def gn_bwd_alone(row: dict, label: str, inputs, dy, lengths, kw: dict, names: li
     from aas_enhancement_tpu_torch.ops.cuda import gn
     from aas_enhancement_tpu_torch.utils.profiling import device_time
     x, scale, bias = (v.detach() for v in inputs)
-    scratch = gn._gn_cuda(x, scale, bias, lengths, kw["num_groups"], 1e-5, kw["act"],
-                          kw["slope"])[1]
+    scratch = gn.gn_kernel(x, scale, bias, lengths, kw["num_groups"], 1e-5, kw["act"],
+                           kw["slope"])[1]
     args = (x, dy, scale, bias, lengths, *gn._stats(scratch, x.shape[0], x.shape[3]))
     kernel = lambda: gn.masked_group_norm_act_bwd(*args, **kw)          # noqa: E731
     plain = lambda: gn.masked_group_norm_act_bwd_plain(*args, **kw)     # noqa: E731
@@ -1940,13 +1962,14 @@ def clear_ids(got, ref, margin: float) -> tuple[int, int]:
     return int(sure.sum()), int((sure & (got.argmax(-1) != ref.argmax(-1))).sum())
 
 
-def serving_timings(tag: str, card: str, call, n_streams: int, names, reps: int = 10):
+def serving_timings(tag: str, card: str, call, n_streams: int, names, reps: int = 10,
+                    phase: str = "streaming", chunk_s: float = STREAM_KW["chunk_seconds"]):
     """Time a steady-state chunk call ``call()`` (one device call of the
     engine, with its host work): host wall per call (median of ``reps`` after
-    3 warmups), RTF (wall over the audio the call emits: n_streams chunks),
-    our kernels' launches per call, and from the profiler (3 calls after 2
-    warmups, then 3 unprofiled) the device busy time, device events and the
-    idle share 1 - busy / wall."""
+    3 warmups), RTF (wall over the audio the call emits: n_streams chunks of
+    ``chunk_s``), our kernels' launches per call, and from the profiler (3
+    calls after 2 warmups, then 3 unprofiled) the device busy time, device
+    events and the idle share 1 - busy / wall."""
     import numpy as np
     from aas_enhancement_tpu_torch.utils.profiling import profile_call
     for _ in range(3):
@@ -1964,8 +1987,7 @@ def serving_timings(tag: str, card: str, call, n_streams: int, names, reps: int 
     with tempfile.TemporaryDirectory() as tmp:
         prof = profile_call(call, 3, 2, os.path.join(tmp, "trace.json"))
     uneven = [n for n, _, c in prof["by_name"] if not float(c).is_integer()]
-    chunk_s = STREAM_KW["chunk_seconds"]
-    print(f"[streaming] {tag} on {card}, TF32 off: {wall * 1e3:.3f} ms per chunk call "
+    print(f"[{phase}] {tag} on {card}, TF32 off: {wall * 1e3:.3f} ms per chunk call "
           f"({n_streams} x {chunk_s} s of audio), RTF {wall / (n_streams * chunk_s):.6f}; "
           f"device busy {prof['busy_ms']:.3f} ms, {prof['events']:.0f} device events a "
           f"call, idle share {100 * (1 - prof['busy_ms'] / (wall * 1e3)):.1f}% of the "
@@ -1974,7 +1996,7 @@ def serving_timings(tag: str, card: str, call, n_streams: int, names, reps: int 
           f"{json.dumps(per_call)}; walls ms {[round(w * 1e3, 3) for w in walls]}"
           + (f"; the profiler dropped events ({len(uneven)} names uneven)" if uneven else ""))
     top = [(n[:60], round(ms, 4)) for n, ms, _ in prof["by_name"][:6]]
-    print(f"[streaming] {tag}: device time by kernel a call (ms): {json.dumps(top)}")
+    print(f"[{phase}] {tag}: device time by kernel a call (ms): {json.dumps(top)}")
     return {"wall_ms": wall * 1e3, "busy_ms": prof["busy_ms"], "launches": per_call,
             "rtf": float(np.float64(wall / (n_streams * chunk_s)))}
 
@@ -2309,6 +2331,529 @@ def phase_streaming(device, card):
     return by_path
 
 
+# Serving (ROADMAP A11c) and export (A14): the serve CLI at its defaults
+# (enhance: chunk 1.0, lookahead 0.2, history 0.5 s, windows of 27,200
+# samples, 171 STFT frames; transcribe: lookahead 0.5, windows of 32,000
+# samples, 101 AM frames) over a full-width checkpoint directory written
+# here, and the exported enhancer of the same weights.
+SERVE_POINTS = {"enhance": (1.0, 0.2, 0.5), "transcribe": (1.0, 0.5, 0.5)}
+SERVE_SLOTS = 8                          # --max-streams of the CLI runs
+TICK_SLOTS = ((64, 1), (64, 8), (64, 64), (1, 1), (8, 8))   # (engine slots, busy)
+SERVE_KERNELS = {"enhance": ("stft", "istft", "gn_act", "lstm"),
+                 "transcribe": ("stft", "gn_act", "lstm", "gru")}
+SERVE_TOL = (1e-4, "samples in [-1, 1] after STFT, 2 conv+GN, 2 BiLSTM-256 over 171 "
+             "steps and ISTFT, each block normalized with running moments: the server "
+             "batches 8 rows where the reference runs 1 (cuBLAS picks kernels by M) or "
+             "runs on the CPU (other sum orders); the CLI's own process keeps PyTorch's "
+             "defaults, so its convolutions run in TF32 (cuDNN), the references in f32")
+EXPORT_TOL = (0.0, "the artifact runs the live path's operators and aten ops on the "
+              "same inputs, TF32 off in both processes")
+EXPORT_LENGTHS = [N, 112000, 96000, 64000, N, 120000, 80000, 40000]
+SOCK_TIMEOUT = 120.0
+SERVE_DEVICE_ARGS: list = []             # the CLIs' default device, the card
+
+
+def serve_checkpoint(cfg, root: str) -> str:
+    """A train-CLI directory (``aas``: G, D and the frozen AM) of ``cfg``
+    from seeds, as the train CLI leaves it."""
+    from aas_enhancement_tpu_torch.train.loop import init_state
+    from aas_enhancement_tpu_torch.utils import checkpoint as ckpt
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, objective="aas"))
+    d = os.path.join(root, "ck_aas")
+    os.makedirs(d)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    ckpt.save(d, 1, init_state(cfg, 0, "cpu", am_seed=0))
+    return d
+
+
+def run_sessions(address, wavs, transcribe: bool) -> tuple[list, list, bool]:
+    """Connect one session per stream, then one more (all slots are taken by
+    then: the server accepts in order, so it must answer with the
+    end-of-stream frame), then stream every session concurrently, pushing
+    4000-sample frames from a writer thread -> (outputs, seconds from each
+    session's end-of-stream sent to the server's received, the extra
+    session was refused)."""
+    import socket
+    import struct
+    import threading
+    import numpy as np
+    from aas_enhancement_tpu_torch.serve import (_recv_exact, recv_frame, recv_frame_bytes,
+                                                 send_eos, send_frame)
+    socks = [socket.create_connection(address, timeout=SOCK_TIMEOUT) for _ in wavs]
+    extra = socket.create_connection(address, timeout=SOCK_TIMEOUT)
+    refused = _recv_exact(extra, 4) == struct.pack("<I", 0)
+    extra.close()
+    outs, lat = [None] * len(wavs), [None] * len(wavs)
+
+    def session(i):
+        sock, sent = socks[i], {}
+
+        def push():
+            for k in range(0, len(wavs[i]), 4000):
+                send_frame(sock, wavs[i][k: k + 4000])
+            send_eos(sock)
+            sent["t"] = time.perf_counter()
+
+        w = threading.Thread(target=push, daemon=True)
+        w.start()
+        parts = []
+        while (f := (recv_frame_bytes if transcribe else recv_frame)(sock)) is not None:
+            parts.append(f)
+        done = time.perf_counter()
+        w.join(timeout=SOCK_TIMEOUT)
+        sock.close()
+        outs[i] = ("".join(p.decode("utf-8") for p in parts) if transcribe
+                   else np.concatenate(parts) if parts else np.zeros(0, np.float32))
+        lat[i] = done - sent["t"] if "t" in sent else None
+
+    threads = [threading.Thread(target=session, args=(i,), daemon=True)
+               for i in range(len(wavs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SOCK_TIMEOUT)
+    if any(t.is_alive() for t in threads) or None in lat:
+        fail("a server session did not end within its timeout")
+    return outs, lat, refused
+
+
+def start_serve_cli(argv: list) -> tuple:
+    """``python -m aas_enhancement_tpu_torch.cli.serve ARGV`` in a process of
+    its own -> (the process, its JSON line, seconds from the start to the
+    line)."""
+    import queue
+    import threading
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "aas_enhancement_tpu_torch.cli.serve",
+                             *argv, *SERVE_DEVICE_ARGS], cwd=HERE, stdout=subprocess.PIPE,
+                            text=True)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout] + [lines.put(None)],
+                     daemon=True).start()
+    while True:
+        try:
+            line = lines.get(timeout=max(1.0, 300.0 - (time.perf_counter() - t0)))
+        except queue.Empty:
+            line = None
+        if line is None:
+            stop_process(proc)
+            fail(f"cli.serve {argv} printed no JSON line (exit {proc.returncode})")
+        if line.startswith("{"):
+            return proc, json.loads(line), time.perf_counter() - t0
+        print(f"[serve] cli.serve: {line.rstrip()}")
+
+
+def stop_process(proc) -> int:
+    """Ctrl-C (the CLI stops its server), else kill -> the exit code."""
+    import signal
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+    return proc.returncode
+
+
+def phase_serve(device, card):
+    """The serve CLI on the card at full width: a checkpoint directory
+    written here; ``load_state``'s seconds with and without the random draw
+    it made before; ``cli.serve`` in a process of its own (start-up seconds)
+    and in this one through ``start_server`` (launches counted), each with 8
+    concurrent sessions (a 9th refused) of synthetic streams against the
+    single-stream engine on the card and the CPU (enhance) or its transcript
+    on the card (transcribe); then engine ticks timed at 1, 8 and 64 busy
+    slots.  -> (launches of the in-process sessions, the directory's root,
+    the checkpoint directory)."""
+    import numpy as np
+    import torch
+    from aas_enhancement_tpu_torch.cli import serve as serve_cli
+    from aas_enhancement_tpu_torch.config import Config
+    from aas_enhancement_tpu_torch.streaming import BatchedStreamingEnhancer, StreamingEnhancer
+    from aas_enhancement_tpu_torch.streaming_asr import (BatchedStreamingRecognizer,
+                                                         StreamingRecognizer)
+    from aas_enhancement_tpu_torch.train.loop import init_state, load_state
+    from aas_enhancement_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = Config()
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    t0 = time.perf_counter()
+    ck = serve_checkpoint(cfg, root)
+    mb = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(ck) for f in fs) / 1e6
+    print(f"[serve] checkpoint directory (aas: G, D, the AM; full width) {mb:.1f} MB written "
+          f"in {time.perf_counter() - t0:.2f} s")
+
+    # --- load_state: the draw it made before (init_state + load_state_dict,
+    # what the function did up to this change) against the build without it
+    def drawn():
+        with open(os.path.join(ck, "config.json")) as f:
+            c = Config.from_json(f.read())
+        st = init_state(c, 0, device)
+        blob = ckpt.read(ck, ckpt.latest_step(ck), device)
+        for name in ("g", "d", "am"):
+            getattr(st, name).load_state_dict(blob[name])
+        return st
+
+    secs = {"drawn": [], "load_state": []}
+    for what in ("drawn", "load_state", "load_state", "drawn"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = drawn() if what == "drawn" else load_state(ck, device)[0]
+        torch.cuda.synchronize()
+        secs[what].append(time.perf_counter() - t0)
+    a, b = (statistics.median(v) for v in (secs["drawn"], secs["load_state"]))
+    if not all(torch.equal(x, y) for x, y in zip(drawn().am.state_dict().values(),
+                                                  st.am.state_dict().values())):
+        fail("load_state's AM differs from the drawn-then-loaded one")
+    print(f"[serve] load_state onto {card} (one aas directory: G, D, the AM): the draw it "
+          f"made before (init_state + load_state_dict) {a:.3f} s, without it {b:.3f} s "
+          f"(median of 2, in turns; {json.dumps({k: [round(x, 3) for x in v] for k, v in secs.items()})})")
+
+    state, _ = load_state(ck, device)
+    state_cpu, _ = load_state(ck, "cpu")
+    gen = torch.Generator().manual_seed(37)
+    wavs = [stream_wav(sec, gen) for sec in STREAM_SECONDS]
+    hop = cfg.audio.hop_length
+    by_mode: dict = {}
+    for mode, (chunk, look, hist) in SERVE_POINTS.items():
+        kw = dict(chunk_seconds=chunk, lookahead_seconds=look, history_seconds=hist)
+        transcribe = mode == "transcribe"
+        window = int((chunk + look + hist) * SR)
+        # References: each stream alone through the single-stream engine.
+        refs, t0 = {}, time.perf_counter()
+        if transcribe:
+            frames_lp = []
+            for w in wavs:
+                rec = StreamingRecognizer(cfg, state.am, state.g, collect_logits=True,
+                                          device=device, **kw)
+                rec.feed(w)
+                rec.flush()
+                frames_lp.append(rec.log_probs())
+                refs.setdefault("card", []).append(rec.transcript())
+        else:
+            for tag, (dev, g) in (("card", (device, state.g)), ("CPU", ("cpu", state_cpu.g))):
+                refs[tag] = []
+                for w in wavs:
+                    eng = StreamingEnhancer(cfg, g, device=dev, **kw)
+                    refs[tag].append(np.concatenate([eng.feed(w), eng.flush()]))
+        ref_s = time.perf_counter() - t0
+        argv = ["--checkpoint", ck, "--port", "0", "--max-streams", str(SERVE_SLOTS),
+                *(["--transcribe"] if transcribe else [])]
+        runs = {}
+        proc, line, startup = start_serve_cli(argv)
+        try:
+            addr = line["serving"].rsplit(":", 1)
+            runs["cli.serve process"] = run_sessions((addr[0], int(addr[1])), wavs, transcribe)
+        finally:
+            code = stop_process(proc)
+        if code != 0:
+            fail(f"cli.serve ({mode}) exited {code} after Ctrl-C")
+        want = {"mode": mode, "chunk_s": chunk, "lookahead_s": look, "history_s": hist,
+                "max_streams": SERVE_SLOTS, "latency_s": chunk + look}
+        if any(line.get(k) != v for k, v in want.items()):
+            fail(f"cli.serve ({mode}) printed {line}")
+        print(f"[serve] cli.serve {mode} (its own process, no --device: the card): start-up "
+              f"{startup:.2f} s from the process start to its JSON line {json.dumps(line)}")
+        res = {}
+
+        def in_process():
+            t0 = time.perf_counter()
+            server, _ = serve_cli.start_server(argv + SERVE_DEVICE_ARGS)
+            print(f"[serve] {mode}: start_server in this process (load_state, engine, one "
+                  f"warm call over idle rows) {time.perf_counter() - t0:.3f} s")
+            try:
+                res["out"] = run_sessions(server.address, wavs, transcribe)
+            finally:
+                server.stop()
+
+        by_mode[mode] = counted(SERVE_KERNELS[mode], in_process)
+        runs["start_server in this process"] = res["out"]
+        for where, (outs, lat, refused) in runs.items():
+            if not refused:
+                fail(f"{mode} server ({where}): a 9th session while 8 were open was not refused")
+            if transcribe:
+                differ = [i for i, (o, r) in enumerate(zip(outs, refs["card"])) if o != r]
+                small = [clear_ids(lp, lp, 2 * STREAM_TOL[0]) for lp in frames_lp]
+                unsure = [len(lp) - s for lp, (s, _) in zip(frames_lp, small)]
+                detail = (f"transcripts equal to StreamingRecognizer's on the card for "
+                          f"{len(outs) - len(differ)} of {len(outs)} sessions (differ: "
+                          f"{differ}); ids with a top-2 margin under {2 * STREAM_TOL[0]:.0e} "
+                          f"per session {unsure}")
+                if any(unsure[i] == 0 for i in differ):
+                    fail(f"{mode} server ({where}): a transcript differs with no small-margin id")
+            else:
+                if [o.shape for o in outs] != [w.shape for w in wavs]:
+                    fail(f"{mode} server ({where}): emitted {[o.shape for o in outs]}")
+                errs = {tag: max(float(np.abs(o - r).max()) for o, r in zip(outs, refs[tag]))
+                        for tag in ("card", "CPU")}
+                detail = (f"max_abs_err against StreamingEnhancer on the card "
+                          f"{errs['card']:.3e}, on the CPU {errs['CPU']:.3e} (tol "
+                          f"{SERVE_TOL[0]:.0e}: {SERVE_TOL[1]})")
+                if not max(errs.values()) <= SERVE_TOL[0]:
+                    fail(f"{mode} server ({where}): {errs}")
+            print(f"[serve] {mode}, {where}, {len(wavs)} concurrent sessions of "
+                  f"{list(STREAM_SECONDS)} s, a 9th refused: {detail}; seconds from a "
+                  f"session's end-of-stream sent to received {[round(x, 4) for x in lat]} "
+                  f"(references {ref_s:.2f} s)")
+        print(f"[serve] {mode}: launches of the in-process sessions {json.dumps(by_mode[mode])}")
+        for name, count in by_mode[mode].items():
+            if count == 0:
+                fail(f"the {mode} server launched no {name} kernel")
+
+        # --- ticks: one engine step over `busy` ready slots of `slots`
+        long = stream_wav(60.0, gen)
+        chunk_n, look_n = int(chunk * SR), int(look * SR)
+        for slots, busy in TICK_SLOTS:
+            if transcribe:
+                eng = BatchedStreamingRecognizer(cfg, state.am, state.g, max_streams=slots,
+                                                 device=device, **kw)
+            else:
+                eng = BatchedStreamingEnhancer(cfg, state.g, max_streams=slots,
+                                               device=device, **kw)
+            ids = [eng.open() for _ in range(busy)]
+            for s in ids:
+                eng.feed(s, long[:look_n])
+            pos = {"i": look_n}
+
+            def tick():
+                i = pos["i"] % (len(long) - chunk_n)
+                pos["i"] += chunk_n
+                for s in ids:
+                    eng.feed(s, long[i: i + chunk_n])
+                if len(eng.step()) != busy:
+                    fail("a tick did not advance every busy slot")
+
+            r = serving_timings(f"{mode} tick, {busy} busy of {slots} slots", card, tick, busy,
+                                SERVE_KERNELS[mode], phase="serve", chunk_s=chunk)
+            waves = [rnn_waves("lstm", cfg.enhancer.rnn_hidden, slots, window // hop + 1,
+                               False)]
+            if transcribe:
+                waves.append(rnn_waves("gru", cfg.am.rnn_hidden, slots,
+                                       (window // hop + 2) // 2, False))
+            print(f"[serve] {mode} tick, {busy} busy of {slots} slots on {card}: "
+                  f"{r['wall_ms']:.3f} ms, headroom {chunk * 1e3 / r['wall_ms']:.1f}x "
+                  f"(chunk / tick), busy {r['busy_ms']:.3f} ms, idle "
+                  f"{100 * (1 - r['busy_ms'] / r['wall_ms']):.1f}%; {' | '.join(waves)}")
+            del eng
+    operator_dispatch(device, card, cfg)
+    total = {}
+    for counts in by_mode.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total, root, ck
+
+
+def operator_dispatch(device, card, cfg) -> None:
+    """Host time a call of each operator of ``ops/library.py`` against its
+    launcher called directly, on the inputs of a 1-slot enhance tick (the
+    AM's GRU at its window): the calls are enqueued behind a sleeping kernel,
+    so the host clock reads the Python and dispatch work alone."""
+    import torch
+    from aas_enhancement_tpu_torch.ops import library
+    from aas_enhancement_tpu_torch.ops.cuda import gn
+    from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
+    from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
+    gen = torch.Generator().manual_seed(43)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(device)   # noqa: E731
+    t, f, c, h = 171, cfg.audio.num_bins, cfg.enhancer.conv_channels, cfg.enhancer.rnn_hidden
+    x, re, im = rnd(1, 27200), rnd(1, t, f), rnd(1, t, f)
+    xg, lengths = rnd(1, t, f, c), torch.tensor([t], device=device)
+    scale, bias = torch.ones(c, device=device), torch.zeros(c, device=device)
+    gl, wl, bl = rnd(t, 1, 8 * h), 0.1 * rnd(2, h, 4 * h), rnd(2, 4 * h)
+    ha = cfg.am.rnn_hidden
+    gg, wg, bg = rnd(101, 1, 6 * ha), 0.1 * rnd(2, ha, 3 * ha), rnd(2, 3 * ha)
+    m, ma = torch.ones(t, 1, device=device), torch.ones(101, 1, device=device)
+    cases = {
+        "stft": (lambda: library.stft(x, 320, 160, "hann", True),
+                 lambda: kstft.stft_kernel(x, 320, 160, "hann", True)),
+        "istft": (lambda: library.istft(re, im, 320, 160, "hann", True, 27200),
+                  lambda: kstft.istft_kernel(re, im, 320, 160, "hann", True, 27200)),
+        "masked_group_norm_act": (
+            lambda: library.masked_group_norm_act(xg, scale, bias, lengths, 8, 1e-5,
+                                                  "leaky_relu", 0.2),
+            lambda: gn.gn_kernel(xg, scale, bias, lengths, 8, 1e-5, "leaky_relu", 0.2)),
+        "lstm_scan_tm": (lambda: library.lstm_scan_tm(gl[..., :4 * h], gl[..., 4 * h:], m, wl, bl),
+                         lambda: krnn.scan_kernel("lstm_scan_tm", (gl[..., :4 * h],
+                                                  gl[..., 4 * h:]), m, wl, bl)),
+        "gru_scan_tm": (lambda: library.gru_scan_tm(gg[..., :3 * ha], gg[..., 3 * ha:], ma, wg, bg),
+                        lambda: krnn.scan_kernel("gru_scan_tm", (gg[..., :3 * ha],
+                                                 gg[..., 3 * ha:]), ma, wg, bg)),
+    }
+
+    def host_us(fn, n: int = 100) -> float:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2e8))          # ~0.1 s of device time ahead of the calls
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return host
+
+    out = {}
+    with torch.inference_mode():
+        for name, (op, launcher) in cases.items():
+            op(), launcher()
+            a, b = host_us(op), host_us(launcher)
+            a, b = (a + host_us(op)) / 2, (b + host_us(launcher)) / 2
+            out[name] = {"operator_us": round(a, 2), "launcher_us": round(b, 2)}
+    print(f"[serve] host time a call (us), operator vs its launcher called directly, at a "
+          f"1-slot enhance tick's shapes (GRU at the AM's 101 frames), calls enqueued behind "
+          f"a sleeping kernel, on {card}: {json.dumps(out)}")
+
+
+EXPORT_SCRIPT = r'''
+import time
+t_start = time.perf_counter()
+import json, sys
+import numpy as np
+import torch
+t_torch = time.perf_counter()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from aas_enhancement_tpu_torch.ops.cuda import gn, rnn, stft
+from aas_enhancement_tpu_torch.serving import load_enhancer
+t_port = time.perf_counter()
+art, inputs, outputs = sys.argv[1:4]
+torch.zeros(1, device=sys.argv[4] if sys.argv[4:] else "cuda")
+t_ctx = time.perf_counter()
+t0 = time.perf_counter()
+served = load_enhancer(art, *sys.argv[4:])
+load_s = time.perf_counter() - t0
+startup = {"import torch": t_torch - t_start, "import the port": t_port - t_torch,
+           "device context": t_ctx - t_port, "load_enhancer": load_s}
+counters = {"stft": stft.stft, "istft": stft.istft, "gn_act": gn.masked_group_norm_act,
+            "lstm": rnn.lstm_scan_tm}
+x = np.load(inputs)
+out, launches = {}, {}
+for case in ("b1", "b8", "pad"):
+    before = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    out[case] = served.enhance(x[case + "_wav"], x[case + "_len"])
+    startup[f"first {case} call"] = time.perf_counter() - t0
+    launches[case] = {k: c.launches - before[k] for k, c in counters.items()}
+try:
+    served.enhance(np.zeros((1, 200000), np.float32))
+    uncovered = None
+except ValueError as e:
+    uncovered = str(e)
+np.savez(outputs, **out)
+bad = [m for m in sys.modules if m.startswith(("aas_enhancement_tpu_torch.models",
+       "aas_enhancement_tpu_torch.train", "jax", "flax", "aas_enhancement_tpu."))]
+t0 = time.perf_counter()
+served.enhance(x["b8_wav"], x["b8_len"])
+startup["second B=8 call"] = time.perf_counter() - t0
+print(json.dumps({"load_s": load_s, "launches": launches, "uncovered": uncovered,
+                  "buckets": served.buckets(), "imported": bad, "startup_s": startup}))
+'''
+
+
+def phase_export(device, card, root: str, ck: str):
+    """``cli.export --batch-sizes 1,8 --seconds 8`` on the card from the serve
+    phase's directory; the artifact in a fresh process with no model code
+    and no checkpoint at B=1 and B=8 x 8 s and a (1, 10000) input (the
+    (1, 128000) bucket) against ``make_enhance_fn`` on the same weights, its
+    launches a call, load seconds and MB, an uncovered shape refused; then
+    artifact and live calls timed in turns.  -> launches of one B=8 artifact
+    call."""
+    import numpy as np
+    import torch
+    from aas_enhancement_tpu_torch.cli import export as export_cli
+    from aas_enhancement_tpu_torch.enhance import make_enhance_fn
+    from aas_enhancement_tpu_torch.serving import load_enhancer
+    from aas_enhancement_tpu_torch.train.loop import load_state
+
+    art = os.path.join(root, "artifact")
+    t0 = time.perf_counter()
+    line, _, n = _cli_run("cli.export --batch-sizes 1,8 --seconds 8 (no --device: the card)",
+                          export_cli.main, ["--checkpoint", ck, "--out", art, "--batch-sizes",
+                                            "1,8", "--seconds", "8", *SERVE_DEVICE_ARGS],
+                          phase="export", names=SERVE_KERNELS["enhance"])
+    export_s = time.perf_counter() - t0
+    if line.get("buckets") != [[1, N], [8, N]]:
+        fail(f"cli.export printed {line}")
+    files = {f: os.path.getsize(os.path.join(art, f)) / 1e6 for f in sorted(os.listdir(art))}
+    print(f"[export] {export_s:.2f} s; artifact files (MB) {json.dumps(files)}, "
+          f"{sum(files.values()):.1f} MB; launches while exporting {json.dumps(n)} "
+          "(export traces with fake tensors: none expected)")
+
+    gen = torch.Generator().manual_seed(41)
+    lens8 = np.array(EXPORT_LENGTHS, np.int64)
+    b8 = stream_wav(8.0 * 8, gen).reshape(8, N) * (np.arange(N)[None] < lens8[:, None])
+    inputs = {"b1_wav": stream_wav(8.0, gen)[None], "b1_len": np.array([N], np.int64),
+              "b8_wav": b8.astype(np.float32), "b8_len": lens8,
+              "pad_wav": stream_wav(10000 / SR, gen)[None], "pad_len": np.array([10000])}
+    in_path, out_path = os.path.join(root, "inputs.npz"), os.path.join(root, "outputs.npz")
+    np.savez(in_path, **inputs)
+    script = os.path.join(root, "load_artifact.py")
+    with open(script, "w") as f:
+        f.write(EXPORT_SCRIPT)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, script, art, in_path, out_path,
+                          *SERVE_DEVICE_ARGS[1:]], cwd=HERE, capture_output=True, text=True,
+                         timeout=600, env={**os.environ, "PYTHONPATH": HERE})
+    if res.returncode != 0:
+        fail(f"the artifact's fresh process exited {res.returncode}: {res.stderr[-3000:]}")
+    sub = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"[export] fresh process ({time.perf_counter() - t0:.2f} s with its start): "
+          f"load_enhancer {sub['load_s']:.3f} s, buckets {sub['buckets']}, modules of "
+          f"models/, train/ or JAX imported: {sub['imported']}; launches per call "
+          f"{json.dumps(sub['launches'])}; uncovered (1, 200000): {sub['uncovered']!r}; "
+          f"seconds {json.dumps({k: round(v, 3) for k, v in sub['startup_s'].items()})}")
+    if sub["imported"] or not sub["uncovered"] or "no exported bucket" not in sub["uncovered"]:
+        fail("the artifact's process imported model code, or an uncovered shape ran")
+    for case, counts in sub["launches"].items():
+        if counts != {"stft": 1, "istft": 1, "gn_act": 2, "lstm": 2}:
+            fail(f"an artifact call ({case}) launched {counts}, not STFT 1, ISTFT 1, GN 2, "
+                 "LSTM 2")
+
+    state, cfg = load_state(ck, device)
+    fn = make_enhance_fn(cfg, device)
+    got = np.load(out_path)
+    tol, why = EXPORT_TOL
+    errs = {}
+    for case in ("b1", "b8", "pad"):
+        wav, lens = inputs[case + "_wav"], inputs[case + "_len"]
+        n = wav.shape[1]
+        padded = np.zeros((wav.shape[0], N), np.float32)
+        padded[:, :n] = wav
+        live = fn(state.g, torch.from_numpy(padded), torch.from_numpy(lens))
+        live = live[:, :n].cpu().numpy()
+        if got[case].shape != live.shape or not np.isfinite(got[case]).all():
+            fail(f"artifact {case}: {got[case].shape} for {live.shape}, or non-finite")
+        errs[case] = float(np.abs(got[case] - live).max())
+    print(f"[export] artifact (fresh process) against make_enhance_fn on {card} with the "
+          f"same weights: max_abs_err {json.dumps(errs)} (B=1, B=8 ragged x 8 s; (1, 10000) "
+          f"in the (1, {N}) bucket against the live path at the padded shape, stripped) "
+          f"(tol {tol}: {why})")
+    if not max(errs.values()) <= tol:
+        fail(f"the artifact differs from the live path: {errs}")
+
+    t0 = time.perf_counter()
+    served = load_enhancer(art, *SERVE_DEVICE_ARGS[1:])
+    load_here = time.perf_counter() - t0
+    for b in (1, 8):
+        wav_d = torch.from_numpy(inputs[f"b{b}_wav"]).to(device)
+        len_d = torch.from_numpy(inputs[f"b{b}_len"]).to(device)
+        program = served._programs[(b, N)]
+
+        def artifact():
+            with torch.inference_mode():
+                program(wav_d, len_d)
+
+        k_ms, live_ms = in_turns(artifact, lambda: fn(state.g, wav_d, len_d), 10)
+        print(f"[export] B={b} x {SECONDS} s on {card}, TF32 off: artifact call "
+              f"{k_ms:.3f} ms, live make_enhance_fn {live_ms:.3f} ms (CUDA events, medians, "
+              f"in turns; inputs on the card); load_enhancer in this process "
+              f"{load_here:.3f} s")
+    launches = counted(SERVE_KERNELS["enhance"],
+                       lambda: served.enhance(inputs["b8_wav"], inputs["b8_len"]))
+    print(f"[export] one B=8 artifact call in this process: launches {json.dumps(launches)}")
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     name, smi = phase_device()
@@ -2333,7 +2878,12 @@ def main() -> int:
                "checkpoint": timed("checkpoint", phase_checkpoint, device, smi)}   # CLIs, dirs
     paired_step, by_path["paired_cli"] = timed("paired", phase_paired, device, smi)
     by_path["paired_step"] = paired_step      # the JSON's launches of stft_vjp, istft_vjp
-    by_path.update(timed("streaming", phase_streaming, device, smi))   # last: the others'
+    by_path.update(timed("streaming", phase_streaming, device, smi))
+    by_path["serve"], root, ck = timed("serve", phase_serve, device, smi)   # cli.serve
+    try:
+        by_path["export"] = timed("export", phase_export, device, smi, root, ck)   # artifact
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     print(f"[time] seconds per phase: {json.dumps(took)}")
     launches = {}
     for counts in by_path.values():        # the last path that runs a kernel

@@ -145,6 +145,94 @@ def test_load_state_carries_networks_only(tmp_path):
     assert got.g_opt is not None and not got.g_opt.state      # fresh, as in JAX
 
 
+@pytest.mark.parametrize("objective,train_kw", [
+    ("aas", {}), ("am", {}), ("paired", {}), ("acoustic", {}),
+    ("am", {"am_through_enhancer": True})])
+def test_load_state_builds_without_a_random_draw(tmp_path, monkeypatch, objective,
+                                                 train_kw):
+    """``load_state`` gives init_state's networks, modes and frozen flags
+    with the saved tensors, fresh optimizers over them, and draws nothing:
+    neither ``init_like_flax`` nor a QR runs (each counted), and the
+    tensors are the ones read from the checkpoint (no copy)."""
+    from aas_enhancement_tpu_torch import convert, enhance, evaluation
+    from aas_enhancement_tpu_torch.train import loop
+
+    cfg = TConfig.from_json(_cfg(objective, **train_kw).to_json())
+    state = init_state(cfg, 0, "cpu")
+    make_train_step(cfg)(state, _batch())
+    d = tmp_path / "ck"
+    d.mkdir()
+    (d / "config.json").write_text(cfg.to_json())
+    ckpt.save(str(d), 2, state)
+    draws = []
+    for mod in (convert, enhance, evaluation, loop):
+        real = mod.init_like_flax
+        monkeypatch.setattr(mod, "init_like_flax",
+                            lambda *a, _r=real: draws.append("init") or _r(*a))
+    real_qr = torch.linalg.qr
+    monkeypatch.setattr(torch.linalg, "qr", lambda *a, **k: draws.append("qr") or real_qr(*a, **k))
+    reads = []
+    real_read = ckpt.read
+    monkeypatch.setattr(ckpt, "read", lambda *a: reads.append(real_read(*a)) or reads[-1])
+    got, _ = load_state(str(d), "cpu")
+    assert draws == [] and got.step == 2
+    for name in ("g", "d", "am"):
+        want, net = getattr(state, name), getattr(got, name)
+        assert (want is None) == (net is None), name
+        if want is None:
+            continue
+        assert net.training == want.training, name
+        for (k, a), (k2, b) in zip(want.named_parameters(), net.named_parameters()):
+            assert k == k2 and torch.equal(a, b) and a.requires_grad == b.requires_grad
+            assert b.data_ptr() == reads[0][name][k].data_ptr(), (name, k)
+    for name in ("g_opt", "d_opt", "am_opt"):
+        opt = getattr(got, name)
+        assert (opt is None) == (getattr(state, name) is None), name
+        if opt is not None:
+            assert not opt.state
+            net = getattr(got, name[:-4])
+            assert [id(p) for p in opt.param_groups[0]["params"]] == [
+                id(p) for p in net.parameters()]
+
+
+def test_enhance_cli_from_a_checkpoint_draws_nothing(tmp_path, monkeypatch):
+    """``cli.enhance --checkpoint``: no ``init_like_flax``, no QR, and the
+    output of the saved weights (as before: a fresh enhancer of the config
+    given the checkpoint's G)."""
+    from aas_enhancement_tpu_torch import convert, enhance, evaluation
+    from aas_enhancement_tpu_torch.enhance import make_enhance_fn
+    from aas_enhancement_tpu_torch.train import loop
+
+    cfg = TConfig.from_json(_cfg("paired").to_json())
+    state = init_state(cfg, 3, "cpu")
+    d = tmp_path / "ck"
+    d.mkdir()
+    (d / "config.json").write_text(cfg.to_json())
+    ckpt.save(str(d), 1, state)
+    corpus = generate_corpus(str(tmp_path / "corpus"), n_utts=2, seed=4)
+    draws = []
+    for mod in (convert, enhance, evaluation, loop):
+        real = mod.init_like_flax
+        monkeypatch.setattr(mod, "init_like_flax",
+                            lambda *a, _r=real: draws.append("init") or _r(*a))
+    real_qr = torch.linalg.qr
+    monkeypatch.setattr(torch.linalg, "qr", lambda *a, **k: draws.append("qr") or real_qr(*a, **k))
+    out = tmp_path / "enh"
+    enhance_cli.main(["--manifest", corpus["noisy"], "--out-dir", str(out),
+                      "--checkpoint", str(d), "--device", "cpu"])
+    assert draws == []
+    from aas_enhancement_tpu_torch.data import read_manifest
+    wav_path, _ = read_manifest(corpus["noisy"])[0]
+    x, sr = read_wav(wav_path)
+    y, _ = read_wav(str(out / os.path.basename(wav_path)))
+    padded = np.zeros(enhance_cli._bucket_length(len(x), [sr * s for s in (2, 4, 8, 16)]),
+                      np.float32)
+    padded[:len(x)] = x
+    ref = make_enhance_fn(cfg, "cpu")(state.g.eval(), torch.from_numpy(padded)[None],
+                                      torch.tensor([len(x)]))[0, :len(x)].numpy()
+    assert np.abs(y - ref).max() <= 1.0 / 32767 + 1e-6
+
+
 def test_a_directory_without_config_or_step_raises(tmp_path):
     with pytest.raises(FileNotFoundError, match="config.json"):
         load_state(str(tmp_path), "cpu")

@@ -279,8 +279,8 @@ def test_gn_kernel_edge_shapes(cuda, b, t, f, c, groups, lens, act):
         y = gn.masked_group_norm_act(x, scale, bias, lengths, **kw)
         again = gn.masked_group_norm_act(x, scale, bias, lengths, **kw)
         y_p = gn.masked_group_norm_act_plain(x, scale, bias, lengths, **kw)
-        mean, inv = gn._stats(gn._gn_cuda(x, scale, bias, lengths, groups, 1e-5, act,
-                                          0.2)[1], b, c)
+        mean, inv = gn._stats(gn.gn_kernel(x, scale, bias, lengths, groups, 1e-5, act,
+                                           0.2)[1], b, c)
         torch.cuda.synchronize()
         assert torch.equal(y, again)
         torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
@@ -846,8 +846,8 @@ def test_gn_backward_kernel_edge_shapes(cuda, b, t, f, c, groups, lens, act):
     kw = dict(num_groups=groups, act=act)
     for dtype in (torch.int32, torch.int64):
         lengths = torch.tensor(lens, dtype=dtype, device=cuda)
-        mean, inv = gn._stats(gn._gn_cuda(x, scale, bias, lengths, groups, 1e-5, act,
-                                          0.2)[1], b, c)
+        mean, inv = gn._stats(gn.gn_kernel(x, scale, bias, lengths, groups, 1e-5, act,
+                                           0.2)[1], b, c)
         before = gn.masked_group_norm_act_bwd.launches
         got = gn.masked_group_norm_act_bwd(x, dy, scale, bias, lengths, mean, inv, **kw)
         again = gn.masked_group_norm_act_bwd(x, dy, scale, bias, lengths, mean, inv, **kw)
@@ -868,7 +868,7 @@ def test_gn_backward_dy_layouts_and_refusals(cuda):
     x = (0.5 + _randn(*shape, seed=1)).to(cuda)
     scale, bias = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
     lengths = torch.tensor([19, 11], device=cuda)
-    mean, inv = gn._stats(gn._gn_cuda(x, scale, bias, lengths, 8, 1e-5, "none", 0.2)[1],
+    mean, inv = gn._stats(gn.gn_kernel(x, scale, bias, lengths, 8, 1e-5, "none", 0.2)[1],
                           2, 32)
     dy = _randn(*shape, seed=2).to(cuda)
     flat = torch.empty(dy.numel() + 1, device=cuda)
@@ -1017,15 +1017,16 @@ def test_gn_at_the_streaming_shapes(cuda, act, shape):
     before = (gn.masked_group_norm_act.launches, gn.masked_group_norm_act_bwd.launches)
     y = gn.masked_group_norm_act(x, scale, bias, lengths, **kw)
     got = torch.autograd.grad(y, (x, scale, bias), dy)
-    mean, inv = gn._stats(gn._gn_cuda(x.detach(), scale.detach(), bias.detach(), lengths,
-                                      8, 1e-5, act, 0.2)[1], b, c)
+    mean, inv = gn._stats(gn.gn_kernel(x.detach(), scale.detach(), bias.detach(), lengths,
+                                       8, 1e-5, act, 0.2)[1], b, c)
     args = (x.detach(), dy, scale.detach(), bias.detach(), lengths, mean, inv)
     alone = gn.masked_group_norm_act_bwd(*args, **kw)
     ref = gn.masked_group_norm_act_bwd_plain(*args, **kw)
     y_p = gn.masked_group_norm_act_plain(x, scale, bias, lengths, **kw)
     torch.cuda.synchronize()
+    # Forward: the wrapper's launch and the launcher's own (the saved stats).
     assert (gn.masked_group_norm_act.launches, gn.masked_group_norm_act_bwd.launches) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 2, before[1] + 2)
     torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
     assert all(torch.equal(a, r) for a, r in zip(got, alone))
     _assert_grads_close(got, ref)
@@ -1065,3 +1066,73 @@ def test_streaming_paths_on_card_match_cpu(cuda):
     for c_arr, g_arr in zip(out["cpu"], out[str(cuda)]):
         assert c_arr.shape == g_arr.shape
         np.testing.assert_allclose(g_arr, c_arr, rtol=0, atol=1e-4)
+
+
+def _operator_cases(cuda):
+    """Per operator of ``ops/library.py``: (operator, its args on the card, the
+    wrapper's gradient-free kernel call, the launch counter)."""
+    from aas_enhancement_tpu_torch.ops import library
+    x = _randn(3, 16000, seed=20, scale=0.3).to(cuda)
+    re, im = kstft.stft_plain(x, 320, 160)
+    xg = _randn(2, 41, 33, 16, seed=21).to(cuda)
+    scale, bias = (1 + 0.1 * _randn(16, seed=22)).to(cuda), (0.1 * _randn(16, seed=23)).to(cuda)
+    lengths = torch.tensor([41, 17], device=cuda)
+    m = (torch.arange(23)[:, None] < torch.tensor([23, 9, 1])[None]).float().to(cuda)
+    gl = _randn(23, 3, 8 * 64, seed=24).to(cuda)
+    gg = _randn(23, 3, 6 * 64, seed=25).to(cuda)
+    wl, bl = (0.2 * _randn(2, 64, 256, seed=26)).to(cuda), (0.1 * _randn(2, 256, seed=27)).to(cuda)
+    wg, bg = (0.2 * _randn(2, 64, 192, seed=28)).to(cuda), (0.1 * _randn(2, 192, seed=29)).to(cuda)
+    return {
+        "stft": (library.stft, (x, 320, 160, "hann", True),
+                 lambda: kstft.stft_kernel(x, 320, 160, "hann", True), kstft.stft),
+        "istft": (library.istft, (re.to(cuda), im.to(cuda), 320, 160, "hann", True, 16000),
+                  lambda: kstft.istft_kernel(re.to(cuda), im.to(cuda), 320, 160, "hann", True,
+                                             16000), kstft.istft),
+        "masked_group_norm_act": (
+            library.masked_group_norm_act, (xg, scale, bias, lengths, 8, 1e-5, "leaky_relu", 0.2),
+            lambda: gn.gn_kernel(xg, scale, bias, lengths, 8, 1e-5, "leaky_relu", 0.2)[0],
+            gn.masked_group_norm_act),
+        "lstm_scan_tm": (library.lstm_scan_tm, (gl[..., :256], gl[..., 256:], m, wl, bl),
+                         lambda: krnn.scan_kernel("lstm_scan_tm", (gl[..., :256], gl[..., 256:]),
+                                                  m, wl, bl), krnn.lstm_scan_tm),
+        "gru_scan_tm": (library.gru_scan_tm, (gg[..., :192], gg[..., 192:], m, wg, bg),
+                        lambda: krnn.scan_kernel("gru_scan_tm", (gg[..., :192], gg[..., 192:]),
+                                                 m, wg, bg), krnn.gru_scan_tm),
+    }
+
+
+@pytest.mark.parametrize("name", ["stft", "istft", "masked_group_norm_act", "lstm_scan_tm",
+                                  "gru_scan_tm"])
+def test_operator_is_the_kernel(cuda, name):
+    """Each operator on the card is its kernel: one launch, counted, and the
+    bits of the wrapper's gradient-free kernel call on the same inputs."""
+    op, args, kernel, counter = _operator_cases(cuda)[name]
+    before = counter.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = kernel()
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert a.device.type == "cuda" and a.shape == b.shape and torch.equal(a, b)
+
+
+def test_exported_enhancer_runs_the_kernels(cuda, tmp_path):
+    """A small enhancer exported on the card and loaded back: the live
+    path's bits, and each call launches STFT 1, ISTFT 1, GN 1 and LSTM 1
+    (one conv layer, one BiLSTM)."""
+    from aas_enhancement_tpu_torch.serving import export_enhancer, load_enhancer
+    cfg = Config().replace(enhancer=EnhancerConfig(conv_channels=8, conv_layers=1,
+                                                   rnn_hidden=16, rnn_layers=1))
+    model = init_enhancer(cfg, seed=3, device=cuda)
+    export_enhancer(cfg, model, str(tmp_path), batch_sizes=(2,), seconds=(1.0,), device=cuda)
+    served = load_enhancer(str(tmp_path), cuda)
+    wav = _randn(2, 12000, seed=30, scale=0.3).numpy()
+    counters = (kstft.stft, kstft.istft, gn.masked_group_norm_act, krnn.lstm_scan_tm)
+    before = [c.launches for c in counters]
+    got = served.enhance(wav, np.array([12000, 7000]))
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
+    pad = torch.zeros(2, 16000)
+    pad[:, :12000] = torch.from_numpy(wav)
+    live = make_enhance_fn(cfg, cuda)(model, pad, torch.tensor([12000, 7000]))
+    np.testing.assert_array_equal(got, live[:, :12000].cpu().numpy())
