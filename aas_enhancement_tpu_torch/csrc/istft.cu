@@ -46,19 +46,8 @@
 // table, kRows hop-rows a block.  The caller picks the route by the shape
 // (ops/cuda/stft.py::istft_route): n1 = 0 means direct.
 //
-// The same device code, instantiated with Out::kStftGrad, is the STFT's
-// vector-Jacobian product (aas_stft_vjp; no TPU counterpart: the JAX package
-// differentiates its matmul-DFT STFT with XLA).  The STFT is linear, so its
-// adjoint maps (dre, dim) [B, T, n_fft/2+1] to dx [B, n]: each frame's
-// gradient is dre_k cos - dim_k sin summed over the bins k <= n_fft/2 with
-// weight 1 on every bin (the adjoint of the real DFT, not the inverse: no
-// 1/n_fft, and the interior bins are not doubled), so the spectra are staged
-// scaled by 1/g_k (the transform below doubles the interior bins for their
-// mirrors); then the window, and the overlap-add with no division, into the
-// buffer of the reflect-padded signal [(T-1+K) hop].  A second launch
-// (stft_vjp_fold_kernel) folds that buffer onto the real samples: sample i
-// gathers buffer sample i + shift and, within n_fft/2 of an edge, the padded
-// position that mirrors it; the zero tail past the padded signal is dropped.
+// The ISTFT's vector-Jacobian product is not this device code's: it runs
+// csrc/stft_vjp.cu's radix FFT (aas_istft_vjp).
 //
 // Layout: re/im [B, T, n_fft/2+1], win [n_fft], tab [n_fft] float2,
 // y [B, out_len], all f32 and contiguous.  Output sample o is sample o + shift
@@ -73,20 +62,7 @@ namespace {
 
 constexpr int kRows = 8;   // hop-rows of output per block of the direct kernel
 
-// What the overlap-add writes: the ISTFT's trimmed, COLA-normalised output,
-// or the STFT's VJP's untrimmed, unnormalised buffer (shift 0, out_len the
-// buffer's length).
-enum class Out { kTrimmed, kStftGrad };
-
-// The staged scale of bin k: 1/n_fft for the inverse, 1/g_k for the STFT's
-// adjoint (g = 1 at DC and Nyquist, 2 between, as the transform weighs them).
-template <Out kOut>
-__device__ __forceinline__ float stage_scale(int k, int n_fft) {
-  if constexpr (kOut == Out::kTrimmed) return 1.f / (float)n_fft;
-  return (k == 0 || 2 * k == n_fft) ? 1.f : 0.5f;
-}
-
-template <int kF, Out kOut>
+template <int kF>
 __global__ void istft_fact_kernel(const float* __restrict__ re,
                                   const float* __restrict__ im,
                                   const float* __restrict__ win,
@@ -117,13 +93,13 @@ __global__ void istft_fact_kernel(const float* __restrict__ re,
   for (int e = threadIdx.x; e < N1; e += blockDim.x) tab1[e] = tab[e * N2];
   for (int e = threadIdx.x; e < N2; e += blockDim.x) tab2[e] = tab[e * N1];
   for (int e = threadIdx.x; e < n_fft; e += blockDim.x) ws[e] = win[e];
+  const float scale = 1.f / (float)n_fft;
   for (int e = threadIdx.x; e < kF * n_bins; e += blockDim.x) {
     const int f = e / n_bins;
     const int k = e - f * n_bins;
     const int t = t0 + f;
     const bool valid = t >= 0 && t < n_frames;
     const size_t src = ((size_t)b * n_frames + (valid ? t : 0)) * n_bins + k;
-    const float scale = stage_scale<kOut>(k, n_fft);
     sre[k * kF + f] = valid ? re[src] * scale : 0.f;
     sim[k * kF + f] = valid ? im[src] * scale : 0.f;
   }
@@ -234,13 +210,12 @@ __global__ void istft_fact_kernel(const float* __restrict__ re,
       const int n = q * hop + j;
       acc += xs[(rr + K - 1 - q) * n_fft + n];
       const int t = r - q;
-      if (kOut == Out::kTrimmed && t >= 0 && t < n_frames) wsq = fmaf(ws[n], ws[n], wsq);
+      if (t >= 0 && t < n_frames) wsq = fmaf(ws[n], ws[n], wsq);
     }
-    y[(size_t)b * out_len + o] = kOut == Out::kTrimmed ? acc / fmaxf(wsq, 1e-8f) : acc;
+    y[(size_t)b * out_len + o] = acc / fmaxf(wsq, 1e-8f);
   }
 }
 
-template <Out kOut>
 __global__ void istft_direct_kernel(const float* __restrict__ re,
                                     const float* __restrict__ im,
                                     const float* __restrict__ win,
@@ -264,11 +239,8 @@ __global__ void istft_direct_kernel(const float* __restrict__ re,
     const int fi = e / n_bins;
     const int k = e - fi * n_bins;
     const int t = tf0 + fi;
-    // Inverse rfft weights: 1 for DC and Nyquist, 2 for the others, / n_fft;
-    // for the STFT's adjoint 1 on every bin.
-    const float g = kOut == Out::kTrimmed
-                        ? ((k == 0 || 2 * k == n_fft) ? 1.f : 2.f) / (float)n_fft
-                        : 1.f;
+    // Inverse rfft weights: 1 for DC and Nyquist, 2 for the others, / n_fft.
+    const float g = ((k == 0 || 2 * k == n_fft) ? 1.f : 2.f) / (float)n_fft;
     const bool valid = t >= 0 && t < n_frames;
     const size_t src = ((size_t)b * n_frames + (valid ? t : 0)) * n_bins + k;
     sre[e] = valid ? re[src] * g : 0.f;
@@ -309,10 +281,6 @@ __global__ void istft_direct_kernel(const float* __restrict__ re,
       const int r = r0 + rr;
       const int o = r * hop + j - shift;
       if (o < 0 || o >= out_len) continue;
-      if constexpr (kOut == Out::kStftGrad) {
-        y[(size_t)b * out_len + o] = out[rr];
-        continue;
-      }
       float wsq = 0.f;                   // COLA: window^2 summed over frames
       for (int q = 0; q < K; ++q) {
         const int t = r - q;
@@ -324,24 +292,6 @@ __global__ void istft_direct_kernel(const float* __restrict__ re,
       y[(size_t)b * out_len + o] = out[rr] / fmaxf(wsq, 1e-8f);
     }
   }
-}
-
-// dx[i] = buf[i + shift], plus, where the center pad mirrored sample i, the
-// buffer sample of that padded position: pos = -i (1 <= i <= shift) and pos =
-// 2 (n - 1) - i (n <= pos <= n - 1 + shift).  Buffer samples past its end
-// are zero (no frame covered them).
-__global__ void stft_vjp_fold_kernel(const float* __restrict__ buf, float* __restrict__ dx,
-                                     int n, int buf_len, int shift) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* bb = buf + (size_t)b * buf_len;
-  float v = i + shift < buf_len ? bb[i + shift] : 0.f;
-  if (i >= 1 && i <= shift && shift - i < buf_len) v += bb[shift - i];
-  const int pos = 2 * (n - 1) - i;
-  if (shift > 0 && pos >= n && pos <= n - 1 + shift && pos + shift < buf_len)
-    v += bb[pos + shift];
-  dx[(size_t)b * n + i] = v;
 }
 
 template <typename Kernel>
@@ -356,7 +306,7 @@ int block_threads(int n) {
   return threads > 1024 ? 1024 : threads;
 }
 
-template <int kF, Out kOut>
+template <int kF>
 int launch_fact(const float* re, const float* im, const float* win, const float2* tab,
                 float* y, int batch, int n_frames, int n_fft, int hop, int n1, int n2,
                 int shift, int out_len, int r_lo, int r_hi, cudaStream_t stream) {
@@ -364,46 +314,13 @@ int launch_fact(const float* re, const float* im, const float* win, const float2
   const int items = (n1 / 2 + 1) * n2;
   const size_t smem = ((size_t)2 * kF * (n_fft / 2 + 1) + (size_t)2 * kF * items +
                        2 * (n1 + n2) + (size_t)(kF + 1) * n_fft) * sizeof(float);
-  cudaError_t err = allow_smem(istft_fact_kernel<kF, kOut>, smem);
+  cudaError_t err = allow_smem(istft_fact_kernel<kF>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((r_hi - r_lo + R - 1) / R, batch);
   const int threads = block_threads(items > n_fft ? items : n_fft);
-  istft_fact_kernel<kF, kOut><<<grid, threads, smem, stream>>>(
+  istft_fact_kernel<kF><<<grid, threads, smem, stream>>>(
       re, im, win, tab, y, n_frames, n_fft, hop, n1, n2, shift, out_len, r_lo);
   return (int)cudaGetLastError();
-}
-
-// The inverse transform and overlap-add, writing y [batch, out_len]: sample o
-// is sample o + shift of the overlap-add buffer (kOut::kTrimmed), or the
-// buffer itself (kStftGrad: shift 0, out_len the buffer's length).
-template <Out kOut>
-int launch(const float* re, const float* im, const float* win, const float* tab,
-           float* y, int batch, int n_frames, int n_fft, int hop, int shift, int out_len,
-           int n1, int n2, cudaStream_t stream) {
-  if (batch == 0 || out_len == 0) return 0;
-  if (n_frames < 1 || hop < 1 || n_fft % hop || shift < 0)
-    return (int)cudaErrorInvalidValue;
-  const int K = n_fft / hop;
-  const int r_lo = shift / hop;                          // the row of sample 0
-  const int r_hi = (shift + out_len + hop - 1) / hop;    // one past the last sample's
-  if (n1 == 0) {
-    const int n_bins = n_fft / 2 + 1;
-    const size_t smem =
-        (size_t)(2 * n_fft + 2 * (kRows + K - 1) * n_bins) * sizeof(float);
-    cudaError_t err = allow_smem(istft_direct_kernel<kOut>, smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((r_hi - r_lo + kRows - 1) / kRows, batch);
-    istft_direct_kernel<kOut><<<grid, block_threads(hop), smem, stream>>>(
-        re, im, win, y, n_frames, n_fft, hop, shift, out_len, r_lo);
-    return (int)cudaGetLastError();
-  }
-  if (n1 < 2 || n2 < 2 || n1 * n2 != n_fft || K > 8) return (int)cudaErrorInvalidValue;
-  const float2* tab2 = reinterpret_cast<const float2*>(tab);
-  if (K <= 4)
-    return launch_fact<8, kOut>(re, im, win, tab2, y, batch, n_frames, n_fft, hop, n1, n2,
-                                shift, out_len, r_lo, r_hi, stream);
-  return launch_fact<16, kOut>(re, im, win, tab2, y, batch, n_frames, n_fft, hop, n1, n2,
-                               shift, out_len, r_lo, r_hi, stream);
 }
 
 }  // namespace
@@ -416,27 +333,28 @@ extern "C" int aas_istft(const float* re, const float* im, const float* win,
                          const float* tab, float* y, int batch, int n_frames,
                          int n_fft, int hop, int shift, int out_len, int n1, int n2,
                          cudaStream_t stream) {
-  return launch<Out::kTrimmed>(re, im, win, tab, y, batch, n_frames, n_fft, hop, shift,
-                               out_len, n1, n2, stream);
-}
-
-// The STFT's VJP: (dre, dim) [batch, n_frames, n_fft/2+1] -> dx [batch,
-// n_samples], through buf [batch, (n_frames - 1 + n_fft/hop) hop] (the
-// padded signal's gradient, written by the first launch and folded by the
-// second).  shift = n_fft/2 with the center pad (then n_samples > shift),
-// else 0; n1, n2 as in aas_istft.
-extern "C" int aas_stft_vjp(const float* dre, const float* dim, const float* win,
-                            const float* tab, float* buf, float* dx, int batch,
-                            int n_samples, int n_frames, int n_fft, int hop, int shift,
-                            int n1, int n2, cudaStream_t stream) {
-  if (batch == 0 || n_samples == 0) return 0;
-  if (hop < 1 || n_fft % hop || shift < 0 || (shift > 0 && n_samples <= shift))
+  if (batch == 0 || out_len == 0) return 0;
+  if (n_frames < 1 || hop < 1 || n_fft % hop || shift < 0)
     return (int)cudaErrorInvalidValue;
-  const int buf_len = (n_frames - 1 + n_fft / hop) * hop;
-  int err = launch<Out::kStftGrad>(dre, dim, win, tab, buf, batch, n_frames, n_fft, hop,
-                                   0, buf_len, n1, n2, stream);
-  if (err != 0) return err;
-  const dim3 grid((n_samples + 255) / 256, batch);
-  stft_vjp_fold_kernel<<<grid, 256, 0, stream>>>(buf, dx, n_samples, buf_len, shift);
-  return (int)cudaGetLastError();
+  const int K = n_fft / hop;
+  const int r_lo = shift / hop;                          // the row of sample 0
+  const int r_hi = (shift + out_len + hop - 1) / hop;    // one past the last sample's
+  if (n1 == 0) {
+    const int n_bins = n_fft / 2 + 1;
+    const size_t smem =
+        (size_t)(2 * n_fft + 2 * (kRows + K - 1) * n_bins) * sizeof(float);
+    cudaError_t err = allow_smem(istft_direct_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((r_hi - r_lo + kRows - 1) / kRows, batch);
+    istft_direct_kernel<<<grid, block_threads(hop), smem, stream>>>(
+        re, im, win, y, n_frames, n_fft, hop, shift, out_len, r_lo);
+    return (int)cudaGetLastError();
+  }
+  if (n1 < 2 || n2 < 2 || n1 * n2 != n_fft || K > 8) return (int)cudaErrorInvalidValue;
+  const float2* tab2 = reinterpret_cast<const float2*>(tab);
+  if (K <= 4)
+    return launch_fact<8>(re, im, win, tab2, y, batch, n_frames, n_fft, hop, n1, n2,
+                          shift, out_len, r_lo, r_hi, stream);
+  return launch_fact<16>(re, im, win, tab2, y, batch, n_frames, n_fft, hop, n1, n2,
+                         shift, out_len, r_lo, r_hi, stream);
 }

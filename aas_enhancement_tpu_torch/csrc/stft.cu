@@ -41,19 +41,11 @@
 // bases from the same table indexed by (n k) mod n_fft.  The caller picks
 // (ops/cuda/stft.py::stft_factors): n1 = 0 means direct.
 //
-// The same device code, instantiated with Src::kIstftGrad, is the ISTFT's
-// vector-Jacobian product (aas_istft_vjp; no TPU counterpart: the JAX package
-// differentiates its matmul-DFT ISTFT with XLA).  The ISTFT is linear, y =
-// trim(OLA(win * irDFT_g(X)) / max(sum win^2, 1e-8)), so its adjoint maps dy
-// [B, L] to (dre, dim): undo the trim (dy at buffer sample o + shift, zero at
-// the head and past L), divide by max(sum win^2, 1e-8) (the frames' window
-// squares, summed as the ISTFT kernel sums them), frame with the window and
-// forward-transform; the store scales bin k by g_k / n_fft, g = 1 at DC and
-// Nyquist and 2 between (the inverse's weights).  Frames read the buffer with
-// zero padding: no reflection.
+// The STFT's vector-Jacobian product is not this device code's: it runs
+// csrc/stft_vjp.cu's radix FFT (aas_stft_vjp).
 //
-// Layout: x [B, n_samples] (dy [B, L] for the VJP), win [n_fft], tab [n_fft]
-// float2, re/im [B, T, n_fft/2+1], all f32 and contiguous.
+// Layout: x [B, n_samples], win [n_fft], tab [n_fft] float2,
+// re/im [B, T, n_fft/2+1], all f32 and contiguous.
 
 #include <cuda_runtime.h>
 
@@ -61,65 +53,36 @@ namespace {
 
 constexpr int kFrames = 8;   // frames per block
 
-// What a block stages as its frames: the signal (the STFT) or the ISTFT's
-// output gradient (its VJP).
-enum class Src { kSignal, kIstftGrad };
-
-// xs[f][n] = win[n] * x[t0 + f][n].  kSignal: the frame's samples taken from
-// x with the center pad's mirrored indices (shift = n_fft/2 with center, else
-// 0); frames past the last, and samples past the padded signal, are zero.
-// kIstftGrad: x is dy [B, n_samples = L], the trimmed output's gradient;
-// buffer sample p = t hop + n is dy[p - shift] (zero outside 0 .. L-1)
-// divided by max(sum win^2, 1e-8) over the frames 0 .. n_frames-1 that
-// cover p.
-template <Src kSrc>
+// xs[f][n] = win[n] * x[t0 + f][n], the frame's samples taken from x with the
+// center pad's mirrored indices; frames past the last, and samples past the
+// padded signal, are zero.
 __device__ __forceinline__ void load_frames(const float* __restrict__ xb,
                                             const float* __restrict__ win,
                                             float* __restrict__ xs, int t0,
                                             int n_samples, int n_frames, int n_fft,
-                                            int hop, int shift) {
+                                            int hop, int center) {
+  const int shift = center ? n_fft / 2 : 0;
   for (int e = threadIdx.x; e < kFrames * n_fft; e += blockDim.x) {
     const int f = e / n_fft;
     const int n = e - f * n_fft;
     const int t = t0 + f;
     float v = 0.f;
     int pos = t * hop + n - shift;
-    if constexpr (kSrc == Src::kSignal) {
-      if (t < n_frames && pos < n_samples + shift) {   // an odd n_fft's last frame
-        if (pos < 0) pos = -pos;                       // ends one past the padded
-        if (pos >= n_samples) pos = 2 * (n_samples - 1) - pos;   // signal: zero
-        v = xb[pos] * win[n];
-      }
-    } else {
-      if (t < n_frames && pos >= 0 && pos < n_samples) {
-        const int j = n % hop;                         // p = (t + n / hop) hop + j
-        const int r = t + n / hop;
-        float wsq = 0.f;
-        for (int q = 0; q * hop < n_fft; ++q) {        // frame r - q covers p at q hop + j
-          const int tt = r - q;
-          if (tt >= 0 && tt < n_frames) wsq = fmaf(win[q * hop + j], win[q * hop + j], wsq);
-        }
-        v = xb[pos] / fmaxf(wsq, 1e-8f) * win[n];
-      }
+    if (t < n_frames && pos < n_samples + shift) {   // an odd n_fft's last frame ends
+      if (pos < 0) pos = -pos;                       // one past the padded signal: zero
+      if (pos >= n_samples) pos = 2 * (n_samples - 1) - pos;
+      v = xb[pos] * win[n];
     }
     xs[e] = v;
   }
 }
 
-// The scale of bin k on the store: 1 for the STFT, g_k / n_fft for the ISTFT's VJP.
-template <Src kSrc>
-__device__ __forceinline__ float bin_scale(int k, int n_fft) {
-  if constexpr (kSrc == Src::kSignal) return 1.f;
-  return ((k == 0 || 2 * k == n_fft) ? 1.f : 2.f) / (float)n_fft;
-}
-
-template <Src kSrc>
 __global__ void stft_fact_kernel(const float* __restrict__ x,
                                  const float* __restrict__ win,
                                  const float2* __restrict__ tab,
                                  float* __restrict__ re, float* __restrict__ im,
                                  int n_samples, int n_frames, int n_fft, int hop,
-                                 int shift, int N1, int N2) {
+                                 int center, int N1, int N2) {
   static_assert(kFrames == 8, "stage 2 reads a pair's frames as two float4");
   extern __shared__ float4 smem4[];
   const int K1 = N1 / 2 + 1;
@@ -141,8 +104,8 @@ __global__ void stft_fact_kernel(const float* __restrict__ x,
 
   for (int e = threadIdx.x; e < N1; e += blockDim.x) tab1[e] = tab[e * N2];
   for (int e = threadIdx.x; e < N2; e += blockDim.x) tab2[e] = tab[e * N1];
-  load_frames<kSrc>(x + (size_t)b * n_samples, win, xs, t0, n_samples, n_frames, n_fft,
-                    hop, shift);
+  load_frames(x + (size_t)b * n_samples, win, xs, t0, n_samples, n_frames, n_fft, hop,
+              center);
   __syncthreads();
 
   // Stage 1 and the twiddles: one thread per (k1, n2), n2 fastest.
@@ -237,19 +200,17 @@ __global__ void stft_fact_kernel(const float* __restrict__ x,
     const int f = e / n_bins;
     const int k = e - f * n_bins;
     const int src = (f * N1 + k % N1) * S + k / N1;
-    const float g = bin_scale<kSrc>(k, n_fft);
-    re[o + e] = ore[src] * g;
-    im[o + e] = oim[src] * g;
+    re[o + e] = ore[src];
+    im[o + e] = oim[src];
   }
 }
 
-template <Src kSrc>
 __global__ void stft_direct_kernel(const float* __restrict__ x,
                                    const float* __restrict__ win,
                                    const float2* __restrict__ tab,
                                    float* __restrict__ re, float* __restrict__ im,
                                    int n_samples, int n_frames, int n_fft, int hop,
-                                   int shift) {
+                                   int center) {
   extern __shared__ float4 smem4[];
   const int n_bins = n_fft / 2 + 1;
   float2* tab_s = reinterpret_cast<float2*>(smem4);   // [n_fft]
@@ -259,8 +220,8 @@ __global__ void stft_direct_kernel(const float* __restrict__ x,
   const int t0 = blockIdx.x * kFrames;
 
   for (int e = threadIdx.x; e < n_fft; e += blockDim.x) tab_s[e] = tab[e];
-  load_frames<kSrc>(x + (size_t)b * n_samples, win, xs, t0, n_samples, n_frames, n_fft,
-                    hop, shift);
+  load_frames(x + (size_t)b * n_samples, win, xs, t0, n_samples, n_frames, n_fft, hop,
+              center);
   __syncthreads();
 
   for (int k = threadIdx.x; k < n_bins; k += blockDim.x) {
@@ -282,14 +243,13 @@ __global__ void stft_direct_kernel(const float* __restrict__ x,
       idx += k;                          // k < n_fft, so one wrap suffices
       if (idx >= n_fft) idx -= n_fft;
     }
-    const float g = bin_scale<kSrc>(k, n_fft);
 #pragma unroll
     for (int f = 0; f < kFrames; ++f) {
       const int t = t0 + f;
       if (t < n_frames) {
         const size_t o = ((size_t)b * n_frames + t) * n_bins + k;
-        re[o] = acc_re[f] * g;
-        im[o] = acc_im[f] * g;
+        re[o] = acc_re[f];
+        im[o] = acc_im[f];
       }
     }
   }
@@ -307,33 +267,6 @@ int block_threads(int n) {
   return threads > 1024 ? 1024 : threads;
 }
 
-template <Src kSrc>
-int launch(const float* x, const float* win, const float* tab, float* re, float* im,
-           int batch, int n_samples, int n_frames, int n_fft, int hop, int shift, int n1,
-           int n2, cudaStream_t stream) {
-  if (batch == 0 || n_frames == 0) return 0;
-  const int n_bins = n_fft / 2 + 1;
-  const dim3 grid((n_frames + kFrames - 1) / kFrames, batch);
-  const float2* tab2 = reinterpret_cast<const float2*>(tab);
-  if (n1 == 0) {
-    const size_t smem = (size_t)(2 + kFrames) * n_fft * sizeof(float);
-    cudaError_t err = allow_smem(stft_direct_kernel<kSrc>, smem);
-    if (err != cudaSuccess) return (int)err;
-    stft_direct_kernel<kSrc><<<grid, block_threads(n_bins), smem, stream>>>(
-        x, win, tab2, re, im, n_samples, n_frames, n_fft, hop, shift);
-    return (int)cudaGetLastError();
-  }
-  if (n1 < 2 || n2 < 2 || n1 * n2 != n_fft) return (int)cudaErrorInvalidValue;
-  const int items = (n1 / 2 + 1) * n2;
-  const size_t smem = ((size_t)2 * items * kFrames + 2 * (n1 + n2) +
-                       (size_t)kFrames * (n_fft + 2 * n1 * (n2 / 2 + 1))) * sizeof(float);
-  cudaError_t err = allow_smem(stft_fact_kernel<kSrc>, smem);
-  if (err != cudaSuccess) return (int)err;
-  stft_fact_kernel<kSrc><<<grid, block_threads(items), smem, stream>>>(
-      x, win, tab2, re, im, n_samples, n_frames, n_fft, hop, shift, n1, n2);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // n1 * n2 = n_fft picks the factorised kernel, n1 = 0 the direct sum.  With
@@ -343,18 +276,25 @@ extern "C" int aas_stft(const float* x, const float* win, const float* tab,
                         float* re, float* im, int batch, int n_samples,
                         int n_frames, int n_fft, int hop, int center, int n1,
                         int n2, cudaStream_t stream) {
-  return launch<Src::kSignal>(x, win, tab, re, im, batch, n_samples, n_frames, n_fft,
-                              hop, center ? n_fft / 2 : 0, n1, n2, stream);
-}
-
-// The ISTFT's VJP: dy [batch, out_len] (the gradient of aas_istft's trimmed
-// output, shift = its center trim) -> (dre, dim) [batch, n_frames,
-// n_fft/2+1]; n1, n2 as in aas_stft.  Requires hop | n_fft.
-extern "C" int aas_istft_vjp(const float* dy, const float* win, const float* tab,
-                             float* dre, float* dim, int batch, int out_len,
-                             int n_frames, int n_fft, int hop, int shift, int n1,
-                             int n2, cudaStream_t stream) {
-  if (hop < 1 || n_fft % hop || shift < 0) return (int)cudaErrorInvalidValue;
-  return launch<Src::kIstftGrad>(dy, win, tab, dre, dim, batch, out_len, n_frames,
-                                 n_fft, hop, shift, n1, n2, stream);
+  if (batch == 0 || n_frames == 0) return 0;
+  const int n_bins = n_fft / 2 + 1;
+  const dim3 grid((n_frames + kFrames - 1) / kFrames, batch);
+  const float2* tab2 = reinterpret_cast<const float2*>(tab);
+  if (n1 == 0) {
+    const size_t smem = (size_t)(2 + kFrames) * n_fft * sizeof(float);
+    cudaError_t err = allow_smem(stft_direct_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    stft_direct_kernel<<<grid, block_threads(n_bins), smem, stream>>>(
+        x, win, tab2, re, im, n_samples, n_frames, n_fft, hop, center);
+    return (int)cudaGetLastError();
+  }
+  if (n1 < 2 || n2 < 2 || n1 * n2 != n_fft) return (int)cudaErrorInvalidValue;
+  const int items = (n1 / 2 + 1) * n2;
+  const size_t smem = ((size_t)2 * items * kFrames + 2 * (n1 + n2) +
+                       (size_t)kFrames * (n_fft + 2 * n1 * (n2 / 2 + 1))) * sizeof(float);
+  cudaError_t err = allow_smem(stft_fact_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  stft_fact_kernel<<<grid, block_threads(items), smem, stream>>>(
+      x, win, tab2, re, im, n_samples, n_frames, n_fft, hop, center, n1, n2);
+  return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-"""Time the ISTFT and the GroupNorm forward and backward wrappers at the shapes
-the paths give them, host and device apart.
+"""Time the ISTFT, the GroupNorm forward and backward, and the STFT's and the
+ISTFT's VJP wrappers at the shapes the paths give them, host and device
+apart, and one paired training step.
 
     python -m aas_enhancement_tpu_torch.utils.kernel_bench [--reps 20] [--only TEXT]
 
@@ -10,17 +11,31 @@ the GroupNorm backward (the wrapper alone, on the mean and inv the forward
 kernel saved and a random dy) at the training steps' B=8 at the same widths,
 with the lengths of ``chip_smoke.py``'s backward cases (``BWD_FRAMES``,
 ``BWD_AM_FRAMES``), and the whole backward pass there (``autograd.grad``
-through the forward's Function, dx, dscale and dbias).
+through the forward's Function, dx, dscale and dbias); ``stft_vjp`` at the
+MR-STFT loss's (256, 64), (512, 128), (1024, 256) and at (320, 160), and
+``istft_vjp`` at (320, 160) and the MR resolutions, B=8 x 8 s with
+cotangents zero past each row's valid frames or samples (``BWD_FRAMES``);
+the ``paired`` step with ``lambda_mrstft`` 0.5 at B=8 x 8 s, the shipped
+widths (its wall between events and its busy device time; no bound).
 Per case and call: the host time of the wrapper (``--reps`` calls enqueued
 back to back behind a sleeping kernel, so that the host never waits on the
 device: perf_counter around them over the count), the median time between
 two CUDA events around one call on an idle stream (host and device), and the
 device time (``utils.profiling.device_time``), beside the least time the
 bytes the function must move take at the card's 3.35 TB/s (x, and dy, read
-on the valid frames only).  ``--only TEXT`` runs the cases whose label holds
-it.  The first line is the card's name and power limit.  Needs a GPU; to
-compare two versions of a kernel, run it from two copies of the package in
-one call.
+on the valid frames only; the VJPs' inputs and outputs in full).  ``--only
+TEXT`` runs the cases whose label holds it.  The first line is the card's
+name and power limit.  Needs a GPU; to compare two versions of a kernel, run
+it from two copies of the package in one call (the VJP, "gn_bwd pass" and
+paired cases run on an older package too: copy this file into its utils/).
+To time a part of the VJP kernels by its absence, build them with one of
+``csrc/stft_vjp.cu``'s switch-offs (the library is built apart; the
+results are wrong):
+
+    AAS_KERNEL_DEFINES=AAS_VJP_SKIP_FFT python -m aas_enhancement_tpu_torch.utils.kernel_bench --only _vjp
+
+(``AAS_VJP_SKIP_LOAD``: no input staged; ``AAS_VJP_SKIP_FFT``: no pass of
+the transform; ``AAS_VJP_SKIP_OUT``: no overlap-add, no bins stored).
 """
 
 from __future__ import annotations
@@ -72,7 +87,9 @@ def _valid(lens: list[int], t: int) -> float:
 def cases(device) -> dict:
     """label -> (a call on inputs made from a fixed seed, the bytes the
     function must move: each input read once, each output written once; the
-    GroupNorm reads x (and dy) on the valid frames only)."""
+    GroupNorm reads x (and dy) on the valid frames only; None for the step).
+    Labels with " pass " or "step" run with autograd, the others in
+    inference mode."""
     from aas_enhancement_tpu_torch.ops.cuda import gn, stft as kstft
     gen = torch.Generator().manual_seed(0)
     n = 16000 * 8
@@ -112,7 +129,42 @@ def cases(device) -> dict:
         out[f"gn_bwd pass {act} [8, {t}, {f}, 32]"] = (
             lambda y=y, inputs=(xg, sg, bg), dy=dy:
             torch.autograd.grad(y, inputs, dy, retain_graph=True), work)
+    # The VJPs at B=8 x 8 s, cotangents zero past each row's valid frames
+    # (dre, dim) or samples (dy).
+    frames = torch.tensor([801, 701, 601, 401, 801, 751, 501, 301])
+    lens = (frames - 1) * 160
+    dy = (torch.randn(8, n, generator=gen) * (torch.arange(n)[None] < lens[:, None])).to(device)
+    for n_fft, hop in ((256, 64), (512, 128), (1024, 256), (320, 160)):
+        t = 1 + n // hop
+        valid = (torch.arange(t)[None] < (1 + lens // hop)[:, None])[..., None]
+        dre = (torch.randn(8, t, n_fft // 2 + 1, generator=gen) * valid).to(device)
+        dim = (torch.randn(8, t, n_fft // 2 + 1, generator=gen) * valid).to(device)
+        out[f"stft_vjp n_fft {n_fft} hop {hop} [8, {t}, {n_fft // 2 + 1}]"] = (
+            lambda a=dre, c=dim, f=n_fft, h=hop: kstft.stft_vjp(a, c, n, f, h),
+            4 * (dre.numel() + dim.numel() + 8 * n))
+        out[f"istft_vjp n_fft {n_fft} hop {hop} [8, {t}, {n_fft // 2 + 1}]"] = (
+            lambda f=n_fft, h=hop, t=t: kstft.istft_vjp(dy, t, f, h),
+            4 * (dy.numel() + dre.numel() + dim.numel()))
+    out["paired step lambda_mrstft 0.5 B=8 x 8 s"] = (_paired_step(device, gen, n), None)
     return out
+
+
+def _paired_step(device, gen, n: int):
+    """One ``paired`` step with the MR-STFT term at B=8 x n samples, the
+    shipped widths, weights from the config's train seed: a call."""
+    import dataclasses
+    from aas_enhancement_tpu_torch.config import Config
+    from aas_enhancement_tpu_torch.train.loop import init_state
+    from aas_enhancement_tpu_torch.train.steps import make_train_step
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, objective="paired",
+                                                lambda_mrstft=0.5, batch_size=8))
+    state = init_state(cfg, cfg.train.seed, device)
+    step = make_train_step(cfg)
+    batch = {"wav": (0.3 * torch.randn(8, n, generator=gen)).to(device),
+             "wav_lengths": torch.full((8,), n, device=device),
+             "clean_wav": (0.3 * torch.randn(8, n, generator=gen)).to(device)}
+    return lambda: step(state, batch)
 
 
 def main(argv=None) -> None:
@@ -131,8 +183,15 @@ def main(argv=None) -> None:
     for label, (fn, n_bytes) in cases(device).items():
         if args.only not in label:
             continue
-        # The backward pass needs autograd; the wrappers alone run without it.
-        with contextlib.nullcontext() if " pass " in label else torch.inference_mode():
+        # The backward pass and the step need autograd; the wrappers alone run without it.
+        grad = " pass " in label or "step" in label
+        with contextlib.nullcontext() if grad else torch.inference_mode():
+            if n_bytes is None:      # a step waits on the device itself: no host time
+                events = event_ms(fn, args.reps)
+                dev, by = device_time(fn)
+                print(f"[kernel_bench] {label}: between events {events:.4f} ms | busy on "
+                      f"the device {dev:.4f} ms ({by})")
+                continue
             host = host_ms(fn, args.reps)
             events = event_ms(fn, args.reps)
             dev, by = device_time(fn)

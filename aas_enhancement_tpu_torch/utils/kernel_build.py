@@ -6,7 +6,10 @@ process per source, all started together, and links the objects into a
 ``.so`` with a plain C interface, loaded with ``ctypes``: no PyTorch headers,
 so a build takes seconds.  The library lands in ``<repo>/build/torch_kernels/``
 under a name keyed on a hash of the sources and flags, so a stale library is
-never loaded.  The build happens at first use.  A failed build raises: there
+never loaded.  The build happens at first use.  ``AAS_KERNEL_DEFINES`` (names
+separated by spaces) adds a ``-D`` flag for each name: the switch-offs that
+time a part of a kernel by its absence (``csrc/stft_vjp.cu``'s
+``AAS_VJP_SKIP_*``; ``utils/kernel_bench.py``), in a library of their own.  A failed build raises: there
 is no fallback, because a CUDA tensor must reach its kernel or an error.
 """
 
@@ -41,14 +44,23 @@ SIGNATURES = {
     # re, im, win, table, y, batch, n_frames, n_fft, hop, shift (the center
     # trim), out_len, n1, n2 (as in aas_stft), stream
     "aas_istft": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # The STFT's VJP: dre, dim, win, table, buf (the padded signal's gradient,
-    # [batch, (n_frames - 1 + n_fft / hop) hop]), dx, batch, n_samples,
-    # n_frames, n_fft, hop, shift (n_fft / 2 with the center pad, else 0),
-    # n1, n2 (as in aas_istft), stream
-    "aas_stft_vjp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # The STFT's VJP: dre, dim, win, table, scratch, its length, dx, batch,
+    # n_samples, n_frames, n_fft, hop, shift (n_fft / 2 with the center pad,
+    # else 0), then the plan (ops/cuda/stft.py::vjp_plan): radices as base-32
+    # digits (0: the direct sums), lanes, frames, run, pad_shift, stride; runs
+    # a row (vjp_run_count); frames_done (NULL, or an unsigned counter of the
+    # frames transformed); stream
+    "aas_stft_vjp": (_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I,
+                     _I, _I, _P, _P),
     # The ISTFT's VJP: dy, win, table, dre, dim, batch, out_len (dy's length),
-    # n_frames, n_fft, hop, shift (the center trim), n1, n2 (as in aas_stft), stream
-    "aas_istft_vjp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # n_frames, n_fft, hop, shift (the center trim), radices, lanes, frames,
+    # pad_shift, stride, frames_done (as in aas_stft_vjp), stream
+    "aas_istft_vjp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _P,
+                      _P),
+    # which (0 the STFT's VJP, 1 the ISTFT's), n_fft, hop, radices, lanes,
+    # frames, run, pad_shift, stride, out[5]: blocks an SM, shared memory
+    # bytes, registers, local bytes, threads
+    "aas_vjp_residency": (_I, _I, _I, _L, _I, _I, _I, _I, _I, _P),
     # The recurrences, time-major (two tensors per direction) or stacked (two
     # halves of one tensor); saved buffers NULL for inference:
     # gx0, gx1, gx_stride_t, gx_stride_b, m, wh, bh, y0, y1, hp, cp, act,
@@ -104,9 +116,18 @@ def find_nvcc() -> str:
                        "aas_enhancement_tpu_torch cannot be built")
 
 
+def nvcc_flags() -> tuple[str, ...]:
+    """``NVCC_FLAGS`` and a ``-D`` flag for each name in ``AAS_KERNEL_DEFINES``."""
+    names = os.environ.get("AAS_KERNEL_DEFINES", "").split()
+    bad = [n for n in names if not n.isidentifier()]
+    if bad:
+        raise ValueError(f"AAS_KERNEL_DEFINES: not macro names: {bad}")
+    return NVCC_FLAGS + tuple(f"-D{n}" for n in names)
+
+
 def library_path() -> str:
     """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags()).encode())
     for path in sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -122,7 +143,7 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = find_nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", src, "-o", f"{tmp}.{i}.o"]
+    cmds = [[nvcc, *nvcc_flags(), "-c", src, "-o", f"{tmp}.{i}.o"]
             for i, src in enumerate(s for s in sources() if s.endswith(".cu"))]
     cmds.append([nvcc, "-shared", "-o", tmp, *[c[-1] for c in cmds]])
     log, failed = [], None

@@ -137,6 +137,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -215,7 +216,7 @@ RESUME_TOL = (1e-4, "AM CTC losses of steps 3-4, each side after its own SGD ste
 SLICE_TOL = (1e-4, "wav in [-1, 1] after STFT, 2 conv+GN, 2 BiLSTM-256 over 801 "
              "steps, ISTFT: f32 rounding of card vs CPU sum orders compounds")
 VJP_TOL = (1e-4, "each gradient entry an f32 sum of up to n_fft terms, in the kernel's "
-           "two-stage order and the plain version's matmul order, relative to max|g|")
+           "radix-FFT order and the plain version's matmul order, relative to max|g|")
 MR_PAIRS = ((256, 64), (512, 128), (1024, 256))     # the MR-STFT loss's resolutions
 # One paired step, card vs CPU from the same weights and batch: metrics
 # relative, each G gradient tensor against its own max|g| (GRAD_ZERO as the
@@ -638,14 +639,41 @@ def phase_kernels(device):
     return results
 
 
+VJP_SHAPES = {"stft_vjp": MR_PAIRS + ((320, 160),), "istft_vjp": ((320, 160),) + MR_PAIRS}
+
+
+def vjp_kernels(batch: int, n: int) -> list:
+    """{kernel name: launches} of the device kernels of one VJP wrapper call
+    at each of ``VJP_SHAPES``' (name, shape) in turn, B = batch x n samples,
+    in a fresh process (``utils.profiling.kernel_names_in_fresh_process``)."""
+    from aas_enhancement_tpu_torch.utils.profiling import kernel_names_in_fresh_process
+    return kernel_names_in_fresh_process(f"""
+from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
+calls = []
+dy = torch.randn({batch}, {n}, device="cuda")
+for name, pairs in {VJP_SHAPES!r}.items():
+    for n_fft, hop in pairs:
+        t = 1 + {n} // hop
+        dre = torch.randn({batch}, t, n_fft // 2 + 1, device="cuda")
+        dim = torch.randn_like(dre)
+        calls.append((lambda a=dre, c=dim, f=n_fft, h=hop: kstft.stft_vjp(a, c, {n}, f, h))
+                     if name == "stft_vjp" else
+                     (lambda f=n_fft, h=hop, t=t: kstft.istft_vjp(dy, t, f, h)))
+""")
+
+
 def kernels_vjp(device, results: dict) -> None:
     """The STFT's and the ISTFT's VJP kernels against their plain versions
     (the written-out adjoints) at B=8 x 8 s, ragged: cotangents zero past
     each row's valid frames or samples, as a masked loss gives them.  The
     main path's shape comes first (stft_vjp: the MR-STFT loss's (256, 64);
-    istft_vjp: the enhancer's (320, 160)).  Also the forward STFT at the MR
-    n_fft.  Library: torch.autograd.grad through torch.stft / torch.istft,
-    the graph built once, the backward alone timed."""
+    istft_vjp: the enhancer's (320, 160)).  Per shape also the route
+    (``vjp_plan``), the device kernels of one call (exactly one), the blocks
+    resident on an SM with the shared memory, registers and spills behind
+    them (``vjp_residency``), and the frames the kernel transformed (its own
+    count; fails unless each frame once: no halo).  Also the forward STFT at
+    the MR n_fft.  Library: torch.autograd.grad through torch.stft / torch.istft, the graph
+    built once, the backward alone timed."""
     import torch
     from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
 
@@ -685,8 +713,8 @@ def kernels_vjp(device, results: dict) -> None:
         if not err <= TOL["stft"][0] or not kstft.stft.route[0]:
             fail(f"{label}: max abs err {err:.3e}, route {kstft.stft.route}")
 
-    for name, pairs in (("stft_vjp", MR_PAIRS + ((320, 160),)),
-                        ("istft_vjp", ((320, 160),) + MR_PAIRS)):
+    names = iter(vjp_kernels(b, N))
+    for name, pairs in VJP_SHAPES.items():
         for n_fft, hop in pairs:
             window = torch.hann_window(n_fft, periodic=True, device=device)
             t_len = 1 + N // hop
@@ -696,7 +724,8 @@ def kernels_vjp(device, results: dict) -> None:
             dim = (torch.randn(b, t_len, f, generator=gen) * valid).to(device)
             flops = b * t_len * 5.0 * n_fft * math.log2(n_fft)
             if name == "stft_vjp":
-                run_k = lambda a=dre, c=dim, n=n_fft, h=hop: kstft.stft_vjp(a, c, N, n, h)  # noqa: E731
+                run_k = lambda a=dre, c=dim, n=n_fft, h=hop, **kw: kstft.stft_vjp(  # noqa: E731
+                    a, c, N, n, h, **kw)
                 run_p = lambda a=dre, c=dim, n=n_fft, h=hop: kstft.stft_vjp_plain(  # noqa: E731
                     a, c, N, n, h)
                 xg = x.clone().requires_grad_()
@@ -708,7 +737,8 @@ def kernels_vjp(device, results: dict) -> None:
                 work = (nbytes(dre, dim) + b * N * 4, flops)
                 grads = "dx"
             else:
-                run_k = lambda n=n_fft, h=hop, t=t_len: kstft.istft_vjp(dy, t, n, h)  # noqa: E731
+                run_k = lambda n=n_fft, h=hop, t=t_len, **kw: kstft.istft_vjp(  # noqa: E731
+                    dy, t, n, h, **kw)
                 run_p = lambda n=n_fft, h=hop, t=t_len: kstft.istft_vjp_plain(  # noqa: E731
                     dy, t, n, h)
                 zr, zi = dre.clone().requires_grad_(), dim.clone().requires_grad_()
@@ -726,23 +756,43 @@ def kernels_vjp(device, results: dict) -> None:
             err, rel_err = rel(out_k, out_p)
             if not all(torch.equal(a, c) for a, c in zip(out_k, again)):
                 fail(f"{name} ({n_fft}, {hop}): two calls of the kernel gave different bits")
-            route = getattr(kstft, name).route
+            plan = getattr(kstft, name).route
             ms, plain_ms = in_turns(run_k, run_p, 10)
             lib_ms = statistics.median(cuda_ms(lib, 10))
             label = f"{name} n_fft {n_fft} hop {hop} B={b}"
             text = keep(results, name, label, err, ms, plain_ms, work, lib_ms, rel_err=rel_err)
             row = results[name]["shapes"][label]
-            row["kernel_route"] = (f"two stages, {route[0]} x {route[1]}" if route[0]
-                                   else "direct")
-            text += f" | route {row['kernel_route']} | same bits on two calls"
+            row["kernel_route"] = (f"radix {'x'.join(map(str, plan.radices))}, "
+                                   f"{plan.lanes} lanes x {plan.frames} frames a block"
+                                   if plan.radices else "direct")
+            called = [k for k, c in next(names).items() for _ in range(c)
+                      if "Memcpy" not in k and "Memset" not in k]
+            res = kstft.vjp_residency(name, n_fft, hop)
+            counter = torch.zeros(1, dtype=torch.int32, device=device)
+            run_k(frames_done=counter)
+            transformed = int(counter.item())
+            halo = transformed / (b * t_len) - 1
+            row.update(device_kernels=called, residency=res, frames_transformed=transformed,
+                       halo_share=halo)
+            text += (f" | route {row['kernel_route']} | same bits on two calls | device "
+                     f"kernels of a call {called} | {res['blocks_per_sm']} blocks an SM "
+                     f"({res['smem_bytes']} B shared, {res['registers']} registers, "
+                     f"{res['local_bytes']} B local a thread) | frames transformed "
+                     f"{transformed} of {b * t_len} (halo share {halo:.0%}, counted by the "
+                     f"kernel)")
+            if len(called) != 1 or not re.search(rf"(?<!\w){name}_kernel\b", called[0]):
+                fail(f"{label}: one call ran the device kernels {called}, not one {name}_kernel")
+            if transformed != b * t_len:
+                fail(f"{label}: the kernel transformed {transformed} frames, not each of the "
+                     f"{b * t_len} once")
             text += device_times(row, run_k, lib)
             if next(iter(results[name]["shapes"])) == label:
                 results[name].update({k: v for k, v in row.items() if k not in results[name]})
             print(f"[kernel] {label}: {grads} max_abs_err {err:.3e}, relative to max|g| "
                   f"{rel_err:.3e} (tol {tol:.0e}: {why}) | kernel {ms:.4f} ms | plain "
                   f"{plain_ms:.4f} ms | x{plain_ms / ms:.2f} | {text}")
-            if not rel_err <= tol or not route[0]:
-                fail(f"{label}: gradient error {rel_err:.3e} of max|g|, route {route}")
+            if not rel_err <= tol or not plan.radices:
+                fail(f"{label}: gradient error {rel_err:.3e} of max|g|, route {plan}")
             del lib
 
 
@@ -2921,9 +2971,9 @@ def main() -> int:
         "gru_stacked_bwd": ("cuda", "aas_enhancement_tpu_torch/csrc/gru_tm.cu",
                             "aas_enhancement_tpu/ops/pallas/rnn_kernel.py:406"),
         # No TPU kernel: the JAX package differentiates its matmul-DFT with XLA.
-        "stft_vjp": ("cuda", "aas_enhancement_tpu_torch/csrc/istft.cu",
+        "stft_vjp": ("cuda", "aas_enhancement_tpu_torch/csrc/stft_vjp.cu",
                      "aas_enhancement_tpu/dsp/stft.py:78 (no TPU kernel: XLA's VJP of stft)"),
-        "istft_vjp": ("cuda", "aas_enhancement_tpu_torch/csrc/stft.cu",
+        "istft_vjp": ("cuda", "aas_enhancement_tpu_torch/csrc/stft_vjp.cu",
                       "aas_enhancement_tpu/dsp/stft.py:139 (no TPU kernel: XLA's VJP of istft)"),
     }
     kernels = [{"name": k, "route": r, "source": s, "replaces": rep,

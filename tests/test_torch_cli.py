@@ -354,6 +354,27 @@ def test_every_entry_point_has_a_source():
         assert f'extern "C" int {name}(' in text, name
 
 
+@pytest.mark.parametrize("name", sorted(kernel_build.SIGNATURES))
+def test_entry_point_arity_matches_its_signature(name):
+    """Each C entry point takes as many parameters as its ctypes argtypes."""
+    text = "".join(open(p).read() for p in kernel_build.sources())
+    head = text.index(f'extern "C" int {name}(') + len(f'extern "C" int {name}(')
+    params = text[head:text.index(")", head)]
+    assert len(params.split(",")) == len(kernel_build.SIGNATURES[name])
+
+
+def test_kernel_defines_build_a_library_of_their_own(monkeypatch):
+    monkeypatch.delenv("AAS_KERNEL_DEFINES", raising=False)
+    plain = kernel_build.library_path()
+    assert kernel_build.nvcc_flags() == kernel_build.NVCC_FLAGS
+    monkeypatch.setenv("AAS_KERNEL_DEFINES", "AAS_VJP_SKIP_FFT  AAS_VJP_SKIP_OUT")
+    assert kernel_build.nvcc_flags()[-2:] == ("-DAAS_VJP_SKIP_FFT", "-DAAS_VJP_SKIP_OUT")
+    assert kernel_build.library_path() != plain
+    monkeypatch.setenv("AAS_KERNEL_DEFINES", "X=1 -O0")
+    with pytest.raises(ValueError, match="not macro names"):
+        kernel_build.nvcc_flags()
+
+
 def test_kernel_routing_and_input_checks():
     from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_kernel
     assert uses_kernel("k", torch.zeros(1)) is False

@@ -20,6 +20,8 @@ conv_dw: 1e-4 of max|dW| (f32 sums over up to ~1e5 positions, in the
 kernel's slice order and the plain version's).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -85,13 +87,18 @@ def test_stft_kernel_at_the_mr_stft_resolutions(cuda, n_fft, hop, route):
     torch.testing.assert_close(im, im_p, rtol=0, atol=1e-4)
 
 
-# The STFT's and the ISTFT's VJP kernels against their plain versions: the
-# MR-STFT resolutions and the enhancer's, ragged lengths, the direct routes
-# (a prime n_fft; more than 8 frames over a sample for stft_vjp), no center
-# pad.  Limit: 1e-4 of the gradient's max|g| (f32 sums of up to n_fft terms
-# in the kernels' order and the plain version's matmul order).
+# The STFT's and the ISTFT's VJP kernels (csrc/stft_vjp.cu) against their
+# plain versions: the MR-STFT resolutions and the enhancer's, ragged lengths,
+# no center pad, hop n_fft/4 at 320; T < K, a row one run covers whole (its
+# head and tail fold in one block), a length one sample past a run boundary,
+# and many runs a row; the direct routes (a prime n_fft; 2048, past the radix
+# route's largest n_fft/2).  Limit: 1e-4 of the gradient's max|g| (f32 sums
+# of up to n_fft terms in the kernels' order and the plain version's matmul
+# order).
 VJP_CASES = [(256, 64, True, 8000), (512, 128, True, 7777), (1024, 256, True, 9000),
-             (320, 160, True, 16000), (320, 160, False, 16001), (37, 37, True, 3000),
+             (320, 160, True, 16000), (320, 160, False, 16001), (320, 80, True, 5000),
+             (256, 64, True, 150), (1024, 256, True, 700), (256, 64, True, 64 * 64 + 1),
+             (256, 64, True, 64 * 64 * 8), (512, 128, False, 20000), (37, 37, True, 3000),
              (2048, 128, True, 12000)]
 
 
@@ -106,12 +113,15 @@ def test_stft_vjp_kernel(cuda, n_fft, hop, center, n):
     dre = _randn(3, t, n_fft // 2 + 1, seed=n).to(cuda)
     dim = _randn(3, t, n_fft // 2 + 1, seed=n + 1).to(cuda)
     before = kstft.stft_vjp.launches
-    dx = kstft.stft_vjp(dre, dim, n, n_fft, hop, center=center)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    dx = kstft.stft_vjp(dre, dim, n, n_fft, hop, center=center, frames_done=counter)
     again = kstft.stft_vjp(dre, dim, n, n_fft, hop, center=center)
     ref = kstft.stft_vjp_plain(dre, dim, n, n_fft, hop, center=center)
     torch.cuda.synchronize()
     assert kstft.stft_vjp.launches == before + 2
-    assert kstft.stft_vjp.route == kstft.istft_route(n_fft, hop)
+    assert kstft.stft_vjp.route == kstft.vjp_plan(n_fft, hop)
+    # the radix kernel transforms each frame once (the direct sums count none)
+    assert int(counter) == (3 * t if kstft.vjp_plan(n_fft, hop).radices else 0)
     assert dx.shape == (3, n) and torch.equal(dx, again)
     assert _vjp_err((dx,), (ref,)) <= 1e-4
 
@@ -119,17 +129,39 @@ def test_stft_vjp_kernel(cuda, n_fft, hop, center, n):
 @pytest.mark.parametrize("n_fft,hop,center,n", VJP_CASES)
 def test_istft_vjp_kernel(cuda, n_fft, hop, center, n):
     t = 1 + (n // hop if center else (n - n_fft) // hop)
-    for length in (n, n - 3 * hop - 1, n + 2 * hop):      # cut, exact, zero-padded
+    for length in (n, max(1, n - 3 * hop - 1), n + 2 * hop):   # cut, exact, zero-padded
         dy = _randn(3, length, seed=length).to(cuda)
         before = kstft.istft_vjp.launches
-        got = kstft.istft_vjp(dy, t, n_fft, hop, center=center)
+        counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+        got = kstft.istft_vjp(dy, t, n_fft, hop, center=center, frames_done=counter)
         again = kstft.istft_vjp(dy, t, n_fft, hop, center=center)
         ref = kstft.istft_vjp_plain(dy, t, n_fft, hop, center=center)
         torch.cuda.synchronize()
         assert kstft.istft_vjp.launches == before + 2
-        assert kstft.istft_vjp.route == kstft.stft_factors(n_fft)
+        assert kstft.istft_vjp.route == kstft.vjp_plan(n_fft, hop)
+        assert int(counter) == (3 * t if kstft.vjp_plan(n_fft, hop).radices else 0)
         assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
         assert _vjp_err(got, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("n_fft,hop", [(256, 64), (1024, 256), (320, 160)])
+def test_vjp_kernels_launch_one_device_kernel(cuda, n_fft, hop):
+    """A call of either VJP wrapper is one device kernel (profiled in a fresh
+    process): no fold launch, no buffer copy."""
+    names = kernel_names_in_fresh_process(f"""
+from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
+n = 16000
+t = 1 + n // {hop}
+dre = torch.randn(2, t, {n_fft} // 2 + 1, device="cuda")
+dim = torch.randn(2, t, {n_fft} // 2 + 1, device="cuda")
+dy = torch.randn(2, n, device="cuda")
+calls = [lambda: kstft.stft_vjp(dre, dim, n, {n_fft}, {hop}),
+         lambda: kstft.istft_vjp(dy, t, {n_fft}, {hop})]
+""")
+    for got, want in zip(names, ("stft_vjp_kernel", "istft_vjp_kernel")):
+        got = [n for n, k in got.items() for _ in range(k)
+               if "Memcpy" not in n and "Memset" not in n]
+        assert len(got) == 1 and re.search(rf"(?<!\w){want}\b", got[0]), got
 
 
 def test_stft_refuses_too_few_samples(cuda):
