@@ -14,7 +14,10 @@ CTC -> WER), driven by ``python -m aas_enhancement_tpu_torch.cli.evaluate``;
 the objectives, checkpoints and streaming engines around them; and serving:
 the live TCP server (``cli.serve``) and the exported enhancer
 (``cli.export``, ``torch.export`` over the kernels registered as operators
-in ``ops/library.py``).
+in ``ops/library.py``); beam decoding with char / word / hybrid LM fusion
+(the host C++ decoder of ``native/`` and the batched beam on the card,
+``decode/``), LM training (``cli.train_lm``) and tuning, the native wav
+loader and the worker loader.
 
 This package imports torch and never jax or flax.
 """

@@ -1,15 +1,22 @@
 """`evaluate` entry point: WER of the AM on a test manifest, noisy vs enhanced
 (port of ``aas_enhancement_tpu/cli/evaluate.py``).
 
-Runs the acoustic model with greedy decoding over the manifest on
-``--device``, reports corpus WER/CER, optionally enhances first and reports
-the WER delta, and with ``--clean-manifest`` the SI-SNR and STOI of noisy and
-enhanced waveforms; one JSON line ends the run.
+Runs the acoustic model over the manifest on ``--device``, decodes greedily
+or with a beam (``--decoder beam``: the host C++/Python prefix beam with any
+LM mode; ``--decoder device``: the batched beam on the device, no LM or a
+char LM), reports corpus WER/CER, optionally enhances first and reports the
+WER delta, and with ``--clean-manifest`` the SI-SNR and STOI of noisy and
+enhanced waveforms; one JSON line ends the run.  ``--lm`` (char or word
+n-gram, ``cli.train_lm``) fuses into the beam, ``--word-lm`` adds a word LM
+to a char ``--lm`` (hybrid fusion), and ``--tune-lm-manifest`` grid-searches
+the LM weights on a dev manifest first (the grid is in ``lm_tuning``).
 
 Usage:
   python -m aas_enhancement_tpu_torch.cli.evaluate --manifest test.csv \\
       --am-checkpoint seed:0 [--enhancer-checkpoint seed:1] \\
-      [--clean-manifest clean.csv] [--config cfg.json] [--device cuda|cpu]
+      [--decoder beam --lm char.json --word-lm word.arpa \\
+       --tune-lm-manifest dev.csv] [--clean-manifest clean.csv] \\
+      [--config cfg.json] [--device cuda|cpu]
 
 Weights: ``--am-checkpoint`` and ``--enhancer-checkpoint`` take a train-CLI
 checkpoint directory of the port (``train/loop.py::load_state``; a JAX
@@ -18,9 +25,7 @@ package's directory converts with ``scripts/orbax_to_torch.py``) or
 ``torch.Generator().manual_seed(N)`` with flax's init distributions.  Without
 ``--config`` the ``am`` and ``audio`` config sections come from the AM's
 checkpoint; the ``enhancer`` section always comes from the enhancer's, as in
-the JAX CLI.  The beam decoders and LM flags (``--decoder beam|device``,
-``--lm``, ``--word-lm``, ``--tune-lm-manifest``) raise until ROADMAP A10 /
-A13 port them.
+the JAX CLI.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import json
 
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.config import Config
+from aas_enhancement_tpu_torch.decode.lm import load_lm
+from aas_enhancement_tpu_torch.decode.tune import grid_search_hybrid, grid_search_lm
 from aas_enhancement_tpu_torch.enhance import init_enhancer
 from aas_enhancement_tpu_torch.evaluation import evaluate_si_snr, evaluate_wer, init_am
 from aas_enhancement_tpu_torch.train.loop import load_state
@@ -54,31 +61,33 @@ def main(argv=None) -> None:
     p.add_argument("--config", help="config JSON")
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--decoder", choices=["greedy", "beam", "device"], default="greedy",
-                   help="only 'greedy' is ported ('beam': ROADMAP A10, "
-                        "'device': ROADMAP A13)")
-    p.add_argument("--beam-width", type=int, default=32, help="(beam decoders only)")
-    p.add_argument("--lm", help="LM fusion (not yet ported, ROADMAP A10)")
-    p.add_argument("--lm-alpha", type=float, default=0.5, help="(LM fusion only)")
-    p.add_argument("--lm-beta", type=float, default=0.0, help="(LM fusion only)")
-    p.add_argument("--word-lm", help="word-LM fusion (not yet ported, ROADMAP A10)")
-    p.add_argument("--word-alpha", type=float, default=0.5, help="(LM fusion only)")
-    p.add_argument("--word-beta", type=float, default=0.0, help="(LM fusion only)")
+                   help="'beam' = host C++/Python prefix beam (any LM mode); "
+                        "'device' = batched beam on the device (no LM or char-LM "
+                        "fusion; decode/device_beam.py)")
+    p.add_argument("--beam-width", type=int, default=32)
+    p.add_argument("--lm", help="LM file for beam fusion (char or word n-gram json, or "
+                                "ARPA; train with cli.train_lm)")
+    p.add_argument("--lm-alpha", type=float, default=0.5, help="LM weight")
+    p.add_argument("--lm-beta", type=float, default=0.0,
+                   help="insertion bonus (per symbol for char LMs, per completed "
+                        "word for word LMs)")
+    p.add_argument("--word-lm",
+                   help="word n-gram LM fused IN ADDITION to a char --lm (hybrid "
+                        "char+word shallow fusion)")
+    p.add_argument("--word-alpha", type=float, default=0.5,
+                   help="word-LM weight (hybrid fusion)")
+    p.add_argument("--word-beta", type=float, default=0.0,
+                   help="per-completed-word bonus (hybrid fusion)")
     p.add_argument("--tune-lm-manifest",
-                   help="LM weight grid search (not yet ported, ROADMAP A10)")
+                   help="dev manifest: grid-search the lm alpha/beta (and the word-LM "
+                        "weights with --word-lm) on it first and use the best point "
+                        "(reports the grid)")
     p.add_argument("--clean-manifest",
                    help="paired clean manifest: also report SI-SNR (dB) and STOI of "
                         "noisy and enhanced waveforms vs the clean references")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    for flag, value in (("--lm", args.lm), ("--word-lm", args.word_lm),
-                        ("--tune-lm-manifest", args.tune_lm_manifest)):
-        if value:
-            raise NotImplementedError(f"{flag}: LM fusion is not yet ported (ROADMAP A10)")
-    if args.decoder != "greedy":
-        road = "A10" if args.decoder == "beam" else "A13"
-        raise NotImplementedError(f"--decoder {args.decoder}: not yet ported "
-                                  f"(ROADMAP {road})")
     device = resolve_device(args.device)
 
     if args.config:
@@ -97,6 +106,23 @@ def main(argv=None) -> None:
             cfg = cfg.replace(am=am_cfg.am, audio=am_cfg.audio)
     else:
         am = init_am(cfg, am_seed, device)
+    lm, word_lm = None, None
+    if args.lm:
+        lm = load_lm(args.lm)
+    if args.word_lm:
+        word_lm = load_lm(args.word_lm)
+        if not getattr(word_lm, "is_word_lm", False):
+            raise SystemExit(f"{args.word_lm}: --word-lm must be a WORD "
+                             "n-gram LM (train with cli.train_lm --word)")
+        if lm is None:
+            raise SystemExit("--word-lm fuses in addition to a char --lm; "
+                             "for word-LM-only fusion pass it as --lm")
+    if args.decoder == "device" and (
+            word_lm is not None
+            or (lm is not None and getattr(lm, "is_word_lm", False))):
+        raise SystemExit("--decoder device supports char-LM fusion only; "
+                         "word/hybrid fusion needs --decoder beam")
+
     enhancer = None
     if args.enhancer_checkpoint:
         g_seed = checkpoint_seed(args.enhancer_checkpoint)
@@ -109,10 +135,31 @@ def main(argv=None) -> None:
         else:
             enhancer = init_enhancer(cfg, g_seed, device)
 
-    result = {"noisy": evaluate_wer(cfg, am, args.manifest, batch_size=args.batch_size)}
+    lm_alpha, lm_beta, tune_result = args.lm_alpha, args.lm_beta, None
+    word_alpha, word_beta = args.word_alpha, args.word_beta
+    if args.tune_lm_manifest:
+        if lm is None:
+            raise SystemExit("--tune-lm-manifest requires --lm")
+        if word_lm is not None:
+            tune_result = grid_search_hybrid(cfg, am, args.tune_lm_manifest, lm, word_lm,
+                                             enhancer=enhancer, batch_size=args.batch_size,
+                                             beam_width=args.beam_width)
+            word_alpha, word_beta = tune_result["word_alpha"], tune_result["word_beta"]
+        else:
+            tune_result = grid_search_lm(cfg, am, args.tune_lm_manifest, lm,
+                                         enhancer=enhancer, batch_size=args.batch_size,
+                                         beam_width=args.beam_width)
+        lm_alpha, lm_beta = tune_result["alpha"], tune_result["beta"]
+
+    kw = dict(batch_size=args.batch_size, decoder=args.decoder,
+              beam_width=args.beam_width, lm=lm, lm_alpha=lm_alpha, lm_beta=lm_beta)
+    if word_lm is not None:
+        kw.update(word_lm=word_lm, word_alpha=word_alpha, word_beta=word_beta)
+    result = {"noisy": evaluate_wer(cfg, am, args.manifest, **kw)}
+    if tune_result is not None:
+        result["lm_tuning"] = tune_result
     if enhancer is not None:
-        result["enhanced"] = evaluate_wer(cfg, am, args.manifest, enhancer=enhancer,
-                                          batch_size=args.batch_size)
+        result["enhanced"] = evaluate_wer(cfg, am, args.manifest, enhancer=enhancer, **kw)
         result["wer_delta"] = result["enhanced"]["wer"] - result["noisy"]["wer"]
     if args.clean_manifest:
         result["si_snr"] = evaluate_si_snr(cfg, args.manifest, args.clean_manifest,

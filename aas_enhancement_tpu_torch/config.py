@@ -84,10 +84,11 @@ class DataConfig:
     """Host-side data pipeline (``data/dataset.py``).
 
     ``augment=True`` perturbs each unpaired training wav (``data/augment.py``:
-    speed, gain, noise from ``noise_dir``).  ``use_grain=True`` raises in the trainer
-    (the grain loader is not ported, ROADMAP A9b).  ``native_decode`` is accepted and
-    ignored: the port has only the Python reader, whose batches the JAX
-    package's native decoder reproduces byte for byte.
+    speed, gain, noise from ``noise_dir``).  ``use_grain=True`` makes the trainer
+    decode batches in ``grain_workers`` worker processes (``data/grain_loader.py``,
+    a ``torch.utils.data.DataLoader``; the name stays the JAX package's, so one
+    JSON config loads in both).  ``native_decode`` decodes unaugmented batches
+    with the native C++ decoder (``data/native_audio.py``) when it is built.
     """
 
     train_manifest: str = ""

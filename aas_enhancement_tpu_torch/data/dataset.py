@@ -22,9 +22,10 @@ draws on their count.  Paired targets stay unaugmented, sample-aligned with
 their clean side.  Bucket lengths then allow for speed perturbation's
 longest output (x1.12), as the JAX package's do.
 
-Only the Python wav reader is ported: the JAX package's native decoder
-(``DataConfig.native_decode``) gives byte-identical batches, so the flag is
-ignored here.
+With ``DataConfig.native_decode`` and no augmentation, a batch's wavs are
+decoded and packed by the native C++ decoder (``data/native_audio.py``), bit
+for bit the Python reader's batch; without the built library the Python
+reader serves.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import Iterator
 import numpy as np
 
 from aas_enhancement_tpu_torch.config import AudioConfig, DataConfig
+from aas_enhancement_tpu_torch.data import native_audio
 from aas_enhancement_tpu_torch.data.augment import NoiseInjector, augment_wav
 from aas_enhancement_tpu_torch.data.manifest import read_manifest, read_transcript
 from aas_enhancement_tpu_torch.data.wav import read_wav
@@ -154,6 +156,21 @@ class AudioDataset:
             label_pad[j, : len(ids)] = 0.0
 
         has_clean = all(it["clean_wav"] for it in items)
+        if self.data.native_decode and not self.data.augment:
+            # Parallel C++ decode and packing; with feed_dtype "int16" a PCM16
+            # corpus packs by a direct copy, no float round trip.
+            feed, sr = self.data.feed_dtype, self.audio.sample_rate
+            native = native_audio.batch_decode([it["wav"] for it in items], bucket,
+                                               expected_sr=sr, dtype=feed)
+            if native is not None:
+                clean = None
+                if has_clean:
+                    clean, _ = native_audio.batch_decode(
+                        [it["clean_wav"] for it in items], bucket, expected_sr=sr,
+                        dtype=feed)
+                return Batch(wav=native[0], wav_lengths=native[1], labels=labels,
+                             label_paddings=label_pad, clean_wav=clean,
+                             real_size=real_size or len(items))
         wav = np.zeros((b, bucket), np.float32)
         wav_lengths = np.zeros(b, np.int32)
         clean = np.zeros((b, bucket), np.float32) if has_clean else None

@@ -1,12 +1,16 @@
-"""WER evaluation: the AM with greedy decoding over a manifest, on noisy or
-enhanced input, plus SI-SNR and STOI (port of ``aas_enhancement_tpu/evaluation.py``).
+"""WER evaluation: the AM with greedy or beam decoding over a manifest, on noisy
+or enhanced input, plus SI-SNR and STOI (port of
+``aas_enhancement_tpu/evaluation.py``).
 
 The recognition forward is wav -> STFT log-magnitude (or the enhancer's
 log1p(enhanced magnitude), with no ISTFT) -> per-utterance masked
 normalization (always, whatever ``audio.normalize`` says, as in the JAX
 package) -> ``AcousticModel`` -> logits and frame paddings.  On a CUDA device
 it runs through the STFT, GroupNorm, LSTM (enhancer) and GRU (AM) kernels.
-The beam decoders and LM fusion are not ported yet (ROADMAP A10, A13).
+Decoders: ``greedy``; ``beam``, the host prefix beam (``decode/beam.py``,
+native C++ or Python) with char, word or hybrid LM fusion; ``device``, the
+batched beam on the logits' device (``decode/device_beam.py``) with char-LM
+fusion only.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from aas_enhancement_tpu_torch.convert import init_like_flax
 from aas_enhancement_tpu_torch.data.dataset import AudioDataset
 from aas_enhancement_tpu_torch.data.manifest import read_manifest
 from aas_enhancement_tpu_torch.data.wav import read_wav
+from aas_enhancement_tpu_torch.decode.beam import beam_decode
+from aas_enhancement_tpu_torch.decode.device_beam import device_beam_decode
 from aas_enhancement_tpu_torch.decode.greedy import decode_batch
 from aas_enhancement_tpu_torch.decode.wer import cer, corpus_wer, corpus_wer_ci, edit_distance
 from aas_enhancement_tpu_torch.labels import decode_ids
@@ -66,23 +72,38 @@ def eval_dataset(cfg: Config, manifest: str) -> AudioDataset:
     return AudioDataset(manifest, cfg.audio, eval_data)
 
 
+def _device_table(lm):
+    """The dense char-LM table and its order for ``decoder="device"``."""
+    if lm is None:
+        return None, 0
+    if hasattr(lm, "dense_table"):
+        return lm.dense_table(), lm.order
+    if isinstance(lm, np.ndarray):
+        raise ValueError("decoder='device' needs a CharNGramLM "
+                         "(table order unknown from a bare array)")
+    raise ValueError("decoder='device' supports char-LM fusion only; "
+                     "use decoder='beam'")
+
+
 def evaluate_wer(cfg: Config, am: AcousticModel, manifest: str | AudioDataset,
                  enhancer: Enhancer | None = None, batch_size: int = 4,
-                 decoder: str = "greedy", forward=None,
+                 decoder: str = "greedy", beam_width: int = 32, lm=None,
+                 lm_alpha: float = 0.0, lm_beta: float = 0.0, word_lm=None,
+                 word_alpha: float = 0.0, word_beta: float = 0.0, forward=None,
                  per_utt: bool = False) -> dict:
-    """Corpus WER (with a bootstrap 95% CI) and mean CER of greedy decoding
-    over a manifest, enhancing first if ``enhancer`` is given.  ``manifest``
-    may be a prebuilt ``AudioDataset`` and ``forward`` a prebuilt
-    ``make_eval_forward`` result.  ``per_utt`` adds each utterance's word
-    edit count, in the dataset's stable batch order."""
-    if decoder == "beam":
-        raise NotImplementedError("decoder='beam': the host beam decoder and LM "
-                                  "fusion are not yet ported (ROADMAP A10)")
-    if decoder == "device":
-        raise NotImplementedError("decoder='device': the on-device beam decoder is "
-                                  "not yet ported (ROADMAP A13)")
-    if decoder != "greedy":
+    """Corpus WER (with a bootstrap 95% CI) and mean CER over a manifest,
+    decoded by ``decoder`` ("greedy", "beam" or "device"; LM fusion as
+    ``decode/beam.py::beam_decode`` takes it), enhancing first if
+    ``enhancer`` is given.  ``manifest`` may be a prebuilt ``AudioDataset``
+    and ``forward`` a prebuilt ``make_eval_forward`` result.  ``per_utt``
+    adds each utterance's word edit count, in the dataset's stable batch
+    order."""
+    if decoder not in ("greedy", "beam", "device"):
         raise ValueError(f"unknown decoder {decoder!r}")
+    if decoder == "device" and word_lm is not None:
+        raise ValueError("decoder='device' supports char-LM fusion only; "
+                         "use decoder='beam' for word/hybrid")
+    table, order = _device_table(lm) if decoder == "device" else (None, 0)
     ds = manifest if isinstance(manifest, AudioDataset) else eval_dataset(cfg, manifest)
     if forward is None:
         forward = make_eval_forward(cfg, use_enhancer=enhancer is not None)
@@ -93,7 +114,20 @@ def evaluate_wer(cfg: Config, am: AcousticModel, manifest: str | AudioDataset,
         logits, pads = forward(am, enhancer, torch.from_numpy(batch.wav).to(device),
                                torch.from_numpy(batch.wav_lengths).to(device))
         k = batch.size  # drop repeat-padded rows from the metrics
-        hyps.extend(decode_batch(logits, pads)[:k])
+        if decoder == "greedy":
+            hyps.extend(decode_batch(logits, pads)[:k])
+        else:
+            log_probs = torch.log_softmax(logits, dim=-1)
+            lens = (pads < 0.5).sum(1).cpu().numpy().astype(np.int32)
+            if decoder == "beam":
+                hyps.extend(beam_decode(log_probs.cpu().numpy(), lens,
+                                        beam_width=beam_width, lm=lm, lm_alpha=lm_alpha,
+                                        lm_beta=lm_beta, word_lm=word_lm,
+                                        word_alpha=word_alpha, word_beta=word_beta)[:k])
+            else:
+                hyps.extend(device_beam_decode(log_probs, lens, beam_width=beam_width,
+                                               lm_table=table, lm_order=order,
+                                               lm_alpha=lm_alpha, lm_beta=lm_beta)[:k])
         for row, pad_row in zip(batch.labels[:k], batch.label_paddings[:k]):
             refs.append(decode_ids(row[: int(np.sum(pad_row < 0.5))]))
 

@@ -24,8 +24,9 @@ clean draw skipped per step taken), so the run continues bit for bit on the
 CPU.  With ``data.val_manifest`` greedy WER/CER is measured every
 ``eval_every`` steps (0: at each epoch's end) and the best step is kept in
 ``<checkpoint_dir>/best_ckpt`` with ``best.json``.  ``profile_dir`` writes a
-``torch.profiler`` Chrome trace of ``profile_steps`` steps.  The grain loader
-raises (ROADMAP A9b).
+``torch.profiler`` Chrome trace of ``profile_steps`` steps.  With
+``data.use_grain`` the batches are decoded in ``data.grain_workers`` worker
+processes (``data/grain_loader.py``), in the same order.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import torch
 from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.convert import init_like_flax
 from aas_enhancement_tpu_torch.data.dataset import AudioDataset, Batch, UnpairedCleanStream
+from aas_enhancement_tpu_torch.data.grain_loader import grain_batches
 from aas_enhancement_tpu_torch.enhance import init_enhancer
 from aas_enhancement_tpu_torch.evaluation import (eval_dataset, evaluate_wer,
                                                   make_eval_forward)
@@ -199,12 +201,6 @@ def batch_dict(cfg: Config, batch: Batch, clean_stream: UnpairedCleanStream | No
     return {key: torch.from_numpy(v).to(device) for key, v in d.items()}
 
 
-def _check_ported(cfg: Config) -> None:
-    if cfg.data.use_grain:
-        raise NotImplementedError("DataConfig.use_grain (the grain loader): not yet "
-                                  "ported (ROADMAP A9b)")
-
-
 class _Validator:
     """In-training validation: greedy WER/CER on ``cfg.data.val_manifest``.
 
@@ -357,7 +353,6 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
     an objective that trains without one (the JAX package's
     ``eval_am_params``)."""
     device = resolve_device(device)
-    _check_ported(cfg)
     t = cfg.train
     ds = AudioDataset(noisy_manifest, cfg.audio, cfg.data,
                       paired_manifest=clean_manifest if paired else None)
@@ -396,8 +391,14 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
             clean_stream.skip()
 
     def prepared(epoch: int, offset: int):
-        batches = ds.batches(t.batch_size, t.seed, epoch,
-                             sorted_order=t.sortagrad and epoch == 0, start=offset)
+        sorted_order = t.sortagrad and epoch == 0
+        if cfg.data.use_grain:
+            batches = grain_batches(ds, t.batch_size, t.seed, epoch,
+                                    worker_count=cfg.data.grain_workers,
+                                    sorted_order=sorted_order, start=offset)
+        else:
+            batches = ds.batches(t.batch_size, t.seed, epoch, sorted_order=sorted_order,
+                                 start=offset)
         for i, batch in enumerate(batches, start=offset):
             yield i, batch_dict(cfg, batch, clean_stream, device)
 

@@ -5,8 +5,10 @@
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 1. device: the card's name and power limit, TF32 off for the parity checks;
-2. build: the CUDA kernels from csrc/ (nvcc, sm_90a, one process per source),
-   with each kernel's registers, shared memory and spills from ptxas;
+2. build: the native host libraries from native/ (make, g++: the beam
+   decoder and the wav loader), then the CUDA kernels from csrc/ (nvcc,
+   sm_90a, one process per source), with each kernel's registers, shared
+   memory and spills from ptxas;
 3. kernels: each kernel against its plain PyTorch version on the card at the
    full-width shapes its paths give it (B=4 x 8 s, ragged lengths): the
    enhance path's (T=801, F=161, C=32, LSTM H=256) and the AM's (GN +
@@ -36,6 +38,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the recognition forward (enhancer + AM, 4 x BiGRU-512) at B=4 x 8 s on the
    card against the same weights on the CPU (logits, greedy ids), the device
    kernels of one call, and its time per batch with and without the enhancer;
+5b. decode: on a full-width AM and enhancer (seeds 0 and 1), the recognition
+   forward at B=4 x 8 s, ragged, and its log-probs through the host beam
+   (native C++, W=32) with no LM, a char 3-gram, a word LM and both (the
+   LMs written by cli.train_lm from the phase's synthetic corpus; the route
+   must be native, and the native batch must give beam_search_python's ids
+   on two rows), and through the device beam (W=32, prune 16, no LM and the
+   char 3-gram: ids and lengths equal to its CPU run, scores within 1e-3
+   relative), timed (median of 5 after 2) with its device events, busy time
+   and idle share beside the native batch decoder's wall on the same
+   log-probs; cli.evaluate --decoder beam --lm --word-lm --tune-lm-manifest
+   and --decoder device --lm on 6 utterances (launches counted with the
+   forward's); a batch with native_decode against the Python reader's; and
+   cli.train --objective am, 2 steps, with use_grain (2 spawned workers);
 6. train: the port's train CLI (--objective aas, 3 steps, B=4) on a synthetic
    corpus with --device cuda, counting each kernel's launches (the backward
    kernels included); one AAS step's metrics and G and D gradients at
@@ -380,7 +395,13 @@ def phase_device():
 
 
 def phase_build():
-    from aas_enhancement_tpu_torch.utils import kernel_build
+    from aas_enhancement_tpu_torch.utils import kernel_build, native_build
+    t0 = time.perf_counter()
+    if not native_build.build():
+        fail("the native host libraries (native/: the beam decoder, the wav loader) did "
+             "not build")
+    print(f"[build] native host libraries {sorted(os.listdir(native_build.BUILD_DIR))} "
+          f"in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     so = kernel_build.build()
     kernel_build.load_library()
@@ -2904,6 +2925,232 @@ def phase_export(device, card, root: str, ck: str):
     return launches
 
 
+DEVICE_BEAM_TOL = (1e-3, "relative to max(1, |score|): f32 beam scores are sums of up to "
+                   "401 frames' log-probs (|score| ~1e3) through ~800 logaddexp a frame, "
+                   "exp and log1p rounded by each device's library")
+DECODE_KERNELS = ("stft", "gn_act", "lstm", "gru")
+_BEAM_PROFILE = """
+import json, sys
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from aas_enhancement_tpu_torch.decode.device_beam import device_beam_decode_raw
+from aas_enhancement_tpu_torch.utils.profiling import profile_call
+d = np.load({path!r})
+lp = torch.from_numpy(d["lp"]).cuda()
+out = []
+for kw in ({{}}, dict(lm_table=d["table"], lm_order=3, lm_alpha=0.5, lm_beta=0.5)):
+    s = profile_call(lambda: device_beam_decode_raw(lp, d["lens"], beam_width=32,
+                                                    prune_k=16, **kw), 1, 1, {trace!r})
+    out.append({{k: s[k] for k in ("busy_ms", "events", "wall_ms", "idle_wall")}})
+print(json.dumps(out))
+"""
+
+
+def device_beam_profile(tmp: str, lp, lens, table) -> list[dict]:
+    """The device beam's busy time, device events and idle share for one
+    batch (after one warm call), without and with the char LM ``table``,
+    profiled in a fresh process: a long process's torch.profiler drops
+    records, and a session of 50,000 events left a later phase's session
+    short of its records."""
+    import numpy as np
+    path, trace = os.path.join(tmp, "beam_in.npz"), os.path.join(tmp, "beam_trace.json")
+    np.savez(path, lp=lp, lens=lens, table=table)
+    proc = subprocess.run([sys.executable, "-c", _BEAM_PROFILE.format(
+        root=HERE, path=path, trace=trace)], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"profiling the device beam in a fresh process: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_decode(device, card):
+    """Beam decoding with LM fusion on one full-width AM and enhancer (random
+    weights from seeds): the recognition forward of B=4 x 8 s, ragged; the
+    host beam (native C++) at W=32 with no LM, a char 3-gram, a word LM and
+    both, against beam_search_python on two rows; the device beam at W=32,
+    prune 16, with no LM and the char 3-gram, card vs CPU, timed beside the
+    native batch decoder; cli.evaluate --decoder beam (hybrid, tuned) and
+    --decoder device; cli.train with the worker loader; a batch through the
+    native wav decoder.  -> ({kernel: launches} of the forward and the
+    evaluate CLIs, those of the train CLI)."""
+    import numpy as np
+    import torch
+    from aas_enhancement_tpu_torch.cli import evaluate as eval_cli
+    from aas_enhancement_tpu_torch.cli import train as train_cli
+    from aas_enhancement_tpu_torch.cli import train_lm
+    from aas_enhancement_tpu_torch.config import Config, DataConfig
+    from aas_enhancement_tpu_torch.data import AudioDataset, generate_corpus, native_audio
+    from aas_enhancement_tpu_torch.decode import beam
+    from aas_enhancement_tpu_torch.decode.device_beam import device_beam_decode_raw
+    from aas_enhancement_tpu_torch.decode.lm import load_lm
+    from aas_enhancement_tpu_torch.enhance import init_enhancer
+    from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
+
+    def host_walls(fn, reps: int = 5, warmup: int = 2) -> list[float]:
+        walls = []
+        for i in range(warmup + reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i >= warmup:
+                walls.append(time.perf_counter() - t0)
+        return walls
+
+    cfg = Config()
+    am, enh = init_am(cfg, 0, device), init_enhancer(cfg, 1, device)
+    wav, lengths, _ = make_inputs(device)
+    fwd = make_eval_forward(cfg, use_enhancer=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=2)
+        char_lm, word_lm = os.path.join(tmp, "char.json"), os.path.join(tmp, "word.json")
+        word_arpa = os.path.join(tmp, "word.arpa")
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            train_lm.main(["--manifest", m["clean"], "--level", "char", "--order", "3",
+                           "--out", char_lm])
+            train_lm.main(["--manifest", m["clean"], "--level", "word", "--out", word_lm,
+                           "--arpa", word_arpa])
+        print(f"[decode] cli.train_lm: {' | '.join(out.getvalue().split(chr(10))[:2])}")
+        char, word = load_lm(char_lm), load_lm(word_arpa)
+        lines = {}
+
+        def main_path():
+            logits, pads = fwd(am, enh, wav, lengths)
+            lines["log_probs"] = torch.log_softmax(logits, -1)
+            lines["lens"] = (pads < 0.5).sum(1).cpu().numpy().astype(np.int32)
+            for tag, argv in (
+                    ("beam", ["--decoder", "beam", "--lm", char_lm, "--word-lm", word_arpa,
+                              "--tune-lm-manifest", m["clean"]]),
+                    ("device", ["--decoder", "device", "--lm", char_lm])):
+                with contextlib.redirect_stdout(io.StringIO()) as o:
+                    t0 = time.perf_counter()
+                    eval_cli.main(["--manifest", m["noisy"], "--am-checkpoint", "seed:0",
+                                   "--enhancer-checkpoint", "seed:1", *argv])
+                lines[tag] = (json.loads(o.getvalue().strip().splitlines()[-1]),
+                              time.perf_counter() - t0)
+                if tag == "beam":
+                    lines["beam_route"] = beam.beam_decode.route
+
+        launches = counted(DECODE_KERNELS, main_path)
+        print(f"[decode] main path (the B={B} x {SECONDS} s recognition forward, "
+              f"cli.evaluate --decoder beam and --decoder device on 6 utterances): "
+              f"launches {json.dumps(launches)}")
+        for name, count in launches.items():
+            if count == 0:
+                fail(f"the decode path launched no {name} kernel")
+        for tag in ("beam", "device"):
+            line, took = lines[tag]
+            print(f"[decode] cli.evaluate --decoder {tag} ({took:.2f} s): "
+                  f"{json.dumps(line)[:700]}")
+            want = {"noisy", "enhanced", "wer_delta"} | (
+                {"lm_tuning"} if tag == "beam" else set())
+            if set(line) != want or any(
+                    line[leg]["utterances"] != 6 or not 0.0 <= line[leg]["wer"] < float("inf")
+                    for leg in ("noisy", "enhanced")):
+                fail(f"cli.evaluate --decoder {tag} printed {line}")
+        grid = lines["beam"][0]["lm_tuning"]["grid"]
+        print(f"[decode] lm_tuning: {len(grid)} grid cells, best "
+              f"{json.dumps({k: v for k, v in lines['beam'][0]['lm_tuning'].items() if k != 'grid'})}")
+        if lines["beam_route"] != "native":
+            fail(f"cli.evaluate --decoder beam took the {lines['beam_route']} route")
+
+        # The host beam at W=32 on the forward's log-probs, every fusion mode.
+        lp = lines["log_probs"].cpu().numpy()
+        lens = lines["lens"]
+        modes = {"none": {}, "char 3-gram": dict(lm=char, lm_alpha=0.5, lm_beta=0.5),
+                 "word": dict(lm=word, lm_alpha=0.5, lm_beta=1.0),
+                 "hybrid": dict(lm=char, lm_alpha=0.5, lm_beta=0.5, word_lm=word,
+                                word_alpha=0.5, word_beta=1.0)}
+        for mode, kw in modes.items():
+            t0 = time.perf_counter()
+            hyps = beam.beam_decode(lp, lens, beam_width=32, **kw)
+            print(f"[decode] beam_decode W=32 ({mode}): route {beam.beam_decode.route}, "
+                  f"{time.perf_counter() - t0:.3f} s, hypotheses "
+                  f"{json.dumps([h[:40] for h in hyps])}")
+            if beam.beam_decode.route != "native":
+                fail(f"beam_decode ({mode}) took the {beam.beam_decode.route} route")
+        native = beam.beam_search_native_batch(lp, lens, 32)
+        for r in (3, 2):
+            t0 = time.perf_counter()
+            py_ids, py_score = beam.beam_search_python(lp[r, : lens[r]], 32)
+            print(f"[decode] row {r} ({lens[r]} frames): native batch ids == "
+                  f"beam_search_python's: {native[r][0] == py_ids} (scores "
+                  f"{native[r][1]:.4f} / {py_score:.4f}; Python {time.perf_counter() - t0:.2f} s)")
+            if native[r][0] != py_ids:
+                fail(f"row {r}: the native batch decoder's ids differ from beam_search_python's")
+
+        # The device beam, card vs CPU, timed beside the native batch decoder;
+        # its device events, busy time and idle share from a fresh process.
+        table = char.dense_table()
+        lm_kw = dict(lm_table=table, lm_order=3, lm_alpha=0.5, lm_beta=0.5)
+        profs = device_beam_profile(tmp, lp, lens, table)
+        tol, why = DEVICE_BEAM_TOL
+        for mode, kw in (("no LM", {}), ("char 3-gram", lm_kw)):
+            def dev_run():
+                return device_beam_decode_raw(lines["log_probs"], lens, beam_width=32,
+                                              prune_k=16, **kw)
+
+            def host_run():
+                return beam.beam_search_native_batch(lp, lens, 32, prune_k=16, **kw)
+
+            ids, olens, scores = dev_run()
+            t0 = time.perf_counter()
+            ref = device_beam_decode_raw(lp, lens, beam_width=32, prune_k=16, device="cpu",
+                                         **kw)
+            cpu_s = time.perf_counter() - t0
+            rel = float(np.max(np.abs(scores - ref[2]) / np.maximum(1.0, np.abs(ref[2]))))
+            host = host_run()
+            same_host = sum(list(ids[r, : olens[r]]) == host[r][0] for r in range(B))
+            print(f"[decode] device beam W=32 prune 16 ({mode}): ids and lengths equal to "
+                  f"the CPU run: {bool(np.array_equal(ids, ref[0]))}, "
+                  f"{bool(np.array_equal(olens, ref[1]))}; scores {scores.tolist()}, max "
+                  f"|diff| {float(np.max(np.abs(scores - ref[2]))):.3e}, relative "
+                  f"{rel:.3e} (tol {tol:.0e}: {why}); rows equal to the native decoder's "
+                  f"ids: {same_host} of {B}; CPU run {cpu_s:.2f} s")
+            if not (np.array_equal(ids, ref[0]) and np.array_equal(olens, ref[1])):
+                fail(f"device beam ({mode}): card ids or lengths differ from the CPU run")
+            if not rel <= tol:
+                fail(f"device beam ({mode}): scores differ by {rel:.3e} relative")
+            walls, nat, prof = host_walls(dev_run), host_walls(host_run), profs[mode != "no LM"]
+            print(f"[decode] device beam ({mode}) on {card}: {1e3 * statistics.median(walls):.1f} "
+                  f"ms a B={B} x {AM_T}-frame batch (median of 5 after 2; walls ms "
+                  f"{[round(w * 1e3, 1) for w in walls]}); in a fresh process: device busy "
+                  f"{prof['busy_ms']:.1f} ms, {prof['events']:.0f} device events (launches) "
+                  f"a batch = {prof['events'] / AM_T:.1f} a frame, idle share "
+                  f"{100 * prof['idle_wall']:.1f}% of its unprofiled wall "
+                  f"({prof['wall_ms']:.1f} ms); native batch decoder (host, "
+                  f"{os.cpu_count()} CPUs): {1e3 * statistics.median(nat):.1f} ms (walls ms "
+                  f"{[round(w * 1e3, 1) for w in nat]})")
+
+        # A batch through the native wav decoder against the Python reader.
+        ds = {flag: AudioDataset(m["noisy"], cfg.audio, DataConfig(native_decode=flag))
+              for flag in (True, False)}
+        nb = next(ds[True].batches(B))
+        route = native_audio.batch_decode.route
+        pb = next(ds[False].batches(B))
+        same = all(np.array_equal(getattr(nb, k), getattr(pb, k))
+                   for k in ("wav", "wav_lengths", "labels"))
+        print(f"[decode] a batch with native_decode: route {route}, equal to the Python "
+              f"reader's: {same}")
+        if route != "native" or not same:
+            fail(f"native_decode batch: route {route}, equal {same}")
+
+        # The train CLI with the worker loader (2 spawned workers).
+        cfg_path = os.path.join(tmp, "grain.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg.replace(data=dataclasses.replace(cfg.data, use_grain=True,
+                                                         grain_workers=2)).to_json())
+        t0 = time.perf_counter()
+        line, _, grain_launches = _cli_run(
+            "cli.train --objective am --steps 2, use_grain (2 workers)", train_cli.main,
+            ["--objective", "am", "--noisy-manifest", m["clean"], "--steps", "2",
+             "--batch-size", str(B), "--am-checkpoint", "seed:0", "--config", cfg_path],
+            phase="decode", names=AM_KERNELS)
+        if line.get("final_step") != 2 or not grain_launches.get("gru"):
+            fail(f"cli.train with use_grain printed {line}, launches {grain_launches}")
+    return launches, grain_launches
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     name, smi = phase_device()
@@ -2921,11 +3168,14 @@ def main() -> int:
     results = timed("kernels", phase_kernels, device)
     # Each path's launches: counts set to 0 just before it, read just after.
     by_path = {"enhance": timed("enhance", phase_slice, device, smi),   # the enhance CLI run
-               "recognize": timed("recognize", phase_recognize, device, smi),   # evaluate CLI
-               "aas_step": timed("aas_step", phase_train, device, smi),   # train CLI, aas
-               "birnn_batch_major": timed("birnn", phase_birnn, device),
-               "am_step": timed("am_step", phase_train_am, device, smi),   # train CLI, am
-               "checkpoint": timed("checkpoint", phase_checkpoint, device, smi)}   # CLIs, dirs
+               "recognize": timed("recognize", phase_recognize, device, smi)}   # evaluate CLI
+    # The beam decoders and LM fusion (evaluate CLI), the worker loader (train CLI).
+    by_path["decode"], by_path["decode_grain_train"] = timed("decode", phase_decode,
+                                                             device, smi)
+    by_path["aas_step"] = timed("aas_step", phase_train, device, smi)   # train CLI, aas
+    by_path["birnn_batch_major"] = timed("birnn", phase_birnn, device)
+    by_path["am_step"] = timed("am_step", phase_train_am, device, smi)   # train CLI, am
+    by_path["checkpoint"] = timed("checkpoint", phase_checkpoint, device, smi)   # CLIs, dirs
     paired_step, by_path["paired_cli"] = timed("paired", phase_paired, device, smi)
     by_path["paired_step"] = paired_step      # the JSON's launches of stft_vjp, istft_vjp
     by_path.update(timed("streaming", phase_streaming, device, smi))

@@ -10,9 +10,12 @@ exactly on a corpus whose logits agree to ~1e-5; SI-SNR and STOI of the
 enhanced waveform to 1e-4 relative (the waveforms agree to ~1e-6).
 """
 
+import contextlib
 import dataclasses
 import importlib
+import io
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -21,10 +24,14 @@ import pytest
 import torch
 
 from aas_enhancement_tpu import labels as jax_labels
+from aas_enhancement_tpu.cli import evaluate as jax_eval_cli
+from aas_enhancement_tpu.cli import train_lm as jax_train_lm
 from aas_enhancement_tpu.config import AMConfig, Config, DataConfig, EnhancerConfig
 from aas_enhancement_tpu.data.dataset import AudioDataset as JaxAudioDataset
 from aas_enhancement_tpu.data.synthetic import generate_corpus
+from aas_enhancement_tpu.decode import beam as jax_beam
 from aas_enhancement_tpu.decode import greedy as jax_greedy
+from aas_enhancement_tpu.decode import lm as jax_lm
 from aas_enhancement_tpu.enhance import init_enhancer as jax_init_enhancer
 from aas_enhancement_tpu import evaluation as jax_eval
 from aas_enhancement_tpu.models.am import AcousticModel as JaxAcousticModel
@@ -35,7 +42,9 @@ from aas_enhancement_tpu_torch import labels as tlabels
 from aas_enhancement_tpu_torch.cli import evaluate as cli
 from aas_enhancement_tpu_torch.convert import am_params_from_flax, enhancer_params_from_flax
 from aas_enhancement_tpu_torch.data.dataset import AudioDataset
+from aas_enhancement_tpu_torch.decode import beam as tbeam
 from aas_enhancement_tpu_torch.decode import greedy as tgreedy
+from aas_enhancement_tpu_torch.decode import lm as tlm
 from aas_enhancement_tpu_torch.decode import wer as twer
 from aas_enhancement_tpu_torch.models.am import AcousticModel
 from aas_enhancement_tpu_torch.models.enhancer import Enhancer
@@ -106,6 +115,80 @@ def test_evaluate_wer_matches_jax(corpus, nets, jax_results, leg):
     assert got["utterances"] == ref["utterances"] == 5
     for k in ("sample_ref", "sample_hyp", "per_utt", "wer", "cer", "wer_ci95"):
         assert got[k] == ref[k], k
+
+
+@pytest.fixture(scope="module")
+def lm_files(corpus, tmp_path_factory):
+    """A char 3-gram (json) and a word 3-gram (ARPA) written by the JAX
+    package's train_lm CLI from the corpus' transcripts; both native beam
+    decoders built."""
+    assert tbeam.build() and jax_beam.build()
+    d = tmp_path_factory.mktemp("lms")
+    with contextlib.redirect_stdout(io.StringIO()):
+        jax_train_lm.main(["--manifest", corpus["clean"], "--level", "char",
+                           "--out", str(d / "char.json")])
+        jax_train_lm.main(["--manifest", corpus["clean"], "--level", "word", "--order", "3",
+                           "--out", str(d / "word.arpa")])
+    return str(d / "char.json"), str(d / "word.arpa")
+
+
+@pytest.mark.parametrize("decoder,fusion,leg", [
+    ("beam", "none", "noisy"), ("beam", "char", "enhanced"), ("beam", "word", "noisy"),
+    ("beam", "hybrid", "noisy"), ("device", "none", "noisy"), ("device", "char", "enhanced")])
+def test_evaluate_wer_beam_decoders_match_jax(corpus, nets, lm_files, decoder, fusion, leg):
+    """The host beam (any fusion) and the device beam (none or char) give
+    the JAX package's hypotheses, hence its WER, CER and per-utterance
+    counts exactly, on logits that agree to ~1e-6."""
+    am_p, g_p, am, enh = nets
+    jcfg, tcfg = _cfgs(num_buckets=1)
+
+    def kw(load):
+        k = dict(decoder=decoder, beam_width=8, per_utt=True)
+        if fusion in ("char", "hybrid"):
+            k.update(lm=load(lm_files[0]), lm_alpha=0.8, lm_beta=0.5)
+        if fusion == "word":
+            k.update(lm=load(lm_files[1]), lm_alpha=0.8, lm_beta=1.0)
+        if fusion == "hybrid":
+            k.update(word_lm=load(lm_files[1]), word_alpha=0.6, word_beta=1.0)
+        return k
+
+    enhanced = leg == "enhanced"
+    ref = jax_eval.evaluate_wer(jcfg, am_p, corpus["noisy"], g_params=g_p if enhanced else None,
+                                **kw(jax_lm.load_lm))
+    got = teval.evaluate_wer(tcfg, am, corpus["noisy"], enhancer=enh if enhanced else None,
+                             **kw(tlm.load_lm))
+    assert got == ref
+    if decoder == "beam":
+        assert tbeam.beam_decode.route == "native"
+
+
+@pytest.mark.parametrize("argv", [
+    ["--decoder", "beam", "--lm", "CHAR", "--word-lm", "WORD", "--tune-lm-manifest", "DEV",
+     "--enhancer-checkpoint", "ckpt_g"],
+    ["--decoder", "beam", "--lm", "CHAR", "--tune-lm-manifest", "DEV", "--lm-beta", "0.5"],
+    ["--decoder", "device", "--lm", "CHAR", "--lm-alpha", "0.8"]])
+def test_cli_beam_json_matches_jax(tmp_path, corpus, nets, lm_files, monkeypatch, capsys,
+                                   argv):
+    """Both evaluate CLIs on the same networks (the flax trees and their
+    convert.py counterparts, served by each CLI's load_state) print the same
+    JSON line, the LM tuning grid included."""
+    am_p, g_p, am, enh = nets
+    jcfg, tcfg = _cfgs(num_buckets=1)
+    monkeypatch.setattr("aas_enhancement_tpu.utils.jax_cache.enable", lambda *a: None)
+    monkeypatch.setattr("aas_enhancement_tpu.train.loop.load_state", lambda d: (
+        types.SimpleNamespace(am_params=am_p, g_params=g_p), jcfg))
+    monkeypatch.setattr(cli, "load_state", lambda d, device: (
+        types.SimpleNamespace(am=am, g=enh), tcfg))
+    (tmp_path / "cfg.json").write_text(jcfg.to_json())
+    subs = {"CHAR": lm_files[0], "WORD": lm_files[1], "DEV": corpus["clean"]}
+    args = ["--manifest", corpus["noisy"], "--am-checkpoint", "ckpt_am", "--beam-width", "8",
+            "--config", str(tmp_path / "cfg.json"), *[subs.get(a, a) for a in argv]]
+    jax_eval_cli.main(args)
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cli.main([*args, "--device", "cpu"])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got == ref
+    assert ("lm_tuning" in got) == ("--tune-lm-manifest" in argv)
 
 
 def test_evaluate_si_snr_matches_jax(corpus, nets, jax_results):
@@ -257,24 +340,39 @@ def test_cli_prints_the_jax_keys(tmp_path, corpus, jax_results, capsys):
     (["--decoder", "device"], "A13"), (["--am-checkpoint", "ckpt_am/"], "A9"),
     (["--enhancer-checkpoint", "ckpt_g/"], "A9")])
 def test_unported_flags_raise(flags, road, tmp_path):
-    """The beam decoders and LM flags wait for their ROADMAP items; the
-    checkpoint flags (A9) are ported, and a directory without config.json
-    raises as the JAX CLI's load_state does."""
-    argv = ["--manifest", "m.csv", "--am-checkpoint", "seed:0", "--device", "cpu"]
+    """The flags of ROADMAP A9 (checkpoints), A10 (beam, LM fusion and
+    tuning) and A13 (the device beam) are ported: each now fails only as the
+    JAX CLI fails on the same missing inputs (a directory without
+    config.json, a missing LM file, tuning without an LM, a missing
+    manifest)."""
+    argv = ["--manifest", str(tmp_path / "m.csv"), "--am-checkpoint", "seed:0",
+            "--device", "cpu"]
     if road == "A9":
         with pytest.raises(FileNotFoundError, match="no config.json"):
             cli.main([*argv, flags[0], str(tmp_path / flags[1])])
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {road}"):
+    if flags[0] == "--tune-lm-manifest":
+        with pytest.raises(SystemExit, match="requires --lm"):
+            cli.main([*argv, *flags])
+        return
+    missing = "m.csv"
+    if flags[0] in ("--lm", "--word-lm"):
+        flags, missing = [flags[0], str(tmp_path / flags[1])], flags[1]
+    with pytest.raises(FileNotFoundError, match=missing):
         cli.main([*argv, *flags])
 
 
 def test_unported_options_raise(corpus, nets):
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="A10"):
-        teval.evaluate_wer(tcfg, nets[2], corpus["noisy"], decoder="beam")
-    with pytest.raises(NotImplementedError, match="A13"):
-        teval.evaluate_wer(tcfg, nets[2], corpus["noisy"], decoder="device")
+    with pytest.raises(ValueError, match="unknown decoder"):
+        teval.evaluate_wer(tcfg, nets[2], corpus["noisy"], decoder="beams")
+    # The device decoder fuses a char LM only, as the JAX package's.
+    with pytest.raises(ValueError, match="char-LM"):
+        teval.evaluate_wer(tcfg, nets[2], corpus["noisy"], decoder="device",
+                           word_lm=object())
+    with pytest.raises(ValueError, match="char-LM"):
+        teval.evaluate_wer(tcfg, nets[2], corpus["noisy"], decoder="device",
+                           lm=tlm.WordNGramLM().fit_texts(["A B"]))
     augmenting = AudioDataset(corpus["noisy"], tcfg.audio, tconfig.DataConfig(augment=True))
     assert augmenting.data.augment and augmenting.noise is None      # no noise_dir
     assert [it["num_samples"] for it in augmenting.items] == [

@@ -1168,3 +1168,27 @@ def test_exported_enhancer_runs_the_kernels(cuda, tmp_path):
     pad[:, :12000] = torch.from_numpy(wav)
     live = make_enhance_fn(cfg, cuda)(model, pad, torch.tensor([12000, 7000]))
     np.testing.assert_array_equal(got, live[:, :12000].cpu().numpy())
+
+
+@pytest.mark.parametrize("with_lm", [False, True])
+def test_device_beam_on_card_matches_cpu(cuda, with_lm):
+    """The batched device beam (decode/device_beam.py, PyTorch tensor code,
+    no hand kernel) on the card against its own CPU run on the same
+    log-probs: ids and lengths equal, scores within 1e-3 (f32 sums of up to
+    120 frames' log-probs, exp / log1p rounded by each device's library)."""
+    from aas_enhancement_tpu_torch.decode.device_beam import device_beam_decode_raw
+    from aas_enhancement_tpu_torch.decode.lm import CharNGramLM
+
+    logits = _randn(4, 120, 29, seed=5, scale=3.0)
+    logits[:, ::2, 0] += 3.0
+    lp = torch.log_softmax(logits, -1)
+    lens = torch.tensor([120, 97, 64, 1])
+    kw = dict(beam_width=32, prune_k=16)
+    if with_lm:
+        table = CharNGramLM(3).fit_texts(["THE CAT SAT ON THE MAT", "HOW NOW COW"] * 3)
+        kw.update(lm_table=table.dense_table(), lm_order=3, lm_alpha=0.6, lm_beta=0.3)
+    ids, out_lens, scores = device_beam_decode_raw(lp.to(cuda), lens, **kw)
+    ref = device_beam_decode_raw(lp, lens, device="cpu", **kw)
+    np.testing.assert_array_equal(ids, ref[0])
+    np.testing.assert_array_equal(out_lens, ref[1])
+    np.testing.assert_allclose(scores, ref[2], rtol=0, atol=1e-3)
