@@ -44,12 +44,24 @@
 // twice, the second time partly from the 50 MB L2.  The
 // scratch (partials) is 64 bytes an item.
 //
-// Layout: x, y [B, T, F, C] contiguous f32 (16-byte aligned), scale, bias [C],
-// lengths [B] int32 or int64, mean, inv [B, C], partials [B * n_tiles * G * 2]
-// with n_tiles = ceil(T / kRows).  Requires C % 4 == 0, C <= kMaxChannels,
-// G | C, G <= kMaxGroups.
+// Layout: x, y [B, T, F, C] contiguous, scale, bias [C], lengths [B] int32 or
+// int64, mean, inv [B, C], partials [B * n_tiles * G * 2] with
+// n_tiles = ceil(T / kRows).  Requires C % 4 == 0, C <= kMaxChannels, G | C,
+// G <= kMaxGroups.
+//
+// Streams (the `bf16` flag): x and y are f32 (16-byte aligned: a thread's
+// four channels are one float4) or bf16 (8-byte aligned: four channels are
+// 8 bytes, one uint2 load).  Statistics, finalize, scale, bias and the
+// scratch stay f32 either way.  At bf16 the kernel follows the bf16 model's
+// GroupNorm (aas_enhancement_tpu/ops/norm.py, the route impl="auto" takes):
+// z = x * inv_c + off_c in f32 is rounded to bf16 first and the activation
+// acts on the rounded value (leaky: bf16(y * slope), with the slope the host
+// rounded to bf16), so y is the JAX module's bit for bit up to the f32
+// rounding of z.  The Pallas apply (_make_apply_kernel) takes the activation
+// before the rounding instead; the two differ by at most one bf16 ulp.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -63,11 +75,11 @@ constexpr int kMaxGroups = 32;
 constexpr int kParts = 16;          // strided parts of the finalize's sums
 
 struct Params {
-  const float4* x;
+  const void* x;                    // Stream<TS>::Quad a thread's four channels
   const float* scale;
   const float* bias;
   const void* lengths;
-  float4* y;
+  void* y;
   float* mean;
   float* inv;
   float* partials;
@@ -91,6 +103,46 @@ __device__ __forceinline__ float activate(float z, int act, float slope) {
   return z;
 }
 
+// Four channels of x or y in the stream type TS: a float4, or four bf16 in a
+// uint2; load widens to f32, pack rounds to TS, round rounds one value to TS
+// and back.
+template <typename TS>
+struct Stream;
+
+template <>
+struct Stream<float> {
+  using Quad = float4;
+  static __device__ __forceinline__ float4 load(const float4& q) { return q; }
+  static __device__ __forceinline__ float4 pack(const float4& v) { return v; }
+  static __device__ __forceinline__ float round(float z) { return z; }
+};
+
+template <>
+struct Stream<__nv_bfloat16> {
+  using Quad = uint2;
+  static __device__ __forceinline__ float4 load(const uint2& q) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  static __device__ __forceinline__ uint2 pack(const float4& v) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+    return make_uint2(*reinterpret_cast<const unsigned*>(&a),
+                      *reinterpret_cast<const unsigned*>(&b));
+  }
+  static __device__ __forceinline__ float round(float z) {
+    return __bfloat162float(__float2bfloat16_rn(z));
+  }
+};
+
+// y of one lane from z = x * inv_c + off_c: f32 act(z); bf16 act(bf16(z)),
+// rounded (see the header).
+template <typename TS>
+__device__ __forceinline__ float norm_act(float z, int act, float slope) {
+  return Stream<TS>::round(activate(Stream<TS>::round(z), act, slope));
+}
+
 // Pass 2 over one item: y = act(x * inv_c + off_c) on its first `valid` of
 // `rows` frames, 0 on the rest.  kEvict (x and y together exceed the L2):
 // this thread's columns in reverse order, so that those pass 1 read last come
@@ -99,9 +151,12 @@ __device__ __forceinline__ float activate(float z, int act, float slope) {
 // 0.082 -> 0.072 ms).  Without it, the plain loop: where x and y fit the L2
 // the hints gain nothing, and a run-time choice inside the loop cost the AM's
 // shapes ~10%.
-template <bool kEvict>
+template <bool kEvict, typename TS>
 __device__ __forceinline__ void apply_item(const Params& p, size_t base, int cols, int rows,
                                            int valid, float4 ic, float4 oc) {
+  using Q = typename Stream<TS>::Quad;
+  const Q* x = static_cast<const Q*>(p.x);
+  Q* y = static_cast<Q*>(p.y);
   const int tid = threadIdx.x, step = blockDim.x;
   int col = tid;
   if (kEvict) col = tid < cols ? tid + (cols - 1 - tid) / step * step : -1;
@@ -111,25 +166,27 @@ __device__ __forceinline__ void apply_item(const Params& p, size_t base, int col
       if (r < rows) {
         float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
         if (r < valid) {
-          const float4* src = p.x + base + (size_t)r * cols + col;
-          const float4 v = kEvict ? __ldcs(src) : *src;
-          o.x = activate(fmaf(v.x, ic.x, oc.x), p.act, p.slope);
-          o.y = activate(fmaf(v.y, ic.y, oc.y), p.act, p.slope);
-          o.z = activate(fmaf(v.z, ic.z, oc.z), p.act, p.slope);
-          o.w = activate(fmaf(v.w, ic.w, oc.w), p.act, p.slope);
+          const Q* src = x + base + (size_t)r * cols + col;
+          const float4 v = Stream<TS>::load(kEvict ? __ldcs(src) : *src);
+          o.x = norm_act<TS>(fmaf(v.x, ic.x, oc.x), p.act, p.slope);
+          o.y = norm_act<TS>(fmaf(v.y, ic.y, oc.y), p.act, p.slope);
+          o.z = norm_act<TS>(fmaf(v.z, ic.z, oc.z), p.act, p.slope);
+          o.w = norm_act<TS>(fmaf(v.w, ic.w, oc.w), p.act, p.slope);
         }
-        float4* dst = p.y + base + (size_t)r * cols + col;
+        Q* dst = y + base + (size_t)r * cols + col;
         if (kEvict)
-          __stcs(dst, o);
+          __stcs(dst, Stream<TS>::pack(o));
         else
-          *dst = o;
+          *dst = Stream<TS>::pack(o);
       }
     }
   }
 }
 
+template <typename TS>
 __global__ void __launch_bounds__(kThreads)
 gn_act_fwd_kernel(Params p) {
+  using Q = typename Stream<TS>::Quad;
   cg::grid_group grid = cg::this_grid();
   __shared__ float red[kThreads][9];          // a thread's 4 sums and 4 squares (+1 pad)
   __shared__ float chan[2][kMaxChannels];     // per channel: sum, sum of squares
@@ -151,12 +208,12 @@ gn_act_fwd_kernel(Params p) {
     const long long len = length_of(p, b);
     const int valid = (int)max(0LL, min((long long)kRows, min(len, (long long)p.T) - row0));
     float s[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
-    const float4* xb = p.x + ((size_t)b * p.T + row0) * cols;
+    const Q* xb = static_cast<const Q*>(p.x) + ((size_t)b * p.T + row0) * cols;
     for (int col = tid; col < cols; col += blockDim.x) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (r < valid) {
-          const float4 v = xb[(size_t)r * cols + col];
+          const float4 v = Stream<TS>::load(xb[(size_t)r * cols + col]);
           s[0] += v.x; s[1] += v.y; s[2] += v.z; s[3] += v.w;
           q[0] = fmaf(v.x, v.x, q[0]); q[1] = fmaf(v.y, v.y, q[1]);
           q[2] = fmaf(v.z, v.z, q[2]); q[3] = fmaf(v.w, v.w, q[3]);
@@ -247,9 +304,9 @@ gn_act_fwd_kernel(Params p) {
     const float4 ic = make_float4(inv_c[0], inv_c[1], inv_c[2], inv_c[3]);
     const float4 oc = make_float4(off_c[0], off_c[1], off_c[2], off_c[3]);
     if (p.evict)
-      apply_item<true>(p, base, cols, rows, valid, ic, oc);
+      apply_item<true, TS>(p, base, cols, rows, valid, ic, oc);
     else
-      apply_item<false>(p, base, cols, rows, valid, ic, oc);
+      apply_item<false, TS>(p, base, cols, rows, valid, ic, oc);
   }
 }
 
@@ -287,28 +344,32 @@ cudaError_t residency(const void* kernel, int threads, Residency& r) {
 // The launch: refuses (cudaErrorInvalidValue) a shape the kernel does not
 // take or a scratch smaller than B * ceil(T / kRows) * G * 2 floats, and
 // returns the cooperative launch's error (cudaErrorCooperativeLaunchTooLarge
-// if the card cannot hold the grid at once).
-extern "C" int aas_gn_act_fwd(const float* x, const float* scale, const float* bias,
-                              const void* lengths, int len64, float* y, float* mean,
+// if the card cannot hold the grid at once).  x and y are f32, or bf16 where
+// `bf16` is set.
+extern "C" int aas_gn_act_fwd(const void* x, const float* scale, const float* bias,
+                              const void* lengths, int len64, void* y, float* mean,
                               float* inv, float* partials, long long partials_len,
                               int B, int T, int F, int C, int G, float eps, int act,
-                              float slope, cudaStream_t stream) {
+                              float slope, int bf16, cudaStream_t stream) {
   if (B < 1 || T < 1 || F < 1 || C < 4 || C % 4 || C > kMaxChannels || G < 1 ||
       G > kMaxGroups || C % G || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
   const long long items = (long long)B * ((T + kRows - 1) / kRows);
   if (partials_len < items * G * 2 || items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int threads = block_threads(C);
-  static Residency res;
-  cudaError_t err = residency(reinterpret_cast<const void*>(gn_act_fwd_kernel), threads, res);
+  const void* kernel = bf16 ? reinterpret_cast<const void*>(gn_act_fwd_kernel<__nv_bfloat16>)
+                            : reinterpret_cast<const void*>(gn_act_fwd_kernel<float>);
+  static Residency residencies[2];    // f32, bf16
+  Residency& res = residencies[bf16 ? 1 : 0];
+  cudaError_t err = residency(kernel, threads, res);
   if (err != cudaSuccess) return (int)err;
   const int grid = items < res.blocks ? (int)items : res.blocks;
   Params p;
-  p.x = reinterpret_cast<const float4*>(x);
+  p.x = x;
   p.scale = scale;
   p.bias = bias;
   p.lengths = lengths;
-  p.y = reinterpret_cast<float4*>(y);
+  p.y = y;
   p.mean = mean;
   p.inv = inv;
   p.partials = partials;
@@ -321,10 +382,9 @@ extern "C" int aas_gn_act_fwd(const float* x, const float* scale, const float* b
   p.eps = eps;
   p.act = act;
   p.slope = slope;
-  p.evict = 2 * (long long)B * T * F * C * (long long)sizeof(float) > res.l2;
+  p.evict = 2 * (long long)B * T * F * C * (bf16 ? 2LL : 4LL) > res.l2;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gn_act_fwd_kernel), dim3(grid),
-                                    dim3(threads), args, 0, stream);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

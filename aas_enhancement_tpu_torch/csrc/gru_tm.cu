@@ -139,7 +139,10 @@
 // (stride_t, stride_b) in elements (they may be the two halves of one
 // [T, B, 6H] tensor); m [T, B]; wh [2, H, 3H], whT [2, 3H, H] and bh [2, 3H],
 // contiguous and 16-byte aligned; yf/yb/dyf/dyb [T, B, H].  All f32;
-// H % 4 == 0.
+// H % 4 == 0.  The inference forwards also take bf16 gx and write bf16 y
+// (rnn_bwd.cuh: the stream type TS; wh, bh and m stay f32, wh and bh holding
+// bf16-rounded values), as lstm_tm.cu's: the resident kernel sends h rounded
+// to bf16, the streaming one keeps a rounded copy of h for its product.
 //
 // The same kernels also replace gru_scan_pallas (rnn_kernel.py:452, forward
 // _gru_fwd_call :370, VJP _gru_bwd_call :406), the recurrence on the stacked
@@ -210,12 +213,12 @@ __device__ __forceinline__ void fma_group(float (&val)[16], const float4* hc,
   fma_rows3(val, hc[48], c.y, c.z, c.w);
 }
 
-template <bool kSave>
+template <bool kSave, typename TS>
 __global__ void __launch_bounds__(kResUnits * 16, 1)
-gru_res_fwd_kernel(const float* __restrict__ gxf, const float* __restrict__ gxb,
+gru_res_fwd_kernel(const TS* __restrict__ gxf, const TS* __restrict__ gxb,
                    const aas_rnn::Layout L, const float* __restrict__ m,
                    const float* __restrict__ wh, const float* __restrict__ bh,
-                   float* __restrict__ yf, float* __restrict__ yb,
+                   TS* __restrict__ yf, TS* __restrict__ yb,
                    float* __restrict__ hp, float* __restrict__ act, int T, int B,
                    int H, int U) {
   static_assert(kRows == 4, "a lane's sums are 4 rows x (3 gates and a spare slot)");
@@ -234,8 +237,8 @@ gru_res_fwd_kernel(const float* __restrict__ gxf, const float* __restrict__ gxb,
   const int d = blockIdx.y;
   const int b0 = (blockIdx.x / C) * kRows;
   const int nb = min(kRows, B - b0);
-  const float* gx = d == 0 ? gxf : gxb;
-  float* y = d == 0 ? yf : yb;
+  const TS* gx = d == 0 ? gxf : gxb;
+  TS* y = d == 0 ? yf : yb;
   const float* md = m + d * L.m_d;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -280,7 +283,8 @@ gru_res_fwd_kernel(const float* __restrict__ gxf, const float* __restrict__ gxb,
   auto fetch = [&](int t) {     // this lane's gx and the mask of time index t, for a real row
     if (valid) {
       if (gate < 3)
-        gx_next = gx[(size_t)t * L.gx_t + (size_t)(b0 + row) * L.gx_b + gate * H + col];
+        gx_next = aas_rnn::ld_stream(gx + (size_t)t * L.gx_t + (size_t)(b0 + row) * L.gx_b +
+                                     gate * H + col);
       m_next = md[(size_t)t * L.m_t + b0 + row];
     }
   };
@@ -348,19 +352,22 @@ gru_res_fwd_kernel(const float* __restrict__ gxf, const float* __restrict__ gxb,
     const float h_old = h;
     h = mt * h_new + (1.f - mt) * h;
 
-    // The unit's new h of the four rows, as one 16-byte store into every
-    // block's next-h buffer: lane i of the unit's 16 sends to block i.
+    // The unit's new h of the four rows (as the product reads it), as one
+    // 16-byte store into every block's next-h buffer: lane i of the unit's 16
+    // sends to block i.
     if (s + 1 < T) {
       const int unit0 = lane & 16;
+      const float hd = aas_rnn::dot_in<TS>(h);
       const float4 h4 = make_float4(
-          __shfl_sync(kWarp, h, unit0), __shfl_sync(kWarp, h, unit0 + 4),
-          __shfl_sync(kWarp, h, unit0 + 8), __shfl_sync(kWarp, h, unit0 + 12));
+          __shfl_sync(kWarp, hd, unit0), __shfl_sync(kWarp, hd, unit0 + 4),
+          __shfl_sync(kWarp, hd, unit0 + 8), __shfl_sync(kWarp, hd, unit0 + 12));
       if (kl < C)
         st_async4(map_to_rank(smem_addr(h_s + (1 - p) * Hp + col), kl), h4,
                   map_to_rank(smem_addr(bar + (1 - p)), kl));
     }
     if (valid) {
-      if (gate == 0) y[(size_t)t * L.y_t + (size_t)(b0 + row) * H + col] = mt * h_new;
+      if (gate == 0)
+        aas_rnn::st_stream(y + (size_t)t * L.y_t + (size_t)(b0 + row) * H + col, mt * h_new);
       if (kSave) {      // r, z, n from their lanes, ghn from the spare one, h from z's
         const size_t o = ((size_t)d * T + t) * B + b0 + row;
         act[o * 4 * H + gate * H + col] = gate == 0 ? sr : gate == 1 ? sz : gate == 2 ? tn : ghn;
@@ -372,15 +379,15 @@ gru_res_fwd_kernel(const float* __restrict__ gxf, const float* __restrict__ gxb,
   }
 }
 
-template <bool kSave>
-__global__ void gru_tm_fwd_kernel(const float* __restrict__ gxf,
-                                  const float* __restrict__ gxb,
+template <bool kSave, typename TS>
+__global__ void gru_tm_fwd_kernel(const TS* __restrict__ gxf,
+                                  const TS* __restrict__ gxb,
                                   const aas_rnn::Layout L,
                                   const float* __restrict__ m,
                                   const float* __restrict__ wh,
                                   const float* __restrict__ bh,
-                                  float* __restrict__ yf,
-                                  float* __restrict__ yb,
+                                  TS* __restrict__ yf,
+                                  TS* __restrict__ yb,
                                   float* __restrict__ hp,
                                   float* __restrict__ act, int T, int B,
                                   int H) {
@@ -390,18 +397,23 @@ __global__ void gru_tm_fwd_kernel(const float* __restrict__ gxf,
   const int H4 = H / 4;
   float* h_s = reinterpret_cast<float*>(smem4);   // [kRows][H]
   float* g_s = h_s + kRows * H;                   // [kRows][G]: h @ wh[d] + bh[d]
-  const float4* h4 = reinterpret_cast<const float4*>(h_s);
+  // h as the product reads it: h itself (f32), a rounded copy (bf16).
+  float* hd_s = aas_rnn::kBf16<TS> ? g_s + kRows * G : h_s;
+  const float4* h4 = reinterpret_cast<const float4*>(hd_s);
 
   const int d = blockIdx.y;
   const int b0 = blockIdx.x * kRows;
   const int nb = min(kRows, B - b0);
-  const float* gx = d == 0 ? gxf : gxb;
-  float* y = d == 0 ? yf : yb;
+  const TS* gx = d == 0 ? gxf : gxb;
+  TS* y = d == 0 ? yf : yb;
   const float4* w4 = reinterpret_cast<const float4*>(wh + (size_t)d * H * G);
   const float4* b4 = reinterpret_cast<const float4*>(bh + (size_t)d * G);
   const float* md = m + d * L.m_d;
 
-  for (int e = threadIdx.x; e < kRows * H; e += blockDim.x) h_s[e] = 0.f;
+  for (int e = threadIdx.x; e < kRows * H; e += blockDim.x) {
+    h_s[e] = 0.f;
+    hd_s[e] = 0.f;
+  }
   __syncthreads();
 
   for (int s = 0; s < T; ++s) {
@@ -444,15 +456,15 @@ __global__ void gru_tm_fwd_kernel(const float* __restrict__ gxf,
     for (int e = threadIdx.x; e < nb * H; e += blockDim.x) {
       const int rr = e / H;
       const int u = e - rr * H;
-      const float* x = gx + (size_t)t * L.gx_t + (size_t)(b0 + rr) * L.gx_b;
+      const TS* x = gx + (size_t)t * L.gx_t + (size_t)(b0 + rr) * L.gx_b;
       const float* g = g_s + rr * G;
-      const float r = sigmoid(x[u] + g[u]);
-      const float z = sigmoid(x[H + u] + g[H + u]);
-      const float n = tanhf(x[2 * H + u] + r * g[2 * H + u]);
+      const float r = sigmoid(aas_rnn::ld_stream(x + u) + g[u]);
+      const float z = sigmoid(aas_rnn::ld_stream(x + H + u) + g[H + u]);
+      const float n = tanhf(aas_rnn::ld_stream(x + 2 * H + u) + r * g[2 * H + u]);
       const float h = h_s[e];
       const float h_new = (1.f - z) * n + z * h;
       const float mt = md[(size_t)t * L.m_t + b0 + rr];
-      y[(size_t)t * L.y_t + (size_t)(b0 + rr) * H + u] = mt * h_new;
+      aas_rnn::st_stream(y + (size_t)t * L.y_t + (size_t)(b0 + rr) * H + u, mt * h_new);
       if (kSave) {
         const size_t o = ((size_t)d * T + t) * B + b0 + rr;
         hp[o * H + u] = h;
@@ -463,6 +475,7 @@ __global__ void gru_tm_fwd_kernel(const float* __restrict__ gxf,
         a[3 * H + u] = g[2 * H + u];
       }
       h_s[e] = mt * h_new + (1.f - mt) * h;
+      if constexpr (aas_rnn::kBf16<TS>) hd_s[e] = aas_rnn::dot_in<TS>(h_s[e]);
     }
     __syncthreads();
   }
@@ -544,50 +557,51 @@ __global__ void gru_tm_bwd_kernel(const aas_rnn::Layout L,
   }
 }
 
-template <bool kSave>
-int launch_fwd(const float* gxf, const float* gxb, const aas_rnn::Layout& L,
+template <bool kSave, typename TS>
+int launch_fwd(const TS* gxf, const TS* gxb, const aas_rnn::Layout& L,
                const float* m, const float* wh,
-               const float* bh, float* yf, float* yb, float* hp, float* act,
+               const float* bh, TS* yf, TS* yb, float* hp, float* act,
                int T, int B, int H, cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
   if (H % 4) return (int)cudaErrorInvalidValue;
   int threads = ((3 * H / 4 + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
-  const size_t smem = (size_t)kRows * 4 * H * sizeof(float);
+  // h and gh; at bf16 also the rounded h.
+  const size_t smem = (size_t)kRows * (aas_rnn::kBf16<TS> ? 5 : 4) * H * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        gru_tm_fwd_kernel<kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gru_tm_fwd_kernel<kSave, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((B + kRows - 1) / kRows, 2);
-  gru_tm_fwd_kernel<kSave><<<grid, threads, smem, stream>>>(
+  gru_tm_fwd_kernel<kSave, TS><<<grid, threads, smem, stream>>>(
       gxf, gxb, L, m, wh, bh, yf, yb, hp, act, T, B, H);
   return (int)cudaGetLastError();
 }
 
 // The resident route's launch configuration on clusters of C blocks per
 // (direction, tile of rows); 0, or the code of what refuses it.
-template <bool kSave>
+template <bool kSave, typename TS = float>
 int resident_config(int C, int B, int H, cudaStream_t stream, cudaLaunchAttribute* attr,
                     cudaLaunchConfig_t* cfg) {
   if (C < 1 || C > kResCluster || H % C) return (int)cudaErrorInvalidValue;
   const int U = H / C;
   if (U % 2 || U > kResUnits) return (int)cudaErrorInvalidValue;
-  return aas_rnn::cluster_config(gru_res_fwd_kernel<kSave>, C,
+  return aas_rnn::cluster_config(gru_res_fwd_kernel<kSave, TS>, C,
                                  dim3(C * ((B + kRows - 1) / kRows), 2), 16 * U,
                                  res_smem(H, U), stream, attr, cfg);   // a warp per two units
 }
 
-template <bool kSave>
-int launch_resident(const float* gxf, const float* gxb, const aas_rnn::Layout& L,
-                    const float* m, const float* wh, const float* bh, float* yf,
-                    float* yb, float* hp, float* act, int C, int T, int B, int H,
+template <bool kSave, typename TS>
+int launch_resident(const TS* gxf, const TS* gxb, const aas_rnn::Layout& L,
+                    const float* m, const float* wh, const float* bh, TS* yf,
+                    TS* yb, float* hp, float* act, int C, int T, int B, int H,
                     cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  int rc = resident_config<kSave>(C, B, H, stream, attr, &cfg);
+  int rc = resident_config<kSave, TS>(C, B, H, stream, attr, &cfg);
   if (rc) return rc;
   // Once per configuration: a cluster that cannot be scheduled is an error
   // here, not a launch that never starts.
@@ -595,11 +609,11 @@ int launch_resident(const float* gxf, const float* gxb, const aas_rnn::Layout& L
   const int key = H * 32 + C;
   if (checked != key) {
     int clusters = 0;
-    rc = aas_rnn::active_clusters(gru_res_fwd_kernel<kSave>, cfg, &clusters);
+    rc = aas_rnn::active_clusters(gru_res_fwd_kernel<kSave, TS>, cfg, &clusters);
     if (rc) return rc;
     checked = key;
   }
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, gru_res_fwd_kernel<kSave>, gxf, gxb, L,
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gru_res_fwd_kernel<kSave, TS>, gxf, gxb, L,
                                              m, wh, bh, yf, yb, hp, act, T, B, H, H / C);
   if (err != cudaSuccess) return refused(err);
   return (int)cudaGetLastError();
@@ -659,24 +673,41 @@ int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
 // gx_t, gx_b are gx's strides in elements.  hp and act are NULL for inference
 // and the buffers the backward reads for training.  `cluster` is the caller's
 // choice of route: the resident kernel on clusters of that many blocks, or 0
-// for the streaming kernel.
-extern "C" int aas_gru_fwd(const float* gx0, const float* gx1, long long gx_t,
+// for the streaming kernel.  `bf16`: gx and y are bf16 (the inference
+// variants only: hp must be NULL), else f32.
+extern "C" int aas_gru_fwd(const void* gx0, const void* gx1, long long gx_t,
                            long long gx_b, const float* m, const float* wh,
-                           const float* bh, float* y0, float* y1, float* hp,
-                           float* act, int stacked, int cluster, int T, int B, int H,
-                           cudaStream_t stream) {
+                           const float* bh, void* y0, void* y1, float* hp,
+                           float* act, int stacked, int cluster, int bf16, int T, int B,
+                           int H, cudaStream_t stream) {
   const aas_rnn::Layout L = aas_rnn::make_layout(stacked, gx_t, gx_b, T, B, H, 3 * H);
+  if (bf16) {
+    using bf = __nv_bfloat16;
+    if (hp != nullptr) return (int)cudaErrorInvalidValue;
+    const bf* g0 = static_cast<const bf*>(gx0);
+    const bf* g1 = static_cast<const bf*>(gx1);
+    if (cluster > 0)
+      return launch_resident<false>(g0, g1, L, m, wh, bh, static_cast<bf*>(y0),
+                                    static_cast<bf*>(y1), nullptr, nullptr, cluster, T, B,
+                                    H, stream);
+    return launch_fwd<false>(g0, g1, L, m, wh, bh, static_cast<bf*>(y0),
+                             static_cast<bf*>(y1), nullptr, nullptr, T, B, H, stream);
+  }
+  const float* f0 = static_cast<const float*>(gx0);
+  const float* f1 = static_cast<const float*>(gx1);
+  float* o0 = static_cast<float*>(y0);
+  float* o1 = static_cast<float*>(y1);
   if (cluster > 0) {
     if (hp == nullptr)
-      return launch_resident<false>(gx0, gx1, L, m, wh, bh, y0, y1, nullptr, nullptr,
+      return launch_resident<false>(f0, f1, L, m, wh, bh, o0, o1, nullptr, nullptr,
                                     cluster, T, B, H, stream);
-    return launch_resident<true>(gx0, gx1, L, m, wh, bh, y0, y1, hp, act, cluster, T, B,
+    return launch_resident<true>(f0, f1, L, m, wh, bh, o0, o1, hp, act, cluster, T, B,
                                  H, stream);
   }
   if (hp == nullptr)
-    return launch_fwd<false>(gx0, gx1, L, m, wh, bh, y0, y1, nullptr, nullptr, T,
+    return launch_fwd<false>(f0, f1, L, m, wh, bh, o0, o1, nullptr, nullptr, T,
                              B, H, stream);
-  return launch_fwd<true>(gx0, gx1, L, m, wh, bh, y0, y1, hp, act, T, B, H, stream);
+  return launch_fwd<true>(f0, f1, L, m, wh, bh, o0, o1, hp, act, T, B, H, stream);
 }
 
 // The clusters of `cluster` blocks of a resident kernel that the card can run
@@ -692,8 +723,8 @@ extern "C" int aas_gru_res_clusters(int cluster, int variant, int H) {
   int rc = variant ? resident_config<true>(cluster, kRows, H, nullptr, attr, &cfg)
                    : resident_config<false>(cluster, kRows, H, nullptr, attr, &cfg);
   if (!rc)
-    rc = variant ? aas_rnn::active_clusters(gru_res_fwd_kernel<true>, cfg, &clusters)
-                 : aas_rnn::active_clusters(gru_res_fwd_kernel<false>, cfg, &clusters);
+    rc = variant ? aas_rnn::active_clusters(gru_res_fwd_kernel<true, float>, cfg, &clusters)
+                 : aas_rnn::active_clusters(gru_res_fwd_kernel<false, float>, cfg, &clusters);
   return rc ? -rc : clusters;
 }
 

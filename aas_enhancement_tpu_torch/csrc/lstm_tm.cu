@@ -117,7 +117,12 @@
 // (stride_t, stride_b) in elements (they may be the two halves of one
 // [T, B, 8H] tensor); m [T, B]; wh [2, H, 4H]; whT [2, 4H, H]; bh [2, 4H];
 // yf/yb/dyf/dyb [T, B, H]; saved and dgx tensors as above.  All f32; the
-// backward needs H % 4 == 0 and a 16-byte aligned whT.
+// backward needs H % 4 == 0 and a 16-byte aligned whT.  The inference
+// forwards also take bf16 gx and write bf16 y (rnn_bwd.cuh: the stream type
+// TS; wh, bh and m stay f32, wh and bh holding bf16-rounded values): the
+// resident kernel sends each unit's h rounded to bf16 to the cluster (its own
+// h stays f32 in registers), the streaming one keeps a bf16-rounded copy of h
+// beside the f32 state for its product.
 //
 // The same kernels also replace lstm_scan_pallas (rnn_kernel.py:258, forward
 // _lstm_fwd_call :168, VJP _lstm_bwd_call :210), the recurrence on the
@@ -175,12 +180,12 @@ __device__ __forceinline__ void fma_rows(float (&val)[16], const float4& hv, con
   }
 }
 
-template <bool kSave>
+template <bool kSave, typename TS>
 __global__ void __launch_bounds__(kResUnits * 16, 1)
-lstm_res_fwd_kernel(const float* __restrict__ gxf, const float* __restrict__ gxb,
+lstm_res_fwd_kernel(const TS* __restrict__ gxf, const TS* __restrict__ gxb,
                     const aas_rnn::Layout L, const float* __restrict__ m,
                     const float* __restrict__ wh, const float* __restrict__ bh,
-                    float* __restrict__ yf, float* __restrict__ yb,
+                    TS* __restrict__ yf, TS* __restrict__ yb,
                     float* __restrict__ hp, float* __restrict__ cp,
                     float* __restrict__ act, int T, int B, int H, int U) {
   static_assert(kRows == 4, "a lane's 16 sums are 4 rows x 4 gates");
@@ -199,8 +204,8 @@ lstm_res_fwd_kernel(const float* __restrict__ gxf, const float* __restrict__ gxb
   const int d = blockIdx.y;
   const int b0 = (blockIdx.x / C) * kRows;
   const int nb = min(kRows, B - b0);
-  const float* gx = d == 0 ? gxf : gxb;
-  float* y = d == 0 ? yf : yb;
+  const TS* gx = d == 0 ? gxf : gxb;
+  TS* y = d == 0 ? yf : yb;
   const float* md = m + d * L.m_d;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -242,7 +247,8 @@ lstm_res_fwd_kernel(const float* __restrict__ gxf, const float* __restrict__ gxb
   float gx_next = 0.f, m_next = 0.f;
   auto fetch = [&](int t) {     // this lane's gx and the mask of time index t, for a real row
     if (valid) {
-      gx_next = gx[(size_t)t * L.gx_t + (size_t)(b0 + row) * L.gx_b + gate * H + col];
+      gx_next = aas_rnn::ld_stream(gx + (size_t)t * L.gx_t + (size_t)(b0 + row) * L.gx_b +
+                                   gate * H + col);
       m_next = md[(size_t)t * L.m_t + b0 + row];
     }
   };
@@ -306,13 +312,15 @@ lstm_res_fwd_kernel(const float* __restrict__ gxf, const float* __restrict__ gxb
     h = mt * h_new + (1.f - mt) * h;
     c = mt * c_new + (1.f - mt) * c;
 
-    // The unit's new h of the four rows, as one 16-byte store into every
-    // block's next-h buffer: lane i of the unit's 16 sends to block i.
+    // The unit's new h of the four rows (as the product reads it), as one
+    // 16-byte store into every block's next-h buffer: lane i of the unit's 16
+    // sends to block i.
     if (s + 1 < T) {
       const int unit0 = lane & 16;
+      const float hd = aas_rnn::dot_in<TS>(h);
       const float4 h4 = make_float4(
-          __shfl_sync(kWarp, h, unit0), __shfl_sync(kWarp, h, unit0 + 4),
-          __shfl_sync(kWarp, h, unit0 + 8), __shfl_sync(kWarp, h, unit0 + 12));
+          __shfl_sync(kWarp, hd, unit0), __shfl_sync(kWarp, hd, unit0 + 4),
+          __shfl_sync(kWarp, hd, unit0 + 8), __shfl_sync(kWarp, hd, unit0 + 12));
       if (kl < C)
         st_async4(map_to_rank(smem_addr(h_s + (1 - p) * Hp + col), kl), h4,
                   map_to_rank(smem_addr(bar + (1 - p)), kl));
@@ -320,7 +328,7 @@ lstm_res_fwd_kernel(const float* __restrict__ gxf, const float* __restrict__ gxb
     if (valid) {
       const size_t o = ((size_t)d * T + t) * B + b0 + row;
       if (gate == 0) {
-        y[(size_t)t * L.y_t + (size_t)(b0 + row) * H + col] = mt * h_new;
+        aas_rnn::st_stream(y + (size_t)t * L.y_t + (size_t)(b0 + row) * H + col, mt * h_new);
         if (kSave) {
           hp[o * H + col] = h_old;
           cp[o * H + col] = c_old;
@@ -333,15 +341,15 @@ lstm_res_fwd_kernel(const float* __restrict__ gxf, const float* __restrict__ gxb
   }
 }
 
-template <bool kSave>
-__global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
-                                   const float* __restrict__ gxb,
+template <bool kSave, typename TS>
+__global__ void lstm_tm_fwd_kernel(const TS* __restrict__ gxf,
+                                   const TS* __restrict__ gxb,
                                    const aas_rnn::Layout L,
                                    const float* __restrict__ m,
                                    const float* __restrict__ wh,
                                    const float* __restrict__ bh,
-                                   float* __restrict__ yf,
-                                   float* __restrict__ yb,
+                                   TS* __restrict__ yf,
+                                   TS* __restrict__ yb,
                                    float* __restrict__ hp,
                                    float* __restrict__ cp,
                                    float* __restrict__ act, int T, int B,
@@ -351,12 +359,14 @@ __global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
   float* h_s = smem;                     // [kRows][H]
   float* c_s = h_s + kRows * H;          // [kRows][H]
   float* g_s = c_s + kRows * H;          // [kRows][G]
+  // h as the product reads it: h itself (f32), a rounded copy (bf16).
+  float* hd_s = aas_rnn::kBf16<TS> ? g_s + kRows * G : h_s;
 
   const int d = blockIdx.y;
   const int b0 = blockIdx.x * kRows;
   const int nb = min(kRows, B - b0);
-  const float* gx = d == 0 ? gxf : gxb;
-  float* y = d == 0 ? yf : yb;
+  const TS* gx = d == 0 ? gxf : gxb;
+  TS* y = d == 0 ? yf : yb;
   const float* w = wh + (size_t)d * H * G;
   const float* bias = bh + (size_t)d * G;
   const float* md = m + d * L.m_d;
@@ -364,6 +374,7 @@ __global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
   for (int e = threadIdx.x; e < kRows * H; e += blockDim.x) {
     h_s[e] = 0.f;
     c_s[e] = 0.f;
+    hd_s[e] = 0.f;
   }
   __syncthreads();
 
@@ -380,14 +391,14 @@ __global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
         const float wv = __ldg(w + (size_t)i * G + j);
 #pragma unroll
         for (int rr = 0; rr < kRows; ++rr)
-          acc[rr] = fmaf(h_s[rr * H + i], wv, acc[rr]);
+          acc[rr] = fmaf(hd_s[rr * H + i], wv, acc[rr]);
       }
       const float bj = bias[j];
 #pragma unroll
       for (int rr = 0; rr < kRows; ++rr) {   // static indices keep acc in registers
         if (rr < nb) {
-          const float gv =
-              gx[(size_t)t * L.gx_t + (size_t)(b0 + rr) * L.gx_b + j];
+          const float gv = aas_rnn::ld_stream(
+              gx + (size_t)t * L.gx_t + (size_t)(b0 + rr) * L.gx_b + j);
           g_s[rr * G + j] = gv + (acc[rr] + bj);
         }
       }
@@ -408,7 +419,7 @@ __global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
       const float c_new = sf * c + si * tg;
       const float h_new = so * tanhf(c_new);
       const float mt = md[(size_t)t * L.m_t + b0 + rr];
-      y[(size_t)t * L.y_t + (size_t)(b0 + rr) * H + u] = mt * h_new;
+      aas_rnn::st_stream(y + (size_t)t * L.y_t + (size_t)(b0 + rr) * H + u, mt * h_new);
       if (kSave) {
         const size_t o = ((size_t)d * T + t) * B + b0 + rr;
         hp[o * H + u] = h;
@@ -421,6 +432,7 @@ __global__ void lstm_tm_fwd_kernel(const float* __restrict__ gxf,
       }
       h_s[e] = mt * h_new + (1.f - mt) * h;
       c_s[e] = mt * c_new + (1.f - mt) * c;
+      if constexpr (aas_rnn::kBf16<TS>) hd_s[e] = aas_rnn::dot_in<TS>(h_s[e]);
     }
     __syncthreads();
   }
@@ -503,27 +515,27 @@ __global__ void lstm_tm_bwd_kernel(const aas_rnn::Layout L,
 
 // The resident route's launch configuration on clusters of C blocks per
 // (direction, tile of rows); 0, or the code of what refuses it.
-template <bool kSave>
+template <bool kSave, typename TS = float>
 int resident_config(int C, int B, int H, cudaStream_t stream, cudaLaunchAttribute* attr,
                     cudaLaunchConfig_t* cfg) {
   if (C < 1 || C > aas_rnn::kPortableCluster || H % C) return (int)cudaErrorInvalidValue;
   const int U = H / C;
   if (U % 2 || U > kResUnits) return (int)cudaErrorInvalidValue;
-  return aas_rnn::cluster_config(lstm_res_fwd_kernel<kSave>, C,
+  return aas_rnn::cluster_config(lstm_res_fwd_kernel<kSave, TS>, C,
                                  dim3(C * ((B + kRows - 1) / kRows), 2), 16 * U,
                                  res_smem(H, U), stream, attr, cfg);   // a warp per two units
 }
 
-template <bool kSave>
-int launch_resident(const float* gxf, const float* gxb, const aas_rnn::Layout& L,
-                    const float* m, const float* wh, const float* bh, float* yf,
-                    float* yb, float* hp, float* cp, float* act, int C, int T, int B,
+template <bool kSave, typename TS>
+int launch_resident(const TS* gxf, const TS* gxb, const aas_rnn::Layout& L,
+                    const float* m, const float* wh, const float* bh, TS* yf,
+                    TS* yb, float* hp, float* cp, float* act, int C, int T, int B,
                     int H, cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
-  auto kernel = lstm_res_fwd_kernel<kSave>;
+  auto kernel = lstm_res_fwd_kernel<kSave, TS>;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  int rc = resident_config<kSave>(C, B, H, stream, attr, &cfg);
+  int rc = resident_config<kSave, TS>(C, B, H, stream, attr, &cfg);
   if (rc) return rc;
 
   // Once per configuration: a cluster that cannot be scheduled is an error
@@ -542,23 +554,24 @@ int launch_resident(const float* gxf, const float* gxb, const aas_rnn::Layout& L
   return (int)cudaGetLastError();
 }
 
-template <bool kSave>
-int launch_fwd(const float* gxf, const float* gxb, const aas_rnn::Layout& L,
+template <bool kSave, typename TS>
+int launch_fwd(const TS* gxf, const TS* gxb, const aas_rnn::Layout& L,
                const float* m, const float* wh,
-               const float* bh, float* yf, float* yb, float* hp, float* cp,
+               const float* bh, TS* yf, TS* yb, float* hp, float* cp,
                float* act, int T, int B, int H, cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
   int threads = ((4 * H + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
-  const size_t smem = (size_t)kRows * 6 * H * sizeof(float);
+  // h, c, the gates; at bf16 also the rounded h.
+  const size_t smem = (size_t)kRows * (aas_rnn::kBf16<TS> ? 7 : 6) * H * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_tm_fwd_kernel<kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lstm_tm_fwd_kernel<kSave, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((B + kRows - 1) / kRows, 2);
-  lstm_tm_fwd_kernel<kSave><<<grid, threads, smem, stream>>>(
+  lstm_tm_fwd_kernel<kSave, TS><<<grid, threads, smem, stream>>>(
       gxf, gxb, L, m, wh, bh, yf, yb, hp, cp, act, T, B, H);
   return (int)cudaGetLastError();
 }
@@ -618,24 +631,42 @@ int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
 // gx_t, gx_b are gx's strides in elements.  hp, cp and act are NULL for
 // inference and the buffers the backward reads for training.  `cluster` is
 // the caller's choice of route: the resident kernel on clusters of that many
-// blocks, or 0 for the streaming kernel.
-extern "C" int aas_lstm_fwd(const float* gx0, const float* gx1, long long gx_t,
+// blocks, or 0 for the streaming kernel.  `bf16`: gx and y are bf16 (the
+// inference variants only: hp must be NULL), else f32.
+extern "C" int aas_lstm_fwd(const void* gx0, const void* gx1, long long gx_t,
                             long long gx_b, const float* m, const float* wh,
-                            const float* bh, float* y0, float* y1, float* hp,
-                            float* cp, float* act, int stacked, int cluster, int T,
-                            int B, int H, cudaStream_t stream) {
+                            const float* bh, void* y0, void* y1, float* hp,
+                            float* cp, float* act, int stacked, int cluster, int bf16,
+                            int T, int B, int H, cudaStream_t stream) {
   const aas_rnn::Layout L = aas_rnn::make_layout(stacked, gx_t, gx_b, T, B, H, 4 * H);
+  if (bf16) {
+    using bf = __nv_bfloat16;
+    if (hp != nullptr) return (int)cudaErrorInvalidValue;
+    const bf* g0 = static_cast<const bf*>(gx0);
+    const bf* g1 = static_cast<const bf*>(gx1);
+    if (cluster > 0)
+      return launch_resident<false>(g0, g1, L, m, wh, bh, static_cast<bf*>(y0),
+                                    static_cast<bf*>(y1), nullptr, nullptr, nullptr, cluster,
+                                    T, B, H, stream);
+    return launch_fwd<false>(g0, g1, L, m, wh, bh, static_cast<bf*>(y0),
+                             static_cast<bf*>(y1), nullptr, nullptr, nullptr, T, B, H,
+                             stream);
+  }
+  const float* f0 = static_cast<const float*>(gx0);
+  const float* f1 = static_cast<const float*>(gx1);
+  float* o0 = static_cast<float*>(y0);
+  float* o1 = static_cast<float*>(y1);
   if (cluster > 0) {
     if (hp == nullptr)
-      return launch_resident<false>(gx0, gx1, L, m, wh, bh, y0, y1, nullptr, nullptr,
+      return launch_resident<false>(f0, f1, L, m, wh, bh, o0, o1, nullptr, nullptr,
                                     nullptr, cluster, T, B, H, stream);
-    return launch_resident<true>(gx0, gx1, L, m, wh, bh, y0, y1, hp, cp, act, cluster,
+    return launch_resident<true>(f0, f1, L, m, wh, bh, o0, o1, hp, cp, act, cluster,
                                  T, B, H, stream);
   }
   if (hp == nullptr)
-    return launch_fwd<false>(gx0, gx1, L, m, wh, bh, y0, y1, nullptr, nullptr,
+    return launch_fwd<false>(f0, f1, L, m, wh, bh, o0, o1, nullptr, nullptr,
                              nullptr, T, B, H, stream);
-  return launch_fwd<true>(gx0, gx1, L, m, wh, bh, y0, y1, hp, cp, act, T, B, H,
+  return launch_fwd<true>(f0, f1, L, m, wh, bh, o0, o1, hp, cp, act, T, B, H,
                           stream);
 }
 
@@ -652,8 +683,8 @@ extern "C" int aas_lstm_res_clusters(int cluster, int variant, int H) {
   int rc = variant ? resident_config<true>(cluster, kRows, H, nullptr, attr, &cfg)
                    : resident_config<false>(cluster, kRows, H, nullptr, attr, &cfg);
   if (!rc)
-    rc = variant ? aas_rnn::active_clusters(lstm_res_fwd_kernel<true>, cfg, &clusters)
-                 : aas_rnn::active_clusters(lstm_res_fwd_kernel<false>, cfg, &clusters);
+    rc = variant ? aas_rnn::active_clusters(lstm_res_fwd_kernel<true, float>, cfg, &clusters)
+                 : aas_rnn::active_clusters(lstm_res_fwd_kernel<false, float>, cfg, &clusters);
   return rc ? -rc : clusters;
 }
 

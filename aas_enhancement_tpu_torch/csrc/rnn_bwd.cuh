@@ -33,9 +33,38 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace aas_rnn {
+
+// The stream type TS of a forward's gx and y: f32, or bf16 (the inference
+// forwards of the bf16 models).  A bf16 step runs as the Pallas kernels do
+// with bf16 streams (rnn_kernel.py, `hc = h.astype(wh_ref.dtype)`): gx widened
+// to f32; h, whose state stays f32, rounded to bf16 before the recurrent
+// product (dot_in), and wh holding bf16 values (the host rounds it and passes
+// f32), so each product is exact in f32 and the sums are f32; bias, c and
+// the cell math f32; only the stored y rounded to bf16.
+template <typename TS>
+constexpr bool kBf16 = std::is_same<TS, __nv_bfloat16>::value;
+
+__device__ __forceinline__ float ld_stream(const float* p) { return *p; }
+__device__ __forceinline__ float ld_stream(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st_stream(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_stream(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// h as the recurrent product reads it.
+template <typename TS>
+__device__ __forceinline__ float dot_in(float h) {
+  if constexpr (kBf16<TS>) return __bfloat162float(__float2bfloat16_rn(h));
+  return h;
+}
 
 struct Layout {
   long long gx_t, gx_b;   // gx strides in elements: time, batch row

@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import os
+
 
 def read_manifest(path: str) -> list[tuple[str, str]]:
     """-> list of (wav_path, transcript_path)."""
@@ -19,3 +21,10 @@ def read_manifest(path: str) -> list[tuple[str, str]]:
 def read_transcript(txt_path: str) -> str:
     with open(txt_path) as f:
         return f.read().strip()
+
+
+def write_manifest(path: str, entries: list[tuple[str, str]]) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for wav, txt in entries:
+            f.write(f"{wav},{txt}\n")

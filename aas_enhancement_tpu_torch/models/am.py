@@ -20,6 +20,11 @@ and inference never compute it.  The JAX model passes ``dw_impl="xla"``
 there because its Pallas kernel measured slower than XLA on a TPU v5e; that
 timing says nothing about this card, so the port keeps the module's own
 default and records the kernel's time beside cuDNN's (PERF.md).
+
+``cfg.dtype`` "bfloat16" runs the forward as the JAX model does: the input
+cast at the entry, convs, GroupNorms and BiGRUs in bfloat16 (parameters
+float32, cast where used), and the ``fc`` head in float32 on the float32
+copy of the last BiGRU's output.  Only the forward is ported at bfloat16.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from torch import nn
 from aas_enhancement_tpu_torch.config import AMConfig
 from aas_enhancement_tpu_torch.ops.conv import SameConv2d, TapDWConv
 from aas_enhancement_tpu_torch.ops.dense import Dense
+from aas_enhancement_tpu_torch.ops.dispatch import compute_dtype
 from aas_enhancement_tpu_torch.ops.masking import (apply_time_mask, conv_out_length,
                                                    stream_windows)
 from aas_enhancement_tpu_torch.ops.norm import MaskedGroupNorm
@@ -46,26 +52,26 @@ class AcousticModel(nn.Module):
     def __init__(self, cfg: AMConfig, num_bins: int,
                  device: torch.device | str | None = None):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError(f"dtype {cfg.dtype}: only float32 is ported")
         self.cfg = cfg
+        self.dtype = dt = compute_dtype(cfg.dtype)
         c = cfg.conv_channels
-        self.conv1 = SameConv2d(1, c, (11, 41), (2, 2), device=device)
-        self.gn1 = MaskedGroupNorm(c, num_groups=8, act="hardtanh", device=device)
-        self.conv2 = TapDWConv(c, c, (11, 21), (1, 2), dw_impl="auto", device=device)
-        self.gn2 = MaskedGroupNorm(c, num_groups=8, act="hardtanh", device=device)
+        self.conv1 = SameConv2d(1, c, (11, 41), (2, 2), device=device, compute_dtype=dt)
+        self.gn1 = MaskedGroupNorm(c, num_groups=8, act="hardtanh", device=device, dtype=dt)
+        self.conv2 = TapDWConv(c, c, (11, 21), (1, 2), dw_impl="auto", device=device,
+                               compute_dtype=dt)
+        self.gn2 = MaskedGroupNorm(c, num_groups=8, act="hardtanh", device=device, dtype=dt)
         f_out = -(-num_bins // 2)            # conv1 halves F (SAME, ceil) ...
         f_out = -(-f_out // 2)               # ... and so does conv2
         rnn_in = [f_out * c] + [cfg.rnn_hidden] * (cfg.rnn_layers - 1)
         self.rnns = nn.ModuleList(
-            BiRNN(d, cfg.rnn_hidden, cell=cfg.rnn_type, device=device)
+            BiRNN(d, cfg.rnn_hidden, cell=cfg.rnn_type, device=device, dtype=dt)
             for d in rnn_in[:cfg.rnn_layers])
         self.fc = Dense(cfg.rnn_hidden if cfg.rnn_layers else rnn_in[0],
                         cfg.vocab_size, device=device)
 
     def forward(self, log_mag: torch.Tensor, lengths: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        x = log_mag.to(torch.float32)[:, None]                    # [B, 1, T, F]
+        x = log_mag.to(self.dtype)[:, None]                       # [B, 1, T, F]
         out_lengths = conv_out_length(lengths, 11, 2, "SAME")
         for conv, gn in ((self.conv1, self.gn1), (self.conv2, self.gn2)):
             y = conv(x).permute(0, 2, 3, 1).contiguous()          # [B, T', F', C]
@@ -74,7 +80,7 @@ class AcousticModel(nn.Module):
         x = x.permute(0, 2, 3, 1).reshape(b, t, -1).transpose(0, 1)   # [T', B, F'*C]
         for rnn in self.rnns:
             x = rnn(x, out_lengths)
-        logits = self.fc(x.transpose(0, 1))                       # [B, T', V]
+        logits = self.fc(x.transpose(0, 1).float())               # [B, T', V], f32
         return apply_time_mask(logits, out_lengths), out_lengths
 
 

@@ -9,7 +9,9 @@ batch rows.
 The flatten puts feature f*C + c where the JAX model's ``reshape(b, t, f*c)``
 does, so the head's rows line up with a converted flax kernel; F' is
 161 -> 81 -> 41 -> 21 at the default 161 bins.  The convs are cuDNN and have
-no TPU kernel behind them.
+no TPU kernel behind them.  ``cfg.dtype`` "bfloat16" runs the convs in
+bfloat16 (as the JAX model: the input cast at the entry) and the pooling and
+head in float32.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch import nn
 from aas_enhancement_tpu_torch.config import DiscriminatorConfig
 from aas_enhancement_tpu_torch.ops.conv import SameConv2d
 from aas_enhancement_tpu_torch.ops.dense import Dense
+from aas_enhancement_tpu_torch.ops.dispatch import compute_dtype
 from aas_enhancement_tpu_torch.ops.masking import apply_time_mask, conv_out_length, masked_mean
 
 
@@ -31,11 +34,10 @@ class Discriminator(nn.Module):
     def __init__(self, cfg: DiscriminatorConfig, num_bins: int,
                  device: torch.device | str | None = None):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError(f"dtype {cfg.dtype}: only float32 is ported")
+        self.dtype = dt = compute_dtype(cfg.dtype)
         chans = (1,) + tuple(cfg.channels)
         self.convs = nn.ModuleList(
-            SameConv2d(c_in, c_out, (5, 5), (2, 2), device=device)
+            SameConv2d(c_in, c_out, (5, 5), (2, 2), device=device, compute_dtype=dt)
             for c_in, c_out in zip(chans[:-1], chans[1:]))
         f_out = num_bins
         for _ in cfg.channels:
@@ -43,12 +45,12 @@ class Discriminator(nn.Module):
         self.head = Dense(f_out * chans[-1], 1, device=device)
 
     def forward(self, log_mag: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        x = log_mag.to(torch.float32)[:, None]                   # [B, 1, T, F]
+        x = log_mag.to(self.dtype)[:, None]                      # [B, 1, T, F]
         cur = lengths
         for conv in self.convs:
             x = F.leaky_relu(conv(x), negative_slope=0.2)
             cur = conv_out_length(cur, 5, 2, "SAME")
             x = apply_time_mask(x.transpose(1, 2), cur).transpose(1, 2)
         b, c, t, f = x.shape
-        x = x.permute(0, 2, 3, 1).reshape(b, t, f * c)           # feature f*C + c
+        x = x.permute(0, 2, 3, 1).reshape(b, t, f * c).float()   # feature f*C + c
         return self.head(masked_mean(x, cur, axis=(1,)))[:, 0]

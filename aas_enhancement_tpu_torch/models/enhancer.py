@@ -11,6 +11,13 @@ model's ``reshape(b, t, f*c)`` does (the ``wx`` rows depend on it).
 
 ``blockwise_apply`` is the streaming-matched forward of streaming
 fine-tuning; ``enhanced_log_mag`` the enhanced features from the output.
+
+``cfg.dtype`` "bfloat16" runs the forward as the JAX model does: the
+parameters stay float32 and are cast where they are used, the input is cast
+at the model's entry, convs, GroupNorms, BiLSTMs and the projection compute
+and stream bfloat16, and the projection's output is cast back to float32
+before the mask.  Only the forward is ported at bfloat16 (training: ROADMAP
+bf16b).
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from aas_enhancement_tpu_torch.config import EnhancerConfig
+from aas_enhancement_tpu_torch.ops.conv import DtypeConv2d
 from aas_enhancement_tpu_torch.ops.dense import Dense
+from aas_enhancement_tpu_torch.ops.dispatch import compute_dtype
 from aas_enhancement_tpu_torch.ops.masking import apply_time_mask, stream_windows
 from aas_enhancement_tpu_torch.ops.norm import MaskedGroupNorm
 from aas_enhancement_tpu_torch.ops.rnn import BiRNN
@@ -37,26 +46,26 @@ class Enhancer(nn.Module):
     def __init__(self, cfg: EnhancerConfig, num_bins: int,
                  device: torch.device | str | None = None):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError(f"dtype {cfg.dtype}: only float32 is ported")
         self.cfg = cfg
+        self.dtype = dt = compute_dtype(cfg.dtype)
         c = cfg.conv_channels
         self.convs = nn.ModuleList(
-            nn.Conv2d(1 if i == 0 else c, c, kernel_size=5, padding=2, device=device)
+            DtypeConv2d(1 if i == 0 else c, c, kernel_size=5, padding=2, device=device,
+                        compute_dtype=dt)
             for i in range(cfg.conv_layers))
         self.gns = nn.ModuleList(
-            MaskedGroupNorm(c, num_groups=8, act="leaky_relu", device=device)
+            MaskedGroupNorm(c, num_groups=8, act="leaky_relu", device=device, dtype=dt)
             for _ in range(cfg.conv_layers))
         rnn_in = [num_bins * (c if cfg.conv_layers else 1)] + \
                  [cfg.rnn_hidden] * (cfg.rnn_layers - 1)
         self.blstms = nn.ModuleList(
-            BiRNN(d, cfg.rnn_hidden, cell="lstm", device=device) for d in rnn_in)
+            BiRNN(d, cfg.rnn_hidden, cell="lstm", device=device, dtype=dt) for d in rnn_in)
         proj_in = cfg.rnn_hidden if cfg.rnn_layers else rnn_in[0]
-        self.proj = Dense(proj_in, num_bins, device=device)
+        self.proj = Dense(proj_in, num_bins, device=device, dtype=dt)
 
     def forward(self, log_mag: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         b, t, f = log_mag.shape
-        x = log_mag[..., None]                                   # [B, T, F, 1]
+        x = log_mag.to(self.dtype)[..., None]                    # [B, T, F, 1]
         for conv, gn in zip(self.convs, self.gns):
             x_nchw = x.permute(0, 3, 1, 2)                       # channels-last memory
             y = conv(x_nchw).permute(0, 2, 3, 1).contiguous()    # [B, T, F, C]
@@ -64,7 +73,7 @@ class Enhancer(nn.Module):
         x = x.reshape(b, t, -1).transpose(0, 1)                  # [T, B, F*C]
         for rnn in self.blstms:
             x = rnn(x, lengths)
-        out = self.proj(x.transpose(0, 1))                       # [B, T, F]
+        out = self.proj(x.transpose(0, 1)).float()               # [B, T, F]
         out = torch.sigmoid(out) if self.cfg.mode == "mask" else F.softplus(out)
         return apply_time_mask(out, lengths)
 

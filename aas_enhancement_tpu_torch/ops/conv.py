@@ -38,8 +38,27 @@ from aas_enhancement_tpu_torch.ops.cuda.conv_dw import (
 DW_IMPLS = ("auto", "cudnn", "kernel")
 
 
-class SameConv2d(nn.Conv2d):
-    """``nn.Conv2d`` over NCHW with SAME padding computed from the input size.
+class DtypeConv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax's ``dtype=``: ``compute_dtype``.  The float32
+    parameters are cast with the input where they are used (``cast``), so at
+    bfloat16 the conv runs in bfloat16 (cuDNN accumulates in float32) and its
+    output is bfloat16; at float32 it is ``nn.Conv2d``."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def cast(self, x: torch.Tensor):
+        """(x, weight, bias) in the compute dtype."""
+        dt = self.compute_dtype
+        return x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*self.cast(x))
+
+
+class SameConv2d(DtypeConv2d):
+    """``DtypeConv2d`` over NCHW with SAME padding computed from the input size.
 
     Parameters are ``weight`` [O, I, kh, kw] and ``bias`` [O]; ``convert.py``
     permutes a flax HWIO ``kernel`` into ``weight``.
@@ -47,12 +66,15 @@ class SameConv2d(nn.Conv2d):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: tuple[int, int], stride: tuple[int, int] = (1, 1),
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=0, device=device)
+                         padding=0, device=device, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(F.pad(x, _pads(x, self.kernel_size, self.stride)))
+        x, weight, bias = self.cast(x)
+        return self._conv_forward(F.pad(x, _pads(x, self.kernel_size, self.stride)),
+                                  weight, bias)
 
 
 def _pads(x: torch.Tensor, kernel, stride) -> tuple[int, int, int, int]:
@@ -124,9 +146,11 @@ class TapDWConv(SameConv2d):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: tuple[int, int], stride: tuple[int, int] = (1, 1),
-                 dw_impl: str = "auto", device: torch.device | str | None = None):
-        super().__init__(in_channels, out_channels, kernel_size, stride, device=device)
+                 dw_impl: str = "auto", device: torch.device | str | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride, device=device,
+                         compute_dtype=compute_dtype)
         self.dw_impl = dw_impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_tapdw(x, self.weight, self.bias, self.stride, self.dw_impl)
+        return conv2d_tapdw(*self.cast(x), self.stride, self.dw_impl)

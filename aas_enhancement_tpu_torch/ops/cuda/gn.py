@@ -17,6 +17,15 @@ integer type it is given.  Where a gradient is wanted the call goes through
 kernel too: per-channel sums of dz and dz * x_hat, a grid-wide barrier, the
 per-(batch, group) finalize, dx, and dscale and dbias summed in a fixed order
 in the kernel.  A CPU tensor runs the plain versions.
+
+x and y are float32 or bfloat16 (the streams); the statistics, scale, bias
+and scratch are float32.  At bfloat16 both versions follow the bf16 JAX
+module (``aas_enhancement_tpu/ops/norm.py``, the XLA route its
+``impl="auto"`` takes): f32 statistics of x, the affine and the mask in f32,
+then a cast to bfloat16 and the activation on the bf16 value (leaky:
+``y * bf16(slope)``, rounded).  The Pallas apply takes the activation before
+the cast; the two differ by at most one bf16 ulp.  Only the forward takes
+bfloat16: a wanted gradient at bfloat16 on the card raises (bf16b).
 """
 
 from __future__ import annotations
@@ -30,10 +39,13 @@ from aas_enhancement_tpu_torch.utils import kernel_build
 
 ACTS = {"none": 0, "leaky_relu": 1, "hardtanh": 2}     # the kernels' act codes
 ROWS_PER_ITEM = 8      # frames per work item: kRows in csrc/gn.cu
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _activate(y: torch.Tensor, act: str, slope: float) -> torch.Tensor:
     if act == "leaky_relu":
+        if y.dtype != torch.float32:      # the slope in y's dtype, as JAX's weak type
+            return torch.where(y >= 0, y, y * torch.tensor(slope, dtype=y.dtype))
         return torch.where(y >= 0, y, slope * y)
     if act == "hardtanh":
         return torch.clamp(y, 0.0, 20.0)
@@ -63,7 +75,8 @@ def masked_group_norm_act_plain(x: torch.Tensor, scale: torch.Tensor,
                                 bias: torch.Tensor, lengths: torch.Tensor, *,
                                 num_groups: int, eps: float = 1e-5,
                                 act: str = "none", slope: float = 0.2) -> torch.Tensor:
-    """Plain PyTorch version: same math as ``ops/norm.py::MaskedGroupNorm`` in JAX."""
+    """Plain PyTorch version: same math as ``ops/norm.py::MaskedGroupNorm`` in
+    JAX, the output in x's dtype (module docstring)."""
     b, t, f, c = x.shape
     g = num_groups
     mask = time_mask(lengths, t, torch.float32)[:, :, None, None]
@@ -73,21 +86,25 @@ def masked_group_norm_act_plain(x: torch.Tensor, scale: torch.Tensor,
     inv_c = inv.repeat_interleave(c // g, dim=1) * scale
     off_c = bias - (mean * inv).repeat_interleave(c // g, dim=1) * scale
     y = (x * inv_c[:, None, None, :] + off_c[:, None, None, :]) * mask
-    return _activate(y, act, slope)
+    return _activate(y.to(x.dtype), act, slope)
 
 
 def gn_kernel(x, scale, bias, lengths, g, eps, act, slope):
     """The forward kernel's launcher (the ``aas_torch::masked_group_norm_act``
     operator's CUDA implementation, and ``_GNActFn``'s forward): checks what
     the kernel takes, raises otherwise, launches once and counts it in
-    ``masked_group_norm_act.launches`` -> (y, scratch): scratch
-    [2 B C + partials] holds the mean and the inv per (B, C) (``_stats``),
-    then the per-item partial sums.  ``lengths`` [B] int32 or int64 on x's
-    device (the wrapper's ``_kernel_lengths``)."""
-    check_kernel_inputs("masked_group_norm_act", (x, scale, bias))
+    ``masked_group_norm_act.launches`` (and the stream dtype in ``.dtype``)
+    -> (y, scratch): y in x's dtype; scratch [2 B C + partials] holds the
+    mean and the inv per (B, C) (``_stats``), then the per-item partial sums.
+    ``lengths`` [B] int32 or int64 on x's device (the wrapper's
+    ``_kernel_lengths``).  A thread reads four channels at once: 16 bytes of
+    float32 or 8 of bfloat16, so x must be aligned to that and C % 4 == 0."""
+    dtype = check_kernel_inputs("masked_group_norm_act", (scale, bias), streams=(x,),
+                                stream_dtypes=STREAM_DTYPES)
     b, t, f, c = x.shape
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("masked_group_norm_act: needs a contiguous, 16-byte aligned x")
+    quad = 4 * x.element_size()
+    if not x.is_contiguous() or x.data_ptr() % quad:
+        raise ValueError(f"masked_group_norm_act: needs a contiguous, {quad}-byte aligned x")
     if c % 4 or c > 256 or g > 32 or x.numel() == 0:
         raise ValueError(f"masked_group_norm_act: the kernel takes C % 4 == 0, C <= 256, "
                          f"at most 32 groups and a non-empty x, got {tuple(x.shape)}, "
@@ -100,6 +117,9 @@ def gn_kernel(x, scale, bias, lengths, g, eps, act, slope):
                          "contiguous, on x's device")
     if not (scale.is_contiguous() and bias.is_contiguous()):
         raise ValueError("masked_group_norm_act: scale and bias must be contiguous")
+    bf16 = dtype == torch.bfloat16
+    if bf16:                  # the slope in bfloat16, as the plain version takes it
+        slope = float(torch.tensor(slope, dtype=torch.bfloat16))
     y = torch.empty_like(x)
     n_part = b * -(-t // ROWS_PER_ITEM) * g * 2
     scratch = torch.empty(2 * b * c + n_part, dtype=torch.float32, device=x.device)
@@ -107,10 +127,11 @@ def gn_kernel(x, scale, bias, lengths, g, eps, act, slope):
     err = kernel_build.load_library().aas_gn_act_fwd(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
         int(lengths.dtype == torch.int64), y.data_ptr(), mean, mean + 4 * b * c,
-        mean + 8 * b * c, n_part, b, t, f, c, g, eps, ACTS[act], slope,
+        mean + 8 * b * c, n_part, b, t, f, c, g, eps, ACTS[act], slope, int(bf16),
         torch.cuda.current_stream(x.device).cuda_stream)
     kernel_build.check(err, "aas_gn_act_fwd (cooperative launch)")
     masked_group_norm_act.launches += 1
+    masked_group_norm_act.dtype = dtype
     return y, scratch
 
 
@@ -241,6 +262,10 @@ def masked_group_norm_act(x: torch.Tensor, scale: torch.Tensor,
         scale, bias = scale.contiguous(), bias.contiguous()
     if torch.is_grad_enabled() and any(v.requires_grad for v in (x, scale, bias)):
         if kernel:
+            if x.dtype != torch.float32:
+                raise NotImplementedError(
+                    f"masked_group_norm_act: the gradient at {x.dtype} is not ported "
+                    "(ROADMAP bf16b); only the forward takes bfloat16")
             return _GNActFn.apply(x, scale, bias, lengths, num_groups, eps, act, slope)
         return masked_group_norm_act_plain(x, scale, bias, lengths, num_groups=num_groups,
                                            eps=eps, act=act, slope=slope)
@@ -256,3 +281,4 @@ def _kernel_lengths(lengths: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 masked_group_norm_act.launches = 0
+masked_group_norm_act.dtype = None

@@ -48,6 +48,16 @@ through distributed shared memory; the streaming backward reads whT from L2
 every step.  A route is no fallback: a resident launch that is refused
 raises.  Each wrapper's ``.route``, forward and backward, holds the route of
 its last launch: the cluster size, or 0 for streaming.
+
+The forwards' streams (gx and y) are float32, or bfloat16 for inference
+(the bf16 models' forwards; each forward wrapper's ``.dtype`` holds its last
+launch's): the kernels and the plain versions then run a step as the Pallas
+kernels do with bf16 streams, gx widened to f32, h rounded to bf16 before the
+recurrent product (its state stays f32), f32 sums, bias, c and cell math,
+and y rounded to bf16.  wh and bh stay float32 arguments; the bf16 model
+passes them rounded through bf16 (``ops/rnn.py``), so each product is exact
+in f32.  The training forward and the backwards take float32 only: a wanted
+gradient at bfloat16 on the card raises (ROADMAP bf16b).
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from aas_enhancement_tpu_torch.utils import kernel_build
 # (two per warp).
 _SMEM_LIMIT = 232448
 _RES_UNITS = 32
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def lstm_resident_cluster(h_dim: int) -> int:
@@ -136,25 +147,31 @@ def resident_clusters_at_once(cell: str, h_dim: int, cluster: int | None = None,
     return n
 
 
+def _dot_in(h: torch.Tensor, stream: torch.dtype) -> torch.Tensor:
+    """h as the recurrent product reads it: rounded to a bf16 stream's dtype."""
+    return h if stream == torch.float32 else h.to(stream).float()
+
+
 def lstm_scan_stacked_plain(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
                             bh: torch.Tensor) -> torch.Tensor:
     """Per-step loop over gx [T, 2, B, 4H] with the state [2, B, H] of both
-    directions."""
+    directions; y in gx's dtype (module docstring)."""
     t_len, _, b, g4 = gx.shape
     h_dim = g4 // 4
-    h = gx.new_zeros((2, b, h_dim))
-    c = gx.new_zeros((2, b, h_dim))
+    stream = gx.dtype
+    h = gx.new_zeros((2, b, h_dim), dtype=torch.float32)
+    c = torch.zeros_like(h)
     ys = []
     for s in range(t_len):
         m_t = m[s][..., None]
-        gg = gx[s] + (torch.bmm(h, wh) + bh[:, None, :])
+        gg = gx[s].float() + (torch.bmm(_dot_in(h, stream), wh) + bh[:, None, :])
         i, f, gc, o = gg.split(h_dim, dim=-1)
         c_new = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(gc)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
         h = m_t * h_new + (1.0 - m_t) * h
         c = m_t * c_new + (1.0 - m_t) * c
         ys.append(h_new * m_t)
-    return torch.stack(ys)
+    return torch.stack(ys).to(stream)
 
 
 def to_stacked(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor
@@ -188,20 +205,22 @@ def lstm_scan_tm(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
 
 lstm_scan_tm.launches = 0
 lstm_scan_tm.route = None
+lstm_scan_tm.dtype = None
 
 
 def gru_scan_stacked_plain(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
                            bh: torch.Tensor) -> torch.Tensor:
     """Per-step loop over gx [T, 2, B, 3H] with the state [2, B, H] of both
-    directions."""
+    directions; y in gx's dtype (module docstring)."""
     t_len, _, b, g3 = gx.shape
     h_dim = g3 // 3
-    h = gx.new_zeros((2, b, h_dim))
+    stream = gx.dtype
+    h = gx.new_zeros((2, b, h_dim), dtype=torch.float32)
     ys = []
     for s in range(t_len):
         m_t = m[s][..., None]
-        gh = torch.bmm(h, wh) + bh[:, None, :]   # bh's n-slice stays inside r * (...)
-        xr, xz, xn = gx[s].split(h_dim, dim=-1)
+        gh = torch.bmm(_dot_in(h, stream), wh) + bh[:, None, :]   # bh's n-slice: r * (...)
+        xr, xz, xn = gx[s].float().split(h_dim, dim=-1)
         hr, hz, hn = gh.split(h_dim, dim=-1)
         r = torch.sigmoid(xr + hr)
         z = torch.sigmoid(xz + hz)
@@ -209,7 +228,7 @@ def gru_scan_stacked_plain(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
         h_new = (1.0 - z) * n + z * h
         ys.append(m_t * h_new)
         h = m_t * h_new + (1.0 - m_t) * h
-    return torch.stack(ys)
+    return torch.stack(ys).to(stream)
 
 
 def gru_scan_tm_plain(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
@@ -236,6 +255,7 @@ def gru_scan_tm(gxf: torch.Tensor, gxb: torch.Tensor, m: torch.Tensor,
 
 gru_scan_tm.launches = 0
 gru_scan_tm.route = None
+gru_scan_tm.dtype = None
 
 
 def lstm_scan_stacked(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
@@ -248,6 +268,7 @@ def lstm_scan_stacked(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
 
 lstm_scan_stacked.launches = 0
 lstm_scan_stacked.route = None
+lstm_scan_stacked.dtype = None
 
 
 def gru_scan_stacked(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
@@ -260,6 +281,7 @@ def gru_scan_stacked(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
 
 gru_scan_stacked.launches = 0
 gru_scan_stacked.route = None
+gru_scan_stacked.dtype = None
 
 _FORWARD = {"lstm_scan_tm": lstm_scan_tm, "gru_scan_tm": gru_scan_tm,
             "lstm_scan_stacked": lstm_scan_stacked, "gru_scan_stacked": gru_scan_stacked}
@@ -307,8 +329,11 @@ def _forward(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
     activations [2, T, B, 4H].  The route (cluster size, 0 = streaming)
     follows from H (``lstm_resident_cluster``, ``gru_resident_cluster``);
     ``route`` overrides it for measurements that set the two kernels side by
-    side."""
-    check_kernel_inputs(name, (*gx, m, wh, bh))
+    side.  gx and y are float32 or, for inference (not ``save``), bfloat16."""
+    dtype = check_kernel_inputs(name, (m, wh, bh), streams=gx, stream_dtypes=STREAM_DTYPES)
+    if save and dtype != torch.float32:
+        raise NotImplementedError(f"{name}: the training forward at {dtype} is not "
+                                  "ported (ROADMAP bf16b); only inference takes bfloat16")
     gates, stacked = _gates(name), len(gx) == 1
     if stacked:
         if gx[0].ndim != 4 or gx[0].shape[1] != 2 or m.shape != gx[0].shape[:3]:
@@ -336,14 +361,14 @@ def _forward(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
         raise ValueError(f"{name}: needs H % 4 == 0 and 16-byte aligned wh, bh "
                          "(the kernel reads them as float4)")
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=gx0.device)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=gx0.device)
 
     if stacked:
-        ys = (empty(t_len, 2, b, h_dim),)
+        ys = (empty(t_len, 2, b, h_dim, dtype=dtype),)
         y0, y1 = _halves(ys[0])
     else:
-        ys = y0, y1 = empty(t_len, b, h_dim), empty(t_len, b, h_dim)
+        ys = y0, y1 = empty(t_len, b, h_dim, dtype=dtype), empty(t_len, b, h_dim, dtype=dtype)
     n_saved = gates - 1                                   # h, (c,) activations
     saved = ()
     if save:
@@ -357,10 +382,12 @@ def _forward(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
         gx0.data_ptr(), gx1.data_ptr(), gx0.stride(0), gx0.stride(1),
         m.data_ptr(), wh.data_ptr(), bh.data_ptr(), y0.data_ptr(), y1.data_ptr(),
         *([x.data_ptr() for x in saved] or [None] * n_saved), int(stacked), route,
-        t_len, b, h_dim, torch.cuda.current_stream(gx0.device).cuda_stream)
+        int(dtype == torch.bfloat16), t_len, b, h_dim,
+        torch.cuda.current_stream(gx0.device).cuda_stream)
     kernel_build.check(err, what)
     _FORWARD[name].launches += 1
     _FORWARD[name].route = route
+    _FORWARD[name].dtype = dtype
     return ys, saved
 
 

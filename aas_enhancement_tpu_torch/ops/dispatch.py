@@ -22,6 +22,17 @@ def resolve_device(device: torch.device | str = "cuda") -> torch.device:
     return device
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """A model config's ``dtype`` ("float32" or "bfloat16", the JAX configs'
+    names) -> the torch dtype the model computes in; raises on any other."""
+    if name not in COMPUTE_DTYPES:
+        raise NotImplementedError(f"dtype {name!r}: the port computes in {list(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
 def uses_kernel(name: str, x: torch.Tensor) -> bool:
     """True for a CUDA tensor (kernel), False for a CPU tensor (plain version)."""
     if x.device.type == "cuda":
@@ -31,11 +42,25 @@ def uses_kernel(name: str, x: torch.Tensor) -> bool:
     raise ValueError(f"{name}: no implementation for device {x.device}")
 
 
-def check_kernel_inputs(name: str, tensors: tuple[torch.Tensor, ...]) -> None:
-    """Raise unless every tensor is float32 on the first one's device.  (Every
-    kernel's gradient is an autograd Function with a backward kernel.)"""
+def check_kernel_inputs(name: str, tensors: tuple[torch.Tensor, ...],
+                        streams: tuple[torch.Tensor, ...] = (),
+                        stream_dtypes: tuple[torch.dtype, ...] = (torch.float32,)
+                        ) -> torch.dtype:
+    """Raise unless every tensor of ``tensors`` (parameters, masks: always
+    float32) is float32, every tensor of ``streams`` (the activations a kernel
+    reads and writes) has one dtype, which ``stream_dtypes`` allows, and all
+    lie on one device -> that stream dtype (float32 without streams).
+    (Every kernel's gradient is an autograd Function with a backward kernel.)"""
     for x in tensors:
         if x.dtype != torch.float32:
             raise TypeError(f"{name}: needs float32, got {x.dtype}")
-        if x.device != tensors[0].device:
-            raise ValueError(f"{name}: inputs on {x.device} and {tensors[0].device}")
+    dtype = streams[0].dtype if streams else torch.float32
+    for x in streams:
+        if x.dtype not in stream_dtypes or x.dtype != dtype:
+            raise TypeError(f"{name}: streams in one of {stream_dtypes}, got "
+                            f"{[s.dtype for s in streams]}")
+    every = (*streams, *tensors)
+    for x in every:
+        if x.device != every[0].device:
+            raise ValueError(f"{name}: inputs on {x.device} and {every[0].device}")
+    return dtype

@@ -9,7 +9,9 @@ pointers), picks the route, holds the window and DFT-table caches and counts
 the launch.  A ``register_fake`` gives each output's shape, so
 ``torch.export`` traces one node per operator and a saved program calls the
 launcher when it runs: its launches count then, as the live path's do.  The
-schemas carry scalars only, never a cached tensor.
+schemas carry scalars only, never a cached tensor.  The GroupNorm and the
+recurrences give their outputs in their streams' dtype (float32, or bfloat16
+for a bf16 model), the STFT and the ISTFT float32.
 
 The gradient-free branch of each wrapper (``ops/cuda/stft.py::stft`` and the
 others) calls the operator on both devices; where a gradient is wanted the
@@ -103,13 +105,13 @@ def _(x, scale, bias, lengths, num_groups, eps, act, slope):
 
 @masked_group_norm_act.register_fake
 def _(x, scale, bias, lengths, num_groups, eps, act, slope):
-    return torch.empty_like(x, dtype=torch.float32)
+    return torch.empty_like(x)          # x's dtype: float32 or bfloat16
 
 
 def _scan_fake(gxf, gxb, m, wh, bh):
     t, b, _ = gxf.shape
     shape = (t, b, wh.shape[1])
-    return gxf.new_empty(shape, dtype=torch.float32), gxf.new_empty(shape, dtype=torch.float32)
+    return gxf.new_empty(shape), gxf.new_empty(shape)     # gx's dtype
 
 
 @torch.library.custom_op(f"{NAMESPACE}::lstm_scan_tm", mutates_args=(), device_types="cpu")

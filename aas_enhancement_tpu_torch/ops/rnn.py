@@ -15,6 +15,13 @@ route, gx [T, 2, B, G*H] and m [T, 2, B] with direction 1 flipped in time,
 runs the stacked scans on it and flips direction 1's output back.  The
 default here is ``True``, what both models pass and every caller of the port
 relies on; the JAX module's default is ``False``.
+
+``dtype`` is the compute dtype (the JAX module's ``dtype``, its Pallas route):
+at bfloat16 the input and the ``wx`` product are bfloat16, wh and bh are
+rounded through bfloat16 and handed to the scans as float32 (the kernels
+round h to bfloat16 before the recurrent product and keep f32 sums and
+state), the scans stream bfloat16 gates and outputs, and the directions'
+sum is bfloat16.
 """
 
 from __future__ import annotations
@@ -37,25 +44,30 @@ class BiRNN(nn.Module):
     sum of both directions' masked outputs."""
 
     def __init__(self, in_features: int, hidden: int, cell: str = "lstm",
-                 time_major: bool = True, device: torch.device | str | None = None):
+                 time_major: bool = True, device: torch.device | str | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if cell not in _CELLS:
             raise ValueError(f"unknown cell {cell!r}: 'gru' or 'lstm'")
         self.hidden = hidden
         self.time_major = time_major
+        self.dtype = dtype
         self.gates, self.scan, self.scan_stacked = _CELLS[cell]
         gh = self.gates * hidden
-        self.wx = Dense(in_features, 2 * gh, device=device)
+        self.wx = Dense(in_features, 2 * gh, device=device, dtype=dtype)
         self.wh = nn.Parameter(torch.empty(2, hidden, gh, device=device))
         self.bh = nn.Parameter(torch.zeros(2, gh, device=device))
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         gh = self.gates * self.hidden
         gates = self.wx(x)                                       # [..., 2GH]
+        wh, bh = self.wh, self.bh
+        if self.dtype != torch.float32:      # the parameters as the compute dtype holds them
+            wh, bh = wh.to(self.dtype).float(), bh.to(self.dtype).float()
         if self.time_major:
             gxf, gxb = gates[..., :gh], gates[..., gh:]          # strided views
             m = time_mask(lengths, x.shape[0]).T.contiguous()    # [T, B]
-            yf, yb = self.scan(gxf, gxb, m, self.wh, self.bh)
+            yf, yb = self.scan(gxf, gxb, m, wh, bh)
             return yf + yb
         b, t, _ = x.shape
         gates = gates.reshape(b, t, 2, gh)
@@ -64,5 +76,5 @@ class BiRNN(nn.Module):
         gx = torch.stack([gates[:, :, 0], gates[:, :, 1].flip(1)])   # [2, B, T, GH]
         gx = gx.permute(2, 0, 1, 3).contiguous()                 # [T, 2, B, GH]
         m = torch.stack([mask, mask.flip(1)]).permute(2, 0, 1).contiguous()  # [T, 2, B]
-        ys = self.scan_stacked(gx, m, self.wh, self.bh)          # [T, 2, B, H]
+        ys = self.scan_stacked(gx, m, wh, bh)                    # [T, 2, B, H]
         return ys[:, 0].transpose(0, 1) + ys[:, 1].transpose(0, 1).flip(1)

@@ -65,10 +65,12 @@ SIGNATURES = {
     # halves of one tensor); saved buffers NULL for inference:
     # gx0, gx1, gx_stride_t, gx_stride_b, m, wh, bh, y0, y1, hp, cp, act,
     # stacked, cluster (blocks per cluster of the resident route, 0: the
-    # streaming route), T, B, H, stream
-    "aas_lstm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # streaming route), bf16 (gx and y are bf16, else f32; inference only),
+    # T, B, H, stream
+    "aas_lstm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _P),
     # ... as aas_lstm_fwd without cp
-    "aas_gru_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "aas_gru_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # cluster, variant (0 the forward's inference kernel, 1 its training
     # variant, 2 the backward), H -> the clusters of that resident kernel the
     # card runs at once (not an error code; minus the cudaError_t where it
@@ -85,9 +87,10 @@ SIGNATURES = {
     "aas_conv_dw_slices": (_I, _I, _I, _I, _I, _I, _I, _I),
     # x, scale, bias, lengths, lengths are int64 (else int32), y, mean, inv,
     # partials, partials' length, B, T, F, C, G, eps, act (0 none, 1 leaky_relu,
-    # 2 hardtanh), slope, stream: one cooperative launch
+    # 2 hardtanh), slope, bf16 (x and y are bf16, else f32), stream: one
+    # cooperative launch
     "aas_gn_act_fwd": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _I,
-                       _F, _P),
+                       _F, _I, _P),
     # x, dy, scale, bias, lengths, lengths are int64 (else int32), mean, inv,
     # dx, dscale, dbias, scratch (per-row, then per-item sums), its length, B,
     # T, F, C, G, act, slope, stream: the backward, one cooperative launch

@@ -192,37 +192,14 @@ def kernel_names_in_fresh_process(setup: str, timeout: float = 300) -> list[dict
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
-                  trace_dir: str) -> dict:
-    """{"enhance": summary, "recognize": summary, "train": summary,
-    "train_am": summary, "train_paired": summary, "stream_enhance": summary,
-    "stream_recognize": summary} at ``batch`` (the steps at
-    ``TrainConfig.batch_size``, the streaming chunk calls at 1) x ``seconds``
-    on the GPU, weights drawn from the config's train seed; each summary also
-    holds its ``batch``."""
-    from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
-    from aas_enhancement_tpu_torch.config import Config
-    from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
-    from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
+def _profile_steps(cfg, device, n: int, gen, calls: int, warmup: int,
+                   trace_dir: str) -> dict:
+    """The ``aas``, ``am`` and ``paired`` (with the MR-STFT term) steps'
+    summaries at ``TrainConfig.batch_size`` x ``n`` samples."""
     from aas_enhancement_tpu_torch.train.loop import init_state
     from aas_enhancement_tpu_torch.train.steps import make_train_step
 
-    device = resolve_device("cuda")
-    cfg = Config()
-    n = int(seconds * cfg.audio.sample_rate)
-    gen = torch.Generator().manual_seed(0)
-    wav = (0.3 * torch.randn(batch, n, generator=gen)).to(device)
-    lengths = torch.full((batch,), n, device=device)
-    enhancer = init_enhancer(cfg, cfg.train.seed, device)
-    am = init_am(cfg, cfg.train.seed, device)
-    enhance = make_enhance_fn(cfg, device)
-    recognize = make_eval_forward(cfg, use_enhancer=True)
-    out = {
-        "enhance": profile_call(lambda: enhance(enhancer, wav, lengths), calls,
-                                warmup, os.path.join(trace_dir, "enhance_trace.json")),
-        "recognize": profile_call(lambda: recognize(am, enhancer, wav, lengths), calls,
-                                  warmup, os.path.join(trace_dir, "recognize_trace.json")),
-    }
+    out = {}
     state = init_state(cfg, cfg.train.seed, device)
     step = make_train_step(cfg)
     train_batch, u = cfg.train.batch_size, 48
@@ -252,6 +229,44 @@ def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
     out["train_paired"] = profile_call(lambda: p_step(p_state, p_tb), calls, warmup,
                                        os.path.join(trace_dir, "train_paired_trace.json"))
     del p_state
+    return out
+
+
+def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
+                  trace_dir: str, dtype: str = "float32") -> dict:
+    """{"enhance": summary, "recognize": summary, "train": summary,
+    "train_am": summary, "train_paired": summary, "stream_enhance": summary,
+    "stream_recognize": summary} at ``batch`` (the steps at
+    ``TrainConfig.batch_size``, the streaming chunk calls at 1) x ``seconds``
+    on the GPU, weights drawn from the config's train seed; each summary also
+    holds its ``batch``.  ``dtype`` "bfloat16" runs the three models at
+    bf16 and profiles the forwards only (training them is not ported)."""
+    from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
+    from aas_enhancement_tpu_torch.config import Config
+    from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
+    from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
+
+    device = resolve_device("cuda")
+    cfg = Config()
+    cfg = cfg.replace(**{name: dataclasses.replace(getattr(cfg, name), dtype=dtype)
+                         for name in ("enhancer", "am", "discriminator")})
+    n = int(seconds * cfg.audio.sample_rate)
+    gen = torch.Generator().manual_seed(0)
+    wav = (0.3 * torch.randn(batch, n, generator=gen)).to(device)
+    lengths = torch.full((batch,), n, device=device)
+    enhancer = init_enhancer(cfg, cfg.train.seed, device)
+    am = init_am(cfg, cfg.train.seed, device)
+    enhance = make_enhance_fn(cfg, device)
+    recognize = make_eval_forward(cfg, use_enhancer=True)
+    out = {
+        "enhance": profile_call(lambda: enhance(enhancer, wav, lengths), calls,
+                                warmup, os.path.join(trace_dir, "enhance_trace.json")),
+        "recognize": profile_call(lambda: recognize(am, enhancer, wav, lengths), calls,
+                                  warmup, os.path.join(trace_dir, "recognize_trace.json")),
+    }
+    train_batch = cfg.train.batch_size
+    if dtype == "float32":
+        out.update(_profile_steps(cfg, device, n, gen, calls, warmup, trace_dir))
     # One chunk call of the streaming engines at TrainConfig's operating point
     # (chunk 1.0, lookahead 0.2, history 1.0 s), B=1, in steady state: host
     # work, copies and the device call of one window.
@@ -290,16 +305,19 @@ def main(argv=None) -> None:
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--trace-dir", help="keep the seven Chrome traces in this directory")
     p.add_argument("--top", type=int, default=25, help="kernel names to print")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                   help="the models' compute dtype (bfloat16: the forwards only)")
     args = p.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = args.trace_dir or tmp
         os.makedirs(trace_dir, exist_ok=True)
         summaries = profile_paths(args.batch, args.seconds, args.calls, args.warmup,
-                                  trace_dir)
+                                  trace_dir, args.dtype)
     for path, s in summaries.items():
         what = ("one 1 s chunk call" if path.startswith("stream")
                 else f"{args.seconds} s")
-        print(f"[profile {path}] {torch.cuda.get_device_name(0)} | B={s['batch']} x "
+        print(f"[profile {path}] {torch.cuda.get_device_name(0)} | {args.dtype} | "
+              f"B={s['batch']} x "
               f"{what}, per call over {args.calls} calls after "
               f"{args.warmup} warmups | device busy {s['busy_ms']:.3f} ms | span "
               f"{s['span_ms']:.3f} ms | idle share {100 * s['idle_share']:.2f}% | "

@@ -38,6 +38,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the recognition forward (enhancer + AM, 4 x BiGRU-512) at B=4 x 8 s on the
    card against the same weights on the CPU (logits, greedy ids), the device
    kernels of one call, and its time per batch with and without the enhancer;
+5a. bf16: the models at dtype="bfloat16" (their forwards; the shipped
+   widths): the GroupNorm (leaky at [4, 801, 161, 32], hardtanh at the AM's
+   two shapes), LSTM-256 and GRU-512 (resident, and the streaming kernel
+   forced on the same inputs) and the stacked forwards on bf16 streams
+   against their plain versions on the card (BF16_TOL, relative to the
+   plain output's largest value), timed, with the bound at 2-byte streams
+   and the bf16 tensor-core rate; cli.enhance and cli.evaluate (greedy) with
+   a bf16 config, one stream through StreamingEnhancer and through
+   StreamingRecognizer, and the cli.export artifact of a bf16 checkpoint
+   directory against the live call (equal bits), each path's launches
+   counted and every GroupNorm, LSTM and GRU wrapper's last launch on bf16
+   streams (fn.dtype); enhance and recognition card vs CPU at B=4 x 2 s
+   (BF16_PATH_TOL), the bf16 wave apart from the f32 wave of the same
+   weights by more than the f32 card-vs-CPU limit; enhance and recognition
+   at B=4 x 8 s timed f32 beside bf16 (in turns) with their device busy time;
 5b. decode: on a full-width AM and enhancer (seeds 0 and 1), the recognition
    forward at B=4 x 8 s, ragged, and its log-probs through the host beam
    (native C++, W=32) with no LM, a char 3-gram, a word LM and both (the
@@ -261,6 +276,23 @@ PAIRED_LAUNCHES = {
 RECOGNIZE_TOL = (1e-4, "logits O(1) after STFT, enhancer, 2 convs of up to 7392-term "
                  "f32 sums, 4 BiGRU-512 over 401 steps and FC: card vs CPU sum "
                  "orders compound")
+# The bf16 models' forwards (phase bf16).  Kernel vs plain on the same bf16
+# inputs: max abs error relative to the plain version's largest |value|.
+PEAK_BF16_S = 989e12                  # H100 SXM: bf16 FLOP/s in the tensor cores, dense
+BF16_TOL = {
+    "gn_act": (2.0 ** -7, "one bf16 ulp at the top: z = x inv_c + off_c in f32, rounded "
+               "apart where the f32 sums' order differs"),
+    "lstm": (2.0 ** -6, "f32 sums of bf16-exact products in another order; an h that "
+             "rounds apart is fed back over 801 steps"),
+    "gru": (2.0 ** -6, "f32 sums of bf16-exact products in another order; an h that "
+            "rounds apart is fed back over 401 steps"),
+}
+BF16_TOL["lstm_stacked"], BF16_TOL["gru_stacked"] = BF16_TOL["lstm"], BF16_TOL["gru"]
+# Card vs CPU of a bf16 path: relative to the CPU output's largest |value|.
+BF16_PATH_TOL = (5e-2, "bf16 products of cuBLAS / cuDNN and of the CPU, rounded at other "
+                 "points, through STFT, 2 conv+GN, 2 BiLSTM-256 (and the AM's convs, GNs "
+                 "and 4 BiGRU-512)")
+BF16_SECONDS = 2                      # the card-vs-CPU batch (the CPU runs bf16 slowly)
 
 
 def fail(msg: str) -> None:
@@ -285,10 +317,11 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> list[float]:
     return out
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, flops: float, peak_ops: float = PEAK_F32_S) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes moved
-    once over its memory rate and the f32 operations over its FMA rate."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    once over its memory rate and the operations over the rate of their type
+    (f32 outside the tensor cores unless ``peak_ops`` says otherwise)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, flops / peak_ops * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -456,8 +489,9 @@ def counted(names, run) -> dict:
     counters = {k: v for k, v in kernel_counters().items() if k in names}
     for fn in counters.values():
         fn.launches = 0
-        if hasattr(fn, "route"):
-            fn.route = None
+        for attr in ("route", "dtype"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, None)
     run()
     for k, fn in counters.items():
         if k in RECURRENT + RECURRENT_BWD and fn.launches and not fn.route:
@@ -1185,7 +1219,8 @@ def phase_slice(device, card):
     from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
 
     with tempfile.TemporaryDirectory() as tmp:
-        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1,
+                                    word_len=(2, 6))
         out_dir = os.path.join(tmp, "enhanced")
         buf = io.StringIO()
 
@@ -1277,7 +1312,8 @@ def phase_recognize(device, card):
     from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
 
     with tempfile.TemporaryDirectory() as tmp:
-        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1,
+                                    word_len=(2, 6))
         buf = io.StringIO()
 
         def run_cli():
@@ -1344,6 +1380,361 @@ def phase_recognize(device, card):
     return launches
 
 
+def kernels_bf16(device, results: dict) -> None:
+    """B3 (leaky at the enhancer's shape, hardtanh at the AM's two), B1 and
+    B2 (resident, and the streaming kernel forced on the same inputs) and the
+    stacked B7, B7' forwards on bf16 streams at the bf16 paths' full-width
+    shapes, against their plain versions on the card (``BF16_TOL``), timed in
+    turns; each wrapper must record a bf16 launch.  The bound counts bf16
+    gx, x and y at 2 bytes and the recurrent products at the bf16 tensor-core
+    rate (the kernels run them as f32 FMAs on bf16-exact values)."""
+    import torch
+    from aas_enhancement_tpu_torch.convert import init_like_flax
+    from aas_enhancement_tpu_torch.ops.cuda import gn
+    from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
+    from aas_enhancement_tpu_torch.ops.masking import time_mask
+    from aas_enhancement_tpu_torch.ops.rnn import BiRNN
+    from aas_enhancement_tpu_torch.utils.profiling import device_time
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(16)
+    _, lengths, _ = make_inputs(device)
+    frames, am_frames = 1 + lengths // 160, torch.tensor(AM_LENGTHS, device=device)
+    t_len = 1 + N // 160
+    x_gn = (0.5 + torch.randn(B, t_len, 161, 32, generator=gen)).to(device, bf16)
+    x_am = {f: (0.5 + 3.0 * torch.randn(B, AM_T, f, 32, generator=gen)).to(device, bf16)
+            for f in (81, 41)}
+    scale = (1 + 0.1 * torch.randn(32, generator=gen)).to(device)
+    bias = (0.1 * torch.randn(32, generator=gen)).to(device)
+    rnn = init_like_flax(BiRNN(161 * 32, 256, dtype=bf16), gen).to(device)
+    gru = init_like_flax(BiRNN(41 * 32, 512, cell="gru", dtype=bf16), gen).to(device)
+    with torch.no_grad():
+        gru.bh.copy_(0.1 * torch.randn(gru.bh.shape, generator=gen))
+    m, m_am = time_mask(frames, t_len).T.contiguous(), time_mask(am_frames, AM_T).T.contiguous()
+    leaky = dict(num_groups=8, act="leaky_relu", slope=0.2)
+    hard = dict(num_groups=8, act="hardtanh")
+
+    def gn_work(x, lens):
+        share = valid_share(lens, x.shape[1])
+        return (share + 1) * nbytes(x), 10.0 * share * x.numel()
+
+    def rnn_work(gates_t, gh: int, mask, wh, bh):
+        t_n, b_n, h = gates_t.shape[0], gates_t.shape[1], wh.shape[1]
+        return (nbytes(gates_t, mask, wh, bh) + 2 * t_n * b_n * h * 2,
+                2.0 * 2 * t_n * b_n * h * gh, PEAK_BF16_S)
+
+    with torch.inference_mode():
+        gates = rnn.wx(torch.randn(t_len, B, 161 * 32, generator=gen).to(device))
+        g_gates = gru.wx(torch.randn(AM_T, B, 41 * 32, generator=gen).to(device))
+        wh, bh = rnn.wh.to(bf16).float(), rnn.bh.to(bf16).float()   # as BiRNN hands them
+        g_wh, g_bh = gru.wh.to(bf16).float(), gru.bh.to(bf16).float()
+        gxf, gxb = gates[..., :1024], gates[..., 1024:]
+        g_xf, g_xb = g_gates[..., :1536], g_gates[..., 1536:]
+        gx_s, m_s = (x.contiguous() for x in krnn.to_stacked(gxf, gxb, m))
+        g_gx_s, g_m_s = (x.contiguous() for x in krnn.to_stacked(g_xf, g_xb, m_am))
+        cases = {   # label: (name, wrapper, plain, args, kwargs, work)
+            "bf16 gn_act leaky [4, 801, 161, 32]": (
+                "gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
+                (x_gn, scale, bias, frames), leaky, gn_work(x_gn, frames)),
+            "bf16 gn_act hardtanh [4, 401, 81, 32]": (
+                "gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
+                (x_am[81], scale, bias, am_frames), hard, gn_work(x_am[81], am_frames)),
+            "bf16 gn_act hardtanh [4, 401, 41, 32]": (
+                "gn_act", gn.masked_group_norm_act, gn.masked_group_norm_act_plain,
+                (x_am[41], scale, bias, am_frames), hard, gn_work(x_am[41], am_frames)),
+            "bf16 lstm T=801 B=4 H=256": (
+                "lstm", krnn.lstm_scan_tm, krnn.lstm_scan_tm_plain, (gxf, gxb, m, wh, bh), {},
+                rnn_work(gates, 1024, m, wh, bh)),
+            "bf16 gru T=401 B=4 H=512": (
+                "gru", krnn.gru_scan_tm, krnn.gru_scan_tm_plain,
+                (g_xf, g_xb, m_am, g_wh, g_bh), {}, rnn_work(g_gates, 1536, m_am, g_wh, g_bh)),
+            "bf16 lstm_stacked T=801 B=4 H=256": (
+                "lstm_stacked", krnn.lstm_scan_stacked, krnn.lstm_scan_stacked_plain,
+                (gx_s, m_s, wh, bh), {}, rnn_work(gates, 1024, m_s, wh, bh)),
+            "bf16 gru_stacked T=401 B=4 H=512": (
+                "gru_stacked", krnn.gru_scan_stacked, krnn.gru_scan_stacked_plain,
+                (g_gx_s, g_m_s, g_wh, g_bh), {}, rnn_work(g_gates, 1536, g_m_s, g_wh, g_bh)),
+        }
+        for label, (name, kernel, plain, args, kw, work) in cases.items():
+            kernel.dtype = None
+            k_out = kernel(*args, **kw)
+            p_out = plain(*args, **kw)
+            torch.cuda.synchronize()
+            outs = k_out if isinstance(k_out, tuple) else (k_out,)
+            if kernel.dtype != bf16 or any(o.dtype != bf16 for o in outs):
+                fail(f"{label}: the wrapper launched a {kernel.dtype} kernel, outputs "
+                     f"{[o.dtype for o in outs]}")
+            k32 = tuple(o.float() for o in outs)
+            p32 = tuple(o.float() for o in (p_out if isinstance(p_out, tuple) else (p_out,)))
+            err = max_err(k32, p32)
+            top = max(o.abs().max().item() for o in p32)
+            tol, why = BF16_TOL[name]
+            reps = 5 if name in RECURRENT else 20
+            ms, plain_ms = in_turns(lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
+                                    reps)
+            text = keep(results, name, label, err, ms, plain_ms, work, None,
+                        rel_err=err / top)
+            row = results[name]["shapes"][label]
+            row["dtype"] = "bfloat16"
+            row["device_ms"], row["device_ms_by"] = device_time(lambda: kernel(*args, **kw))
+            text += f" | on the device alone ({row['device_ms_by']}): {row['device_ms']:.4f} ms"
+            if name in RECURRENT:
+                cell = name.split("_")[0]
+                entry = f"{cell}_scan_stacked" if name.endswith("stacked") else f"{cell}_scan_tm"
+                route, h = kernel.route, args[-2].shape[1]
+                if route != RNN_ROUTES[cell][h]:
+                    fail(f"{label}: H={h} took route {route}, not {RNN_ROUTES[cell][h]}")
+                *gx, mk, w, bb = args
+                stream = lambda: krnn._forward(entry, tuple(gx), mk, w, bb,   # noqa: E731
+                                               save=False, route=0)[0]
+                s_err = max_err(tuple(o.float() for o in stream()), p32) / top
+                torch.cuda.synchronize()
+                row["kernel_route"] = f"resident, clusters of {route}"
+                row["streaming_ms"] = statistics.median(cuda_ms(stream, 3))
+                text += (f" | route: resident, clusters of {route} | streaming kernel "
+                         f"{row['streaming_ms']:.4f} ms (error {s_err:.3e} of max|plain|)")
+                if not s_err <= tol:
+                    fail(f"{label}: the streaming kernel's error {s_err:.3e} of max|plain|")
+            print(f"[bf16] {label}: max_abs_err {err:.3e} = {err / top:.3e} of max|plain| "
+                  f"{top:.3f} (tol {tol:.2e}: {why}) | kernel {ms:.4f} ms | plain "
+                  f"{plain_ms:.4f} ms | x{plain_ms / ms:.2f} | {text}")
+            if not err <= tol * top:
+                fail(f"{label}: max abs err {err:.3e} > {tol:.2e} x {top:.3f}")
+
+
+def bf16_config(cfg):
+    """``cfg`` with the enhancer, the AM and the discriminator at bfloat16."""
+    return cfg.replace(**{n: dataclasses.replace(getattr(cfg, n), dtype="bfloat16")
+                          for n in ("enhancer", "am", "discriminator")})
+
+
+def check_bf16_launches(tag: str, launches: dict, names) -> None:
+    """Each named kernel ran on the path, and its last launch streamed bf16."""
+    import torch
+    counters = kernel_counters()
+    for name in names:
+        if not launches.get(name):
+            fail(f"{tag}: launched no {name} kernel")
+        if counters[name].dtype != torch.bfloat16:
+            fail(f"{tag}: {name}'s last launch streamed {counters[name].dtype}, not bf16")
+
+
+def phase_bf16(device, card, results: dict):
+    """The bf16 models' forwards on the card (``dtype="bfloat16"``, shipped
+    widths): the bf16 kernels against their plain versions
+    (``kernels_bf16``); cli.enhance and cli.evaluate (greedy) with a bf16
+    config; one StreamingEnhancer and one StreamingRecognizer stream; a
+    cli.export artifact of a bf16 checkpoint directory against the live
+    call; each path's launches with every kernel's last launch on bf16
+    streams; the enhance and recognition forwards card vs CPU at bf16
+    (B=4 x 2 s), and the bf16 wave against the f32 wave of the same weights
+    (it must differ by more than the f32 card-vs-CPU limit: the dtype reached
+    the device); enhance and recognition at B=4 x 8 s timed, f32 beside bf16,
+    with their device busy time.  -> {path: launches}."""
+    import numpy as np
+    import torch
+    from aas_enhancement_tpu_torch.cli import enhance as cli_enhance
+    from aas_enhancement_tpu_torch.cli import evaluate as cli_evaluate
+    from aas_enhancement_tpu_torch.cli import export as cli_export
+    from aas_enhancement_tpu_torch.config import Config
+    from aas_enhancement_tpu_torch.data import generate_corpus
+    from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
+    from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
+    from aas_enhancement_tpu_torch.serving import load_enhancer
+    from aas_enhancement_tpu_torch.streaming import StreamingEnhancer
+    from aas_enhancement_tpu_torch.streaming_asr import StreamingRecognizer
+    from aas_enhancement_tpu_torch.train.loop import init_state, load_state
+    from aas_enhancement_tpu_torch.utils import checkpoint as ckpt
+    from aas_enhancement_tpu_torch.utils.profiling import device_time
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    kernels_bf16(device, results)
+    cfg32 = Config()
+    cfg16 = bf16_config(cfg32)
+    enhance_k, recognize_k = ("stft", "istft", "gn_act", "lstm"), ("stft", "gn_act", "lstm",
+                                                                 "gru")
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1,
+                                    word_len=(2, 6))
+        cfg_path = os.path.join(tmp, "bf16.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg16.to_json())
+        buf = io.StringIO()
+
+        def run_enhance():
+            with contextlib.redirect_stdout(buf):
+                cli_enhance.main(["--manifest", manifests["noisy"], "--out-dir",
+                                  os.path.join(tmp, "enhanced"), "--config", cfg_path,
+                                  "--device", "cuda"])
+
+        by_path["enhance_bf16"] = counted(enhance_k, run_enhance)
+        check_bf16_launches("cli.enhance (bf16)", by_path["enhance_bf16"], enhance_k[2:])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(f"[bf16] cli.enhance --config (bf16) --device cuda: {json.dumps(line)} | "
+              f"launches {json.dumps(by_path['enhance_bf16'])}, gn_act and lstm on bf16")
+        if line["utterances"] != 6:
+            fail(f"cli.enhance (bf16) enhanced {line['utterances']} utterances")
+        buf = io.StringIO()
+
+        def run_evaluate():
+            with contextlib.redirect_stdout(buf):
+                cli_evaluate.main(["--manifest", manifests["noisy"], "--am-checkpoint",
+                                   "seed:0", "--enhancer-checkpoint", "seed:1",
+                                   "--clean-manifest", manifests["clean"], "--config",
+                                   cfg_path, "--device", "cuda"])
+
+        by_path["recognize_bf16"] = counted(recognize_k + ("istft",), run_evaluate)
+        check_bf16_launches("cli.evaluate (bf16)", by_path["recognize_bf16"],
+                            recognize_k[1:])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(f"[bf16] cli.evaluate --config (bf16) --device cuda: {json.dumps(line)} | "
+              f"launches {json.dumps(by_path['recognize_bf16'])}, gn_act, lstm and gru "
+              "on bf16")
+        for leg in ("noisy", "enhanced"):
+            if line[leg]["utterances"] != 6 or not 0.0 <= line[leg]["wer"] < float("inf"):
+                fail(f"cli.evaluate (bf16) {leg}: {line[leg]}")
+
+        # A bf16 checkpoint directory (the seeds' f32 weights under a bf16
+        # config), its cli.export artifact against the live call.
+        ck = os.path.join(tmp, "ck_bf16")
+        os.makedirs(ck)
+        only = lambda c: c.replace(train=dataclasses.replace(   # noqa: E731
+            c.train, objective="enhance_only"))
+        with open(os.path.join(ck, "config.json"), "w") as f:
+            f.write(only(cfg16).to_json())
+        ckpt.save(ck, 1, init_state(only(cfg32), 0, "cpu"))
+        art = os.path.join(tmp, "art_bf16")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_export.main(["--checkpoint", ck, "--out", art, "--batch-sizes", "1",
+                             "--seconds", str(SECONDS), "--device", "cuda"])
+        served = load_enhancer(art, device)
+        wav, _, _ = make_inputs("cpu")
+        one = wav[:1].numpy()
+        got = {}
+        by_path["export_bf16"] = counted(enhance_k, lambda: got.update(y=served.enhance(one)))
+        check_bf16_launches("cli.export artifact (bf16)", by_path["export_bf16"],
+                            enhance_k[2:])
+        g16 = load_state(ck, device)[0].g.eval()
+        live = make_enhance_fn(cfg16, device)(g16, torch.from_numpy(one).to(device),
+                                              torch.tensor([N], device=device)).cpu().numpy()
+        err = float(np.abs(got["y"] - live).max())
+        print(f"[bf16] cli.export --batch-sizes 1 --seconds {SECONDS} (bf16 directory): "
+              f"artifact vs live call max_abs_err {err:.3e} (tol 0: the live path's "
+              f"operators on the same device) | launches {json.dumps(by_path['export_bf16'])}")
+        if err != 0.0:
+            fail(f"the bf16 artifact differs from the live call by {err:.3e}")
+
+    # Card vs CPU at bf16 (B=4 x 2 s), and the bf16 wave against the f32 one.
+    n = SR * BF16_SECONDS
+    wav, _, _ = make_inputs("cpu")
+    wav = wav[:, :n].contiguous()
+    lengths = torch.tensor([n, n - 4000, n - 8000, n // 2])
+    wav = wav * (torch.arange(n)[None] < lengths[:, None])
+    enh16_cpu, enh32_cpu = init_enhancer(cfg16, 1, "cpu"), init_enhancer(cfg32, 1, "cpu")
+    am16_cpu = init_am(cfg16, 0, "cpu")
+    enh16, enh32 = copy.deepcopy(enh16_cpu).to(device), copy.deepcopy(enh32_cpu).to(device)
+    am16 = copy.deepcopy(am16_cpu).to(device)
+    y_cpu = make_enhance_fn(cfg16, "cpu")(enh16_cpu, wav, lengths)
+    y16 = make_enhance_fn(cfg16, device)(enh16, wav.to(device), lengths.to(device)).cpu()
+    y32 = make_enhance_fn(cfg32, device)(enh32, wav.to(device), lengths.to(device)).cpu()
+    tol, why = BF16_PATH_TOL
+    top = y_cpu.abs().max().item()
+    err, apart = (y16 - y_cpu).abs().max().item(), (y16 - y32).abs().max().item()
+    print(f"[bf16] enhance B={B} x {BF16_SECONDS} s (bf16) card vs CPU: max_abs_err "
+          f"{err:.3e} = {err / top:.3e} of max|y| {top:.3f} (tol {tol:.0e}: {why}); the "
+          f"bf16 wave vs the f32 wave on the card: {apart:.3e} (must exceed the f32 limit "
+          f"{SLICE_TOL[0]:.0e})")
+    if not err <= tol * top:
+        fail(f"bf16 enhance card vs CPU {err:.3e} > {tol:.0e} x {top:.3f}")
+    if not apart > SLICE_TOL[0]:
+        fail(f"the bf16 enhance path equals the f32 one to {apart:.3e}: the dtype never "
+             "reached the device")
+    fwd = make_eval_forward(cfg16, use_enhancer=True)
+    logits_cpu, pads_cpu = fwd(am16_cpu, enh16_cpu, wav, lengths)
+    logits, pads = (x.cpu() for x in fwd(am16, enh16, wav.to(device), lengths.to(device)))
+    top = logits_cpu.abs().max().item()
+    err = (logits - logits_cpu).abs().max().item()
+    valid = pads_cpu < 0.5
+    top2 = logits_cpu.topk(2, dim=-1).values
+    sure = valid & (top2[..., 0] - top2[..., 1] > 2 * tol * top)
+    same = (logits.argmax(-1) == logits_cpu.argmax(-1)) | ~sure
+    print(f"[bf16] recognition B={B} x {BF16_SECONDS} s (bf16) card vs CPU: logits "
+          f"max_abs_err {err:.3e} = {err / top:.3e} of max|logit| {top:.3f} (tol {tol:.0e}); "
+          f"greedy ids equal on {int((same & sure).sum())} of {int(sure.sum())} valid frames "
+          f"with a top-2 margin > {2 * tol:.0e} x max ({int(valid.sum())} valid)")
+    if not torch.equal(pads, pads_cpu) or not err <= tol * top or not same.all():
+        fail("bf16 recognition card vs CPU: paddings, logits or clear ids differ")
+
+    # One stream through each engine at bf16, card vs CPU.
+    stream = wav[0, :n].numpy()
+    push = SR // 10
+
+    def enhance_stream(dev, g):
+        eng = StreamingEnhancer(cfg16, g, device=dev, **STREAM_KW)
+        return np.concatenate([eng.feed(stream[i: i + push]) for i in range(0, n, push)]
+                              + [eng.flush()])
+
+    out = {}
+    by_path["stream_enhance_bf16"] = counted(
+        enhance_k, lambda: out.update(card=enhance_stream(device, enh16)))
+    check_bf16_launches("StreamingEnhancer (bf16)", by_path["stream_enhance_bf16"],
+                        enhance_k[2:])
+    ref = enhance_stream("cpu", enh16_cpu)
+    top = float(np.abs(ref).max())
+    err = float(np.abs(out["card"] - ref).max())
+    print(f"[bf16] StreamingEnhancer (bf16, {BF16_SECONDS} s in 0.1 s pushes) card vs CPU: "
+          f"max_abs_err {err:.3e} = {err / top:.3e} of max (tol {tol:.0e}) | launches "
+          f"{json.dumps(by_path['stream_enhance_bf16'])}")
+    if out["card"].shape != ref.shape or not err <= tol * top:
+        fail(f"StreamingEnhancer (bf16) card vs CPU {err:.3e}")
+
+    def recognize_stream(dev, am, g):
+        rec = StreamingRecognizer(cfg16, am, g, collect_logits=True, device=dev, **STREAM_KW)
+        ids = [i for k in range(0, n, push) for i in rec.feed(stream[k: k + push])]
+        return ids + rec.flush(), rec.log_probs()
+
+    by_path["stream_recognize_bf16"] = counted(
+        recognize_k, lambda: out.update(rec=recognize_stream(device, am16, enh16)))
+    check_bf16_launches("StreamingRecognizer (bf16)", by_path["stream_recognize_bf16"],
+                        recognize_k[1:])
+    ids, lp = out["rec"]
+    ref_ids, ref_lp = recognize_stream("cpu", am16_cpu, enh16_cpu)
+    top = float(np.abs(ref_lp).max())
+    err = float(np.abs(lp - ref_lp).max())
+    srt = np.sort(ref_lp, axis=-1)
+    sure = srt[:, -1] - srt[:, -2] > 2 * tol * top
+    bad = int(np.sum(sure & (np.asarray(ids) != np.asarray(ref_ids))))
+    print(f"[bf16] StreamingRecognizer (bf16) card vs CPU: log-probs max_abs_err {err:.3e} "
+          f"= {err / top:.3e} of max (tol {tol:.0e}); ids differ on {bad} of {int(sure.sum())} "
+          f"frames with a clear margin | launches "
+          f"{json.dumps(by_path['stream_recognize_bf16'])}")
+    if len(ids) != len(ref_ids) or not err <= tol * top or bad:
+        fail("StreamingRecognizer (bf16) card vs CPU differs")
+
+    # bf16 beside f32 at B=4 x 8 s: wall (median of 5 after 2) and device busy.
+    am32 = init_am(cfg32, 0, "cpu").to(device)
+    wav_d, full = make_inputs(device)[0], torch.full((B,), N, device=device)
+    runs = {"enhance": {dt: (lambda f=make_enhance_fn(c, device), g=g: f(g, wav_d, full))
+                        for dt, c, g in (("f32", cfg32, enh32), ("bf16", cfg16, enh16))},
+            "recognition (enhancer + AM)": {
+                dt: (lambda f=make_eval_forward(c, True), a=a, g=g: f(a, g, wav_d, full))
+                for dt, c, a, g in (("f32", cfg32, am32, enh32), ("bf16", cfg16, am16, enh16))}}
+    for what, by_dt in runs.items():
+        walls, busy = {"f32": [], "bf16": []}, {}
+        for dt in ("f32", "bf16", "bf16", "f32"):          # in turns: two medians each
+            walls[dt].append(time_batch("[bf16]", f"{what} {dt}", card, by_dt[dt]) * 1e3)
+            busy.setdefault(dt, device_time(by_dt[dt]))
+        wall = {dt: statistics.mean(w) for dt, w in walls.items()}
+        print(f"[bf16] {what} B={B} x {SECONDS} s: wall f32 {wall['f32']:.2f} ms "
+              f"{[round(w, 2) for w in walls['f32']]}, bf16 {wall['bf16']:.2f} ms "
+              f"{[round(w, 2) for w in walls['bf16']]} (f32 / bf16 "
+              f"x{wall['f32'] / wall['bf16']:.2f}); device busy f32 {busy['f32'][0]:.3f} ms "
+              f"({busy['f32'][1]}), bf16 {busy['bf16'][0]:.3f} ms ({busy['bf16'][1]}) "
+              f"(x{busy['f32'][0] / busy['bf16'][0]:.2f})")
+    return by_path
+
+
 def train_batch(b: int, gen, lengths: list[int]) -> dict:
     """An AAS batch of b utterances (sine + noise, valid up to ``lengths``),
     ragged transcripts of up to 48 labels and an unpaired clean batch, all
@@ -1375,7 +1766,8 @@ def phase_train(device, card):
     from aas_enhancement_tpu_torch.train.steps import make_train_step
 
     with tempfile.TemporaryDirectory() as tmp:
-        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1,
+                                    word_len=(2, 6))
         out, err = io.StringIO(), io.StringIO()
 
         def run_cli():
@@ -1521,7 +1913,8 @@ def phase_train_am(device, card):
     steps, batch_size = 3, 4
     out, err = io.StringIO(), io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
-        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1,
+                                    word_len=(2, 6))
 
         def run_cli():
             with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -1698,7 +2091,8 @@ def phase_checkpoint(device, card):
         return os.path.getsize(os.path.join(path, ckpt.STATE_FILE)) / 1e6
 
     with tempfile.TemporaryDirectory() as tmp:
-        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1,
+                            word_len=(2, 6))
         am_dir, g_dir = os.path.join(tmp, "am"), os.path.join(tmp, "g")
         am = ["--objective", "am", "--noisy-manifest", m["clean"], "--batch-size", str(B),
               "--log-every", "1", "--am-checkpoint", "seed:0", "--device", "cuda"]
@@ -1908,7 +2302,8 @@ def phase_paired(device, card):
     # and an am run given it as --g-checkpoint (C1: its directory keeps G).
     total: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
-        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1,
+                            word_len=(2, 6))
         cfg = Config()
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, lambda_mrstft=0.5))
         cfg_path = os.path.join(tmp, "paired.json")
@@ -2367,7 +2762,8 @@ def phase_streaming(device, card):
     from aas_enhancement_tpu_torch.data import generate_corpus, read_manifest, read_wav
     total: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
-        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1)
+        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1,
+                            word_len=(2, 6))
         out_dir = os.path.join(tmp, "enh")
         point = ["--stream-chunk", "1.0", "--stream-lookahead", "0.2", "--stream-history", "1.0"]
         runs = (("cli.enhance --streaming", enhance_cli.main,
@@ -3002,7 +3398,8 @@ def phase_decode(device, card):
     wav, lengths, _ = make_inputs(device)
     fwd = make_eval_forward(cfg, use_enhancer=True)
     with tempfile.TemporaryDirectory() as tmp:
-        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=2)
+        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=2,
+                            word_len=(2, 6))
         char_lm, word_lm = os.path.join(tmp, "char.json"), os.path.join(tmp, "word.json")
         word_arpa = os.path.join(tmp, "word.arpa")
         with contextlib.redirect_stdout(io.StringIO()) as out:
@@ -3169,6 +3566,8 @@ def main() -> int:
     # Each path's launches: counts set to 0 just before it, read just after.
     by_path = {"enhance": timed("enhance", phase_slice, device, smi),   # the enhance CLI run
                "recognize": timed("recognize", phase_recognize, device, smi)}   # evaluate CLI
+    # The bf16 models' forwards: the CLIs, the engines and an artifact.
+    by_path.update(timed("bf16", phase_bf16, device, smi, results))
     # The beam decoders and LM fusion (evaluate CLI), the worker loader (train CLI).
     by_path["decode"], by_path["decode_grain_train"] = timed("decode", phase_decode,
                                                              device, smi)

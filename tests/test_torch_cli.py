@@ -131,7 +131,21 @@ def test_config_defaults_match_jax():
 def test_synthetic_corpus_matches_jax(tmp_path):
     """The port's corpus is the JAX package's plain-mode corpus, file for file."""
     ref = generate_corpus(str(tmp_path / "jax"), n_utts=4, seed=5, word_len=(2, 6))
+    got = tdata.generate_corpus(str(tmp_path / "torch"), n_utts=4, seed=5, word_len=(2, 6))
+    _same_corpus(ref, got)
+
+
+def test_synthetic_corpus_default_matches_jax(tmp_path):
+    """With no mode arguments both packages write the structured-language
+    corpus, file for file."""
+    ref = generate_corpus(str(tmp_path / "jax"), n_utts=4, seed=5)
     got = tdata.generate_corpus(str(tmp_path / "torch"), n_utts=4, seed=5)
+    _same_corpus(ref, got)
+    assert (open(tmp_path / "torch" / "lexicon.txt", "rb").read()
+            == open(tmp_path / "jax" / "lexicon.txt", "rb").read())
+
+
+def _same_corpus(ref, got):
     for kind in ("clean", "noisy"):
         ref_rows, got_rows = tdata.read_manifest(ref[kind]), tdata.read_manifest(got[kind])
         assert len(got_rows) == len(ref_rows) == 4

@@ -36,7 +36,8 @@ CFG = Config(
 
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
-    return generate_corpus(str(tmp_path_factory.mktemp("corpus")), n_utts=4, seed=2)
+    return generate_corpus(str(tmp_path_factory.mktemp("corpus")), n_utts=4, seed=2,
+                           word_len=(2, 6))
 
 
 @pytest.fixture

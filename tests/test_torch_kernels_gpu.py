@@ -18,6 +18,11 @@ plain closed form; the resident and the streaming backward against each
 other: 1e-4 of the largest |gradient| (each sums dh in its own order).
 conv_dw: 1e-4 of max|dW| (f32 sums over up to ~1e5 positions, in the
 kernel's slice order and the plain version's).
+bf16 streams (the forwards of the bf16 models): the GroupNorm
+within 2^-7 x max|plain| (one bf16 ulp at the top: f32 z rounded apart where
+the sums' order differs), the LSTM and GRU within 2^-6 x max|plain| (a
+rounded h that parts fed back T times); the bf16 enhance path card vs CPU
+5e-2 x max|wave| (cuBLAS / cuDNN bf16 products against the CPU's).
 """
 
 import re
@@ -1192,3 +1197,114 @@ def test_device_beam_on_card_matches_cpu(cuda, with_lm):
     np.testing.assert_array_equal(ids, ref[0])
     np.testing.assert_array_equal(out_lens, ref[1])
     np.testing.assert_allclose(scores, ref[2], rtol=0, atol=1e-3)
+
+
+# ------------------------------------------------- bf16 streams (inference forwards)
+
+def _bf16_close(got, ref, frac):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    ref = ref.float()
+    torch.testing.assert_close(got.float(), ref, rtol=0, atol=frac * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("act,shape", [("leaky_relu", (3, 45, 17, 16)),
+                                       ("hardtanh", (3, 45, 17, 16)),
+                                       ("leaky_relu", (4, 801, 161, 32)),
+                                       ("hardtanh", (4, 401, 41, 32))])
+def test_gn_kernel_bf16(cuda, act, shape):
+    b, t = shape[:2]
+    x = (0.5 + 2.0 * _randn(*shape, seed=t)).to(cuda).bfloat16()
+    c = shape[-1]
+    scale, bias = (1 + _randn(c, seed=4, scale=0.1)).to(cuda), _randn(c, seed=5).to(cuda)
+    lengths = torch.tensor([t, t - 14, 0, t // 2][:b], device=cuda)
+    before = gn.masked_group_norm_act.launches
+    y = gn.masked_group_norm_act(x, scale, bias, lengths, num_groups=8, act=act)
+    y_p = gn.masked_group_norm_act_plain(x, scale, bias, lengths, num_groups=8, act=act)
+    torch.cuda.synchronize()
+    assert gn.masked_group_norm_act.launches == before + 1
+    assert gn.masked_group_norm_act.dtype == torch.bfloat16
+    _bf16_close(y, y_p, 2.0 ** -7)
+    assert torch.all(y[2] == 0) and torch.all(y[1, t - 14:] == 0)
+
+
+def _bf16_scan_inputs(cuda, cell, t, b, h, stacked, seed):
+    g = (4 if cell == "lstm" else 3) * h
+    wh = _randn(2, h, g, seed=seed, scale=1.0 / h ** 0.5).bfloat16().float().to(cuda)
+    bh = _randn(2, g, seed=seed + 1, scale=0.1).bfloat16().float().to(cuda)
+    lengths = torch.tensor([t, t // 2 + 1, 0, t - 1, 1][:b], device=cuda)
+    m = (torch.arange(t, device=cuda)[:, None] < lengths[None]).float()
+    if stacked:
+        gx = _randn(t, 2, b, g, seed=seed + 2, scale=0.5).to(cuda).bfloat16()
+        return (gx,), torch.stack([m, m.flip(0)], dim=1).contiguous(), wh, bh
+    gates = _randn(t, b, 2 * g, seed=seed + 2, scale=0.5).to(cuda).bfloat16()
+    return (gates[..., :g], gates[..., g:]), m, wh, bh          # strided halves
+
+
+BF16_SCANS = [("lstm", 801, 4, 256, None), ("lstm", 60, 5, 32, None),
+              ("lstm", 40, 4, 512, None), ("lstm", 60, 4, 256, 0),
+              ("gru", 401, 4, 512, None), ("gru", 60, 5, 64, None),
+              ("gru", 60, 4, 512, 0)]
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("cell,t,b,h,route", BF16_SCANS)
+def test_rnn_forward_kernels_bf16(cuda, cell, t, b, h, route, stacked):
+    """B1 / B2 (time-major) and B7 / B7' (stacked) on bf16 streams, on the
+    route the width gives (resident, or streaming at the LSTM's H = 512) and
+    on the streaming route forced (route 0), against the plain version."""
+    gx, m, wh, bh = _bf16_scan_inputs(cuda, cell, t, b, h, stacked, seed=h + t)
+    name = f"{cell}_scan_{'stacked' if stacked else 'tm'}"
+    fn = getattr(krnn, name)
+    plain = getattr(krnn, f"{name}_plain")
+    before = fn.launches
+    ys, _ = krnn._forward(name, gx, m, wh, bh, save=False, route=route)
+    ys_p = plain(*gx, m, wh, bh)
+    ys_p = (ys_p,) if stacked else ys_p
+    torch.cuda.synchronize()
+    expect = route if route is not None else (
+        krnn.lstm_resident_cluster(h) if cell == "lstm" else krnn.gru_resident_cluster(h))
+    assert fn.launches == before + 1 and fn.route == expect and fn.dtype == torch.bfloat16
+    for y, y_p in zip(ys, ys_p):
+        _bf16_close(y, y_p, 2.0 ** -6)
+        row = (slice(None), slice(None), 2) if stacked else (slice(None), 2)
+        assert torch.all(y[row] == 0)
+
+
+def test_rnn_wrappers_at_bf16_take_inference_only(cuda):
+    """The wrappers launch the bf16 inference kernel without a wanted gradient
+    and raise (bf16b) where one is wanted; parameters stay float32."""
+    gx, m, wh, bh = _bf16_scan_inputs(cuda, "gru", 20, 4, 64, False, seed=3)
+    with torch.no_grad():
+        yf, yb = krnn.gru_scan_tm(*gx, m, wh, bh)
+    assert yf.dtype == torch.bfloat16 and krnn.gru_scan_tm.dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="bf16b"):
+        krnn.gru_scan_tm(*gx, m, wh.clone().requires_grad_(), bh)
+    with pytest.raises(TypeError, match="float32"):
+        krnn.gru_scan_tm(*gx, m, wh.bfloat16(), bh)
+    x = torch.ones(2, 8, 5, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="bf16b"):
+        gn.masked_group_norm_act(x, torch.ones(16, device=cuda, requires_grad=True),
+                                 torch.zeros(16, device=cuda), torch.tensor([8, 3]),
+                                 num_groups=8, act="leaky_relu")
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        flat = torch.zeros(2 * 8 * 5 * 16 + 1, device=cuda, dtype=torch.bfloat16)
+        gn.masked_group_norm_act(flat[1:].view(2, 8, 5, 16), torch.ones(16, device=cuda),
+                                 torch.zeros(16, device=cuda), torch.tensor([8, 3]),
+                                 num_groups=8)
+
+
+def test_bf16_enhance_on_card_matches_cpu(cuda):
+    cfg = Config().replace(enhancer=EnhancerConfig(conv_channels=8, rnn_hidden=16,
+                                                   dtype="bfloat16"))
+    model = init_enhancer(cfg, seed=0, device="cpu")
+    wav = _randn(2, 16000, seed=9, scale=0.3)
+    lengths = torch.tensor([16000, 9000])
+    wav[1, 9000:] = 0
+    y_cpu = make_enhance_fn(cfg, "cpu")(model, wav, lengths)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    counters = (gn.masked_group_norm_act, krnn.lstm_scan_tm)
+    before = [c.launches for c in counters]
+    y_gpu = make_enhance_fn(cfg, cuda)(model.to(cuda), wav, lengths).cpu()
+    assert [c.launches - n for c, n in zip(counters, before)] == [2, 2]
+    assert all(c.dtype == torch.bfloat16 for c in counters)
+    torch.testing.assert_close(y_gpu, y_cpu, rtol=0, atol=5e-2 * float(y_cpu.abs().max()))
