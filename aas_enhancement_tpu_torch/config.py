@@ -64,7 +64,7 @@ class AMConfig:
     rnn_type: str = "gru"        # "gru" | "lstm"
     conv_channels: int = 32
     vocab_size: int = 29         # len(labels.LABELS)
-    dtype: str = "float32"       # "float32" | "bfloat16" (forwards; training f32: bf16b)
+    dtype: str = "float32"       # "float32" | "bfloat16"
 
 
 @dataclass(frozen=True)
@@ -76,7 +76,7 @@ class EnhancerConfig:
     rnn_hidden: int = 256
     rnn_layers: int = 2
     mode: str = "mask"           # "mask" (sigmoid mask * noisy mag) | "mapping" (direct mag)
-    dtype: str = "float32"       # "float32" | "bfloat16" (forwards; training f32: bf16b)
+    dtype: str = "float32"       # "float32" | "bfloat16"
 
 
 @dataclass(frozen=True)
@@ -114,7 +114,7 @@ class DiscriminatorConfig:
     """Spectrogram discriminator."""
 
     channels: tuple = (32, 64, 128)
-    dtype: str = "float32"       # "float32" | "bfloat16" (forwards; training f32: bf16b)
+    dtype: str = "float32"       # "float32" | "bfloat16"
 
 
 @dataclass(frozen=True)

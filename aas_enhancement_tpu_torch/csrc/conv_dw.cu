@@ -42,7 +42,17 @@
 // channel count and strides are multiples of 4 and the base is aligned, scalar
 // loads otherwise; channels are padded to a multiple of 4 in shared memory.
 // dW [kt, kf, ci, co] f32, contiguous; part [slices, kt, kf, ci, co].
+//
+// Inputs (the `bf16` flag): x and dy are f32, or bf16 (the AM's conv2 when a
+// bf16 AM trains).  A bf16 row is widened to f32 as it is staged (8-byte
+// loads of four channels where the channel count, the strides and the base
+// allow, scalar loads otherwise), so the products and sums are the f32 ones
+// of the f32 kernel on the bf16 values, and dW is f32: what the Pallas kernel
+// computes for a bf16 input (f32 accumulation).  The bf16 loads go through
+// registers, not cp.async, so the next row's staging overlaps this row's
+// products less; tensor-core mma on the bf16 values is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -51,8 +61,8 @@ namespace {
 constexpr int kMaxThreads = 256;
 
 struct Params {
-  const float* x;
-  const float* dy;
+  const void* x;                // f32 or bf16 (the kernel's TI)
+  const void* dy;
   float* part;
   long long xs_b, xs_t, xs_f;   // x strides in elements (channel stride 1)
   long long ds_b, ds_t, ds_f;   // dy strides in elements (channel stride 1)
@@ -63,12 +73,37 @@ struct Params {
   int ndt;                      // time taps per block
   int ndfc, ndfb;               // frequency-tap chunks: in all, per block
   int fpad;                     // staged x row length, in frequency positions
-  int vec_x, vec_dy;            // 16-byte loads allowed
+  int vec_x, vec_dy;            // 16-byte (f32) or 8-byte (bf16) loads of 4 channels allowed
 };
+
+// Four channels of a row into shared memory as f32, zero past the first `n`:
+// one 16-byte cp.async (f32, `vec`), one 8-byte load widened (bf16, `vec`),
+// or scalar loads.
+__device__ __forceinline__ void stage4(float* dst, const float* src, bool vec, int n) {
+  if (vec) {
+    __pipeline_memcpy_async(dst, src, 16);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) dst[k] = k < n ? __ldg(src + k) : 0.f;
+}
+
+__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src, bool vec, int n) {
+  if (vec) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(src));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) dst[k] = k < n ? __bfloat162float(src[k]) : 0.f;
+}
 
 // Stage row r = (b, t): dy[b, t] -> dy_s [Fo][4 co4], and for each of the
 // block's time taps x[b, t + dt - pt0] -> x_s [ndt][fpad][4 ci4], position
 // fp holding frequency fp - pf0, zeros where x is padding.
+template <typename TI>
 __device__ __forceinline__ void stage_row(const Params& p, int r, int dt0,
                                           float* __restrict__ dy_s,
                                           float* __restrict__ x_s) {
@@ -77,18 +112,11 @@ __device__ __forceinline__ void stage_row(const Params& p, int r, int dt0,
   const int cop = 4 * p.co4;
   const int cip = 4 * p.ci4;
 
-  const float* dy_row = p.dy + b * p.ds_b + t * p.ds_t;
+  const TI* dy_row = static_cast<const TI*>(p.dy) + b * p.ds_b + t * p.ds_t;
   for (int e = threadIdx.x; e < p.Fo * p.co4; e += blockDim.x) {
     const int f = e / p.co4;
     const int c = 4 * (e - f * p.co4);
-    float* dst = dy_s + f * cop + c;
-    const float* src = dy_row + f * p.ds_f + c;
-    if (p.vec_dy) {
-      __pipeline_memcpy_async(dst, src, 16);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) dst[k] = c + k < p.co ? __ldg(src + k) : 0.f;
-    }
+    stage4(dy_s + f * cop + c, dy_row + f * p.ds_f + c, p.vec_dy, p.co - c);
   }
 
   for (int e = threadIdx.x; e < p.ndt * p.fpad * p.ci4; e += blockDim.x) {
@@ -101,20 +129,15 @@ __device__ __forceinline__ void stage_row(const Params& p, int r, int dt0,
     const int f_in = fp - p.pf0;
     float* dst = x_s + (dtl * p.fpad + fp) * cip + c;
     if (t_in >= 0 && t_in < p.T && f_in >= 0 && f_in < p.F) {
-      const float* src = p.x + b * p.xs_b + t_in * p.xs_t + f_in * p.xs_f + c;
-      if (p.vec_x) {
-        __pipeline_memcpy_async(dst, src, 16);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) dst[k] = c + k < p.ci ? __ldg(src + k) : 0.f;
-      }
+      stage4(dst, static_cast<const TI*>(p.x) + b * p.xs_b + t_in * p.xs_t + f_in * p.xs_f + c,
+             p.vec_x, p.ci - c);
     } else {
       *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
 
-template <int kTaps>
+template <int kTaps, typename TI>
 __global__ void __launch_bounds__(kMaxThreads)
 conv_dw_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -149,12 +172,12 @@ conv_dw_kernel(const Params p) {
   const int r0 = slice * p.rows_per_slice;
   const int r1 = min(p.rows, r0 + p.rows_per_slice);
 
-  if (r0 < r1) stage_row(p, r0, dt0, smem, smem + dy_floats);
+  if (r0 < r1) stage_row<TI>(p, r0, dt0, smem, smem + dy_floats);
   __pipeline_commit();
   for (int r = r0; r < r1; ++r) {
     float* cur = smem + ((r - r0) & 1) * stage_floats;
     float* nxt = smem + ((r - r0 + 1) & 1) * stage_floats;
-    if (r + 1 < r1) stage_row(p, r + 1, dt0, nxt, nxt + dy_floats);
+    if (r + 1 < r1) stage_row<TI>(p, r + 1, dt0, nxt, nxt + dy_floats);
     __pipeline_commit();
     __pipeline_wait_prior(1);          // row r has landed; row r + 1 may be in flight
     __syncthreads();
@@ -258,17 +281,17 @@ size_t stage_bytes(const Plan& plan, int Fo, int ci, int co, int sf) {
 
 constexpr size_t kMaxStageBytes = 227 * 1024;   // shared memory of one sm_90 block
 
-template <int kTaps>
+template <int kTaps, typename TI>
 int launch(const Params& p, const Plan& plan, int slices, size_t smem,
            cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        conv_dw_kernel<kTaps>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        conv_dw_kernel<kTaps, TI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(slices, plan.grid_y, plan.grid_z);
-  conv_dw_kernel<kTaps><<<grid, plan.threads, smem, stream>>>(p);
+  conv_dw_kernel<kTaps, TI><<<grid, plan.threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -291,12 +314,21 @@ extern "C" int aas_conv_dw_slices(int rows, int Fo, int kt, int kf, int ci,
   return slices < 1 ? 1 : slices;
 }
 
-extern "C" int aas_conv_dw(const float* x, const float* dy, float* part,
+template <typename TI>
+int launch_taps(const Params& p, const Plan& plan, int slices, size_t smem,
+                cudaStream_t stream) {
+  if (plan.taps == 5) return launch<5, TI>(p, plan, slices, smem, stream);
+  if (plan.taps == 6) return launch<6, TI>(p, plan, slices, smem, stream);
+  return launch<7, TI>(p, plan, slices, smem, stream);
+}
+
+// x and dy are f32, or bf16 where `bf16` is set; part and dw are f32.
+extern "C" int aas_conv_dw(const void* x, const void* dy, float* part,
                            float* dw, long long xs_b, long long xs_t,
                            long long xs_f, long long ds_b, long long ds_t,
                            long long ds_f, int B, int T, int F, int Fo, int ci,
                            int co, int kt, int kf, int sf, int pt0, int pf0,
-                           int slices, cudaStream_t stream) {
+                           int slices, int bf16, cudaStream_t stream) {
   Plan plan;
   if (B < 1 || T < 1 || slices < 1 || sf < 1 || !make_plan(kt, kf, ci, co, &plan))
     return (int)cudaErrorInvalidValue;
@@ -316,17 +348,16 @@ extern "C" int aas_conv_dw(const float* x, const float* dy, float* part,
   p.ndfc = plan.ndfc;
   p.ndfb = plan.ndfb;
   p.fpad = staged_positions(plan, Fo, sf);
+  const size_t quad = bf16 ? 8 : 16;   // the bytes of four channels
   p.vec_x = ci % 4 == 0 && xs_b % 4 == 0 && xs_t % 4 == 0 && xs_f % 4 == 0 &&
-            reinterpret_cast<size_t>(x) % 16 == 0;
+            reinterpret_cast<size_t>(x) % quad == 0;
   p.vec_dy = co % 4 == 0 && ds_b % 4 == 0 && ds_t % 4 == 0 && ds_f % 4 == 0 &&
-             reinterpret_cast<size_t>(dy) % 16 == 0;
+             reinterpret_cast<size_t>(dy) % quad == 0;
   const size_t smem = stage_bytes(plan, Fo, ci, co, sf);
   if (smem > kMaxStageBytes) return (int)cudaErrorInvalidValue;
 
-  int err;
-  if (plan.taps == 5) err = launch<5>(p, plan, slices, smem, stream);
-  else if (plan.taps == 6) err = launch<6>(p, plan, slices, smem, stream);
-  else err = launch<7>(p, plan, slices, smem, stream);
+  const int err = bf16 ? launch_taps<__nv_bfloat16>(p, plan, slices, smem, stream)
+                       : launch_taps<float>(p, plan, slices, smem, stream);
   if (err != 0) return err;
 
   const int n = kt * kf * ci * co;

@@ -441,18 +441,26 @@ extern "C" int aas_gn_act_fwd(const void* x, const float* scale, const float* bi
 // bias, dscale, dbias [C], lengths [B] int32 or int64, mean, inv [B, C],
 // scratch: rowsum [B * 2 * C], then partials [B * n_tiles * 2 * C].  The
 // forward's limits on C and G.
+//
+// Streams (the `bf16` flag): x, dy and dx are f32 or bf16 (8-byte aligned:
+// four channels one uint2, as the forward).  At bf16 the kernel computes the
+// gradient of the bf16 forward (the XLA route's autodiff in the JAX package):
+// act' at z rounded to bf16 (the value the activation saw), on the negative
+// side of leaky the product dy * slope rounded to bf16 (the slope the host
+// rounded to bf16, as JAX's weak-typed constant), x_hat, the sums, dscale and
+// dbias f32, and dx rounded to bf16 on the store.
 
 namespace {
 
 struct BwdParams {
-  const float4* x;
-  const float4* dy;
+  const void* x;                    // Stream<TS>::Quad a thread's four channels
+  const void* dy;
   const float* scale;
   const float* bias;
   const void* lengths;
   const float* mean;
   const float* inv;
-  float4* dx;
+  void* dx;
   float* dscale;
   float* dbias;
   float* rowsum;                    // per batch row: its totals of dz, dz * x_hat
@@ -471,19 +479,21 @@ struct Lane {
 };
 
 // x_hat and dz of one lane (see the head of this section for the rounding).
+template <typename TS>
 __device__ __forceinline__ float lane_dz(float xv, float d, const Lane& k, int act,
                                          float slope, float& xhat) {
   xhat = __fsub_rn(__fmul_rn(xv, k.iv), k.mi);
-  const float z = __fadd_rn(__fmul_rn(xhat, k.sc), k.bi);
-  if (act == 1) return z >= 0.f ? d : slope * d;
+  const float z = Stream<TS>::round(__fadd_rn(__fmul_rn(xhat, k.sc), k.bi));
+  if (act == 1) return z >= 0.f ? d : Stream<TS>::round(slope * d);
   if (act == 2) return z >= 0.f && z <= 20.f ? d : 0.f;
   return d;
 }
 
+template <typename TS>
 __device__ __forceinline__ float lane_dx(float xv, float d, const Lane& k, int act,
                                          float slope) {
   float xhat;
-  const float dz = lane_dz(xv, d, k, act, slope, xhat);
+  const float dz = lane_dz<TS>(xv, d, k, act, slope, xhat);
   return fmaf(k.a, dz, -fmaf(xhat, k.s2, k.s1));
 }
 
@@ -528,9 +538,13 @@ __device__ void channel_sums(const BwdParams& p, int b, int n_tiles,
 
 // Pass 2 over one item: dx on its first `valid` of `rows` frames, 0 on the
 // rest; kEvict as in apply_item.
-template <bool kEvict>
+template <bool kEvict, typename TS>
 __device__ __forceinline__ void dx_item(const BwdParams& p, size_t base, int cols, int rows,
                                         int valid, const Lane k[4]) {
+  using Q = typename Stream<TS>::Quad;
+  const Q* x = static_cast<const Q*>(p.x);
+  const Q* dy = static_cast<const Q*>(p.dy);
+  Q* dx = static_cast<Q*>(p.dx);
   const int tid = threadIdx.x, step = blockDim.x;
   int col = tid;
   if (kEvict) col = tid < cols ? tid + (cols - 1 - tid) / step * step : -1;
@@ -541,24 +555,26 @@ __device__ __forceinline__ void dx_item(const BwdParams& p, size_t base, int col
         float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
         const size_t at = base + (size_t)r * cols + col;
         if (r < valid) {
-          const float4 v = kEvict ? __ldcs(p.x + at) : p.x[at];
-          const float4 d = kEvict ? __ldcs(p.dy + at) : p.dy[at];
-          o.x = lane_dx(v.x, d.x, k[0], p.act, p.slope);
-          o.y = lane_dx(v.y, d.y, k[1], p.act, p.slope);
-          o.z = lane_dx(v.z, d.z, k[2], p.act, p.slope);
-          o.w = lane_dx(v.w, d.w, k[3], p.act, p.slope);
+          const float4 v = Stream<TS>::load(kEvict ? __ldcs(x + at) : x[at]);
+          const float4 d = Stream<TS>::load(kEvict ? __ldcs(dy + at) : dy[at]);
+          o.x = lane_dx<TS>(v.x, d.x, k[0], p.act, p.slope);
+          o.y = lane_dx<TS>(v.y, d.y, k[1], p.act, p.slope);
+          o.z = lane_dx<TS>(v.z, d.z, k[2], p.act, p.slope);
+          o.w = lane_dx<TS>(v.w, d.w, k[3], p.act, p.slope);
         }
         if (kEvict)
-          __stcs(p.dx + at, o);
+          __stcs(dx + at, Stream<TS>::pack(o));
         else
-          p.dx[at] = o;
+          dx[at] = Stream<TS>::pack(o);
       }
     }
   }
 }
 
+template <typename TS>
 __global__ void __launch_bounds__(kThreads)
 gn_act_bwd_kernel(BwdParams p) {
+  using Q = typename Stream<TS>::Quad;
   cg::grid_group grid = cg::this_grid();
   // Pass 1's per-thread sums (red) and pass 2's strided parts share memory.
   __shared__ float smem[kParts * 2 * kMaxChannels];
@@ -594,13 +610,13 @@ gn_act_bwd_kernel(BwdParams p) {
       for (int r = 0; r < kRows; ++r) {
         if (r < valid) {
           const size_t at = base + (size_t)r * cols + col;
-          const float4 v = p.x[at];
-          const float4 d = p.dy[at];
+          const float4 v = Stream<TS>::load(static_cast<const Q*>(p.x)[at]);
+          const float4 d = Stream<TS>::load(static_cast<const Q*>(p.dy)[at]);
           const float xs[4] = {v.x, v.y, v.z, v.w}, ds[4] = {d.x, d.y, d.z, d.w};
 #pragma unroll
           for (int l = 0; l < 4; ++l) {
             float xhat;
-            const float dz = lane_dz(xs[l], ds[l], k[l], p.act, p.slope, xhat);
+            const float dz = lane_dz<TS>(xs[l], ds[l], k[l], p.act, p.slope, xhat);
             s[l] += dz;
             q[l] = fmaf(dz, xhat, q[l]);
           }
@@ -666,9 +682,9 @@ gn_act_bwd_kernel(BwdParams p) {
     const int valid = (int)max(0LL, min((long long)rows, len - row0));
     const size_t base = ((size_t)b * p.T + row0) * cols;
     if (p.evict)
-      dx_item<true>(p, base, cols, rows, valid, k);
+      dx_item<true, TS>(p, base, cols, rows, valid, k);
     else
-      dx_item<false>(p, base, cols, rows, valid, k);
+      dx_item<false, TS>(p, base, cols, rows, valid, k);
   }
 
   grid.sync();
@@ -690,13 +706,14 @@ gn_act_bwd_kernel(BwdParams p) {
 
 // The backward's launch: refuses (cudaErrorInvalidValue) what the forward's
 // refuses or a scratch smaller than B * (ceil(T / kRows) + 1) * 2 * C floats, and
-// returns the cooperative launch's error.  Its own Residency: the kernel's
-// registers and shared memory are its own.
-extern "C" int aas_gn_act_bwd(const float* x, const float* dy, const float* scale,
+// returns the cooperative launch's error.  Its own Residency per stream type:
+// the kernel's registers and shared memory are its own.  x, dy and dx are
+// f32, or bf16 where `bf16` is set.
+extern "C" int aas_gn_act_bwd(const void* x, const void* dy, const float* scale,
                               const float* bias, const void* lengths, int len64,
-                              const float* mean, const float* inv, float* dx, float* dscale,
+                              const float* mean, const float* inv, void* dx, float* dscale,
                               float* dbias, float* scratch, long long scratch_len, int B,
-                              int T, int F, int C, int G, int act, float slope,
+                              int T, int F, int C, int G, int act, float slope, int bf16,
                               cudaStream_t stream) {
   if (B < 1 || T < 1 || F < 1 || C < 4 || C % 4 || C > kMaxChannels || G < 1 ||
       G > kMaxGroups || C % G || act < 0 || act > 2)
@@ -705,19 +722,22 @@ extern "C" int aas_gn_act_bwd(const float* x, const float* dy, const float* scal
   if (scratch_len < (items + B) * 2 * C || items > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const int threads = block_threads(C);
-  static Residency res;
-  cudaError_t err = residency(reinterpret_cast<const void*>(gn_act_bwd_kernel), threads, res);
+  const void* kernel = bf16 ? reinterpret_cast<const void*>(gn_act_bwd_kernel<__nv_bfloat16>)
+                            : reinterpret_cast<const void*>(gn_act_bwd_kernel<float>);
+  static Residency residencies[2];    // f32, bf16
+  Residency& res = residencies[bf16 ? 1 : 0];
+  cudaError_t err = residency(kernel, threads, res);
   if (err != cudaSuccess) return (int)err;
   const int grid = items < res.blocks ? (int)items : res.blocks;
   BwdParams p;
-  p.x = reinterpret_cast<const float4*>(x);
-  p.dy = reinterpret_cast<const float4*>(dy);
+  p.x = x;
+  p.dy = dy;
   p.scale = scale;
   p.bias = bias;
   p.lengths = lengths;
   p.mean = mean;
   p.inv = inv;
-  p.dx = reinterpret_cast<float4*>(dx);
+  p.dx = dx;
   p.dscale = dscale;
   p.dbias = dbias;
   p.rowsum = scratch;
@@ -730,10 +750,9 @@ extern "C" int aas_gn_act_bwd(const float* x, const float* dy, const float* scal
   p.G = G;
   p.act = act;
   p.slope = slope;
-  p.evict = 3 * (long long)B * T * F * C * (long long)sizeof(float) > res.l2;
+  p.evict = 3 * (long long)B * T * F * C * (bf16 ? 2LL : 4LL) > res.l2;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gn_act_bwd_kernel), dim3(grid),
-                                    dim3(threads), args, 0, stream);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

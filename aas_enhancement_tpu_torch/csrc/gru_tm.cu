@@ -139,10 +139,13 @@
 // (stride_t, stride_b) in elements (they may be the two halves of one
 // [T, B, 6H] tensor); m [T, B]; wh [2, H, 3H], whT [2, 3H, H] and bh [2, 3H],
 // contiguous and 16-byte aligned; yf/yb/dyf/dyb [T, B, H].  All f32;
-// H % 4 == 0.  The inference forwards also take bf16 gx and write bf16 y
-// (rnn_bwd.cuh: the stream type TS; wh, bh and m stay f32, wh and bh holding
-// bf16-rounded values), as lstm_tm.cu's: the resident kernel sends h rounded
-// to bf16, the streaming one keeps a rounded copy of h for its product.
+// H % 4 == 0.  Every kernel also runs on bf16 streams (rnn_bwd.cuh: the
+// stream type TS; wh, bh, m and the saved activations stay f32), as
+// lstm_tm.cu's: the forwards read bf16 gx and write bf16 y, the resident one
+// sends h rounded to bf16, the streaming one keeps a rounded copy of h for
+// its product, the training variants save h rounded to bf16; the backwards
+// read it and bf16 dy, round dgh to bf16 before the dh product and write
+// bf16 dgx and dgh.
 //
 // The same kernels also replace gru_scan_pallas (rnn_kernel.py:452, forward
 // _gru_fwd_call :370, VJP _gru_bwd_call :406), the recurrence on the stacked
@@ -219,7 +222,7 @@ gru_res_fwd_kernel(const TS* __restrict__ gxf, const TS* __restrict__ gxb,
                    const aas_rnn::Layout L, const float* __restrict__ m,
                    const float* __restrict__ wh, const float* __restrict__ bh,
                    TS* __restrict__ yf, TS* __restrict__ yb,
-                   float* __restrict__ hp, float* __restrict__ act, int T, int B,
+                   TS* __restrict__ hp, float* __restrict__ act, int T, int B,
                    int H, int U) {
   static_assert(kRows == 4, "a lane's sums are 4 rows x (3 gates and a spare slot)");
   extern __shared__ float4 res_smem4[];
@@ -371,7 +374,7 @@ gru_res_fwd_kernel(const TS* __restrict__ gxf, const TS* __restrict__ gxb,
       if (kSave) {      // r, z, n from their lanes, ghn from the spare one, h from z's
         const size_t o = ((size_t)d * T + t) * B + b0 + row;
         act[o * 4 * H + gate * H + col] = gate == 0 ? sr : gate == 1 ? sz : gate == 2 ? tn : ghn;
-        if (gate == 1) hp[o * H + col] = h_old;
+        if (gate == 1) aas_rnn::st_stream(hp + o * H + col, h_old);
       }
     }
     if (s + 1 < T) fetch(aas_rnn::fwd_time(L, d, s + 1, T));
@@ -388,7 +391,7 @@ __global__ void gru_tm_fwd_kernel(const TS* __restrict__ gxf,
                                   const float* __restrict__ bh,
                                   TS* __restrict__ yf,
                                   TS* __restrict__ yb,
-                                  float* __restrict__ hp,
+                                  TS* __restrict__ hp,
                                   float* __restrict__ act, int T, int B,
                                   int H) {
   extern __shared__ float4 smem4[];
@@ -467,7 +470,7 @@ __global__ void gru_tm_fwd_kernel(const TS* __restrict__ gxf,
       aas_rnn::st_stream(y + (size_t)t * L.y_t + (size_t)(b0 + rr) * H + u, mt * h_new);
       if (kSave) {
         const size_t o = ((size_t)d * T + t) * B + b0 + rr;
-        hp[o * H + u] = h;
+        aas_rnn::st_stream(hp + o * H + u, h);
         float* a = act + o * 4 * H;
         a[u] = r;
         a[H + u] = z;
@@ -481,15 +484,16 @@ __global__ void gru_tm_fwd_kernel(const TS* __restrict__ gxf,
   }
 }
 
+template <typename TS>
 __global__ void gru_tm_bwd_kernel(const aas_rnn::Layout L,
                                   const float* __restrict__ m,
                                   const float* __restrict__ whT,
-                                  const float* __restrict__ hp,
+                                  const TS* __restrict__ hp,
                                   const float* __restrict__ act,
-                                  const float* __restrict__ dyf,
-                                  const float* __restrict__ dyb,
-                                  float* __restrict__ dgx,
-                                  float* __restrict__ dgh, int T, int B, int H,
+                                  const TS* __restrict__ dyf,
+                                  const TS* __restrict__ dyb,
+                                  TS* __restrict__ dgx,
+                                  TS* __restrict__ dgh, int T, int B, int H,
                                   int splits) {
   extern __shared__ float4 smem4[];
   const int G = 3 * H;
@@ -502,9 +506,9 @@ __global__ void gru_tm_bwd_kernel(const aas_rnn::Layout L,
   const int d = blockIdx.y;
   const int b0 = blockIdx.x * kRows;
   const int nb = min(kRows, B - b0);
-  const float* dy = d == 0 ? dyf : dyb;
+  const TS* dy = d == 0 ? dyf : dyb;
   const float* md = m + d * L.m_d;
-  float* dgx_d = dgx + d * L.dg_d;
+  TS* dgx_d = dgx + d * L.dg_d;
   const float4* w4 = reinterpret_cast<const float4*>(whT + (size_t)d * G * H);
 
   for (int e = threadIdx.x; e < kRows * H; e += blockDim.x) dh_s[e] = 0.f;
@@ -524,29 +528,30 @@ __global__ void gru_tm_bwd_kernel(const aas_rnn::Layout L,
       const float z = a[H + u];
       const float n = a[2 * H + u];
       const float ghn = a[3 * H + u];
-      const float h = hp[o * H + u];
+      const float h = aas_rnn::ld_stream(hp + o * H + u);
       const float mt = md[(size_t)t * L.m_t + b0 + rr];
       const float dh = dh_s[e];
       const float dh_upd =
-          mt * (dh + dy[(size_t)t * L.y_t + (size_t)(b0 + rr) * H + u]);
+          mt * (dh + aas_rnn::ld_stream(dy + (size_t)t * L.y_t + (size_t)(b0 + rr) * H + u));
       const float d_z = dh_upd * (h - n) * z * (1.f - z);
       const float d_n = dh_upd * (1.f - z) * (1.f - n * n);
       const float d_r = d_n * ghn * r * (1.f - r);
       const float d_hn = d_n * r;
       keep_s[e] = dh_upd * z + (1.f - mt) * dh;
+      // The product reads dgh as it is stored (dot_in).
       float* g = dg_s + rr * G;
-      g[u] = d_r;
-      g[H + u] = d_z;
-      g[2 * H + u] = d_hn;
-      float* out = dgx_d + (size_t)t * L.dg_t + (size_t)(b0 + rr) * G;
-      out[u] = d_r;
-      out[H + u] = d_z;
-      out[2 * H + u] = d_n;
+      g[u] = aas_rnn::dot_in<TS>(d_r);
+      g[H + u] = aas_rnn::dot_in<TS>(d_z);
+      g[2 * H + u] = aas_rnn::dot_in<TS>(d_hn);
+      TS* out = dgx_d + (size_t)t * L.dg_t + (size_t)(b0 + rr) * G;
+      aas_rnn::st_stream(out + u, d_r);
+      aas_rnn::st_stream(out + H + u, d_z);
+      aas_rnn::st_stream(out + 2 * H + u, d_n);
       if (dgh != nullptr) {
-        float* oh = dgh + o * G;
-        oh[u] = d_r;
-        oh[H + u] = d_z;
-        oh[2 * H + u] = d_hn;
+        TS* oh = dgh + o * G;
+        aas_rnn::st_stream(oh + u, d_r);
+        aas_rnn::st_stream(oh + H + u, d_z);
+        aas_rnn::st_stream(oh + 2 * H + u, d_hn);
       }
     }
     __syncthreads();
@@ -560,7 +565,7 @@ __global__ void gru_tm_bwd_kernel(const aas_rnn::Layout L,
 template <bool kSave, typename TS>
 int launch_fwd(const TS* gxf, const TS* gxb, const aas_rnn::Layout& L,
                const float* m, const float* wh,
-               const float* bh, TS* yf, TS* yb, float* hp, float* act,
+               const float* bh, TS* yf, TS* yb, TS* hp, float* act,
                int T, int B, int H, cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
   if (H % 4) return (int)cudaErrorInvalidValue;
@@ -596,7 +601,7 @@ int resident_config(int C, int B, int H, cudaStream_t stream, cudaLaunchAttribut
 template <bool kSave, typename TS>
 int launch_resident(const TS* gxf, const TS* gxb, const aas_rnn::Layout& L,
                     const float* m, const float* wh, const float* bh, TS* yf,
-                    TS* yb, float* hp, float* act, int C, int T, int B, int H,
+                    TS* yb, TS* hp, float* act, int C, int T, int B, int H,
                     cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
   cudaLaunchAttribute attr[1];
@@ -643,9 +648,10 @@ struct GruBwdCell {
   }
 };
 
+template <typename TS>
 int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
-               const float* hp, const float* act, const float* dyf,
-               const float* dyb, float* dgx, float* dgh, int T, int B, int H,
+               const TS* hp, const float* act, const TS* dyf,
+               const TS* dyb, TS* dgx, TS* dgh, int T, int B, int H,
                cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
   if (H % 4) return (int)cudaErrorInvalidValue;
@@ -655,12 +661,12 @@ int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
                       * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        gru_tm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gru_tm_bwd_kernel<TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((B + kRows - 1) / kRows, 2);
-  gru_tm_bwd_kernel<<<grid, aas_rnn::bwd_threads(G, H), smem, stream>>>(
+  gru_tm_bwd_kernel<TS><<<grid, aas_rnn::bwd_threads(G, H), smem, stream>>>(
       L, m, whT, hp, act, dyf, dyb, dgx, dgh, T, B, H, splits);
   return (int)cudaGetLastError();
 }
@@ -673,41 +679,40 @@ int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
 // gx_t, gx_b are gx's strides in elements.  hp and act are NULL for inference
 // and the buffers the backward reads for training.  `cluster` is the caller's
 // choice of route: the resident kernel on clusters of that many blocks, or 0
-// for the streaming kernel.  `bf16`: gx and y are bf16 (the inference
-// variants only: hp must be NULL), else f32.
+// for the streaming kernel.  `bf16`: gx, y and hp are bf16 (the bf16 models'
+// streams; a bf16 training forward saves h rounded), else f32; act is f32
+// either way.
+template <typename TS>
+int gru_fwd(const void* gx0, const void* gx1, const aas_rnn::Layout& L, const float* m,
+            const float* wh, const float* bh, void* y0, void* y1, void* hp, float* act,
+            int cluster, int T, int B, int H, cudaStream_t stream) {
+  const TS* g0 = static_cast<const TS*>(gx0);
+  const TS* g1 = static_cast<const TS*>(gx1);
+  TS* o0 = static_cast<TS*>(y0);
+  TS* o1 = static_cast<TS*>(y1);
+  TS* h = static_cast<TS*>(hp);
+  if (cluster > 0) {
+    if (hp == nullptr)
+      return launch_resident<false>(g0, g1, L, m, wh, bh, o0, o1, h, act, cluster, T, B, H,
+                                    stream);
+    return launch_resident<true>(g0, g1, L, m, wh, bh, o0, o1, h, act, cluster, T, B, H,
+                                 stream);
+  }
+  if (hp == nullptr)
+    return launch_fwd<false>(g0, g1, L, m, wh, bh, o0, o1, h, act, T, B, H, stream);
+  return launch_fwd<true>(g0, g1, L, m, wh, bh, o0, o1, h, act, T, B, H, stream);
+}
+
 extern "C" int aas_gru_fwd(const void* gx0, const void* gx1, long long gx_t,
                            long long gx_b, const float* m, const float* wh,
-                           const float* bh, void* y0, void* y1, float* hp,
+                           const float* bh, void* y0, void* y1, void* hp,
                            float* act, int stacked, int cluster, int bf16, int T, int B,
                            int H, cudaStream_t stream) {
   const aas_rnn::Layout L = aas_rnn::make_layout(stacked, gx_t, gx_b, T, B, H, 3 * H);
-  if (bf16) {
-    using bf = __nv_bfloat16;
-    if (hp != nullptr) return (int)cudaErrorInvalidValue;
-    const bf* g0 = static_cast<const bf*>(gx0);
-    const bf* g1 = static_cast<const bf*>(gx1);
-    if (cluster > 0)
-      return launch_resident<false>(g0, g1, L, m, wh, bh, static_cast<bf*>(y0),
-                                    static_cast<bf*>(y1), nullptr, nullptr, cluster, T, B,
-                                    H, stream);
-    return launch_fwd<false>(g0, g1, L, m, wh, bh, static_cast<bf*>(y0),
-                             static_cast<bf*>(y1), nullptr, nullptr, T, B, H, stream);
-  }
-  const float* f0 = static_cast<const float*>(gx0);
-  const float* f1 = static_cast<const float*>(gx1);
-  float* o0 = static_cast<float*>(y0);
-  float* o1 = static_cast<float*>(y1);
-  if (cluster > 0) {
-    if (hp == nullptr)
-      return launch_resident<false>(f0, f1, L, m, wh, bh, o0, o1, nullptr, nullptr,
-                                    cluster, T, B, H, stream);
-    return launch_resident<true>(f0, f1, L, m, wh, bh, o0, o1, hp, act, cluster, T, B,
-                                 H, stream);
-  }
-  if (hp == nullptr)
-    return launch_fwd<false>(f0, f1, L, m, wh, bh, o0, o1, nullptr, nullptr, T,
-                             B, H, stream);
-  return launch_fwd<true>(f0, f1, L, m, wh, bh, o0, o1, hp, act, T, B, H, stream);
+  if (bf16)
+    return gru_fwd<__nv_bfloat16>(gx0, gx1, L, m, wh, bh, y0, y1, hp, act, cluster, T, B, H,
+                                  stream);
+  return gru_fwd<float>(gx0, gx1, L, m, wh, bh, y0, y1, hp, act, cluster, T, B, H, stream);
 }
 
 // The clusters of `cluster` blocks of a resident kernel that the card can run
@@ -728,18 +733,34 @@ extern "C" int aas_gru_res_clusters(int cluster, int variant, int H) {
   return rc ? -rc : clusters;
 }
 
+template <typename TS>
+int gru_bwd(const aas_rnn::Layout& L, const float* m, const float* w, const void* hp,
+            const float* act, const void* dy0, const void* dy1, void* dgx, void* dgh,
+            int cluster, int T, int B, int H, cudaStream_t stream) {
+  const TS* h = static_cast<const TS*>(hp);
+  const TS* d0 = static_cast<const TS*>(dy0);
+  const TS* d1 = static_cast<const TS*>(dy1);
+  TS* gx = static_cast<TS*>(dgx);
+  TS* gh = static_cast<TS*>(dgh);
+  if (cluster > 0)
+    return aas_rnn::launch_res_bwd<GruBwdCell, TS>(
+        aas_rnn::BwdArgs<TS>{L, m, w, h, act, d0, d1, gx, gh, T, B, H}, cluster, stream);
+  return launch_bwd<TS>(L, m, w, h, act, d0, d1, gx, gh, T, B, H, stream);
+}
+
 // dgx is [2, T, B, 3H] (time-major) or [T, 2, B, 3H] (stacked); dgh
 // [2, T, B, 3H] in both, or NULL when no weight gradient is wanted.  As in
 // aas_gru_fwd, `cluster` is the route: the resident kernel on clusters of
 // that many blocks, w = wh [2, H, 3H]; or 0, the streaming kernel, w = whT
-// [2, 3H, H].
-extern "C" int aas_gru_bwd(const float* m, const float* w, const float* hp,
-                           const float* act, const float* dy0, const float* dy1,
-                           float* dgx, float* dgh, int stacked, int cluster, int T, int B,
-                           int H, cudaStream_t stream) {
+// [2, 3H, H].  `bf16`: hp, dy, dgx and dgh are bf16 (what the bf16 training
+// forward saved, and its cotangent), else f32.
+extern "C" int aas_gru_bwd(const float* m, const float* w, const void* hp,
+                           const float* act, const void* dy0, const void* dy1,
+                           void* dgx, void* dgh, int stacked, int cluster, int bf16, int T,
+                           int B, int H, cudaStream_t stream) {
   const aas_rnn::Layout L = aas_rnn::make_layout(stacked, 0, 0, T, B, H, 3 * H);
-  if (cluster > 0)
-    return aas_rnn::launch_res_bwd<GruBwdCell>(
-        aas_rnn::BwdArgs{L, m, w, hp, act, dy0, dy1, dgx, dgh, T, B, H}, cluster, stream);
-  return launch_bwd(L, m, w, hp, act, dy0, dy1, dgx, dgh, T, B, H, stream);
+  if (bf16)
+    return gru_bwd<__nv_bfloat16>(L, m, w, hp, act, dy0, dy1, dgx, dgh, cluster, T, B, H,
+                                  stream);
+  return gru_bwd<float>(L, m, w, hp, act, dy0, dy1, dgx, dgh, cluster, T, B, H, stream);
 }

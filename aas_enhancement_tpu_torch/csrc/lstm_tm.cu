@@ -117,12 +117,15 @@
 // (stride_t, stride_b) in elements (they may be the two halves of one
 // [T, B, 8H] tensor); m [T, B]; wh [2, H, 4H]; whT [2, 4H, H]; bh [2, 4H];
 // yf/yb/dyf/dyb [T, B, H]; saved and dgx tensors as above.  All f32; the
-// backward needs H % 4 == 0 and a 16-byte aligned whT.  The inference
-// forwards also take bf16 gx and write bf16 y (rnn_bwd.cuh: the stream type
-// TS; wh, bh and m stay f32, wh and bh holding bf16-rounded values): the
-// resident kernel sends each unit's h rounded to bf16 to the cluster (its own
-// h stays f32 in registers), the streaming one keeps a bf16-rounded copy of h
-// beside the f32 state for its product.
+// backward needs H % 4 == 0 and a 16-byte aligned whT.  Every kernel also
+// runs on bf16 streams (rnn_bwd.cuh: the stream type TS; wh, bh, m and the
+// saved activations stay f32, wh and bh holding bf16-rounded values): the
+// forwards read bf16 gx and write bf16 y, the resident one sends each unit's
+// h rounded to bf16 to the cluster (its own h stays f32 in registers), the
+// streaming one keeps a bf16-rounded copy of h beside the f32 state for its
+// product, and the training variants save h and c rounded to bf16; the
+// backwards read those and bf16 dy, round the gate gradients to bf16 before
+// the dh product and write bf16 dgx, as the Pallas VJP with bf16 streams.
 //
 // The same kernels also replace lstm_scan_pallas (rnn_kernel.py:258, forward
 // _lstm_fwd_call :168, VJP _lstm_bwd_call :210), the recurrence on the
@@ -186,7 +189,7 @@ lstm_res_fwd_kernel(const TS* __restrict__ gxf, const TS* __restrict__ gxb,
                     const aas_rnn::Layout L, const float* __restrict__ m,
                     const float* __restrict__ wh, const float* __restrict__ bh,
                     TS* __restrict__ yf, TS* __restrict__ yb,
-                    float* __restrict__ hp, float* __restrict__ cp,
+                    TS* __restrict__ hp, TS* __restrict__ cp,
                     float* __restrict__ act, int T, int B, int H, int U) {
   static_assert(kRows == 4, "a lane's 16 sums are 4 rows x 4 gates");
   extern __shared__ float4 res_smem4[];
@@ -330,8 +333,8 @@ lstm_res_fwd_kernel(const TS* __restrict__ gxf, const TS* __restrict__ gxb,
       if (gate == 0) {
         aas_rnn::st_stream(y + (size_t)t * L.y_t + (size_t)(b0 + row) * H + col, mt * h_new);
         if (kSave) {
-          hp[o * H + col] = h_old;
-          cp[o * H + col] = c_old;
+          aas_rnn::st_stream(hp + o * H + col, h_old);
+          aas_rnn::st_stream(cp + o * H + col, c_old);
         }
       }
       if (kSave) act[o * G + gate * H + col] = a;
@@ -350,8 +353,8 @@ __global__ void lstm_tm_fwd_kernel(const TS* __restrict__ gxf,
                                    const float* __restrict__ bh,
                                    TS* __restrict__ yf,
                                    TS* __restrict__ yb,
-                                   float* __restrict__ hp,
-                                   float* __restrict__ cp,
+                                   TS* __restrict__ hp,
+                                   TS* __restrict__ cp,
                                    float* __restrict__ act, int T, int B,
                                    int H) {
   extern __shared__ float smem[];
@@ -422,8 +425,8 @@ __global__ void lstm_tm_fwd_kernel(const TS* __restrict__ gxf,
       aas_rnn::st_stream(y + (size_t)t * L.y_t + (size_t)(b0 + rr) * H + u, mt * h_new);
       if (kSave) {
         const size_t o = ((size_t)d * T + t) * B + b0 + rr;
-        hp[o * H + u] = h;
-        cp[o * H + u] = c;
+        aas_rnn::st_stream(hp + o * H + u, h);
+        aas_rnn::st_stream(cp + o * H + u, c);
         float* a = act + o * G;
         a[u] = si;
         a[H + u] = sf;
@@ -438,14 +441,15 @@ __global__ void lstm_tm_fwd_kernel(const TS* __restrict__ gxf,
   }
 }
 
+template <typename TS>
 __global__ void lstm_tm_bwd_kernel(const aas_rnn::Layout L,
                                    const float* __restrict__ m,
                                    const float* __restrict__ whT,
-                                   const float* __restrict__ cp,
+                                   const TS* __restrict__ cp,
                                    const float* __restrict__ act,
-                                   const float* __restrict__ dyf,
-                                   const float* __restrict__ dyb,
-                                   float* __restrict__ dgx, int T, int B, int H,
+                                   const TS* __restrict__ dyf,
+                                   const TS* __restrict__ dyb,
+                                   TS* __restrict__ dgx, int T, int B, int H,
                                    int splits) {
   extern __shared__ float4 smem4[];
   const int G = 4 * H;
@@ -459,9 +463,9 @@ __global__ void lstm_tm_bwd_kernel(const aas_rnn::Layout L,
   const int d = blockIdx.y;
   const int b0 = blockIdx.x * kRows;
   const int nb = min(kRows, B - b0);
-  const float* dy = d == 0 ? dyf : dyb;
+  const TS* dy = d == 0 ? dyf : dyb;
   const float* md = m + d * L.m_d;
-  float* dgx_d = dgx + d * L.dg_d;
+  TS* dgx_d = dgx + d * L.dg_d;
   const float4* w4 = reinterpret_cast<const float4*>(whT + (size_t)d * G * H);
 
   for (int e = threadIdx.x; e < kRows * H; e += blockDim.x) {
@@ -484,13 +488,13 @@ __global__ void lstm_tm_bwd_kernel(const aas_rnn::Layout L,
       const float sf = a[H + u];
       const float tg = a[2 * H + u];
       const float so = a[3 * H + u];
-      const float c = cp[o * H + u];
+      const float c = aas_rnn::ld_stream(cp + o * H + u);
       const float tc = tanhf(sf * c + si * tg);
       const float mt = md[(size_t)t * L.m_t + b0 + rr];
       const float dh = dh_s[e];
       const float dc = dc_s[e];
       const float dh_upd =
-          mt * (dh + dy[(size_t)t * L.y_t + (size_t)(b0 + rr) * H + u]);
+          mt * (dh + aas_rnn::ld_stream(dy + (size_t)t * L.y_t + (size_t)(b0 + rr) * H + u));
       const float dc_new = dh_upd * so * (1.f - tc * tc) + mt * dc;
       const float d_i = dc_new * tg * si * (1.f - si);
       const float d_f = dc_new * c * sf * (1.f - sf);
@@ -498,12 +502,15 @@ __global__ void lstm_tm_bwd_kernel(const aas_rnn::Layout L,
       const float d_o = dh_upd * tc * so * (1.f - so);
       dc_s[e] = dc_new * sf + (1.f - mt) * dc;
       keep_s[e] = (1.f - mt) * dh;
+      // The product reads the gate gradients as dgx holds them (dot_in).
       float* g = dg_s + rr * G;
-      float* out = dgx_d + (size_t)t * L.dg_t + (size_t)(b0 + rr) * G;
-      g[u] = out[u] = d_i;
-      g[H + u] = out[H + u] = d_f;
-      g[2 * H + u] = out[2 * H + u] = d_g;
-      g[3 * H + u] = out[3 * H + u] = d_o;
+      TS* out = dgx_d + (size_t)t * L.dg_t + (size_t)(b0 + rr) * G;
+      const float dg[4] = {d_i, d_f, d_g, d_o};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        g[k * H + u] = aas_rnn::dot_in<TS>(dg[k]);
+        aas_rnn::st_stream(out + k * H + u, dg[k]);
+      }
     }
     __syncthreads();
     aas_rnn::dh_partials<kRows>(dg_s, G, w4, H4, splits, part_s);
@@ -529,7 +536,7 @@ int resident_config(int C, int B, int H, cudaStream_t stream, cudaLaunchAttribut
 template <bool kSave, typename TS>
 int launch_resident(const TS* gxf, const TS* gxb, const aas_rnn::Layout& L,
                     const float* m, const float* wh, const float* bh, TS* yf,
-                    TS* yb, float* hp, float* cp, float* act, int C, int T, int B,
+                    TS* yb, TS* hp, TS* cp, float* act, int C, int T, int B,
                     int H, cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
   auto kernel = lstm_res_fwd_kernel<kSave, TS>;
@@ -557,7 +564,7 @@ int launch_resident(const TS* gxf, const TS* gxb, const aas_rnn::Layout& L,
 template <bool kSave, typename TS>
 int launch_fwd(const TS* gxf, const TS* gxb, const aas_rnn::Layout& L,
                const float* m, const float* wh,
-               const float* bh, TS* yf, TS* yb, float* hp, float* cp,
+               const float* bh, TS* yf, TS* yb, TS* hp, TS* cp,
                float* act, int T, int B, int H, cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
   int threads = ((4 * H + 31) / 32) * 32;
@@ -601,9 +608,10 @@ struct LstmBwdCell {
   }
 };
 
+template <typename TS>
 int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
-               const float* cp, const float* act, const float* dyf,
-               const float* dyb, float* dgx, int T, int B, int H,
+               const TS* cp, const float* act, const TS* dyf,
+               const TS* dyb, TS* dgx, int T, int B, int H,
                cudaStream_t stream) {
   if (T == 0 || B == 0) return 0;
   if (H % 4) return (int)cudaErrorInvalidValue;
@@ -613,12 +621,12 @@ int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
                       * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_tm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lstm_tm_bwd_kernel<TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((B + kRows - 1) / kRows, 2);
-  lstm_tm_bwd_kernel<<<grid, aas_rnn::bwd_threads(G, H), smem, stream>>>(
+  lstm_tm_bwd_kernel<TS><<<grid, aas_rnn::bwd_threads(G, H), smem, stream>>>(
       L, m, whT, cp, act, dyf, dyb, dgx, T, B, H, splits);
   return (int)cudaGetLastError();
 }
@@ -631,43 +639,42 @@ int launch_bwd(const aas_rnn::Layout& L, const float* m, const float* whT,
 // gx_t, gx_b are gx's strides in elements.  hp, cp and act are NULL for
 // inference and the buffers the backward reads for training.  `cluster` is
 // the caller's choice of route: the resident kernel on clusters of that many
-// blocks, or 0 for the streaming kernel.  `bf16`: gx and y are bf16 (the
-// inference variants only: hp must be NULL), else f32.
-extern "C" int aas_lstm_fwd(const void* gx0, const void* gx1, long long gx_t,
-                            long long gx_b, const float* m, const float* wh,
-                            const float* bh, void* y0, void* y1, float* hp,
-                            float* cp, float* act, int stacked, int cluster, int bf16,
-                            int T, int B, int H, cudaStream_t stream) {
-  const aas_rnn::Layout L = aas_rnn::make_layout(stacked, gx_t, gx_b, T, B, H, 4 * H);
-  if (bf16) {
-    using bf = __nv_bfloat16;
-    if (hp != nullptr) return (int)cudaErrorInvalidValue;
-    const bf* g0 = static_cast<const bf*>(gx0);
-    const bf* g1 = static_cast<const bf*>(gx1);
-    if (cluster > 0)
-      return launch_resident<false>(g0, g1, L, m, wh, bh, static_cast<bf*>(y0),
-                                    static_cast<bf*>(y1), nullptr, nullptr, nullptr, cluster,
-                                    T, B, H, stream);
-    return launch_fwd<false>(g0, g1, L, m, wh, bh, static_cast<bf*>(y0),
-                             static_cast<bf*>(y1), nullptr, nullptr, nullptr, T, B, H,
-                             stream);
-  }
-  const float* f0 = static_cast<const float*>(gx0);
-  const float* f1 = static_cast<const float*>(gx1);
-  float* o0 = static_cast<float*>(y0);
-  float* o1 = static_cast<float*>(y1);
+// blocks, or 0 for the streaming kernel.  `bf16`: gx, y, hp and cp are bf16
+// (the bf16 models' streams; a bf16 training forward saves h and c rounded),
+// else f32; act is f32 either way.
+template <typename TS>
+int lstm_fwd(const void* gx0, const void* gx1, const aas_rnn::Layout& L, const float* m,
+             const float* wh, const float* bh, void* y0, void* y1, void* hp, void* cp,
+             float* act, int cluster, int T, int B, int H, cudaStream_t stream) {
+  const TS* g0 = static_cast<const TS*>(gx0);
+  const TS* g1 = static_cast<const TS*>(gx1);
+  TS* o0 = static_cast<TS*>(y0);
+  TS* o1 = static_cast<TS*>(y1);
+  TS* h = static_cast<TS*>(hp);
+  TS* c = static_cast<TS*>(cp);
   if (cluster > 0) {
     if (hp == nullptr)
-      return launch_resident<false>(f0, f1, L, m, wh, bh, o0, o1, nullptr, nullptr,
-                                    nullptr, cluster, T, B, H, stream);
-    return launch_resident<true>(f0, f1, L, m, wh, bh, o0, o1, hp, cp, act, cluster,
-                                 T, B, H, stream);
+      return launch_resident<false>(g0, g1, L, m, wh, bh, o0, o1, h, c, act, cluster, T, B,
+                                    H, stream);
+    return launch_resident<true>(g0, g1, L, m, wh, bh, o0, o1, h, c, act, cluster, T, B, H,
+                                 stream);
   }
   if (hp == nullptr)
-    return launch_fwd<false>(f0, f1, L, m, wh, bh, o0, o1, nullptr, nullptr,
-                             nullptr, T, B, H, stream);
-  return launch_fwd<true>(f0, f1, L, m, wh, bh, o0, o1, hp, cp, act, T, B, H,
-                          stream);
+    return launch_fwd<false>(g0, g1, L, m, wh, bh, o0, o1, h, c, act, T, B, H, stream);
+  return launch_fwd<true>(g0, g1, L, m, wh, bh, o0, o1, h, c, act, T, B, H, stream);
+}
+
+extern "C" int aas_lstm_fwd(const void* gx0, const void* gx1, long long gx_t,
+                            long long gx_b, const float* m, const float* wh,
+                            const float* bh, void* y0, void* y1, void* hp,
+                            void* cp, float* act, int stacked, int cluster, int bf16,
+                            int T, int B, int H, cudaStream_t stream) {
+  const aas_rnn::Layout L = aas_rnn::make_layout(stacked, gx_t, gx_b, T, B, H, 4 * H);
+  if (bf16)
+    return lstm_fwd<__nv_bfloat16>(gx0, gx1, L, m, wh, bh, y0, y1, hp, cp, act, cluster, T,
+                                   B, H, stream);
+  return lstm_fwd<float>(gx0, gx1, L, m, wh, bh, y0, y1, hp, cp, act, cluster, T, B, H,
+                         stream);
 }
 
 // The clusters of `cluster` blocks of a resident kernel that the card can run
@@ -688,18 +695,32 @@ extern "C" int aas_lstm_res_clusters(int cluster, int variant, int H) {
   return rc ? -rc : clusters;
 }
 
+template <typename TS>
+int lstm_bwd(const aas_rnn::Layout& L, const float* m, const float* w, const void* cp,
+             const float* act, const void* dy0, const void* dy1, void* dgx, int cluster,
+             int T, int B, int H, cudaStream_t stream) {
+  const TS* c = static_cast<const TS*>(cp);
+  const TS* d0 = static_cast<const TS*>(dy0);
+  const TS* d1 = static_cast<const TS*>(dy1);
+  TS* g = static_cast<TS*>(dgx);
+  if (cluster > 0)
+    return aas_rnn::launch_res_bwd<LstmBwdCell, TS>(
+        aas_rnn::BwdArgs<TS>{L, m, w, c, act, d0, d1, g, nullptr, T, B, H}, cluster, stream);
+  return launch_bwd<TS>(L, m, w, c, act, d0, d1, g, T, B, H, stream);
+}
+
 // dgx is [2, T, B, 4H] (time-major) or [T, 2, B, 4H] (stacked).  As in
 // aas_lstm_fwd, `cluster` is the route: the resident kernel on clusters of
 // that many blocks, w = wh [2, H, 4H]; or 0, the streaming kernel, w = whT
-// [2, 4H, H].
-extern "C" int aas_lstm_bwd(const float* m, const float* w, const float* cp,
-                            const float* act, const float* dy0, const float* dy1,
-                            float* dgx, int stacked, int cluster, int T, int B, int H,
-                            cudaStream_t stream) {
+// [2, 4H, H].  `bf16`: cp, dy and dgx are bf16 (what the bf16 training
+// forward saved, and its cotangent), else f32.
+extern "C" int aas_lstm_bwd(const float* m, const float* w, const void* cp,
+                            const float* act, const void* dy0, const void* dy1,
+                            void* dgx, int stacked, int cluster, int bf16, int T, int B,
+                            int H, cudaStream_t stream) {
   const aas_rnn::Layout L = aas_rnn::make_layout(stacked, 0, 0, T, B, H, 4 * H);
-  if (cluster > 0)
-    return aas_rnn::launch_res_bwd<LstmBwdCell>(
-        aas_rnn::BwdArgs{L, m, w, cp, act, dy0, dy1, dgx, nullptr, T, B, H}, cluster,
-        stream);
-  return launch_bwd(L, m, w, cp, act, dy0, dy1, dgx, T, B, H, stream);
+  if (bf16)
+    return lstm_bwd<__nv_bfloat16>(L, m, w, cp, act, dy0, dy1, dgx, cluster, T, B, H,
+                                   stream);
+  return lstm_bwd<float>(L, m, w, cp, act, dy0, dy1, dgx, cluster, T, B, H, stream);
 }

@@ -40,13 +40,15 @@
 
 namespace aas_rnn {
 
-// The stream type TS of a forward's gx and y: f32, or bf16 (the inference
-// forwards of the bf16 models).  A bf16 step runs as the Pallas kernels do
-// with bf16 streams (rnn_kernel.py, `hc = h.astype(wh_ref.dtype)`): gx widened
-// to f32; h, whose state stays f32, rounded to bf16 before the recurrent
-// product (dot_in), and wh holding bf16 values (the host rounds it and passes
-// f32), so each product is exact in f32 and the sums are f32; bias, c and
-// the cell math f32; only the stored y rounded to bf16.
+// The stream type TS of gx, y, the saved state, dy, dgx and dgh: f32, or
+// bf16 (the bf16 models, forward and backward).  A bf16 step runs as the
+// Pallas kernels do with bf16 streams (rnn_kernel.py, `hc =
+// h.astype(wh_ref.dtype)`): gx widened to f32; h, whose state stays f32,
+// rounded to bf16 before the recurrent product (dot_in), and wh holding bf16
+// values (the host rounds it and passes f32), so each product is exact in
+// f32 and the sums are f32; bias, c and the cell math f32; the stored y
+// rounded to bf16.  The backward's gate gradient is rounded (dot_in) before
+// the dh product and on its store, its carries stay f32.
 template <typename TS>
 constexpr bool kBf16 = std::is_same<TS, __nv_bfloat16>::value;
 

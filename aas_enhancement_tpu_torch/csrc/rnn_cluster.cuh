@@ -218,21 +218,26 @@ struct BwdIn {
   float m, dy;   // the mask and the output's cotangent
 };
 
+// TS: the stream type of the saved state, dy, dgx and dgh (f32, or bf16 for
+// the bf16 models: rnn_bwd.cuh).  At bf16 a step runs as the Pallas VJP with
+// bf16 streams: the state as saved (rounded), f32 cell math, and the gate
+// gradients rounded to bf16 before the product (dot_in) and on the store.
+template <typename TS>
 struct BwdArgs {
   Layout L;
   const float* m;
   const float* wh;     // [2, H, G], G = gates x H
-  const float* st;     // [2, T, B, H]
+  const TS* st;        // [2, T, B, H]
   const float* act;    // [2, T, B, 4H]
-  const float* dy0;
-  const float* dy1;
-  float* dgx;          // [2, T, B, G] or the stacked [T, 2, B, G]
-  float* dgh;          // [2, T, B, G], or NULL where no weight gradient is wanted
+  const TS* dy0;
+  const TS* dy1;
+  TS* dgx;             // [2, T, B, G] or the stacked [T, 2, B, G]
+  TS* dgh;             // [2, T, B, G], or NULL where no weight gradient is wanted
   int T, B, H;
 };
 
-template <class Cell>
-__global__ void __launch_bounds__(kBwdThreads, 1) res_bwd_kernel(const BwdArgs A) {
+template <class Cell, typename TS>
+__global__ void __launch_bounds__(kBwdThreads, 1) res_bwd_kernel(const BwdArgs<TS> A) {
   constexpr int kG = Cell::kGates;
   constexpr int kJ = kG * kBwdSlots;           // weights a thread keeps per input of dh
   constexpr int kK = Cell::kOutputs;
@@ -257,9 +262,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) res_bwd_kernel(const BwdArgs A
   const bool cell_thread = u < U;
   const int col = rank * U + u;                // its hidden unit
   const bool valid = cell_thread && row < nb;
-  const float* dy = d == 0 ? A.dy0 : A.dy1;
+  const TS* dy = d == 0 ? A.dy0 : A.dy1;
   const float* md = A.m + d * L.m_d;
-  float* dgx_d = A.dgx + d * L.dg_d;
+  TS* dgx_d = A.dgx + d * L.dg_d;
 
   // This thread's inputs k of dh: their weights (slots past U are zero), the
   // block that owns unit k and the slot of this block's partial there.
@@ -295,9 +300,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) res_bwd_kernel(const BwdArgs A
       const size_t o = ((size_t)d * T + t) * B + b0 + row;
 #pragma unroll
       for (int g = 0; g < 4; ++g) next.a[g] = A.act[o * 4 * H + g * H + col];
-      next.st = A.st[o * H + col];
+      next.st = ld_stream(A.st + o * H + col);
       next.m = md[(size_t)t * L.m_t + b0 + row];
-      next.dy = dy[(size_t)t * L.y_t + (size_t)(b0 + row) * H + col];
+      next.dy = ld_stream(dy + (size_t)t * L.y_t + (size_t)(b0 + row) * H + col);
     }
   };
   fetch(bwd_time(L, d, 0, T));
@@ -324,7 +329,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) res_bwd_kernel(const BwdArgs A
       cell.step(next, dh, gx, gh);
       float* dgs = reinterpret_cast<float*>(dg_s + p * kJ) + tid;
 #pragma unroll
-      for (int g = 0; g < kG; ++g) dgs[g * 4 * kBwdSlots] = gh[g];
+      for (int g = 0; g < kG; ++g) dgs[g * 4 * kBwdSlots] = dot_in<TS>(gh[g]);
     }
     __syncthreads();
 
@@ -345,14 +350,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1) res_bwd_kernel(const BwdArgs A
           st_async4(map_to_rank(smem_addr(part_s + (1 - p) * H + dst[i]), owner[i]), acc[i],
                     map_to_rank(smem_addr(bar + (1 - p)), owner[i]));
     }
-    if (valid) {
-      float* out = dgx_d + (size_t)t * L.dg_t + (size_t)(b0 + row) * G + col;
+    if (valid) {       // scalar stores: a bf16 dgx half of wx's gradient is 2-byte aligned
+      TS* out = dgx_d + (size_t)t * L.dg_t + (size_t)(b0 + row) * G + col;
 #pragma unroll
-      for (int g = 0; g < kG; ++g) out[g * H] = gx[g];
+      for (int g = 0; g < kG; ++g) st_stream(out + g * H, gx[g]);
       if (A.dgh != nullptr) {
-        float* oh = A.dgh + (((size_t)d * T + t) * B + b0 + row) * G + col;
+        TS* oh = A.dgh + (((size_t)d * T + t) * B + b0 + row) * G + col;
 #pragma unroll
-        for (int g = 0; g < kG; ++g) oh[g * H] = gh[g];
+        for (int g = 0; g < kG; ++g) st_stream(oh + g * H, gh[g]);
       }
     }
     if (s + 1 < T) fetch(bwd_time(L, d, s + 1, T));
@@ -362,23 +367,23 @@ __global__ void __launch_bounds__(kBwdThreads, 1) res_bwd_kernel(const BwdArgs A
 
 // The resident backward's launch configuration on clusters of C blocks per
 // (direction, tile of rows); 0, or the code of what refuses it.
-template <class Cell>
+template <class Cell, typename TS>
 int res_bwd_config(int C, int B, int H, cudaStream_t stream, cudaLaunchAttribute* attr,
                    cudaLaunchConfig_t* cfg) {
   if (C < 1 || C > 16 || H % C || H / C > kBwdSlots) return (int)cudaErrorInvalidValue;
   const int threads = res_bwd_threads(Cell::kOutputs, H);
   if (threads > kBwdThreads) return (int)cudaErrorInvalidValue;
-  return cluster_config(res_bwd_kernel<Cell>, C,
+  return cluster_config(res_bwd_kernel<Cell, TS>, C,
                         dim3(C * ((B + kBwdRows - 1) / kBwdRows), 2), threads,
                         res_bwd_smem(Cell::kGates, H), stream, attr, cfg);
 }
 
-template <class Cell>
-int launch_res_bwd(const BwdArgs& A, int C, cudaStream_t stream) {
+template <class Cell, typename TS>
+int launch_res_bwd(const BwdArgs<TS>& A, int C, cudaStream_t stream) {
   if (A.T == 0 || A.B == 0) return 0;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  int rc = res_bwd_config<Cell>(C, A.B, A.H, stream, attr, &cfg);
+  int rc = res_bwd_config<Cell, TS>(C, A.B, A.H, stream, attr, &cfg);
   if (rc) return rc;
   // Once per configuration: a cluster that cannot be scheduled is an error
   // here, not a launch that never starts.
@@ -386,24 +391,25 @@ int launch_res_bwd(const BwdArgs& A, int C, cudaStream_t stream) {
   const int key = A.H * 32 + C;
   if (checked != key) {
     int clusters = 0;
-    rc = active_clusters(res_bwd_kernel<Cell>, cfg, &clusters);
+    rc = active_clusters(res_bwd_kernel<Cell, TS>, cfg, &clusters);
     if (rc) return rc;
     checked = key;
   }
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, res_bwd_kernel<Cell>, A);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, res_bwd_kernel<Cell, TS>, A);
   if (err != cudaSuccess) return refused(err);
   return (int)cudaGetLastError();
 }
 
 // The clusters of C blocks of the resident backward that the card runs at
-// once at width H; minus the error's code where refused.
+// once at width H; minus the error's code where refused.  (The bf16
+// instantiation has the same block, shared memory and cluster.)
 template <class Cell>
 int res_bwd_clusters(int C, int H) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   int clusters = 0;
-  int rc = res_bwd_config<Cell>(C, kBwdRows, H, nullptr, attr, &cfg);
-  if (!rc) rc = active_clusters(res_bwd_kernel<Cell>, cfg, &clusters);
+  int rc = res_bwd_config<Cell, float>(C, kBwdRows, H, nullptr, attr, &cfg);
+  if (!rc) rc = active_clusters(res_bwd_kernel<Cell, float>, cfg, &clusters);
   return rc ? -rc : clusters;
 }
 

@@ -21,10 +21,13 @@ there because its Pallas kernel measured slower than XLA on a TPU v5e; that
 timing says nothing about this card, so the port keeps the module's own
 default and records the kernel's time beside cuDNN's (PERF.md).
 
-``cfg.dtype`` "bfloat16" runs the forward as the JAX model does: the input
+``cfg.dtype`` "bfloat16" runs the model as the JAX model does: the input
 cast at the entry, convs, GroupNorms and BiGRUs in bfloat16 (parameters
 float32, cast where used), and the ``fc`` head in float32 on the float32
-copy of the last BiGRU's output.  Only the forward is ported at bfloat16.
+copy of the last BiGRU's output.  It trains at bfloat16 too: on the card
+the GroupNorms', the BiGRUs' and conv2's weight-gradient kernels read bf16
+streams (conv2's dW accumulates and leaves the kernel in float32), and each
+parameter's gradient reaches it as float32 through its cast.
 """
 
 from __future__ import annotations

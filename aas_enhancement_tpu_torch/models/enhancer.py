@@ -12,12 +12,14 @@ model's ``reshape(b, t, f*c)`` does (the ``wx`` rows depend on it).
 ``blockwise_apply`` is the streaming-matched forward of streaming
 fine-tuning; ``enhanced_log_mag`` the enhanced features from the output.
 
-``cfg.dtype`` "bfloat16" runs the forward as the JAX model does: the
+``cfg.dtype`` "bfloat16" runs the model as the JAX model does: the
 parameters stay float32 and are cast where they are used, the input is cast
 at the model's entry, convs, GroupNorms, BiLSTMs and the projection compute
 and stream bfloat16, and the projection's output is cast back to float32
-before the mask.  Only the forward is ported at bfloat16 (training: ROADMAP
-bf16b).
+before the mask.  It trains at bfloat16 too: the backward streams bfloat16
+through the same layers (on the card the GroupNorm's and the BiLSTMs'
+backward kernels on bf16 streams), and each parameter's gradient reaches it
+as float32 through its cast, as in JAX.
 """
 
 from __future__ import annotations

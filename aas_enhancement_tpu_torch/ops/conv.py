@@ -90,7 +90,10 @@ def tapdw_supported(weight_shape, stride: tuple[int, int]) -> bool:
 
 class _TapDWFn(torch.autograd.Function):
     """SAME conv over NCHW: forward and dx by cuDNN (the CPU's native conv for
-    CPU tensors), dW by ``dw_impl``."""
+    CPU tensors), dW by ``dw_impl``.  At bfloat16 (x and the cast weight bf16)
+    the kernel reads bf16 x and dy and gives a float32 dW, which leaves here
+    in the cast weight's dtype, as cuDNN's does, and reaches the float32
+    parameter through the cast."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, stride, pads, dw_impl):
@@ -122,7 +125,7 @@ class _TapDWFn(torch.autograd.Function):
                 x_cl = x_cl.contiguous()
             if dy_cl.stride(3) != 1:
                 dy_cl = dy_cl.contiguous()
-            dw = conv_dw_same(x_cl, dy_cl, kh, kw, stride).permute(3, 2, 0, 1)
+            dw = conv_dw_same(x_cl, dy_cl, kh, kw, stride).permute(3, 2, 0, 1).to(weight.dtype)
         return (dx if need_x else None, dw if need_w else None,
                 db if need_b else None, None, None, None)
 

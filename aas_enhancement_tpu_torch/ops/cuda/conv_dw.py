@@ -10,7 +10,12 @@ dW [kt, kf, ci, co] in f32,
 
 with x_pad the SAME-padded input (``ops/conv.py::same_pad``).  A CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises.
-``conv_dw_same.launches`` counts the kernel launches.
+``conv_dw_same.launches`` counts the kernel launches, ``.dtype`` holds the
+last launch's input dtype.
+
+x and dy are float32 or bfloat16 (a bf16 AM's conv2), one dtype for both;
+dW is float32 either way: both versions multiply and sum the bf16 values in
+float32, as the Pallas kernel does for a bf16 input.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import torch.nn.functional as F
 
 from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_kernel
 from aas_enhancement_tpu_torch.utils import kernel_build
+
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def same_pad(size: int, k: int, s: int) -> tuple[int, int]:
@@ -41,8 +48,10 @@ def _check_shapes(x: torch.Tensor, dy: torch.Tensor, strides: tuple[int, int]) -
 
 def conv_dw_same_plain(x: torch.Tensor, dy: torch.Tensor, kt: int, kf: int,
                        strides: tuple[int, int] = (1, 1)) -> torch.Tensor:
-    """Tap by tap: dW[dt, df] = (shifted, strided x)^T dy over all positions."""
+    """Tap by tap: dW[dt, df] = (shifted, strided x)^T dy over all positions,
+    in float32."""
     _check_shapes(x, dy, strides)
+    x, dy = x.float(), dy.float()
     sf = strides[1]
     t, fo = dy.shape[1], dy.shape[2]
     xp = F.pad(x, (0, 0, *same_pad(x.shape[2], kf, sf), *same_pad(t, kt, 1)))
@@ -76,7 +85,8 @@ def conv_dw_same(x: torch.Tensor, dy: torch.Tensor, kt: int, kf: int,
     NCHW tensor (``t.permute(0, 2, 3, 1)``) is read in place."""
     if not uses_kernel("conv_dw_same", x):
         return conv_dw_same_plain(x, dy, kt, kf, strides)
-    check_kernel_inputs("conv_dw_same", (x, dy))
+    dtype = check_kernel_inputs("conv_dw_same", (), streams=(x, dy),
+                                stream_dtypes=STREAM_DTYPES)
     _check_shapes(x, dy, strides)
     if x.stride(3) != 1 or dy.stride(3) != 1:
         raise ValueError(f"conv_dw_same: needs unit channel stride, got x strides "
@@ -94,10 +104,12 @@ def conv_dw_same(x: torch.Tensor, dy: torch.Tensor, kt: int, kf: int,
         x.stride(0), x.stride(1), x.stride(2), dy.stride(0), dy.stride(1), dy.stride(2),
         b, t, f, fo, ci, co, kt, kf, strides[1],
         same_pad(t, kt, 1)[0], same_pad(f, kf, strides[1])[0], slices,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     kernel_build.check(err, "aas_conv_dw")
     conv_dw_same.launches += 1
+    conv_dw_same.dtype = dtype
     return dw
 
 
 conv_dw_same.launches = 0
+conv_dw_same.dtype = None

@@ -18,14 +18,17 @@ kernel too: per-channel sums of dz and dz * x_hat, a grid-wide barrier, the
 per-(batch, group) finalize, dx, and dscale and dbias summed in a fixed order
 in the kernel.  A CPU tensor runs the plain versions.
 
-x and y are float32 or bfloat16 (the streams); the statistics, scale, bias
-and scratch are float32.  At bfloat16 both versions follow the bf16 JAX
-module (``aas_enhancement_tpu/ops/norm.py``, the XLA route its
-``impl="auto"`` takes): f32 statistics of x, the affine and the mask in f32,
-then a cast to bfloat16 and the activation on the bf16 value (leaky:
-``y * bf16(slope)``, rounded).  The Pallas apply takes the activation before
-the cast; the two differ by at most one bf16 ulp.  Only the forward takes
-bfloat16: a wanted gradient at bfloat16 on the card raises (bf16b).
+x, y, dy and dx are float32 or bfloat16 (the streams); the statistics,
+scale, bias, dscale, dbias and scratch are float32.  At bfloat16 both
+versions follow the bf16 JAX module (``aas_enhancement_tpu/ops/norm.py``,
+the XLA route its ``impl="auto"`` takes): f32 statistics of x, the affine
+and the mask in f32, then a cast to bfloat16 and the activation on the bf16
+value (leaky: ``y * bf16(slope)``, rounded).  The Pallas apply takes the
+activation before the cast; the two differ by at most one bf16 ulp.  The
+backward is that route's autodiff: act' at the bf16 z, the leaky side's
+``dy * bf16(slope)`` rounded to bf16, the closed form in f32 on the widened
+x and dy, dx rounded to bfloat16 (the Pallas ``_gn_bwd`` also reads bf16 x
+and dy and sums in f32).
 """
 
 from __future__ import annotations
@@ -53,12 +56,17 @@ def _activate(y: torch.Tensor, act: str, slope: float) -> torch.Tensor:
 
 
 def _act_grad(dy: torch.Tensor, z: torch.Tensor, act: str, slope: float) -> torch.Tensor:
-    """dy * act'(z): leaky 1 at z >= 0, else the slope; hardtanh 1 on [0, 20]."""
+    """dy * act'(z) in float32: leaky 1 at z >= 0, else the slope (at bf16
+    the product dy * bf16(slope) rounded to bf16, as the bf16 forward's
+    autodiff gives it); hardtanh 1 on [0, 20]."""
+    d = dy.float()
     if act == "leaky_relu":
-        return dy * torch.where(z >= 0, 1.0, slope)
+        neg = d * slope if dy.dtype == torch.float32 else (
+            dy * torch.tensor(slope, dtype=dy.dtype)).float()
+        return torch.where(z >= 0, d, neg)
     if act == "hardtanh":
-        return dy * ((z >= 0) & (z <= 20.0)).to(dy.dtype)
-    return dy
+        return d * ((z >= 0) & (z <= 20.0)).to(d.dtype)
+    return d
 
 
 def _group_stats(s1_g: torch.Tensor, s2_g: torch.Tensor, lengths: torch.Tensor,
@@ -145,16 +153,19 @@ def masked_group_norm_act_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: to
                                     mean: torch.Tensor, inv: torch.Tensor, *,
                                     num_groups: int, act: str = "none", slope: float = 0.2
                                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the backward -> (dx, dscale, dbias): the closed form of
-    ``gn_kernel.py::_gn_bwd`` from the forward's per-(B, C) ``mean`` and ``inv``.
-    Scale is folded into each channel before the group sum (it varies inside
-    a group)."""
+    """Plain version of the backward -> (dx in x's dtype, dscale, dbias): the
+    closed form of ``gn_kernel.py::_gn_bwd`` from the forward's per-(B, C)
+    ``mean`` and ``inv``, in float32 (module docstring for bfloat16: z is
+    rounded before act').  Scale is folded into each channel before the group
+    sum (it varies inside a group)."""
     b, t, f, c = x.shape
     g = num_groups
+    stream = x.dtype
     mask = time_mask(lengths, t, torch.bool)[:, :, None, None]
     row = lambda v: v[:, None, None, :]                               # noqa: E731
-    xhat = x * row(inv) - row(mean * inv)
-    dz = torch.where(mask, _act_grad(dy, xhat * scale + bias, act, slope), 0.0)
+    xhat = x.float() * row(inv) - row(mean * inv)
+    z = (xhat * scale + bias).to(stream).float()
+    dz = torch.where(mask, _act_grad(dy, z, act, slope), 0.0)
     sdz = dz.sum(dim=1)                                               # [B, F, C]
     sdzx = torch.where(mask, dz * xhat, 0.0).sum(dim=1)
     count = torch.clamp(lengths.to(torch.float32) * (f * (c // g)), min=1.0)[:, None]
@@ -163,7 +174,8 @@ def masked_group_norm_act_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: to
     s1 = inv * s1_g.repeat_interleave(c // g, dim=1)
     s2 = inv * s2_g.repeat_interleave(c // g, dim=1)
     dx = row(inv * scale) * dz - (row(s1) + xhat * row(s2))
-    return torch.where(mask, dx, 0.0), sdzx.sum(dim=(0, 1)), sdz.sum(dim=(0, 1))
+    return (torch.where(mask, dx, 0.0).to(stream), sdzx.sum(dim=(0, 1)),
+            sdz.sum(dim=(0, 1)))
 
 
 def masked_group_norm_act_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
@@ -175,31 +187,37 @@ def masked_group_norm_act_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Te
     dbias [C]), from the forward's per-(B, C) ``mean`` and ``inv``.
 
     A CUDA tensor runs the kernel, one launch a call, counted in
-    ``.launches``: dx, dscale and dbias are allocated, and a scratch buffer
-    for the per-row and per-item partial sums.  A ``dy`` that is not
-    contiguous and 16-byte aligned is copied first.  A CPU tensor runs
-    ``masked_group_norm_act_bwd_plain``.
+    ``.launches`` (its stream dtype in ``.dtype``): dx, dscale and dbias are
+    allocated, and a scratch buffer for the per-row and per-item partial
+    sums.  x and dy are float32 or bfloat16, one dtype for both.  A ``dy``
+    that is not contiguous and aligned (16 bytes, 8 at bfloat16) is copied
+    first.  A CPU tensor runs ``masked_group_norm_act_bwd_plain``.
     """
     if not uses_kernel("masked_group_norm_act_bwd", x):
         return masked_group_norm_act_bwd_plain(x, dy, scale, bias, lengths, mean, inv,
                                                num_groups=num_groups, act=act, slope=slope)
-    check_kernel_inputs("masked_group_norm_act_bwd", (x, dy, scale, bias, mean, inv))
+    dtype = check_kernel_inputs("masked_group_norm_act_bwd", (scale, bias, mean, inv),
+                                streams=(x, dy), stream_dtypes=STREAM_DTYPES)
     b, t, f, c = x.shape
     if (dy.shape != x.shape or mean.shape != (b, c) or inv.shape != (b, c)
             or scale.shape != (c,) or bias.shape != (c,)):
         raise ValueError(f"masked_group_norm_act_bwd: dy must be {tuple(x.shape)}, "
                          f"mean and inv [{b}, {c}], scale and bias [{c}]")
+    quad = 4 * x.element_size()
     if not (x.is_contiguous() and mean.is_contiguous() and inv.is_contiguous()
-            and scale.is_contiguous() and bias.is_contiguous()) or x.data_ptr() % 16:
-        raise ValueError("masked_group_norm_act_bwd: needs a contiguous, 16-byte aligned x "
-                         "and contiguous scale, bias, mean and inv")
+            and scale.is_contiguous() and bias.is_contiguous()) or x.data_ptr() % quad:
+        raise ValueError(f"masked_group_norm_act_bwd: needs a contiguous, {quad}-byte "
+                         "aligned x and contiguous scale, bias, mean and inv")
     if (lengths.shape != (b,) or lengths.dtype not in (torch.int32, torch.int64)
             or lengths.device != x.device or not lengths.is_contiguous()):
         raise ValueError("masked_group_norm_act_bwd: lengths must be [B], int32 or int64, "
                          "contiguous, on x's device")
     dy = dy.contiguous()
-    if dy.data_ptr() % 16:
+    if dy.data_ptr() % quad:
         dy = dy.clone()
+    bf16 = dtype == torch.bfloat16
+    if bf16:                  # the slope in bfloat16, as the forward takes it
+        slope = float(torch.tensor(slope, dtype=torch.bfloat16))
     dx = torch.empty_like(x)
     dscale, dbias = torch.empty(2, c, dtype=torch.float32, device=x.device)
     n_part = b * (-(-t // ROWS_PER_ITEM) + 1) * 2 * c   # per item and per batch row
@@ -208,13 +226,16 @@ def masked_group_norm_act_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Te
         x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(), lengths.data_ptr(),
         int(lengths.dtype == torch.int64), mean.data_ptr(), inv.data_ptr(), dx.data_ptr(),
         dscale.data_ptr(), dbias.data_ptr(), scratch.data_ptr(), n_part, b, t, f, c,
-        num_groups, ACTS[act], slope, torch.cuda.current_stream(x.device).cuda_stream)
+        num_groups, ACTS[act], slope, int(bf16),
+        torch.cuda.current_stream(x.device).cuda_stream)
     kernel_build.check(err, "aas_gn_act_bwd (cooperative launch)")
     masked_group_norm_act_bwd.launches += 1
+    masked_group_norm_act_bwd.dtype = dtype
     return dx, dscale, dbias
 
 
 masked_group_norm_act_bwd.launches = 0
+masked_group_norm_act_bwd.dtype = None
 
 
 class _GNActFn(torch.autograd.Function):
@@ -262,10 +283,6 @@ def masked_group_norm_act(x: torch.Tensor, scale: torch.Tensor,
         scale, bias = scale.contiguous(), bias.contiguous()
     if torch.is_grad_enabled() and any(v.requires_grad for v in (x, scale, bias)):
         if kernel:
-            if x.dtype != torch.float32:
-                raise NotImplementedError(
-                    f"masked_group_norm_act: the gradient at {x.dtype} is not ported "
-                    "(ROADMAP bf16b); only the forward takes bfloat16")
             return _GNActFn.apply(x, scale, bias, lengths, num_groups, eps, act, slope)
         return masked_group_norm_act_plain(x, scale, bias, lengths, num_groups=num_groups,
                                            eps=eps, act=act, slope=slope)

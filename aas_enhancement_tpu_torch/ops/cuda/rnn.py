@@ -49,15 +49,29 @@ every step.  A route is no fallback: a resident launch that is refused
 raises.  Each wrapper's ``.route``, forward and backward, holds the route of
 its last launch: the cluster size, or 0 for streaming.
 
-The forwards' streams (gx and y) are float32, or bfloat16 for inference
-(the bf16 models' forwards; each forward wrapper's ``.dtype`` holds its last
-launch's): the kernels and the plain versions then run a step as the Pallas
-kernels do with bf16 streams, gx widened to f32, h rounded to bf16 before the
-recurrent product (its state stays f32), f32 sums, bias, c and cell math,
-and y rounded to bf16.  wh and bh stay float32 arguments; the bf16 model
-passes them rounded through bf16 (``ops/rnn.py``), so each product is exact
-in f32.  The training forward and the backwards take float32 only: a wanted
-gradient at bfloat16 on the card raises (ROADMAP bf16b).
+The streams (gx, y, their cotangents dy and dgx, what the training forward
+saves of the state, and the GRU's dgh) are float32, or bfloat16 (the bf16
+models; each wrapper's ``.dtype`` holds its last launch's): the kernels and
+the plain versions then run a step as the Pallas kernels do with bf16
+streams, gx widened to f32, h rounded to bf16 before the recurrent product
+(its state stays f32), f32 sums, bias, c and cell math, and y rounded to
+bf16.  wh and bh stay float32 arguments; the bf16 model passes them rounded
+through bf16 (``ops/rnn.py``), so each product is exact in f32.  At bf16 the
+backward kernels follow the Pallas VJP (``rnn_kernel.py``): the training
+forward saves h (and the LSTM's c) rounded to bf16, the cell backward reads
+them so, with f32 math, the gate gradient is rounded to bf16 before the dh
+product and on its store (dgx, dgh), dh and dc are carried in f32, and dWh,
+dbh are f32 sums of the saved bf16 h and the bf16 gate gradient, computed
+by ``torch.bmm`` on float32 copies (outside the kernel, as JAX computes them
+outside its Pallas kernel).  The activations the port saves besides stay
+float32; the Pallas VJP recomputes them from the same rounded h.
+
+The plain versions' autograd at bf16 rounds where the Pallas VJP does at the
+recurrent product (``_Bf16Product``: dh and dWh from the gate gradient
+rounded to bf16, dh summed in f32) and at gx (its gradient rounded to bf16),
+but its cell backward reads the f32 state of its own forward where the
+Pallas VJP (and the kernels) read the bf16 copies of h and c: the two part
+by a bf16 rounding of those terms.
 """
 
 from __future__ import annotations
@@ -147,9 +161,34 @@ def resident_clusters_at_once(cell: str, h_dim: int, cluster: int | None = None,
     return n
 
 
-def _dot_in(h: torch.Tensor, stream: torch.dtype) -> torch.Tensor:
-    """h as the recurrent product reads it: rounded to a bf16 stream's dtype."""
-    return h if stream == torch.float32 else h.to(stream).float()
+class _Bf16Product(torch.autograd.Function):
+    """h @ wh + bh of a bf16 step: h [2, B, H] rounded to ``stream``, f32
+    products and sums.  Its backward rounds the gate gradient dg to
+    ``stream`` before both products (dh = dg wh^T and dWh = h^T dg, f32
+    sums), as the Pallas VJP does; dbh sums the rounded dg."""
+
+    @staticmethod
+    def forward(ctx, h, wh, bh, stream):
+        hd = h.to(stream).float()
+        ctx.save_for_backward(hd, wh)
+        ctx.stream = stream
+        return torch.bmm(hd, wh) + bh[:, None, :]
+
+    @staticmethod
+    def backward(ctx, dg):
+        hd, wh = ctx.saved_tensors
+        dgd = dg.to(ctx.stream).float()
+        return (torch.bmm(dgd, wh.transpose(1, 2)), torch.bmm(hd.transpose(1, 2), dgd),
+                dgd.sum(dim=1), None)
+
+
+def _recurrent(h: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor,
+               stream: torch.dtype) -> torch.Tensor:
+    """The recurrent product h @ wh + bh as a step reads it (module docstring):
+    f32, or at a bf16 stream ``_Bf16Product``."""
+    if stream == torch.float32:
+        return torch.bmm(h, wh) + bh[:, None, :]
+    return _Bf16Product.apply(h, wh, bh, stream)
 
 
 def lstm_scan_stacked_plain(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
@@ -164,7 +203,7 @@ def lstm_scan_stacked_plain(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
     ys = []
     for s in range(t_len):
         m_t = m[s][..., None]
-        gg = gx[s].float() + (torch.bmm(_dot_in(h, stream), wh) + bh[:, None, :])
+        gg = gx[s].float() + _recurrent(h, wh, bh, stream)
         i, f, gc, o = gg.split(h_dim, dim=-1)
         c_new = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(gc)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
@@ -219,7 +258,7 @@ def gru_scan_stacked_plain(gx: torch.Tensor, m: torch.Tensor, wh: torch.Tensor,
     ys = []
     for s in range(t_len):
         m_t = m[s][..., None]
-        gh = torch.bmm(_dot_in(h, stream), wh) + bh[:, None, :]   # bh's n-slice: r * (...)
+        gh = _recurrent(h, wh, bh, stream)          # bh's n-slice: r * (...)
         xr, xz, xn = gx[s].float().split(h_dim, dim=-1)
         hr, hz, hn = gh.split(h_dim, dim=-1)
         r = torch.sigmoid(xr + hr)
@@ -329,11 +368,9 @@ def _forward(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
     activations [2, T, B, 4H].  The route (cluster size, 0 = streaming)
     follows from H (``lstm_resident_cluster``, ``gru_resident_cluster``);
     ``route`` overrides it for measurements that set the two kernels side by
-    side.  gx and y are float32 or, for inference (not ``save``), bfloat16."""
+    side.  gx, y and the saved h and c are float32 or bfloat16 (the
+    activations float32)."""
     dtype = check_kernel_inputs(name, (m, wh, bh), streams=gx, stream_dtypes=STREAM_DTYPES)
-    if save and dtype != torch.float32:
-        raise NotImplementedError(f"{name}: the training forward at {dtype} is not "
-                                  "ported (ROADMAP bf16b); only inference takes bfloat16")
     gates, stacked = _gates(name), len(gx) == 1
     if stacked:
         if gx[0].ndim != 4 or gx[0].shape[1] != 2 or m.shape != gx[0].shape[:3]:
@@ -372,7 +409,7 @@ def _forward(name: str, gx: tuple[torch.Tensor, ...], m: torch.Tensor,
     n_saved = gates - 1                                   # h, (c,) activations
     saved = ()
     if save:
-        saved = (*(empty(2, t_len, b, h_dim) for _ in range(n_saved - 1)),
+        saved = (*(empty(2, t_len, b, h_dim, dtype=dtype) for _ in range(n_saved - 1)),
                  empty(2, t_len, b, 4 * h_dim))
     entry = f"aas_{name.split('_')[0]}_fwd"
     if route is None:
@@ -403,13 +440,16 @@ def _backward(name: str, m: torch.Tensor, wh: torch.Tensor,
     ``need_dwh``; without it the GRU kernel writes no dgh (a frozen GRU).
     The route (cluster size, 0 = streaming) follows from H
     (``bwd_resident_cluster``); ``route`` overrides it for measurements that
-    set the two kernels side by side."""
+    set the two kernels side by side.  The stream dtype is the saved h's:
+    dys must have it, dgx (and dgh) get it; dwh and dbh are float32."""
     gates, stacked = _gates(name), len(dys) == 1
     hp, acts = saved[0], saved[-1]
     _, t_len, b, h_dim = hp.shape
+    dtype = check_kernel_inputs(f"{name}_bwd", (m, wh, acts), streams=(*saved[:-1], *dys),
+                                stream_dtypes=STREAM_DTYPES)
 
     def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=hp.device)
+        return torch.empty(shape, dtype=dtype, device=hp.device)
 
     g = gates * h_dim
     dgx = empty(t_len, 2, b, g) if stacked else empty(2, t_len, b, g)
@@ -432,10 +472,12 @@ def _backward(name: str, m: torch.Tensor, wh: torch.Tensor,
     err = getattr(kernel_build.load_library(), entry)(
         m.data_ptr(), w.data_ptr(), state.data_ptr(), acts.data_ptr(),
         dy0.data_ptr(), dy1.data_ptr(), dgx.data_ptr(), *extra, int(stacked), route,
-        t_len, b, h_dim, torch.cuda.current_stream(hp.device).cuda_stream)
+        int(dtype == torch.bfloat16), t_len, b, h_dim,
+        torch.cuda.current_stream(hp.device).cuda_stream)
     kernel_build.check(err, what)
     _BACKWARD[name].launches += 1
     _BACKWARD[name].route = route
+    _BACKWARD[name].dtype = dtype
     dwh = dbh = None
     if need_dwh:
         dg = dgh if gates == 3 else dgx.transpose(0, 1) if stacked else dgx
@@ -456,9 +498,11 @@ def _transposed(wh: torch.Tensor) -> torch.Tensor:
 def _weight_grads(hp: torch.Tensor, dg: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """dWh[d] = sum_t h_prev[d, t]^T dg[d, t] and dbh[d] = sum_t dg[d, t], for
-    hp [2, T, B, H] and dg [2, T, B, G] (a transposed view is copied)."""
+    hp [2, T, B, H] and dg [2, T, B, G] (a transposed view is copied), f32
+    sums (of float32 copies of bf16 streams)."""
     two, t_len, b, h_dim = hp.shape
     g = dg.shape[-1]
+    hp, dg = hp.float(), dg.float()
     dwh = torch.bmm(hp.reshape(two, t_len * b, h_dim).transpose(1, 2),
                     dg.reshape(two, t_len * b, g))
     return dwh, dg.sum(dim=(1, 2))
@@ -490,6 +534,7 @@ _BACKWARD = {"lstm_scan_tm": lstm_scan_tm_bwd, "gru_scan_tm": gru_scan_tm_bwd,
 for _fn in _BACKWARD.values():
     _fn.launches = 0
     _fn.route = None
+    _fn.dtype = None
 
 
 class _ScanFn(torch.autograd.Function):

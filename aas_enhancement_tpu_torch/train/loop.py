@@ -54,8 +54,7 @@ from aas_enhancement_tpu_torch.models.discriminator import Discriminator
 from aas_enhancement_tpu_torch.models.enhancer import Enhancer
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.train.state import TrainState, adam, am_sgd
-from aas_enhancement_tpu_torch.train.steps import (OBJECTIVES, make_train_step,
-                                                   refuse_bf16_training)
+from aas_enhancement_tpu_torch.train.steps import OBJECTIVES, make_train_step
 from aas_enhancement_tpu_torch.utils import checkpoint as ckpt
 from aas_enhancement_tpu_torch.utils.metrics import MetricsLogger
 
@@ -71,9 +70,7 @@ def init_state(cfg: Config, seed: int, device: torch.device | str = "cuda",
     ``am_through_enhancer`` puts the frozen enhancer in front of the AM (a G
     that a checkpoint or the CLI supplies is kept frozen beside it all the
     same: ``keep_frozen_g``).  The default device is the card; without a GPU
-    that raises (pass ``"cpu"``).  A model config at bfloat16 raises
-    (``refuse_bf16_training``)."""
-    refuse_bf16_training(cfg)
+    that raises (pass ``"cpu"``)."""
     device = resolve_device(device)
     seeds = {"g": seed if g_seed is None else g_seed, "d": seed + 1,
              "am": seed + 2 if am_seed is None else am_seed}
@@ -354,9 +351,7 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
     counts global steps (a resumed run stops at the same step as an
     uninterrupted one).  ``eval_am`` is the decode-only AM of validation for
     an objective that trains without one (the JAX package's
-    ``eval_am_params``).  A model config at bfloat16 raises
-    (``refuse_bf16_training``)."""
-    refuse_bf16_training(cfg)
+    ``eval_am_params``)."""
     device = resolve_device(device)
     t = cfg.train
     ds = AudioDataset(noisy_manifest, cfg.audio, cfg.data,

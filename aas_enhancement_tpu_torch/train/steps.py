@@ -47,21 +47,6 @@ def _named_grads(loss: torch.Tensor, module: torch.nn.Module) -> dict[str, torch
             for n, p, g in zip(names, params, grads)}
 
 
-def refuse_bf16_training(cfg: Config) -> None:
-    """Raise NotImplementedError unless the enhancer, AM and discriminator
-    configs are all float32, on any device: the port's bfloat16 models run
-    forwards only (serving, evaluation, export); training them waits for the
-    bf16 backward kernels and a step held to the JAX bf16 step (ROADMAP bf16b),
-    so no autograd quietly trains in a bfloat16 that was never compared."""
-    bf16 = [name for name in ("enhancer", "am", "discriminator")
-            if getattr(cfg, name).dtype != "float32"]
-    if bf16:
-        raise NotImplementedError(
-            f"training at {[getattr(cfg, n).dtype for n in bf16]} ({', '.join(bf16)}) is "
-            "not ported: the bf16 backward kernels and train step are ROADMAP bf16b; "
-            "bfloat16 configs serve, evaluate and export only")
-
-
 def make_train_step(cfg: Config, anchor_am: torch.nn.Module | None = None) -> Callable:
     """-> step(state, batch) -> (state, metrics), updating ``state`` in place.
 
@@ -74,8 +59,7 @@ def make_train_step(cfg: Config, anchor_am: torch.nn.Module | None = None) -> Ca
     clean_row_weights (adversarial / aas).
     ``step.batch_grads(state, batch)`` -> ({"g": {name: grad}, "d": ...} or
     {"am": ...}, metrics) is the gradient half of the step, without the
-    update.  A model config at bfloat16 raises (``refuse_bf16_training``)."""
-    refuse_bf16_training(cfg)
+    update."""
     objective = cfg.train.objective
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective: {objective!r}")

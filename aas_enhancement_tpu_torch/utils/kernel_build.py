@@ -65,8 +65,8 @@ SIGNATURES = {
     # halves of one tensor); saved buffers NULL for inference:
     # gx0, gx1, gx_stride_t, gx_stride_b, m, wh, bh, y0, y1, hp, cp, act,
     # stacked, cluster (blocks per cluster of the resident route, 0: the
-    # streaming route), bf16 (gx and y are bf16, else f32; inference only),
-    # T, B, H, stream
+    # streaming route), bf16 (gx, y, hp and cp are bf16, else f32), T, B, H,
+    # stream
     "aas_lstm_fwd": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _P),
     # ... as aas_lstm_fwd without cp
@@ -78,10 +78,12 @@ SIGNATURES = {
     "aas_lstm_res_clusters": (_I, _I, _I),
     "aas_gru_res_clusters": (_I, _I, _I),
     # m, w (wh for the resident route, whT for the streaming one), cp, act,
-    # dy0, dy1, dgx, stacked, cluster (as in aas_lstm_fwd), T, B, H, stream
-    "aas_lstm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # m, w, hp, act, dy0, dy1, dgx, dgh (or NULL), stacked, cluster, T, B, H, stream
-    "aas_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # dy0, dy1, dgx, stacked, cluster (as in aas_lstm_fwd), bf16 (cp, dy and
+    # dgx are bf16, else f32), T, B, H, stream
+    "aas_lstm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # m, w, hp, act, dy0, dy1, dgx, dgh (or NULL), stacked, cluster, bf16 (hp,
+    # dy, dgx and dgh are bf16), T, B, H, stream
+    "aas_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # rows (B * T), Fo, kt, kf, ci, co, stride_f, multiprocessors -> slices
     # (not an error code; 0: the kernel does not take the shape)
     "aas_conv_dw_slices": (_I, _I, _I, _I, _I, _I, _I, _I),
@@ -93,13 +95,15 @@ SIGNATURES = {
                        _F, _I, _P),
     # x, dy, scale, bias, lengths, lengths are int64 (else int32), mean, inv,
     # dx, dscale, dbias, scratch (per-row, then per-item sums), its length, B,
-    # T, F, C, G, act, slope, stream: the backward, one cooperative launch
+    # T, F, C, G, act, slope, bf16 (x, dy and dx are bf16, else f32), stream:
+    # the backward, one cooperative launch
     "aas_gn_act_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
-                       _I, _I, _F, _P),
+                       _I, _I, _F, _I, _P),
     # x, dy, part, dw, x strides (b, t, f), dy strides (b, t, f), B, T, F, Fo,
-    # ci, co, kt, kf, stride_f, pad_t_low, pad_f_low, slices, stream
+    # ci, co, kt, kf, stride_f, pad_t_low, pad_f_low, slices, bf16 (x and dy
+    # are bf16, else f32; dw is f32), stream
     "aas_conv_dw": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,
-                    _I, _I, _I, _I, _I, _I, _P),
+                    _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -240,7 +240,7 @@ def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
     ``TrainConfig.batch_size``, the streaming chunk calls at 1) x ``seconds``
     on the GPU, weights drawn from the config's train seed; each summary also
     holds its ``batch``.  ``dtype`` "bfloat16" runs the three models at
-    bf16 and profiles the forwards only (training them is not ported)."""
+    bf16, forwards and steps alike."""
     from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
     from aas_enhancement_tpu_torch.config import Config
     from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
@@ -265,8 +265,7 @@ def profile_paths(batch: int, seconds: float, calls: int, warmup: int,
                                   warmup, os.path.join(trace_dir, "recognize_trace.json")),
     }
     train_batch = cfg.train.batch_size
-    if dtype == "float32":
-        out.update(_profile_steps(cfg, device, n, gen, calls, warmup, trace_dir))
+    out.update(_profile_steps(cfg, device, n, gen, calls, warmup, trace_dir))
     # One chunk call of the streaming engines at TrainConfig's operating point
     # (chunk 1.0, lookahead 0.2, history 1.0 s), B=1, in steady state: host
     # work, copies and the device call of one window.
@@ -306,7 +305,7 @@ def main(argv=None) -> None:
     p.add_argument("--trace-dir", help="keep the seven Chrome traces in this directory")
     p.add_argument("--top", type=int, default=25, help="kernel names to print")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
-                   help="the models' compute dtype (bfloat16: the forwards only)")
+                   help="the models' compute dtype")
     args = p.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = args.trace_dir or tmp

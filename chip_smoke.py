@@ -53,6 +53,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (BF16_PATH_TOL), the bf16 wave apart from the f32 wave of the same
    weights by more than the f32 card-vs-CPU limit; enhance and recognition
    at B=4 x 8 s timed f32 beside bf16 (in turns) with their device busy time;
+5c. train_bf16: training at dtype="bfloat16": the backward kernels on bf16
+   streams at B=8, ragged (LSTM-256 and GRU-512 resident, time-major and
+   stacked, with the streaming route on the same inputs; the GroupNorm at
+   its three shapes, one device kernel a call read in a fresh process; the
+   AM's conv2 dW) against their plain versions on the same bf16 inputs
+   (BF16_BWD_TOL), timed in turns with the same kernels on f32 inputs, the
+   bound at 2-byte streams; one bf16 aas, am and paired (MR-STFT term) step
+   card vs CPU at B=4 x 2 s (BF16_STEP_TOL, BF16_GRAD_TOL); each step's
+   launches at B=8 with the GroupNorm, LSTM, GRU and conv_dw wrappers' last
+   launches, forward and backward, on bf16 streams; the steps at B=8 and
+   B=32 x 8 s, bf16 beside f32 in turns, with peak memory, and the aas step
+   at B=128 x 8 s (the JAX package's production shape); cli.train with a
+   bf16 --config for two steps of aas, adversarial, acoustic, paired, am and
+   am --streaming-finetune-am, and an am run saved at step 2 and continued
+   to step 3;
 5b. decode: on a full-width AM and enhancer (seeds 0 and 1), the recognition
    forward at B=4 x 8 s, ragged, and its log-probs through the host beam
    (native C++, W=32) with no LM, a char 3-gram, a word LM and both (the
@@ -293,6 +308,48 @@ BF16_PATH_TOL = (5e-2, "bf16 products of cuBLAS / cuDNN and of the CPU, rounded 
                  "points, through STFT, 2 conv+GN, 2 BiLSTM-256 (and the AM's convs, GNs "
                  "and 4 BiGRU-512)")
 BF16_SECONDS = 2                      # the card-vs-CPU batch (the CPU runs bf16 slowly)
+# Training at bf16 (phase train_bf16).  The backward kernels on bf16 streams
+# against their plain versions on the same bf16 inputs: max abs error of each
+# gradient tensor relative to the plain tensor's largest |value|.
+BF16_BWD_TOL = {
+    "lstm_bwd": (2e-2, "the kernel reads the bf16 copies of h and c that the forward saved "
+                 "(as the Pallas VJP does), the plain autograd its own f32 state; both "
+                 "round the gate gradient to bf16 before the products; dh carried back "
+                 "over 801 steps"),
+    "gru_bwd": (2e-2, "the kernel reads the bf16 copy of h (as the Pallas VJP), the plain "
+                "autograd its f32 h; dh carried back over 401 steps"),
+    "gn_bwd": (2.0 ** -7, "dx: one bf16 ulp at the top, f32 sums in another order; dscale "
+               "and dbias within 1e-4 of their max"),
+    "conv_dw": (1e-4, "f32 sums of the same bf16 values, in the kernel's slice order and "
+                "one matmul's"),
+}
+BF16_BWD_TOL["lstm_stacked_bwd"] = BF16_BWD_TOL["lstm_bwd"]
+BF16_BWD_TOL["gru_stacked_bwd"] = BF16_BWD_TOL["gru_bwd"]
+# A bf16 step card vs CPU (B=4 x BF16_SECONDS): metrics relative; each
+# gradient tensor's distance to the CPU's within a share of the CPU tensor's
+# norm (the JAX package's own bf16 gradients of the convs and GroupNorms sit
+# 5-16% of their max from its f32 ones, tests/test_torch_bf16_steps.py); a
+# tensor whose CPU max|g| is below BF16_GRAD_ZERO of the network's is held to
+# BF16_GRAD_ZERO of the network's max|g| element by element.
+BF16_STEP_TOL = (2e-2, "bf16 losses from bf16 models: cuBLAS / cuDNN bf16 products and the "
+                 "kernels against the CPU's, rounded at other points")
+BF16_GRAD_TOL = {
+    0.0: (0.1, "bf16 gradients of every layer: the bf16 rounding of each cast and product "
+          "at other points, carried back through CTC (or the L1), the recurrences, "
+          "GroupNorms and convs"),
+    0.5: (0.35, "with the MR-STFT term, whose sign(.) / (|X| + 1e-7) parts flip under "
+          "bf16 rounding (JAX's bf16 gradient is 0.7-3.9 x its max from its f32 one)")}
+BF16_GRAD_ZERO = 1e-3
+BF16_STEP_KERNELS = {
+    "aas": ("stft", "gn_act", "lstm", "gru", "lstm_bwd", "gru_bwd", "gn_bwd"),
+    "am": ("stft", "gn_act", "gru", "gru_bwd", "gn_bwd", "conv_dw"),
+    "paired": ("stft", "istft", "gn_act", "lstm", "lstm_bwd", "gn_bwd", "stft_vjp",
+               "istft_vjp")}
+# The kernels that stream bf16 on each step (the STFTs and their VJPs stay f32).
+BF16_STEP_STREAMS = {"aas": BF16_STEP_KERNELS["aas"][1:],
+                     "am": BF16_STEP_KERNELS["am"][1:],
+                     "paired": ("gn_act", "lstm", "lstm_bwd", "gn_bwd")}
+BF16_B_PRODUCTION = 128                  # the JAX package's bench_train_step batch
 
 
 def fail(msg: str) -> None:
@@ -1037,17 +1094,17 @@ def kernels_backward(device, gen, results: dict) -> None:
         del outs_k, outs_p, grads_k, grads_p
 
 
-def gn_bwd_kernels(shapes: list) -> list:
+def gn_bwd_kernels(shapes: list, dtype: str = "float32") -> list:
     """{kernel name: launches} of the device kernels of one GroupNorm backward
-    wrapper call at each (B, T, F, C, act, lengths) of ``shapes``, each on the
-    mean and inv its forward kernel saved, in a fresh process
-    (``utils.profiling.kernel_names_in_fresh_process``)."""
+    wrapper call at each (B, T, F, C, act, lengths) of ``shapes`` on ``dtype``
+    streams, each on the mean and inv its forward kernel saved, in a fresh
+    process (``utils.profiling.kernel_names_in_fresh_process``)."""
     from aas_enhancement_tpu_torch.utils.profiling import kernel_names_in_fresh_process
     return kernel_names_in_fresh_process(f"""
 from aas_enhancement_tpu_torch.ops.cuda import gn
 calls = []
 for b, t, f, c, act, lens in {shapes!r}:
-    x = torch.randn(b, t, f, c, device="cuda")
+    x = torch.randn(b, t, f, c, device="cuda").to(torch.{dtype})
     scale, bias = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
     lengths = torch.tensor(lens, device="cuda")
     stats = gn._stats(gn.gn_kernel(x, scale, bias, lengths, 8, 1e-5, act, 0.2)[1], b, c)
@@ -1732,6 +1789,421 @@ def phase_bf16(device, card, results: dict):
               f"x{wall['f32'] / wall['bf16']:.2f}); device busy f32 {busy['f32'][0]:.3f} ms "
               f"({busy['f32'][1]}), bf16 {busy['bf16'][0]:.3f} ms ({busy['bf16'][1]}) "
               f"(x{busy['f32'][0] / busy['bf16'][0]:.2f})")
+    return by_path
+
+
+def kernels_bf16_backward(device, results: dict) -> None:
+    """B1' and B2' (resident; the streaming route on the same inputs), the
+    B7 / B7' VJPs (stacked), B3' (leaky at the enhancer's shape, hardtanh at
+    the AM's two) and B6 (the AM's conv2) on bf16 streams at B=8, ragged,
+    against their plain versions on the same bf16 inputs (``BF16_BWD_TOL``):
+    the recurrences' backward kernel alone on what the bf16 training forward
+    saved, against autograd through the plain version; the GroupNorm's on
+    its forward kernel's statistics against the closed form; conv_dw against
+    conv_dw_same_plain.  Timed in turns with the same kernel on the f32
+    inputs; the bound counts the bf16 streams at 2 bytes and the products at
+    the bf16 tensor-core rate.  Each wrapper must record a bf16 launch."""
+    import torch
+    import torch.nn.functional as F
+    from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
+    from aas_enhancement_tpu_torch.ops.cuda import gn
+    from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
+    from aas_enhancement_tpu_torch.ops.masking import time_mask
+    from aas_enhancement_tpu_torch.utils.profiling import device_time
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator().manual_seed(17)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(device)
+
+    frames = torch.tensor(BWD_FRAMES, device=device)
+    am_frames = torch.tensor(BWD_AM_FRAMES, device=device)
+    for name, cell, t_len, h, lens, stacked in (
+            ("lstm_bwd", "lstm", 1 + N // 160, 256, frames, False),
+            ("gru_bwd", "gru", AM_T, 512, am_frames, False),
+            ("lstm_stacked_bwd", "lstm", 1 + N // 160, 256, frames, True),
+            ("gru_stacked_bwd", "gru", AM_T, 512, am_frames, True)):
+        g = (4 if cell == "lstm" else 3) * h
+        entry = f"{cell}_scan_{'stacked' if stacked else 'tm'}"
+        label = f"bf16 {name} T={t_len} B={BWD_B} H={h}"
+        wh = randn(2, h, g, scale=h ** -0.5).to(bf16).float()     # as the bf16 BiRNN hands it
+        bh = randn(2, g, scale=0.1).to(bf16).float()
+        m = time_mask(lens, t_len).T.contiguous()
+        if stacked:
+            m = torch.stack([m, m.flip(0)], dim=1).contiguous()
+            x32 = randn(t_len, 2, BWD_B, g, scale=0.5)
+        else:
+            x32 = randn(t_len, BWD_B, 2 * g, scale=0.5)
+        dy32 = randn(t_len, 2, BWD_B, h) if stacked else randn(2, t_len, BWD_B, h)
+        runs = {}
+        for dt in (f32, bf16):
+            x = x32.to(dt)
+            gx = (x,) if stacked else (x[..., :g], x[..., g:])
+            _, saved = krnn._forward(entry, gx, m, wh, bh, save=True)
+            dys = (dy32.to(dt),) if stacked else tuple(dy32.to(dt).unbind(0))
+            runs[dt] = (gx, saved, dys)
+        gx, saved, dys = runs[bf16]
+        bwd = krnn._BACKWARD[entry]
+        before = bwd.launches
+        got = krnn._backward(entry, m, wh, saved, dys, True)
+        if (bwd.launches != before + 1 or bwd.dtype != bf16
+                or any(x.dtype != bf16 for x in got[0]) or any(s.dtype != bf16
+                                                               for s in saved[:-1])):
+            fail(f"{label}: the backward launched {bwd.launches - before} kernel(s) at "
+                 f"{bwd.dtype}, dgx {[x.dtype for x in got[0]]}")
+        if bwd.route != RNN_ROUTES[cell][h]:
+            fail(f"{label}: the backward took route {bwd.route}, not {RNN_ROUTES[cell][h]}")
+        inputs = [x.detach().clone().requires_grad_() for x in (*gx, wh, bh)]
+        plain = getattr(krnn, f"{entry}_plain")
+
+        def run_plain(plain=plain, inputs=inputs, m=m, dys=dys):
+            out = plain(*inputs[:-2], m, *inputs[-2:])
+            return torch.autograd.grad(out if isinstance(out, tuple) else (out,), inputs, dys)
+
+        def rels(a, b):
+            return [(x.float() - y.float()).abs().max().item() / y.float().abs().max().item()
+                    for x, y in zip(a, b)]
+
+        flat = (*got[0], got[1], got[2])
+        ref = run_plain()
+        stream = krnn._backward(entry, m, wh, saved, dys, True, route=0)
+        torch.cuda.synchronize()
+        rel = max(rels(flat, ref))
+        err = max((x.float() - y.float()).abs().max().item() for x, y in zip(flat, ref))
+        s_rel = max(rels((*stream[0], stream[1], stream[2]), flat))
+        f32_run = runs[f32]
+        ms, f32_ms = in_turns(
+            lambda: krnn._backward(entry, m, wh, saved, dys, True),
+            lambda: krnn._backward(entry, m, wh, f32_run[1], f32_run[2], True), 5, 1)
+        dgx_ms, f32_dgx_ms = in_turns(        # without the weight gradient: the kernel alone
+            lambda: krnn._backward(entry, m, wh, saved, dys, False),
+            lambda: krnn._backward(entry, m, wh, f32_run[1], f32_run[2], False), 5, 1)
+        plain_ms = statistics.median(cuda_ms(run_plain, 2, 1))
+        s_ms = statistics.median(cuda_ms(
+            lambda: krnn._backward(entry, m, wh, saved, dys, True, route=0), 3, 1))
+        cells = 2 * t_len * BWD_B * h
+        # Read once: the saved h (and c) and dy at 2 bytes, the activations
+        # [.., 4H] and wh f32; written once: dgx (and the GRU's dgh) at 2
+        # bytes, dwh and dbh f32.  dh = dg wh^T and dWh = h^T dg at the bf16
+        # tensor-core rate.
+        per_cell = 2 + 16 + 2 + 2 * g // h + (2 + 2 * g // h if cell == "gru" else 2)
+        work = (cells * per_cell + 4.0 * (2 * wh.numel() + bh.numel()),
+                2.0 * 2 * cells * g, PEAK_BF16_S)
+        tol, why = BF16_BWD_TOL[name]
+        text = keep(results, name, label, err, ms, plain_ms, work, None, rel_err=rel)
+        row = results[name]["shapes"][label]
+        row.update(dtype="bfloat16", f32_ms=f32_ms, streaming_ms=s_ms, dgx_only_ms=dgx_ms,
+                   f32_dgx_only_ms=f32_dgx_ms, kernel_route=f"resident, clusters of {bwd.route}")
+        row["device_ms"], row["device_ms_by"] = device_time(
+            lambda: krnn._backward(entry, m, wh, saved, dys, True))
+        print(f"[train_bf16] {label}: dgx (bf16), dwh, dbh (f32) against autograd through "
+              f"the plain version: largest error {rel:.3e} of the tensor's max (tol "
+              f"{tol:.0e}: {why}) | kernel alone {ms:.4f} ms (f32 inputs, same call: "
+              f"{f32_ms:.4f} ms, x{f32_ms / ms:.2f}); without the weight gradient "
+              f"{dgx_ms:.4f} ms (f32 {f32_dgx_ms:.4f}) | on the device alone "
+              f"({row['device_ms_by']}): {row['device_ms']:.4f} ms | plain backward "
+              f"{plain_ms:.4f} ms | route: resident, clusters of {bwd.route} | streaming "
+              f"kernel {s_ms:.4f} ms, {s_rel:.3e} of max from the resident | {text}")
+        if not rel <= tol or not s_rel <= tol:
+            fail(f"{label}: gradient error {rel:.3e} (streaming {s_rel:.3e}) > {tol:.0e}")
+        del runs, saved, got, ref, stream, inputs
+
+    gn_shapes = []
+    for act, t_len, f, lens in (("leaky_relu", 1 + N // 160, 161, frames),
+                                ("hardtanh", AM_T, 81, am_frames),
+                                ("hardtanh", AM_T, 41, am_frames)):
+        label = f"bf16 gn_bwd {act} [{BWD_B}, {t_len}, {f}, 32]"
+        x32 = 0.5 + 3.0 * randn(BWD_B, t_len, f, 32)
+        dy32 = randn(BWD_B, t_len, f, 32)
+        scale, bias = 1 + randn(32, scale=0.1), randn(32, scale=0.1)
+        gn_shapes.append((BWD_B, t_len, f, 32, act, lens.tolist()))
+        args = {}
+        for dt in (f32, bf16):
+            x = x32.to(dt)
+            _, scratch = gn.gn_kernel(x, scale, bias, lens, 8, 1e-5, act, 0.2)
+            args[dt] = (x, dy32.to(dt), scale, bias, lens, *gn._stats(scratch, BWD_B, 32))
+        kw = dict(num_groups=8, act=act)
+        before = gn.masked_group_norm_act_bwd.launches
+        got = gn.masked_group_norm_act_bwd(*args[bf16], **kw)
+        ref = gn.masked_group_norm_act_bwd_plain(*args[bf16], **kw)
+        torch.cuda.synchronize()
+        if (gn.masked_group_norm_act_bwd.launches != before + 1
+                or gn.masked_group_norm_act_bwd.dtype != bf16 or got[0].dtype != bf16):
+            fail(f"{label}: the backward did not launch once on bf16 streams")
+        top = ref[0].float().abs().max().item()
+        err = (got[0].float() - ref[0].float()).abs().max().item()
+        err_p = max((a - b).abs().max().item() / b.abs().max().item()
+                    for a, b in zip(got[1:], ref[1:]))
+        ms, f32_ms = in_turns(lambda: gn.masked_group_norm_act_bwd(*args[bf16], **kw),
+                              lambda: gn.masked_group_norm_act_bwd(*args[f32], **kw), 10)
+        plain_ms = statistics.median(cuda_ms(
+            lambda: gn.masked_group_norm_act_bwd_plain(*args[bf16], **kw), 5))
+        valid = valid_share(lens, t_len)       # x, dy read on the valid frames, dx written whole
+        x = args[bf16][0]
+        work = ((2 * valid + 1) * nbytes(x), 20.0 * valid * x.numel())
+        tol, why = BF16_BWD_TOL["gn_bwd"]
+        text = keep(results, "gn_bwd", label, err, ms, plain_ms, work, None, rel_err=err / top)
+        row = results["gn_bwd"]["shapes"][label]
+        row.update(dtype="bfloat16", f32_ms=f32_ms)
+        text += device_times(row, lambda: gn.masked_group_norm_act_bwd(*args[bf16], **kw))
+        print(f"[train_bf16] {label}: dx (bf16) max_abs_err {err:.3e} = {err / top:.3e} of "
+              f"max|dx| (tol {tol:.2e}: {why}); dscale, dbias {err_p:.3e} of their max | "
+              f"kernel {ms:.4f} ms (f32 inputs, same call: {f32_ms:.4f} ms, "
+              f"x{f32_ms / ms:.2f}) | plain {plain_ms:.4f} ms | {text}")
+        if not err <= tol * top or not err_p <= 1e-4:
+            fail(f"{label}: dx error {err / top:.3e} of max, dscale/dbias {err_p:.3e}")
+        del args, got, ref
+    for shape, names in zip(gn_shapes, gn_bwd_kernels(gn_shapes, "bfloat16")):
+        print(f"[train_bf16] bf16 gn_bwd {shape[4]} {list(shape[:4])}: device kernels of "
+              f"one wrapper call (fresh process): {json.dumps(names)}")
+        if sum(names.values()) != 1:
+            fail(f"the bf16 GroupNorm backward ran {names}, not one device kernel")
+
+    label = f"bf16 conv_dw AM conv2 11x21 s(1,2) x [{BWD_B}, {AM_T}, 81, 32]"
+    x32 = randn(BWD_B, AM_T, 81, 32)
+    dy32 = randn(BWD_B, AM_T, 41, 32) * time_mask(am_frames, AM_T)[:, :, None, None]
+    x, dy = x32.to(bf16), dy32.to(bf16)
+    before = kconv.conv_dw_same.launches
+    got = kconv.conv_dw_same(x, dy, 11, 21, (1, 2))
+    again = kconv.conv_dw_same(x, dy, 11, 21, (1, 2))
+    ref = kconv.conv_dw_same_plain(x, dy, 11, 21, (1, 2))
+    torch.cuda.synchronize()
+    if (kconv.conv_dw_same.launches != before + 2 or kconv.conv_dw_same.dtype != bf16
+            or got.dtype != f32 or not torch.equal(got, again)):
+        fail(f"{label}: {kconv.conv_dw_same.launches - before} launches at "
+             f"{kconv.conv_dw_same.dtype}, dW {got.dtype}, same bits {torch.equal(got, again)}")
+    err = max_err(got, ref)
+    rel = err / ref.abs().max().item()
+    ms, f32_ms = in_turns(lambda: kconv.conv_dw_same(x, dy, 11, 21, (1, 2)),
+                          lambda: kconv.conv_dw_same(x32, dy32, 11, 21, (1, 2)), 5, 1)
+    plain_ms = statistics.median(cuda_ms(
+        lambda: kconv.conv_dw_same_plain(x, dy, 11, 21, (1, 2)), 3, 1))
+    x_nchw = F.pad(x.permute(0, 3, 1, 2), (*kconv.same_pad(81, 21, 2),
+                                           *kconv.same_pad(AM_T, 11, 1)))
+    cudnn = lambda: torch.nn.grad.conv2d_weight(                           # noqa: E731
+        x_nchw, (32, 32, 11, 21), dy.permute(0, 3, 1, 2), stride=(1, 2))
+    lib_ms = statistics.median(cuda_ms(cudnn, 5))
+    work = (nbytes(x, dy, ref), 2.0 * BWD_B * AM_T * 41 * 11 * 21 * 32 * 32, PEAK_BF16_S)
+    tol, why = BF16_BWD_TOL["conv_dw"]
+    text = keep(results, "conv_dw", label, err, ms, plain_ms, work, lib_ms, rel_err=rel)
+    row = results["conv_dw"]["shapes"][label]
+    row.update(dtype="bfloat16", f32_ms=f32_ms)
+    print(f"[train_bf16] {label}, ragged dy: dW (f32) max_abs_err {err:.3e}, {rel:.3e} of "
+          f"max|dW| (tol {tol:.0e}: {why}); same bits on two runs | kernel {ms:.4f} ms "
+          f"(f32 inputs, same call: {f32_ms:.4f} ms, x{f32_ms / ms:.2f}) | plain "
+          f"{plain_ms:.4f} ms | {text} (cuDNN wgrad on the bf16 tensors, bf16 dW)")
+    if not rel <= tol:
+        fail(f"{label}: error {rel:.3e} of max|dW| > {tol:.0e}")
+
+
+def check_step_bf16(what: str, aux_cpu, aux_gpu, grads_cpu, grads_gpu, lam: float) -> None:
+    """Card vs CPU of one bf16 step: metrics (``BF16_STEP_TOL``) and each
+    gradient tensor (``BF16_GRAD_TOL``, the tensor's norm; ``BF16_GRAD_ZERO``)."""
+    tol, why = BF16_STEP_TOL
+    rel = {k: abs(float(aux_gpu[k]) - float(v)) / max(abs(float(v)), 1e-6)
+           for k, v in aux_cpu.items()}
+    worst = max(rel, key=rel.get)
+    print(f"[train_bf16] {what}, card vs CPU: metrics "
+          f"{json.dumps({k: round(float(v), 6) for k, v in aux_gpu.items()})}; largest "
+          f"relative difference {rel[worst]:.3e} ({worst}) (tol {tol:.0e}: {why})")
+    if set(aux_gpu) != set(aux_cpu) or not rel[worst] <= tol:
+        fail(f"{what}: card vs CPU metrics differ: {rel}")
+    gtol, gwhy = BF16_GRAD_TOL[lam]
+    bad = []
+    for net, grads in grads_cpu.items():
+        scale = max(v.abs().max().item() for v in grads.values())
+        errs = {}
+        for n, v in grads.items():
+            d = grads_gpu[net][n].cpu() - v
+            if grads_gpu[net][n].dtype != v.dtype:
+                bad.append(f"{net} {n}: {grads_gpu[net][n].dtype}")
+            if v.abs().max().item() > BF16_GRAD_ZERO * scale:
+                errs[n] = (d.norm() / v.norm()).item()
+                if not errs[n] <= gtol:
+                    bad.append(f"{net} {n}: {errs[n]:.3e} of its norm")
+            else:
+                errs[n] = d.abs().max().item() / scale
+                if not errs[n] <= BF16_GRAD_ZERO:
+                    bad.append(f"{net} {n}: {errs[n]:.3e} of the network's max|g|")
+        w = max(errs, key=errs.get)
+        print(f"[train_bf16] {net.upper()} gradients ({len(errs)} tensors, float32): largest "
+              f"difference {errs[w]:.3e} of the tensor's norm at {w} (tol {gtol}: {gwhy}); "
+              f"per tensor {json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})}")
+    if bad:
+        fail(f"{what}: card vs CPU bf16 gradients differ: {bad}")
+
+
+def phase_train_bf16(device, card, results: dict):
+    """Training at bf16 on the card (``dtype="bfloat16"``, shipped widths):
+    the bf16 backward kernels against their plain versions
+    (``kernels_bf16_backward``); one bf16 step of the aas, am and paired
+    (MR-STFT term on) objectives card vs CPU at B=4 x BF16_SECONDS; each
+    step's launches at B=8 with every GroupNorm, LSTM, GRU and conv_dw
+    wrapper's last launch, forward and backward, on bf16 streams; the three
+    steps at B=8 and B=32 x 8 s timed bf16 beside f32 (in turns) with their
+    peak memory, and the aas step at B=128 x 8 s (the JAX package's
+    production shape); cli.train with a bf16 --config for two steps of each
+    objective and of the blockwise am variant, and an am run saved at step 2
+    and continued to step 3.  -> {path: launches}."""
+    import torch
+    from aas_enhancement_tpu_torch.cli import train as train_cli
+    from aas_enhancement_tpu_torch.config import Config
+    from aas_enhancement_tpu_torch.data import generate_corpus
+    from aas_enhancement_tpu_torch.train.loop import init_state
+    from aas_enhancement_tpu_torch.train.state import TrainState
+    from aas_enhancement_tpu_torch.train.steps import make_train_step
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    kernels_bf16_backward(device, results)
+    gen = torch.Generator().manual_seed(23)
+    lam = {"aas": 0.0, "am": 0.0, "paired": 0.5}
+
+    def config(objective: str, b: int, dtype: str):
+        cfg = Config()
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, objective=objective,
+                                                    batch_size=b,
+                                                    lambda_mrstft=lam[objective]))
+        return bf16_config(cfg) if dtype == "bf16" else cfg
+
+    def batch_of(objective: str, b: int, lengths: list[int]) -> dict:
+        if objective == "paired":
+            return paired_batch(b, gen, lengths)
+        full = train_batch(b, gen, lengths)
+        return {k: v for k, v in full.items()
+                if objective != "am" or not k.startswith("clean")}
+
+    # One bf16 step of each objective, card vs CPU, at B=4 x BF16_SECONDS.
+    n = SR * BF16_SECONDS
+    for objective in ("aas", "am", "paired"):
+        cfg = config(objective, B, "bf16")
+        state_cpu = init_state(cfg, cfg.train.seed, "cpu", am_seed=0)
+        state_gpu = TrainState(**{k: copy.deepcopy(getattr(state_cpu, k)).to(device)
+                                  for k in ("g", "d", "am") if getattr(state_cpu, k) is not None})
+        batch = {k: v[:, :n].contiguous() if v.ndim == 2 and v.shape[1] == N else v
+                 for k, v in batch_of(objective, B, [n, n - 4000, n - 8000, n // 2]).items()}
+        step = make_train_step(cfg)
+        t0 = time.perf_counter()
+        grads_cpu, aux_cpu = step.batch_grads(state_cpu, batch)
+        cpu_s = time.perf_counter() - t0
+        grads_gpu, aux_gpu = step.batch_grads(state_gpu, {k: v.to(device)
+                                                          for k, v in batch.items()})
+        torch.cuda.synchronize()
+        check_step_bf16(f"one bf16 {objective} step B={B} x {BF16_SECONDS} s (lambda_mrstft "
+                        f"{lam[objective]}; CPU plain path {cpu_s:.2f} s)", aux_cpu, aux_gpu,
+                        grads_cpu, grads_gpu, lam[objective])
+        del state_cpu, state_gpu, grads_cpu, grads_gpu
+
+    # Launches of one bf16 step at B=8, then the steps timed bf16 beside f32.
+    by_path = {}
+    for objective in ("aas", "am", "paired"):
+        names = BF16_STEP_KERNELS[objective]
+        states = {dt: init_state(config(objective, B, dt), Config().train.seed, device,
+                                 am_seed=0) for dt in ("f32", "bf16")}
+        for b in TRAIN_BATCHES:
+            steps = {dt: make_train_step(config(objective, b, dt)) for dt in states}
+            batch = {k: v.to(device) for k, v in batch_of(objective, b, [N]).items()}
+            if b == BWD_B:
+                path = f"{objective}_step_bf16"
+                by_path[path] = counted(names, lambda: steps["bf16"](states["bf16"], batch))
+                check_bf16_launches(f"one bf16 {objective} step", by_path[path],
+                                    BF16_STEP_STREAMS[objective])
+                print(f"[train_bf16] launches of one bf16 {objective} step B={b}: "
+                      f"{json.dumps(by_path[path])}; {', '.join(BF16_STEP_STREAMS[objective])} "
+                      "on bf16 streams")
+            walls, peak = {"f32": [], "bf16": []}, {}
+            for dt in ("f32", "bf16", "bf16", "f32"):          # in turns
+                torch.cuda.reset_peak_memory_stats()
+                for i in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, aux = steps[dt](states[dt], batch)
+                    torch.cuda.synchronize()
+                    if i >= 1:
+                        walls[dt].append(time.perf_counter() - t0)
+                peak[dt] = max(peak.get(dt, 0), torch.cuda.max_memory_allocated() / 2**30)
+                if not all(abs(float(v)) < float("inf") for v in aux.values()):
+                    fail(f"non-finite {dt} {objective} metrics at B={b}: {aux}")
+            wall = {dt: statistics.median(w) * 1e3 for dt, w in walls.items()}
+            print(f"[train_bf16] B={b} x {SECONDS} s {objective} step on {card}: bf16 "
+                  f"{wall['bf16']:.2f} ms/step, f32 {wall['f32']:.2f} (f32 / bf16 "
+                  f"x{wall['f32'] / wall['bf16']:.2f}); peak device memory bf16 "
+                  f"{peak['bf16']:.2f} GiB, f32 {peak['f32']:.2f} GiB (both states resident; "
+                  f"medians of 6 after a warmup, in turns; walls ms "
+                  f"{json.dumps({dt: [round(x * 1e3, 2) for x in w] for dt, w in walls.items()})})")
+            del steps, batch
+        del states
+
+    # The aas step at the JAX package's production shape (bench.py), bf16.
+    b = BF16_B_PRODUCTION
+    state = init_state(config("aas", b, "bf16"), Config().train.seed, device, am_seed=0)
+    step = make_train_step(config("aas", b, "bf16"))
+    batch = {k: v.to(device) for k, v in batch_of("aas", b, [N]).items()}
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, aux = step(state, batch)
+        torch.cuda.synchronize()
+        if i >= 1:
+            walls.append(time.perf_counter() - t0)
+    if not all(abs(float(v)) < float("inf") for v in aux.values()):
+        fail(f"non-finite bf16 aas metrics at B={b}: {aux}")
+    wall = statistics.median(walls)
+    print(f"[train_bf16] B={b} x {SECONDS} s aas step (bf16, the JAX package's production "
+          f"shape) on {card}: {wall * 1e3:.2f} ms/step, {b / wall:.2f} utterances/s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (median of "
+          f"{len(walls)} after a warmup; walls ms {[round(w * 1e3, 2) for w in walls]})")
+    del state, step, batch
+
+    # cli.train with a bf16 --config: two steps of each objective, the
+    # blockwise am variant, and an am run saved at step 2 and continued to 3.
+    cli_k = ("stft", "istft", "gn_act", "lstm", "gru", "lstm_bwd", "gru_bwd", "gn_bwd",
+             "conv_dw", "stft_vjp", "istft_vjp")
+    with tempfile.TemporaryDirectory() as tmp:
+        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1, word_len=(2, 6))
+        cfg_path = os.path.join(tmp, "bf16.json")
+        cfg = bf16_config(Config())
+        with open(cfg_path, "w") as f:
+            f.write(cfg.replace(train=dataclasses.replace(cfg.train,
+                                                          lambda_mrstft=0.5)).to_json())
+        common = ["--batch-size", str(B), "--log-every", "1", "--config", cfg_path,
+                  "--am-checkpoint", "seed:0", "--device", "cuda"]
+        runs = [(obj, ["--objective", obj, "--noisy-manifest", m["noisy"],
+                       "--clean-manifest", m["clean"]]) for obj in
+                ("aas", "adversarial", "acoustic", "paired")]
+        runs.append(("am", ["--objective", "am", "--noisy-manifest", m["clean"]]))
+        runs.append(("am --streaming-finetune-am",
+                     ["--objective", "am", "--noisy-manifest", m["clean"],
+                      "--streaming-finetune-am"]))
+        ck = os.path.join(tmp, "ck_am")
+        runs.append(("am --checkpoint-dir", ["--objective", "am", "--noisy-manifest",
+                                             m["clean"], "--checkpoint-dir", ck]))
+        for tag, argv in runs:
+            line, records, launches = _cli_run(f"cli.train --objective {tag} (bf16 config)",
+                                               train_cli.main, argv + common + ["--steps", "2"],
+                                               "train_bf16", cli_k)
+            if (line.get("final_step") != 2 or [r["step"] for r in records] != [1, 2]
+                    or not all(abs(v) < float("inf") for k, v in line.items()
+                               if k.startswith("loss"))):
+                fail(f"cli.train {tag} (bf16) printed {line} after {records}")
+            streams = [k for k in ("gn_act", "gn_bwd", "lstm", "lstm_bwd", "gru", "gru_bwd",
+                                   "conv_dw") if launches.get(k)]
+            check_bf16_launches(f"cli.train {tag} (bf16)", launches, streams)
+            by_path["cli_train_bf16_" + re.sub(r"\W+", "_", tag).strip("_")] = launches
+        line, records, _ = _cli_run(
+            "cli.train --objective am --steps 3 --checkpoint-dir --continue-from (bf16)",
+            train_cli.main, ["--objective", "am", "--noisy-manifest", m["clean"],
+                             "--checkpoint-dir", ck, "--continue-from", *common,
+                             "--steps", "3"], "train_bf16", cli_k)
+        saved = json.loads(open(os.path.join(ck, "config.json")).read())
+        if (line.get("final_step") != 3 or [r["step"] for r in records] != [3]
+                or saved["am"]["dtype"] != "bfloat16"):
+            fail(f"the continued bf16 am run printed {line} after {records}, its "
+                 f"directory's AM dtype {saved['am']['dtype']}")
+        print(f"[train_bf16] the bf16 am run saved at step 2 continued to step 3 from "
+              f"{sorted(os.listdir(ck))}: {json.dumps(line)}")
     return by_path
 
 
@@ -3568,6 +4040,8 @@ def main() -> int:
                "recognize": timed("recognize", phase_recognize, device, smi)}   # evaluate CLI
     # The bf16 models' forwards: the CLIs, the engines and an artifact.
     by_path.update(timed("bf16", phase_bf16, device, smi, results))
+    # Training at bf16: the backward kernels on bf16 streams, the steps, the CLI.
+    by_path.update(timed("train_bf16", phase_train_bf16, device, smi, results))
     # The beam decoders and LM fusion (evaluate CLI), the worker loader (train CLI).
     by_path["decode"], by_path["decode_grain_train"] = timed("decode", phase_decode,
                                                              device, smi)

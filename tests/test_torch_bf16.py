@@ -16,8 +16,10 @@ the enhance path's wave, the recognition path's logits and the streaming
 engines' outputs atol 5e-2 x max|ref| (a path sums the mask's bf16 error over
 161 bins and two overlapping frames, the logits' through every layer);
 greedy ids equal wherever JAX's top-2 log-probs part by more than that.
-Also: training at bf16 raises naming bf16b, a bf16 config loads alike in
-both packages, the operators' fakes give bf16 for bf16, and an exported bf16
+Also: a bf16 config trains (``init_state``, ``make_train_step`` and
+``train`` take it; the steps themselves are held to JAX's in
+``tests/test_torch_bf16_steps.py``), a bf16 config loads alike in both
+packages, the operators' fakes give bf16 for bf16, and an exported bf16
 enhancer equals the live one.
 """
 
@@ -401,18 +403,27 @@ def test_streaming_recognizer_matches_jax(nets):
 # ----------------------------------------------------------- what else holds
 
 def test_training_at_bf16_raises_naming_bf16b(tmp_path):
+    """Training at bf16 no longer raises (the bf16b item is done): with one
+    model at a time at bfloat16, ``init_state`` builds the networks in that
+    dtype, ``make_train_step`` a step, and ``train`` runs a step on a small
+    corpus; the name is kept from when these raised."""
+    from aas_enhancement_tpu_torch.data.synthetic import generate_corpus
     from aas_enhancement_tpu_torch.train.loop import init_state, train
     from aas_enhancement_tpu_torch.train.steps import make_train_step
+    corpus = generate_corpus(str(tmp_path / "c"), n_utts=2, seed=3)
+    small = dataclasses.replace(TCFG.train, objective="aas", batch_size=2, log_every=1)
     for name in ("enhancer", "am", "discriminator"):
-        one = TCFG.replace(**{n: dataclasses.replace(getattr(TCFG, n), dtype="float32")
+        one = TCFG.replace(train=small, data=dataclasses.replace(TCFG.data, num_buckets=1),
+                           **{n: dataclasses.replace(getattr(TCFG, n), dtype="float32")
                               for n in ("enhancer", "am", "discriminator") if n != name})
-        for device in ("cpu", "cuda"):
-            with pytest.raises(NotImplementedError, match="bf16b"):
-                init_state(one, 0, device)
-        with pytest.raises(NotImplementedError, match="bf16b"):
-            make_train_step(one)
-        with pytest.raises(NotImplementedError, match="bf16b"):
-            train(one, str(tmp_path / "none.csv"), device="cpu")
+        state = init_state(one, 0, "cpu")
+        net = {"enhancer": state.g, "am": state.am, "discriminator": state.d}[name]
+        assert net.dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in net.parameters())
+        assert callable(make_train_step(one))
+        state, records = train(one, corpus["noisy"], corpus["clean"], max_steps=1,
+                               device="cpu")
+        assert state.step == 1 and np.isfinite(records[-1]["loss_g"])
 
 
 def test_bf16_config_loads_alike_in_both_packages():

@@ -23,6 +23,13 @@ within 2^-7 x max|plain| (one bf16 ulp at the top: f32 z rounded apart where
 the sums' order differs), the LSTM and GRU within 2^-6 x max|plain| (a
 rounded h that parts fed back T times); the bf16 enhance path card vs CPU
 5e-2 x max|wave| (cuBLAS / cuDNN bf16 products against the CPU's).
+The backward kernels on bf16 streams (training at bf16): the recurrences'
+dgx, dwh, dbh within 2e-2 x max|plain| of each tensor (the kernels read
+the bf16 copies of h and c that the Pallas VJP reads, the plain autograd its
+f32 state), the resident and the streaming route within 2e-2 x max of each
+other; the GroupNorm's dx within 2^-7 x max|plain| (one bf16 ulp at the
+top), dscale and dbias 1e-4 x max (f32 sums of the same products); conv_dw
+1e-4 x max|dW| (f32 sums of the same bf16 values).
 """
 
 import re
@@ -1231,7 +1238,7 @@ def _bf16_scan_inputs(cuda, cell, t, b, h, stacked, seed):
     g = (4 if cell == "lstm" else 3) * h
     wh = _randn(2, h, g, seed=seed, scale=1.0 / h ** 0.5).bfloat16().float().to(cuda)
     bh = _randn(2, g, seed=seed + 1, scale=0.1).bfloat16().float().to(cuda)
-    lengths = torch.tensor([t, t // 2 + 1, 0, t - 1, 1][:b], device=cuda)
+    lengths = torch.tensor([t, t // 2 + 1, 0, t - 1, 1, 2, t, t - 3][:b], device=cuda)
     m = (torch.arange(t, device=cuda)[:, None] < lengths[None]).float()
     if stacked:
         gx = _randn(t, 2, b, g, seed=seed + 2, scale=0.5).to(cuda).bfloat16()
@@ -1271,26 +1278,140 @@ def test_rnn_forward_kernels_bf16(cuda, cell, t, b, h, route, stacked):
 
 
 def test_rnn_wrappers_at_bf16_take_inference_only(cuda):
-    """The wrappers launch the bf16 inference kernel without a wanted gradient
-    and raise (bf16b) where one is wanted; parameters stay float32."""
+    """The wrappers launch the bf16 inference kernel without a wanted
+    gradient, and with one the bf16 training forward and the bf16 backward
+    kernel (dgx in gx's dtype, one launch each); the GroupNorm's autograd
+    Function takes bf16 too; parameters stay float32, and a misaligned bf16 x
+    still raises."""
     gx, m, wh, bh = _bf16_scan_inputs(cuda, "gru", 20, 4, 64, False, seed=3)
     with torch.no_grad():
         yf, yb = krnn.gru_scan_tm(*gx, m, wh, bh)
     assert yf.dtype == torch.bfloat16 and krnn.gru_scan_tm.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="bf16b"):
-        krnn.gru_scan_tm(*gx, m, wh.clone().requires_grad_(), bh)
+    g = gx[0].shape[-1]
+    gates = torch.cat(gx, dim=-1).requires_grad_()
+    before = (krnn.gru_scan_tm.launches, krnn.gru_scan_tm_bwd.launches)
+    ys = krnn.gru_scan_tm(gates[..., :g], gates[..., g:], m, wh.clone().requires_grad_(), bh)
+    (dgates,) = torch.autograd.grad(ys, gates, [torch.ones_like(y) for y in ys])
+    assert (krnn.gru_scan_tm.launches, krnn.gru_scan_tm_bwd.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    assert dgates.dtype == torch.bfloat16 and krnn.gru_scan_tm_bwd.dtype == torch.bfloat16
     with pytest.raises(TypeError, match="float32"):
         krnn.gru_scan_tm(*gx, m, wh.bfloat16(), bh)
-    x = torch.ones(2, 8, 5, 16, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16b"):
-        gn.masked_group_norm_act(x, torch.ones(16, device=cuda, requires_grad=True),
-                                 torch.zeros(16, device=cuda), torch.tensor([8, 3]),
+    x = torch.ones(2, 8, 5, 16, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    scale = torch.ones(16, device=cuda, requires_grad=True)
+    y = gn.masked_group_norm_act(x, scale, torch.zeros(16, device=cuda), torch.tensor([8, 3]),
                                  num_groups=8, act="leaky_relu")
+    dx, dscale = torch.autograd.grad(y.float().sum(), (x, scale))
+    assert dx.dtype == torch.bfloat16 and dscale.dtype == torch.float32
+    assert gn.masked_group_norm_act_bwd.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="8-byte aligned"):
         flat = torch.zeros(2 * 8 * 5 * 16 + 1, device=cuda, dtype=torch.bfloat16)
         gn.masked_group_norm_act(flat[1:].view(2, 8, 5, 16), torch.ones(16, device=cuda),
                                  torch.zeros(16, device=cuda), torch.tensor([8, 3]),
                                  num_groups=8)
+
+
+BF16_BWD = [("lstm", 60, 5, 32), ("lstm", 40, 8, 256), ("lstm", 30, 4, 512),
+            ("gru", 60, 5, 64), ("gru", 40, 8, 512)]
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("cell,t,b,h", BF16_BWD)
+def test_rnn_backward_kernels_bf16(cuda, cell, t, b, h, stacked):
+    """B1' / B2' (time-major) and the B7 / B7' VJPs (stacked) on bf16 streams,
+    on the training forward's saved state: dgx (bf16), dwh, dbh (f32) of the
+    width's route against autograd through the plain version, the forced
+    streaming route against it, and without the weight gradient dgx keeps its
+    bits; ragged lengths with an all-padded row."""
+    gx, m, wh, bh = _bf16_scan_inputs(cuda, cell, t, b, h, stacked, seed=h + t + 7)
+    name = f"{cell}_scan_{'stacked' if stacked else 'tm'}"
+    fwd, bwd = getattr(krnn, name), krnn._BACKWARD[name]
+    route = krnn.bwd_resident_cluster(cell, h)
+    ys, saved = krnn._forward(name, gx, m, wh, bh, save=True)
+    assert fwd.dtype == torch.bfloat16
+    assert all(x.dtype == torch.bfloat16 for x in saved[:-1]) and saved[-1].dtype == torch.float32
+    dys = tuple(_randn(*y.shape, seed=h + 31 + i).to(cuda).bfloat16() for i, y in enumerate(ys))
+    before = bwd.launches
+    got = krnn._backward(name, m, wh, saved, dys, True)
+    assert bwd.launches == before + 1 and bwd.route == route and bwd.dtype == torch.bfloat16
+    frozen = krnn._backward(name, m, wh, saved, dys, False)
+    stream = krnn._backward(name, m, wh, saved, dys, True, route=0) if route else got
+    assert bwd.launches == before + (3 if route else 2)
+    plain = getattr(krnn, f"{name}_plain")
+    inputs = [x.detach().clone().requires_grad_() for x in (*gx, wh, bh)]
+    out = plain(*inputs[:-2], m, *inputs[-2:])
+    ref = torch.autograd.grad((out,) if stacked else out, inputs, dys)
+    torch.cuda.synchronize()
+
+    def flat(res):
+        return (*res[0], res[1], res[2])
+
+    for x, r in zip(flat(got), ref):
+        assert x.dtype == r.dtype
+        torch.testing.assert_close(x.float(), r.float(), rtol=0,
+                                   atol=2e-2 * float(r.float().abs().max()))
+    assert all(x.dtype == torch.bfloat16 for x in got[0])
+    assert got[1].dtype == got[2].dtype == torch.float32
+    assert all(torch.equal(x, y) for x, y in zip(frozen[0], got[0]))
+    for x, y in zip(flat(stream), flat(got)):
+        torch.testing.assert_close(x.float(), y.float(), rtol=0,
+                                   atol=2e-2 * float(y.float().abs().max()))
+    row = (slice(None), slice(None), 2) if stacked else (slice(None), 2)
+    assert all(torch.all(x[row] == 0) for x in got[0])        # the all-padded row
+
+
+@pytest.mark.parametrize("act,shape", [("leaky_relu", (3, 45, 17, 16)),
+                                       ("hardtanh", (3, 45, 17, 16)),
+                                       ("leaky_relu", (8, 801, 161, 32)),
+                                       ("hardtanh", (8, 401, 81, 32)),
+                                       ("hardtanh", (8, 401, 41, 32))])
+def test_gn_backward_kernel_bf16(cuda, act, shape):
+    """B3' on bf16 x and dy (the enhancer's and the AM's shapes at B = 8)
+    against the plain closed form on the same bf16 inputs, from the bf16
+    forward kernel's saved statistics: dx bf16, dscale and dbias f32, one
+    launch."""
+    b, t, f, c = shape
+    x = (0.5 + 2.0 * _randn(*shape, seed=t + 1)).to(cuda).bfloat16()
+    dy = _randn(*shape, seed=t + 2).to(cuda).bfloat16()
+    scale = (1 + _randn(c, seed=4, scale=0.1)).to(cuda)
+    bias = _randn(c, seed=5).to(cuda)
+    lengths = torch.tensor([t, t - 14, 0, t // 2, 1, t, t - 1, 3][:b], device=cuda)
+    _, scratch = gn.gn_kernel(x, scale, bias, lengths, 8, 1e-5, act, 0.2)
+    mean, inv = gn._stats(scratch, b, c)
+    args = (x, dy, scale, bias, lengths, mean, inv)
+    before = gn.masked_group_norm_act_bwd.launches
+    got = gn.masked_group_norm_act_bwd(*args, num_groups=8, act=act)
+    ref = gn.masked_group_norm_act_bwd_plain(*args, num_groups=8, act=act)
+    torch.cuda.synchronize()
+    assert gn.masked_group_norm_act_bwd.launches == before + 1
+    assert gn.masked_group_norm_act_bwd.dtype == torch.bfloat16
+    assert got[0].dtype == ref[0].dtype == torch.bfloat16
+    assert got[1].dtype == got[2].dtype == torch.float32
+    _bf16_close(got[0], ref[0], 2.0 ** -7)
+    for a, r in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-4 * float(r.abs().max()))
+    assert torch.all(got[0][1, t - 14:] == 0) and (b < 3 or torch.all(got[0][2] == 0))
+
+
+@pytest.mark.parametrize("shape", [(8, 401, 81, 32, 32, 11, 21, (1, 2)),   # the AM's conv2
+                                   (2, 21, 19, 10, 6, 3, 5, (1, 1))])     # scalar loads
+def test_conv_dw_kernel_bf16(cuda, shape):
+    """B6 on bf16 x and dy against the plain version on the same values:
+    f32 dW, one launch, the same bits twice."""
+    b, t, f, ci, co, kt, kf, strides = shape
+    x = _randn(b, t, f, ci, seed=3).to(cuda).bfloat16()
+    dy = _randn(b, t, -(-f // strides[1]), co, seed=4).to(cuda).bfloat16()
+    before = kconv.conv_dw_same.launches
+    got = kconv.conv_dw_same(x, dy, kt, kf, strides)
+    assert kconv.conv_dw_same.launches == before + 1
+    assert kconv.conv_dw_same.dtype == torch.bfloat16
+    again = kconv.conv_dw_same(x, dy, kt, kf, strides)
+    ref = kconv.conv_dw_same_plain(x, dy, kt, kf, strides)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == torch.float32 and torch.equal(got, again)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+    with pytest.raises(TypeError, match="streams"):
+        kconv.conv_dw_same(x, dy.float(), kt, kf, strides)
 
 
 def test_bf16_enhance_on_card_matches_cpu(cuda):
