@@ -14,13 +14,24 @@
 // unit wants 128 x 128 outputs, reads x under a second, shifted BlockSpec for
 // the time halo, pads F to the sublane tile, and needs a phase split of x
 // for stride 2.  None of that carries over: here the stride and the padding
-// are index arithmetic on one staged row, and one kernel serves both strides.
+// are index arithmetic on staged rows, and one kernel serves both strides.
 //
-// Bound on the H100: operations.  At the acoustic model's conv2 (B = 8,
-// T = 401, F = 81 -> 41, 32 -> 32 channels, 11 x 21 taps) it is 62 GFLOP on
-// 50 MB of input, 0.93 ms at the card's 67 TFLOP/s of f32 FMAs against
-// 0.015 ms of memory traffic, so the design keeps the FMA pipes fed from
-// registers and shared memory:
+// Two routes, picked by the wrapper's plan (ops/cuda/conv_dw.py::conv_dw_plan)
+// from the input dtype; both write per-slice partial sums part[slice] and
+// conv_dw_reduce_kernel adds the slices in order, so the result does not
+// depend on the schedule: two runs give the same bits.  No atomics.  dW
+// [kt, kf, ci, co] f32, contiguous; part [slices, kt, kf, ci, co].
+//
+// Layout: x and dy have unit channel stride and strides (b, t, f) in
+// elements, so both a contiguous [B, T, F, C] tensor and the channels-last
+// memory of an NCHW tensor are read in place.  16-byte copies where the
+// strides and the base allow, scalar loads otherwise.
+//
+// f32 inputs ("fma", conv_dw_kernel).  Bound on the H100: operations.  At
+// the acoustic model's conv2 (B = 8, T = 401, F = 81 -> 41, 32 -> 32
+// channels, 11 x 21 taps) it is 62 GFLOP on 50 MB of input, 0.93 ms at the
+// card's 67 TFLOP/s of f32 FMAs against 0.015 ms of memory traffic, so the
+// design keeps the FMA pipes fed from registers and shared memory:
 // - a block owns `ndt` time taps, a few chunks of kTaps frequency taps and a
 //   slice of the (b, t) rows; per row it stages the dy row [Fo, co] and the
 //   `ndt` x rows [s (Fo - 1) + taps, ci] it needs (zero where x is padding) in
@@ -29,40 +40,66 @@
 // - a thread keeps a 4 ci x 4 co register tile for each of its kTaps taps
 //   (16 kTaps accumulators); per output position it reads one float4 of dy
 //   and kTaps float4 of x from shared memory (the warp's threads share them:
-//   broadcasts) for 16 kTaps FMAs;
-// - each block writes its partial dW to part[slice]; a second kernel adds the
-//   slices in order, so the result does not depend on the schedule: two runs
-//   give the same bits.  No atomics.
-// TF32 tensor-core products would lift the bound to 0.13 ms; that is later
-// work (f32 FMAs keep the gradient within f32 rounding of the plain version).
+//   broadcasts) for 16 kTaps FMAs.
+// Channels are padded to a multiple of 4 in shared memory.
 //
-// Layout: x and dy have unit channel stride and strides (b, t, f) in
-// elements, so both a contiguous [B, T, F, C] tensor and the channels-last
-// memory of an NCHW tensor are read in place.  16-byte loads when the
-// channel count and strides are multiples of 4 and the base is aligned, scalar
-// loads otherwise; channels are padded to a multiple of 4 in shared memory.
-// dW [kt, kf, ci, co] f32, contiguous; part [slices, kt, kf, ci, co].
-//
-// Inputs (the `bf16` flag): x and dy are f32, or bf16 (the AM's conv2 when a
-// bf16 AM trains).  A bf16 row is widened to f32 as it is staged (8-byte
-// loads of four channels where the channel count, the strides and the base
-// allow, scalar loads otherwise), so the products and sums are the f32 ones
-// of the f32 kernel on the bf16 values, and dW is f32: what the Pallas kernel
-// computes for a bf16 input (f32 accumulation).  The bf16 loads go through
-// registers, not cp.async, so the next row's staging overlaps this row's
-// products less; tensor-core mma on the bf16 values is later work.
+// bf16 inputs ("mma", conv_dw_mma_kernel; a bf16 AM's conv2).  A product of
+// two bf16 values is exact in f32, so bf16 x bf16 -> f32 tensor-core
+// products summed in f32 compute what the plain version and the Pallas
+// kernel (preferred_element_type f32) compute, in another order.  Bound:
+// operations at the 989 TFLOP/s bf16 rate (0.063 ms at conv2, B = 8,
+// against 0.0075 ms for the 25 MB of x and dy).  Per tap the work is an
+// implicit GEMM, M = ci, N = co, contraction K over the positions (b, t, f):
+// - a block owns one chunk of ci (up to 32 channels), one of co (up to 32),
+//   `per_block` consecutive taps (dt-major, so they span `ndt` time taps)
+//   and a slice of the (b, t) rows; each of its 8 multiplying warps owns
+//   32 / (MT NT) of the taps, each a full tile of MT x NT m16n8 accumulators
+//   (128 f32 registers a thread in all);
+// - K runs over a window's (row, bin) positions, 16 at a time, with no
+//   padding of Fo: each lane of `ldmatrix.trans` gives the address of its own
+//   position's row, so dy's fragment is position k's dy row and tap (dt,
+//   df)'s A fragment is x's staged row (i + dt - dt_min, s f + df): the taps
+//   and the stride are only different row addresses.  dy's fragment serves
+//   all of the warp's taps; mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32
+//   does the products, and the next tap's fragment loads while a tap's
+//   products run;
+// - a fourth warpgroup stages the windows (up to `win` dy rows of one
+//   utterance and the win + ndt - 1 x rows they read, bf16 as bf16, 16-byte
+//   cp.async; scalar loads where a row forbids them) into two stages, each
+//   while the multiplying warps work on the other, handing them over with
+//   named barriers; setmaxnreg gives it 40 registers a thread and the
+//   multiplying warps 232.  Each staged x row serves every time tap that
+//   reads it.  An x row is staged phase-split (position s j + ph at row
+//   ph half + j) in slots of xp = Fo mod 8 rows, so that a tap reads
+//   consecutive rows for consecutive bins whatever the stride, and a lane's
+//   rows move by multiples of 8 from step to step;
+// - staged rows are 16, 32 or 64 bytes; chunk c of row r sits at c ^ h(r),
+//   which puts any 8 consecutive rows read at one chunk in 8 distinct
+//   16-byte bank groups, so ldmatrix's gathers are free of bank conflicts
+//   (across a dy row's end too, as the rows move by multiples of 8), and a
+//   lane's chunk XOR, hence its address offsets, stay fixed all window long;
+// - channels past ci or co, positions past the window and SAME padding are
+//   zeros in shared memory;
+// - the tensor cores' f32 sums do not round to nearest, so their error grows
+//   with the run: a warp adds its sums into part[slice] every ~128 dy rows
+//   and restarts from zero, so that the error does not grow with the batch.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr size_t kMaxStageBytes = 227 * 1024;   // shared memory of one sm_90 block
+
+// ------------------------------------------------------------ f32: "fma"
 
 struct Params {
-  const void* x;                // f32 or bf16 (the kernel's TI)
-  const void* dy;
+  const float* x;
+  const float* dy;
   float* part;
   long long xs_b, xs_t, xs_f;   // x strides in elements (channel stride 1)
   long long ds_b, ds_t, ds_f;   // dy strides in elements (channel stride 1)
@@ -73,12 +110,11 @@ struct Params {
   int ndt;                      // time taps per block
   int ndfc, ndfb;               // frequency-tap chunks: in all, per block
   int fpad;                     // staged x row length, in frequency positions
-  int vec_x, vec_dy;            // 16-byte (f32) or 8-byte (bf16) loads of 4 channels allowed
+  int vec_x, vec_dy;            // 16-byte loads of 4 channels allowed
 };
 
-// Four channels of a row into shared memory as f32, zero past the first `n`:
-// one 16-byte cp.async (f32, `vec`), one 8-byte load widened (bf16, `vec`),
-// or scalar loads.
+// Four channels of a row into shared memory, zero past the first `n`: one
+// 16-byte cp.async (`vec`), or scalar loads.
 __device__ __forceinline__ void stage4(float* dst, const float* src, bool vec, int n) {
   if (vec) {
     __pipeline_memcpy_async(dst, src, 16);
@@ -88,22 +124,9 @@ __device__ __forceinline__ void stage4(float* dst, const float* src, bool vec, i
   for (int k = 0; k < 4; ++k) dst[k] = k < n ? __ldg(src + k) : 0.f;
 }
 
-__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src, bool vec, int n) {
-  if (vec) {
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(src));
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-    *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) dst[k] = k < n ? __bfloat162float(src[k]) : 0.f;
-}
-
 // Stage row r = (b, t): dy[b, t] -> dy_s [Fo][4 co4], and for each of the
 // block's time taps x[b, t + dt - pt0] -> x_s [ndt][fpad][4 ci4], position
 // fp holding frequency fp - pf0, zeros where x is padding.
-template <typename TI>
 __device__ __forceinline__ void stage_row(const Params& p, int r, int dt0,
                                           float* __restrict__ dy_s,
                                           float* __restrict__ x_s) {
@@ -112,7 +135,7 @@ __device__ __forceinline__ void stage_row(const Params& p, int r, int dt0,
   const int cop = 4 * p.co4;
   const int cip = 4 * p.ci4;
 
-  const TI* dy_row = static_cast<const TI*>(p.dy) + b * p.ds_b + t * p.ds_t;
+  const float* dy_row = p.dy + b * p.ds_b + t * p.ds_t;
   for (int e = threadIdx.x; e < p.Fo * p.co4; e += blockDim.x) {
     const int f = e / p.co4;
     const int c = 4 * (e - f * p.co4);
@@ -129,15 +152,14 @@ __device__ __forceinline__ void stage_row(const Params& p, int r, int dt0,
     const int f_in = fp - p.pf0;
     float* dst = x_s + (dtl * p.fpad + fp) * cip + c;
     if (t_in >= 0 && t_in < p.T && f_in >= 0 && f_in < p.F) {
-      stage4(dst, static_cast<const TI*>(p.x) + b * p.xs_b + t_in * p.xs_t + f_in * p.xs_f + c,
-             p.vec_x, p.ci - c);
+      stage4(dst, p.x + b * p.xs_b + t_in * p.xs_t + f_in * p.xs_f + c, p.vec_x, p.ci - c);
     } else {
       *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
 
-template <int kTaps, typename TI>
+template <int kTaps>
 __global__ void __launch_bounds__(kMaxThreads)
 conv_dw_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -172,12 +194,12 @@ conv_dw_kernel(const Params p) {
   const int r0 = slice * p.rows_per_slice;
   const int r1 = min(p.rows, r0 + p.rows_per_slice);
 
-  if (r0 < r1) stage_row<TI>(p, r0, dt0, smem, smem + dy_floats);
+  if (r0 < r1) stage_row(p, r0, dt0, smem, smem + dy_floats);
   __pipeline_commit();
   for (int r = r0; r < r1; ++r) {
     float* cur = smem + ((r - r0) & 1) * stage_floats;
     float* nxt = smem + ((r - r0 + 1) & 1) * stage_floats;
-    if (r + 1 < r1) stage_row<TI>(p, r + 1, dt0, nxt, nxt + dy_floats);
+    if (r + 1 < r1) stage_row(p, r + 1, dt0, nxt, nxt + dy_floats);
     __pipeline_commit();
     __pipeline_wait_prior(1);          // row r has landed; row r + 1 may be in flight
     __syncthreads();
@@ -279,29 +301,526 @@ size_t stage_bytes(const Plan& plan, int Fo, int ci, int co, int sf) {
                               (size_t)plan.ndt * staged_positions(plan, Fo, sf) * 4 * ci4);
 }
 
-constexpr size_t kMaxStageBytes = 227 * 1024;   // shared memory of one sm_90 block
-
-template <int kTaps, typename TI>
+template <int kTaps>
 int launch(const Params& p, const Plan& plan, int slices, size_t smem,
            cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        conv_dw_kernel<kTaps, TI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        conv_dw_kernel<kTaps>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(slices, plan.grid_y, plan.grid_z);
-  conv_dw_kernel<kTaps, TI><<<grid, plan.threads, smem, stream>>>(p);
+  conv_dw_kernel<kTaps><<<grid, plan.threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+int reduce_slices(const float* part, float* dw, int n, int slices, cudaStream_t stream) {
+  conv_dw_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(part, dw, n, slices);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------- bf16: "mma"
+
+constexpr int kMmaWarps = 8;       // warps that multiply (two warpgroups)
+constexpr int kStageThreads = 128; // and a warpgroup that stages
+constexpr int kMmaThreads = 32 * kMmaWarps + kStageThreads;
+// Registers a thread of each role (setmaxnreg; at most 64K a block and 16K
+// on each of an SM's four schedulers: a staging warp and two multiplying
+// warps share one).
+constexpr int kStageRegs = 40, kMmaRegs = 232;
+constexpr int kFlushRows = 128;    // dy rows a warp's tensor-core sums run over, about
+
+// Switch-offs that time a part of the tensor-core kernel by its absence
+// (built with -DAAS_DW_SKIP_...; the results are wrong then): STAGE stages
+// only the first two windows of a slice, MMA runs no product (the fragments
+// are still loaded), LOAD loads no fragment (the products run on zeros).
+#ifdef AAS_DW_SKIP_STAGE
+constexpr bool kStage = false;
+#else
+constexpr bool kStage = true;
+#endif
+#ifdef AAS_DW_SKIP_MMA
+constexpr bool kMma = false;
+#else
+constexpr bool kMma = true;
+#endif
+#ifdef AAS_DW_SKIP_LOAD
+constexpr bool kLoad = false;
+#else
+constexpr bool kLoad = true;
+#endif
+
+struct MmaParams {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* dy;
+  float* part;
+  long long xs_b, xs_t, xs_f;   // x strides in elements (channel stride 1)
+  long long ds_b, ds_t, ds_f;   // dy strides in elements (channel stride 1)
+  int T, F, Fo, ci, co, kt, kf, sf, pt0, pf0;
+  int rows;                     // B * T
+  int rows_per_slice;
+  int nco;                      // co chunks (grid y = ci chunks x nco x groups)
+  int groups;                   // tap groups a channel chunk pair
+  int per_block;                // taps a block (the last group may hold fewer)
+  int win;                      // dy rows a window, at most
+  int ndt;                      // time taps a block's taps span, at most
+  int half;                     // staged positions of one phase: Fo + (kf - 1) / sf
+  int xp;                       // staged rows of one x time slot (mma_geometry)
+  int tail;                     // x rows staged past a window's n + ndt - 1 slots
+  int vec_x, vec_dy;            // 16-byte copies allowed (strides and base)
+};
+
+// Byte offset of 16-byte chunk c of staged row r, rows of C chunks (C = 1,
+// 2 or 4: 16, 32 or 64 bytes).  The chunk is XORed with h(r) = (r / (8 / C))
+// mod C, so the same chunk of any 8 consecutive rows lies in 8 distinct
+// 16-byte bank groups of the 128-byte line.
+template <int C>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int kShift = C == 4 ? 1 : (C == 2 ? 2 : 3);   // log2(8 / C)
+  return r * 16 * C + 16 * (c ^ ((r >> kShift) & (C - 1)));
+}
+
+// Eight channels of a row into 16 bytes of shared memory, zero past the
+// first `n`: one 16-byte cp.async (`vec` and all eight there), or scalar loads.
+__device__ __forceinline__ void stage8(char* dst, const __nv_bfloat16* src, bool vec, int n) {
+  if (vec && n >= 8) {
+    __pipeline_memcpy_async(dst, src, 16);
+    return;
+  }
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const unsigned lo = 2 * k < n ? __ldg(s + 2 * k) : 0u;
+    const unsigned hi = 2 * k + 1 < n ? __ldg(s + 2 * k + 1) : 0u;
+    w[k] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void zero16(char* dst) {
+  *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The window of n dy rows from flattened row r (one utterance b), staged:
+// dy_s holds positions k = i Fo + f (row i of the window, bin f) for k <
+// ceil16(n Fo), zero past n Fo; x_s holds n + ndt - 1 time slots and `tail`
+// rows, slot j = x time t + dt_min - pt0 + j, each of xp rows, row ph half +
+// jj = frequency sf jj + ph - pf0 (sf is 1 or 2; rows from sf half on are
+// never read), zero outside [0, T) x [0, F).  Rows of CX (x) and CD (dy)
+// chunks of 8 channels from ci0 and co0, zero past ci, co.  A thread of the
+// staging warpgroup keeps one chunk and walks every (128 / C)-th row, dy's
+// then x's, with running indices (a row step is split once into whole rows
+// or slots and a rest, so that a row costs no division).
+template <int CX, int CD>
+struct Stager {
+  static constexpr int kStepD = kStageThreads / CD;   // rows a pass of the staging warps
+  static constexpr int kStepX = kStageThreads / CX;
+  const __nv_bfloat16* dy;   // this thread's chunk of dy[b, t]
+  const __nv_bfloat16* x;    // and of x[b]
+  char* dy_s;
+  char* x_s;
+  int cd, cx;                // the thread's chunks
+  int kn, k_end, k, f;       // dy: positions n Fo, ceil16(n Fo); this row, its bin
+  long long d_off;           // its offset in dy
+  int q_end, q, slot, w, t_x;   // x: rows, this row, its slot and row in the slot
+
+  __device__ Stager(const MmaParams& p, int tid, int r, int n, int dt_min, int ci0, int co0,
+                    char* dy_s_, char* x_s_)
+      : dy_s(dy_s_), x_s(x_s_) {
+    const int b = r / p.T;
+    const int t = r - b * p.T;
+    cd = tid % CD;
+    cx = tid % CX;
+    dy = p.dy + b * p.ds_b + t * p.ds_t + co0 + 8 * cd;
+    x = p.x + b * p.xs_b + ci0 + 8 * cx;
+    kn = n * p.Fo;
+    k_end = n > 0 ? (kn + 15) & ~15 : 0;
+    k = tid / CD;
+    const int i = k / p.Fo;
+    f = k - i * p.Fo;
+    d_off = i * p.ds_t + f * p.ds_f;
+    q_end = n > 0 ? (n + p.ndt - 1) * p.xp + p.tail : 0;
+    q = tid / CX;
+    slot = q / p.xp;
+    w = q - slot * p.xp;
+    t_x = t + dt_min - p.pt0;
+  }
+
+  // All of this thread's rows.
+  __device__ __forceinline__ void stage(const MmaParams& p, int ci0, int co0) {
+    const int di = kStepD / p.Fo, df = kStepD - di * p.Fo;
+    for (; k < k_end; k += kStepD) {
+      char* dst = dy_s + swz<CD>(k, cd);
+      if (k < kn) stage8(dst, dy + d_off, p.vec_dy, p.co - co0 - 8 * cd);
+      else zero16(dst);
+      f += df;
+      d_off += di * p.ds_t + df * p.ds_f;
+      if (f >= p.Fo) {
+        f -= p.Fo;
+        d_off += p.ds_t - p.Fo * p.ds_f;
+      }
+    }
+    const int ds = kStepX / p.xp, dw = kStepX - ds * p.xp;
+    for (; q < q_end; q += kStepX) {
+      if (w < p.sf * p.half) {           // rows past sf half are never read
+        const int ph = w >= p.half;
+        const int t_in = t_x + slot;
+        const int f_in = p.sf * (w - ph * p.half) + ph - p.pf0;
+        char* dst = x_s + swz<CX>(q, cx);
+        if (t_in >= 0 && t_in < p.T && f_in >= 0 && f_in < p.F)
+          stage8(dst, x + t_in * p.xs_t + f_in * p.xs_f, p.vec_x, p.ci - ci0 - 8 * cx);
+        else
+          zero16(dst);
+      }
+      slot += ds;
+      w += dw;
+      if (w >= p.xp) {
+        w -= p.xp;
+        ++slot;
+      }
+    }
+  }
+};
+
+// Named barriers between the staging warpgroup and the multiplying warps, each
+// counting all kMmaThreads threads: kFull + s, stage s holds its window;
+// kEmpty + s, stage s may be staged again.  (0 is __syncthreads'.)
+constexpr int kFull = 1, kEmpty = 3;
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kMmaThreads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kMmaThreads) : "memory");
+}
+
+template <int kRegs>
+__device__ __forceinline__ void more_registers() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void fewer_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// Four 8 x 8 bf16 matrices, transposed, from the shared-memory rows whose
+// addresses the lanes give (lanes 8 q to 8 q + 7: matrix q).
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a b for one m16n8k16 tile: bf16 products, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// CX, CD: 16-byte chunks (8 channels) of a staged x and dy row, 1, 2 or 4.
+// A warp's tile is MT m16 tiles of ci (2 where CX = 4) by NT n8 tiles of co
+// (4 where CD = 4); where a staged row holds 8 channels (CX or CD = 1), the
+// lanes that address the upper 8 read a zero row.
+template <int CX, int CD>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+conv_dw_mma_kernel(const MmaParams p) {
+  constexpr int MT = CX == 4 ? 2 : 1;
+  constexpr int NT = CD == 4 ? 4 : 2;
+  constexpr int U = 32 / (MT * NT);   // taps a warp
+  extern __shared__ uint4 smem_mma[];
+  char* smem = reinterpret_cast<char*>(smem_mma);
+  const int dy_bytes = (((p.win * p.Fo + 15) & ~15) + 16) * 16 * CD;
+  const int stage = dy_bytes + ((p.win + p.ndt - 1) * p.xp + p.tail) * 16 * CX;
+  char* zero_row = smem + 2 * stage;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int slice = blockIdx.x;
+  const int pair = blockIdx.y / p.groups;
+  const int g = blockIdx.y - pair * p.groups;
+  const int ci0 = (pair / p.nco) * 8 * CX;
+  const int co0 = (pair % p.nco) * 8 * CD;
+  const int ntaps = p.kt * p.kf;
+  const int tap0 = g * p.per_block;
+  const int tap1 = min(ntaps, tap0 + p.per_block);
+  const int dt_min = tap0 / p.kf;
+  const int r0 = slice * p.rows_per_slice;
+  const int r1 = min(p.rows, r0 + p.rows_per_slice);
+  auto window = [&](int r) { return min(min(p.win, r1 - r), p.T - r % p.T); };
+
+  // Window it is in stage it % 2.  The staging warpgroup stages the windows
+  // in turn, each into a stage the multiplying warps are done with, so that
+  // their loads never wait on its copies and its copies never on their
+  // products.
+  if (threadIdx.x < kStageThreads) {
+    fewer_registers<kStageRegs>();
+    int it = 0;
+    for (int r = r0; r < r1; ++it) {
+      const int n = window(r);
+      const int s = it & 1;
+      if (it >= 2) bar_sync(kEmpty + s);
+      if (kStage || it < 2) {
+        char* buf = smem + s * stage;
+        Stager<CX, CD> next(p, threadIdx.x, r, n, dt_min, ci0, co0, buf, buf + dy_bytes);
+        next.stage(p, ci0, co0);
+      }
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __threadfence_block();
+      bar_arrive(kFull + s);
+      r += n;
+    }
+    return;
+  }
+  more_registers<kMmaRegs>();
+  if (threadIdx.x == kStageThreads) zero16(zero_row);   // read after the first kFull
+  const int wtap0 = tap0 + (warp - kStageThreads / 32) * U;
+  const int nu = max(0, min(U, tap1 - wtap0));   // this warp's taps
+
+  // Staged x row of each tap at bin 0 of window row 0: its time slot, its
+  // phase and its shift within the phase.
+  int off[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int tap = min(wtap0 + u, ntaps - 1);
+    const int dt = tap / p.kf;
+    const int df = tap - dt * p.kf;
+    off[u] = (dt - dt_min) * p.xp + (df % p.sf) * p.half + df / p.sf;
+  }
+
+  float acc[U][MT][NT][4];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][m][j][v] = 0.f;
+
+  // Accumulator v of tile (m, j): ci row 16 m + lane / 4 (+ 8 for v >= 2),
+  // co column 8 j + 2 (lane % 4) + v % 2.  The warp's sums go to part[slice]
+  // every kFlushRows dy rows or so (stored the first time, added after) and
+  // restart from zero, so that no tensor-core sum runs over more than about
+  // kFlushRows Fo positions whatever the batch (the tensor cores' f32 sums
+  // do not round to nearest; their error grows with the run).
+  const int rg = lane >> 2;
+  const int cg = 2 * (lane & 3);
+  auto flush = [&](bool first) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u >= nu) continue;
+      float* out = p.part + ((size_t)slice * ntaps + wtap0 + u) * p.ci * p.co;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int c_in = ci0 + 16 * m + rg + 8 * (v >> 1);
+            const int c_out = co0 + 8 * j + cg + (v & 1);
+            if (c_in < min(p.ci, ci0 + 8 * CX) && c_out < min(p.co, co0 + 8 * CD)) {
+              float* o = out + (size_t)c_in * p.co + c_out;
+              *o = first ? acc[u][m][j][v] : *o + acc[u][m][j][v];
+            }
+            acc[u][m][j][v] = 0.f;
+          }
+    }
+  };
+
+  // The lane's row of ldmatrix's four 8 x 8 matrices.  x (the A operand):
+  // position lk of the step's 16 (matrices 2, 3: the upper 8), chunk lc of a
+  // 16-channel pair, so that the registers come out as a0..a3.  dy (B):
+  // position lkd (matrices 1, 3: the upper 8), chunk lcd of the pair, so that
+  // each n8 tile's b0, b1 come out in adjacent registers, as the product
+  // takes them.  Lanes that would address channels past an 8-channel row
+  // read the zero row instead and never move (zx, zd).
+  const int lk = (lane & 7) + ((lane >> 4) << 3);
+  const int lc = (lane >> 3) & 1;
+  const int lkd = (lane & 7) + (lc << 3);
+  const int lcd = lane >> 4;
+  const bool zx = CX == 1 && lc;
+  const bool zd = CD == 1 && lcd;
+  const unsigned zero_addr = (unsigned)__cvta_generic_to_shared(zero_row);
+  const unsigned smem_addr = (unsigned)__cvta_generic_to_shared(smem);
+  // A step moves every lane 16 positions on: 16 rows of dy and of x, and
+  // where the lane passes the end of a dy row, xp - Fo more rows of x.  Both
+  // are multiples of 8 rows (xp = Fo mod 8), so the chunk XOR of each row a
+  // lane reads stays the same all window long.
+  const int d_step = zd ? 0 : 16 * 16 * CD;
+  const int x_step = zx ? 0 : 16 * 16 * CX;
+  const int x_wrap = zx ? 0 : (p.xp - p.Fo) * 16 * CX;
+
+  int it = 0;
+  int since = 0;                       // dy rows in the sums since the last flush
+  bool first = true;
+  for (int r = r0; r < r1; ++it) {
+    const int n = window(r);
+    const int cur = (it & 1) * stage;
+    bar_sync(kFull + (it & 1));
+
+    if (nu > 0) {
+      // The lane's position (window row i, bin f), its dy row k = lk and x
+      // row xrow at tap offset 0; the addresses it reads, as a moving base
+      // (d_cur, x_cur) plus a fixed part for each fragment (dk, xk).
+      int f = lk % p.Fo;
+      const int xrow = (lk / p.Fo) * p.xp + f;
+      unsigned d_cur = zd ? zero_addr : smem_addr + cur + lkd * 16 * CD;
+      unsigned x_cur = zx ? zero_addr : smem_addr + cur + dy_bytes + xrow * 16 * CX;
+      int dk[NT / 2];
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) dk[j] = zd ? 0 : swz<CD>(lkd, 2 * j + lcd) - lkd * 16 * CD;
+      int xk[U][MT];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          xk[u][m] = zx ? 0 : swz<CX>(xrow + off[u], 2 * m + lc) - xrow * 16 * CX;
+      auto load_dy = [&](unsigned (&b)[NT / 2][4]) {
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j)
+          if (kLoad) ldsm_x4_trans(b[j], d_cur + dk[j]);
+          else b[j][0] = b[j][1] = b[j][2] = b[j][3] = 0u;
+      };
+      auto load_x = [&](unsigned (&a)[MT][4], const int (&k)[MT]) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          if (kLoad) ldsm_x4_trans(a[m], x_cur + k[m]);
+          else a[m][0] = a[m][1] = a[m][2] = a[m][3] = 0u;
+      };
+      const bool one_end = p.Fo >= 16;
+      auto advance = [&]() {
+        f += 16;
+        if (one_end) {                 // at most one row end: no branch
+          const bool wrap = f >= p.Fo;
+          f = wrap ? f - p.Fo : f;
+          x_cur += wrap ? x_wrap : 0;
+        } else {
+          while (f >= p.Fo) {
+            f -= p.Fo;
+            x_cur += x_wrap;
+          }
+        }
+        x_cur += x_step;
+        d_cur += d_step;
+      };
+      auto products = [&](float (&c)[MT][NT][4], const unsigned (&a)[MT][4],
+                          const unsigned (&b)[NT / 2][4]) {
+        if (!kMma) return;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            mma_bf16(c[m][j], a[m], b[j / 2][2 * (j % 2)], b[j / 2][2 * (j % 2) + 1]);
+      };
+      // Positions past the window's hold zero dy (x there is staged, and
+      // finite); the last step's loads of the step after it read rows inside
+      // the stage and go unused.
+      const int k_end = (n * p.Fo + 15) & ~15;
+      if (nu == U) {
+        // Every tap of the warp: tap u + 1's x fragment, and after the last
+        // tap the next step's dy and first x fragments, load while tap u's
+        // products run.
+        unsigned bf[2][NT / 2][4], af[2][MT][4];
+        auto step = [&](const unsigned (&b)[NT / 2][4], unsigned (&b_next)[NT / 2][4]) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (u + 1 < U) {
+              load_x(af[(u + 1) & 1], xk[u + 1 < U ? u + 1 : u]);
+            } else {
+              advance();
+              load_dy(b_next);
+              load_x(af[0], xk[0]);
+            }
+            products(acc[u], af[u & 1], b);
+          }
+        };
+        load_dy(bf[0]);
+        load_x(af[0], xk[0]);
+        for (int k0 = 0; k0 < k_end; k0 += 32) {   // two steps, dy's fragments in turn
+          step(bf[0], bf[1]);
+          if (k0 + 16 < k_end) step(bf[1], bf[0]);
+        }
+      } else {
+        for (int k0 = 0; k0 < k_end; k0 += 16) {
+          unsigned bf[NT / 2][4], af[MT][4];
+          load_dy(bf);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (u < nu) {
+              load_x(af, xk[u]);
+              products(acc[u], af, bf);
+            }
+          }
+          advance();
+        }
+      }
+    }
+    since += n;
+    if (since >= kFlushRows && r + n < r1) {
+      flush(first);
+      first = false;
+      since = 0;
+    }
+    bar_arrive(kEmpty + (it & 1));     // cur may be staged again
+    r += n;
+  }
+  flush(first);
+}
+
+// The x slot pitch and tail of the tensor-core kernel
+// (ops/cuda/conv_dw.py::mma_geometry): xp >= sf half rows with xp = Fo mod
+// 8; `tail` rows past a window's n + ndt - 1 slots, so that the positions of
+// its last step and of the step after it (prefetched, unused), up to n Fo +
+// 30, fall on staged rows.
+void mma_geometry(int Fo, int kf, int sf, int* half, int* xp, int* tail) {
+  *half = Fo + (kf - 1) / sf;
+  *xp = sf * *half + (((Fo - sf * *half) % 8) + 8) % 8;
+  *tail = (30 / Fo) * *xp + (sf - 1) * *half + 30 % Fo + (kf - 1) / sf + 1;
+}
+
+// Two stages of a window and the zero row.
+size_t mma_stage_bytes(int cx, int cd, int win, int ndt, int Fo, int kf, int sf) {
+  int half, xp, tail;
+  mma_geometry(Fo, kf, sf, &half, &xp, &tail);
+  return 2 * ((size_t)(((win * Fo + 15) & ~15) + 16) * 16 * cd +
+              ((size_t)(win + ndt - 1) * xp + tail) * 16 * cx) + 16;
+}
+
+template <int CX, int CD>
+int launch_mma(const MmaParams& p, int grid_y, int slices, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        conv_dw_mma_kernel<CX, CD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  conv_dw_mma_kernel<CX, CD><<<dim3(slices, grid_y), kMmaThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int CX>
+int launch_mma_cd(const MmaParams& p, int cd, int grid_y, int slices, size_t smem,
+                  cudaStream_t stream) {
+  if (cd == 1) return launch_mma<CX, 1>(p, grid_y, slices, smem, stream);
+  if (cd == 2) return launch_mma<CX, 2>(p, grid_y, slices, smem, stream);
+  return launch_mma<CX, 4>(p, grid_y, slices, smem, stream);
 }
 
 }  // namespace
 
-// Slices of the (b, t) rows the launch below wants for `rows` = B * T rows of
-// Fo output bins on a card with `sms` multiprocessors (about two blocks per
-// SM); 0 if the kernel does not take the shape (a ci x co tile of more than
-// kMaxThreads threads, or staged rows beyond a block's shared memory).  The
-// caller allocates part [slices, kt, kf, ci, co] from it.
+// Slices of the (b, t) rows the f32 launch below wants for `rows` = B * T
+// rows of Fo output bins on a card with `sms` multiprocessors (about two
+// blocks per SM); 0 if the kernel does not take the shape (a ci x co tile of
+// more than kMaxThreads threads, or staged rows beyond a block's shared
+// memory).  ops/cuda/conv_dw.py::conv_dw_plan computes the same in Python
+// (the GPU tests hold the two together).
 extern "C" int aas_conv_dw_slices(int rows, int Fo, int kt, int kf, int ci,
                                   int co, int sf, int sms) {
   Plan plan;
@@ -314,21 +833,20 @@ extern "C" int aas_conv_dw_slices(int rows, int Fo, int kt, int kf, int ci,
   return slices < 1 ? 1 : slices;
 }
 
-template <typename TI>
 int launch_taps(const Params& p, const Plan& plan, int slices, size_t smem,
                 cudaStream_t stream) {
-  if (plan.taps == 5) return launch<5, TI>(p, plan, slices, smem, stream);
-  if (plan.taps == 6) return launch<6, TI>(p, plan, slices, smem, stream);
-  return launch<7, TI>(p, plan, slices, smem, stream);
+  if (plan.taps == 5) return launch<5>(p, plan, slices, smem, stream);
+  if (plan.taps == 6) return launch<6>(p, plan, slices, smem, stream);
+  return launch<7>(p, plan, slices, smem, stream);
 }
 
-// x and dy are f32, or bf16 where `bf16` is set; part and dw are f32.
-extern "C" int aas_conv_dw(const void* x, const void* dy, float* part,
+// f32 x and dy ("fma"); part and dw are f32.
+extern "C" int aas_conv_dw(const float* x, const float* dy, float* part,
                            float* dw, long long xs_b, long long xs_t,
                            long long xs_f, long long ds_b, long long ds_t,
                            long long ds_f, int B, int T, int F, int Fo, int ci,
                            int co, int kt, int kf, int sf, int pt0, int pf0,
-                           int slices, int bf16, cudaStream_t stream) {
+                           int slices, cudaStream_t stream) {
   Plan plan;
   if (B < 1 || T < 1 || slices < 1 || sf < 1 || !make_plan(kt, kf, ci, co, &plan))
     return (int)cudaErrorInvalidValue;
@@ -348,19 +866,72 @@ extern "C" int aas_conv_dw(const void* x, const void* dy, float* part,
   p.ndfc = plan.ndfc;
   p.ndfb = plan.ndfb;
   p.fpad = staged_positions(plan, Fo, sf);
-  const size_t quad = bf16 ? 8 : 16;   // the bytes of four channels
   p.vec_x = ci % 4 == 0 && xs_b % 4 == 0 && xs_t % 4 == 0 && xs_f % 4 == 0 &&
-            reinterpret_cast<size_t>(x) % quad == 0;
+            reinterpret_cast<size_t>(x) % 16 == 0;
   p.vec_dy = co % 4 == 0 && ds_b % 4 == 0 && ds_t % 4 == 0 && ds_f % 4 == 0 &&
-             reinterpret_cast<size_t>(dy) % quad == 0;
+             reinterpret_cast<size_t>(dy) % 16 == 0;
   const size_t smem = stage_bytes(plan, Fo, ci, co, sf);
   if (smem > kMaxStageBytes) return (int)cudaErrorInvalidValue;
 
-  const int err = bf16 ? launch_taps<__nv_bfloat16>(p, plan, slices, smem, stream)
-                       : launch_taps<float>(p, plan, slices, smem, stream);
+  const int err = launch_taps(p, plan, slices, smem, stream);
   if (err != 0) return err;
+  return reduce_slices(part, dw, kt * kf * ci * co, slices, stream);
+}
 
-  const int n = kt * kf * ci * co;
-  conv_dw_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(part, dw, n, slices);
-  return (int)cudaGetLastError();
+// bf16 x and dy ("mma"); part and dw are f32.  The tiling is the plan's
+// (ops/cuda/conv_dw.py::conv_dw_plan): cx, cd chunks of 8 channels in a
+// staged x and dy row (1, 2 or 4; ci and co taken in chunks of 8 cx and 8 cd
+// channels), `groups` tap groups of `per_block` taps for each channel chunk
+// pair, windows of `win` dy rows, `ndt` time taps a block at most, `slices`
+// row slices and `smem` bytes, which must be what the kernel needs for that
+// tiling.
+extern "C" int aas_conv_dw_mma(const __nv_bfloat16* x, const __nv_bfloat16* dy, float* part,
+                               float* dw, long long xs_b, long long xs_t, long long xs_f,
+                               long long ds_b, long long ds_t, long long ds_f, int B, int T,
+                               int F, int Fo, int ci, int co, int kt, int kf, int sf, int pt0,
+                               int pf0, int cx, int cd, int groups, int per_block, int win,
+                               int ndt, int slices, long long smem, cudaStream_t stream) {
+  if (B < 1 || T < 1 || F < 1 || Fo < 1 || ci < 1 || co < 1 || kt < 1 || kf < 1 || sf < 1 ||
+      slices < 1 || groups < 1 || per_block < 1 || win < 1 || ndt < 1 ||
+      (cx != 1 && cx != 2 && cx != 4) || (cd != 1 && cd != 2 && cd != 4))
+    return (int)cudaErrorInvalidValue;
+  const int units = 32 / ((cx == 4 ? 2 : 1) * (cd == 4 ? 4 : 2));
+  if (per_block > units * kMmaWarps || groups * per_block < kt * kf ||
+      (groups - 1) * per_block >= kt * kf ||
+      smem != (long long)mma_stage_bytes(cx, cd, win, ndt, Fo, kf, sf) ||
+      (size_t)smem > kMaxStageBytes)
+    return (int)cudaErrorInvalidValue;
+  for (int g = 0; g < groups; ++g) {   // every block's taps span at most ndt time taps
+    const int first = g * per_block;
+    const int last = (first + per_block < kt * kf ? first + per_block : kt * kf) - 1;
+    if (last / kf - first / kf + 1 > ndt) return (int)cudaErrorInvalidValue;
+  }
+  MmaParams p;
+  p.x = x;
+  p.dy = dy;
+  p.part = part;
+  p.xs_b = xs_b; p.xs_t = xs_t; p.xs_f = xs_f;
+  p.ds_b = ds_b; p.ds_t = ds_t; p.ds_f = ds_f;
+  p.T = T; p.F = F; p.Fo = Fo; p.ci = ci; p.co = co;
+  p.kt = kt; p.kf = kf; p.sf = sf; p.pt0 = pt0; p.pf0 = pf0;
+  p.rows = B * T;
+  p.rows_per_slice = (p.rows + slices - 1) / slices;
+  p.nco = (co + 8 * cd - 1) / (8 * cd);
+  p.groups = groups;
+  p.per_block = per_block;
+  p.win = win;
+  p.ndt = ndt;
+  mma_geometry(Fo, kf, sf, &p.half, &p.xp, &p.tail);
+  p.vec_x = xs_b % 8 == 0 && xs_t % 8 == 0 && xs_f % 8 == 0 &&
+            reinterpret_cast<size_t>(x) % 16 == 0;
+  p.vec_dy = ds_b % 8 == 0 && ds_t % 8 == 0 && ds_f % 8 == 0 &&
+             reinterpret_cast<size_t>(dy) % 16 == 0;
+  const int grid_y = ((ci + 8 * cx - 1) / (8 * cx)) * p.nco * groups;
+
+  int err;
+  if (cx == 1) err = launch_mma_cd<1>(p, cd, grid_y, slices, (size_t)smem, stream);
+  else if (cx == 2) err = launch_mma_cd<2>(p, cd, grid_y, slices, (size_t)smem, stream);
+  else err = launch_mma_cd<4>(p, cd, grid_y, slices, (size_t)smem, stream);
+  if (err != 0) return err;
+  return reduce_slices(part, dw, kt * kf * ci * co, slices, stream);
 }

@@ -11,14 +11,20 @@ dW [kt, kf, ci, co] in f32,
 with x_pad the SAME-padded input (``ops/conv.py::same_pad``).  A CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises.
 ``conv_dw_same.launches`` counts the kernel launches, ``.dtype`` holds the
-last launch's input dtype.
+last launch's input dtype and ``.route`` its route.
 
 x and dy are float32 or bfloat16 (a bf16 AM's conv2), one dtype for both;
 dW is float32 either way: both versions multiply and sum the bf16 values in
-float32, as the Pallas kernel does for a bf16 input.
+float32, as the Pallas kernel does for a bf16 input.  ``conv_dw_plan`` picks
+the route from the shape and dtype alone: float32 takes "fma" (f32 FMAs on
+register tiles), bfloat16 "mma" (tensor-core products of the bf16 values,
+f32 sums; a bf16 x bf16 product is exact in f32).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -64,18 +70,155 @@ def conv_dw_same_plain(x: torch.Tensor, dy: torch.Tensor, kt: int, kf: int,
     return dw
 
 
+MAX_SMEM = 227 * 1024      # dynamic shared memory of one H100 block, bytes
+FMA_THREADS = 256          # the f32 kernel's most threads a block (kMaxThreads)
+MMA_WARPS = 8              # the bf16 kernel's multiplying warps a block (kMmaWarps)
+MMA_WINDOW = 8             # its most dy rows a window
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """How the kernel splits one call.  ``slices`` row slices (0: the kernel
+    does not take the shape) of ``blocks`` blocks each, ``smem`` bytes of
+    dynamic shared memory a block.  "fma": ``taps`` frequency taps a thread,
+    ``ndt`` time taps and ``ndfb`` tap chunks a block
+    (``csrc/conv_dw.cu::make_plan``).  "mma": ``cx`` and ``cd`` chunks of 8
+    channels in a staged x and dy row (1, 2 or 4; ci and co taken in chunks
+    of 8 cx and 8 cd channels), ``groups`` blocks of ``per_block`` taps for
+    each chunk pair, windows of ``win`` dy rows; a block's taps span at most
+    ``ndt`` time taps."""
+    route: str
+    slices: int
+    smem: int
+    blocks: int = 0
+    taps: int = 0
+    ndt: int = 0
+    ndfb: int = 0
+    cx: int = 0
+    cd: int = 0
+    groups: int = 0
+    per_block: int = 0
+    win: int = 0
+
+
+def _fma_plan(rows: int, fo: int, kt: int, kf: int, ci: int, co: int, sf: int,
+              sms: int) -> DwPlan:
+    """``csrc/conv_dw.cu``'s ``make_plan`` and ``aas_conv_dw_slices``."""
+    ci4, co4 = -(-ci // 4), -(-co // 4)
+    tile = ci4 * co4
+    if min(kt, kf, ci, co) < 1 or tile > FMA_THREADS:
+        return DwPlan("fma", 0, 0)
+    taps = 5
+    for k in (6, 7):
+        if -(-kf // k) * k <= -(-kf // taps) * taps:
+            taps = k
+    groups = FMA_THREADS // tile
+    ndfc = -(-kf // taps)
+    ndfb = min(ndfc, groups)
+    grid_z = -(-ndfc // ndfb)
+    grid_y = -(-kt // min(groups // ndfb, kt))
+    ndt = -(-kt // grid_y)
+    smem = 2 * 4 * (fo * 4 * co4 + ndt * (sf * (fo - 1) + ndfc * taps) * 4 * ci4)
+    blocks = grid_y * grid_z
+    if rows < 1 or fo < 1 or sf < 1 or sms < 1 or smem > MAX_SMEM:
+        return DwPlan("fma", 0, smem, blocks, taps, ndt, ndfb)
+    slices = max(1, min(rows, -(-2 * sms // blocks)))
+    return DwPlan("fma", slices, smem, blocks, taps, ndt, ndfb)
+
+
+def mma_geometry(fo: int, kf: int, sf: int) -> tuple[int, int, int]:
+    """(half, xp, tail) of the tensor-core kernel's staged x: positions a
+    phase (Fo + (kf - 1) // sf); rows a time slot, at least sf * half and
+    equal to Fo mod 8, so that a lane's rows move by multiples of 8 and keep
+    their chunk XOR; rows staged past a window's win + ndt - 1 slots, so
+    that the positions of its last step and of the step after it (which it
+    prefetches), up to n Fo + 30, fall on staged rows."""
+    half = fo + (kf - 1) // sf
+    xp = sf * half + (fo - sf * half) % 8
+    return half, xp, (30 // fo) * xp + (sf - 1) * half + 30 % fo + (kf - 1) // sf + 1
+
+
+def mma_smem(cx: int, cd: int, win: int, ndt: int, fo: int, kf: int, sf: int) -> int:
+    """Two stages of a window, ceil16(win Fo) + 16 dy rows of 8 cd bf16
+    channels and (win + ndt - 1) xp + tail x rows of 8 cx bf16 channels, and
+    a zero row of 16 bytes."""
+    _, xp, tail = mma_geometry(fo, kf, sf)
+    return 2 * ((-(-win * fo // 16) * 16 + 16) * 16 * cd
+                + ((win + ndt - 1) * xp + tail) * 16 * cx) + 16
+
+
+def _units(cx: int, cd: int) -> int:
+    """Taps a warp: 128 f32 accumulators a thread over its m16 x n8 tiles
+    (2 x 4 where cx = cd = 4; 1 x 2 for the narrowest)."""
+    return 32 // ((2 if cx == 4 else 1) * (4 if cd == 4 else 2))
+
+
+def _tap_span(kt: int, kf: int, per_block: int) -> int:
+    """The most time taps that one block's run of ``per_block`` taps spans."""
+    n = kt * kf
+    return max((min(n, g + per_block) - 1) // kf - g // kf + 1 for g in range(0, n, per_block))
+
+
+def _mma_plan(rows: int, fo: int, kt: int, kf: int, ci: int, co: int, sf: int,
+              sms: int) -> DwPlan:
+    """The tensor-core tiling: staged rows of 8, 16 or 32 channels (ci and co
+    chunked past 32), ``_units`` taps a warp, 8 multiplying warps a block
+    (and a staging warpgroup); the fewest tap groups, and for them the
+    longest window of dy rows, whose two stages fit a block's shared memory;
+    row slices for about one block an SM."""
+    cx, cd = (1 if c <= 8 else 2 if c <= 16 else 4 for c in (ci, co))
+    chunks = -(-ci // (8 * cx)) * -(-co // (8 * cd))
+    ntaps = kt * kf
+    for groups in range(-(-ntaps // (MMA_WARPS * _units(cx, cd))), ntaps + 1):
+        per_block = -(-ntaps // groups)
+        if (groups - 1) * per_block >= ntaps:
+            continue                 # as many blocks with fewer groups
+        ndt = _tap_span(kt, kf, per_block)
+        for win in range(MMA_WINDOW, 0, -1):
+            smem = mma_smem(cx, cd, win, ndt, fo, kf, sf)
+            if smem <= MAX_SMEM:
+                blocks = groups * chunks
+                return DwPlan("mma", max(1, min(rows, sms // blocks)), smem, blocks,
+                              ndt=ndt, cx=cx, cd=cd, groups=groups, per_block=per_block,
+                              win=win)
+    return DwPlan("mma", 0, 0)
+
+
+@functools.lru_cache(maxsize=256)
+def conv_dw_plan(dtype: torch.dtype, b: int, t: int, f: int, ci: int, co: int, kt: int,
+                 kf: int, strides: tuple[int, int], sms: int) -> DwPlan:
+    """The kernel's route and split for x [b, t, f, ci] and dy of co channels
+    with a kt x kf kernel on a card of ``sms`` multiprocessors, from these
+    alone: "mma" for bfloat16 streams, "fma" otherwise.  0 slices for other
+    strides than (1, 1) or (1, 2), a ci x co register tiling of more than a
+    block's threads, or f32 staged rows beyond a block's shared memory, at
+    either dtype; at bf16 also where the two stages of one dy row's window
+    exceed a block's shared memory (only at the edge of the f32 limit: 1200
+    bins or more, tests/test_torch_conv_dw_plan.py)."""
+    route = "mma" if dtype == torch.bfloat16 else "fma"
+    if strides[0] != 1 or strides[1] not in (1, 2):
+        return DwPlan(route, 0, 0)
+    rows, fo, sf = b * t, -(-f // strides[1]), strides[1]
+    fma = _fma_plan(rows, fo, kt, kf, ci, co, sf, sms)
+    if route == "fma" or fma.slices < 1:
+        return fma if route == "fma" else DwPlan(route, 0, 0)
+    return _mma_plan(rows, fo, kt, kf, ci, co, sf, sms)
+
+
+@functools.lru_cache(maxsize=8)
+def _multiprocessors(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def kernel_slices(x: torch.Tensor, co: int, kt: int, kf: int,
                   strides: tuple[int, int]) -> int:
     """Slices of the (b, t) rows the kernel splits its sum over for x
-    [B, T, F, ci] on x's card; 0 when the kernel does not take the shape: other
-    strides than (1, 1) or (1, 2), a ci x co register tiling of more than a
-    block's threads, or staged rows beyond a block's shared memory."""
+    [B, T, F, ci] on x's card (``conv_dw_plan`` at x's dtype); 0 when the
+    kernel does not take the shape."""
     if strides[0] != 1 or strides[1] not in (1, 2):
         return 0
-    b, t, f, ci = x.shape
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return kernel_build.load_library().aas_conv_dw_slices(
-        b * t, -(-f // strides[1]), kt, kf, ci, co, strides[1], sms)
+    return conv_dw_plan(x.dtype, *x.shape, co, kt, kf, tuple(strides),
+                        _multiprocessors(x.device)).slices
 
 
 def conv_dw_same(x: torch.Tensor, dy: torch.Tensor, kt: int, kf: int,
@@ -93,23 +236,31 @@ def conv_dw_same(x: torch.Tensor, dy: torch.Tensor, kt: int, kf: int,
                          f"{x.stride()} and dy strides {dy.stride()}")
     b, t, f, ci = x.shape
     fo, co = dy.shape[2], dy.shape[3]
-    slices = kernel_slices(x, co, kt, kf, strides)
-    if slices < 1:
+    plan = conv_dw_plan(dtype, b, t, f, ci, co, kt, kf, tuple(strides),
+                        _multiprocessors(x.device))
+    if plan.slices < 1:
         raise ValueError(f"conv_dw_same: the kernel does not take {ci} -> {co} channels "
                          f"with a {kt} x {kf} kernel on {b * t} rows of {fo} bins")
-    part = torch.empty((slices, kt, kf, ci, co), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.slices, kt, kf, ci, co), dtype=torch.float32, device=x.device)
     dw = torch.empty((kt, kf, ci, co), dtype=torch.float32, device=x.device)
-    err = kernel_build.load_library().aas_conv_dw(
-        x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
-        x.stride(0), x.stride(1), x.stride(2), dy.stride(0), dy.stride(1), dy.stride(2),
-        b, t, f, fo, ci, co, kt, kf, strides[1],
-        same_pad(t, kt, 1)[0], same_pad(f, kf, strides[1])[0], slices,
-        int(dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
-    kernel_build.check(err, "aas_conv_dw")
+    args = (x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+            x.stride(0), x.stride(1), x.stride(2), dy.stride(0), dy.stride(1), dy.stride(2),
+            b, t, f, fo, ci, co, kt, kf, strides[1],
+            same_pad(t, kt, 1)[0], same_pad(f, kf, strides[1])[0])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = kernel_build.load_library()
+    if plan.route == "mma":
+        err = lib.aas_conv_dw_mma(*args, plan.cx, plan.cd, plan.groups, plan.per_block,
+                                  plan.win, plan.ndt, plan.slices, plan.smem, stream)
+    else:
+        err = lib.aas_conv_dw(*args, plan.slices, stream)
+    kernel_build.check(err, f"aas_conv_dw ({plan.route})")
     conv_dw_same.launches += 1
     conv_dw_same.dtype = dtype
+    conv_dw_same.route = plan.route
     return dw
 
 
 conv_dw_same.launches = 0
 conv_dw_same.dtype = None
+conv_dw_same.route = None

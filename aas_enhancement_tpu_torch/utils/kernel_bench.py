@@ -1,6 +1,6 @@
-"""Time the ISTFT, the GroupNorm forward and backward, and the STFT's and the
-ISTFT's VJP wrappers at the shapes the paths give them, host and device
-apart, and one paired training step.
+"""Time the ISTFT, the GroupNorm forward and backward, the STFT's and the
+ISTFT's VJP wrappers and the conv weight gradient at bf16 at the shapes the
+paths give them, host and device apart, and one paired training step.
 
     python -m aas_enhancement_tpu_torch.utils.kernel_bench [--reps 20] [--only TEXT]
 
@@ -16,7 +16,11 @@ MR-STFT loss's (256, 64), (512, 128), (1024, 256) and at (320, 160), and
 ``istft_vjp`` at (320, 160) and the MR resolutions, B=8 x 8 s with
 cotangents zero past each row's valid frames or samples (``BWD_FRAMES``);
 the ``paired`` step with ``lambda_mrstft`` 0.5 at B=8 x 8 s, the shipped
-widths (its wall between events and its busy device time; no bound).
+widths (its wall between events and its busy device time; no bound);
+``conv_dw_same`` on bf16 x and dy at the AM's conv2 (11 x 21, stride (1,
+2), [B, 401, 81, 32]) at B=8 and 32, beside cuDNN's bf16 weight gradient
+(``torch.nn.grad.conv2d_weight``) on the same tensors, bound by the
+operations at the 989 TFLOP/s bf16 rate.
 Per case and call: the host time of the wrapper (``--reps`` calls enqueued
 back to back behind a sleeping kernel, so that the host never waits on the
 device: perf_counter around them over the count), the median time between
@@ -35,7 +39,11 @@ results are wrong):
     AAS_KERNEL_DEFINES=AAS_VJP_SKIP_FFT python -m aas_enhancement_tpu_torch.utils.kernel_bench --only _vjp
 
 (``AAS_VJP_SKIP_LOAD``: no input staged; ``AAS_VJP_SKIP_FFT``: no pass of
-the transform; ``AAS_VJP_SKIP_OUT``: no overlap-add, no bins stored).
+the transform; ``AAS_VJP_SKIP_OUT``: no overlap-add, no bins stored), and
+so the parts of ``csrc/conv_dw.cu``'s tensor-core kernel, ``--only
+"conv_dw bf16"`` (``AAS_DW_SKIP_STAGE``: only a slice's first two windows
+staged; ``AAS_DW_SKIP_MMA``: no product; ``AAS_DW_SKIP_LOAD``: no fragment
+loaded from shared memory).
 """
 
 from __future__ import annotations
@@ -77,6 +85,7 @@ def event_ms(fn, reps: int) -> float:
 
 
 PEAK_BYTES_S = 3.35e12      # the H100 SXM's HBM3 rate
+PEAK_BF16_S = 989e12        # and its dense bf16 tensor-core rate
 
 
 def _valid(lens: list[int], t: int) -> float:
@@ -87,9 +96,11 @@ def _valid(lens: list[int], t: int) -> float:
 def cases(device) -> dict:
     """label -> (a call on inputs made from a fixed seed, the bytes the
     function must move: each input read once, each output written once; the
-    GroupNorm reads x (and dy) on the valid frames only; None for the step).
-    Labels with " pass " or "step" run with autograd, the others in
-    inference mode."""
+    GroupNorm reads x (and dy) on the valid frames only; None for the step;
+    and the bf16 operations where they bound the call, else 0).  Labels with
+    " pass " or "step" run with autograd, the others in inference mode."""
+    import torch.nn.functional as F
+    from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
     from aas_enhancement_tpu_torch.ops.cuda import gn, stft as kstft
     gen = torch.Generator().manual_seed(0)
     n = 16000 * 8
@@ -146,7 +157,19 @@ def cases(device) -> dict:
             lambda f=n_fft, h=hop, t=t: kstft.istft_vjp(dy, t, f, h),
             4 * (dy.numel() + dre.numel() + dim.numel()))
     out["paired step lambda_mrstft 0.5 B=8 x 8 s"] = (_paired_step(device, gen, n), None)
-    return out
+    for b in (8, 32):
+        x = torch.randn(b, 401, 81, 32, generator=gen).to(device).bfloat16()
+        dy = torch.randn(b, 401, 41, 32, generator=gen).to(device).bfloat16()
+        work = (2 * (x.numel() + dy.numel()) + 4 * 11 * 21 * 32 * 32,
+                2.0 * b * 401 * 41 * 11 * 21 * 32 * 32)
+        out[f"conv_dw bf16 AM conv2 [{b}, 401, 81, 32]"] = (
+            lambda x=x, dy=dy: kconv.conv_dw_same(x, dy, 11, 21, (1, 2)), *work)
+        x_nchw = F.pad(x.permute(0, 3, 1, 2), (*kconv.same_pad(81, 21, 2),
+                                               *kconv.same_pad(401, 11, 1)))
+        out[f"cuDNN wgrad bf16 AM conv2 [{b}, 401, 81, 32]"] = (
+            lambda x=x_nchw, dy=dy: torch.nn.grad.conv2d_weight(
+                x, (32, 32, 11, 21), dy.permute(0, 3, 1, 2), stride=(1, 2)), *work)
+    return {k: v if len(v) == 3 else (*v, 0.0) for k, v in out.items()}
 
 
 def _paired_step(device, gen, n: int):
@@ -180,7 +203,7 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
     print(f"[kernel_bench] {smi.splitlines()[0]} | torch {torch.__version__}")
-    for label, (fn, n_bytes) in cases(device).items():
+    for label, (fn, n_bytes, ops) in cases(device).items():
         if args.only not in label:
             continue
         # The backward pass and the step need autograd; the wrappers alone run without it.
@@ -195,10 +218,12 @@ def main(argv=None) -> None:
             host = host_ms(fn, args.reps)
             events = event_ms(fn, args.reps)
             dev, by = device_time(fn)
-        bound = n_bytes / PEAK_BYTES_S * 1e3
+        bound = max(n_bytes / PEAK_BYTES_S, ops / PEAK_BF16_S) * 1e3
+        by_what = (f"{ops / 1e9:.1f} GFLOP at 989 TFLOP/s" if ops / PEAK_BF16_S
+                   > n_bytes / PEAK_BYTES_S else f"{n_bytes / 1e6:.1f} MB at 3.35 TB/s")
         print(f"[kernel_bench] {label}: host {host:.4f} ms a call | between events "
               f"{events:.4f} ms | device {dev:.4f} ms ({by}) | bound {bound:.4f} ms "
-              f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s): {bound / dev:.0%} of it")
+              f"({by_what}): {bound / dev:.0%} of it")
 
 
 if __name__ == "__main__":

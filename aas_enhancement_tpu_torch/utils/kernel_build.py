@@ -100,10 +100,15 @@ SIGNATURES = {
     "aas_gn_act_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                        _I, _I, _F, _I, _P),
     # x, dy, part, dw, x strides (b, t, f), dy strides (b, t, f), B, T, F, Fo,
-    # ci, co, kt, kf, stride_f, pad_t_low, pad_f_low, slices, bf16 (x and dy
-    # are bf16, else f32; dw is f32), stream
+    # ci, co, kt, kf, stride_f, pad_t_low, pad_f_low, slices, stream: f32 x
+    # and dy (the "fma" route)
     "aas_conv_dw": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,
-                    _I, _I, _I, _I, _I, _I, _I, _P),
+                    _I, _I, _I, _I, _I, _I, _P),
+    # ... as aas_conv_dw to pad_f_low, then the plan (ops/cuda/conv_dw.py::
+    # conv_dw_plan): cx, cd, groups, per_block, win, ndt, slices, shared
+    # memory bytes; stream: bf16 x and dy (the "mma" route); dw is f32
+    "aas_conv_dw_mma": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P),
 }
 
 

@@ -1566,7 +1566,8 @@ def bf16_config(cfg):
 
 
 def check_bf16_launches(tag: str, launches: dict, names) -> None:
-    """Each named kernel ran on the path, and its last launch streamed bf16."""
+    """Each named kernel ran on the path, and its last launch streamed bf16
+    (conv_dw's on the tensor-core route)."""
     import torch
     counters = kernel_counters()
     for name in names:
@@ -1574,6 +1575,8 @@ def check_bf16_launches(tag: str, launches: dict, names) -> None:
             fail(f"{tag}: launched no {name} kernel")
         if counters[name].dtype != torch.bfloat16:
             fail(f"{tag}: {name}'s last launch streamed {counters[name].dtype}, not bf16")
+        if name == "conv_dw" and counters[name].route != "mma":
+            fail(f"{tag}: conv_dw's last launch took route {counters[name].route}, not mma")
 
 
 def phase_bf16(device, card, results: dict):
@@ -1795,17 +1798,16 @@ def phase_bf16(device, card, results: dict):
 def kernels_bf16_backward(device, results: dict) -> None:
     """B1' and B2' (resident; the streaming route on the same inputs), the
     B7 / B7' VJPs (stacked), B3' (leaky at the enhancer's shape, hardtanh at
-    the AM's two) and B6 (the AM's conv2) on bf16 streams at B=8, ragged,
-    against their plain versions on the same bf16 inputs (``BF16_BWD_TOL``):
-    the recurrences' backward kernel alone on what the bf16 training forward
+    the AM's two) and B6 (the AM's conv2, also at B=32:
+    ``kernels_conv_dw_bf16``) on bf16 streams at B=8, ragged, against their
+    plain versions on the same bf16 inputs (``BF16_BWD_TOL``): the
+    recurrences' backward kernel alone on what the bf16 training forward
     saved, against autograd through the plain version; the GroupNorm's on
     its forward kernel's statistics against the closed form; conv_dw against
     conv_dw_same_plain.  Timed in turns with the same kernel on the f32
     inputs; the bound counts the bf16 streams at 2 bytes and the products at
     the bf16 tensor-core rate.  Each wrapper must record a bf16 launch."""
     import torch
-    import torch.nn.functional as F
-    from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
     from aas_enhancement_tpu_torch.ops.cuda import gn
     from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
     from aas_enhancement_tpu_torch.ops.masking import time_mask
@@ -1960,19 +1962,47 @@ def kernels_bf16_backward(device, results: dict) -> None:
         if sum(names.values()) != 1:
             fail(f"the bf16 GroupNorm backward ran {names}, not one device kernel")
 
-    label = f"bf16 conv_dw AM conv2 11x21 s(1,2) x [{BWD_B}, {AM_T}, 81, 32]"
-    x32 = randn(BWD_B, AM_T, 81, 32)
-    dy32 = randn(BWD_B, AM_T, 41, 32) * time_mask(am_frames, AM_T)[:, :, None, None]
+    for b in (BWD_B, TRAIN_BATCHES[-1]):
+        kernels_conv_dw_bf16(b, device, gen, results)
+    names = conv_dw_kernels()
+    print(f"[train_bf16] bf16 conv_dw AM conv2 [{BWD_B}, {AM_T}, 81, 32]: device kernels of "
+          f"one wrapper call (fresh process): {json.dumps(names)}")
+    if (sorted(names.values()) != [1, 1] or not any("conv_dw_mma_kernel" in n for n in names)
+            or not any("conv_dw_reduce_kernel" in n for n in names)):
+        fail(f"a bf16 conv_dw call ran {names}, not the tensor-core kernel and the reduction "
+             "once each")
+
+
+def kernels_conv_dw_bf16(b: int, device, gen, results: dict) -> None:
+    """B6 on bf16 x and dy at the AM's conv2 (x [b, 401, 81, 32], ragged dy)
+    against its plain version on the same values: the tensor-core route
+    ("mma"), one launch a call, f32 dW, the same bits on two runs; timed in
+    turns with the f32 route on the f32 inputs, beside the plain version and
+    cuDNN's bf16 weight gradient on the same bf16 tensors, which it must
+    beat."""
+    import torch
+    import torch.nn.functional as F
+    from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
+    from aas_enhancement_tpu_torch.ops.masking import time_mask
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    label = f"bf16 conv_dw AM conv2 11x21 s(1,2) x [{b}, {AM_T}, 81, 32]"
+    frames = torch.tensor((BWD_AM_FRAMES * (b // BWD_B + 1))[:b], device=device)
+    x32 = torch.randn(b, AM_T, 81, 32, generator=gen).to(device)
+    dy32 = (torch.randn(b, AM_T, 41, 32, generator=gen).to(device)
+            * time_mask(frames, AM_T)[:, :, None, None])
     x, dy = x32.to(bf16), dy32.to(bf16)
     before = kconv.conv_dw_same.launches
     got = kconv.conv_dw_same(x, dy, 11, 21, (1, 2))
+    route = kconv.conv_dw_same.route
     again = kconv.conv_dw_same(x, dy, 11, 21, (1, 2))
     ref = kconv.conv_dw_same_plain(x, dy, 11, 21, (1, 2))
     torch.cuda.synchronize()
     if (kconv.conv_dw_same.launches != before + 2 or kconv.conv_dw_same.dtype != bf16
-            or got.dtype != f32 or not torch.equal(got, again)):
+            or route != "mma" or got.dtype != f32 or not torch.equal(got, again)):
         fail(f"{label}: {kconv.conv_dw_same.launches - before} launches at "
-             f"{kconv.conv_dw_same.dtype}, dW {got.dtype}, same bits {torch.equal(got, again)}")
+             f"{kconv.conv_dw_same.dtype}, route {route}, dW {got.dtype}, same bits "
+             f"{torch.equal(got, again)}")
     err = max_err(got, ref)
     rel = err / ref.abs().max().item()
     ms, f32_ms = in_turns(lambda: kconv.conv_dw_same(x, dy, 11, 21, (1, 2)),
@@ -1984,17 +2014,35 @@ def kernels_bf16_backward(device, results: dict) -> None:
     cudnn = lambda: torch.nn.grad.conv2d_weight(                           # noqa: E731
         x_nchw, (32, 32, 11, 21), dy.permute(0, 3, 1, 2), stride=(1, 2))
     lib_ms = statistics.median(cuda_ms(cudnn, 5))
-    work = (nbytes(x, dy, ref), 2.0 * BWD_B * AM_T * 41 * 11 * 21 * 32 * 32, PEAK_BF16_S)
+    work = (nbytes(x, dy, ref), 2.0 * b * AM_T * 41 * 11 * 21 * 32 * 32, PEAK_BF16_S)
     tol, why = BF16_BWD_TOL["conv_dw"]
     text = keep(results, "conv_dw", label, err, ms, plain_ms, work, lib_ms, rel_err=rel)
     row = results["conv_dw"]["shapes"][label]
-    row.update(dtype="bfloat16", f32_ms=f32_ms)
-    print(f"[train_bf16] {label}, ragged dy: dW (f32) max_abs_err {err:.3e}, {rel:.3e} of "
-          f"max|dW| (tol {tol:.0e}: {why}); same bits on two runs | kernel {ms:.4f} ms "
-          f"(f32 inputs, same call: {f32_ms:.4f} ms, x{f32_ms / ms:.2f}) | plain "
-          f"{plain_ms:.4f} ms | {text} (cuDNN wgrad on the bf16 tensors, bf16 dW)")
+    row.update(dtype="bfloat16", route=route, f32_ms=f32_ms)
+    print(f"[train_bf16] {label}, ragged dy: route {route}; dW (f32) max_abs_err {err:.3e}, "
+          f"{rel:.3e} of max|dW| (tol {tol:.0e}: {why}); same bits on two runs | kernel "
+          f"{ms:.4f} ms (the f32 route on f32 inputs, same call: {f32_ms:.4f} ms, "
+          f"x{f32_ms / ms:.2f}) | plain {plain_ms:.4f} ms | {text} (cuDNN wgrad on the bf16 "
+          f"tensors, bf16 dW; x{lib_ms / ms:.2f} of the kernel's time)")
     if not rel <= tol:
         fail(f"{label}: error {rel:.3e} of max|dW| > {tol:.0e}")
+    if not ms < lib_ms:
+        fail(f"{label}: the kernel ({ms:.4f} ms) is not faster than cuDNN's bf16 weight "
+             f"gradient ({lib_ms:.4f} ms)")
+
+
+def conv_dw_kernels() -> dict:
+    """{kernel name: launches} of the device kernels of one bf16 conv_dw
+    wrapper call at the AM's conv2 (B=8), in a fresh process
+    (``utils.profiling.kernel_names_in_fresh_process``)."""
+    from aas_enhancement_tpu_torch.utils.profiling import kernel_names_in_fresh_process
+    names, = kernel_names_in_fresh_process(f"""
+from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
+x = torch.randn({BWD_B}, {AM_T}, 81, 32, device="cuda").bfloat16()
+dy = torch.randn({BWD_B}, {AM_T}, 41, 32, device="cuda").bfloat16()
+calls = [lambda: kconv.conv_dw_same(x, dy, 11, 21, (1, 2))]
+""")
+    return names
 
 
 def check_step_bf16(what: str, aux_cpu, aux_gpu, grads_cpu, grads_gpu, lam: float) -> None:

@@ -32,6 +32,7 @@ top), dscale and dbias 1e-4 x max (f32 sums of the same products); conv_dw
 1e-4 x max|dW| (f32 sums of the same bf16 values).
 """
 
+import itertools
 import re
 
 import numpy as np
@@ -46,6 +47,7 @@ from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
 from aas_enhancement_tpu_torch.ops.cuda import gn
 from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
 from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
+from aas_enhancement_tpu_torch.utils import kernel_build
 from aas_enhancement_tpu_torch.utils.profiling import kernel_names_in_fresh_process
 
 pytestmark = pytest.mark.gpu
@@ -772,31 +774,57 @@ def test_conv_dw_kernel(cuda, shape):
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 
-def test_conv_dw_reads_channels_last_views_in_place(cuda):
+@pytest.mark.parametrize("dtype,lo", [(torch.float32, 4), (torch.bfloat16, 4),
+                                      (torch.bfloat16, 8)])
+def test_conv_dw_reads_channels_last_views_in_place(cuda, dtype, lo):
     """An NCHW tensor with channels-last memory, and a dy that is a strided
-    slice, need no copy; a channel stride other than 1 raises."""
-    x = _randn(2, 8, 20, 15, seed=3).to(cuda).contiguous(memory_format=torch.channels_last)
-    dy = _randn(2, 20, 8, 24, seed=4).to(cuda)[..., 4:20]           # [B, T, Fo, 16]
+    slice, need no copy (at bf16 a slice from channel 4 starts 8 bytes past
+    a 16-byte boundary: scalar loads; from channel 8 on one); a channel
+    stride other than 1 raises."""
+    x = _randn(2, 8, 20, 15, seed=3).to(cuda).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    dy = _randn(2, 20, 8, 24, seed=4).to(cuda).to(dtype)[..., lo:lo + 16]   # [B, T, Fo, 16]
     got = kconv.conv_dw_same(x.permute(0, 2, 3, 1), dy, 3, 5, (1, 2))
+    assert kconv.conv_dw_same.route == ("mma" if dtype == torch.bfloat16 else "fma")
     ref = kconv.conv_dw_same_plain(x.permute(0, 2, 3, 1), dy, 3, 5, (1, 2))
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
     with pytest.raises(ValueError, match="unit channel stride"):
-        kconv.conv_dw_same(_randn(2, 8, 20, 15).to(cuda).permute(0, 2, 3, 1), dy,
+        kconv.conv_dw_same(_randn(2, 8, 20, 15).to(cuda).to(dtype).permute(0, 2, 3, 1), dy,
                            3, 5, (1, 2))
     with pytest.raises(ValueError, match="does not take"):
-        kconv.conv_dw_same(_randn(1, 4, 4, 128).to(cuda), _randn(1, 4, 4, 64).to(cuda),
-                           3, 3)
+        kconv.conv_dw_same(_randn(1, 4, 4, 128).to(cuda).to(dtype),
+                           _randn(1, 4, 4, 64).to(cuda).to(dtype), 3, 3)
 
 
+def test_conv_dw_plan_f32_matches_the_library(cuda):
+    """``conv_dw_plan``'s f32 slices are ``aas_conv_dw_slices``'s (the C
+    plan that the f32 launch reads) over a grid of shapes, 0 included."""
+    lib = kernel_build.load_library()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    zero = 0
+    for ci, co, (kt, kf), f, sf, rows in itertools.product(
+            (1, 8, 10, 32, 64, 128), (6, 8, 32, 64), ((1, 1), (5, 5), (11, 21), (3, 13)),
+            (1, 81, 161, 1200), (1, 2), (1, 18, 3208)):
+        want = lib.aas_conv_dw_slices(rows, -(-f // sf), kt, kf, ci, co, sf, sms)
+        plan = kconv.conv_dw_plan(torch.float32, 1, rows, f, ci, co, kt, kf, (1, sf), sms)
+        assert (plan.route, plan.slices) == ("fma", want), (rows, f, ci, co, kt, kf, sf)
+        zero += want == 0
+    assert zero > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dw_impl,launches", [("kernel", 1), ("auto", 1), ("cudnn", 0)])
-def test_tapdw_conv_on_card(cuda, dw_impl, launches):
+def test_tapdw_conv_on_card(cuda, dw_impl, launches, dtype):
     """TapDWConv against SameConv2d with the same weights: primal and dx are
-    cuDNN's on both sides, dW comes from the kernel unless dw_impl is cudnn."""
-    ref = tconv.SameConv2d(8, 16, (5, 7), (1, 2)).to(cuda)
-    mod = tconv.TapDWConv(8, 16, (5, 7), (1, 2), dw_impl=dw_impl).to(cuda)
+    cuDNN's on both sides, dW comes from the kernel unless dw_impl is cudnn.
+    At bf16 (the AM's conv2 when a bf16 AM trains) the kernel takes the
+    tensor-core route and its f32 dW leaves in bf16, as cuDNN's does: the two
+    agree within one bf16 ulp at the top (2^-7 x max of each gradient)."""
+    ref = tconv.SameConv2d(8, 16, (5, 7), (1, 2), compute_dtype=dtype).to(cuda)
+    mod = tconv.TapDWConv(8, 16, (5, 7), (1, 2), dw_impl=dw_impl, compute_dtype=dtype).to(cuda)
     mod.load_state_dict(ref.state_dict())
     x = _randn(2, 8, 30, 21, seed=6).to(cuda).requires_grad_()
-    cot = _randn(2, 16, 30, 11, seed=7).to(cuda)
+    cot = _randn(2, 16, 30, 11, seed=7).to(cuda).to(dtype)
     before = kconv.conv_dw_same.launches
     y = mod(x)
     got = torch.autograd.grad(y, (x, mod.weight, mod.bias), cot)
@@ -804,9 +832,17 @@ def test_tapdw_conv_on_card(cuda, dw_impl, launches):
     want = torch.autograd.grad(y_ref, (x, ref.weight, ref.bias), cot)
     torch.cuda.synchronize()
     assert kconv.conv_dw_same.launches == before + launches
-    assert torch.equal(y, y_ref)
-    _assert_grads_close(got, want)
-    frozen = tconv.TapDWConv(8, 16, (5, 7), (1, 2), dw_impl=dw_impl).to(cuda)
+    assert torch.equal(y, y_ref) and y.dtype == dtype
+    if launches:
+        assert kconv.conv_dw_same.dtype == dtype
+        assert kconv.conv_dw_same.route == ("mma" if dtype == torch.bfloat16 else "fma")
+    if dtype == torch.float32:
+        _assert_grads_close(got, want)
+    else:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=2.0 ** -7 * float(b.abs().max()))
+    frozen = tconv.TapDWConv(8, 16, (5, 7), (1, 2), dw_impl=dw_impl,
+                             compute_dtype=dtype).to(cuda)
     frozen.requires_grad_(False)
     before = kconv.conv_dw_same.launches
     torch.autograd.grad(frozen(x).sum(), x)
@@ -1393,11 +1429,12 @@ def test_gn_backward_kernel_bf16(cuda, act, shape):
     assert torch.all(got[0][1, t - 14:] == 0) and (b < 3 or torch.all(got[0][2] == 0))
 
 
-@pytest.mark.parametrize("shape", [(8, 401, 81, 32, 32, 11, 21, (1, 2)),   # the AM's conv2
-                                   (2, 21, 19, 10, 6, 3, 5, (1, 1))])     # scalar loads
+@pytest.mark.parametrize("shape", CONV_DW_SHAPES + [
+    (8, 401, 81, 32, 32, 11, 21, (1, 2)),      # the AM's conv2 at B=8
+    (32, 401, 81, 32, 32, 11, 21, (1, 2))])    # and at B=32
 def test_conv_dw_kernel_bf16(cuda, shape):
     """B6 on bf16 x and dy against the plain version on the same values:
-    f32 dW, one launch, the same bits twice."""
+    the tensor-core route, f32 dW, one launch, the same bits twice."""
     b, t, f, ci, co, kt, kf, strides = shape
     x = _randn(b, t, f, ci, seed=3).to(cuda).bfloat16()
     dy = _randn(b, t, -(-f // strides[1]), co, seed=4).to(cuda).bfloat16()
@@ -1405,6 +1442,7 @@ def test_conv_dw_kernel_bf16(cuda, shape):
     got = kconv.conv_dw_same(x, dy, kt, kf, strides)
     assert kconv.conv_dw_same.launches == before + 1
     assert kconv.conv_dw_same.dtype == torch.bfloat16
+    assert kconv.conv_dw_same.route == "mma"
     again = kconv.conv_dw_same(x, dy, kt, kf, strides)
     ref = kconv.conv_dw_same_plain(x, dy, kt, kf, strides)
     torch.cuda.synchronize()
@@ -1412,6 +1450,20 @@ def test_conv_dw_kernel_bf16(cuda, shape):
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
     with pytest.raises(TypeError, match="streams"):
         kconv.conv_dw_same(x, dy.float(), kt, kf, strides)
+
+
+def test_conv_dw_bf16_runs_the_tensor_core_kernel_alone(cuda):
+    """One bf16 call at the AM's conv2 runs the tensor-core kernel and the
+    slice reduction, once each, and no library kernel (fresh process)."""
+    names, = kernel_names_in_fresh_process("""
+from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
+x = torch.randn(8, 401, 81, 32, device="cuda").bfloat16()
+dy = torch.randn(8, 401, 41, 32, device="cuda").bfloat16()
+calls = [lambda: kconv.conv_dw_same(x, dy, 11, 21, (1, 2))]
+""")
+    assert sorted(names.values()) == [1, 1], names
+    assert any("conv_dw_mma_kernel" in n for n in names), names
+    assert any("conv_dw_reduce_kernel" in n for n in names), names
 
 
 def test_bf16_enhance_on_card_matches_cpu(cuda):
