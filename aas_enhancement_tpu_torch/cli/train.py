@@ -10,16 +10,28 @@
                corpus): SGD with Nesterov momentum, optional --spec-augment and
                --am-through-enhancer (the frozen enhancer in front of the AM)
 
-Same flags and final JSON line as the JAX CLI, plus ``--device``.  Metric
-records go to stderr as JSON lines (and to ``--metrics`` / ``--tensorboard``);
-the last stdout line is {"final_step": N, "loss_...": ..., and with
-``--val-manifest`` "val_wer" (and, but for ``paired``, "val_wer_noisy")}.
+Same flags and final JSON line as the JAX CLI, plus ``--device`` and
+``--dist-backend``.  Metric records go to stderr as JSON lines (and to
+``--metrics`` / ``--tensorboard``); the last stdout line is {"final_step": N,
+"loss_...": ..., and with ``--val-manifest`` "val_wer" (and, but for
+``paired``, "val_wer_noisy")}.
+
+Data parallelism: under ``torchrun --nproc_per_node N`` each process is a
+rank on ``cuda:$LOCAL_RANK`` (the default ``--device``) with nccl, and the
+global ``--batch-size`` splits over the ranks (``parallel/mesh.py``); the
+config's ``mesh.num_devices`` is 0 (every process) or N.  Rank 0 alone
+writes the checkpoints, the metrics and the final JSON line.  Ranks that
+share one card (or run on the CPU) take ``--dist-backend gloo``.
 
 Usage:
   python -m aas_enhancement_tpu_torch.cli.train --objective aas \\
       --noisy-manifest noisy.csv --clean-manifest clean.csv --steps 100 \\
       [--am-checkpoint ckpt_am/] [--checkpoint-dir ckpt_g/ [--continue-from]] \\
       [--val-manifest dev.csv --eval-every 50] [--config cfg.json] [--device cuda|cpu]
+  torchrun --standalone --nproc_per_node 8 -m aas_enhancement_tpu_torch.cli.train \
+      --objective am --noisy-manifest clean.csv --steps 100
+  torchrun --standalone --nproc_per_node 2 -m aas_enhancement_tpu_torch.cli.train \
+      --objective am --noisy-manifest clean.csv --device cpu      # gloo on the CPU
 
 Weights: ``--am-checkpoint`` and ``--g-checkpoint`` take a train-CLI
 checkpoint directory of the port (``train/loop.py::load_state``; a JAX
@@ -50,6 +62,7 @@ from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
 from aas_enhancement_tpu_torch.cli.evaluate import checkpoint_seed
 from aas_enhancement_tpu_torch.config import Config
 from aas_enhancement_tpu_torch.enhance import init_enhancer
+from aas_enhancement_tpu_torch.parallel.mesh import make_mesh
 from aas_enhancement_tpu_torch.train.loop import init_state, keep_frozen_g, load_state, train
 
 
@@ -116,7 +129,11 @@ def main(argv=None) -> None:
                         "into this dir (Chrome/Perfetto)")
     p.add_argument("--tensorboard",
                    help="TensorBoard log dir (needs the tensorboard package)")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; cuda:$LOCAL_RANK under torchrun) or cpu")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="process group backend under torchrun (default: nccl on cuda, "
+                        "gloo on cpu; gloo lets ranks share one card)")
     args = p.parse_args(argv)
 
     if args.am_through_enhancer and args.objective != "am":
@@ -125,13 +142,15 @@ def main(argv=None) -> None:
         p.error("--objective paired requires --clean-manifest (paired targets)")
     if args.objective in ("adversarial", "aas") and not args.clean_manifest:
         p.error(f"--objective {args.objective} requires --clean-manifest (unpaired corpus)")
-    device = resolve_device(args.device)
-
     if args.config:
         with open(args.config) as f:
             cfg = Config.from_json(f.read())
     else:
         cfg = Config()
+    # "cuda" is cuda:$LOCAL_RANK under torchrun
+    mesh = make_mesh(cfg.mesh, resolve_device(args.device), backend=args.dist_backend)
+    device = mesh.device
+    say = print if mesh.is_main else (lambda *a, **kw: None)
     tr = {"objective": args.objective}
     for key, value in (("epochs", args.epochs), ("batch_size", args.batch_size),
                        ("grad_accum", args.grad_accum), ("log_every", args.log_every)):
@@ -165,7 +184,7 @@ def main(argv=None) -> None:
                         f"(objective was {am_cfg.train.objective!r})")
             cfg = cfg.replace(am=am_cfg.am)    # the frozen AM keeps its architecture
     elif args.objective in ("acoustic", "aas"):
-        print("WARNING: no --am-checkpoint given; using a RANDOM-INIT frozen AM "
+        say("WARNING: no --am-checkpoint given; using a RANDOM-INIT frozen AM "
               "(fine for smoke tests, useless as supervision)", flush=True)
     g_seed, g, d = None, None, None
     if args.g_checkpoint:
@@ -181,7 +200,7 @@ def main(argv=None) -> None:
                 d = g_state.d
                 cfg = cfg.replace(discriminator=g_cfg.discriminator)
     elif args.am_through_enhancer:
-        print("WARNING: --am-through-enhancer without --g-checkpoint; the frozen "
+        say("WARNING: --am-through-enhancer without --g-checkpoint; the frozen "
               "enhancer is RANDOM-INIT (fine for smoke tests, not a deployment "
               "distribution)", flush=True)
 
@@ -195,7 +214,7 @@ def main(argv=None) -> None:
         # keeps the given one frozen in its state, as the JAX CLI grafts it.
         keep_frozen_g(state, cfg, device, g if g is not None
                       else init_enhancer(cfg, g_seed, device))
-    if args.checkpoint_dir:
+    if args.checkpoint_dir and mesh.is_main:
         os.makedirs(args.checkpoint_dir, exist_ok=True)
         with open(os.path.join(args.checkpoint_dir, "config.json"), "w") as f:
             f.write(cfg.to_json())
@@ -205,7 +224,8 @@ def main(argv=None) -> None:
                            state=state, device=device, metrics_path=args.metrics,
                            tensorboard_dir=args.tensorboard,
                            checkpoint_dir=args.checkpoint_dir or None, resume=args.resume,
-                           eval_am=am if args.objective in ("paired", "adversarial") else None)
+                           eval_am=am if args.objective in ("paired", "adversarial") else None,
+                           mesh=mesh)
 
     final = next((r for r in reversed(records)
                   if any(k.startswith("loss") for k in r)), {})
@@ -216,7 +236,8 @@ def main(argv=None) -> None:
         out["val_wer"] = last_val["val_wer"]
         if "val_wer_noisy" in last_val:
             out["val_wer_noisy"] = last_val["val_wer_noisy"]
-    print(json.dumps(out))
+    say(json.dumps(out))
+    mesh.close()
 
 
 if __name__ == "__main__":

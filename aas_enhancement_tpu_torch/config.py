@@ -4,10 +4,10 @@
 The same dataclasses, fields and defaults as the JAX package's audio, AM,
 enhancer, discriminator and data sections, and the fields of its train
 section that the port reads.  A config JSON written by either package loads
-here as long as the fields the port does not have yet (``UNPORTED``: the
-mesh section and ``audio.stft_impl``) hold their defaults: a non-default
-value of one raises instead of vanishing, naming the ROADMAP item that
-ports the field's consumer.  Keys that neither package knows are
+here as long as the fields the port does not have (``UNPORTED``:
+``audio.stft_impl``) hold their defaults: a non-default value of one raises
+instead of vanishing, naming the ROADMAP item that decides the field's
+consumer.  Keys that neither package knows are
 skipped, as the JAX package's own ``Config.from_dict`` skips them, and JSON
 lists become tuples, as there.
 """
@@ -27,7 +27,6 @@ from typing import Any
 # a field the port drops is listed here or the test fails.
 UNPORTED = {
     "audio": {"stft_impl": ("auto", "A15")},       # one STFT route on the card, by decision
-    "mesh": {"data_axis": ("data", "A12"), "num_devices": (0, "A12")},
 }
 
 
@@ -179,12 +178,22 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The data axis (``parallel/mesh.py``): one process a device."""
+
+    data_axis: str = "data"
+    num_devices: int = 0         # 0 = every launched process; else must equal
+                                 # the world size
+
+
+@dataclass(frozen=True)
 class Config:
     audio: AudioConfig = field(default_factory=AudioConfig)
     am: AMConfig = field(default_factory=AMConfig)
     enhancer: EnhancerConfig = field(default_factory=EnhancerConfig)
     discriminator: DiscriminatorConfig = field(default_factory=DiscriminatorConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     data: DataConfig = field(default_factory=DataConfig)
 
     def to_json(self) -> str:

@@ -101,7 +101,8 @@ def masked_mean(x: torch.Tensor, lengths: torch.Tensor, axis=(1, 2)) -> torch.Te
     return num / torch.clamp(valid_cells, min=1.0)
 
 
-def draw_stripes(gen: torch.Generator, n: int, max_width: int, limit: torch.Tensor
+def draw_stripes(gen: torch.Generator, n: int, max_width: int, limit: torch.Tensor,
+                 rows: tuple[int, int] | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """``n`` stripes per row, each of width <= ``max_width`` and placed inside
     [0, limit_b): -> (width, start), int64 [B, n] on ``limit``'s device.
@@ -109,10 +110,15 @@ def draw_stripes(gen: torch.Generator, n: int, max_width: int, limit: torch.Tens
     The random numbers come from ``gen`` on the CPU; only they cross to the
     device, so a CUDA ``limit`` costs no host sync.  The rule is the JAX
     ``spec_augment``'s (width uniform on 0..max_width, start = floor(u *
-    max(limit - width, 1))); the stream is torch's, not ``jax.random``'s."""
+    max(limit - width, 1))); the stream is torch's, not ``jax.random``'s.
+    ``rows`` = (total, offset): draw for ``total`` rows and keep rows
+    offset..offset+B, the stripes a run over all ``total`` rows gives these
+    (a rank of a data-parallel run holds such a block)."""
     b = limit.shape[0]
-    width = torch.randint(0, max_width + 1, (b, n), generator=gen).to(limit.device)
-    u = torch.rand((b, n), generator=gen).to(limit.device)
+    total, off = rows if rows is not None else (b, 0)
+    width = torch.randint(0, max_width + 1, (total, n), generator=gen)[off:off + b]
+    u = torch.rand((total, n), generator=gen)[off:off + b]
+    width, u = width.to(limit.device), u.to(limit.device)
     hi = torch.clamp(limit[:, None] - width, min=1).to(torch.float32)
     return width, torch.floor(u * hi).to(torch.int64)
 
@@ -134,13 +140,14 @@ def apply_spec_augment(x: torch.Tensor, time_stripes: tuple[torch.Tensor, torch.
 
 def spec_augment(gen: torch.Generator, x: torch.Tensor, lengths: torch.Tensor,
                  n_time: int = 2, time_width: int = 30, n_freq: int = 2,
-                 freq_width: int = 13) -> torch.Tensor:
+                 freq_width: int = 13, rows: tuple[int, int] | None = None) -> torch.Tensor:
     """SpecAugment-style masking of [B, T, F] features (Park et al. 2019): per
     utterance ``n_time`` time stripes of width <= ``time_width`` inside the
     valid frames and ``n_freq`` frequency stripes of width <= ``freq_width``
     are zeroed (after per-utterance normalization zero is the feature mean).
-    Time stripes are drawn first, then frequency stripes."""
-    time_stripes = draw_stripes(gen, n_time, time_width, lengths)
+    Time stripes are drawn first, then frequency stripes; ``rows`` as in
+    ``draw_stripes``."""
+    time_stripes = draw_stripes(gen, n_time, time_width, lengths, rows)
     freq_stripes = draw_stripes(gen, n_freq, freq_width,
-                                torch.full_like(lengths, x.shape[2]))
+                                torch.full_like(lengths, x.shape[2]), rows)
     return apply_spec_augment(x, time_stripes, freq_stripes)

@@ -27,6 +27,15 @@ CPU.  With ``data.val_manifest`` greedy WER/CER is measured every
 ``torch.profiler`` Chrome trace of ``profile_steps`` steps.  With
 ``data.use_grain`` the batches are decoded in ``data.grain_workers`` worker
 processes (``data/grain_loader.py``), in the same order.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``; the CLI under ``torchrun``):
+every rank assembles the same global batch, pads it to a multiple of world
+x ``grad_accum`` rows (padded rows weigh 0) and moves its own row block to
+its device; rank 0's networks are broadcast once at the start (after a
+restore, which every rank makes).  Rank 0 alone writes the checkpoints, the
+metrics file, TensorBoard, ``best_ckpt/`` and ``best.json``, and the
+profiler trace; the other ranks wait at a barrier after each save.  Every
+rank keeps the same records (the metrics are summed over the ranks).
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from aas_enhancement_tpu_torch.models.am import AcousticModel
 from aas_enhancement_tpu_torch.models.discriminator import Discriminator
 from aas_enhancement_tpu_torch.models.enhancer import Enhancer
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
+from aas_enhancement_tpu_torch.parallel.mesh import DataMesh, make_mesh, replicate_state, shard_batch
 from aas_enhancement_tpu_torch.train.state import TrainState, adam, am_sgd
 from aas_enhancement_tpu_torch.train.steps import OBJECTIVES, make_train_step
 from aas_enhancement_tpu_torch.utils import checkpoint as ckpt
@@ -175,12 +185,15 @@ def load_state(checkpoint_dir: str, device: torch.device | str = "cuda"
 
 
 def batch_dict(cfg: Config, batch: Batch, clean_stream: UnpairedCleanStream | None,
-               device: torch.device | str) -> dict[str, torch.Tensor]:
+               mesh: DataMesh) -> dict[str, torch.Tensor]:
     """A host batch (+ its paired clean rows, or an unpaired clean batch for
-    the GAN objectives) with row weights, on ``device``.  Both have
+    the GAN objectives) with row weights: this rank's row block of it,
+    padded for the ranks (``shard_batch``; padded rows weigh 0), on the
+    mesh's device (the whole batch in a run of one process).  Both have
     ``batch_size`` rows (a short batch is repeat-padded by ``epoch_chunks``),
     which ``make_train_step`` requires to be a multiple of ``grad_accum``.
-    The paired clean rows weigh as their noisy rows, every unpaired clean row 1."""
+    The paired clean rows weigh as their noisy rows, every unpaired clean
+    row 1."""
     d = {"wav": batch.wav, "wav_lengths": batch.wav_lengths,
          "labels": batch.labels, "label_paddings": batch.label_paddings}
     paired = cfg.train.objective == "paired"
@@ -198,7 +211,7 @@ def batch_dict(cfg: Config, batch: Batch, clean_stream: UnpairedCleanStream | No
     if "clean_wav" in d:
         d["clean_row_weights"] = rw.copy() if paired else np.ones(d["clean_wav"].shape[0],
                                                                   np.float32)
-    return {key: torch.from_numpy(v).to(device) for key, v in d.items()}
+    return shard_batch(mesh, d, cfg.train.grad_accum)
 
 
 class _Validator:
@@ -212,8 +225,9 @@ class _Validator:
     (one step) with ``best.json``."""
 
     def __init__(self, cfg: Config, eval_am, records: list, logger: MetricsLogger,
-                 checkpoint_dir: str | None):
+                 checkpoint_dir: str | None, mesh: DataMesh):
         self.cfg = cfg
+        self.mesh = mesh
         self.eval_am = eval_am
         self.records = records
         self.logger = logger
@@ -242,13 +256,16 @@ class _Validator:
             rec["val_wer_noisy"] = self.noisy_wer
         self.records.append(rec)
         self.logger.log(s, **{k: v for k, v in rec.items() if k != "step"})
-        if res["wer"] < self.best_wer:
+        if self.mesh.agree(res["wer"] < self.best_wer):
             self.best_wer = res["wer"]
             if self.checkpoint_dir:
-                ckpt.save(os.path.join(self.checkpoint_dir, "best_ckpt"), s, state,
-                          max_to_keep=1)
-                with open(os.path.join(self.checkpoint_dir, "best.json"), "w") as f:
-                    json.dump({"step": s, "val_wer": res["wer"], "val_cer": res["cer"]}, f)
+                if self.mesh.is_main:
+                    ckpt.save(os.path.join(self.checkpoint_dir, "best_ckpt"), s, state,
+                              max_to_keep=1)
+                    with open(os.path.join(self.checkpoint_dir, "best.json"), "w") as f:
+                        json.dump({"step": s, "val_wer": res["wer"], "val_cer": res["cer"]},
+                                  f)
+                self.mesh.barrier()
         return rec
 
 
@@ -301,14 +318,15 @@ def _prefetched(gen, depth: int):
 class _Profile:
     """A ``torch.profiler`` trace of the steps after the first step >=
     ``profile_start``, ``profile_steps`` of them (or to the end of training),
-    written as a Chrome/Perfetto trace into ``profile_dir``."""
+    written as a Chrome/Perfetto trace into ``profile_dir`` (by rank 0 alone
+    under data parallelism)."""
 
-    def __init__(self, cfg: Config, device: torch.device):
+    def __init__(self, cfg: Config, device: torch.device, main: bool = True):
         self.t = cfg.train
         self.device = device
         self.prof = None
         self.first = 0
-        self.done = not self.t.profile_dir
+        self.done = not (self.t.profile_dir and main)
 
     def after_step(self, s: int) -> None:
         if self.done:
@@ -341,7 +359,8 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
           device: torch.device | str = "cuda", metrics_path: str | None = None,
           tensorboard_dir: str | None = None, checkpoint_dir: str | None = None,
           resume: bool = False, eval_am: torch.nn.Module | None = None,
-          paired: bool = False) -> tuple[TrainState, list[dict]]:
+          paired: bool = False, mesh: DataMesh | None = None
+          ) -> tuple[TrainState, list[dict]]:
     """Run ``cfg.train.objective`` on ``device`` (the card by default; without
     a GPU that raises, pass ``"cpu"``).  -> (final state, records).
 
@@ -351,8 +370,14 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
     counts global steps (a resumed run stops at the same step as an
     uninterrupted one).  ``eval_am`` is the decode-only AM of validation for
     an objective that trains without one (the JAX package's
-    ``eval_am_params``)."""
-    device = resolve_device(device)
+    ``eval_am_params``).  ``mesh``: the data axis (``parallel/mesh.py``),
+    whose device the run takes; None makes one from ``cfg.mesh`` and the
+    ``torchrun`` environment (one process without it) on ``device``, and
+    closes it at the end."""
+    own_mesh = mesh is None
+    if own_mesh:
+        mesh = make_mesh(cfg.mesh, device)
+    device = mesh.device
     t = cfg.train
     ds = AudioDataset(noisy_manifest, cfg.audio, cfg.data,
                       paired_manifest=clean_manifest if paired else None)
@@ -371,16 +396,19 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
         last = ckpt.latest_step(checkpoint_dir)
         if last is not None:
             ckpt.restore(checkpoint_dir, last, state)
+    replicate_state(mesh, state)
     anchor_am = None
     if t.objective == "am" and t.distill_lambda > 0.0:
         # The anchor is the AM exactly as this run started (after a restore).
         anchor_am = copy.deepcopy(state.am).requires_grad_(False)
-    step = make_train_step(cfg, anchor_am=anchor_am)
-    logger = MetricsLogger(metrics_path, tensorboard_dir=tensorboard_dir)
+    step = make_train_step(cfg, anchor_am=anchor_am, mesh=mesh)
+    main = mesh.is_main
+    logger = MetricsLogger(metrics_path if main else None, echo=main,
+                           tensorboard_dir=tensorboard_dir if main else None)
     records: list[dict] = []
-    validator = (_Validator(cfg, eval_am, records, logger, checkpoint_dir)
+    validator = (_Validator(cfg, eval_am, records, logger, checkpoint_dir, mesh)
                  if cfg.data.val_manifest else None)
-    profile = _Profile(cfg, device)
+    profile = _Profile(cfg, device, main)
 
     # Resume: fast-forward the data to the restored step.  The epoch's batch
     # count is order-independent, and the clean stream draws once a step.
@@ -400,7 +428,7 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
             batches = ds.batches(t.batch_size, t.seed, epoch, sorted_order=sorted_order,
                                  start=offset)
         for i, batch in enumerate(batches, start=offset):
-            yield i, batch_dict(cfg, batch, clean_stream, device)
+            yield i, batch_dict(cfg, batch, clean_stream, mesh)
 
     last_logged = steps_done         # this process's first step, for utts/s
     t_last = time.perf_counter()
@@ -426,7 +454,9 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
                 logger.log(s, **{k: v for k, v in rec.items() if k != "step"})
                 last_logged = s
             if checkpoint_dir and s % t.checkpoint_every == 0:
-                ckpt.save(checkpoint_dir, s, state)
+                if main:
+                    ckpt.save(checkpoint_dir, s, state)
+                mesh.barrier()
             if validator and t.eval_every and s % t.eval_every == 0:
                 validator.run(state, s, epoch)
             if max_steps and s >= max_steps:
@@ -438,7 +468,11 @@ def train(cfg: Config, noisy_manifest: str, clean_manifest: str | None = None,
     if validator and state.step != validator.last_eval_step:
         validator.run(state, state.step, t.epochs - 1)
     if checkpoint_dir:
-        ckpt.save(checkpoint_dir, state.step, state)
+        if main:
+            ckpt.save(checkpoint_dir, state.step, state)
+        mesh.barrier()
     profile.stop(state.step)          # training ended inside the trace window
     logger.close()
+    if own_mesh:
+        mesh.close()
     return state, records

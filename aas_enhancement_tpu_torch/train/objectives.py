@@ -262,13 +262,16 @@ def distill_kl(base_logits: torch.Tensor, logits: torch.Tensor,
 def am_pretrain_loss(cfg: Config, am: AcousticModel, batch: dict, w_denom=None,
                      gen: torch.Generator | None = None,
                      enhancer: Enhancer | None = None,
-                     anchor_am: AcousticModel | None = None
+                     anchor_am: AcousticModel | None = None,
+                     sa_rows: tuple[int, int] | None = None
                      ) -> tuple[torch.Tensor, dict]:
     """AM pre-training on (typically clean) speech: CTC of ``am`` on the
     normalized log-magnitude features.
 
     ``gen`` not None enables SpecAugment when ``cfg.train.spec_augment`` (the
-    train step only; an evaluation forward passes none).  ``enhancer`` not
+    train step only; an evaluation forward passes none); ``sa_rows`` =
+    (total, offset) places the batch's rows in a larger one for the stripe
+    draw (``ops/masking.py::draw_stripes``).  ``enhancer`` not
     None (``TrainConfig.am_through_enhancer``) feeds the AM the FROZEN
     enhancer's output features instead of the raw input.  ``anchor_am`` not
     None with ``cfg.train.distill_lambda`` > 0 adds the KL term of
@@ -288,7 +291,7 @@ def am_pretrain_loss(cfg: Config, am: AcousticModel, batch: dict, w_denom=None,
         am_in = masked_normalize(log_mag, fl)
         if gen is not None and t.spec_augment:
             am_in = spec_augment(gen, am_in, fl, t.sa_time_masks, t.sa_time_width,
-                                 t.sa_freq_masks, t.sa_freq_width)
+                                 t.sa_freq_masks, t.sa_freq_width, rows=sa_rows)
     if t.streaming_finetune_am:
         logits, out_lengths = am_blockwise_apply(am, am_in, fl, **stream_frames(cfg, 2))
     else:

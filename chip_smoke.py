@@ -95,6 +95,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    AM gradient tensor, updated parameters); the kernel names of one step
    with conv2's dW from the kernel and from cuDNN; AM steps timed at B=8 and
    B=32 x 8 s, and at B=8 with SpecAugment and the KL anchor;
+8a. dp: data parallelism on this one card: 2 ranks (processes running this
+   script with --dp-rank) over gloo, B=8 x 8 s global (4 rows a rank), 3
+   steps of aas at f32, of am at bf16 with SpecAugment, and of the same am
+   at f32 (the witness that the bf16 run's gradient difference is bf16
+   rounding, not the data-parallel path), through
+   make_mesh, replicate_state, shard_batch and the step's all-reduce; in
+   each rank the kernels' launches (conv_dw on route "mma", every GN / GRU
+   launch on bf16 streams in the am run); step 1's metrics and gradients
+   of rank 0 against one process at B=8 on the card (DP_TOL,
+   DP_GRAD_TOL), the parameters of the two ranks equal after the last
+   step; the step walls of 1 rank at B=8 and of each rank, and the
+   all-reduce's MB and ms a step (informative); then the train CLI under
+   torchrun --nproc_per_node 1 with --dist-backend nccl (final_step 2);
 9. checkpoint: the CLIs with checkpoint directories at full width on the
    card (B=4, 6 synthetic utterances): AM pre-training saved at step 2 and
    resumed with --continue-from to step 4 against an uninterrupted 4-step
@@ -427,20 +440,22 @@ def max_err(a, b) -> float:
 
 
 def check_step(phase: str, what: str, aux_cpu, aux_gpu, grads_cpu, grads_gpu,
-               grad_tols: dict, metric_tol: tuple = TRAIN_TOL) -> None:
-    """Card vs CPU of one step: its metrics (relative, ``metric_tol``) and each
-    network's gradient tensors (``grad_tols``: net -> (tol, why)), each against
-    its own max|g|.  A tensor whose CPU max|g| is below GRAD_ZERO of the
+               grad_tols: dict, metric_tol: tuple = TRAIN_TOL,
+               sides: str = "card vs CPU") -> None:
+    """Card vs CPU of one step (or the ``sides`` named): its metrics
+    (relative, ``metric_tol``) and each network's gradient tensors
+    (``grad_tols``: net -> (tol, why)), each against its own max|g|.  A
+    tensor whose reference (``*_cpu``) max|g| is below GRAD_ZERO of the
     network's is zero to rounding and is held to GRAD_ZERO of the network's."""
     tol, why = metric_tol
     rel = {k: abs(float(aux_gpu[k]) - float(v)) / max(abs(float(v)), 1e-6)
            for k, v in aux_cpu.items()}
-    print(f"[{phase}] {what}, card vs CPU (same weights and batch): metrics "
+    print(f"[{phase}] {what}, {sides} (same weights and batch): metrics "
           f"{json.dumps({k: round(float(v), 6) for k, v in aux_gpu.items()})}; largest "
           f"relative difference {max(rel.values()):.3e} ({max(rel, key=rel.get)}) (tol "
           f"{tol:.0e}: {why})")
     if set(aux_gpu) != set(aux_cpu) or not max(rel.values()) <= tol:
-        fail(f"{what}: card vs CPU metrics differ: {rel}")
+        fail(f"{what}: {sides} metrics differ: {rel}")
     bad = []
     for net, (gtol, gwhy) in grad_tols.items():
         scale = max(v.abs().max().item() for v in grads_cpu[net].values())
@@ -463,7 +478,7 @@ def check_step(phase: str, what: str, aux_cpu, aux_gpu, grads_cpu, grads_gpu,
         bad += [f"{net} {n}: {e:.3e} of the network's max|g|"
                 for n, e in zero.items() if not e <= GRAD_ZERO]
     if bad:
-        fail(f"{what}: card vs CPU gradients differ: {bad}")
+        fail(f"{what}: {sides} gradients differ: {bad}")
 
 
 def phase_device():
@@ -2564,6 +2579,221 @@ def phase_train_am(device, card):
     return launches
 
 
+# Data parallelism (phase dp): 2 ranks on one card over gloo against 1 rank.
+DP_RANKS = 2
+DP_B = 8                               # the global batch: 4 rows a rank
+DP_STEPS = 3
+DP_TOL = (1e-4, "the same step on 4 rows a rank, its gradients summed by one all-reduce "
+          "a network, against 8 rows in one process: cuBLAS / cuDNN may pick other "
+          "algorithms at another batch, and the sums run in another order")
+# Each gradient tensor against its own max|g|, by the step's dtype.  Measured
+# on an H100: f32 2.0e-05 (AAS), 2.3e-06 (AM), bf16 4.2e-03 (AM).
+DP_GRAD_TOL = {
+    "float32": (1e-3, "as the card-vs-CPU step limits: f32 sums of 3208-6408 frames' "
+                "products that cancel, in two halves here"),
+    "bfloat16": (2.0 ** -6, "bf16 gradients: a rank's share is rounded to bf16 (one ulp "
+                 "2^-8 of its value) before the all-reduce sums the two, the 1-rank "
+                 "gradient once; 4 ulps at the top")}
+DP_CASES = {"aas": ("stft", "gn_act", "lstm", "lstm_bwd", "gru", "gru_bwd", "gn_bwd"),
+            "am": ("stft", "gn_act", "gru", "gru_bwd", "gn_bwd", "conv_dw"),
+            # am's step at f32, the same batch and SpecAugment: the DP path
+            # without bf16 rounding, held to the f32 limit.
+            "am_f32": ("stft", "gn_act", "gru", "gru_bwd", "gn_bwd", "conv_dw")}
+
+
+def dp_case(name: str):
+    """(config, global CPU batch) of the [dp] phase's ``name`` run: ``aas`` at
+    f32, ``am`` at bf16 with SpecAugment, ``am_f32`` as ``am`` at f32; full
+    width, B=DP_B x 8 s, ragged, the same in every process (a fixed seed)."""
+    import torch
+    from aas_enhancement_tpu_torch.config import Config
+    cfg = Config()
+    objective = name.split("_")[0]
+    train = dataclasses.replace(cfg.train, objective=objective, batch_size=DP_B,
+                                spec_augment=objective == "am")
+    cfg = cfg.replace(train=train)
+    if name == "am":
+        cfg = bf16_config(cfg)
+    batch = train_batch(DP_B, torch.Generator().manual_seed(21), LENGTHS)
+    if objective == "am":
+        batch = {k: v for k, v in batch.items() if not k.startswith("clean")}
+    return cfg, batch
+
+
+def dp_steps(step, state, batch) -> tuple[dict, list[float]]:
+    """DP_STEPS steps, each wall on the host clock around a synchronized call."""
+    import torch
+    walls = []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    if not all(abs(float(v)) < float("inf") for v in aux.values()):
+        fail(f"non-finite metrics {aux}")
+    return aux, walls
+
+
+def dp_rank(rank: str, store: str, out: str) -> int:
+    """One rank of phase dp, on cuda:0 with gloo (``chip_smoke.py --dp-rank``):
+    both runs through make_mesh, replicate_state, shard_batch and the step;
+    its gradients and metrics of step 1, the launches of DP_STEPS steps, the
+    walls, the all-reduce's bytes and time, the final parameters -> ``out``."""
+    sys.path.insert(0, HERE)
+    import torch
+    from aas_enhancement_tpu_torch.config import MeshConfig
+    from aas_enhancement_tpu_torch.parallel.mesh import (all_reduce_grads, make_mesh,
+                                                         replicate_state, shard_batch)
+    from aas_enhancement_tpu_torch.train.loop import init_state
+    from aas_enhancement_tpu_torch.train.steps import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(MeshConfig(num_devices=DP_RANKS), "cuda:0", backend="gloo",
+                     init_method=f"file://{store}", rank=int(rank), world_size=DP_RANKS)
+    res = {}
+    try:
+        for name, kernels in DP_CASES.items():
+            cfg, batch = dp_case(name)
+            state = init_state(cfg, cfg.train.seed, mesh.device, am_seed=0)
+            replicate_state(mesh, state)
+            step = make_train_step(cfg, mesh=mesh)
+            local = shard_batch(mesh, batch, cfg.train.grad_accum)
+            grads, aux = step.batch_grads(state, local)        # step 1's, and a warmup
+            walls = []
+            launches = counted(kernels, lambda: walls.extend(dp_steps(step, state, local)[1]))
+            if name == "am":
+                check_bf16_launches(f"dp rank {rank} am", launches, BF16_STEP_STREAMS["am"])
+            reduce_ms = []
+            for _ in range(5):
+                mesh.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                all_reduce_grads(mesh, grads, aux)
+                torch.cuda.synchronize()
+                reduce_ms.append((time.perf_counter() - t0) * 1e3)
+            res[name] = {
+                "rows": local["wav"].shape[0], "launches": launches, "walls": walls,
+                "aux": {k: float(v) for k, v in aux.items()},
+                "grads": {net: {n: g.detach().cpu() for n, g in gs.items()}
+                          for net, gs in grads.items()},
+                "reduce_ms": reduce_ms,
+                "reduce_bytes": sum(g.numel() * g.element_size()
+                                    for gs in grads.values() for g in gs.values()),
+                "params": {net: {n: p.detach().cpu() for n, p in
+                                 getattr(state, net).named_parameters()}
+                           for net in ("g", "d", "am") if getattr(state, net) is not None},
+                "devices": sorted({str(p.device) for net in ("g", "d", "am")
+                                   if getattr(state, net) is not None
+                                   for p in getattr(state, net).parameters()})}
+            del state, step, local, grads
+    finally:
+        mesh.close()
+    res["imported"] = [m for m in sys.modules
+                       if m.split(".")[0] in ("jax", "flax", "aas_enhancement_tpu")]
+    torch.save(res, out)
+    return 0
+
+
+def phase_dp(device, card):
+    """Phase dp: DP_RANKS processes on this one card over gloo (nccl needs a
+    card a rank), full width, against one process on the card; then the
+    train CLI under torchrun with nccl (one rank)."""
+    import torch
+    from aas_enhancement_tpu_torch.data import generate_corpus
+    from aas_enhancement_tpu_torch.train.loop import init_state
+    from aas_enhancement_tpu_torch.train.steps import make_train_step
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+             os.path.join(tmp, "store"), os.path.join(tmp, f"rank{r}.pt")],
+            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=400)[0])
+        except subprocess.TimeoutExpired:
+            logs.append("timed out after 400 s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if [p.returncode for p in procs] != [0] * DP_RANKS:
+            fail(f"a dp rank failed ({[p.returncode for p in procs]}):\n"
+                 + "\n---\n".join(log[-3000:] for log in logs))
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_RANKS)]
+
+    by_path = {}
+    for name, kernels in DP_CASES.items():
+        cfg, batch = dp_case(name)
+        what = (f"{name} step at {cfg.am.dtype}"
+                + (" with SpecAugment" if cfg.train.spec_augment else "")
+                + f", B={DP_B} x {SECONDS} s")
+        for r, res in enumerate(ranks):
+            got = res[name]
+            by_path[f"dp_{name}_rank{r}"] = got["launches"]
+            print(f"[dp] rank {r} of {DP_RANKS} on {got['devices']} over gloo, {got['rows']} "
+                  f"rows, {what}: launches of {DP_STEPS} steps {json.dumps(got['launches'])}")
+            if got["devices"] != ["cuda:0"] or any(got["launches"][k] < 1 for k in kernels):
+                fail(f"dp rank {r} {name}: not every kernel ran on the card: {got}")
+            if res["imported"]:
+                fail(f"dp rank {r} imported {res['imported'][:5]}")
+        for net in ranks[0][name]["params"]:
+            for n, p in ranks[0][name]["params"][net].items():
+                if not torch.equal(p, ranks[1][name]["params"][net][n]):
+                    fail(f"dp {name}: {net} {n} differs between the ranks after "
+                         f"{DP_STEPS} steps")
+        print(f"[dp] {name}: the parameters of both ranks are equal, bit for bit, after "
+              f"{DP_STEPS} steps")
+
+        # One rank on the card: step 1's metrics and gradients, then the walls.
+        state = init_state(cfg, cfg.train.seed, device, am_seed=0)
+        step = make_train_step(cfg)
+        whole = {k: v.to(device) for k, v in batch.items()}
+        grads, aux = step.batch_grads(state, whole)
+        grads = {net: {n: g.cpu() for n, g in gs.items()} for net, gs in grads.items()}
+        _, walls1 = dp_steps(step, state, whole)
+        got = ranks[0][name]
+        check_step("dp", f"one {what}", aux, got["aux"], grads, got["grads"],
+                   {net: DP_GRAD_TOL[cfg.am.dtype] for net in grads}, DP_TOL,
+                   sides=f"{DP_RANKS} ranks vs 1 on the card")
+        ms = [statistics.median(res[name]["reduce_ms"]) for res in ranks]
+        print(f"[dp] {what} on {card}, TF32 off: 1 rank at B={DP_B} walls ms "
+              f"{[round(w, 2) for w in walls1]}; {DP_RANKS} ranks at B={DP_B // DP_RANKS} "
+              f"sharing the card, walls ms "
+              f"{[[round(w, 2) for w in res[name]['walls']] for res in ranks]}; "
+              f"all-reduce of the gradients and metrics {got['reduce_bytes'] / 1e6:.2f} MB "
+              f"a step, {[round(m, 3) for m in ms]} ms (median of 5 a rank; gloo, through "
+              f"host copies)")
+        del state, step, whole
+
+    with tempfile.TemporaryDirectory() as tmp:
+        manifests = generate_corpus(os.path.join(tmp, "corpus"), n_utts=6, seed=1,
+                                    word_len=(2, 6))
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "1", "-m", "aas_enhancement_tpu_torch.cli.train", "--objective", "am",
+             "--noisy-manifest", manifests["clean"], "--steps", "2", "--batch-size", "4",
+             "--am-checkpoint", "seed:0", "--dist-backend", "nccl"],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+    lines = r.stdout.strip().splitlines()
+    line = json.loads(lines[-1]) if r.returncode == 0 and lines else {}
+    print(f"[dp] torchrun --standalone --nproc_per_node 1 -m aas_enhancement_tpu_torch.cli."
+          f"train --objective am --steps 2 --batch-size 4 --dist-backend nccl: "
+          f"{json.dumps(line)} in {time.perf_counter() - t0:.1f} s")
+    if line.get("final_step") != 2:
+        fail(f"the nccl torchrun run exited {r.returncode}: {r.stdout[-2000:]} "
+             f"{r.stderr[-3000:]}")
+    return by_path
+
+
 CKPT_KERNELS = ("stft", "istft", "gn_act", "lstm", "gru", "lstm_bwd", "gru_bwd",
                 "gn_bwd", "conv_dw")
 
@@ -4096,6 +4326,7 @@ def main() -> int:
     by_path["aas_step"] = timed("aas_step", phase_train, device, smi)   # train CLI, aas
     by_path["birnn_batch_major"] = timed("birnn", phase_birnn, device)
     by_path["am_step"] = timed("am_step", phase_train_am, device, smi)   # train CLI, am
+    by_path.update(timed("dp", phase_dp, device, smi))   # 2 ranks, and torchrun (nccl)
     by_path["checkpoint"] = timed("checkpoint", phase_checkpoint, device, smi)   # CLIs, dirs
     paired_step, by_path["paired_cli"] = timed("paired", phase_paired, device, smi)
     by_path["paired_step"] = paired_step      # the JSON's launches of stft_vjp, istft_vjp
@@ -4162,4 +4393,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:                 # a rank of phase dp
+        sys.exit(dp_rank(*sys.argv[2:]))
     sys.exit(main())

@@ -83,7 +83,7 @@ def test_config_fields_the_port_lacks_are_an_explicit_list():
               for s, v in tconfig.UNPORTED.items()}
     assert listed == _jax_fields_the_port_lacks()
     items = {item for v in tconfig.UNPORTED.values() for _, item in v.values()}
-    assert items == {"A12", "A15"}
+    assert items == {"A15"}
     with open(os.path.join(REPO, "ROADMAP.md")) as f:
         roadmap = f.read()
     for item in items:
@@ -98,21 +98,26 @@ PORTED_TRAIN_FIELDS = ("checkpoint_dir", "checkpoint_every", "eval_every",
                        "eval_batch_size", "prefetch", "profile_start", "profile_steps",
                        "lambda_mrstft", "stream_chunk_s", "stream_lookahead_s",
                        "stream_history_s")
+# The mesh section stood in UNPORTED until data parallelism was ported (A12).
+PORTED_MESH_FIELDS = ("data_axis", "num_devices")
 
 
 @pytest.mark.parametrize("section,name", [(s, k) for s, v in tconfig.UNPORTED.items()
                                           for k in v]
+                         + [("mesh", k) for k in PORTED_MESH_FIELDS]
                          + [("train", k) for k in PORTED_TRAIN_FIELDS])
 def test_config_refuses_a_non_default_value_of_an_unported_field(section, name):
     """A JAX config JSON with such a field off its default raises, naming the
     field and the ROADMAP item; the same JSON with the default loads.  A
     field ported since loads off its default into the port's dataclass."""
     d = json.loads(Config().to_json())
-    if name in PORTED_TRAIN_FIELDS:
+    if (section, name) in [("train", k) for k in PORTED_TRAIN_FIELDS] + \
+            [("mesh", k) for k in PORTED_MESH_FIELDS]:
         assert name not in tconfig.UNPORTED.get(section, {})
-        d[section][name] = d[section][name] + "x" if name == "checkpoint_dir" \
+        d[section][name] = d[section][name] + "x" if isinstance(d[section][name], str) \
             else d[section][name] + 1
-        assert getattr(tconfig.Config.from_dict(d).train, name) == d[section][name]
+        got = getattr(tconfig.Config.from_dict(d), section)
+        assert getattr(got, name) == d[section][name]
         return
     default, item = tconfig.UNPORTED[section][name]
     assert d[section][name] == default and tconfig.Config.from_dict(d) == tconfig.Config()
@@ -121,9 +126,38 @@ def test_config_refuses_a_non_default_value_of_an_unported_field(section, name):
         tconfig.Config.from_dict(d)
 
 
+def test_train_cli_takes_a_mesh_section_under_two_ranks(tmp_path):
+    """A JAX config with mesh.num_devices = 2 loads; the train CLI runs it
+    under torchrun with 2 ranks (gloo on the CPU), and refuses it in one
+    process, as the JAX make_mesh refuses more devices than it sees."""
+    from aas_enhancement_tpu.config import AMConfig, MeshConfig
+    from aas_enhancement_tpu_torch.cli import train as train_cli
+    cfg = Config(am=AMConfig(rnn_hidden=16, rnn_layers=1, conv_channels=8),
+                 mesh=MeshConfig(num_devices=2))
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, num_buckets=1))
+    path = tmp_path / "mesh2.json"
+    path.write_text(cfg.to_json())
+    assert tconfig.Config.from_json(path.read_text()).mesh.num_devices == 2
+    manifests = generate_corpus(str(tmp_path / "corpus"), n_utts=4, seed=3)
+    argv = ["--objective", "am", "--noisy-manifest", manifests["clean"], "--steps", "1",
+            "--batch-size", "2", "--am-checkpoint", "seed:0", "--config", str(path),
+            "--device", "cpu"]
+    with pytest.raises(ValueError, match="num_devices = 2 but 1 process"):
+        train_cli.main(argv)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc_per_node", "2", "-m", "aas_enhancement_tpu_torch.cli.train",
+                        *argv], cwd=REPO, env={**env, "OMP_NUM_THREADS": "1"},
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    finals = [json.loads(s) for s in r.stdout.splitlines() if s.startswith('{"final_step"')]
+    assert [f["final_step"] for f in finals] == [1]
+
+
 def test_config_defaults_match_jax():
     got, ref = tconfig.Config(), Config()
-    for section in ("audio", "enhancer", "train"):
+    for section in ("audio", "enhancer", "train", "mesh"):
         for k, v in dataclasses.asdict(getattr(got, section)).items():
             assert v == getattr(getattr(ref, section), k), (section, k)
 

@@ -354,17 +354,18 @@ def test_paired_batches_weigh_the_clean_rows_as_the_noisy_rows(corpus):
     """The paired clean rows' weights are the batch's real rows (a short batch's
     repeat-padded rows weigh 0), as the JAX loop gives them."""
     from aas_enhancement_tpu_torch.data.dataset import AudioDataset
+    from aas_enhancement_tpu_torch.parallel.mesh import DataMesh
     from aas_enhancement_tpu_torch.train.loop import batch_dict
     cfg = TConfig.from_json(_cfg().to_json())
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=3))
     ds = AudioDataset(corpus["noisy"], cfg.audio, cfg.data, paired_manifest=corpus["clean"])
     short = list(ds.batches(3))[-1]
     assert short.size == 1
-    bd = batch_dict(cfg, short, None, "cpu")
+    bd = batch_dict(cfg, short, None, DataMesh())
     assert bd["row_weights"].tolist() == bd["clean_row_weights"].tolist() == [1, 0, 0]
     with pytest.raises(ValueError, match="paired clean manifest"):
         batch_dict(cfg, list(AudioDataset(corpus["noisy"], cfg.audio, cfg.data)
-                             .batches(3))[0], None, "cpu")
+                             .batches(3))[0], None, DataMesh())
 
 
 @pytest.mark.parametrize("lam,keys", [
