@@ -4,9 +4,9 @@
 The same dataclasses, fields and defaults as the JAX package's audio, AM,
 enhancer, discriminator and data sections, and the fields of its train
 section that the port reads.  A config JSON written by either package loads
-here as long as the fields the port does not have (``UNPORTED``:
-``audio.stft_impl``) hold their defaults: a non-default value of one raises
-instead of vanishing, naming the ROADMAP item that decides the field's
+here as long as the fields the port does not have (``UNPORTED``, empty now
+that every field is ported) hold their defaults: a non-default value of one
+raises instead of vanishing, naming the ROADMAP item that decides the field's
 consumer.  Keys that neither package knows are
 skipped, as the JAX package's own ``Config.from_dict`` skips them, and JSON
 lists become tuples, as there.
@@ -25,9 +25,7 @@ from typing import Any
 # consumer).  ``Config.from_dict`` accepts the default and raises on any other
 # value.  ``tests/test_torch_cli.py`` holds this table to the JAX dataclasses:
 # a field the port drops is listed here or the test fails.
-UNPORTED = {
-    "audio": {"stft_impl": ("auto", "A15")},       # one STFT route on the card, by decision
-}
+UNPORTED: dict[str, dict[str, tuple[Any, str]]] = {}
 
 
 @dataclass(frozen=True)
@@ -40,6 +38,9 @@ class AudioConfig:
     window: str = "hann"         # "hann" | "hamming"
     center: bool = True          # reflect-pad n_fft//2 on both sides
     normalize: bool = True       # per-utterance mean/std normalization of log-mag
+    stft_impl: str = "auto"      # the JAX package's choice of STFT route; here every
+                                 # value runs the same kernels (dsp/api.py), and
+                                 # "pallas" asks n_fft == 2 * hop as there
 
     @property
     def n_fft(self) -> int:

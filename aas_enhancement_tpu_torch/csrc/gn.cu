@@ -38,11 +38,19 @@
 //    and y together exceed the L2, each thread's columns in reverse order
 //    too, and the loads and stores evict-first.
 //
+// The sums, the partials and the finalize are f64 (mean and inv rounded to
+// f32 once, at the end): var = E[x^2] - mean^2 cancels where |mean| is many
+// times the spread (a group over silence and speech, as a streaming window's
+// zero history gives it), and in f32 the card's and the CPU's sums, each
+// rounded in its own order, then part by up to 4.5e-4 of a unit output; in
+// f64 the formula is the JAX module's and the rounding is that of the f32
+// results alone.  The plain version (ops/cuda/gn.py) sums in f64 too.
+//
 // Bound on the H100: bytes.  The function reads x on the valid frames once
 // and writes y once (66 MB each at the enhancer's [4, 801, 161, 32], 78% of
 // the frames valid: 118 MB, 0.035 ms at 3.35 TB/s); the kernel reads x
 // twice, the second time partly from the 50 MB L2.  The
-// scratch (partials) is 64 bytes an item.
+// scratch (partials) is 128 bytes an item.
 //
 // Layout: x, y [B, T, F, C] contiguous, scale, bias [C], lengths [B] int32 or
 // int64, mean, inv [B, C], partials [B * n_tiles * G * 2] with
@@ -51,8 +59,8 @@
 //
 // Streams (the `bf16` flag): x and y are f32 (16-byte aligned: a thread's
 // four channels are one float4) or bf16 (8-byte aligned: four channels are
-// 8 bytes, one uint2 load).  Statistics, finalize, scale, bias and the
-// scratch stay f32 either way.  At bf16 the kernel follows the bf16 model's
+// 8 bytes, one uint2 load).  Statistics and finalize (f64), scale, bias,
+// mean and inv (f32) are the same either way.  At bf16 the kernel follows the bf16 model's
 // GroupNorm (aas_enhancement_tpu/ops/norm.py, the route impl="auto" takes):
 // z = x * inv_c + off_c in f32 is rounded to bf16 first and the activation
 // acts on the rounded value (leaky: bf16(y * slope), with the slope the host
@@ -82,7 +90,7 @@ struct Params {
   void* y;
   float* mean;
   float* inv;
-  float* partials;
+  double* partials;
   int len64;                        // lengths are int64 (else int32)
   int B, T, F, C, G;
   float eps;
@@ -188,9 +196,9 @@ __global__ void __launch_bounds__(kThreads)
 gn_act_fwd_kernel(Params p) {
   using Q = typename Stream<TS>::Quad;
   cg::grid_group grid = cg::this_grid();
-  __shared__ float red[kThreads][9];          // a thread's 4 sums and 4 squares (+1 pad)
-  __shared__ float chan[2][kMaxChannels];     // per channel: sum, sum of squares
-  __shared__ float parts[kParts][2 * kMaxGroups];
+  __shared__ double red[kThreads][9];         // a thread's 4 sums and 4 squares (+1 pad)
+  __shared__ double chan[2][kMaxChannels];    // per channel: sum, sum of squares
+  __shared__ double parts[kParts][2 * kMaxGroups];
   __shared__ float stat[2][kMaxGroups];       // per group: mean, inv
 
   const int tid = threadIdx.x;
@@ -207,16 +215,17 @@ gn_act_fwd_kernel(Params p) {
     const int row0 = (item - b * n_tiles) * kRows;
     const long long len = length_of(p, b);
     const int valid = (int)max(0LL, min((long long)kRows, min(len, (long long)p.T) - row0));
-    float s[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
+    double s[4] = {0.0, 0.0, 0.0, 0.0}, q[4] = {0.0, 0.0, 0.0, 0.0};
     const Q* xb = static_cast<const Q*>(p.x) + ((size_t)b * p.T + row0) * cols;
     for (int col = tid; col < cols; col += blockDim.x) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (r < valid) {
           const float4 v = Stream<TS>::load(xb[(size_t)r * cols + col]);
-          s[0] += v.x; s[1] += v.y; s[2] += v.z; s[3] += v.w;
-          q[0] = fmaf(v.x, v.x, q[0]); q[1] = fmaf(v.y, v.y, q[1]);
-          q[2] = fmaf(v.z, v.z, q[2]); q[3] = fmaf(v.w, v.w, q[3]);
+          const double v0 = v.x, v1 = v.y, v2 = v.z, v3 = v.w;
+          s[0] += v0; s[1] += v1; s[2] += v2; s[3] += v3;
+          q[0] = fma(v0, v0, q[0]); q[1] = fma(v1, v1, q[1]);
+          q[2] = fma(v2, v2, q[2]); q[3] = fma(v3, v3, q[3]);
         }
       }
     }
@@ -230,7 +239,7 @@ gn_act_fwd_kernel(Params p) {
     for (int e = tid; e < 2 * p.C; e += blockDim.x) {
       const int which = e / p.C;              // 0 sum, 1 sum of squares
       const int c = e - which * p.C;
-      float acc = 0.f;
+      double acc = 0.0;
       for (int t = c / 4; t < blockDim.x; t += nq) acc += red[t][4 * which + c % 4];
       chan[which][c] = acc;
     }
@@ -239,7 +248,7 @@ gn_act_fwd_kernel(Params p) {
     for (int e = tid; e < 2 * p.G; e += blockDim.x) {
       const int which = e / p.G;
       const int g = e - which * p.G;
-      float acc = 0.f;
+      double acc = 0.0;
       for (int c = g * cg_size; c < (g + 1) * cg_size; ++c) acc += chan[which][c];
       p.partials[((size_t)item * p.G + g) * 2 + which] = acc;
     }
@@ -259,27 +268,27 @@ gn_act_fwd_kernel(Params p) {
     const int tile = item - b * n_tiles;
     const long long len = length_of(p, b);
     if (b != stat_b) {
-      const float* pb = p.partials + (size_t)b * n_tiles * p.G * 2;
+      const double* pb = p.partials + (size_t)b * n_tiles * p.G * 2;
       for (int e = tid; e < kParts * 2 * p.G; e += blockDim.x) {
         const int part = e / (2 * p.G);
         const int j = e - part * 2 * p.G;     // g * 2 + which
-        float acc = 0.f;
+        double acc = 0.0;
         for (int t = part; t < n_tiles; t += kParts)   // other SMs wrote them: past L1
           acc += __ldcg(pb + (size_t)t * p.G * 2 + j);
         parts[part][j] = acc;
       }
       __syncthreads();
       if (tid < p.G) {
-        float s1 = 0.f, s2 = 0.f;
+        double s1 = 0.0, s2 = 0.0;
         for (int part = 0; part < kParts; ++part) {
           s1 += parts[part][2 * tid];
           s2 += parts[part][2 * tid + 1];
         }
-        const float count = fmaxf((float)len * (float)(p.F * cg_size), 1.f);
-        const float mu = s1 / count;
-        const float var = fmaxf(s2 / count - mu * mu, 0.f);
-        stat[0][tid] = mu;
-        stat[1][tid] = rsqrtf(var + p.eps);
+        const double count = fmax((double)len * (double)(p.F * cg_size), 1.0);
+        const double mu = s1 / count;
+        const double var = fmax(s2 / count - mu * mu, 0.0);
+        stat[0][tid] = (float)mu;
+        stat[1][tid] = (float)rsqrt(var + (double)p.eps);
       }
       __syncthreads();
 #pragma unroll
@@ -342,13 +351,13 @@ cudaError_t residency(const void* kernel, int threads, Residency& r) {
 }  // namespace
 
 // The launch: refuses (cudaErrorInvalidValue) a shape the kernel does not
-// take or a scratch smaller than B * ceil(T / kRows) * G * 2 floats, and
+// take or a scratch smaller than B * ceil(T / kRows) * G * 2 doubles, and
 // returns the cooperative launch's error (cudaErrorCooperativeLaunchTooLarge
 // if the card cannot hold the grid at once).  x and y are f32, or bf16 where
 // `bf16` is set.
 extern "C" int aas_gn_act_fwd(const void* x, const float* scale, const float* bias,
                               const void* lengths, int len64, void* y, float* mean,
-                              float* inv, float* partials, long long partials_len,
+                              float* inv, double* partials, long long partials_len,
                               int B, int T, int F, int C, int G, float eps, int act,
                               float slope, int bf16, cudaStream_t stream) {
   if (B < 1 || T < 1 || F < 1 || C < 4 || C % 4 || C > kMaxChannels || G < 1 ||

@@ -7,12 +7,17 @@
 // products against the n_fft x (n_fft/2+1) inverse basis and overlap-adds
 // them with a row roll and a seam row carried across tiles.  Here a block
 // inverse-transforms kF frames into shared memory and gathers every output
-// sample: sample j of hop-row r sums the K = n_fft/hop frames t = r - q that
-// cover it, at frame offset n = q*hop + j, and is divided by max(sum of
-// window^2, 1e-8).  The block's first K-1 frames are the halo it shares with
-// the block before (each block transforms them again), so a block writes
-// kF - K + 1 hop-rows; no atomics, and each output sample is written once,
-// straight into the trimmed [B, out_len] output (zero past the last frame).
+// sample: sample j of hop-row r sums the frames t = r - q that cover it, at
+// frame offset n = q*hop + j < n_fft, and is divided by max(sum of window^2
+// over the same frames, 1e-8).  Any hop: with K = ceil(n_fft/hop) the offsets
+// q < K with q*hop + j < n_fft are ceil((n_fft - j)/hop) of them, so K or K-1
+// frames cover a sample where hop does not divide n_fft, and none at all in
+// the gap a hop longer than n_fft leaves between frames (there the divisor is
+// 0 and the sample 0 / 1e-8 = 0, as in the JAX fallback).  The block's first
+// K-1 frames are the halo it shares with the block before (each block
+// transforms them again), so a block writes kF - K + 1 hop-rows; no atomics,
+// and each output sample is written once, straight into the trimmed
+// [B, out_len] output (zero past the last frame).
 //
 // The transform (istft_fact_kernel) is the adjoint of the STFT's two stages
 // (csrc/stft.cu) for n_fft = N1 N2, with n = N2 n1 + n2 and k = k1 + N1 k2:
@@ -51,8 +56,8 @@
 //
 // Layout: re/im [B, T, n_fft/2+1], win [n_fft], tab [n_fft] float2,
 // y [B, out_len], all f32 and contiguous.  Output sample o is sample o + shift
-// of the overlap-add buffer [(T-1+K)*hop] (shift = n_fft/2 with center, else
-// 0); o past the buffer is 0.  Requires hop | n_fft.
+// of the overlap-add buffer [(T-1)*hop + n_fft] (shift = n_fft/2 with
+// center, else 0); o past the buffer is 0.  Any hop.
 
 #include <cuda_runtime.h>
 
@@ -72,7 +77,7 @@ __global__ void istft_fact_kernel(const float* __restrict__ re,
                                   int r_lo) {
   static_assert(kF % 4 == 0, "frames are read as float4");
   extern __shared__ float4 smem4[];
-  const int K = n_fft / hop;             // frames covering one sample
+  const int K = (n_fft + hop - 1) / hop;   // the most frames covering one sample
   const int R = kF - K + 1;              // hop-rows this block writes
   const int K1 = N1 / 2 + 1;
   const int items = K1 * N2;
@@ -208,6 +213,7 @@ __global__ void istft_fact_kernel(const float* __restrict__ re,
     float acc = 0.f, wsq = 0.f;
     for (int q = 0; q < K; ++q) {                  // frame t = r - q, staged at rr + K-1-q
       const int n = q * hop + j;
+      if (n >= n_fft) break;                       // frame t = r - q ends before j
       acc += xs[(rr + K - 1 - q) * n_fft + n];
       const int t = r - q;
       if (t >= 0 && t < n_frames) wsq = fmaf(ws[n], ws[n], wsq);
@@ -223,7 +229,7 @@ __global__ void istft_direct_kernel(const float* __restrict__ re,
                                     int hop, int shift, int out_len, int r_lo) {
   extern __shared__ float smem[];
   const int n_bins = n_fft / 2 + 1;
-  const int K = n_fft / hop;             // frames covering one sample
+  const int K = (n_fft + hop - 1) / hop;   // the most frames covering one sample
   const int nf = kRows + K - 1;          // frames this tile reads
   float* cos_tab = smem;                 // [n_fft]
   float* nsin_tab = cos_tab + n_fft;     // [n_fft]
@@ -255,6 +261,7 @@ __global__ void istft_direct_kernel(const float* __restrict__ re,
 
     for (int q = 0; q < K; ++q) {        // frame t = r - q, offset n inside it
       const int n = q * hop + j;
+      if (n >= n_fft) break;
       float part[kRows];
 #pragma unroll
       for (int rr = 0; rr < kRows; ++rr) part[rr] = 0.f;
@@ -282,7 +289,7 @@ __global__ void istft_direct_kernel(const float* __restrict__ re,
       const int o = r * hop + j - shift;
       if (o < 0 || o >= out_len) continue;
       float wsq = 0.f;                   // COLA: window^2 summed over frames
-      for (int q = 0; q < K; ++q) {
+      for (int q = 0; q < K && q * hop + j < n_fft; ++q) {
         const int t = r - q;
         if (t >= 0 && t < n_frames) {
           const float w = win[q * hop + j];
@@ -310,7 +317,7 @@ template <int kF>
 int launch_fact(const float* re, const float* im, const float* win, const float2* tab,
                 float* y, int batch, int n_frames, int n_fft, int hop, int n1, int n2,
                 int shift, int out_len, int r_lo, int r_hi, cudaStream_t stream) {
-  const int R = kF - n_fft / hop + 1;
+  const int R = kF - (n_fft + hop - 1) / hop + 1;
   const int items = (n1 / 2 + 1) * n2;
   const size_t smem = ((size_t)2 * kF * (n_fft / 2 + 1) + (size_t)2 * kF * items +
                        2 * (n1 + n2) + (size_t)(kF + 1) * n_fft) * sizeof(float);
@@ -326,17 +333,16 @@ int launch_fact(const float* re, const float* im, const float* win, const float2
 }  // namespace
 
 // n1 * n2 = n_fft picks the factorised kernel (at most 8 frames over a
-// sample: kF = 8 frames a block up to 4 of them, 16 up to 8), n1 = 0 the
-// direct sum.  y is the trimmed output [batch, out_len]: sample o is sample
-// o + shift of the overlap-add buffer.
+// sample, K = ceil(n_fft / hop): kF = 8 frames a block up to 4 of them, 16
+// up to 8), n1 = 0 the direct sum.  Any hop.  y is the trimmed output
+// [batch, out_len]: sample o is sample o + shift of the overlap-add buffer.
 extern "C" int aas_istft(const float* re, const float* im, const float* win,
                          const float* tab, float* y, int batch, int n_frames,
                          int n_fft, int hop, int shift, int out_len, int n1, int n2,
                          cudaStream_t stream) {
   if (batch == 0 || out_len == 0) return 0;
-  if (n_frames < 1 || hop < 1 || n_fft % hop || shift < 0)
-    return (int)cudaErrorInvalidValue;
-  const int K = n_fft / hop;
+  if (n_frames < 1 || hop < 1 || shift < 0) return (int)cudaErrorInvalidValue;
+  const int K = (n_fft + hop - 1) / hop;
   const int r_lo = shift / hop;                          // the row of sample 0
   const int r_hi = (shift + out_len + hop - 1) / hop;    // one past the last sample's
   if (n1 == 0) {

@@ -34,7 +34,9 @@
 // double precision once per (n_fft, device) and passed in: W_N1^m =
 // W_N^(m N2), W_N2^m = W_N^(m N1).  The center reflect pad is index
 // arithmetic on the loads (mirrored at both edges), so the caller launches no
-// copy.
+// copy.  Frame t reads samples t*hop + n - shift for any hop: where hop does
+// not divide n_fft the frames are the JAX fallback's gather (frame_signal),
+// and a hop longer than n_fft skips the samples between frames.
 //
 // An n_fft with no factorisation that saves operations (a prime) takes the
 // direct sum (stft_direct_kernel): one thread per bin, kFrames accumulators,

@@ -51,6 +51,11 @@
 //   residency (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs) or the
 //   work, whichever is smaller.
 //
+// Any hop: K = ceil(n_fft / hop) is the most frames over a sample, each
+// frame spans K hop-rows zero-padded past n_fft (frames K apart still cover
+// disjoint samples), an offset q hop + j >= n_fft of a frame covers nothing,
+// and a sample in the gap a hop longer than n_fft leaves gets no gradient.
+//
 // Layout: dre, dim [B, T, n_fft/2+1], dx [B, n], dy [B, L], win [n_fft],
 // tab [n_fft] float2, all f32 and contiguous; dre, dim and dy 16-byte aligned.
 
@@ -102,7 +107,7 @@ struct Layout {
 
 __host__ __device__ inline Layout layout(bool stft, int n_fft, int hop, int frames, int stride,
                                          int run) {
-  const int m = n_fft / 2, k = n_fft / hop;
+  const int m = n_fft / 2, k = (n_fft + hop - 1) / hop;
   Layout l;
   l.tw = 2 * n_fft;
   l.win = round4(n_fft);
@@ -175,7 +180,9 @@ __global__ void __launch_bounds__(kThreads) stft_vjp_kernel(StftVjpParams p) {
   extern __shared__ float4 smem4[];
   const fft::Plan& plan = p.plan;
   const int m = plan.m, n_fft = p.n_fft, hop = p.hop, F = plan.frames;
-  const int n_bins = m + 1, K = n_fft / hop;
+  const int n_bins = m + 1, K = (n_fft + hop - 1) / hop;
+  // The run rows span whole hop-rows: buf_len is the buffer rounded up to
+  // them, and its positions past (T-1) hop + n_fft stay 0.
   const long long buf_len = (long long)(p.frames_t - 1 + K) * hop;
   const int part = (K - 1) * hop;                  // floats of one partial stretch
 
@@ -338,12 +345,13 @@ struct IstftVjpParams {
 // Stage tile `tile`'s dy span: buffer position P = t0 hop + x, x < (cnt -
 // 1) hop + N, holds dy[P - shift] (zero outside 0 .. L-1), copied to
 // dst[x + off] with cp.async, and inv[x] = 1 / max(sum of window^2 over the
-// frames that cover P, 1e-8): cinv[P mod hop] where all K frames exist, the
-// sum over the frames that do at a row's first and last K - 1 hop-rows.
+// frames that cover P, 1e-8): cinv[P mod hop] where all K frames that can
+// cover P exist, the sum over the frames that do at a row's first and last
+// K - 1 hop-rows (a frame covers P = (t + q) hop + j where q hop + j < n_fft).
 // Returns off (< 4: dst[0] is 16-byte aligned to dy's quads).
 __device__ __forceinline__ int stage_dy(const IstftVjpParams& p, int tile, float* dst,
                                         float* inv, const float* cinv, const float* win) {
-  const int F = p.plan.frames, hop = p.hop, K = p.n_fft / hop;
+  const int F = p.plan.frames, hop = p.hop, K = (p.n_fft + hop - 1) / hop;
   const int tiles_b = (p.frames_t + F - 1) / F;
   const int b = tile / tiles_b, t0 = (tile - b * tiles_b) * F;
   const int span = (min(F, p.frames_t - t0) - 1) * hop + p.n_fft;
@@ -365,7 +373,7 @@ __device__ __forceinline__ int stage_dy(const IstftVjpParams& p, int tile, float
       inv[x] = cinv[j];
     } else {
       float wsq = 0.f;
-      for (int q = 0; q < K; ++q)
+      for (int q = 0; q < K && q * hop + j < p.n_fft; ++q)
         if (r - q >= 0 && r - q < p.frames_t) wsq += win[q * hop + j] * win[q * hop + j];
       inv[x] = 1.f / fmaxf(wsq, 1e-8f);
     }
@@ -378,7 +386,7 @@ __global__ void __launch_bounds__(kThreads) istft_vjp_kernel(IstftVjpParams p) {
   extern __shared__ float4 smem4[];
   const fft::Plan& plan = p.plan;
   const int m = plan.m, n_fft = p.n_fft, hop = p.hop, F = plan.frames;
-  const int n_bins = m + 1, K = n_fft / hop;
+  const int n_bins = m + 1, K = (n_fft + hop - 1) / hop;
   const int tiles_b = (p.frames_t + F - 1) / F, tiles = p.batch * tiles_b;
 
   float2* tw = reinterpret_cast<float2*>(smem4);
@@ -399,7 +407,8 @@ __global__ void __launch_bounds__(kThreads) istft_vjp_kernel(IstftVjpParams p) {
   }
   for (int j = threadIdx.x; j < hop; j += blockDim.x) {
     float wsq = 0.f;
-    for (int q = 0; q < K; ++q) wsq += p.win[q * hop + j] * p.win[q * hop + j];
+    for (int q = 0; q < K && q * hop + j < n_fft; ++q)
+      wsq += p.win[q * hop + j] * p.win[q * hop + j];
     cinv[j] = 1.f / fmaxf(wsq, 1e-8f);
   }
   __syncthreads();
@@ -480,7 +489,7 @@ stft_vjp_direct_kernel(const float* __restrict__ dre, const float* __restrict__ 
   __syncthreads();
   const int b = blockIdx.y, i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int K = n_fft / hop, n_bins = n_fft / 2 + 1;
+  const int K = (n_fft + hop - 1) / hop, n_bins = n_fft / 2 + 1;
   const long long buf_len = (long long)(frames_t - 1 + K) * hop;
   auto val = [&](long long pos) {
     float acc = 0.f;
@@ -488,8 +497,9 @@ stft_vjp_direct_kernel(const float* __restrict__ dre, const float* __restrict__ 
     const int r = (int)pos / hop, j = (int)pos - r * hop;
     for (int q = 0; q < K; ++q) {
       const int t = r - q;
-      if (t < 0 || t >= frames_t) continue;
       const int nn = q * hop + j;
+      if (nn >= n_fft) break;                        // frame t ends before j
+      if (t < 0 || t >= frames_t) continue;
       const float* yr = dre + ((size_t)b * frames_t + t) * n_bins;
       const float* yi = dim + ((size_t)b * frames_t + t) * n_bins;
       float s = 0.f;
@@ -523,14 +533,15 @@ istft_vjp_direct_kernel(const float* __restrict__ dy, const float* __restrict__ 
   extern __shared__ float4 smem4[];
   float2* tw = reinterpret_cast<float2*>(smem4);
   float* u = reinterpret_cast<float*>(tw + n_fft);
-  const int t = blockIdx.x, b = blockIdx.y, K = n_fft / hop, n_bins = n_fft / 2 + 1;
+  const int t = blockIdx.x, b = blockIdx.y, K = (n_fft + hop - 1) / hop;
+  const int n_bins = n_fft / 2 + 1;
   for (int e = threadIdx.x; e < n_fft; e += blockDim.x) {
     tw[e] = tab[e];
     const int src = t * hop + e - shift, r = t + e / hop, j = e % hop;
     float v = 0.f;
     if (src >= 0 && src < len) {
       float wsq = 0.f;
-      for (int q = 0; q < K; ++q)
+      for (int q = 0; q < K && q * hop + j < n_fft; ++q)
         if (r - q >= 0 && r - q < frames_t) wsq += win[q * hop + j] * win[q * hop + j];
       v = dy[(size_t)b * len + src] * (1.f / fmaxf(wsq, 1e-8f)) * win[e];
     }
@@ -635,10 +646,10 @@ extern "C" int aas_stft_vjp(const float* dre, const float* dim, const float* win
                             int pad_shift, int stride, int runs, unsigned* frames_done,
                             cudaStream_t stream) {
   if (batch == 0 || n_samples == 0) return 0;
-  if (n_frames < 1 || hop < 1 || n_fft % hop || shift < 0 || (shift > 0 && n_samples <= shift))
+  if (n_frames < 1 || hop < 1 || shift < 0 || (shift > 0 && n_samples <= shift))
     return (int)cudaErrorInvalidValue;
   const float2* tab2 = reinterpret_cast<const float2*>(tab);
-  const int K = n_fft / hop;
+  const int K = (n_fft + hop - 1) / hop;
   if (radices == 0) {
     const long long smem = (long long)n_fft * sizeof(float2);
     cudaError_t err = allow_smem(stft_vjp_direct_kernel, smem);
@@ -696,7 +707,7 @@ extern "C" int aas_istft_vjp(const float* dy, const float* win, const float* tab
                              int pad_shift, int stride, unsigned* frames_done,
                              cudaStream_t stream) {
   if (batch == 0 || n_frames == 0) return 0;
-  if (hop < 1 || n_fft % hop || shift < 0 || out_len < 0) return (int)cudaErrorInvalidValue;
+  if (hop < 1 || shift < 0 || out_len < 0) return (int)cudaErrorInvalidValue;
   const float2* tab2 = reinterpret_cast<const float2*>(tab);
   if (radices == 0) {
     const long long smem = (long long)n_fft * (sizeof(float2) + sizeof(float));

@@ -18,8 +18,12 @@ kernel too: per-channel sums of dz and dz * x_hat, a grid-wide barrier, the
 per-(batch, group) finalize, dx, and dscale and dbias summed in a fixed order
 in the kernel.  A CPU tensor runs the plain versions.
 
-x, y, dy and dx are float32 or bfloat16 (the streams); the statistics,
-scale, bias, dscale, dbias and scratch are float32.  At bfloat16 both
+x, y, dy and dx are float32 or bfloat16 (the streams); the forward's
+statistics are summed and finalized in float64 (kernel and plain version
+alike; mean and inv rounded to float32 once), because var = E[x^2] - mean^2
+cancels where |mean| is many times the spread and float32 sums in two
+orders then part by 4.5e-4 of a unit output (a streaming window's zero
+history); scale, bias, mean, inv, dscale and dbias are float32.  At bfloat16 both
 versions follow the bf16 JAX module (``aas_enhancement_tpu/ops/norm.py``,
 the XLA route its ``impl="auto"`` takes): f32 statistics of x, the affine
 and the mask in f32, then a cast to bfloat16 and the activation on the bf16
@@ -72,11 +76,13 @@ def _act_grad(dy: torch.Tensor, z: torch.Tensor, act: str, slope: float) -> torc
 def _group_stats(s1_g: torch.Tensor, s2_g: torch.Tensor, lengths: torch.Tensor,
                  f: int, c: int, g: int, eps: float
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-(B, G) sums -> per-(B, G) (mean, inv = 1/sqrt(var + eps))."""
-    count = torch.clamp(lengths.to(torch.float32) * (f * (c // g)), min=1.0)[:, None]
-    mean = s1_g / count
-    var = torch.clamp(s2_g / count - mean ** 2, min=0.0)
-    return mean, torch.rsqrt(var + eps)
+    """Per-(B, G) sums -> per-(B, G) f32 (mean, inv = 1/sqrt(var + eps)), the
+    finalize in f64 as the kernel's (``csrc/gn.cu``: var = E[x^2] - mean^2
+    cancels where |mean| is many times the spread)."""
+    count = torch.clamp(lengths.to(torch.float64) * (f * (c // g)), min=1.0)[:, None]
+    mean = s1_g.double() / count
+    var = torch.clamp(s2_g.double() / count - mean ** 2, min=0.0)
+    return mean.float(), torch.rsqrt(var + eps).float()
 
 
 def masked_group_norm_act_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -88,7 +94,7 @@ def masked_group_norm_act_plain(x: torch.Tensor, scale: torch.Tensor,
     b, t, f, c = x.shape
     g = num_groups
     mask = time_mask(lengths, t, torch.float32)[:, :, None, None]
-    xm = (x.to(torch.float32) * mask).reshape(b, t, f, g, c // g)
+    xm = (x.to(torch.float32) * mask).reshape(b, t, f, g, c // g).double()   # f64 sums
     mean, inv = _group_stats(xm.sum(dim=(1, 2, 4)), (xm * xm).sum(dim=(1, 2, 4)),
                              lengths, f, c, g, eps)
     inv_c = inv.repeat_interleave(c // g, dim=1) * scale
@@ -129,8 +135,8 @@ def gn_kernel(x, scale, bias, lengths, g, eps, act, slope):
     if bf16:                  # the slope in bfloat16, as the plain version takes it
         slope = float(torch.tensor(slope, dtype=torch.bfloat16))
     y = torch.empty_like(x)
-    n_part = b * -(-t // ROWS_PER_ITEM) * g * 2
-    scratch = torch.empty(2 * b * c + n_part, dtype=torch.float32, device=x.device)
+    n_part = b * -(-t // ROWS_PER_ITEM) * g * 2           # f64 partial sums
+    scratch = torch.empty(2 * b * c + 2 * n_part, dtype=torch.float32, device=x.device)
     mean = scratch.data_ptr()
     err = kernel_build.load_library().aas_gn_act_fwd(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), lengths.data_ptr(),

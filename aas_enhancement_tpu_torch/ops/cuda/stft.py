@@ -54,8 +54,8 @@ import numpy as np
 import torch
 
 from aas_enhancement_tpu_torch.dsp.stft import (
-    _check_hop, _dft_bases_np, cola_norm, get_window, inverse_weights, istft as istft_plain,
-    num_frames, stft as stft_plain, trim)
+    _dft_bases_np, cola_norm, get_window, inverse_weights, istft as istft_plain,
+    istft_length, overlap, overlap_add, pad_frames, stft as stft_plain, stft_frames, trim)
 from aas_enhancement_tpu_torch.ops import library
 from aas_enhancement_tpu_torch.ops.dispatch import check_kernel_inputs, uses_kernel
 from aas_enhancement_tpu_torch.utils import kernel_build
@@ -111,7 +111,7 @@ def stft_factors(n_fft: int) -> tuple[int, int]:
 def istft_route(n_fft: int, hop_length: int) -> tuple[int, int]:
     """The ISTFT kernel's route: ``stft_factors(n_fft)`` where at most
     ``ISTFT_MAX_OVERLAP`` frames cover a sample, else (0, 0), the direct sum."""
-    if n_fft // hop_length > ISTFT_MAX_OVERLAP:
+    if overlap(n_fft, hop_length) > ISTFT_MAX_OVERLAP:
         return 0, 0
     return stft_factors(n_fft)
 
@@ -132,10 +132,9 @@ def stft_factorised_plain(x: torch.Tensor, n_fft: int, hop_length: int,
     k1 <= n1/2, the twiddles W_N^(i2 k1), n2-point complex DFTs, and the bins
     above n_fft/2 stored conjugated at n_fft - k.  Direct sum from the same
     table where ``stft_factors`` gives (0, 0)."""
-    _check_hop(n_fft, hop_length)
     x = x.to(torch.float32)
     b, n = x.shape
-    t = num_frames(n, n_fft, hop_length, center)
+    t = stft_frames(n, n_fft, hop_length, center)
     shift = n_fft // 2 if center else 0
     pos = torch.arange(t)[:, None] * hop_length + torch.arange(n_fft)[None] - shift
     inside = pos < n + shift      # an odd n_fft's last frame ends one past the padded signal
@@ -180,8 +179,9 @@ def istft_factorised_plain(re: torch.Tensor, im: torch.Tensor, n_fft: int,
     twiddles conj(W_N^(i2 k1)), the rows 0 < k1 < n1/2 weighted 2 for their
     mirrors, and n1-point DFTs keeping the real part; the direct sum (weights
     1 at DC and Nyquist, 2 elsewhere) from the same table where ``istft_route``
-    gives (0, 0).  Then window, overlap-add, COLA divide and trim."""
-    _check_hop(n_fft, hop_length)
+    gives (0, 0).  Then window, overlap-add (frame t - q over hop-row t at
+    offset q hop, for the K = ceil(n_fft / hop) offsets q that fall inside
+    the frame), COLA divide and trim (``istft_length``)."""
     sre = re.to(torch.float32) / n_fft
     sim = im.to(torch.float32) / n_fft
     b, t, n_bins = sre.shape
@@ -212,12 +212,11 @@ def istft_factorised_plain(re: torch.Tensor, im: torch.Tensor, n_fft: int,
              + torch.einsum("btkj,ik->btij", v_im, w1[..., 1]))             # [.., i1, i2]
         frames = x.reshape(b, t, n_fft)
     frames = frames * torch.from_numpy(get_window(window, n_fft)).to(sre.device)
-    k_ov = n_fft // hop_length
-    y = sre.new_zeros((b, t - 1 + k_ov, hop_length))
-    for q in range(k_ov):               # frame t - q covers hop-row t at offset q * hop
-        y[:, q: q + t] += frames[..., q * hop_length: (q + 1) * hop_length]
+    y = overlap_add(pad_frames(frames, n_fft, hop_length), hop_length)
+    y = y[:, : (t - 1) * hop_length + n_fft]
     wsq = torch.from_numpy(cola_norm(t, n_fft, hop_length, window)).to(sre.device)
-    return trim(y.reshape(b, -1) / torch.clamp(wsq, min=1e-8), n_fft, center, length)
+    return trim(y / torch.clamp(wsq, min=1e-8), n_fft, center, length,
+                pad=n_fft % hop_length == 0)
 
 
 def stft_vjp_plain(dre: torch.Tensor, dim: torch.Tensor, n_samples: int, n_fft: int,
@@ -229,18 +228,13 @@ def stft_vjp_plain(dre: torch.Tensor, dim: torch.Tensor, n_samples: int, n_fft: 
     window; the frames overlap-add (no division) into the padded signal's
     gradient, whose positions fold back onto the samples they were read
     from: the center pad's mirrors onto the samples they mirror, the zero
-    tail nowhere."""
-    _check_hop(n_fft, hop_length)
+    tail nowhere (nor a gap between frames when hop > n_fft)."""
     dre, dim = dre.to(torch.float32), dim.to(torch.float32)
-    b, t, _ = dre.shape
-    hop, k = hop_length, n_fft // hop_length
     wc, ws = (torch.from_numpy(m).to(dre.device) for m in _dft_bases_np(n_fft))
     win = torch.from_numpy(get_window(window, n_fft)).to(dre.device)
     frames = (dre @ wc.T + dim @ ws.T) * win                       # [B, T, n_fft]
-    buf = dre.new_zeros((b, t - 1 + k, hop))
-    for q in range(k):
-        buf[:, q: q + t] += frames[..., q * hop: (q + 1) * hop]
-    buf = buf.reshape(b, -1)
+    buf = overlap_add(pad_frames(frames, n_fft, hop_length), hop_length)
+    b = buf.shape[0]
     shift = n_fft // 2 if center else 0
     pos = torch.arange(buf.shape[1], device=dre.device) - shift    # in the real signal
     keep = pos < n_samples + shift                                 # not the zero tail
@@ -256,19 +250,19 @@ def istft_vjp_plain(dy: torch.Tensor, n_frames: int, n_fft: int, hop_length: int
     The trim undone (dy placed after the center trim, zero elsewhere), the
     COLA divide, each frame's samples times the window, the real DFT, and
     bin k scaled by g_k / n_fft."""
-    _check_hop(n_fft, hop_length)
     dy = dy.to(torch.float32)
     b, length = dy.shape
-    hop, k = hop_length, n_fft // hop_length
-    buf_len = (n_frames - 1 + k) * hop
+    hop, k = hop_length, overlap(n_fft, hop_length)
+    buf_len = (n_frames - 1) * hop + n_fft
     shift = n_fft // 2 if center else 0
     m = max(0, min(length, buf_len - shift))
-    buf = dy.new_zeros((b, buf_len))
+    buf = dy.new_zeros((b, (n_frames - 1 + k) * hop))
     buf[:, shift: shift + m] = dy[:, :m]
     wsq = torch.from_numpy(cola_norm(n_frames, n_fft, hop, window)).to(dy.device)
-    rows = (buf / torch.clamp(wsq, min=1e-8)).reshape(b, n_frames - 1 + k, hop)
+    buf[:, :buf_len] /= torch.clamp(wsq, min=1e-8)
+    rows = buf.reshape(b, n_frames - 1 + k, hop)
     win = torch.from_numpy(get_window(window, n_fft)).to(dy.device)
-    frames = torch.cat([rows[:, q: q + n_frames] for q in range(k)], dim=2) * win
+    frames = torch.cat([rows[:, q: q + n_frames] for q in range(k)], dim=2)[..., :n_fft] * win
     wc, ws = (torch.from_numpy(m).to(dy.device) for m in _dft_bases_np(n_fft))
     g = torch.from_numpy(inverse_weights(n_fft) / n_fft).to(dy.device)
     return (frames @ wc) * g, (frames @ ws) * g
@@ -350,13 +344,13 @@ def vjp_plan(n_fft: int, hop_length: int) -> VjpPlan:
     n_fft/2 = 2^a 3^b 5^c; every other shape (an odd or prime n_fft, 2048)
     takes the direct sums (``DIRECT_PLAN``).  ``lanes``: 8, 16 or 32,
     whichever leaves the fewest lanes idle in the passes; ``run`` (the rows a
-    block keeps in shared memory): 4 tiles or 2K + 2 frames (K = n_fft /
-    hop), whichever is more, so that ``vjp_run_count`` can always split a
-    row into runs of at most ``run`` and, where there are several, at least
-    K + 1 frames; the exchange layout: the pad and frame stride with the
+    block keeps in shared memory): 4 tiles or 2K + 2 frames (K =
+    ceil(n_fft / hop), the most frames over a sample), whichever is more,
+    so that ``vjp_run_count`` can always split a row into runs of at most
+    ``run`` and, where there are several, at least K + 1 frames; the
+    exchange layout: the pad and frame stride with the
     fewest shared-memory wavefronts (``_wavefronts``; on an H100 a fixed
     rule, a pad every 16 points, ran up to 10% slower: PERF.md §6)."""
-    _check_hop(n_fft, hop_length)
     m = n_fft // 2
     if n_fft % 2 or hop_length % 2 or not 16 <= m <= VJP_MAX_HALF:
         return DIRECT_PLAN
@@ -369,7 +363,7 @@ def vjp_plan(n_fft: int, hop_length: int) -> VjpPlan:
     lanes = min((8, 16, 32), key=lambda n: (sum(-(-(m // r) // n) * n * r * (np.log2(r) + 3)
                                                  for r in radices), -n))
     frames = VJP_THREADS // lanes
-    k = n_fft // hop_length
+    k = overlap(n_fft, hop_length)
     run = max(4 * frames, -(-(2 * k + 2) // frames) * frames)
     best = None
     for pad_shift in (0, 3, 4, 5):
@@ -471,7 +465,7 @@ def vjp_run_count(n_frames: int, n_fft: int, hop_length: int, per_row: int = 0) 
     if not run:
         return 1
     lo = -(-n_frames // run)
-    return max(lo, min(per_row, n_frames // (n_fft // hop_length + 1)))
+    return max(lo, min(per_row, n_frames // (overlap(n_fft, hop_length) + 1)))
 
 
 def vjp_runs(n_frames: int, runs: int) -> list[int]:
@@ -492,14 +486,16 @@ def stft_vjp_runs_plain(dre: torch.Tensor, dim: torch.Tensor, n_samples: int, n_
     the reflect fold at a row's two ends (dx[i] += the padded signal's
     position shift - i, and the mirror at the tail); the K - 1 hop-rows a
     run shares with each neighbour are kept as partial sums and added
-    afterwards, the earlier run's first."""
-    _check_hop(n_fft, hop_length)
+    afterwards, the earlier run's first.  K = ceil(n_fft / hop): each frame
+    is zero-padded to K hop-rows, and the rows past the last frame's end
+    hold zeros."""
     plan = vjp_plan(n_fft, hop_length)
     b, t, _ = dre.shape
-    hop, k = hop_length, n_fft // hop_length
+    hop, k = hop_length, overlap(n_fft, hop_length)
     win = torch.from_numpy(get_window(window, n_fft)).to(dre.device)
-    frames = (irfft_radix_plain(dre, dim, plan.radices) if plan.radices
-              else _direct_frames(dre, dim, n_fft)) * win                 # [B, T, N]
+    frames = pad_frames((irfft_radix_plain(dre, dim, plan.radices) if plan.radices
+                         else _direct_frames(dre, dim, n_fft)) * win,
+                        n_fft, hop)                                       # [B, T, K hop]
     shift = n_fft // 2 if center else 0
     buf_len = (t - 1 + k) * hop
     runs = runs or vjp_run_count(t, n_fft, hop_length)
@@ -508,10 +504,7 @@ def stft_vjp_runs_plain(dre: torch.Tensor, dim: torch.Tensor, n_samples: int, n_
     heads, tails = {}, {}
     for r in range(runs):
         t0, t1 = bounds[r], bounds[r + 1]
-        rows = dre.new_zeros((b, t1 - t0 - 1 + k, hop))
-        for q in range(k):
-            rows[:, q: q + t1 - t0] += frames[:, t0:t1, q * hop:(q + 1) * hop]
-        rows = rows.reshape(b, -1)
+        rows = overlap_add(frames[:, t0:t1], hop)
 
         def val(p, use, t0=t0, rows=rows):       # the padded signal's gradient at p
             idx = (p - t0 * hop).clamp(0, rows.shape[1] - 1)
@@ -540,18 +533,18 @@ def istft_vjp_radix_plain(dy: torch.Tensor, n_frames: int, n_fft: int, hop_lengt
     """``istft_vjp``'s kernel step by step: dy [B, L] -> (dre, dim) [B,
     n_frames, n_fft//2+1].  Buffer position p holds dy[p - shift] (zero
     outside) times 1 / max(sum of window^2, 1e-8): from a table of hop
-    entries (p mod hop) where all K frames over p exist, summed over the
-    frames that do at a row's first and last K - 1 hop-rows; each frame
-    windowed, transformed by ``rfft_radix_plain`` (the direct sum for a
-    direct plan), bin k scaled by g_k / n_fft."""
-    _check_hop(n_fft, hop_length)
+    entries (p mod hop) where all K = ceil(n_fft / hop) frames that can
+    cover p exist, summed over the frames that do at a row's first and last
+    K - 1 hop-rows (the window zero-padded to K hop: an offset past n_fft
+    adds nothing); each frame windowed, transformed by ``rfft_radix_plain``
+    (the direct sum for a direct plan), bin k scaled by g_k / n_fft."""
     plan = vjp_plan(n_fft, hop_length)
     dy = dy.to(torch.float32)
     b, length = dy.shape
-    hop, k = hop_length, n_fft // hop_length
+    hop, k = hop_length, overlap(n_fft, hop_length)
     shift = n_fft // 2 if center else 0
     win = torch.from_numpy(get_window(window, n_fft)).to(dy.device)
-    w2 = (win * win).reshape(k, hop)
+    w2 = pad_frames(win * win, n_fft, hop).reshape(k, hop)
     inner = 1.0 / torch.clamp(w2.sum(0), min=1e-8)                     # [hop]
     p = torch.arange((n_frames - 1 + k) * hop, device=dy.device)
     row, j = p // hop, p % hop
@@ -577,7 +570,6 @@ def stft_kernel(x: torch.Tensor, n_fft: int, hop_length: int, window: str,
                 center: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """The STFT kernel's launcher (the ``aas_torch::stft`` operator's CUDA
     implementation, and ``_StftFn``'s forward): one launch, counted."""
-    _check_hop(n_fft, hop_length)
     check_kernel_inputs("stft", (x,))
     if x.ndim != 2:
         raise ValueError(f"stft: needs [B, n], got {tuple(x.shape)}")
@@ -586,7 +578,7 @@ def stft_kernel(x: torch.Tensor, n_fft: int, hop_length: int, window: str,
         raise ValueError(f"stft: {n} samples are too few for n_fft {n_fft}"
                          + (" with reflect padding" if center else ""))
     x = x.contiguous()
-    t = num_frames(n, n_fft, hop_length, center)
+    t = stft_frames(n, n_fft, hop_length, center)
     f = n_fft // 2 + 1
     re = torch.empty((b, t, f), dtype=torch.float32, device=x.device)
     im = torch.empty_like(re)
@@ -675,20 +667,20 @@ def stft_vjp(dre: torch.Tensor, dim: torch.Tensor, n_samples: int, n_fft: int,
     leaves it as it is)."""
     if not uses_kernel("stft_vjp", dre):
         return stft_vjp_plain(dre, dim, n_samples, n_fft, hop_length, window, center)
-    _check_hop(n_fft, hop_length)
     check_kernel_inputs("stft_vjp", (dre, dim))
     b, t, f = dre.shape
     if dim.shape != dre.shape or f != n_fft // 2 + 1:
         raise ValueError(f"stft_vjp: needs dre, dim [B, T, {n_fft // 2 + 1}], got "
                          f"{tuple(dre.shape)}, {tuple(dim.shape)}")
     shift = n_fft // 2 if center else 0
-    if t != num_frames(n_samples, n_fft, hop_length, center) or n_samples <= shift:
+    if t != stft_frames(n_samples, n_fft, hop_length, center) or n_samples <= shift:
         raise ValueError(f"stft_vjp: {t} frames do not come from {n_samples} samples")
     dre, dim = _aligned(dre.contiguous()), _aligned(dim.contiguous())
     plan = vjp_plan(n_fft, hop_length)
     runs = vjp_run_count(t, n_fft, hop_length,
                          _resident_blocks("stft_vjp", n_fft, hop_length, dre.device) // b)
-    scratch = torch.empty((max(1, b * runs * 2 * (n_fft - hop_length)),), dtype=torch.float32,
+    part = (overlap(n_fft, hop_length) - 1) * hop_length        # a run's shared stretch
+    scratch = torch.empty((max(1, b * runs * 2 * part),), dtype=torch.float32,
                           device=dre.device)
     dx = torch.empty((b, n_samples), dtype=torch.float32, device=dre.device)
     counter = _counter(frames_done, dre.device)
@@ -714,7 +706,6 @@ def istft_kernel(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int
                  window: str, center: bool, length: int | None) -> torch.Tensor:
     """The ISTFT kernel's launcher (the ``aas_torch::istft`` operator's CUDA
     implementation, and ``_IstftFn``'s forward): one launch, counted."""
-    _check_hop(n_fft, hop_length)
     check_kernel_inputs("istft", (re, im))
     if re.ndim != 3 or re.shape != im.shape or re.shape[2] != n_fft // 2 + 1:
         raise ValueError(f"istft: needs re, im [B, T, {n_fft // 2 + 1}], got "
@@ -724,7 +715,7 @@ def istft_kernel(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int
         raise ValueError("istft: needs at least one frame")
     re, im = re.contiguous(), im.contiguous()
     shift = n_fft // 2 if center else 0
-    out_len = (t - 1 + n_fft // hop_length) * hop_length - shift if length is None else length
+    out_len = istft_length(t, n_fft, hop_length, center, length)
     y = torch.empty((b, out_len), dtype=torch.float32, device=re.device)
     n1, n2 = istft_route(n_fft, hop_length)
     err = kernel_build.load_library().aas_istft(
@@ -757,7 +748,8 @@ def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
           length: int | None = None) -> torch.Tensor:
     """(re, im) [B, T, n_fft//2+1] -> wav [B, num_samples]: the overlap-add
     buffer [(T-1)*hop + n_fft] with the center trim (n_fft//2 samples off its
-    head), then cut or zero-padded to ``length``.  Without a wanted gradient,
+    head), then cut or (where hop | n_fft) zero-padded to ``length``
+    (``istft_length``).  Without a wanted gradient,
     the operator ``aas_torch::istft`` (``ops/library.py``); with one, on the
     card ``_IstftFn``, whose backward runs ``istft_vjp``'s kernel, and on the
     CPU autograd through the plain version."""
@@ -783,7 +775,6 @@ def istft_vjp(dy: torch.Tensor, n_frames: int, n_fft: int, hop_length: int,
     ``stft_vjp``."""
     if not uses_kernel("istft_vjp", dy):
         return istft_vjp_plain(dy, n_frames, n_fft, hop_length, window, center)
-    _check_hop(n_fft, hop_length)
     check_kernel_inputs("istft_vjp", (dy,))
     if dy.ndim != 2 or n_frames < 1:
         raise ValueError(f"istft_vjp: needs dy [B, L] and frames, got {tuple(dy.shape)}, "

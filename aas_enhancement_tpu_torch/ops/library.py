@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from aas_enhancement_tpu_torch.dsp.stft import num_frames
+from aas_enhancement_tpu_torch.dsp.stft import istft_length, stft_frames
 from aas_enhancement_tpu_torch.ops.cuda import gn as _gn
 from aas_enhancement_tpu_torch.ops.cuda import rnn as _rnn
 from aas_enhancement_tpu_torch.ops.cuda import stft as _stft
@@ -64,15 +64,16 @@ def _(x, n_fft, hop_length, window, center):
 
 @stft.register_fake
 def _(x, n_fft, hop_length, window, center):
-    shape = (x.shape[0], num_frames(x.shape[1], n_fft, hop_length, center), n_fft // 2 + 1)
+    shape = (x.shape[0], stft_frames(x.shape[1], n_fft, hop_length, center), n_fft // 2 + 1)
     return x.new_empty(shape, dtype=torch.float32), x.new_empty(shape, dtype=torch.float32)
 
 
 @torch.library.custom_op(f"{NAMESPACE}::istft", mutates_args=(), device_types="cpu")
 def istft(re: Tensor, im: Tensor, n_fft: int, hop_length: int, window: str, center: bool,
           length: int | None) -> Tensor:
-    """(re, im) [B, T, n_fft//2+1] -> wav [B, length] (or the trimmed
-    overlap-add length)."""
+    """(re, im) [B, T, n_fft//2+1] -> wav [B, istft_length(...)]: ``length``,
+    or the trimmed overlap-add length, (T-1) hop + n_fft less the center
+    trim, and no more than that where hop does not divide n_fft."""
     return _fresh(_stft.istft_plain(re, im, n_fft, hop_length, window, center, length))
 
 
@@ -83,10 +84,8 @@ def _(re, im, n_fft, hop_length, window, center, length):
 
 @istft.register_fake
 def _(re, im, n_fft, hop_length, window, center, length):
-    if length is None:
-        length = (re.shape[1] - 1 + n_fft // hop_length) * hop_length - (
-            n_fft // 2 if center else 0)
-    return re.new_empty((re.shape[0], length), dtype=torch.float32)
+    shape = (re.shape[0], istft_length(re.shape[1], n_fft, hop_length, center, length))
+    return re.new_empty(shape, dtype=torch.float32)
 
 
 @torch.library.custom_op(f"{NAMESPACE}::masked_group_norm_act", mutates_args=(),

@@ -137,6 +137,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    recurrences' routes, clusters at once and waves; then cli.enhance
    --streaming and cli.train --streaming-finetune / --streaming-finetune-am
    (2 steps, B=4) on their default device, the card.
+11a. hop: the 25 ms / 10 ms framing (n_fft 400, hop 160, 201 bins: a hop
+   that does not divide n_fft) at the default widths: the STFT and ISTFT
+   kernels at B=4 x 8 s and their VJP kernels at B=8 x 8 s at (400, 160)
+   against their plain versions, timed beside torch.stft / torch.istft (and
+   autograd.grad through them) with their device times, route, device
+   kernels a call and frames transformed; the enhance function and the
+   recognition forward at B=2 x 2 s and one chunk call of StreamingEnhancer
+   and of StreamingRecognizer, card vs CPU; cli.enhance, cli.evaluate
+   (greedy), cli.train --objective paired (lambda_mrstft 0.5, 2 steps, a
+   checkpoint directory) and --objective aas (1 step) on 3 utterances with
+   --device cuda; cli.export of the paired directory and one artifact call
+   against the live call (equal bits); each run's launches, and the STFT,
+   ISTFT and ISTFT-VJP routes those runs took at (400, 160);
 12. serve: a full-width checkpoint directory (aas: G, D, the AM) written
    here; load_state's seconds against the random draw it made before this
    port's serving slice (init_state + load_state_dict); cli.serve with no
@@ -769,16 +782,16 @@ def phase_kernels(device):
 VJP_SHAPES = {"stft_vjp": MR_PAIRS + ((320, 160),), "istft_vjp": ((320, 160),) + MR_PAIRS}
 
 
-def vjp_kernels(batch: int, n: int) -> list:
+def vjp_kernels(batch: int, n: int, shapes: dict = VJP_SHAPES) -> list:
     """{kernel name: launches} of the device kernels of one VJP wrapper call
-    at each of ``VJP_SHAPES``' (name, shape) in turn, B = batch x n samples,
-    in a fresh process (``utils.profiling.kernel_names_in_fresh_process``)."""
+    at each of ``shapes``' (name, shape) in turn, B = batch x n samples, in a
+    fresh process (``utils.profiling.kernel_names_in_fresh_process``)."""
     from aas_enhancement_tpu_torch.utils.profiling import kernel_names_in_fresh_process
     return kernel_names_in_fresh_process(f"""
 from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
 calls = []
 dy = torch.randn({batch}, {n}, device="cuda")
-for name, pairs in {VJP_SHAPES!r}.items():
+for name, pairs in {shapes!r}.items():
     for n_fft, hop in pairs:
         t = 1 + {n} // hop
         dre = torch.randn({batch}, t, n_fft // 2 + 1, device="cuda")
@@ -789,7 +802,8 @@ for name, pairs in {VJP_SHAPES!r}.items():
 """)
 
 
-def kernels_vjp(device, results: dict) -> None:
+def kernels_vjp(device, results: dict, shapes: dict = VJP_SHAPES,
+                mr_forward: bool = True) -> None:
     """The STFT's and the ISTFT's VJP kernels against their plain versions
     (the written-out adjoints) at B=8 x 8 s, ragged: cotangents zero past
     each row's valid frames or samples, as a masked loss gives them.  The
@@ -798,8 +812,8 @@ def kernels_vjp(device, results: dict) -> None:
     (``vjp_plan``), the device kernels of one call (exactly one), the blocks
     resident on an SM with the shared memory, registers and spills behind
     them (``vjp_residency``), and the frames the kernel transformed (its own
-    count; fails unless each frame once: no halo).  Also the forward STFT at
-    the MR n_fft.  Library: torch.autograd.grad through torch.stft / torch.istft, the graph
+    count; fails unless each frame once: no halo).  With ``mr_forward`` also
+    the forward STFT at the MR n_fft.  Library: torch.autograd.grad through torch.stft / torch.istft, the graph
     built once, the backward alone timed."""
     import torch
     from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
@@ -816,7 +830,7 @@ def kernels_vjp(device, results: dict) -> None:
         err = max(max_err(g, r) for g, r in zip(got, ref))
         return err, err / max(r.abs().max().item() for r in ref)
 
-    for n_fft, hop in MR_PAIRS:                 # the forward at the MR resolutions
+    for n_fft, hop in MR_PAIRS if mr_forward else ():   # the forward at the MR resolutions
         window = torch.hann_window(n_fft, periodic=True, device=device)
         with torch.inference_mode():
             out = kstft.stft(x, n_fft, hop)
@@ -840,8 +854,8 @@ def kernels_vjp(device, results: dict) -> None:
         if not err <= TOL["stft"][0] or not kstft.stft.route[0]:
             fail(f"{label}: max abs err {err:.3e}, route {kstft.stft.route}")
 
-    names = iter(vjp_kernels(b, N))
-    for name, pairs in VJP_SHAPES.items():
+    names = iter(vjp_kernels(b, N, shapes))
+    for name, pairs in shapes.items():
         for n_fft, hop in pairs:
             window = torch.hann_window(n_fft, periodic=True, device=device)
             t_len = 1 + N // hop
@@ -3553,6 +3567,249 @@ def phase_streaming(device, card):
 # samples, 171 STFT frames; transcribe: lookahead 0.5, windows of 32,000
 # samples, 101 AM frames) over a full-width checkpoint directory written
 # here, and the exported enhancer of the same weights.
+# The 25 ms / 10 ms framing (ROADMAP A1): n_fft 400, hop 160, 201 bins, a hop
+# that does not divide n_fft, at the default widths (enhancer 2 x conv-32 +
+# GN, 2 x BiLSTM-256 over 201 x 32 = 6432 inputs; AM convs 201 -> 101 -> 51
+# bins, 4 x BiGRU-512; the default discriminator).
+HOP_AUDIO = dict(window_size=0.025, window_stride=0.01)
+HOP_PAIR = (400, 160)
+HOP_VJP_SHAPES = {"stft_vjp": (HOP_PAIR,), "istft_vjp": (HOP_PAIR,)}
+HOP_UTTS = 3                           # the CLIs' synthetic corpus
+HOP_B, HOP_SECONDS = 2, 2              # card vs CPU at B=2 x 2 s
+HOP_KERNELS = ("stft", "istft", "gn_act", "lstm", "gru", "lstm_bwd", "gru_bwd", "gn_bwd",
+               "stft_vjp", "istft_vjp", "conv_dw")
+# Kernels each 25/10 path must launch (cli.export traces with fake tensors:
+# its artifact's call launches instead).
+HOP_LAUNCHED = {"hop_enhance_fn": ("stft", "istft", "gn_act", "lstm"),
+                "hop_stream_enhance": ("stft", "istft", "gn_act", "lstm"),
+                "hop_stream_recognize": ("stft", "gn_act", "lstm", "gru"),
+                "hop_cli_enhance": ("stft", "istft", "gn_act", "lstm"),
+                "hop_cli_evaluate": ("stft", "gn_act", "lstm", "gru"),
+                "hop_cli_paired": ("stft", "istft", "lstm_bwd", "gn_bwd", "stft_vjp",
+                                   "istft_vjp"),
+                "hop_cli_aas": ("stft", "lstm", "gru", "lstm_bwd", "gru_bwd", "gn_bwd"),
+                "hop_export_call": ("stft", "istft", "gn_act", "lstm")}
+
+
+def hop_kernels(device, results: dict) -> None:
+    """B4 and B5 at (400, 160), B=4 x 8 s ragged (T = 801, 201 bins), against
+    their plain versions, timed in turns beside torch.stft / torch.istft with
+    their device times; then B4ᵀ and B5ᵀ at (400, 160), B=8 x 8 s, through
+    ``kernels_vjp`` (plain versions, autograd.grad through torch.stft /
+    torch.istft, one device kernel a call, each frame transformed once)."""
+    import torch
+    from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
+
+    n_fft, hop = HOP_PAIR
+    wav, _, gen = make_inputs(device)
+    window = torch.hann_window(n_fft, periodic=True, device=device)
+    with torch.inference_mode():
+        re, im = kstft.stft_plain(wav, n_fft, hop)
+        gain = torch.rand(re.shape, generator=gen).to(device)
+        flops = B * re.shape[1] * 5.0 * n_fft * math.log2(n_fft)
+        z = torch.complex(re * gain, im * gain).transpose(1, 2)
+        cases = {
+            "stft": (kstft.stft, kstft.stft_plain, (wav, n_fft, hop),
+                     (nbytes(wav, re, im), flops),
+                     lambda: torch.stft(wav, n_fft, hop, window=window, center=True,
+                                        pad_mode="reflect", return_complex=True)),
+            "istft": (kstft.istft, kstft.istft_plain,
+                      (re * gain, im * gain, n_fft, hop, "hann", True, N),
+                      (nbytes(re, im, wav), flops),
+                      lambda: torch.istft(z, n_fft, hop, window=window, center=True,
+                                          length=N))}
+        for name, (kernel, plain, args, work, library) in cases.items():
+            k_out, p_out = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = max_err(k_out, p_out)
+            route = kernel.route
+            want = kstft.stft_factors(n_fft) if name == "stft" else kstft.istft_route(n_fft, hop)
+            if route != want or not route[0]:
+                fail(f"{name} at ({n_fft}, {hop}) took route {route}, not {want}")
+            ms, plain_ms = in_turns(lambda: kernel(*args), lambda: plain(*args), 20)
+            lib_ms = statistics.median(cuda_ms(library, 20))
+            label = f"{name} n_fft {n_fft} hop {hop} B={B} (25/10)"
+            text = keep(results, name, label, err, ms, plain_ms, work, lib_ms)
+            row = results[name]["shapes"][label]
+            row["kernel_route"] = f"two stages, {route[0]} x {route[1]}"
+            text += f" | route {row['kernel_route']}" + device_times(
+                row, lambda: kernel(*args), library)
+            tol, why = TOL[name]
+            print(f"[hop] {label}: max_abs_err {err:.3e} (tol {tol:.0e}: {why}) | kernel "
+                  f"{ms:.4f} ms | plain {plain_ms:.4f} ms | x{plain_ms / ms:.2f} | {text}")
+            if not err <= tol:
+                fail(f"{label}: max abs err {err:.3e} > tol {tol:.0e}")
+    kernels_vjp(device, results, HOP_VJP_SHAPES, mr_forward=False)
+
+
+def phase_hop(device, card, results: dict) -> dict:
+    """The main paths at 25 ms / 10 ms on the card: the four STFT kernels at
+    (400, 160) (``hop_kernels``); the enhance function and the recognition
+    forward card vs CPU at B=2 x 2 s; cli.enhance, cli.evaluate (greedy),
+    cli.train --objective paired (lambda_mrstft 0.5, 2 steps, a checkpoint
+    directory) and --objective aas (1 step) on HOP_UTTS utterances; one
+    chunk call of StreamingEnhancer and of StreamingRecognizer, card vs CPU;
+    cli.export of the paired directory and one artifact call against the
+    live call.  Each run's launches counted; the STFT, ISTFT and VJP wrappers'
+    last routes must be the (400, 160) ones.  -> {path: launches}."""
+    import numpy as np
+    import torch
+    from aas_enhancement_tpu_torch.cli import enhance as enhance_cli
+    from aas_enhancement_tpu_torch.cli import evaluate as eval_cli
+    from aas_enhancement_tpu_torch.cli import export as export_cli
+    from aas_enhancement_tpu_torch.cli import train as train_cli
+    from aas_enhancement_tpu_torch.config import AudioConfig, Config
+    from aas_enhancement_tpu_torch.data import generate_corpus
+    from aas_enhancement_tpu_torch.enhance import init_enhancer, make_enhance_fn
+    from aas_enhancement_tpu_torch.evaluation import init_am, make_eval_forward
+    from aas_enhancement_tpu_torch.ops.cuda import stft as kstft
+    from aas_enhancement_tpu_torch.serving import load_enhancer
+    from aas_enhancement_tpu_torch.streaming import StreamingEnhancer
+    from aas_enhancement_tpu_torch.streaming_asr import StreamingRecognizer
+    from aas_enhancement_tpu_torch.train.loop import load_state
+
+    hop_kernels(device, results)
+    cfg = Config(audio=AudioConfig(**HOP_AUDIO))
+    a = cfg.audio
+    if (a.n_fft, a.hop_length, a.num_bins) != (*HOP_PAIR, 201):
+        fail(f"the 25/10 config gives n_fft {a.n_fft}, hop {a.hop_length}")
+    n_fft, hop = HOP_PAIR
+    paths, outs = {}, {}
+
+    def routes(tag: str, names) -> None:
+        want = {"stft": kstft.stft_factors(n_fft), "istft": kstft.istft_route(n_fft, hop),
+                "istft_vjp": kstft.vjp_plan(n_fft, hop)}
+        got = {k: getattr(kstft, k).route for k in names if k in want}
+        if any(v != want[k] for k, v in got.items()):
+            fail(f"{tag}: routes {got}, not the (400, 160) ones {want}")
+
+    # Card vs CPU, the same weights: the enhance function and the recognition forward.
+    g_cpu, am_cpu = init_enhancer(cfg, 1, "cpu"), init_am(cfg, 0, "cpu")
+    g_gpu, am_gpu = copy.deepcopy(g_cpu).to(device), copy.deepcopy(am_cpu).to(device)
+    n = SR * HOP_SECONDS
+    gen = torch.Generator().manual_seed(23)
+    wav = torch.from_numpy(np.stack([stream_wav(HOP_SECONDS, gen) for _ in range(HOP_B)]))
+    lens = torch.tensor([n, n - 7003])
+    wav = wav * (torch.arange(n)[None] < lens[:, None])
+    y_cpu = make_enhance_fn(cfg, "cpu")(g_cpu, wav, lens)
+    paths["hop_enhance_fn"] = counted(SERVE_KERNELS["enhance"], lambda: outs.setdefault(
+        "wave", make_enhance_fn(cfg, device)(g_gpu, wav.to(device), lens.to(device))))
+    y_gpu = outs["wave"]
+    routes("enhance function", ("stft", "istft"))
+    err = (y_gpu.cpu() - y_cpu).abs().max().item()
+    tol, why = SLICE_TOL
+    print(f"[hop] enhance function B={HOP_B} x {HOP_SECONDS} s at (400, 160), card vs CPU: "
+          f"shape {tuple(y_gpu.shape)}, max_abs_err {err:.3e} (tol {tol:.0e}: {why}) | "
+          f"launches {json.dumps(paths['hop_enhance_fn'])}")
+    if y_gpu.shape != (HOP_B, n) or not err <= tol:
+        fail(f"25/10 enhance card vs CPU: shape {tuple(y_gpu.shape)}, error {err:.3e}")
+    fwd = make_eval_forward(cfg, use_enhancer=True)
+    ref, ref_pad = fwd(am_cpu, g_cpu, wav, lens)
+    got, pad = fwd(am_gpu, g_gpu, wav.to(device), lens.to(device))
+    err = (got.cpu() - ref).abs().max().item()
+    tol, why = RECOGNIZE_TOL
+    print(f"[hop] recognition forward B={HOP_B} x {HOP_SECONDS} s (AM over 201 -> 101 -> 51 "
+          f"bins), card vs CPU: logits {tuple(got.shape)}, max_abs_err {err:.3e} (tol "
+          f"{tol:.0e}: {why}); greedy ids equal: "
+          f"{torch.equal(got.argmax(-1).cpu(), ref.argmax(-1))}")
+    if not err <= tol or not torch.equal(pad.cpu(), ref_pad):
+        fail(f"25/10 recognition card vs CPU: error {err:.3e}")
+
+    # One chunk call of each streaming engine (chunk 1.0, lookahead 0.2,
+    # history 1.0 s): 1.3 s of audio fed gives exactly one call.
+    chunk = stream_wav(1.3, gen)
+    for dev in ("cpu", device):
+        g, am = (g_cpu, am_cpu) if dev == "cpu" else (g_gpu, am_gpu)
+        enh = StreamingEnhancer(cfg, g, **STREAM_KW, device=dev)
+        rec = StreamingRecognizer(cfg, am, g, **STREAM_KW, collect_logits=True, device=dev)
+        runs = {"hop_stream_enhance": lambda: outs.setdefault((dev, "enh"), enh.feed(chunk)),
+                "hop_stream_recognize": lambda: (rec.feed(chunk), outs.setdefault(
+                    (dev, "rec"), rec.log_probs()))}
+        for tag, run in runs.items():
+            c = counted(STREAM_PATHS["stream_enhance"] + ("gru",), run)
+            if dev != "cpu":
+                paths[tag] = c
+                routes(tag, [k for k in ("stft", "istft") if c[k]])
+    tol, why = STREAM_TOL
+    for kind in ("enh", "rec"):
+        ref, got = outs[("cpu", kind)], outs[(device, kind)]
+        err = float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
+        print(f"[hop] {'StreamingEnhancer' if kind == 'enh' else 'StreamingRecognizer'} one "
+              f"chunk call at 25/10, card vs CPU: out {got.shape}, max_abs_err {err:.3e} "
+              f"(tol {tol:.0e}) | launches "
+              f"{json.dumps(paths['hop_stream_' + ('enhance' if kind == 'enh' else 'recognize')])}")
+        if not got.size or not err <= tol:
+            fail(f"25/10 streaming {kind}: {got.shape} against {ref.shape}, error {err:.3e}")
+
+    # The CLIs on the card, default widths, the 25/10 config JSON.
+    with tempfile.TemporaryDirectory() as tmp:
+        m = generate_corpus(os.path.join(tmp, "corpus"), n_utts=HOP_UTTS, seed=5,
+                            word_len=(2, 6))
+        cfg_mr = cfg.replace(train=dataclasses.replace(cfg.train, lambda_mrstft=0.5))
+        cfg_path = os.path.join(tmp, "hop.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg_mr.to_json())
+        p_dir, art = os.path.join(tmp, "paired"), os.path.join(tmp, "artifact")
+        # (path, what, CLI, argv, the wrappers whose last route must be the
+        # (400, 160) one: the paired run's last STFT and B4ᵀ are the MR terms')
+        runs = (
+            ("hop_cli_enhance", "cli.enhance", enhance_cli.main,
+             ["--manifest", m["noisy"], "--out-dir", os.path.join(tmp, "enh"), "--config",
+              cfg_path, "--device", "cuda"], ("stft", "istft")),
+            ("hop_cli_evaluate", "cli.evaluate (greedy)", eval_cli.main,
+             ["--manifest", m["noisy"], "--clean-manifest", m["clean"], "--am-checkpoint",
+              "seed:0", "--enhancer-checkpoint", "seed:1", "--config", cfg_path,
+              "--device", "cuda"], ("stft", "istft")),
+            ("hop_cli_paired", "cli.train --objective paired (lambda_mrstft 0.5)",
+             train_cli.main,
+             ["--objective", "paired", "--noisy-manifest", m["noisy"], "--clean-manifest",
+              m["clean"], "--batch-size", str(HOP_B), "--steps", "2", "--config", cfg_path,
+              "--checkpoint-dir", p_dir, "--device", "cuda"], ("istft", "istft_vjp")),
+            ("hop_cli_aas", "cli.train --objective aas", train_cli.main,
+             ["--objective", "aas", "--noisy-manifest", m["noisy"], "--clean-manifest",
+              m["clean"], "--am-checkpoint", "seed:0", "--batch-size", str(HOP_B),
+              "--steps", "1", "--config", cfg_path, "--device", "cuda"], ("stft",)),
+            ("hop_cli_export", "cli.export --batch-sizes 1 --seconds 2", export_cli.main,
+             ["--checkpoint", p_dir, "--out", art, "--batch-sizes", "1", "--seconds",
+              str(HOP_SECONDS), "--device", "cuda"], ()))
+        lines = {}
+        for path, tag, main, argv, routed in runs:
+            lines[path], _, paths[path] = _cli_run(tag + " at 25/10", main, argv, phase="hop",
+                                                   names=HOP_KERNELS)
+            routes(tag, [k for k in routed if paths[path][k]])
+        if lines["hop_cli_enhance"].get("utterances") != HOP_UTTS:
+            fail(f"cli.enhance at 25/10 printed {lines['hop_cli_enhance']}")
+        ev = lines["hop_cli_evaluate"]
+        if not all(ev.get(leg, {}).get("utterances") == HOP_UTTS for leg in ("noisy", "enhanced")):
+            fail(f"cli.evaluate at 25/10 printed {lines['hop_cli_evaluate']}")
+        for path, step, key in (("hop_cli_paired", 2, "loss_mrstft"),
+                                ("hop_cli_aas", 1, "loss_g")):
+            line = lines[path]
+            if line.get("final_step") != step or key not in line or not all(
+                    abs(v) < float("inf") for v in line.values()):
+                fail(f"{path} printed {line}")
+
+        # One artifact call against the live call on the same weights.
+        served = load_enhancer(art, device)
+        state_g = load_state(p_dir, device)[0].g
+        x = stream_wav(HOP_SECONDS, gen)[None]
+        paths["hop_export_call"] = counted(SERVE_KERNELS["enhance"], lambda: outs.setdefault(
+            "art", served.enhance(x)))
+        live = make_enhance_fn(cfg, device)(state_g, torch.from_numpy(x),
+                                            torch.tensor([x.shape[1]])).cpu().numpy()
+        err = float(np.abs(outs["art"] - live).max())
+        tol, why = EXPORT_TOL
+        print(f"[hop] the 25/10 artifact's call against make_enhance_fn on {card}: "
+              f"max_abs_err {err:.3e} (tol {tol}: {why}) | launches "
+              f"{json.dumps(paths['hop_export_call'])}")
+        if outs["art"].shape != live.shape or not err <= tol:
+            fail(f"the 25/10 artifact differs from the live path: {err:.3e}")
+    for path, names in HOP_LAUNCHED.items():
+        if not all(paths[path].get(k) for k in names):
+            fail(f"{path}: launched {paths[path]}, not each of {names}, at 25/10")
+    return paths
+
+
 SERVE_POINTS = {"enhance": (1.0, 0.2, 0.5), "transcribe": (1.0, 0.5, 0.5)}
 SERVE_SLOTS = 8                          # --max-streams of the CLI runs
 TICK_SLOTS = ((64, 1), (64, 8), (64, 64), (1, 1), (8, 8))   # (engine slots, busy)
@@ -4331,6 +4588,10 @@ def main() -> int:
     paired_step, by_path["paired_cli"] = timed("paired", phase_paired, device, smi)
     by_path["paired_step"] = paired_step      # the JSON's launches of stft_vjp, istft_vjp
     by_path.update(timed("streaming", phase_streaming, device, smi))
+    # The 25 ms / 10 ms framing (hop 160 does not divide n_fft 400): the STFT
+    # kernels there, and the enhance, recognition, training, streaming and
+    # export paths at full width.
+    by_path.update(timed("hop", phase_hop, device, smi, results))
     by_path["serve"], root, ck = timed("serve", phase_serve, device, smi)   # cli.serve
     try:
         by_path["export"] = timed("export", phase_export, device, smi, root, ck)   # artifact
@@ -4339,7 +4600,7 @@ def main() -> int:
     print(f"[time] seconds per phase: {json.dumps(took)}")
     launches = {}
     for counts in by_path.values():        # the last path that runs a kernel
-        launches.update(counts)
+        launches.update({k: v for k, v in counts.items() if v})
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "aas_enhancement_tpu")]
@@ -4379,7 +4640,7 @@ def main() -> int:
                       "aas_enhancement_tpu/dsp/stft.py:139 (no TPU kernel: XLA's VJP of istft)"),
     }
     kernels = [{"name": k, "route": r, "source": s, "replaces": rep,
-                "launches": launches[k], **results[k],
+                "launches": launches.get(k, 0), **results[k],
                 "launches_by_path": {p: c[k] for p, c in by_path.items() if k in c}}
                for k, (r, s, rep) in meta.items()]
     for k in kernels:

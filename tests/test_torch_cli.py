@@ -83,7 +83,7 @@ def test_config_fields_the_port_lacks_are_an_explicit_list():
               for s, v in tconfig.UNPORTED.items()}
     assert listed == _jax_fields_the_port_lacks()
     items = {item for v in tconfig.UNPORTED.values() for _, item in v.values()}
-    assert items == {"A15"}
+    assert listed == {} and items == set()      # every field ported (audio.stft_impl last)
     with open(os.path.join(REPO, "ROADMAP.md")) as f:
         roadmap = f.read()
     for item in items:
@@ -98,12 +98,17 @@ PORTED_TRAIN_FIELDS = ("checkpoint_dir", "checkpoint_every", "eval_every",
                        "eval_batch_size", "prefetch", "profile_start", "profile_steps",
                        "lambda_mrstft", "stream_chunk_s", "stream_lookahead_s",
                        "stream_history_s")
-# The mesh section stood in UNPORTED until data parallelism was ported (A12).
+# The mesh section stood in UNPORTED until data parallelism was ported (A12),
+# audio.stft_impl until the STFT took any hop (A1).
 PORTED_MESH_FIELDS = ("data_axis", "num_devices")
+PORTED_AUDIO_FIELDS = ("stft_impl",)
+PORTED = ([("train", k) for k in PORTED_TRAIN_FIELDS] + [("mesh", k) for k in PORTED_MESH_FIELDS]
+          + [("audio", k) for k in PORTED_AUDIO_FIELDS])
 
 
 @pytest.mark.parametrize("section,name", [(s, k) for s, v in tconfig.UNPORTED.items()
                                           for k in v]
+                         + [("audio", k) for k in PORTED_AUDIO_FIELDS]
                          + [("mesh", k) for k in PORTED_MESH_FIELDS]
                          + [("train", k) for k in PORTED_TRAIN_FIELDS])
 def test_config_refuses_a_non_default_value_of_an_unported_field(section, name):
@@ -111,8 +116,7 @@ def test_config_refuses_a_non_default_value_of_an_unported_field(section, name):
     field and the ROADMAP item; the same JSON with the default loads.  A
     field ported since loads off its default into the port's dataclass."""
     d = json.loads(Config().to_json())
-    if (section, name) in [("train", k) for k in PORTED_TRAIN_FIELDS] + \
-            [("mesh", k) for k in PORTED_MESH_FIELDS]:
+    if (section, name) in PORTED:
         assert name not in tconfig.UNPORTED.get(section, {})
         d[section][name] = d[section][name] + "x" if isinstance(d[section][name], str) \
             else d[section][name] + 1
@@ -153,6 +157,36 @@ def test_train_cli_takes_a_mesh_section_under_two_ranks(tmp_path):
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     finals = [json.loads(s) for s in r.stdout.splitlines() if s.startswith('{"final_step"')]
     assert [f["final_step"] for f in finals] == [1]
+
+
+@pytest.mark.parametrize("impl", ["auto", "jax", "pallas", "other"])
+@pytest.mark.parametrize("window_size", [0.02, 0.025])
+def test_stft_impl_loads_and_pallas_needs_half_overlap(impl, window_size):
+    """audio.stft_impl loads at any value and every value runs the same
+    route (the wave equals the default config's bit for bit); "pallas" with
+    n_fft != 2 * hop (400 / 160) raises in the port's dsp/api.py with the
+    JAX package's dsp/api.py message, and the JAX call raises the same."""
+    from aas_enhancement_tpu.dsp import api as jax_api
+    from aas_enhancement_tpu_torch.dsp import api as dsp_api
+    a_jax = AudioConfig(window_size=window_size, stft_impl=impl)
+    d = json.loads(Config(audio=a_jax).to_json())
+    a = tconfig.Config.from_dict(d).audio
+    assert a.stft_impl == impl and (a.n_fft, a.hop_length) == (a_jax.n_fft, a_jax.hop_length)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 3000)).astype(np.float32))
+    if impl == "pallas" and a.n_fft != 2 * a.hop_length:
+        msg = "stft_impl=pallas requires n_fft == 2\\*hop_length"
+        with pytest.raises(ValueError, match=msg):
+            dsp_api.stft(a, x)
+        with pytest.raises(ValueError, match=msg):
+            dsp_api.istft(a, torch.zeros(2, 20, a.num_bins), torch.zeros(2, 20, a.num_bins))
+        with pytest.raises(ValueError, match=msg):
+            jax_api.stft(a_jax, x.numpy())
+        return
+    base = dataclasses.replace(a, stft_impl="auto")
+    re, im = dsp_api.stft(a, x)
+    want = dsp_api.stft(base, x)
+    assert torch.equal(re, want[0]) and torch.equal(im, want[1])
+    assert torch.equal(dsp_api.istft(a, re, im, 3000), dsp_api.istft(base, re, im, 3000))
 
 
 def test_config_defaults_match_jax():

@@ -252,6 +252,118 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     assert (kstft.stft.launches, kstft.istft.launches) == before
 
 
-def test_hop_must_divide_n_fft():
-    with pytest.raises(ValueError, match="multiple of hop"):
-        tstft.stft(torch.zeros(1, 1000), 300, 160)
+# The framings of the hop-generic STFT and ISTFT: the enhancer's 20 ms / 10 ms
+# (hop | n_fft, the segment route) and three where hop does not divide n_fft,
+# the JAX package's gather/scatter fallback: 25 ms / 10 ms (400, 160), 1.5
+# frames of overlap (300, 200) and a hop longer than the frame (160, 320:
+# samples between frames that no frame covers).
+ANY_HOPS = [(320, 160), (400, 160), (300, 200), (160, 320)]
+ANY_HOP_N = 4000
+ANY_HOP_LENGTHS = [ANY_HOP_N, ANY_HOP_N - 1000, ANY_HOP_N + 1000, None]
+
+
+@pytest.mark.parametrize("n_fft,hop", ANY_HOPS)
+@pytest.mark.parametrize("center", [True, False])
+def test_stft_frame_signal_and_features_match_jax_at_any_hop(n_fft, hop, center):
+    """``stft``, the kernel's factorised arithmetic, ``frame_signal`` and
+    ``log_magnitude_features`` (both normalizations) against the JAX
+    functions, shapes included."""
+    x = _signal(2, ANY_HOP_N, seed=n_fft + hop)
+    xt, xj = torch.from_numpy(x), jnp.asarray(x)
+    re_j, im_j = jstft.stft(xj, n_fft, hop, center=center)
+    for re_t, im_t in (tstft.stft(xt, n_fft, hop, center=center),
+                       kstft.stft_factorised_plain(xt, n_fft, hop, center=center)):
+        assert re_t.shape == re_j.shape == (2, tstft.stft_frames(ANY_HOP_N, n_fft, hop, center),
+                                            n_fft // 2 + 1)
+        np.testing.assert_allclose(re_t.numpy(), np.asarray(re_j), **STFT_TOL)
+        np.testing.assert_allclose(im_t.numpy(), np.asarray(im_j), **STFT_TOL)
+    fr_t = tstft.frame_signal(xt, n_fft, hop, center)
+    fr_j = np.asarray(jstft.frame_signal(xj, n_fft, hop, center))
+    assert fr_t.shape == fr_j.shape
+    np.testing.assert_array_equal(fr_t.numpy(), fr_j)
+    for normalize in (True, False):
+        got = tstft.log_magnitude_features(xt, n_fft, hop, center=center, normalize=normalize)
+        ref = jstft.log_magnitude_features(xj, n_fft, hop, center=center, normalize=normalize)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), **STFT_TOL)
+        # the phase, as an angle (+pi and -pi are one), where the bin is not
+        # ~0 (atan2 of rounding noise is any angle)
+        sure = np.asarray(ref[1]) > 1e-3
+        turn = np.angle(np.exp(1j * (got[2].numpy() - np.asarray(ref[2]))))
+        assert np.abs(turn[sure]).max() <= 1e-3
+
+
+@pytest.mark.parametrize("n_fft,hop", ANY_HOPS)
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("length", ANY_HOP_LENGTHS)
+def test_istft_and_reconstruct_match_jax_at_any_hop(n_fft, hop, center, length):
+    """``istft`` (plain and the kernel's factorised arithmetic) on random
+    spectra and ``reconstruct`` of a signal's magnitude and phase against
+    the JAX functions, shapes included: where hop does not divide n_fft the
+    output is the buffer cut to ``length`` and never zero-padded (JAX
+    fallback), so n + 1000 gives fewer samples than asked.  WAV_TOL wherever
+    the COLA divisor is at least 0.5 (every sample the enhance path keeps),
+    and WAV_TOL on the overlap-add sums before the divide everywhere: at an
+    untrimmed edge the divisor nears 0 and multiplies the f32 sum-order
+    noise of two different transforms (the fallback's FFT, a matmul here)
+    by up to 1e8."""
+    rng = np.random.default_rng(n_fft + 7 * hop)
+    t = tstft.stft_frames(ANY_HOP_N, n_fft, hop, center)
+    re, im = rng.standard_normal((2, 2, t, n_fft // 2 + 1)).astype(np.float32)
+    ref = np.asarray(jstft.istft(jnp.asarray(re), jnp.asarray(im), n_fft, hop, center=center,
+                                 length=length))
+    want = tstft.istft_length(t, n_fft, hop, center, length)
+    assert ref.shape == (2, want)
+    divisor = tstft.trim(torch.from_numpy(tstft.cola_norm(t, n_fft, hop, "hann"))[None],
+                         n_fft, center, length, pad=n_fft % hop == 0)[0].numpy()
+    divisor = np.pad(divisor, (0, want - divisor.shape[0]))
+    inner = divisor >= 0.5
+    clamped = np.maximum(divisor, 1e-8)
+    assert inner.any()
+    for got in (tstft.istft(torch.from_numpy(re), torch.from_numpy(im), n_fft, hop,
+                            center=center, length=length),
+                kstft.istft_factorised_plain(torch.from_numpy(re), torch.from_numpy(im),
+                                             n_fft, hop, center=center, length=length)):
+        got = got.numpy()
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got[..., inner], ref[..., inner], **WAV_TOL)
+        np.testing.assert_allclose(got * clamped, ref * clamped, **WAV_TOL)
+    x = _signal(2, ANY_HOP_N, seed=n_fft)
+    re_t, im_t = tstft.stft(torch.from_numpy(x), n_fft, hop, center=center)
+    mag, ph = tstft.magnitude(re_t, im_t), tstft.phase(re_t, im_t)
+    y_t = tstft.reconstruct(mag, ph, n_fft, hop, center=center, length=length).numpy()
+    y_j = np.asarray(jstft.reconstruct(jnp.asarray(mag.numpy()), jnp.asarray(ph.numpy()),
+                                       n_fft, hop, center=center, length=length))
+    assert y_t.shape == y_j.shape == (2, want)
+    np.testing.assert_allclose(y_t[..., inner], y_j[..., inner], **WAV_TOL)
+    np.testing.assert_allclose(y_t * clamped, y_j * clamped, **WAV_TOL)
+
+
+@pytest.mark.parametrize("n_fft,hop,route", [(400, 160, (25, 16)), (300, 200, (25, 12)),
+                                             (160, 320, (20, 8)), (400, 40, (0, 0))])
+def test_istft_route_counts_the_frames_over_a_sample_at_any_hop(n_fft, hop, route):
+    """ceil(n_fft / hop) frames can cover a sample: the factorised route up
+    to 8 of them (400 / 160: 3; 160 / 320: 1), the direct sum above (400 /
+    40: 10)."""
+    assert kstft.istft_route(n_fft, hop) == route
+    assert tstft.overlap(n_fft, hop) == -(-n_fft // hop)
+
+
+def test_gaps_between_frames_are_zero_as_in_jax():
+    """A hop longer than the frame (160, 320): the samples no frame covers
+    have a COLA divisor of exactly 0 and come out 0 on both sides, and the
+    output ends where the last frame does (the JAX fallback cuts, never
+    pads)."""
+    n_fft, hop = 160, 320
+    rng = np.random.default_rng(11)
+    re, im = rng.standard_normal((2, 1, 13, 81)).astype(np.float32)
+    y_t = tstft.istft(torch.from_numpy(re), torch.from_numpy(im), n_fft, hop, center=False,
+                      length=4000).numpy()
+    y_j = np.asarray(jstft.istft(jnp.asarray(re), jnp.asarray(im), n_fft, hop, center=False,
+                                 length=4000))
+    assert y_t.shape == y_j.shape == (1, 12 * hop + n_fft)
+    gap = (np.arange(y_t.shape[1]) % hop) >= n_fft
+    assert np.all(y_t[:, gap] == 0.0) and np.all(y_j[:, gap] == 0.0)
+    assert tstft.cola_norm(13, n_fft, hop, "hann")[gap].max() == 0.0

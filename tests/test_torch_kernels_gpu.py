@@ -219,6 +219,84 @@ def test_istft_kernel_routes(cuda, n_fft, hop, center, length, route):
     torch.testing.assert_close(y, y_f, rtol=1e-4, atol=2e-5)
 
 
+# Any hop (csrc/stft.cu, istft.cu, stft_vjp.cu): the enhancer's (320, 160)
+# beside three hops that do not divide n_fft, 25 ms / 10 ms (400, 160), 1.5
+# frames of overlap (300, 200) and a hop longer than the frame (160, 320),
+# center on and off, ragged rows.  The ISTFT is held to 2e-5 abs + 1e-5 rel
+# where the COLA divisor is at least 0.5 (every sample the enhance path
+# keeps) and, on the overlap-add sums before the divide, 2e-5 abs everywhere
+# (at an untrimmed edge the divisor nears 0 and multiplies the sum-order
+# noise by up to 1e8).
+ANY_HOPS = [(320, 160), (400, 160), (300, 200), (160, 320)]
+
+
+@pytest.mark.parametrize("n_fft,hop", ANY_HOPS)
+@pytest.mark.parametrize("center", [True, False])
+def test_stft_and_istft_kernels_at_any_hop(cuda, n_fft, hop, center):
+    n = 16003
+    x = _randn(3, n, seed=n_fft + hop, scale=0.3)
+    x[1, 9001:] = 0
+    x = x.to(cuda)
+    before = (kstft.stft.launches, kstft.istft.launches)
+    re, im = kstft.stft(x, n_fft, hop, center=center)
+    re_p, im_p = kstft.stft_plain(x, n_fft, hop, center=center)
+    torch.cuda.synchronize()
+    assert kstft.stft.route == kstft.stft_factors(n_fft) != (0, 0)
+    assert re.shape == re_p.shape
+    torch.testing.assert_close(re, re_p, rtol=0, atol=1e-4)
+    torch.testing.assert_close(im, im_p, rtol=0, atol=1e-4)
+    t = re.shape[1]
+    gain = torch.rand(re.shape, generator=torch.Generator().manual_seed(hop)).to(cuda)
+    for length in (n, n - 1000, n + 1000, None):
+        y = kstft.istft(re * gain, im * gain, n_fft, hop, center=center, length=length)
+        again = kstft.istft(re * gain, im * gain, n_fft, hop, center=center, length=length)
+        y_p = kstft.istft_plain(re * gain, im * gain, n_fft, hop, center=center,
+                                length=length)
+        torch.cuda.synchronize()
+        assert kstft.istft.route == kstft.istft_route(n_fft, hop) != (0, 0)
+        assert y.shape == y_p.shape == (3, kstft.istft_length(t, n_fft, hop, center, length))
+        assert torch.equal(y, again)
+        div = kstft.trim(torch.from_numpy(kstft.cola_norm(t, n_fft, hop, "hann"))[None],
+                         n_fft, center, length, pad=n_fft % hop == 0)[0]
+        div = torch.nn.functional.pad(div, (0, y.shape[1] - div.shape[0])).to(cuda)
+        inner = div >= 0.5
+        torch.testing.assert_close(y[:, inner], y_p[:, inner], rtol=1e-5, atol=2e-5)
+        clamped = div.clamp(min=1e-8)
+        torch.testing.assert_close(y * clamped, y_p * clamped, rtol=0, atol=2e-5)
+    assert (kstft.stft.launches, kstft.istft.launches) == (before[0] + 1, before[1] + 8)
+
+
+@pytest.mark.parametrize("n_fft,hop", ANY_HOPS)
+@pytest.mark.parametrize("center", [True, False])
+def test_vjp_kernels_at_any_hop(cuda, n_fft, hop, center):
+    """stft_vjp (runs of a row as the card's residency splits them, and one
+    run a row) and istft_vjp (lengths that cut the output, end at the
+    signal, and ask past the buffer) against their plain versions; each
+    frame transformed once."""
+    n = 16003
+    t = kstft.stft_frames(n, n_fft, hop, center)
+    dre = _randn(3, t, n_fft // 2 + 1, seed=n_fft).to(cuda)
+    dim = _randn(3, t, n_fft // 2 + 1, seed=hop).to(cuda)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    dx = kstft.stft_vjp(dre, dim, n, n_fft, hop, center=center, frames_done=counter)
+    ref = kstft.stft_vjp_plain(dre, dim, n, n_fft, hop, center=center)
+    torch.cuda.synchronize()
+    assert kstft.stft_vjp.route == kstft.vjp_plan(n_fft, hop) and kstft.stft_vjp.route.radices
+    assert int(counter) == 3 * t and dx.shape == (3, n)
+    assert _vjp_err((dx,), (ref,)) <= 1e-4
+    one = kstft.stft_vjp(dre[:1], dim[:1], n, n_fft, hop, center=center)
+    assert _vjp_err((one,), (ref[:1],)) <= 1e-4
+    for length in (n - 1000, kstft.istft_length(t, n_fft, hop, center, n), n + 1000):
+        dy = _randn(3, length, seed=length).to(cuda)
+        counter.zero_()
+        got = kstft.istft_vjp(dy, t, n_fft, hop, center=center, frames_done=counter)
+        ref = kstft.istft_vjp_plain(dy, t, n_fft, hop, center=center)
+        torch.cuda.synchronize()
+        assert kstft.istft_vjp.route == kstft.vjp_plan(n_fft, hop)
+        assert int(counter) == 3 * t
+        assert _vjp_err(got, ref) <= 1e-4
+
+
 @pytest.mark.parametrize("act", ["none", "leaky_relu", "hardtanh"])
 def test_gn_kernel(cuda, act):
     x = (0.5 + _randn(3, 45, 17, 16, seed=3)).to(cuda)
@@ -229,6 +307,33 @@ def test_gn_kernel(cuda, act):
     torch.cuda.synchronize()
     torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
     assert torch.all(y[1, 30:] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_kernel_where_the_variance_cancels(cuda, dtype):
+    """Groups whose |mean| is ~30 times their spread, as over a streaming
+    window's silent history: the kernel's float64 statistics give the plain
+    version's mean and inv to float32 rounding (float32 sums in two orders
+    parted by up to 4.5e-4 of a unit output), so y agrees to 1e-5 (bf16: to
+    one bf16 ulp of the top)."""
+    x = (3.0 + 0.1 * _randn(3, 45, 161, 32, seed=6)).to(cuda).to(dtype)
+    scale, bias = (1 + _randn(32, seed=7, scale=0.1)).to(cuda), _randn(32, seed=8).to(cuda)
+    lengths = torch.tensor([45, 30, 9], device=cuda)
+    y, scratch = gn.gn_kernel(x, scale, bias, lengths, 8, 1e-5, "leaky_relu", 0.2)
+    y_p = gn.masked_group_norm_act_plain(x, scale, bias, lengths, num_groups=8,
+                                         act="leaky_relu")
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
+    else:
+        assert (y.float() - y_p.float()).abs().max() <= 2.0 ** -7 * y_p.float().abs().max()
+    xm = (x.float() * (torch.arange(45, device=cuda)[None] < lengths[:, None])[..., None, None]
+          ).reshape(3, 45, 161, 8, 4).double()
+    mean, inv = gn._group_stats(xm.sum(dim=(1, 2, 4)), (xm * xm).sum(dim=(1, 2, 4)),
+                                lengths, 161, 32, 8, 1e-5)
+    k_mean, k_inv = gn._stats(scratch, 3, 32)
+    torch.testing.assert_close(k_mean, mean.repeat_interleave(4, dim=1), rtol=1e-6, atol=0)
+    torch.testing.assert_close(k_inv, inv.repeat_interleave(4, dim=1), rtol=1e-6, atol=0)
 
 
 def test_lstm_kernel(cuda):

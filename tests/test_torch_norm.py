@@ -207,3 +207,35 @@ def test_bwd_cpu_tensor_takes_plain_version():
     ref = gn.masked_group_norm_act_bwd_plain(*args, mean, inv, num_groups=8, act="hardtanh")
     assert all(torch.equal(a, r) for a, r in zip(got, ref))
     assert gn.masked_group_norm_act_bwd.launches == before
+
+
+def _f64_ref(x, scale, bias, lengths, g, act):
+    """The module's function in float64 (numpy), 0 on padded frames."""
+    b, t, f, c = x.shape
+    y = np.zeros(x.shape, np.float64)
+    for i, n in enumerate(lengths):
+        xi = x[i, :n].astype(np.float64).reshape(n, f, g, c // g)
+        z = (xi - xi.mean(axis=(0, 1, 3), keepdims=True)) / np.sqrt(
+            xi.var(axis=(0, 1, 3), keepdims=True) + 1e-5)
+        y[i, :n] = z.reshape(n, f, c) * scale + bias
+    return np.where(y >= 0, y, 0.2 * y) if act == "leaky_relu" else y
+
+
+@pytest.mark.parametrize("act", ["none", "leaky_relu"])
+def test_plain_statistics_hold_where_the_variance_cancels(act):
+    """Groups whose |mean| is ~30 times their spread (as over a streaming
+    window's silent history): E[x^2] - mean^2 loses ~3 digits, so the
+    statistics are summed and finalized in float64 (as the kernel's,
+    csrc/gn.cu), and the output stays within 1e-5 of the function in
+    float64 (float32 sums give 2.3e-3 here); JAX's module, the same formula
+    on float32 sums, within that float32 cancellation (1e-2)."""
+    x, scale, bias, lengths = _data(b=2, t=37, f=21, c=16, seed=4, lengths=[37, 30])
+    x = (3.0 + 0.1 * x).astype(np.float32)
+    got = gn.masked_group_norm_act_plain(torch.from_numpy(x), torch.from_numpy(scale),
+                                         torch.from_numpy(bias), torch.from_numpy(lengths),
+                                         num_groups=4, act=act).numpy()
+    np.testing.assert_allclose(got, _f64_ref(x, scale, bias, lengths, 4, act), rtol=0,
+                               atol=1e-5)
+    ref = np.asarray(JaxGN(num_groups=4, act=act, impl="xla").apply(
+        {"params": {"scale": scale, "bias": bias}}, jnp.asarray(x), jnp.asarray(lengths)))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-2)

@@ -183,3 +183,79 @@ def test_cpu_tensors_keep_the_written_out_adjoints(n_fft, hop):
     got, want = kstft.istft_vjp(dy, t, n_fft, hop), kstft.istft_vjp_plain(dy, t, n_fft, hop)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (kstft.stft_vjp.launches, kstft.istft_vjp.launches) == before
+
+
+# Hops that do not divide n_fft (the JAX fallback's gather/scatter framing):
+# 25 ms / 10 ms, 1.5 frames of overlap, a hop longer than the frame; and the
+# enhancer's (320, 160) beside them.  K = ceil(n_fft / hop).
+ANY_HOPS = [(400, 160), (300, 200), (160, 320), (320, 160)]
+ANY_HOP_RADICES = {(400, 160): (5, 5, 8), (300, 200): (5, 5, 3, 2), (160, 320): (5, 16),
+                   (320, 160): (5, 8, 4)}
+ANY_HOP_N = 4000
+
+
+@pytest.mark.parametrize("n_fft,hop", ANY_HOPS)
+def test_vjp_plan_at_any_hop(n_fft, hop):
+    """The radix plan of n_fft/2 does not depend on the hop; the runs hold
+    2K + 2 frames or more with K = ceil(n_fft / hop)."""
+    plan = kstft.vjp_plan(n_fft, hop)
+    assert plan.radices == ANY_HOP_RADICES[(n_fft, hop)]
+    assert plan.run >= 2 * (-(-n_fft // hop)) + 2 and plan.run % plan.frames == 0
+
+
+@pytest.mark.parametrize("n_fft,hop", ANY_HOPS)
+@pytest.mark.parametrize("center", [True, False])
+def test_vjp_runs_cover_each_frame_once_at_any_hop(n_fft, hop, center):
+    t = _frames(4 * ANY_HOP_N, n_fft, hop, center)
+    k = -(-n_fft // hop)
+    for per_row in (0, 1, 7, 66, 10 ** 6):
+        lens = np.diff(kstft.vjp_runs(t, kstft.vjp_run_count(t, n_fft, hop, per_row)))
+        assert lens.sum() == t and lens.max() <= kstft.vjp_plan(n_fft, hop).run
+        if len(lens) > 1:
+            assert lens.min() >= k + 1
+
+
+@pytest.mark.parametrize("n_fft,hop", ANY_HOPS)
+@pytest.mark.parametrize("center", [True, False])
+def test_stft_vjps_match_jax_at_any_hop(n_fft, hop, center):
+    """The STFT's VJP, written out (``stft_vjp_plain``) and run-tiled as the
+    kernel does it (the fewest runs a row and the most: run boundaries
+    inside frames, the reflect fold over hop-rows that 200 = 1.25 x 160
+    does not line up with), against ``jax.vjp`` of the JAX fallback."""
+    n = ANY_HOP_N + 7
+    rng = np.random.default_rng(n_fft + hop)
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    (re, im), vjp = jax.vjp(lambda v: jax_stft(v, n_fft, hop, "hann", center), x)
+    dre = rng.standard_normal(re.shape).astype(np.float32)
+    dim = rng.standard_normal(im.shape).astype(np.float32)
+    ref, = vjp((dre, dim))
+    dre_t, dim_t = torch.from_numpy(dre), torch.from_numpy(dim)
+    plain = kstft.stft_vjp_plain(dre_t, dim_t, n, n_fft, hop, center=center)
+    assert plain.shape == (2, n) and _rel(plain.numpy(), np.asarray(ref)) <= TOL
+    for per_row in (0, 10 ** 6):
+        runs = kstft.vjp_run_count(re.shape[1], n_fft, hop, per_row)
+        got = kstft.stft_vjp_runs_plain(dre_t, dim_t, n, n_fft, hop, center=center, runs=runs)
+        assert got.shape == (2, n)
+        assert _rel(got.numpy(), np.asarray(ref)) <= TOL
+
+
+@pytest.mark.parametrize("n_fft,hop", ANY_HOPS)
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("length", [ANY_HOP_N, ANY_HOP_N - 1000, ANY_HOP_N + 1000, None])
+def test_istft_vjps_match_jax_at_any_hop(n_fft, hop, center, length):
+    """The ISTFT's VJP, written out and as the kernel computes it (the COLA
+    table over the frames that can cover a sample), against ``jax.vjp`` of
+    the JAX fallback, whose output is cut to ``length`` and never padded."""
+    rng = np.random.default_rng(n_fft + hop + 1)
+    t = _frames(ANY_HOP_N, n_fft, hop, center)
+    f = n_fft // 2 + 1
+    sre = rng.standard_normal((2, t, f)).astype(np.float32)
+    sim = rng.standard_normal((2, t, f)).astype(np.float32)
+    y, vjp = jax.vjp(lambda a, b: jax_istft(a, b, n_fft, hop, "hann", center, length),
+                     sre, sim)
+    dy = rng.standard_normal(y.shape).astype(np.float32)
+    ref = tuple(np.asarray(v) for v in vjp(dy))
+    for fn in (kstft.istft_vjp_plain, kstft.istft_vjp_radix_plain):
+        got = fn(torch.from_numpy(dy), t, n_fft, hop, center=center)
+        assert got[0].shape == got[1].shape == (2, t, f)
+        assert _rel((got[0].numpy(), got[1].numpy()), ref) <= TOL
