@@ -113,8 +113,13 @@ class _TapDWFn(torch.autograd.Function):
             ctx.dw_impl == "kernel" or (
                 ctx.dw_impl == "auto" and x.is_cuda
                 and kernel_slices(x_cl, weight.shape[0], kh, kw, stride) > 0))
+        xp = F.pad(x, pads)
+        if not x.is_cuda:
+            # The CPU's conv backward on a channels-last x (the permuted
+            # GroupNorm output of the layer below) is ~50x slower than on NCHW.
+            xp = xp.contiguous()
         dx, dw, db = torch.ops.aten.convolution_backward(
-            dy, F.pad(x, pads), weight, ctx.bias_sizes, list(stride), [0, 0], [1, 1],
+            dy, xp, weight, ctx.bias_sizes, list(stride), [0, 0], [1, 1],
             False, [0, 0], 1, [need_x, need_w and not use_kernel, need_b])
         if need_x:
             f0, f1, t0, t1 = pads

@@ -150,6 +150,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    --device cuda; cli.export of the paired directory and one artifact call
    against the live call (equal bits); each run's launches, and the STFT,
    ISTFT and ISTFT-VJP routes those runs took at (400, 160);
+11b. e2e: the end-to-end quality protocol (python -m
+   aas_enhancement_tpu_torch.cli.e2e) in this process at a tiny size
+   (E2E_ARGV: 32 / 8 / 8 utterances, 40 AM and 10 AAS steps, B=8) at its own
+   widths (AM 3 x BiGRU-256, enhancer 2 x BiLSTM-128, 16 channels), after
+   its kernels at those widths against their plain versions (kernels_e2e:
+   GN and its backward at the flagship batch's [16, 601, 161, 16] and
+   [16, 301, 81 | 41, 16], the BiLSTM-128 and BiGRU-256 forward and backward
+   on their resident routes, B6 f32 at the AM's conv2 with 16 channels): AM
+   pre-training, held-out greedy WER, AAS with the pre-trained AM frozen,
+   the checkpoint, word / char / hybrid LM fusion tuned on dev, train-split
+   WERs, the streamed split, SI-SNR and STOI; its stage walls, WERs and
+   launches printed; it fails unless the result has every key of the JAX
+   round's e2e_result_r5.json with finite numbers, the AM's CTC fell, each
+   of B1, B1', B2, B2', B3, B3', B4, B5 and B6 launched and the host beam
+   took the native route;
 12. serve: a full-width checkpoint directory (aas: G, D, the AM) written
    here; load_state's seconds against the random draw it made before this
    port's serving slice (init_state + load_state_dict); cli.serve with no
@@ -226,6 +241,7 @@ BWD_B = 8                             # the backward kernels' batch (TrainConfig
 BWD_FRAMES = [801, 701, 601, 401, 801, 751, 501, 301]
 BWD_AM_FRAMES = [401, 351, 301, 201, 401, 376, 251, 151]
 TRAIN_BATCHES = (8, 32)               # timed AAS and AM steps, x 8 s
+SCRIPT_LIMIT_S = 1200.0               # the time the script has, its build included
 PEAK_BYTES_S = 3.35e12                # H100 SXM: HBM3 bytes/s (published)
 PEAK_F32_S = 67e12                    # H100 SXM: f32 FLOP/s outside the tensor cores
 
@@ -547,7 +563,7 @@ RECURRENT = ("lstm", "gru", "lstm_stacked", "gru_stacked")
 RECURRENT_BWD = ("lstm_bwd", "gru_bwd", "lstm_stacked_bwd", "gru_stacked_bwd")
 # The forward route each width must take: blocks per cluster of the resident
 # kernel, 0 for the streaming kernel.
-RNN_ROUTES = {"lstm": {64: 2, 128: 4, 256: 8, 512: 0}, "gru": {512: 16}}
+RNN_ROUTES = {"lstm": {64: 2, 128: 4, 256: 8, 512: 0}, "gru": {256: 8, 512: 16}}
 
 
 def kernel_counters() -> dict:
@@ -568,9 +584,10 @@ def kernel_counters() -> dict:
 
 def counted(names, run) -> dict:
     """Set the named kernels' launch counts to 0, drive ``run()``, and read
-    the counts: {name: launches of that run}.  The paths' LSTMs are 256 wide
-    and their GRUs 512: a run whose last LSTM or GRU launch, forward or
-    backward, was not on the resident route fails."""
+    the counts: {name: launches of that run}.  Every path's LSTMs and GRUs
+    are of widths that a resident route holds (LSTM 128 and 256, GRU 256 and
+    512): a run whose last LSTM or GRU launch, forward or backward, was not
+    on the resident route fails."""
     counters = {k: v for k, v in kernel_counters().items() if k in names}
     for fn in counters.values():
         fn.launches = 0
@@ -3810,6 +3827,227 @@ def phase_hop(device, card, results: dict) -> dict:
     return paths
 
 
+# The end-to-end quality protocol (cli/e2e.py) at a tiny size: the protocol's
+# own widths (AM 3 x BiGRU-256, enhancer 2 x BiLSTM-128, 16 channels).
+E2E_ARGV = ["--n-utts", "32", "--n-dev-utts", "8", "--n-test-utts", "8", "--am-steps", "40",
+            "--aas-steps", "10", "--batch-size", "8"]
+E2E_KERNELS = ("stft", "istft", "gn_act", "lstm", "lstm_bwd", "gru", "gru_bwd", "gn_bwd",
+               "conv_dw")
+# The kernels' shapes at those widths in the flagship protocol's batch of 16
+# from the long bucket of its corpus (6 s = 601 frames; the rows 301-542
+# frames, ragged); the AM's conv1 halves the frames (ceil).
+E2E_B = 16
+E2E_T = 1 + 96000 // 160
+E2E_AM_T = -(-E2E_T // 2)
+E2E_FRAMES = [542, 512, 503, 480, 460, 440, 420, 400, 380, 360, 350, 340, 330, 320, 310, 302]
+
+
+def kernels_e2e(device, results: dict) -> None:
+    """The kernels at the e2e protocol's widths (E2E_*), which the other
+    phases check only at 32 channels, LSTM H=256 and GRU H=512: each against
+    its plain version on the same card inputs at the file's tolerances,
+    timed in turns and kept as a shape of its kernel's row.  GroupNorm
+    forward and backward (autograd through the wrapper's Function against
+    autograd through the plain version) at the enhancer's [16, 601, 161, 16]
+    leaky_relu and the AM's [16, 301, 81 | 41, 16] hardtanh; the BiLSTM-128
+    and the BiGRU-256, forward and backward, each on the route RNN_ROUTES
+    names; the conv weight gradient on the f32 route at the AM's conv2
+    (11 x 21, stride (1, 2), x [16, 301, 81, 16]).  Fails where a wrapper
+    did not launch its kernel."""
+    import torch
+    from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
+    from aas_enhancement_tpu_torch.ops.cuda import gn
+    from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
+    from aas_enhancement_tpu_torch.ops.masking import time_mask
+
+    gen = torch.Generator().manual_seed(21)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(device)
+
+    frames = torch.tensor(E2E_FRAMES, device=device)
+    am_frames = (frames + 1) // 2
+    wrappers = kernel_counters()
+
+    def launched(name, run):
+        before = wrappers[name].launches
+        out = run()
+        torch.cuda.synchronize()
+        if wrappers[name].launches == before:
+            fail(f"{name} at the e2e widths: the wrapper launched no kernel")
+        return out
+
+    # label: (forward kernel, run(fn) -> outputs, (wrapper, plain), inputs,
+    # forward work, backward work, the forward's check)
+    cases = {}
+    for act, t_len, f, lens in (("leaky_relu", E2E_T, 161, frames),
+                                ("hardtanh", E2E_AM_T, 81, am_frames),
+                                ("hardtanh", E2E_AM_T, 41, am_frames)):
+        x = (0.5 + 3.0 * randn(E2E_B, t_len, f, 16)).requires_grad_()
+        scale = (1 + randn(16, scale=0.1)).requires_grad_()
+        bias = randn(16, scale=0.1).requires_grad_()
+        kw = dict(num_groups=8, act=act, slope=0.2)
+        valid = valid_share(lens, t_len)
+        cases[f"{act} [{E2E_B}, {t_len}, {f}, 16]"] = (
+            "gn_act", lambda fn, x=x, s=scale, b=bias, ln=lens, kw=kw: (fn(x, s, b, ln, **kw),),
+            (gn.masked_group_norm_act, gn.masked_group_norm_act_plain), (x, scale, bias),
+            ((valid + 1) * nbytes(x), 10.0 * valid * x.numel()),
+            ((2 * valid + 1) * nbytes(x), 20.0 * valid * x.numel()), None)
+    for cell, t_len, h, lens in (("lstm", E2E_T, 128, frames), ("gru", E2E_AM_T, 256, am_frames)):
+        g = 4 if cell == "lstm" else 3
+        gates = randn(t_len, E2E_B, 2 * g * h, scale=0.5).requires_grad_()
+        wh = randn(2, h, g * h, scale=h ** -0.5).requires_grad_()
+        bh = randn(2, g * h, scale=0.1).requires_grad_()
+        m = time_mask(lens, t_len).T.contiguous()
+        cells = 2 * t_len * E2E_B
+        kernel = krnn.lstm_scan_tm if cell == "lstm" else krnn.gru_scan_tm
+        plain = krnn.lstm_scan_tm_plain if cell == "lstm" else krnn.gru_scan_tm_plain
+        cases[f"T={t_len} B={E2E_B} H={h} (clusters of {RNN_ROUTES[cell][h]})"] = (
+            cell, _rnn_call(gates, m, wh, bh, g * h), (kernel, plain), (gates, wh, bh),
+            (nbytes(gates, m, wh, bh) + cells * h * 4, 2.0 * cells * h * g * h),
+            (4.0 * (cells * h * ((5 if cell == "gru" else 6) + 1 + g) + 2 * wh.numel()
+                    + bh.numel()), 2.0 * 2 * cells * h * g * h), (f"{cell}_scan_tm", h))
+
+    for label, (name, run, (kernel, plain), inputs, work, bwd_work, rnn) in cases.items():
+        bwd = f"{name}_bwd" if name != "gn_act" else "gn_bwd"
+        if rnn:
+            kernel.route = krnn._BACKWARD[rnn[0]].route = None
+        with torch.no_grad():
+            k_out = launched(name, lambda: run(kernel))
+            p_out = run(plain)
+            ms, plain_ms = in_turns(lambda: run(kernel), lambda: run(plain),
+                                    3 if rnn else 5, warmup=1)
+        err = max_err(k_out, p_out)
+        tol, why = TOL[name]
+        text = keep(results, name, f"{name} {label} (e2e)", err, ms, plain_ms, work)
+        print(f"[e2e] {name} {label}: max_abs_err {err:.3e} (tol {tol:.0e}: {why}) | kernel "
+              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | x{plain_ms / ms:.2f} | {text}")
+        if not err <= tol:
+            fail(f"{name} {label} (e2e): max abs err {err:.3e} > tol {tol:.0e}")
+        outs_k = launched(name, lambda: run(kernel))
+        outs_p = run(plain)
+        cots = tuple(torch.randn(o.shape, generator=gen).to(device) for o in outs_k)
+        grads_k = launched(bwd, lambda: torch.autograd.grad(outs_k, inputs, cots,
+                                                             retain_graph=True))
+        grads_p = torch.autograd.grad(outs_p, inputs, cots, retain_graph=True)
+        if rnn:
+            cell, h = rnn[0].split("_")[0], rnn[1]
+            routes = (kernel.route, krnn._BACKWARD[rnn[0]].route)
+            if routes != (RNN_ROUTES[cell][h],) * 2:
+                fail(f"{name} {label} (e2e): routes (forward, backward) {routes}, not "
+                     f"clusters of {RNN_ROUTES[cell][h]}")
+        err = max_err(grads_k, grads_p)
+        rel = max((a - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(grads_k, grads_p))
+        tol, why = BWD_TOL[bwd]
+        ms, plain_ms = in_turns(
+            lambda: torch.autograd.grad(outs_k, inputs, cots, retain_graph=True),
+            lambda: torch.autograd.grad(outs_p, inputs, cots, retain_graph=True), 3, warmup=1)
+        text = keep(results, bwd, f"{bwd} {label} (e2e)", err, ms, plain_ms, bwd_work,
+                    rel_err=rel)
+        print(f"[e2e] {bwd} {label}: grads max_abs_err {err:.3e}, relative to max|grad| "
+              f"{rel:.3e} (tol {tol:.0e}: {why}) | backward pass {ms:.4f} ms | plain "
+              f"backward {plain_ms:.4f} ms | x{plain_ms / ms:.2f} | {text}")
+        if not rel <= tol:
+            fail(f"{bwd} {label} (e2e): gradient error {rel:.3e} of max|grad| > tol {tol:.0e}")
+        del outs_k, outs_p, grads_k, grads_p
+
+    # The AM's conv2 weight gradient, dy zero past each row's frames as the
+    # GroupNorm's mask leaves it.
+    x = randn(E2E_B, E2E_AM_T, 81, 16)
+    dy = randn(E2E_B, E2E_AM_T, 41, 16) * time_mask(am_frames, E2E_AM_T)[:, :, None, None]
+    args = (x, dy, 11, 21, (1, 2))
+    got = launched("conv_dw", lambda: kconv.conv_dw_same(*args))
+    ref = kconv.conv_dw_same_plain(*args)
+    if kconv.conv_dw_same.route != "fma":
+        fail(f"conv_dw at the e2e widths took the {kconv.conv_dw_same.route!r} route, not fma")
+    err = max_err(got, ref)
+    rel = err / ref.abs().max().item()
+    tol, why = BWD_TOL["conv_dw"]
+    ms, plain_ms = in_turns(lambda: kconv.conv_dw_same(*args),
+                            lambda: kconv.conv_dw_same_plain(*args), 5, warmup=1)
+    label = f"AM conv2 11x21 s(1,2) x [{E2E_B}, {E2E_AM_T}, 81, 16] (e2e)"
+    text = keep(results, "conv_dw", label, err, ms, plain_ms,
+                (nbytes(x, dy, ref), 2.0 * E2E_B * E2E_AM_T * 41 * 11 * 21 * 16 * 16),
+                rel_err=rel)
+    print(f"[e2e] conv_dw {label}, f32 route fma: max_abs_err {err:.3e}, relative to "
+          f"max|dW| {rel:.3e} (tol {tol:.0e}: {why}) | kernel {ms:.4f} ms | plain "
+          f"{plain_ms:.4f} ms | x{plain_ms / ms:.2f} | {text}")
+    if not rel <= tol:
+        fail(f"conv_dw {label}: error {rel:.3e} of max|dW| > tol {tol:.0e}")
+
+
+def _numbers(obj, key: str = ""):
+    """(key, number) of every number in a JSON-like result, nested ones too."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from _numbers(v, f"{key}.{k}" if key else k)
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            yield from _numbers(v, f"{key}[{i}]")
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        yield key, obj
+
+
+def phase_e2e(device, card, results: dict) -> dict:
+    """The kernels at the protocol's widths (``kernels_e2e``), then the
+    end-to-end protocol (python -m aas_enhancement_tpu_torch.cli.e2e)
+    on the card at E2E_ARGV, in this process with the kernels' launches
+    counted: AM pre-training, held-out WER, AAS with the pre-trained AM
+    frozen, the checkpoint, the LM-fused beams (tuned on dev), the
+    train-split WERs, the streamed split, SI-SNR and STOI.  Fails unless the
+    result has every key of the JAX round's e2e_result_r5.json (wall_minutes
+    aside) with finite numbers, the AM's CTC fell, every kernel of the path
+    launched and the host beam took the native route.  -> launches."""
+    from aas_enhancement_tpu_torch.cli import e2e
+    from aas_enhancement_tpu_torch.decode import beam
+
+    kernels_e2e(device, results)
+    with open(os.path.join(HERE, "e2e_result_r5.json")) as f:
+        want = set(json.load(f)) - {"wall_minutes"}
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [*E2E_ARGV, "--workdir", tmp, "--device", str(device)]
+
+        def run():
+            beam.beam_decode.route = None
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                out["result"], out["walls"] = e2e.run(e2e.parse_args(argv))
+
+        t0 = time.perf_counter()
+        launches = counted(E2E_KERNELS, run)
+        wall = time.perf_counter() - t0
+    result, walls = out["result"], out["walls"]
+    print(f"[e2e] cli.e2e {' '.join(E2E_ARGV)} on {card}: {wall:.1f} s; stages (s) "
+          f"{json.dumps(walls)}; launches {json.dumps(launches)}")
+    print(f"[e2e] AM CTC {result['am_ctc_first']:.3f} -> {result['am_ctc_last']:.3f}, AAS CTC "
+          f"{result['aas_ctc_first']:.3f} -> {result['aas_ctc_last']:.3f}; greedy WER clean "
+          f"{result['wer_clean_test']:.4f}, noisy {result['wer_noisy_test']:.4f}, enhanced "
+          f"{result['wer_enhanced_test']:.4f}, streamed {result['wer_streamed_test']:.4f}; "
+          f"beam wlm / clm / hybrid {result['wer_enhanced_test_beam_wlm']:.4f} / "
+          f"{result['wer_enhanced_test_beam_clm']:.4f} / "
+          f"{result['wer_enhanced_test_beam_hybrid']:.4f}; SI-SNR noisy / enhanced / "
+          f"streamed {result['si_snr_noisy']:.3f} / {result['si_snr_enhanced']:.3f} / "
+          f"{result['si_snr_streamed']:.3f} dB, STOI enhanced {result['stoi_enhanced']:.4f}; "
+          f"host beam route {beam.beam_decode.route}")
+    missing = sorted(want - set(result))
+    if missing:
+        fail(f"the e2e result lacks {missing}")
+    bad = [k for k, v in _numbers(result) if not math.isfinite(v)]
+    if bad:
+        fail(f"the e2e result has non-finite numbers: {bad}")
+    if not result["am_ctc_last"] < result["am_ctc_first"]:
+        fail(f"the e2e AM's CTC did not fall: {result['am_ctc_first']} -> "
+             f"{result['am_ctc_last']}")
+    if beam.beam_decode.route != "native":
+        fail(f"the e2e host beam took the {beam.beam_decode.route!r} route")
+    idle = [k for k in E2E_KERNELS if not launches.get(k)]
+    if idle:
+        fail(f"the e2e path launched no {idle}: {launches}")
+    return launches
+
+
 SERVE_POINTS = {"enhance": (1.0, 0.2, 0.5), "transcribe": (1.0, 0.5, 0.5)}
 SERVE_SLOTS = 8                          # --max-streams of the CLI runs
 TICK_SLOTS = ((64, 1), (64, 8), (64, 64), (1, 1), (8, 8))   # (engine slots, busy)
@@ -4592,12 +4830,16 @@ def main() -> int:
     # kernels there, and the enhance, recognition, training, streaming and
     # export paths at full width.
     by_path.update(timed("hop", phase_hop, device, smi, results))
+    # The end-to-end quality protocol (cli.e2e) at a tiny size.
+    by_path["e2e"] = timed("e2e", phase_e2e, device, smi, results)
     by_path["serve"], root, ck = timed("serve", phase_serve, device, smi)   # cli.serve
     try:
         by_path["export"] = timed("export", phase_export, device, smi, root, ck)   # artifact
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"[time] seconds per phase: {json.dumps(took)}")
+    print(f"[time] seconds per phase: {json.dumps(took)}; in all {sum(took.values()):.1f} "
+          f"= {100 * sum(took.values()) / SCRIPT_LIMIT_S:.1f}% of the script's "
+          f"{SCRIPT_LIMIT_S:.0f} s limit")
     launches = {}
     for counts in by_path.values():        # the last path that runs a kernel
         launches.update({k: v for k, v in counts.items() if v})

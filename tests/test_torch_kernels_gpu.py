@@ -879,6 +879,68 @@ def test_conv_dw_kernel(cuda, shape):
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 
+# The end-to-end protocol's widths (cli/e2e.py::cfg_for: 16 channels, GN in
+# 8 groups) at its batch of 16 in the flagship corpus's long bucket (6 s,
+# 601 frames; the rows 301-542 frames, ragged): the enhancer's
+# [16, 601, 161, 16] and the AM's [16, 301, 81 | 41, 16] (conv1 halves the
+# frames, ceil).
+E2E_LENGTHS = [542, 512, 503, 480, 460, 440, 420, 400, 380, 360, 350, 340, 330, 320, 310,
+               302]
+E2E_GN = [("leaky_relu", (16, 601, 161, 16)), ("hardtanh", (16, 301, 81, 16)),
+          ("hardtanh", (16, 301, 41, 16))]
+
+
+@pytest.mark.parametrize("act,shape", E2E_GN)
+def test_gn_kernels_at_the_e2e_widths(cuda, act, shape):
+    """B3 and B3' at 16 channels, forward and backward, against the plain
+    version."""
+    b, t, f, c = shape
+    x = (0.5 + 3.0 * _randn(*shape, seed=f)).to(cuda).requires_grad_()
+    scale = (1 + _randn(c, seed=4, scale=0.1)).to(cuda).requires_grad_()
+    bias = _randn(c, seed=5).to(cuda).requires_grad_()
+    lengths = torch.tensor([n if t == 601 else -(-n // 2) for n in E2E_LENGTHS], device=cuda)
+    kw = dict(num_groups=8, act=act)
+    # At the activation's kinks (leaky_relu 0, hardtanh +-1) a pre-activation
+    # within rounding of the kink may take either slope, both valid: the
+    # cotangent is 0 there (a few elements in 10^7 here; one at 6e-08 from 0
+    # took the other slope on the card), so no gradient depends on the side.
+    z = gn.masked_group_norm_act_plain(x.detach(), scale.detach(), bias.detach(), lengths,
+                                       num_groups=8)
+    valid = torch.arange(t, device=cuda)[None, :, None, None] < lengths[:, None, None, None]
+    kink = ((z.abs() if act == "leaky_relu" else (z.abs() - 1).abs()) < 1e-5) & valid
+    assert int(kink.sum()) <= 1e-5 * z.numel()
+    w = _randn(*shape, seed=11).to(cuda).masked_fill(kink, 0)
+    before = gn.masked_group_norm_act_bwd.launches
+    y = gn.masked_group_norm_act(x, scale, bias, lengths, **kw)
+    y_p = gn.masked_group_norm_act_plain(x, scale, bias, lengths, **kw)
+    got = torch.autograd.grad(y, (x, scale, bias), w)
+    ref = torch.autograd.grad(y_p, (x, scale, bias), w)
+    torch.cuda.synchronize()
+    assert gn.masked_group_norm_act_bwd.launches == before + 1
+    torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
+    _assert_grads_close(got, ref)
+    assert torch.all(y[-1, int(lengths[-1]):] == 0) and torch.all(got[0][-1, int(lengths[-1]):] == 0)
+
+
+def test_conv_dw_kernel_at_the_e2e_am_conv2(cuda):
+    """B6 on the f32 route at ci = co = 16: the e2e AM's conv2 (11 x 21,
+    stride (1, 2)) at its batch, x [16, 301, 81, 16], the padded rows zero
+    as the GroupNorm below leaves them."""
+    x = _randn(16, 301, 81, 16, seed=1)
+    dy = _randn(16, 301, 41, 16, seed=2)
+    for i, n in enumerate(E2E_LENGTHS):
+        x[i, -(-n // 2):] = 0
+        dy[i, -(-n // 2):] = 0
+    x, dy = x.to(cuda), dy.to(cuda)
+    before = kconv.conv_dw_same.launches
+    got = kconv.conv_dw_same(x, dy, 11, 21, (1, 2))
+    ref = kconv.conv_dw_same_plain(x, dy, 11, 21, (1, 2))
+    torch.cuda.synchronize()
+    assert kconv.conv_dw_same.launches == before + 1 and kconv.conv_dw_same.route == "fma"
+    assert got.shape == (11, 21, 16, 16)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
 @pytest.mark.parametrize("dtype,lo", [(torch.float32, 4), (torch.bfloat16, 4),
                                       (torch.bfloat16, 8)])
 def test_conv_dw_reads_channels_last_views_in_place(cuda, dtype, lo):
