@@ -55,11 +55,12 @@ from aas_enhancement_tpu_torch.config import (AMConfig, Config, DataConfig,
                                               TrainConfig)
 from aas_enhancement_tpu_torch.data.synthetic import generate_corpus
 from aas_enhancement_tpu_torch.data.wav import read_wav, write_wav
-from aas_enhancement_tpu_torch.decode import beam
 from aas_enhancement_tpu_torch.decode.lm import CharNGramLM, WordNGramLM
 from aas_enhancement_tpu_torch.decode.tune import grid_search_hybrid, grid_search_lm
 from aas_enhancement_tpu_torch.evaluation import evaluate_si_snr, evaluate_wer
 from aas_enhancement_tpu_torch.ops.dispatch import resolve_device
+from aas_enhancement_tpu_torch.quality.workdir import (check_beam_route,
+                                                       require_native_beam)
 from aas_enhancement_tpu_torch.streaming import enhance_stream
 from aas_enhancement_tpu_torch.train.loop import init_state, train
 from aas_enhancement_tpu_torch.utils import checkpoint as ckpt
@@ -128,24 +129,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def _native_beam(device: torch.device) -> None:
-    """Build the native beam decoder where it is missing; on a CUDA device
-    the host beam must run it."""
-    if not beam.available() and not beam.build() and device.type == "cuda":
-        raise RuntimeError("the native beam decoder did not build "
-                           "(utils/native_build.py); the e2e does not decode on the "
-                           "Python route on the card")
-
-
-def _check_route(device: torch.device) -> None:
-    if device.type == "cuda" and beam.beam_decode.route != "native":
-        raise RuntimeError(f"host beam took the {beam.beam_decode.route!r} route on the card")
-
-
 def run(args: argparse.Namespace) -> tuple[dict, dict]:
     """The protocol -> (result, seconds per stage)."""
     device = resolve_device(args.device)
-    _native_beam(device)
+    require_native_beam(device)
     wd = args.workdir
     os.makedirs(wd, exist_ok=True)
     corpus_kw = dict(snr_range=(args.snr_low, args.snr_high),
@@ -240,7 +227,7 @@ def run(args: argparse.Namespace) -> tuple[dict, dict]:
     for tag, lm in (("wlm", wlm), ("clm", clm)):
         tuned = grid_search_lm(cfg_aas, am, dev["noisy"], lm, enhancer=g,
                                batch_size=bs, beam_width=16)
-        _check_route(device)
+        check_beam_route(device)
         result[f"lm_{tag}_alpha"] = tuned["alpha"]
         result[f"lm_{tag}_beta"] = tuned["beta"]
         result[f"wer_dev_beam_{tag}"] = tuned["wer"]
@@ -248,7 +235,7 @@ def run(args: argparse.Namespace) -> tuple[dict, dict]:
         result[f"wer_enhanced_test_beam_{tag}"] = evaluate_wer(
             cfg_aas, am, test["noisy"], enhancer=g, batch_size=bs, decoder="beam",
             beam_width=16, lm=lm, lm_alpha=tuned["alpha"], lm_beta=tuned["beta"])["wer"]
-        _check_route(device)
+        check_beam_route(device)
     # The word LM is the headline ctcdecode-parity number.
     result["wer_enhanced_test_beam_lm"] = result["wer_enhanced_test_beam_wlm"]
     save("beam_lm")
@@ -256,14 +243,14 @@ def run(args: argparse.Namespace) -> tuple[dict, dict]:
     # Hybrid char + word fusion, coordinate descent on dev; test at beam 64.
     hy = grid_search_hybrid(cfg_aas, am, dev["noisy"], clm, wlm, enhancer=g,
                             batch_size=bs, beam_width=16)
-    _check_route(device)
+    check_beam_route(device)
     result["lm_hybrid"] = {k: hy[k] for k in ("alpha", "beta", "word_alpha", "word_beta")}
     result["wer_dev_beam_hybrid"] = hy["wer"]
     result["wer_enhanced_test_beam_hybrid"] = evaluate_wer(
         cfg_aas, am, test["noisy"], enhancer=g, batch_size=bs, decoder="beam",
         beam_width=64, lm=clm, lm_alpha=hy["alpha"], lm_beta=hy["beta"], word_lm=wlm,
         word_alpha=hy["word_alpha"], word_beta=hy["word_beta"])["wer"]
-    _check_route(device)
+    check_beam_route(device)
     save("beam_hybrid")
 
     # Train-split numbers (memorization against generalization).

@@ -1,0 +1,23 @@
+"""The quality protocols that read the end-to-end workdir (``cli/e2e.py``):
+one module per JAX repo script, under the script's file name.
+
+Each runs as ``python -m aas_enhancement_tpu_torch.quality.<name>`` with the
+script's flags, defaults, result keys, default output paths and checkpoint
+directory names, plus ``--device`` (the card by default; without a GPU that
+raises), and keeps ``parse_args(argv)`` / ``run(args) -> result`` for a
+caller in the same process.  They chain: each writes a train-CLI checkpoint
+that the next takes through ``--g-checkpoint`` / ``--am-checkpoint``.
+
+  streaming_native_train  G trained blockwise at the deployment point
+                          (``ck_g_stream_native``)
+  live_pipeline_eval      the fully-live session, greedy and hybrid rescore
+  hybrid_fusion_eval      char + word fusion tuned on dev, test WERs
+  am_streaming_finetune   the AM adapted through the frozen G, streamed or
+                          ``--offline`` (``ck_am_stream_ft`` / ``ck_am_offline_ft``)
+  coadapt_alternate       G re-fine-tuned against the adapted AM (``ck_g_coadapt``)
+  streaming_sweep         chunk x lookahead x history grid of streamed WER
+  streaming_finetune_eval short blockwise fine-tune that continues the saved
+                          optimizer state (``ck_stream_ft``)
+
+``workdir.py`` reads the workdir and streams a manifest through the enhancer.
+"""

@@ -165,6 +165,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    round's e2e_result_r5.json with finite numbers, the AM's CTC fell, each
    of B1, B1', B2, B2', B3, B3', B4, B5 and B6 launched and the host beam
    took the native route;
+11c. quality: the seven quality protocols of aas_enhancement_tpu_torch/
+   quality/ in this process on [e2e]'s workdir, chained (QUALITY_CHAIN: 3
+   training steps at B=8, one- or two-point grids): streaming_native_train
+   --init trained, live_pipeline_eval on its G, am_streaming_finetune
+   (streamed, distill-anchored) and --offline, coadapt_alternate on the
+   offline-adapted AM, hybrid_fusion_eval on that pair, streaming_sweep,
+   streaming_finetune_eval (the saved optimizers continued); each
+   protocol's seconds and numbers and the chain's launches printed; every
+   checkpoint through load_state, the two streaming G checkpoints through
+   cli.serve --streaming-checkpoint; it fails unless each result has
+   exactly the keys of the port's CPU run (QUALITY_KEYS) with finite
+   numbers, each checkpoint opens with its objective and step, both G
+   checkpoints serve as the streaming weights, the host beam took the
+   native route and each of B1, B1', B2, B2', B3, B3', B4, B5 and B6
+   launched;
 12. serve: a full-width checkpoint directory (aas: G, D, the AM) written
    here; load_state's seconds against the random draw it made before this
    port's serving slice (init_state + load_state_dict); cli.serve with no
@@ -3831,6 +3846,7 @@ def phase_hop(device, card, results: dict) -> dict:
 # own widths (AM 3 x BiGRU-256, enhancer 2 x BiLSTM-128, 16 channels).
 E2E_ARGV = ["--n-utts", "32", "--n-dev-utts", "8", "--n-test-utts", "8", "--am-steps", "40",
             "--aas-steps", "10", "--batch-size", "8"]
+E2E_AAS_STEPS = int(E2E_ARGV[E2E_ARGV.index("--aas-steps") + 1])
 E2E_KERNELS = ("stft", "istft", "gn_act", "lstm", "lstm_bwd", "gru", "gru_bwd", "gn_bwd",
                "conv_dw")
 # The kernels' shapes at those widths in the flagship protocol's batch of 16
@@ -3852,9 +3868,11 @@ def kernels_e2e(device, results: dict) -> None:
     leaky_relu and the AM's [16, 301, 81 | 41, 16] hardtanh; the BiLSTM-128
     and the BiGRU-256, forward and backward, each on the route RNN_ROUTES
     names; the conv weight gradient on the f32 route at the AM's conv2
-    (11 x 21, stride (1, 2), x [16, 301, 81, 16]).  Fails where a wrapper
-    did not launch its kernel."""
+    (11 x 21, stride (1, 2), x [16, 301, 81, 16]), with cuDNN's weight
+    gradient timed beside it.  Fails where a wrapper did not launch its
+    kernel."""
     import torch
+    import torch.nn.functional as F
     from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
     from aas_enhancement_tpu_torch.ops.cuda import gn
     from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
@@ -3966,13 +3984,23 @@ def kernels_e2e(device, results: dict) -> None:
     tol, why = BWD_TOL["conv_dw"]
     ms, plain_ms = in_turns(lambda: kconv.conv_dw_same(*args),
                             lambda: kconv.conv_dw_same_plain(*args), 5, warmup=1)
+    # cuDNN's f32 weight gradient on the same tensors (kernels_conv_dw's NCHW
+    # views), for the record only.
+    pads = (*kconv.same_pad(81, 21, 2), *kconv.same_pad(E2E_AM_T, 11, 1))
+    x_nchw, dy_nchw = F.pad(x.permute(0, 3, 1, 2), pads), dy.permute(0, 3, 1, 2)
+    cudnn = lambda: torch.nn.grad.conv2d_weight(                           # noqa: E731
+        x_nchw, (16, 16, 11, 21), dy_nchw, stride=(1, 2))
+    lib_rel = (cudnn().permute(2, 3, 1, 0) - ref).abs().max().item() / ref.abs().max().item()
+    lib_ms = statistics.median(cuda_ms(cudnn, 5))
     label = f"AM conv2 11x21 s(1,2) x [{E2E_B}, {E2E_AM_T}, 81, 16] (e2e)"
     text = keep(results, "conv_dw", label, err, ms, plain_ms,
                 (nbytes(x, dy, ref), 2.0 * E2E_B * E2E_AM_T * 41 * 11 * 21 * 16 * 16),
-                rel_err=rel)
+                library_ms=lib_ms, rel_err=rel)
     print(f"[e2e] conv_dw {label}, f32 route fma: max_abs_err {err:.3e}, relative to "
           f"max|dW| {rel:.3e} (tol {tol:.0e}: {why}) | kernel {ms:.4f} ms | plain "
-          f"{plain_ms:.4f} ms | x{plain_ms / ms:.2f} | {text}")
+          f"{plain_ms:.4f} ms | x{plain_ms / ms:.2f} | {text} (cuDNN's wgrad, f32, its "
+          f"dW {lib_rel:.3e} of max|dW| from the plain version's; x{lib_ms / ms:.2f} the "
+          f"kernel's time)")
     if not rel <= tol:
         fail(f"conv_dw {label}: error {rel:.3e} of max|dW| > tol {tol:.0e}")
 
@@ -3989,12 +4017,13 @@ def _numbers(obj, key: str = ""):
         yield key, obj
 
 
-def phase_e2e(device, card, results: dict) -> dict:
+def phase_e2e(device, card, results: dict, workdir: str) -> dict:
     """The kernels at the protocol's widths (``kernels_e2e``), then the
     end-to-end protocol (python -m aas_enhancement_tpu_torch.cli.e2e)
-    on the card at E2E_ARGV, in this process with the kernels' launches
-    counted: AM pre-training, held-out WER, AAS with the pre-trained AM
-    frozen, the checkpoint, the LM-fused beams (tuned on dev), the
+    on the card at E2E_ARGV into ``workdir`` (which ``phase_quality`` reads
+    next), in this process with the kernels' launches counted: AM
+    pre-training, held-out WER, AAS with the pre-trained AM frozen, the
+    checkpoint, the LM-fused beams (tuned on dev), the
     train-split WERs, the streamed split, SI-SNR and STOI.  Fails unless the
     result has every key of the JAX round's e2e_result_r5.json (wall_minutes
     aside) with finite numbers, the AM's CTC fell, every kernel of the path
@@ -4006,18 +4035,17 @@ def phase_e2e(device, card, results: dict) -> dict:
     with open(os.path.join(HERE, "e2e_result_r5.json")) as f:
         want = set(json.load(f)) - {"wall_minutes"}
     out: dict = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = [*E2E_ARGV, "--workdir", tmp, "--device", str(device)]
+    argv = [*E2E_ARGV, "--workdir", workdir, "--device", str(device)]
 
-        def run():
-            beam.beam_decode.route = None
-            with contextlib.redirect_stdout(io.StringIO()), \
-                    contextlib.redirect_stderr(io.StringIO()):
-                out["result"], out["walls"] = e2e.run(e2e.parse_args(argv))
+    def run():
+        beam.beam_decode.route = None
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            out["result"], out["walls"] = e2e.run(e2e.parse_args(argv))
 
-        t0 = time.perf_counter()
-        launches = counted(E2E_KERNELS, run)
-        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = counted(E2E_KERNELS, run)
+    wall = time.perf_counter() - t0
     result, walls = out["result"], out["walls"]
     print(f"[e2e] cli.e2e {' '.join(E2E_ARGV)} on {card}: {wall:.1f} s; stages (s) "
           f"{json.dumps(walls)}; launches {json.dumps(launches)}")
@@ -4045,6 +4073,161 @@ def phase_e2e(device, card, results: dict) -> dict:
     idle = [k for k in E2E_KERNELS if not launches.get(k)]
     if idle:
         fail(f"the e2e path launched no {idle}: {launches}")
+    return launches
+
+
+# The quality protocols that read the e2e workdir (aas_enhancement_tpu_torch/
+# quality/), chained on [e2e]'s tiny workdir: (label, module, argv; {wd} is
+# the workdir), 3 training steps at B=8, one- or two-point grids.
+QUALITY_CHAIN = (
+    ("streaming_native_train", "streaming_native_train",
+     ["--init", "trained", "--steps", "3", "--batch-size", "8"]),
+    ("live_pipeline_eval", "live_pipeline_eval",
+     ["--g-checkpoint", "{wd}/ck_g_stream_native", "--alpha-grid", "0.6", "--beta-grid",
+      "0.5", "--word-alpha-grid", "0.3,0.6", "--word-beta-grid", "0.0"]),
+    ("am_streaming_finetune", "am_streaming_finetune",
+     ["--steps", "3", "--batch-size", "8", "--distill", "0.5"]),
+    ("am_streaming_finetune_offline", "am_streaming_finetune",
+     ["--steps", "3", "--batch-size", "8", "--offline"]),
+    ("coadapt_alternate", "coadapt_alternate", ["--steps", "3", "--batch-size", "8"]),
+    ("hybrid_fusion_eval", "hybrid_fusion_eval",
+     ["--g-checkpoint", "{wd}/ck_g_coadapt", "--am-checkpoint", "{wd}/ck_am_offline_ft"]),
+    ("streaming_sweep", "streaming_sweep",
+     ["--chunks", "1.0", "--lookaheads", "0.2", "--histories", "0.5,1.0"]),
+    ("streaming_finetune_eval", "streaming_finetune_eval",
+     ["--steps", "3", "--batch-size", "8"]),
+)
+# The keys of each result as the port's CPU run gives them (held there to the
+# JAX scripts' by tests/test_torch_quality_*.py).
+_STREAM_POINT = {"chunk_s", "lookahead_s", "history_s"}
+_AM_FT = {"steps", "offline", *_STREAM_POINT, "g_checkpoint", "lr_scale", "distill_lambda",
+          "am_init", "ft_loss_first", "ft_loss_last", "checkpoint_dir", "wall_minutes"}
+QUALITY_KEYS = {
+    "streaming_native_train": {"steps", "init", *_STREAM_POINT, "wer_offline_test_anchor",
+                               "wer_streamed_feats_test_anchor", "ctc_first", "ctc_last",
+                               "wer_offline_test", "wer_streamed_feats_test",
+                               "wer_streamed_feats_dev", "streamed_improvement_vs_offline_g",
+                               "checkpoint_dir", "wall_minutes"},
+    "live_pipeline_eval": {"workdir", "g_checkpoint", "am_checkpoint", *_STREAM_POINT,
+                           "latency_s", "beam_width", "prune_k", "grids", "dev_greedy",
+                           "tuned", "live_greedy_test", "live_greedy_test_ci95",
+                           "live_hybrid_test", "utterances", "wall_minutes"},
+    "am_streaming_finetune": _AM_FT | {
+        "wer_streamed_feats_dev_before", "wer_streamed_feats_test_before",
+        "wer_offline_test_before", "wer_streamed_feats_dev_after",
+        "wer_streamed_feats_test_after", "wer_offline_test_after",
+        "streamed_feats_improvement"},
+    "am_streaming_finetune_offline": _AM_FT | {
+        "wer_offline_dev_before", "wer_offline_test_before", "wer_offline_dev_after",
+        "wer_offline_test_after", "offline_improvement"},
+    "coadapt_alternate": {"steps", "am_checkpoint", "lr_scale", "g_init", "wer_test_before",
+                          "wer_dev_before", "ft_loss_first", "ft_loss_last", "wer_test_after",
+                          "wer_dev_after", "wer_test_gprime_base_am", "improvement",
+                          "checkpoint_dir", "wall_minutes"},
+    "hybrid_fusion_eval": {"workdir", "char_order", "beam_width", "prune_k", "am_checkpoint",
+                           "g_checkpoint", "tuning", "wer_test_greedy", "wer_test_char",
+                           "wer_test_hybrid", "utterances_test"},
+    "streaming_sweep": {"wer_noisy", "wer_offline", "grid", "wall_minutes"},
+    "streaming_finetune_eval": {"steps", *_STREAM_POINT, "wer_offline_before",
+                                "wer_streamed_before", "ft_loss_first", "ft_loss_last",
+                                "checkpoint_dir", "wer_streamed_after", "wer_offline_after",
+                                "streamed_improvement", "penalty_before", "penalty_after",
+                                "wall_minutes"},
+}
+# Each checkpoint the chain writes: (objective, the G's streaming point in
+# its config, the point cli.serve --streaming-checkpoint serves it at).
+QUALITY_CHECKPOINTS = {"ck_g_stream_native": ("aas", (1.0, 0.5, 0.5)),
+                       "ck_am_stream_ft": ("am", None), "ck_am_offline_ft": ("am", None),
+                       "ck_g_coadapt": ("acoustic", None),
+                       "ck_stream_ft": ("aas", (1.0, 0.2, 1.0))}
+
+
+def run_quality_chain(workdir: str, device) -> tuple[dict, dict]:
+    """Each protocol of QUALITY_CHAIN in turn on ``workdir`` (its prints and
+    the train loop's records swallowed) -> ({label: result}, {label: seconds})."""
+    import importlib
+
+    import torch
+    results, walls = {}, {}
+    for label, name, argv in QUALITY_CHAIN:
+        mod = importlib.import_module(f"aas_enhancement_tpu_torch.quality.{name}")
+        args = mod.parse_args([*(a.format(wd=workdir) for a in argv), "--workdir", workdir,
+                               "--device", str(device)])
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            results[label] = mod.run(args)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        walls[label] = round(time.perf_counter() - t0, 2)
+    return results, walls
+
+
+def phase_quality(device, card, workdir: str) -> dict:
+    """The seven quality protocols of aas_enhancement_tpu_torch/quality/ on
+    [e2e]'s workdir, chained as QUALITY_CHAIN (the streaming-native G into
+    the live pipeline; the offline-adapted AM into the co-adaptation and the
+    pair into the hybrid fusion), on the card in this process with the
+    kernels' launches counted; then every checkpoint through load_state, and
+    the streaming G's through cli.serve --streaming-checkpoint (start_server,
+    transcribe mode at the checkpoint's point, stopped at once).  Fails unless
+    each result has exactly QUALITY_KEYS' keys with finite numbers, every
+    checkpoint opens with its objective, both G checkpoints serve as the
+    streaming weights, the host beam took the native route and each of B1,
+    B1', B2, B2', B3, B3', B4, B5 and B6 launched.  -> launches."""
+    from aas_enhancement_tpu_torch.cli import serve as serve_cli
+    from aas_enhancement_tpu_torch.decode import beam
+    from aas_enhancement_tpu_torch.train.loop import load_state
+
+    out: dict = {}
+
+    def run():
+        beam.beam_decode.route = None
+        out["results"], out["walls"] = run_quality_chain(workdir, device)
+
+    t0 = time.perf_counter()
+    launches = counted(E2E_KERNELS, run)
+    wall = time.perf_counter() - t0
+    results, walls = out["results"], out["walls"]
+    print(f"[quality] the chain on {card}: {wall:.1f} s; seconds a protocol "
+          f"{json.dumps(walls)}; launches {json.dumps(launches)}; host beam route "
+          f"{beam.beam_decode.route}")
+    for label, result in results.items():
+        numbers = {k: (round(v, 4) if isinstance(v, float) else v)
+                   for k, v in _numbers(result) if not k.startswith(("steps", "grids"))}
+        print(f"[quality] {label}: {json.dumps(numbers)}")
+        got, want = set(result), QUALITY_KEYS[label]
+        if got != want:
+            fail(f"{label}: result keys {sorted(got ^ want)} differ from the CPU run's")
+        bad = [k for k, v in _numbers(result) if not math.isfinite(v)]
+        if bad:
+            fail(f"{label}: non-finite numbers {bad}")
+    for name, (objective, point) in QUALITY_CHECKPOINTS.items():
+        ck = os.path.join(workdir, name)
+        state, cfg = load_state(ck, device)
+        steps = 3 + (E2E_AAS_STEPS if name == "ck_stream_ft" else 0)
+        if cfg.train.objective != objective or state.step != steps:
+            fail(f"{name}: load_state gave objective {cfg.train.objective!r}, step "
+                 f"{state.step}")
+        if point is None:
+            continue
+        chunk, lookahead, history = (str(x) for x in point)
+        with contextlib.redirect_stdout(io.StringIO()):      # its advisories
+            server, line = serve_cli.start_server(
+                ["--checkpoint", os.path.join(workdir, "checkpoint"), "--streaming-checkpoint",
+                 ck, "--transcribe", "--weights", "streaming", "--port", "0",
+                 "--max-streams", "1", "--chunk", chunk, "--lookahead", lookahead,
+                 "--history", history, "--device", str(device)])
+        server.stop()
+        print(f"[quality] cli.serve --streaming-checkpoint {name} --transcribe at "
+              f"{point}: weights {line['weights']}")
+        if line["weights"] != "streaming":
+            fail(f"{name}: cli.serve served the {line['weights']!r} weights")
+    if beam.beam_decode.route != "native":
+        fail(f"the quality chain's host beam took the {beam.beam_decode.route!r} route")
+    idle = [k for k in E2E_KERNELS if not launches.get(k)]
+    if idle:
+        fail(f"the quality chain launched no {idle}: {launches}")
     return launches
 
 
@@ -4830,8 +5013,14 @@ def main() -> int:
     # kernels there, and the enhance, recognition, training, streaming and
     # export paths at full width.
     by_path.update(timed("hop", phase_hop, device, smi, results))
-    # The end-to-end quality protocol (cli.e2e) at a tiny size.
-    by_path["e2e"] = timed("e2e", phase_e2e, device, smi, results)
+    # The end-to-end quality protocol (cli.e2e) at a tiny size, then the
+    # quality protocols that read its workdir, chained.
+    e2e_workdir = tempfile.mkdtemp(prefix="aas_e2e_")
+    try:
+        by_path["e2e"] = timed("e2e", phase_e2e, device, smi, results, e2e_workdir)
+        by_path["quality"] = timed("quality", phase_quality, device, smi, e2e_workdir)
+    finally:
+        shutil.rmtree(e2e_workdir, ignore_errors=True)
     by_path["serve"], root, ck = timed("serve", phase_serve, device, smi)   # cli.serve
     try:
         by_path["export"] = timed("export", phase_export, device, smi, root, ck)   # artifact

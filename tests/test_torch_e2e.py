@@ -36,11 +36,8 @@ against the JAX repo's scripts/e2e_demo.py, on the CPU.
   and ``--device cuda`` without a GPU raises.
 """
 
-import importlib.util
 import json
-import math
 import os
-import sys
 import types
 
 import jax
@@ -56,19 +53,15 @@ from aas_enhancement_tpu.decode import lm as jlm
 from aas_enhancement_tpu.train import loop as jloop
 from aas_enhancement_tpu_torch.cli import e2e
 from aas_enhancement_tpu_torch.config import Config as TConfig
-from aas_enhancement_tpu_torch.convert import (am_params_from_flax, disc_params_from_flax,
-                                               enhancer_params_from_flax)
 from aas_enhancement_tpu_torch.decode import lm as tlm
-from aas_enhancement_tpu_torch.models.am import AcousticModel
-from aas_enhancement_tpu_torch.models.discriminator import Discriminator
-from aas_enhancement_tpu_torch.models.enhancer import Enhancer
 from aas_enhancement_tpu_torch.train import loop as tloop
-from aas_enhancement_tpu_torch.train.state import TrainState, adam, am_sgd
+from aas_enhancement_tpu_torch.train.state import TrainState
 from aas_enhancement_tpu_torch.utils import checkpoint as ckpt
+from torch_recorder import (REPO, Recorder, adam_travel, cfg_dict, load_jax_script,
+                            port_params, port_state, run_jax_script)
 
 torch.set_num_threads(1)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGV = ["--n-utts", "6", "--n-dev-utts", "3", "--n-test-utts", "3", "--am-steps", "7",
         "--aas-steps", "5", "--batch-size", "2", "--spec-augment", "--snr-low", "-5",
         "--snr-high", "5", "--lambda-adv", "0.3"]
@@ -83,73 +76,6 @@ def _jax_result_keys():
 
 # ---------------------------------------------------------------- orchestration
 
-class Recorder:
-    """The calls of one side, with its models named and its paths made
-    relative to its workdir; every stub is a function of the call count and
-    the arguments only, so both sides get the same values back."""
-
-    def __init__(self, workdir: str):
-        self.wd = workdir
-        self.calls: list[tuple] = []
-        self.names: dict[int, str] = {}
-
-    def tag(self, obj, name: str):
-        self.names[id(obj)] = name
-        return obj
-
-    def name(self, obj):
-        return None if obj is None else self.names.get(id(obj), f"?{type(obj).__name__}")
-
-    def rel(self, path):
-        return None if path is None else os.path.relpath(path, self.wd)
-
-    def add(self, *call) -> int:
-        self.calls.append(call)
-        return len(self.calls)
-
-    def lm(self, kind: str, manifests, order=None):
-        self.add("lm", kind, [self.rel(m) for m in manifests], order)
-        return self.tag(types.SimpleNamespace(kind=kind), kind)
-
-    def evaluate_wer(self, cfg, am, manifest, g, kw):
-        n = self.add("evaluate_wer", _cfg(cfg), self.name(am), self.rel(manifest), self.name(g),
-                     kw.get("batch_size"), kw.get("decoder", "greedy"),
-                     kw.get("beam_width", 32), self.name(kw.get("lm")),
-                     kw.get("lm_alpha", 0.0), kw.get("lm_beta", 0.0),
-                     self.name(kw.get("word_lm")), kw.get("word_alpha", 0.0),
-                     kw.get("word_beta", 0.0))
-        return {"wer": 0.01 * n, "wer_ci95": [0.001 * n, 0.02 * n],
-                "sample_ref": f"ref {n}", "sample_hyp": f"hyp {n}"}
-
-    def grid_search_lm(self, cfg, am, dev, lm, g, kw):
-        n = self.add("grid_search_lm", _cfg(cfg), self.name(am), self.rel(dev), self.name(lm),
-                     self.name(g), kw.get("batch_size"), kw.get("beam_width"))
-        alpha, beta = {"wlm": (0.6, 0.5), "clm": (1.5, -0.5)}[lm.kind]
-        return {"alpha": alpha, "beta": beta, "wer": 0.1 * n, "wer_no_lm": 0.3}
-
-    def grid_search_hybrid(self, cfg, am, dev, clm, wlm, g, kw):
-        self.add("grid_search_hybrid", _cfg(cfg), self.name(am), self.rel(dev),
-                 self.name(clm), self.name(wlm), self.name(g), kw.get("batch_size"),
-                 kw.get("beam_width"))
-        return {"alpha": 1.0, "beta": 0.0, "word_alpha": 0.3, "word_beta": 1.0, "wer": 0.05}
-
-    def enhance_stream(self, cfg, g, samples):
-        self.add("enhance_stream", _cfg(cfg), self.name(g), len(samples))
-        h = len(samples) // 2
-        return iter([0.5 * samples[:h], 0.5 * samples[h:], np.zeros(7, np.float32)])
-
-    def evaluate_si_snr(self, cfg, noisy, clean, g, streamed):
-        self.add("evaluate_si_snr", _cfg(cfg), self.rel(noisy), self.rel(clean), self.name(g),
-                 self.rel(streamed))
-        return {"si_snr_noisy": 1.0, "si_snr_enhanced": 3.5, "si_snr_streamed": 3.0,
-                "stoi_noisy": 0.6, "stoi_enhanced": 0.7, "stoi_streamed": 0.65,
-                "si_snr_improvement": 2.5}
-
-
-def _cfg(cfg) -> dict:
-    return json.loads(cfg.to_json())
-
-
 def _stub_jax(monkeypatch, rec: Recorder):
     from aas_enhancement_tpu import evaluation, streaming
     from aas_enhancement_tpu.decode import tune
@@ -160,7 +86,7 @@ def _stub_jax(monkeypatch, rec: Recorder):
     def train(cfg, noisy, clean=None, max_steps=0, state=None, **kw):
         assert not kw
         objective = cfg.train.objective
-        rec.add("train", _cfg(cfg), rec.rel(noisy), rec.rel(clean), max_steps,
+        rec.add("train", cfg_dict(cfg), rec.rel(noisy), rec.rel(clean), max_steps,
                 rec.name(state.am_params) if state is not None else None)
         if objective == "am":
             return types.SimpleNamespace(am_params=am), [{"loss_ctc_am": 200.0},
@@ -170,7 +96,7 @@ def _stub_jax(monkeypatch, rec: Recorder):
 
     def init_state(cfg, rng, am_params=None):
         seed = int(np.asarray(jax.random.key_data(rng))[-1])
-        rec.add("init_state", _cfg(cfg), seed)
+        rec.add("init_state", cfg_dict(cfg), seed)
         return types.SimpleNamespace(am_params=am_params, g_params=None)
 
     monkeypatch.setattr(jloop, "train", train)
@@ -202,7 +128,7 @@ def _stub_port(monkeypatch, rec: Recorder):
     def train(cfg, noisy, clean=None, max_steps=0, state=None, device="cuda"):
         assert torch.device(device) == torch.device("cpu")
         objective = cfg.train.objective
-        rec.add("train", _cfg(cfg), rec.rel(noisy), rec.rel(clean), max_steps,
+        rec.add("train", cfg_dict(cfg), rec.rel(noisy), rec.rel(clean), max_steps,
                 rec.name(state.am) if state is not None else None)
         if objective == "am":
             return TrainState(step=max_steps, am=am), [{"loss_ctc_am": 200.0},
@@ -211,7 +137,7 @@ def _stub_port(monkeypatch, rec: Recorder):
         return state, [{"loss_ctc": 30.0}, {"loss_ctc": 0.25}]
 
     def init_state(cfg, seed, device="cuda"):
-        rec.add("init_state", _cfg(cfg), seed)
+        rec.add("init_state", cfg_dict(cfg), seed)
         return TrainState(g=torch.nn.Linear(1, 1), d=torch.nn.Linear(1, 1),
                           am=torch.nn.Linear(1, 1))
 
@@ -239,19 +165,7 @@ def _stub_port(monkeypatch, rec: Recorder):
 
 
 def _run_jax_script(monkeypatch, tmp_path, argv):
-    spec = importlib.util.spec_from_file_location(
-        "e2e_demo_under_test", os.path.join(REPO, "scripts", "e2e_demo.py"))
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
-    monkeypatch.setenv("AAS_XLA_CACHE", str(tmp_path / "xla_cache"))
-    monkeypatch.setattr(sys, "argv", ["e2e_demo.py", *argv])
-    kept = {k: getattr(jax.config, k) for k in ("jax_compilation_cache_dir",
-                                                 "jax_persistent_cache_min_compile_time_secs")}
-    try:
-        script.main()
-    finally:
-        for k, v in kept.items():
-            jax.config.update(k, v)
+    run_jax_script(monkeypatch, tmp_path, load_jax_script("e2e_demo"), argv)
 
 
 @pytest.mark.parametrize("argv", [ARGV, ["--n-utts", "4", "--n-dev-utts", "2",
@@ -313,7 +227,7 @@ def test_protocol_matches_jax_script(argv, tmp_path, monkeypatch, capsys):
 STEPS = 5
 
 
-def _small_cfg(objective):
+def _smallcfg_dict(objective):
     return Config(
         am=AMConfig(rnn_hidden=16, rnn_layers=2, conv_channels=8),
         enhancer=EnhancerConfig(conv_channels=8, conv_layers=1, rnn_hidden=12, rnn_layers=1),
@@ -330,60 +244,16 @@ def corpus(tmp_path_factory):
                            n_words=(3, 8), snr_range=(0.0, 10.0), reverb_prob=0.3)
 
 
-NETS = {"g": (Enhancer, "enhancer", enhancer_params_from_flax),
-        "d": (Discriminator, "discriminator", disc_params_from_flax),
-        "am": (AcousticModel, "am", am_params_from_flax)}
-
-
-def _port_params(cfg, jstate) -> dict[str, dict[str, torch.Tensor]]:
-    out = {}
-    for name, (_, _, convert) in NETS.items():
-        params = getattr(jstate, f"{name}_params")
-        if params:
-            out[name] = convert(jax.device_get(params))
-    return out
-
-
-def _port_state(tcfg, params) -> TrainState:
-    """``init_state``'s networks and optimizers, holding the given tensors."""
-    f = tcfg.audio.num_bins
-    state = TrainState()
-    for name, sd in params.items():
-        cls, section, _ = NETS[name]
-        net = cls(getattr(tcfg, section), f)
-        net.load_state_dict(sd)
-        setattr(state, name, net)
-    if tcfg.train.objective == "am":
-        state.am.train()
-        state.am_opt = am_sgd(tcfg, state.am.parameters(), tcfg.train.lr_am)
-        return state
-    state.am.eval().requires_grad_(False)
-    state.g.train()
-    state.d.train()
-    state.g_opt = adam(tcfg, state.g.parameters(), tcfg.train.lr_g)
-    state.d_opt = adam(tcfg, state.d.parameters(), tcfg.train.lr_d)
-    return state
-
-
-def _adam_travel(steps: int, b1: float, b2: float) -> float:
-    """The most sum_t |Adam's update at step t| / lr can reach in ``steps``
-    steps: |m_t| / sqrt(v_t) <= (1 - b1) / sqrt(1 - b2) x
-    sqrt(sum_k<t (b1^2 / b2)^k), times the bias corrections."""
-    return sum((1 - b1) / math.sqrt(1 - b2)
-               * math.sqrt(sum((b1 * b1 / b2) ** k for k in range(t)))
-               * math.sqrt(1 - b2 ** t) / (1 - b1 ** t) for t in range(1, steps + 1))
-
-
 @pytest.mark.parametrize("objective", ["am", "aas"])
 def test_trajectory_matches_jax(objective, corpus):
-    cfg = _small_cfg(objective)
+    cfg = _smallcfg_dict(objective)
     manifests = ((corpus["clean"],) if objective == "am"
                  else (corpus["noisy"], corpus["clean"]))
-    start = _port_params(cfg, jloop.init_state(cfg, jax.random.key(cfg.train.seed)))
+    start = port_params(jloop.init_state(cfg, jax.random.key(cfg.train.seed)))
     jstate, jrecs = jloop.train(cfg, *manifests, max_steps=STEPS)
     tcfg = TConfig.from_json(cfg.to_json())
     state, recs = tloop.train(tcfg, *manifests, max_steps=STEPS,
-                              state=_port_state(tcfg, start), device="cpu")
+                              state=port_state(tcfg, start), device="cpu")
 
     assert state.step == STEPS
     assert [r["step"] for r in recs] == [r["step"] for r in jrecs] == list(range(1, STEPS + 1))
@@ -392,10 +262,10 @@ def test_trajectory_matches_jax(objective, corpus):
         assert losses and losses <= set(r), (losses, r)
         for k in losses:
             assert r[k] == pytest.approx(j[k], rel=1e-3), (r["step"], k)
-    end = _port_params(cfg, jstate)
+    end = port_params(jstate)
     assert set(end) == set(start)
     lr = cfg.train.lr_g                     # = lr_d
-    travel = 2 * _adam_travel(STEPS, cfg.train.adam_b1, cfg.train.adam_b2) * lr
+    travel = 2 * adam_travel(STEPS, cfg.train.adam_b1, cfg.train.adam_b2) * lr
     for name, ref in end.items():
         got = getattr(state, name).state_dict()
         assert set(got) == set(ref)
@@ -449,7 +319,7 @@ def test_tiny_run_on_cpu(tmp_path, monkeypatch):
         assert os.path.exists(path), key
     state, cfg = tloop.load_state(sweep["checkpoint"], "cpu")
     assert state.step == 2 and cfg.train.objective == "aas"
-    assert _cfg(cfg) == _cfg(e2e.cfg_for("aas", 4, 0.2))
+    assert cfg_dict(cfg) == cfg_dict(e2e.cfg_for("aas", 4, 0.2))
     for k, v in state.am.state_dict().items():
         assert torch.equal(v, pre[k]), k
     blob = ckpt.read(sweep["checkpoint"], 2)
