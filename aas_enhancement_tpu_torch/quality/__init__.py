@@ -1,5 +1,6 @@
-"""The quality protocols that read the end-to-end workdir (``cli/e2e.py``):
-one module per JAX repo script, under the script's file name.
+"""The quality protocols: those that read the end-to-end workdir
+(``cli/e2e.py``) and those with a workdir of their own; one module per JAX
+repo script, under the script's file name.
 
 Each runs as ``python -m aas_enhancement_tpu_torch.quality.<name>`` with the
 script's flags, defaults, result keys, default output paths and checkpoint
@@ -18,6 +19,15 @@ that the next takes through ``--g-checkpoint`` / ``--am-checkpoint``.
   streaming_sweep         chunk x lookahead x history grid of streamed WER
   streaming_finetune_eval short blockwise fine-tune that continues the saved
                           optimizer state (``ck_stream_ft``)
+
+With a workdir of their own (trigram-structured corpora, an AM trained
+through the train CLI into ``ckpt_am``, ``word{2,3}.arpa``), patching one
+result file in turn:
+
+  trigram_fusion_eval     trigram over bigram word-LM fusion, tuned on dev
+  trigram_bigtest         both beams on a larger fresh split, paired counts
+  biglex_hard_pipeline    the 1000-word, -7...-2 dB corpora through the
+                          flagship hard stack (``cli.e2e``'s ``checkpoint/``)
 
 ``workdir.py`` reads the workdir and streams a manifest through the enhancer.
 """

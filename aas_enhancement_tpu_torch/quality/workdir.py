@@ -95,6 +95,7 @@ def check_beam_route(device: torch.device) -> None:
         raise RuntimeError(f"host beam took the {beam.beam_decode.route!r} route on the card")
 
 
-def write_json(path: str, result: dict, indent: int = 2) -> None:
+def write_json(path: str, result: dict, indent: int = 2, end: str = "") -> None:
     with open(path, "w") as f:
         json.dump(result, f, indent=indent)
+        f.write(end)

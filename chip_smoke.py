@@ -180,6 +180,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    checkpoints serve as the streaming weights, the host beam took the
    native route and each of B1, B1', B2, B2', B3, B3', B4, B5 and B6
    launched;
+11d. fusion: the three quality protocols with a workdir of their own, in
+   this process, chained in a temporary workdir at the 1000-word, -7...-2
+   dB condition (FUSION_CHAIN: 16 / 4 / 4 utterances, 5 AM steps at B=8
+   through cli.train, 2000 LM sentences, beam 8): trigram_fusion_eval
+   (word{2,3}.arpa fitted and read back, greedy and beams tuned on dev,
+   cli.evaluate --lm word3.arpa), trigram_bigtest (8 fresh utterances),
+   biglex_hard_pipeline with [e2e]'s checkpoint as the flagship stack; each
+   protocol's seconds and numbers and the chain's launches printed; it
+   fails unless each result has exactly the keys the JAX scripts give
+   (FUSION_KEYS) with finite numbers, the trigram's held-out log-p per word
+   is above the bigram's, ckpt_am opens as objective am at its step, the
+   host beam took the native route and each of B1, B2, B2', B3, B3', B4 and
+   B6 launched;
 12. serve: a full-width checkpoint directory (aas: G, D, the AM) written
    here; load_state's seconds against the random draw it made before this
    port's serving slice (init_state + load_state_dict); cli.serve with no
@@ -4142,17 +4155,18 @@ QUALITY_CHECKPOINTS = {"ck_g_stream_native": ("aas", (1.0, 0.5, 0.5)),
                        "ck_stream_ft": ("aas", (1.0, 0.2, 1.0))}
 
 
-def run_quality_chain(workdir: str, device) -> tuple[dict, dict]:
-    """Each protocol of QUALITY_CHAIN in turn on ``workdir`` (its prints and
-    the train loop's records swallowed) -> ({label: result}, {label: seconds})."""
+def run_quality_chain(workdir: str, device, chain=QUALITY_CHAIN, **fields) -> tuple[dict, dict]:
+    """Each protocol of ``chain`` in turn on ``workdir`` (its prints and the
+    train loop's records swallowed; ``fields`` filled into its argv beside
+    {wd}) -> ({label: result}, {label: seconds})."""
     import importlib
 
     import torch
     results, walls = {}, {}
-    for label, name, argv in QUALITY_CHAIN:
+    for label, name, argv in chain:
         mod = importlib.import_module(f"aas_enhancement_tpu_torch.quality.{name}")
-        args = mod.parse_args([*(a.format(wd=workdir) for a in argv), "--workdir", workdir,
-                               "--device", str(device)])
+        args = mod.parse_args([*(a.format(wd=workdir, **fields) for a in argv),
+                               "--workdir", workdir, "--device", str(device)])
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()), \
                 contextlib.redirect_stderr(io.StringIO()):
@@ -4228,6 +4242,117 @@ def phase_quality(device, card, workdir: str) -> dict:
     idle = [k for k in E2E_KERNELS if not launches.get(k)]
     if idle:
         fail(f"the quality chain launched no {idle}: {launches}")
+    return launches
+
+
+# The quality protocols with a workdir of their own, chained in a temporary
+# workdir at the 1000-word, -7...-2 dB condition, cut to 16 / 4 / 4
+# utterances, 5 AM steps at B=8, 2000 LM sentences, beam 8: (label, module,
+# argv; {result} the result file all three patch, {e2e} [e2e]'s workdir).
+FUSION_CHAIN = (
+    ("trigram_fusion_eval", "trigram_fusion_eval",
+     ["--n-utts", "16", "--n-dev-utts", "4", "--n-test-utts", "4", "--am-steps", "5",
+      "--batch-size", "8", "--lexicon-size", "1000", "--lm-sentences", "2000",
+      "--snr-low", "-7", "--snr-high", "-2", "--beam-width", "8", "--out", "{result}"]),
+    ("trigram_bigtest", "trigram_bigtest",
+     ["--n-utts", "8", "--batch-size", "8", "--beam-width", "8", "--result", "{result}"]),
+    ("biglex_hard_pipeline", "biglex_hard_pipeline",
+     ["--flagship", "{e2e}/checkpoint", "--batch-size", "8", "--beam-width", "8",
+      "--result", "{result}"]),
+)
+FUSION_AM_STEPS = 5
+FUSION_KERNELS = ("stft", "gn_act", "lstm", "gru", "gru_bwd", "gn_bwd", "conv_dw")
+# The keys each protocol writes into the result file (held to the JAX
+# scripts' by tests/test_torch_quality_fusion_calls.py); a file patched in
+# turn has the union of its writers'.
+_FUSION_LEGS = {"lm_bi_alpha", "lm_bi_beta", "wer_dev_beam_bi", "wer_test_bi", "wer_test_bi_ci95",
+                "lm_tri_alpha", "lm_tri_beta", "wer_dev_beam_tri", "wer_test_tri",
+                "wer_test_tri_ci95"}
+FUSION_KEYS = {
+    "trigram_fusion_eval": {"n_utts", "am_steps", "tri_classes", "lexicon_size",
+                            "lm_sentences", "snr_range", "heldout_logp_per_word_bi",
+                            "heldout_logp_per_word_tri", "export_mb", "wer_greedy_test",
+                            "wer_greedy_test_ci95", "wer_beam_nolm_test", "wer_dev_beam_no_lm",
+                            *_FUSION_LEGS, "trigram_win_abs", "cli_evaluate_word_lm_tri",
+                            "wall_minutes"},
+    "trigram_bigtest": {"wer_test_bi_big", "wer_test_bi_big_ci95", "wer_test_tri_big",
+                        "wer_test_tri_big_ci95", "big_paired", "n_big_test_utts",
+                        "trigram_win_abs_big"},
+    "biglex_hard_pipeline": {"wer_pipeline_noisy_greedy_test", "wer_pipeline_enh_greedy_test",
+                             "wer_pipeline_enh_greedy_test_ci95", "sample_pipeline",
+                             "wer_pipeline_dev_beam_no_lm",
+                             *(k.replace("lm_", "pipeline_lm_").replace("wer_", "wer_pipeline_")
+                               for k in _FUSION_LEGS),
+                             "pipeline_paired", "pipeline_trigram_win_abs",
+                             "pipeline_wall_minutes", "pipeline_flagship"},
+}
+
+
+def fusion_keys(*names: str) -> set:
+    """The keys of a result file that the protocols ``names`` patched in turn."""
+    return set().union(*(FUSION_KEYS[n] for n in names))
+
+
+def phase_fusion(device, card, e2e_workdir: str) -> dict:
+    """The three quality protocols with a workdir of their own, chained as
+    FUSION_CHAIN in a temporary workdir, on the card in this process with
+    the kernels' launches counted: trigram_fusion_eval (the corpora, the AM
+    through cli.train, word{2,3}.arpa fitted and read back, greedy and
+    beams tuned on dev, cli.evaluate --lm word3.arpa), trigram_bigtest on
+    its workdir, biglex_hard_pipeline with [e2e]'s checkpoint as the
+    flagship stack; then ckpt_am through load_state.  Fails unless each
+    result has exactly the keys its writers give (FUSION_KEYS) with finite
+    numbers, the trigram's held-out log-p per word is above the bigram's,
+    ckpt_am opens as objective am at its step, the host beam took the
+    native route and each of B1, B2, B2', B3, B3', B4 and B6 launched.
+    -> launches."""
+    from aas_enhancement_tpu_torch.decode import beam
+    from aas_enhancement_tpu_torch.train.loop import load_state
+
+    workdir = tempfile.mkdtemp(prefix="aas_fusion_")
+    out: dict = {}
+
+    def run():
+        beam.beam_decode.route = None
+        out["results"], out["walls"] = run_quality_chain(
+            workdir, device, FUSION_CHAIN, result=os.path.join(workdir, "result.json"),
+            e2e=e2e_workdir)
+
+    try:
+        t0 = time.perf_counter()
+        launches = counted(E2E_KERNELS, run)
+        wall = time.perf_counter() - t0
+        state, cfg = load_state(os.path.join(workdir, "ckpt_am"), device)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    results, walls = out["results"], out["walls"]
+    print(f"[fusion] the chain on {card}: {wall:.1f} s; seconds a protocol "
+          f"{json.dumps(walls)}; launches {json.dumps(launches)}; host beam route "
+          f"{beam.beam_decode.route}")
+    done = []
+    for name, result in results.items():
+        done.append(name)
+        numbers = {k: (round(v, 4) if isinstance(v, float) else v)
+                   for k, v in _numbers({k: result[k] for k in sorted(FUSION_KEYS[name])
+                                         if k in result})}
+        print(f"[fusion] {name}: {json.dumps(numbers)}")
+        got, want = set(result), fusion_keys(*done)
+        if got != want:
+            fail(f"{name}: result keys {sorted(got ^ want)} differ from the JAX script's")
+        bad = [k for k, v in _numbers(result) if not math.isfinite(v)]
+        if bad:
+            fail(f"{name}: non-finite numbers {bad}")
+    tri = results["trigram_fusion_eval"]
+    if not tri["heldout_logp_per_word_tri"] > tri["heldout_logp_per_word_bi"]:
+        fail(f"the trigram ARPA's held-out log-p per word {tri['heldout_logp_per_word_tri']} "
+             f"is not above the bigram's {tri['heldout_logp_per_word_bi']}")
+    if cfg.train.objective != "am" or state.step != FUSION_AM_STEPS:
+        fail(f"ckpt_am: load_state gave objective {cfg.train.objective!r}, step {state.step}")
+    if beam.beam_decode.route != "native":
+        fail(f"the fusion chain's host beam took the {beam.beam_decode.route!r} route")
+    idle = [k for k in FUSION_KERNELS if not launches.get(k)]
+    if idle:
+        fail(f"the fusion chain launched no {idle}: {launches}")
     return launches
 
 
@@ -5014,11 +5139,13 @@ def main() -> int:
     # export paths at full width.
     by_path.update(timed("hop", phase_hop, device, smi, results))
     # The end-to-end quality protocol (cli.e2e) at a tiny size, then the
-    # quality protocols that read its workdir, chained.
+    # quality protocols that read its workdir, chained, then those with a
+    # workdir of their own (the last on [e2e]'s checkpoint).
     e2e_workdir = tempfile.mkdtemp(prefix="aas_e2e_")
     try:
         by_path["e2e"] = timed("e2e", phase_e2e, device, smi, results, e2e_workdir)
         by_path["quality"] = timed("quality", phase_quality, device, smi, e2e_workdir)
+        by_path["fusion"] = timed("fusion", phase_fusion, device, smi, e2e_workdir)
     finally:
         shutil.rmtree(e2e_workdir, ignore_errors=True)
     by_path["serve"], root, ck = timed("serve", phase_serve, device, smi)   # cli.serve

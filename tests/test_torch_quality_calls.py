@@ -34,6 +34,8 @@ from aas_enhancement_tpu_torch.cli import e2e
 from aas_enhancement_tpu_torch.data.synthetic import generate_corpus
 from torch_recorder import (FakeJaxState, Recorder, install_jax, install_port, jax_net,
                             load_jax_script, run_jax_script)
+from torch_recorder import norm_paths as _norm
+from torch_recorder import written_files as _written
 
 MODULES = ("streaming_native_train", "live_pipeline_eval", "hybrid_fusion_eval",
            "am_streaming_finetune", "coadapt_alternate", "streaming_sweep",
@@ -132,33 +134,6 @@ def _workdirs(tmp_path, corpora):
     with open(twd / "sweep_state.json", "w") as f:
         json.dump({"checkpoint": str(twd / "checkpoint"), **meta}, f)
     return jwd, twd
-
-
-def _norm(obj, wd: str):
-    """``obj`` with the workdir's path written WD."""
-    if isinstance(obj, dict):
-        return {k: _norm(v, wd) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(_norm(v, wd) for v in obj)
-    return obj.replace(wd, "WD") if isinstance(obj, str) else obj
-
-
-def _written(wd, skip) -> dict:
-    """Every file under ``wd`` but ``skip``: JSON as dicts (wall_minutes
-    aside), other files as bytes, with the workdir's path written WD."""
-    out = {}
-    for root, _, files in os.walk(wd):
-        for name in files:
-            path = os.path.join(root, name)
-            rel = os.path.relpath(path, wd)
-            if rel in skip:
-                continue
-            data = open(path, "rb").read().replace(str(wd).encode(), b"WD")
-            if name.endswith(".json"):
-                data = json.loads(data)
-                data.pop("wall_minutes", None)
-            out[rel] = data
-    return out
 
 
 @pytest.mark.parametrize("case", list(CASES))

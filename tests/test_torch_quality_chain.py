@@ -28,13 +28,12 @@ import torch
 import chip_smoke
 from aas_enhancement_tpu_torch.cli import e2e
 from aas_enhancement_tpu_torch.cli import serve as serve_cli
-from aas_enhancement_tpu_torch.config import (AMConfig, Config, DataConfig,
-                                              DiscriminatorConfig, EnhancerConfig, TrainConfig)
 from aas_enhancement_tpu_torch.quality import (am_streaming_finetune, coadapt_alternate,
                                                hybrid_fusion_eval, live_pipeline_eval,
                                                streaming_finetune_eval,
                                                streaming_native_train, streaming_sweep)
 from aas_enhancement_tpu_torch.train.loop import load_state
+from torch_recorder import small_e2e_config as _small
 
 torch.set_num_threads(1)
 
@@ -42,17 +41,6 @@ E2E = ["--n-utts", "8", "--n-dev-utts", "4", "--n-test-utts", "4", "--am-steps",
        "--aas-steps", "2", "--batch-size", "4", "--device", "cpu"]
 GRIDS = ["--alpha-grid", "0.6", "--beta-grid", "0.5", "--word-alpha-grid", "0.3",
          "--word-beta-grid", "0.0"]
-
-
-def _small(objective: str, batch_size: int, lambda_adv: float) -> Config:
-    return Config(
-        am=AMConfig(rnn_hidden=16, rnn_layers=2, conv_channels=8),
-        enhancer=EnhancerConfig(conv_channels=8, conv_layers=1, rnn_hidden=12, rnn_layers=1),
-        discriminator=DiscriminatorConfig(channels=(8, 16)),
-        train=TrainConfig(objective=objective, batch_size=batch_size, epochs=100000,
-                          log_every=25, lr_am=6e-4, lr_g=3e-4, lr_d=3e-4,
-                          lambda_adv=lambda_adv),
-        data=DataConfig(num_buckets=2))
 
 
 @pytest.fixture(scope="module")

@@ -93,9 +93,11 @@ class Recorder:
         self.wd = str(workdir)
         self.calls: list[tuple] = []
         self.names: dict[int, str] = {}
+        self.tagged: list = []       # alive, so that no other object takes a tagged id
 
     def tag(self, obj, name: str):
         self.names[id(obj)] = name
+        self.tagged.append(obj)
         return obj
 
     def name(self, obj):
@@ -139,14 +141,20 @@ class Recorder:
                      kw.get("beam_width", 32), self.name(kw.get("lm")),
                      kw.get("lm_alpha", 0.0), kw.get("lm_beta", 0.0),
                      self.name(kw.get("word_lm")), kw.get("word_alpha", 0.0),
-                     kw.get("word_beta", 0.0), self.name(kw.get("forward")))
-        return {"wer": 0.01 * n, "wer_ci95": [0.001 * n, 0.02 * n],
-                "sample_ref": f"ref {n}", "sample_hyp": f"hyp {n}"}
+                     kw.get("word_beta", 0.0), self.name(kw.get("forward")),
+                     kw.get("per_utt", False))
+        out = {"wer": 0.01 * n, "wer_ci95": [0.001 * n, 0.02 * n],
+               "sample_ref": f"ref {n}", "sample_hyp": f"hyp {n}"}
+        if kw.get("per_utt"):
+            out["per_utt"] = [(n + i) % 3 for i in range(5)]
+        return out
 
     def grid_search_lm(self, cfg, am, dev, lm, g, kw):
         n = self.add("grid_search_lm", cfg_dict(cfg), self.name(am), self.rel(dev),
                      self.name(lm), self.name(g), kw.get("batch_size"), kw.get("beam_width"))
-        alpha, beta = {"wlm": (0.6, 0.5), "clm": (1.5, -0.5)}[lm.kind]
+        kind = getattr(lm, "kind", None) or f"order{lm.order}"     # an ARPA file's LM
+        alpha, beta = {"wlm": (0.6, 0.5), "clm": (1.5, -0.5), "order2": (0.6, 1.0),
+                       "order3": (0.3, -0.5)}[kind]
         return {"alpha": alpha, "beta": beta, "wer": 0.1 * n, "wer_no_lm": 0.3}
 
     def grid_search_hybrid(self, cfg, am, dev, clm, wlm, g, kw):
@@ -286,6 +294,36 @@ class Recorder:
         w = eval_fn(round(a0 + 0.5, 6), b0)
         return (round(a0 + 0.5, 6), b0, w) if w < w0 else (a0, b0, w0)
 
+    # ---------------------------------------- the fusion protocols' CLIs
+    def cli_argv(self, argv) -> list:
+        """A CLI's argv with the paths under the workdir relative to it and
+        the port's ``--device`` (the CPU here) taken out."""
+        argv = list(argv)
+        if "--device" in argv:
+            i = argv.index("--device")
+            assert argv[i + 1] == "cpu", argv
+            del argv[i:i + 2]
+        return [self.rel(a) if a.startswith(self.wd + os.sep) else a for a in argv]
+
+    def cli_train(self, argv) -> None:
+        """The train CLI: the call with its config file's fields; writes
+        ``config.json`` into ``--checkpoint-dir`` (as both CLIs do) and its
+        final JSON line."""
+        opts = dict(zip(argv[::2], argv[1::2]))
+        with open(opts["--config"]) as f:
+            fields = json.load(f)
+        self.add("cli.train", self.cli_argv(argv), fields)
+        os.makedirs(opts["--checkpoint-dir"], exist_ok=True)
+        with open(os.path.join(opts["--checkpoint-dir"], "config.json"), "w") as f:
+            json.dump(fields, f)
+        print(json.dumps({"final_step": int(opts["--steps"]), "loss_ctc_am": 0.5}))
+
+    def cli_evaluate(self, argv) -> None:
+        """The evaluate CLI: an advisory line, then its JSON line."""
+        n = self.add("cli.evaluate", self.cli_argv(argv))
+        print("advisory: the native decoder is in use")
+        print(json.dumps({"noisy": {"wer": 0.001 * n, "utterances": n}}))
+
     def cache_log_probs(self, cfg, am, manifest, g, batch_size):
         self.add("cache_log_probs", cfg_dict(cfg), self.name(am), self.rel(manifest),
                  self.name(g), batch_size)
@@ -298,6 +336,10 @@ class Recorder:
 def install_jax(monkeypatch, rec: Recorder) -> None:
     """Every package function the JAX quality scripts call -> ``rec``."""
     from aas_enhancement_tpu import evaluation, streaming, streaming_asr
+    from aas_enhancement_tpu.cli import evaluate as cli_evaluate
+    from aas_enhancement_tpu.cli import train as cli_train
+    from aas_enhancement_tpu.config import Config
+    from aas_enhancement_tpu.decode.arpa import ArpaWordLM
     from aas_enhancement_tpu.train import loop
     from aas_enhancement_tpu.utils import checkpoint
     # the package's __init__ re-exports functions under some module names
@@ -317,8 +359,10 @@ def install_jax(monkeypatch, rec: Recorder) -> None:
 
     def load_state(directory):
         base = rec.load_state(directory)
+        cfg_path = os.path.join(directory, "config.json")
+        cfg = Config.from_json(open(cfg_path).read()) if os.path.exists(cfg_path) else None
         return FakeJaxState(step=7, **{f"{k}_params": jax_net(f"{base}.{k}")
-                                       for k in ("g", "d", "am")}), None
+                                       for k in ("g", "d", "am")}), cfg
 
     real_load = pickle.load
 
@@ -340,6 +384,9 @@ def install_jax(monkeypatch, rec: Recorder) -> None:
     monkeypatch.setattr(wer, "corpus_wer", rec.corpus_wer)
     monkeypatch.setattr(wer, "corpus_wer_ci", rec.corpus_wer_ci)
     monkeypatch.setattr(tune, "edge_refine", rec.edge_refine)
+    monkeypatch.setattr(tune, "grid_search_lm",
+                        lambda cfg, am_params, dev, lm, g_params=None, **kw:
+                        rec.grid_search_lm(cfg, am_params, dev, lm, g_params, kw))
     monkeypatch.setattr(tune, "grid_search_hybrid",
                         lambda cfg, am_params, dev, clm, wlm, g_params=None, **kw:
                         rec.grid_search_hybrid(cfg, am_params, dev, clm, wlm, g_params, kw))
@@ -355,13 +402,19 @@ def install_jax(monkeypatch, rec: Recorder) -> None:
                         types.SimpleNamespace(directory=directory, close=lambda: None))
     monkeypatch.setattr(checkpoint, "save",
                         lambda mgr, step, state: rec.save(mgr.directory, step, state))
+    monkeypatch.setattr(cli_train, "main", rec.cli_train)
+    monkeypatch.setattr(cli_evaluate, "main", rec.cli_evaluate)
+    name_arpa_lms(monkeypatch, rec, ArpaWordLM)
 
 
 def install_port(monkeypatch, rec: Recorder, module) -> None:
     """Every package function a port quality module (and ``quality/
     workdir.py``) calls -> ``rec``."""
+    from aas_enhancement_tpu_torch.cli import evaluate as cli_evaluate
+    from aas_enhancement_tpu_torch.cli import train as cli_train
     from aas_enhancement_tpu_torch.config import Config
     from aas_enhancement_tpu_torch.decode import lm
+    from aas_enhancement_tpu_torch.decode.arpa import ArpaWordLM
     from aas_enhancement_tpu_torch.quality import workdir
     from aas_enhancement_tpu_torch.train.state import TrainState
     from aas_enhancement_tpu_torch.utils import checkpoint
@@ -408,6 +461,8 @@ def install_port(monkeypatch, rec: Recorder, module) -> None:
         "StreamingRecognizer": rec.streaming_recognizer(),
         "beam_decode": rec.beam_decode, "corpus_wer": rec.corpus_wer,
         "corpus_wer_ci": rec.corpus_wer_ci, "edge_refine": rec.edge_refine,
+        "grid_search_lm": lambda cfg, am, dev, lm, enhancer=None, **kw:
+            rec.grid_search_lm(cfg, am, dev, lm, enhancer, kw),
         "grid_search_hybrid": lambda cfg, am, dev, clm, wlm, enhancer=None, **kw:
             rec.grid_search_hybrid(cfg, am, dev, clm, wlm, enhancer, kw),
         "cache_log_probs": lambda cfg, am, manifest, enhancer=None, batch_size=8:
@@ -425,6 +480,48 @@ def install_port(monkeypatch, rec: Recorder, module) -> None:
                         classmethod(lambda cls, paths: rec.lm("wlm", paths)))
     monkeypatch.setattr(lm.CharNGramLM, "from_manifests",
                         classmethod(lambda cls, paths, order=3: rec.lm("clm", paths, order)))
+    monkeypatch.setattr(cli_train, "main", rec.cli_train)
+    monkeypatch.setattr(cli_evaluate, "main", rec.cli_evaluate)
+    name_arpa_lms(monkeypatch, rec, ArpaWordLM)
+
+
+def name_arpa_lms(monkeypatch, rec: Recorder, cls) -> None:
+    """Every ARPA LM read from a file named by the file and its order."""
+    load = cls.load_arpa
+
+    def load_arpa(klass, path, *args, **kw):
+        lm = load(path, *args, **kw)
+        return rec.tag(lm, f"{rec.rel(path)} (order {lm.order})")
+
+    monkeypatch.setattr(cls, "load_arpa", classmethod(load_arpa))
+
+
+def norm_paths(obj, wd: str):
+    """``obj`` with the workdir's path written WD."""
+    if isinstance(obj, dict):
+        return {k: norm_paths(v, wd) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(norm_paths(v, wd) for v in obj)
+    return obj.replace(wd, "WD") if isinstance(obj, str) else obj
+
+
+def written_files(wd, skip, drop=("wall_minutes",)) -> dict:
+    """Every file under ``wd`` but ``skip``: JSON as dicts (the ``drop``
+    keys aside), other files as bytes, with the workdir's path written WD."""
+    out = {}
+    for root, _, files in os.walk(wd):
+        for name in files:
+            path = os.path.join(root, name)
+            rel = os.path.relpath(path, wd)
+            if rel in skip:
+                continue
+            data = open(path, "rb").read().replace(str(wd).encode(), b"WD")
+            if name.endswith(".json"):
+                data = json.loads(data)
+                for key in drop:
+                    data.pop(key, None)
+            out[rel] = data
+    return out
 
 
 def load_jax_script(name: str):
@@ -447,6 +544,23 @@ def run_jax_script(monkeypatch, tmp_path, script, argv) -> None:
     finally:
         for k, v in kept.items():
             jax.config.update(k, v)
+
+
+def small_e2e_config(objective: str, batch_size: int, lambda_adv: float):
+    """``cli/e2e.py::cfg_for`` cut to small widths (AM 2 x BiGRU-16, 8
+    channels; enhancer 1 conv layer, 1 x BiLSTM-12; discriminator (8, 16)),
+    for real protocol runs on the CPU."""
+    from aas_enhancement_tpu_torch.config import (AMConfig, Config, DataConfig,
+                                                  DiscriminatorConfig, EnhancerConfig,
+                                                  TrainConfig)
+    return Config(
+        am=AMConfig(rnn_hidden=16, rnn_layers=2, conv_channels=8),
+        enhancer=EnhancerConfig(conv_channels=8, conv_layers=1, rnn_hidden=12, rnn_layers=1),
+        discriminator=DiscriminatorConfig(channels=(8, 16)),
+        train=TrainConfig(objective=objective, batch_size=batch_size, epochs=100000,
+                          log_every=25, lr_am=6e-4, lr_g=3e-4, lr_d=3e-4,
+                          lambda_adv=lambda_adv),
+        data=DataConfig(num_buckets=2))
 
 
 # ---------------------------------------------------------------- trajectories
