@@ -20,7 +20,13 @@ widths (its wall between events and its busy device time; no bound);
 ``conv_dw_same`` on bf16 x and dy at the AM's conv2 (11 x 21, stride (1,
 2), [B, 401, 81, 32]) at B=8 and 32, beside cuDNN's bf16 weight gradient
 (``torch.nn.grad.conv2d_weight``) on the same tensors, bound by the
-operations at the 989 TFLOP/s bf16 rate.
+operations at the 989 TFLOP/s bf16 rate; ``conv_dw_same`` on f32 x and dy
+(the split route, "bf16x3"), ``conv_dw_fma`` (the FMA route) and cuDNN's f32
+weight gradient (TF32 off) on the same tensors at the AM's conv2 at B=8, the
+e2e protocol's conv2 ([16, 301, 81, 16]) and the enhancer's 5 x 5 ([8, 801,
+161, 32]), each with two bounds: the f32 operations at 67 TFLOP/s (the FMA
+route's) and six bf16 products a position at 989 TFLOP/s (the split
+route's).
 Per case and call: the host time of the wrapper (``--reps`` calls enqueued
 back to back behind a sleeping kernel, so that the host never waits on the
 device: perf_counter around them over the count), the median time between
@@ -41,9 +47,9 @@ results are wrong):
 (``AAS_VJP_SKIP_LOAD``: no input staged; ``AAS_VJP_SKIP_FFT``: no pass of
 the transform; ``AAS_VJP_SKIP_OUT``: no overlap-add, no bins stored), and
 so the parts of ``csrc/conv_dw.cu``'s tensor-core kernel, ``--only
-"conv_dw bf16"`` (``AAS_DW_SKIP_STAGE``: only a slice's first two windows
-staged; ``AAS_DW_SKIP_MMA``: no product; ``AAS_DW_SKIP_LOAD``: no fragment
-loaded from shared memory).
+"conv_dw bf16"`` or ``--only "conv_dw f32"`` (``AAS_DW_SKIP_STAGE``: only a
+slice's first two windows staged; ``AAS_DW_SKIP_MMA``: no product;
+``AAS_DW_SKIP_LOAD``: no fragment loaded from shared memory).
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ def event_ms(fn, reps: int) -> float:
 
 PEAK_BYTES_S = 3.35e12      # the H100 SXM's HBM3 rate
 PEAK_BF16_S = 989e12        # and its dense bf16 tensor-core rate
+PEAK_F32_S = 67e12          # and its f32 rate outside the tensor cores
 
 
 def _valid(lens: list[int], t: int) -> float:
@@ -97,8 +104,9 @@ def cases(device) -> dict:
     """label -> (a call on inputs made from a fixed seed, the bytes the
     function must move: each input read once, each output written once; the
     GroupNorm reads x (and dy) on the valid frames only; None for the step;
-    and the bf16 operations where they bound the call, else 0).  Labels with
-    " pass " or "step" run with autograd, the others in inference mode."""
+    the bf16 operations where they bound the call, else 0; and the f32
+    operations of the f32 weight gradients, else 0).  Labels with " pass "
+    or "step" run with autograd, the others in inference mode."""
     import torch.nn.functional as F
     from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
     from aas_enhancement_tpu_torch.ops.cuda import gn, stft as kstft
@@ -169,7 +177,39 @@ def cases(device) -> dict:
         out[f"cuDNN wgrad bf16 AM conv2 [{b}, 401, 81, 32]"] = (
             lambda x=x_nchw, dy=dy: torch.nn.grad.conv2d_weight(
                 x, (32, 32, 11, 21), dy.permute(0, 3, 1, 2), stride=(1, 2)), *work)
-    return {k: v if len(v) == 3 else (*v, 0.0) for k, v in out.items()}
+    for label, (b, t, f, c, kt, kf, st) in (
+            ("AM conv2 [8, 401, 81, 32]", (8, 401, 81, 32, 11, 21, (1, 2))),
+            ("e2e conv2 [16, 301, 81, 16]", (16, 301, 81, 16, 11, 21, (1, 2))),
+            ("enhancer 5x5 [8, 801, 161, 32]", (8, 801, 161, 32, 5, 5, (1, 1)))):
+        fo = -(-f // st[1])
+        x = torch.randn(b, t, f, c, generator=gen).to(device)
+        dy = torch.randn(b, t, fo, c, generator=gen).to(device)
+        flops = 2.0 * b * t * fo * kt * kf * c * c
+        work = (4 * (x.numel() + dy.numel() + kt * kf * c * c), 6 * flops, flops)
+        out[f"conv_dw f32 {label}"] = (
+            lambda x=x, dy=dy, kt=kt, kf=kf, st=st: kconv.conv_dw_same(x, dy, kt, kf, st), *work)
+        out[f"conv_dw f32 fma {label}"] = (
+            lambda x=x, dy=dy, kt=kt, kf=kf, st=st: kconv.conv_dw_fma(x, dy, kt, kf, st), *work)
+        x_nchw = F.pad(x.permute(0, 3, 1, 2), (*kconv.same_pad(f, kf, st[1]),
+                                               *kconv.same_pad(t, kt, 1)))
+        out[f"conv_dw f32 cuDNN wgrad {label}"] = (
+            _tf32_off(lambda x=x_nchw, dy=dy, c=c, kt=kt, kf=kf, st=st:
+                      torch.nn.grad.conv2d_weight(x, (c, c, kt, kf), dy.permute(0, 3, 1, 2),
+                                                  stride=st)), *work)
+    return {k: (*v, 0.0, 0.0)[:4] for k, v in out.items()}
+
+
+def _tf32_off(fn):
+    """``fn`` with cuDNN's TF32 off during the call (f32 products in full, as
+    the f32 routes compute them), the setting restored after it."""
+    def call():
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return fn()
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+    return call
 
 
 def _paired_step(device, gen, n: int):
@@ -203,7 +243,7 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
     print(f"[kernel_bench] {smi.splitlines()[0]} | torch {torch.__version__}")
-    for label, (fn, n_bytes, ops) in cases(device).items():
+    for label, (fn, n_bytes, ops, f32_ops) in cases(device).items():
         if args.only not in label:
             continue
         # The backward pass and the step need autograd; the wrappers alone run without it.
@@ -221,9 +261,14 @@ def main(argv=None) -> None:
         bound = max(n_bytes / PEAK_BYTES_S, ops / PEAK_BF16_S) * 1e3
         by_what = (f"{ops / 1e9:.1f} GFLOP at 989 TFLOP/s" if ops / PEAK_BF16_S
                    > n_bytes / PEAK_BYTES_S else f"{n_bytes / 1e6:.1f} MB at 3.35 TB/s")
+        f32 = ""
+        if f32_ops:
+            fma_bound = max(n_bytes / PEAK_BYTES_S, f32_ops / PEAK_F32_S) * 1e3
+            f32 = (f" | f32 FMA bound {fma_bound:.4f} ms ({f32_ops / 1e9:.1f} GFLOP at 67 "
+                   f"TFLOP/s): {fma_bound / dev:.0%} of it")
         print(f"[kernel_bench] {label}: host {host:.4f} ms a call | between events "
               f"{events:.4f} ms | device {dev:.4f} ms ({by}) | bound {bound:.4f} ms "
-              f"({by_what}): {bound / dev:.0%} of it")
+              f"({by_what}): {bound / dev:.0%} of it{f32}")
 
 
 if __name__ == "__main__":

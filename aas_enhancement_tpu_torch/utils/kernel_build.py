@@ -9,7 +9,8 @@ under a name keyed on a hash of the sources and flags, so a stale library is
 never loaded.  The build happens at first use.  ``AAS_KERNEL_DEFINES`` (names
 separated by spaces) adds a ``-D`` flag for each name: the switch-offs that
 time a part of a kernel by its absence (``csrc/stft_vjp.cu``'s
-``AAS_VJP_SKIP_*``; ``utils/kernel_bench.py``), in a library of their own.  A failed build raises: there
+``AAS_VJP_SKIP_*``, ``csrc/conv_dw.cu``'s ``AAS_DW_SKIP_*``;
+``utils/kernel_bench.py``), in a library of their own.  A failed build raises: there
 is no fallback, because a CUDA tensor must reach its kernel or an error.
 """
 
@@ -105,10 +106,11 @@ SIGNATURES = {
     "aas_conv_dw": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _P),
     # ... as aas_conv_dw to pad_f_low, then the plan (ops/cuda/conv_dw.py::
-    # conv_dw_plan): cx, cd, groups, per_block, win, ndt, slices, shared
-    # memory bytes; stream: bf16 x and dy (the "mma" route); dw is f32
+    # conv_dw_plan): planes (1: bf16 x and dy, the "mma" route; 3: f32 x and
+    # dy split into three bf16 planes, "bf16x3"), cx, cd, groups, per_block,
+    # win, ndt, slices, shared memory bytes; stream; dw is f32
     "aas_conv_dw_mma": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P),
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P),
 }
 
 

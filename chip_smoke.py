@@ -90,11 +90,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    GRU kernels, forward and backward at H=256 and H=512 against
    BiRNN(time_major=True) on the transposed input, counting their launches;
 8. train_am: the train CLI with --objective am (AM pre-training, 3 steps,
-   B=4) on the card, counting launches (conv_dw once per microbatch, gru_bwd
-   once per layer); one AM step at B=4 x 8 s against the CPU (metrics, every
-   AM gradient tensor, updated parameters); the kernel names of one step
-   with conv2's dW from the kernel and from cuDNN; AM steps timed at B=8 and
-   B=32 x 8 s, and at B=8 with SpecAugment and the KL anchor;
+   B=4) on the card, counting launches (conv_dw once per microbatch on route
+   "bf16x3", gru_bwd once per layer); one AM step at B=4 x 8 s against the
+   CPU (metrics, every AM gradient tensor, updated parameters); the kernel
+   names of one step with conv2's dW from the kernel
+   (conv_dw_mma_kernel<4, 4, 3> and the reduction) and from cuDNN; AM steps
+   timed at B=8 and B=32 x 8 s, and at B=8 with SpecAugment and the KL
+   anchor;
 8a. dp: data parallelism on this one card: 2 ranks (processes running this
    script with --dp-rank) over gloo, B=8 x 8 s global (4 rows a rank), 3
    steps of aas at f32, of am at bf16 with SpecAugment, and of the same am
@@ -157,7 +159,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    its kernels at those widths against their plain versions (kernels_e2e:
    GN and its backward at the flagship batch's [16, 601, 161, 16] and
    [16, 301, 81 | 41, 16], the BiLSTM-128 and BiGRU-256 forward and backward
-   on their resident routes, B6 f32 at the AM's conv2 with 16 channels): AM
+   on their resident routes, B6 f32 at the AM's conv2 with 16 channels on
+   route "bf16x3", beside its FMA route and cuDNN, which it must beat): AM
    pre-training, held-out greedy WER, AAS with the pre-trained AM frozen,
    the checkpoint, word / char / hybrid LM fusion tuned on dev, train-split
    WERs, the streamed split, SI-SNR and STOI; its stage walls, WERs and
@@ -296,6 +299,13 @@ BWD_TOL = {
                 "row by row and slice by slice in the kernel, by one matmul in the "
                 "plain version"),
 }
+# f32 routes of conv_dw against the plain version's f64 sums, relative to max|dW|.
+# The split route's limit lies between its sound readings (below 8e-7) and
+# its error with one of its products left out (above the limit:
+# tests/test_torch_conv_dw_plan.py::test_split_f64_limit_catches_a_dropped_product).
+F64_TOL = {"conv_dw": (1.5e-6, "six f32-exact split products a position, summed from zero on "
+                       "the tensor cores a k16 step, then f32 adds; a product left out "
+                       "misses by more")}
 BWD_TOL["lstm_stacked_bwd"] = BWD_TOL["lstm_bwd"]
 BWD_TOL["gru_stacked_bwd"] = BWD_TOL["gru_bwd"]
 # Card vs CPU, one AAS step from the same weights and batch (f32, TF32 off):
@@ -1289,18 +1299,14 @@ def rnn_bwd_routes(row: dict, name: str, label: str, rnn, cots, grads_p) -> str:
 
 
 def kernels_conv_dw(device, gen, results: dict) -> None:
-    """The conv weight-gradient kernel at B=8 against its plain version: the
-    AM's conv2 (11 x 21, stride (1, 2), [8, 401, 81, 32] -> 41 bins) with a
-    ragged dy (zero past each row's length, as the GroupNorm's mask leaves
-    it), and the enhancer's 5 x 5 stride-(1, 1) convs at [8, 801, 161, 32];
-    two runs must give the same bits.  The library call beside it is cuDNN's
-    weight gradient (torch.nn.grad.conv2d_weight), f32 and TF32."""
+    """The conv weight-gradient kernel at B=8 on f32 x and dy
+    (``conv_dw_f32_case``): the AM's conv2 (11 x 21, stride (1, 2), [8, 401,
+    81, 32] -> 41 bins) with a ragged dy (zero past each row's length, as the
+    GroupNorm's mask leaves it), and the enhancer's 5 x 5 stride-(1, 1) convs
+    at [8, 801, 161, 32]."""
     import torch
-    import torch.nn.functional as F
-    from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
     from aas_enhancement_tpu_torch.ops.masking import time_mask
 
-    tol, why = BWD_TOL["conv_dw"]
     shapes = (("AM conv2 11x21 s(1,2)", AM_T, 81, 11, 21, (1, 2), BWD_AM_FRAMES),
               ("enhancer conv 5x5 s(1,1)", 1 + N // 160, 161, 5, 5, (1, 1), BWD_FRAMES))
     for label, t_len, f, kt, kf, strides, lens in shapes:
@@ -1308,38 +1314,94 @@ def kernels_conv_dw(device, gen, results: dict) -> None:
         x = torch.randn(BWD_B, t_len, f, 32, generator=gen).to(device)
         mask = time_mask(torch.tensor(lens, device=device), t_len)[:, :, None, None]
         dy = torch.randn(BWD_B, t_len, fo, 32, generator=gen).to(device) * mask
-        got = kconv.conv_dw_same(x, dy, kt, kf, strides)
-        again = kconv.conv_dw_same(x, dy, kt, kf, strides)
-        ref = kconv.conv_dw_same_plain(x, dy, kt, kf, strides)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            fail(f"conv_dw {label}: two runs gave different bits")
-        err = max_err(got, ref)
-        rel = err / ref.abs().max().item()
-        ms, plain_ms = in_turns(lambda: kconv.conv_dw_same(x, dy, kt, kf, strides),
-                                lambda: kconv.conv_dw_same_plain(x, dy, kt, kf, strides),
-                                reps=5, warmup=1)
-        # cuDNN's weight gradient on the same tensors (NCHW views of the same
-        # channels-last memory, SAME padding applied to x), for the record only.
-        pads = (*kconv.same_pad(f, kf, strides[1]), *kconv.same_pad(t_len, kt, 1))
-        x_nchw = F.pad(x.permute(0, 3, 1, 2), pads)
-        dy_nchw = dy.permute(0, 3, 1, 2)
-        cudnn = lambda: torch.nn.grad.conv2d_weight(                       # noqa: E731
-            x_nchw, (32, 32, kt, kf), dy_nchw, stride=strides)
-        lib_err = (cudnn().permute(2, 3, 1, 0) - ref).abs().max().item() / ref.abs().max().item()
-        lib_ms = statistics.median(cuda_ms(cudnn, 5))
+        conv_dw_f32_case(results, "kernel", f"{label} x [{BWD_B}, {t_len}, {f}, 32] ragged dy",
+                         x, dy, kt, kf, strides, must_win=label.startswith("AM"), tf32=True)
+
+
+def in_turns_all(runs, reps: int, warmup: int = 1) -> list[float]:
+    """Median ms of each callable, timed in the order given, then in the
+    reverse order."""
+    times = [[] for _ in runs]
+    for i in list(range(len(runs))) + list(range(len(runs)))[::-1]:
+        times[i] += cuda_ms(runs[i], reps, warmup)
+    return [statistics.median(t) for t in times]
+
+
+def conv_dw_f32_case(results: dict, phase: str, label: str, x, dy, kt: int, kf: int,
+                     strides, must_win: bool, tf32: bool = False) -> None:
+    """B6 on f32 x [B, T, F, ci] and dy: the route the plan gives ("bf16x3",
+    ``conv_dw_plan``), one launch, the same bits on two runs, against the
+    plain version (``BWD_TOL``); that route and the FMA route
+    (``conv_dw_fma`` on the same tensors) against the plain version's tap
+    loop in f64 (``F64_TOL``); timed in turns: the route, the FMA route, the
+    plain version and cuDNN's f32 weight gradient (TF32 off; with ``tf32``
+    also on, for the record).  Bound: the six bf16 products a position at
+    989 TFLOP/s (the route's work), beside the f32 FMA bound.  With
+    ``must_win`` the route must beat the FMA route and cuDNN."""
+    import torch
+    import torch.nn.functional as F
+    from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
+
+    b, t_len, f, ci = x.shape
+    fo, co = dy.shape[2], dy.shape[3]
+    want = kconv.conv_dw_plan(torch.float32, b, t_len, f, ci, co, kt, kf, tuple(strides),
+                              torch.cuda.get_device_properties(x.device).multi_processor_count)
+    before = kconv.conv_dw_same.launches
+    got = kconv.conv_dw_same(x, dy, kt, kf, strides)
+    again = kconv.conv_dw_same(x, dy, kt, kf, strides)
+    route = kconv.conv_dw_same.route
+    fma = kconv.conv_dw_fma(x, dy, kt, kf, strides)
+    ref = kconv.conv_dw_same_plain(x, dy, kt, kf, strides)
+    ref64 = kconv.conv_dw_same_plain(x, dy, kt, kf, strides, torch.float64)
+    torch.cuda.synchronize()
+    if kconv.conv_dw_same.launches != before + 2 or route != want.route or route != "bf16x3":
+        fail(f"conv_dw {label}: {kconv.conv_dw_same.launches - before} launches on route "
+             f"{route}, the plan's {want.route}")
+    if not torch.equal(got, again):
+        fail(f"conv_dw {label}: two runs gave different bits")
+    err = max_err(got, ref)
+    rel = err / ref.abs().max().item()
+    top = ref64.abs().max().item()
+    f64_rel, fma_f64_rel = ((v.double() - ref64).abs().max().item() / top for v in (got, fma))
+    pads = (*kconv.same_pad(f, kf, strides[1]), *kconv.same_pad(t_len, kt, 1))
+    x_nchw, dy_nchw = F.pad(x.permute(0, 3, 1, 2), pads), dy.permute(0, 3, 1, 2)
+    cudnn = lambda: torch.nn.grad.conv2d_weight(                           # noqa: E731
+        x_nchw, (co, ci, kt, kf), dy_nchw, stride=strides)
+    lib_rel = (cudnn().permute(2, 3, 1, 0) - ref).abs().max().item() / ref.abs().max().item()
+    ms, fma_ms, plain_ms, lib_ms = in_turns_all(
+        [lambda: kconv.conv_dw_same(x, dy, kt, kf, strides),
+         lambda: kconv.conv_dw_fma(x, dy, kt, kf, strides),
+         lambda: kconv.conv_dw_same_plain(x, dy, kt, kf, strides), cudnn], 5)
+    tf32_text = ""
+    if tf32:
         torch.backends.cudnn.allow_tf32 = True
-        lib_tf32_ms = statistics.median(cuda_ms(cudnn, 5))
+        tf32_text = f"; with TF32 {statistics.median(cuda_ms(cudnn, 5)):.4f} ms"
         torch.backends.cudnn.allow_tf32 = False
-        work = (nbytes(x, dy, ref), 2.0 * BWD_B * t_len * fo * kt * kf * 32 * 32)
-        text = keep(results, "conv_dw", label, err, ms, plain_ms, work, lib_ms, rel_err=rel)
-        print(f"[kernel] conv_dw {label} x [{BWD_B}, {t_len}, {f}, 32] ragged dy: "
-              f"max_abs_err {err:.3e}, relative to max|dW| {rel:.3e} (tol {tol:.0e}: "
-              f"{why}); same bits on two runs | kernel {ms:.4f} ms | plain {plain_ms:.4f} "
-              f"ms | x{plain_ms / ms:.2f} | {text} (cuDNN wgrad f32, its error "
-              f"{lib_err:.3e}; with TF32 {lib_tf32_ms:.4f} ms)")
-        if not rel <= tol:
-            fail(f"conv_dw {label}: error {rel:.3e} of max|dW| > tol {tol:.0e}")
+    flops = 2.0 * b * t_len * fo * kt * kf * ci * co
+    work = (nbytes(x, dy, ref), 6 * flops, PEAK_BF16_S)
+    fma_bound, _ = bound(work[0], flops)
+    tol, why = BWD_TOL["conv_dw"]
+    tol64, why64 = F64_TOL["conv_dw"]
+    text = keep(results, "conv_dw", label, err, ms, plain_ms, work, lib_ms, rel_err=rel)
+    results["conv_dw"]["shapes"][label].update(
+        dtype="float32", route=route, f64_rel_err=f64_rel, fma_ms=fma_ms,
+        fma_f64_rel_err=fma_f64_rel, fma_bound_ms=fma_bound)
+    print(f"[{phase}] conv_dw {label}: route {route} ({want.groups} tap groups of "
+          f"{want.per_block}, windows of {want.win} rows, {want.slices} slices); max_abs_err "
+          f"{err:.3e}, relative to max|dW| {rel:.3e} (tol {tol:.0e}: {why}); against f64 "
+          f"{f64_rel:.3e} of max|dW| (tol {tol64:g}: {why64}); same bits on two runs | "
+          f"kernel {ms:.4f} ms | FMA route {fma_ms:.4f} ms (against f64 {fma_f64_rel:.3e}; "
+          f"x{fma_ms / ms:.2f} the kernel's time; its bound {fma_bound:.4f} ms at 67 TFLOP/s "
+          f"f32) | plain {plain_ms:.4f} ms | x{plain_ms / ms:.2f} | {text} (six bf16 "
+          f"products a position; cuDNN wgrad f32, TF32 off, its error {lib_rel:.3e} of "
+          f"max|dW|, x{lib_ms / ms:.2f} the kernel's time{tf32_text})")
+    if not rel <= tol:
+        fail(f"conv_dw {label}: error {rel:.3e} of max|dW| > tol {tol:.0e}")
+    if not f64_rel <= tol64:
+        fail(f"conv_dw {label}: error against f64 {f64_rel:.3e} of max|dW| > {tol64:g}")
+    if must_win and not ms < min(fma_ms, lib_ms):
+        fail(f"conv_dw {label}: route {route} ({ms:.4f} ms) is not faster than the FMA route "
+             f"({fma_ms:.4f} ms) and cuDNN's f32 weight gradient ({lib_ms:.4f} ms)")
 
 
 def phase_slice(device, card):
@@ -2499,6 +2561,7 @@ def phase_train_am(device, card):
     from aas_enhancement_tpu_torch.cli import train as cli
     from aas_enhancement_tpu_torch.config import Config
     from aas_enhancement_tpu_torch.data import generate_corpus
+    from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
     from aas_enhancement_tpu_torch.train.loop import init_state
     from aas_enhancement_tpu_torch.train.state import TrainState, am_sgd, apply_update
     from aas_enhancement_tpu_torch.train.steps import make_train_step
@@ -2529,6 +2592,8 @@ def phase_train_am(device, card):
     if launches != want:
         fail(f"the am run's launches {launches} are not {want} (per step: conv_dw 1, "
              f"gru and gru_bwd {layers})")
+    if kconv.conv_dw_same.route != "bf16x3":
+        fail(f"the f32 am run's conv2 dW took route {kconv.conv_dw_same.route}, not bf16x3")
     if (line.get("final_step") != steps or records[-1]["step"] != steps
             or set(line) != {"final_step", "loss_ctc_am"}
             or not all(abs(v) < float("inf") for v in line.values())
@@ -2591,6 +2656,7 @@ def phase_train_am(device, card):
           f"{json.dumps(ours)}; library kernels that only the dw_impl='cudnn' "
           f"run launches (or launches more often): {json.dumps(only_cudnn)}")
     if (sorted(ours.values()) != [1, 1] or any("conv_dw" in n for n in names["cudnn"])
+            or not any(re.search(r"conv_dw_mma_kernel<4, ?4, ?3>", n) for n in ours)
             or not only_cudnn):
         fail("the default AM step does not take conv2's dW from the kernel alone: "
              f"{ours}, only with cudnn: {only_cudnn}")
@@ -3880,12 +3946,11 @@ def kernels_e2e(device, results: dict) -> None:
     autograd through the plain version) at the enhancer's [16, 601, 161, 16]
     leaky_relu and the AM's [16, 301, 81 | 41, 16] hardtanh; the BiLSTM-128
     and the BiGRU-256, forward and backward, each on the route RNN_ROUTES
-    names; the conv weight gradient on the f32 route at the AM's conv2
-    (11 x 21, stride (1, 2), x [16, 301, 81, 16]), with cuDNN's weight
-    gradient timed beside it.  Fails where a wrapper did not launch its
-    kernel."""
+    names; the conv weight gradient on the f32 route the plan gives at the
+    AM's conv2 (11 x 21, stride (1, 2), x [16, 301, 81, 16]; ``conv_dw_f32_case``:
+    beside the FMA route, f64 and cuDNN's weight gradient).  Fails where a
+    wrapper did not launch its kernel."""
     import torch
-    import torch.nn.functional as F
     from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
     from aas_enhancement_tpu_torch.ops.cuda import gn
     from aas_enhancement_tpu_torch.ops.cuda import rnn as krnn
@@ -3987,35 +4052,9 @@ def kernels_e2e(device, results: dict) -> None:
     # GroupNorm's mask leaves it.
     x = randn(E2E_B, E2E_AM_T, 81, 16)
     dy = randn(E2E_B, E2E_AM_T, 41, 16) * time_mask(am_frames, E2E_AM_T)[:, :, None, None]
-    args = (x, dy, 11, 21, (1, 2))
-    got = launched("conv_dw", lambda: kconv.conv_dw_same(*args))
-    ref = kconv.conv_dw_same_plain(*args)
-    if kconv.conv_dw_same.route != "fma":
-        fail(f"conv_dw at the e2e widths took the {kconv.conv_dw_same.route!r} route, not fma")
-    err = max_err(got, ref)
-    rel = err / ref.abs().max().item()
-    tol, why = BWD_TOL["conv_dw"]
-    ms, plain_ms = in_turns(lambda: kconv.conv_dw_same(*args),
-                            lambda: kconv.conv_dw_same_plain(*args), 5, warmup=1)
-    # cuDNN's f32 weight gradient on the same tensors (kernels_conv_dw's NCHW
-    # views), for the record only.
-    pads = (*kconv.same_pad(81, 21, 2), *kconv.same_pad(E2E_AM_T, 11, 1))
-    x_nchw, dy_nchw = F.pad(x.permute(0, 3, 1, 2), pads), dy.permute(0, 3, 1, 2)
-    cudnn = lambda: torch.nn.grad.conv2d_weight(                           # noqa: E731
-        x_nchw, (16, 16, 11, 21), dy_nchw, stride=(1, 2))
-    lib_rel = (cudnn().permute(2, 3, 1, 0) - ref).abs().max().item() / ref.abs().max().item()
-    lib_ms = statistics.median(cuda_ms(cudnn, 5))
-    label = f"AM conv2 11x21 s(1,2) x [{E2E_B}, {E2E_AM_T}, 81, 16] (e2e)"
-    text = keep(results, "conv_dw", label, err, ms, plain_ms,
-                (nbytes(x, dy, ref), 2.0 * E2E_B * E2E_AM_T * 41 * 11 * 21 * 16 * 16),
-                library_ms=lib_ms, rel_err=rel)
-    print(f"[e2e] conv_dw {label}, f32 route fma: max_abs_err {err:.3e}, relative to "
-          f"max|dW| {rel:.3e} (tol {tol:.0e}: {why}) | kernel {ms:.4f} ms | plain "
-          f"{plain_ms:.4f} ms | x{plain_ms / ms:.2f} | {text} (cuDNN's wgrad, f32, its "
-          f"dW {lib_rel:.3e} of max|dW| from the plain version's; x{lib_ms / ms:.2f} the "
-          f"kernel's time)")
-    if not rel <= tol:
-        fail(f"conv_dw {label}: error {rel:.3e} of max|dW| > tol {tol:.0e}")
+    launched("conv_dw", lambda: kconv.conv_dw_same(x, dy, 11, 21, (1, 2)))
+    conv_dw_f32_case(results, "e2e", f"AM conv2 11x21 s(1,2) x [{E2E_B}, {E2E_AM_T}, 81, 16] "
+                     "(e2e)", x, dy, 11, 21, (1, 2), must_win=True)
 
 
 def _numbers(obj, key: str = ""):

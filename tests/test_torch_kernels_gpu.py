@@ -17,7 +17,10 @@ T * B outer products), and so the GroupNorm backward kernel alone against its
 plain closed form; the resident and the streaming backward against each
 other: 1e-4 of the largest |gradient| (each sums dh in its own order).
 conv_dw: 1e-4 of max|dW| (f32 sums over up to ~1e5 positions, in the
-kernel's slice order and the plain version's).
+kernel's slice order and the plain version's); at f32 against the plain
+version's f64 sums at the AM's conv2, the split route within 1.5e-6 of
+max|dW| (a product left out misses by more: tests/test_torch_conv_dw_plan.py),
+the FMA route within 1e-5.
 bf16 streams (the forwards of the bf16 models): the GroupNorm
 within 2^-7 x max|plain| (one bf16 ulp at the top: f32 z rounded apart where
 the sums' order differs), the LSTM and GRU within 2^-6 x max|plain| (a
@@ -864,6 +867,11 @@ CONV_DW_SHAPES = [
 ]
 
 
+def _f32_route(cuda, shape) -> str:
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    return kconv.conv_dw_plan(torch.float32, *shape, sms).route
+
+
 @pytest.mark.parametrize("shape", CONV_DW_SHAPES)
 def test_conv_dw_kernel(cuda, shape):
     b, t, f, ci, co, kt, kf, strides = shape
@@ -875,6 +883,7 @@ def test_conv_dw_kernel(cuda, shape):
     ref = kconv.conv_dw_same_plain(x, dy, kt, kf, strides)
     torch.cuda.synchronize()
     assert kconv.conv_dw_same.launches == before + 2
+    assert kconv.conv_dw_same.route == _f32_route(cuda, shape) == "bf16x3"
     assert got.shape == (kt, kf, ci, co) and torch.equal(got, again)   # same bits twice
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
@@ -923,9 +932,9 @@ def test_gn_kernels_at_the_e2e_widths(cuda, act, shape):
 
 
 def test_conv_dw_kernel_at_the_e2e_am_conv2(cuda):
-    """B6 on the f32 route at ci = co = 16: the e2e AM's conv2 (11 x 21,
-    stride (1, 2)) at its batch, x [16, 301, 81, 16], the padded rows zero
-    as the GroupNorm below leaves them."""
+    """B6 on the f32 route the plan gives ("bf16x3") at ci = co = 16: the
+    e2e AM's conv2 (11 x 21, stride (1, 2)) at its batch, x [16, 301, 81,
+    16], the padded rows zero as the GroupNorm below leaves them."""
     x = _randn(16, 301, 81, 16, seed=1)
     dy = _randn(16, 301, 41, 16, seed=2)
     for i, n in enumerate(E2E_LENGTHS):
@@ -936,9 +945,36 @@ def test_conv_dw_kernel_at_the_e2e_am_conv2(cuda):
     got = kconv.conv_dw_same(x, dy, 11, 21, (1, 2))
     ref = kconv.conv_dw_same_plain(x, dy, 11, 21, (1, 2))
     torch.cuda.synchronize()
-    assert kconv.conv_dw_same.launches == before + 1 and kconv.conv_dw_same.route == "fma"
+    assert kconv.conv_dw_same.launches == before + 1
+    assert kconv.conv_dw_same.route == _f32_route(cuda, (16, 301, 81, 16, 16, 11, 21, (1, 2)))
+    assert kconv.conv_dw_same.route == "bf16x3"
     assert got.shape == (11, 21, 16, 16)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("route", ["bf16x3", "fma"])
+def test_conv_dw_f32_routes_against_f64(cuda, route):
+    """Both f32 routes at the AM's conv2, B = 8 (dy zero past each row's
+    frames, as the GroupNorm's mask leaves it), against the plain version's
+    tap loop in float64: the split route within 1.5e-6 of max|dW|, the FMA
+    route (f32 FMA sums over up to 1.03M positions) within 1e-5."""
+    x = _randn(8, 401, 81, 32, seed=5).to(cuda)
+    dy = _randn(8, 401, 41, 32, seed=6)
+    for i, n in enumerate([401, 351, 301, 201, 401, 376, 251, 151]):
+        dy[i, n:] = 0
+    dy = dy.to(cuda)
+    if route == "fma":
+        got = kconv.conv_dw_fma(x, dy, 11, 21, (1, 2))
+    else:
+        before = kconv.conv_dw_same.launches
+        got = kconv.conv_dw_same(x, dy, 11, 21, (1, 2))
+        assert kconv.conv_dw_same.launches == before + 1
+        assert kconv.conv_dw_same.route == route
+    ref = kconv.conv_dw_same_plain(x, dy, 11, 21, (1, 2), torch.float64)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (11, 21, 32, 32)
+    tol = {"bf16x3": 1.5e-6, "fma": 1e-5}[route]
+    assert float((got.double() - ref).abs().max()) <= tol * float(ref.abs().max())
 
 
 @pytest.mark.parametrize("dtype,lo", [(torch.float32, 4), (torch.bfloat16, 4),
@@ -952,7 +988,7 @@ def test_conv_dw_reads_channels_last_views_in_place(cuda, dtype, lo):
         memory_format=torch.channels_last)
     dy = _randn(2, 20, 8, 24, seed=4).to(cuda).to(dtype)[..., lo:lo + 16]   # [B, T, Fo, 16]
     got = kconv.conv_dw_same(x.permute(0, 2, 3, 1), dy, 3, 5, (1, 2))
-    assert kconv.conv_dw_same.route == ("mma" if dtype == torch.bfloat16 else "fma")
+    assert kconv.conv_dw_same.route == ("mma" if dtype == torch.bfloat16 else "bf16x3")
     ref = kconv.conv_dw_same_plain(x.permute(0, 2, 3, 1), dy, 3, 5, (1, 2))
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
     with pytest.raises(ValueError, match="unit channel stride"):
@@ -964,8 +1000,10 @@ def test_conv_dw_reads_channels_last_views_in_place(cuda, dtype, lo):
 
 
 def test_conv_dw_plan_f32_matches_the_library(cuda):
-    """``conv_dw_plan``'s f32 slices are ``aas_conv_dw_slices``'s (the C
-    plan that the f32 launch reads) over a grid of shapes, 0 included."""
+    """The FMA route's plan (``_fma_plan``, which ``conv_dw_plan`` gives f32
+    shapes the split route does not take) has ``aas_conv_dw_slices``'s
+    slices (the C plan that the FMA launch reads) over a grid of shapes, 0
+    included."""
     lib = kernel_build.load_library()
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     zero = 0
@@ -973,7 +1011,7 @@ def test_conv_dw_plan_f32_matches_the_library(cuda):
             (1, 8, 10, 32, 64, 128), (6, 8, 32, 64), ((1, 1), (5, 5), (11, 21), (3, 13)),
             (1, 81, 161, 1200), (1, 2), (1, 18, 3208)):
         want = lib.aas_conv_dw_slices(rows, -(-f // sf), kt, kf, ci, co, sf, sms)
-        plan = kconv.conv_dw_plan(torch.float32, 1, rows, f, ci, co, kt, kf, (1, sf), sms)
+        plan = kconv._fma_plan(rows, -(-f // sf), kt, kf, ci, co, sf, sms)
         assert (plan.route, plan.slices) == ("fma", want), (rows, f, ci, co, kt, kf, sf)
         zero += want == 0
     assert zero > 0
@@ -1002,7 +1040,7 @@ def test_tapdw_conv_on_card(cuda, dw_impl, launches, dtype):
     assert torch.equal(y, y_ref) and y.dtype == dtype
     if launches:
         assert kconv.conv_dw_same.dtype == dtype
-        assert kconv.conv_dw_same.route == ("mma" if dtype == torch.bfloat16 else "fma")
+        assert kconv.conv_dw_same.route == ("mma" if dtype == torch.bfloat16 else "bf16x3")
     if dtype == torch.float32:
         _assert_grads_close(got, want)
     else:
@@ -1630,6 +1668,21 @@ calls = [lambda: kconv.conv_dw_same(x, dy, 11, 21, (1, 2))]
 """)
     assert sorted(names.values()) == [1, 1], names
     assert any("conv_dw_mma_kernel" in n for n in names), names
+    assert any("conv_dw_reduce_kernel" in n for n in names), names
+
+
+def test_conv_dw_f32_runs_the_split_kernel_alone(cuda):
+    """One f32 call at the AM's conv2 runs the tensor-core kernel at three
+    planes (``conv_dw_mma_kernel<4, 4, 3>``) and the slice reduction, once
+    each, and no library kernel (fresh process)."""
+    names, = kernel_names_in_fresh_process("""
+from aas_enhancement_tpu_torch.ops.cuda import conv_dw as kconv
+x = torch.randn(8, 401, 81, 32, device="cuda")
+dy = torch.randn(8, 401, 41, 32, device="cuda")
+calls = [lambda: kconv.conv_dw_same(x, dy, 11, 21, (1, 2))]
+""")
+    assert sorted(names.values()) == [1, 1], names
+    assert any(re.search(r"conv_dw_mma_kernel<4, ?4, ?3>", n) for n in names), names
     assert any("conv_dw_reduce_kernel" in n for n in names), names
 
 
